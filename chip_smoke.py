@@ -1,0 +1,263 @@
+"""
+Smoke run of uf3_tpu_torch on one NVIDIA GPU: builds the CUDA kernels
+from the sources in this checkout, holds each against its plain torch
+twin, then drives the MD engine at the benchmark configuration
+(2+3-body W, 9,826 atoms, float32, 3-level r-RESPA 12/6/36, Langevin
+at 300 K, 2 fs) through the trio kernel.
+
+    python3 chip_smoke.py
+
+Exits non-zero, without a result line, when no CUDA device is present
+or any phase fails.  The line before the last is a JSON object with the
+kernels' launch counts, errors and times; the last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+
+from uf3_tpu.data.atoms import bulk  # noqa: E402
+from uf3_tpu_torch.forcefield.md import MDSystem  # noqa: E402
+from uf3_tpu_torch.ops import _build  # noqa: E402
+from uf3_tpu_torch.ops import neighbors as nb  # noqa: E402
+from uf3_tpu_torch.ops import trio  # noqa: E402
+from uf3_tpu_torch.ops.potential import (UF3Potential,  # noqa: E402
+                                         grid_sparsity)
+
+MODEL = os.path.join(REPO, "benchmarks_data", "model_2and3.json")
+BENCH = dict(rebuild_every=36, skin=0.5, skin_2b=1.2, capacity_2b=72,
+             capacity_3b=16, n_respa=12, respa_mid=6,
+             respa_switch=(2.5, 3.5))
+F64_TOL = 1e-10   # same arithmetic, another summation order
+FORCE_TOL = 2e-4  # eV/A, f32 vs f64 (tests/test_tpu_numerics.py)
+WINDOW_STEPS = 720  # per timed window, as bench.py
+T_TARGET, T_BAND = 300.0, 30.0
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def environment(device):
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"device {torch.cuda.get_device_name(device)}")
+    print(f"card: {card_line()}")
+    nvcc = subprocess.run([_build.nvcc_path(), "--version"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()
+    print(f"nvcc: {nvcc[-1]}")
+    try:
+        import triton
+        print(f"triton: {triton.__version__}")
+    except ImportError:
+        print("triton: not importable")
+
+
+def build_kernels():
+    info = _build.build(force=True)
+    print(f"kernel build: {info['seconds']:.2f} s "
+          f"({_build.LIBRARY} from {_build.CSRC})")
+    for line in info["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+    _build.library()
+
+
+def bench_geometry(reps, rattle=None):
+    geom = bulk("W", "bcc", a=3.1652) * reps
+    if rattle is not None:
+        geom.rattle(rattle, seed=11)
+    return geom
+
+
+def with_grid(pot: UF3Potential, grid: np.ndarray) -> UF3Potential:
+    active_bc, window, symmetric = grid_sparsity(grid)
+    bundle = pot.trio._replace(grid=grid, active_bc=active_bc,
+                               window=window, symmetric=symmetric)
+    return UF3Potential(pot.pair_spec, pot.pair_coefficients.cpu().numpy(),
+                        bundle, pot.offsets_1b.cpu().numpy(),
+                        pot.z_to_species.cpu().numpy(), pot.r_cut_2b,
+                        pot.r_cut_3b)
+
+
+def cuda_ms(fn, repeats):
+    """Mean device time of fn() in ms over ``repeats`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(repeats):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / repeats
+
+
+def max_err(a, b) -> float:
+    return float(torch.max(torch.abs(a.double() - b.double())))
+
+
+def compare_trio(device):
+    """Kernel vs twin on the engine's 3-body rows: the bench grid and a
+    random non-symmetric one, 1,024 (rattled) and 9,826 atoms, with and
+    without energy.  Returns the record of the main path's shape."""
+    base = UF3Potential.from_json(MODEL)
+    rng = np.random.RandomState(17)
+    random_grid = rng.normal(0.0, 0.05, base.trio.grid.shape) \
+        * (base.trio.grid != 0.0)
+    assert not np.array_equal(random_grid, random_grid.transpose(1, 0, 2))
+    grids = {"bench": base, "random": with_grid(base, random_grid)}
+    record = None
+    for reps, rattle in (((8, 8, 8), 0.05), ((17, 17, 17), None)):
+        geom = bench_geometry(reps, rattle)
+        system = MDSystem(base, geom, dtype=torch.float64, device=device,
+                          **BENCH)
+        state = system.init_state(temperature=T_TARGET, seed=0)
+        nbr = state.nbr3
+        cache = nb.list_cache(nbr, system.cell, torch.float64)
+        d64 = nb.cached_displacements(state.positions, nbr, cache)
+        v64 = cache.valid
+        for name, pot64 in grids.items():
+            pot64 = pot64.to(device)
+            pot32 = with_grid(pot64, pot64.trio.grid).to(
+                device=device, dtype=torch.float32)
+            d32, v32 = d64.float(), v64.float()
+            for with_energy in (True, False):
+                twin = trio.trio_partials_torch(
+                    d64, v64, pot64.grid, pot64.trio, with_energy)
+                f_twin = trio.assemble_forces(*twin, d64, cache.rev_flat,
+                                              nbr.mask)[1]
+                k64 = trio.trio_partials(pot64, d64, v64, with_energy)
+                k32 = trio.trio_partials(pot32, d32, v32, with_energy)
+                torch.cuda.synchronize()
+                f64 = trio.assemble_forces(*k64, d64, cache.rev_flat,
+                                           nbr.mask)[1]
+                f32 = trio.assemble_forces(*k32, d32, cache.rev_flat,
+                                           nbr.mask)[1]
+                err64 = max(max_err(a, b) for a, b in zip(k64, twin))
+                err64 = max(err64, max_err(f64, f_twin))
+                err32 = max_err(f32, f_twin)
+                kernel_ms = cuda_ms(lambda: trio.trio_partials(
+                    pot32, d32, v32, with_energy), 50)
+                twin_ms = cuda_ms(lambda: trio.trio_partials_torch(
+                    d32, v32, pot32.grid, pot32.trio, with_energy), 5)
+                print(f"trio {name:6s} N={len(geom):5d} "
+                      f"energy={with_energy!s:5s} f64 max err "
+                      f"{err64:.3e} (<= {F64_TOL:g}), f32 max |dF| "
+                      f"{err32:.3e} eV/A (<= {FORCE_TOL:g}); f32 kernel "
+                      f"{kernel_ms:.4f} ms, twin {twin_ms:.4f} ms")
+                if not (err64 <= F64_TOL and err32 <= FORCE_TOL):
+                    raise AssertionError("trio kernel disagrees with its "
+                                         "twin")
+                if name == "bench" and len(geom) == 9826 \
+                        and not with_energy:
+                    record = dict(max_abs_err=err32, ms=kernel_ms,
+                                  plain_ms=twin_ms)
+    return record
+
+
+def run_main_path(device):
+    """The benchmark configuration, 144 warm-up steps and three timed
+    windows; returns (launches, atom-steps/s, stale)."""
+    trio.trio_partials.launches = 0
+    geom = bench_geometry((17, 17, 17))
+    n_atoms = len(geom)
+    t0 = time.perf_counter()
+    system = MDSystem(MODEL, geom, dtype=torch.float32, device=device,
+                      **BENCH)
+    state = system.init_state(temperature=T_TARGET, seed=0)
+    run_kw = dict(dt_fs=2.0, thermostat="langevin",
+                  temperature=T_TARGET, launch_chunks=10)
+    state = system.run(state, n_steps=144, **run_kw)
+    torch.cuda.synchronize()
+    print(f"main path set-up + 144-step warm-up: "
+          f"{time.perf_counter() - t0:.2f} s")
+    times, temps = [], []
+    stale = False
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state = system.run(state, n_steps=WINDOW_STEPS, **run_kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        temps.append(system.temperature(state))
+        stale = stale or bool(state.stale)
+    launches = trio.trio_partials.launches
+    elapsed = sorted(times)[1]
+    rate = n_atoms * WINDOW_STEPS / elapsed
+    print(f"windows (s): {[round(t, 4) for t in times]}, "
+          f"T (K): {[round(t, 2) for t in temps]}")
+    # the carried r-RESPA forces must equal a fresh full evaluation,
+    # in f32 and against float64 on the same positions
+    energy, forces = system.energy_forces(state.positions, state.nbr2,
+                                          state.nbr3, cell=state.cell)
+    system64 = MDSystem(MODEL, geom, dtype=torch.float64, device=device,
+                        **BENCH)
+    e64, f64 = system64.energy_forces(state.positions.double(),
+                                      state.nbr2, state.nbr3,
+                                      cell=state.cell.double())
+    split_err = max_err(state.forces, forces)
+    f64_err = max_err(forces, f64)
+    print(f"final state: E = {float(state.energy):.6f} eV, fresh "
+          f"{float(energy):.6f} (f64 {float(e64):.6f}); max |F_split - "
+          f"F_fresh| {split_err:.3e}, max |F_f32 - F_f64| {f64_err:.3e} "
+          "eV/A")
+    checks = {
+        "no overflow": not system.overflowed(state),
+        "finite energy and forces": bool(
+            torch.isfinite(state.energy)
+            and torch.isfinite(state.forces).all()
+            and torch.isfinite(state.positions).all()),
+        "trio kernel launched on the main path": launches > 0,
+        f"mean T within {T_TARGET:g} +- {T_BAND:g} K":
+            abs(np.mean(temps) - T_TARGET) <= T_BAND,
+        "split forces match a fresh evaluation": split_err <= FORCE_TOL,
+        "f32 forces match f64": f64_err <= FORCE_TOL,
+        "energy matches f64": abs(float(energy) - float(e64))
+            <= 1e-6 * abs(float(e64)),
+    }
+    for name, ok in checks.items():
+        print(f"check {name}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError("main path checks failed")
+    return launches, rate, stale, n_atoms
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("no CUDA device: uf3_tpu_torch's kernels need an NVIDIA GPU",
+              file=sys.stderr)
+        sys.exit(1)
+    device = torch.device("cuda", 0)
+    environment(device)
+    build_kernels()
+    record = compare_trio(device)
+    launches, rate, stale, n_atoms = run_main_path(device)
+    card = card_line()
+    print(f"MD: {rate:.1f} atom-steps/s (median of 3 x {WINDOW_STEPS} "
+          f"steps, {n_atoms} atoms, float32), stale={stale}, card: {card}")
+    print(json.dumps({"kernels": [dict(
+        name="trio_partials", route="cuda",
+        source="uf3_tpu_torch/csrc/trio.cu",
+        replaces="uf3_tpu/ops/pallas_trio.py:1044",
+        launches=launches, **record)]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -60,6 +60,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "tpu: device-numerics tier (needs a real "
                    "accelerator; run UF3_TPU_TESTS=1 pytest -m tpu)")
+    config.addinivalue_line(
+        "markers", "cuda: uf3_tpu_torch kernel tests (need an NVIDIA GPU, "
+                   "skip without one; on a GPU host run pytest "
+                   "--noconftest -m cuda tests/test_torch_kernels.py)")
 
 
 def pytest_collection_modifyitems(config, items):

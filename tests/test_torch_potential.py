@@ -1,0 +1,120 @@
+"""
+The port's model loader and weights converter
+(uf3_tpu_torch/io.py, ops/potential.py) against the JAX package's
+WeightedLinearModel.from_json + build_pair_fast / build_trio_pallas /
+build_potential: the float64 buffers must be bitwise equal.  Also checks
+that the port imports neither jax nor pandas.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from uf3_tpu.ops import pallas_trio as pt
+from uf3_tpu.ops import potential as jpot
+from uf3_tpu.regression import least_squares as ls
+from uf3_tpu_torch import io
+from uf3_tpu_torch.ops.potential import UF3Potential
+
+# one intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of a thread per core oversubscribes them
+torch.set_num_threads(1)
+
+MODEL = os.path.join("benchmarks_data", "model_2and3.json")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def jax_bundle():
+    model = ls.WeightedLinearModel.from_json(MODEL)
+    params, _ = jpot.build_potential(model, dtype=jnp.float64)
+    return (model, pt.build_trio_pallas(model, dtype=jnp.float64),
+            pt.build_pair_fast(model, dtype=jnp.float64), params)
+
+
+def _buffers(pot):
+    return {k: v.numpy() for k, v in pot.named_buffers()}
+
+
+def test_loader_matches_weighted_linear_model(jax_bundle):
+    model = jax_bundle[0]
+    ours = io.load_model(MODEL)
+    assert np.array_equal(ours.coefficients, model.coefficients)
+    assert ours.bspline_config.partition_sizes \
+        == model.bspline_config.partition_sizes
+    sol_j = ls.arrange_coefficients(model.coefficients,
+                                    model.bspline_config)
+    sol_t = io.arrange_coefficients(ours.coefficients,
+                                    ours.bspline_config)
+    assert sol_j.keys() == sol_t.keys()
+    for key in sol_j:
+        assert np.array_equal(sol_j[key], sol_t[key])
+
+
+def test_from_json_matches_jax_builders(jax_bundle):
+    _, trio, pair, params = jax_bundle
+    pot = UF3Potential.from_json(MODEL)
+    buf = _buffers(pot)
+    assert tuple(pot.pair_spec) == tuple(pair[0])
+    assert np.array_equal(buf["pair_coefficients"], np.asarray(pair[1]))
+    assert np.array_equal(buf["grid"], np.asarray(trio.grid))
+    assert np.array_equal(buf["offsets_1b"], np.asarray(params.offsets_1b))
+    assert np.array_equal(buf["z_to_species"],
+                          np.asarray(params.z_to_species))
+    for field in ("l_basis", "n_basis", "active_bc", "window",
+                  "symmetric"):
+        assert getattr(pot.trio, field) == getattr(trio, field), field
+    assert tuple(pot.trio.spec_l) == tuple(trio.spec_l)
+    assert tuple(pot.trio.spec_n) == tuple(trio.spec_n)
+    assert pot.r_cut_2b == float(params.r_cut_2b)
+    assert pot.r_cut_3b == float(params.r_cut_3b)
+    # the bench model's static sparsity
+    assert pot.trio.window == (3, 6, 3, 12)
+    assert int(buf["live"].sum()) == 27
+    w_lo, w_hi, c_lo, c_hi = pot.trio.window
+    assert np.array_equal(buf["grid_window"],
+                          buf["grid"][w_lo:w_hi, w_lo:w_hi, c_lo:c_hi])
+
+
+def test_from_jax_arrays_matches_from_json(jax_bundle):
+    _, trio, pair, params = jax_bundle
+    as_np = trio._replace(grid=np.asarray(trio.grid))
+    conv = UF3Potential.from_jax_arrays(
+        as_np, (pair[0], np.asarray(pair[1])),
+        np.asarray(params.offsets_1b), np.asarray(params.z_to_species),
+        float(params.r_cut_2b), float(params.r_cut_3b))
+    ref = UF3Potential.from_json(MODEL)
+    a, b = _buffers(conv), _buffers(ref)
+    assert a.keys() == b.keys()
+    for key in a:
+        assert a[key].dtype == b[key].dtype, key
+        assert np.array_equal(a[key], b[key]), key
+    assert conv.trio._replace(grid=None) == ref.trio._replace(grid=None)
+    assert conv.pair_spec == ref.pair_spec
+    # float32 buffers round the same float64 sources
+    f32 = UF3Potential.from_json(MODEL, dtype=torch.float32)
+    assert np.array_equal(f32.grid.numpy(), b["grid"].astype(np.float32))
+
+
+def test_port_imports_no_jax_or_pandas():
+    code = (
+        "import sys, torch\n"
+        "from uf3_tpu.data.atoms import bulk\n"
+        "from uf3_tpu_torch.forcefield.md import MDSystem\n"
+        "geom = bulk('W', 'bcc', a=3.1652) * (8, 8, 8)\n"
+        "s = MDSystem('benchmarks_data/model_2and3.json', geom,\n"
+        "             dtype=torch.float64, rebuild_every=12, skin=0.5,\n"
+        "             skin_2b=1.2, capacity_2b=72, capacity_3b=16,\n"
+        "             n_respa=6, respa_mid=3, respa_switch=(2.5, 3.5))\n"
+        "s.init_state(temperature=300.0, seed=0)\n"
+        "print(sorted(m for m in ('jax', 'pandas') if m in sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

@@ -1,0 +1,135 @@
+"""
+Parity of the torch spline primitives (uf3_tpu_torch/ops/splines.py)
+with the JAX ones (uf3_tpu/ops/pallas_trio.py) in float64, on inputs
+made with numpy: 1e-10 absolute (both evaluate the same closed forms;
+only the order of a few float operations may differ).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from uf3_tpu.ops import pallas_trio as pt
+from uf3_tpu.ops import spline_jax as sj
+from uf3_tpu.representation import knots as kn
+from uf3_tpu_torch.ops import splines as ts
+
+# one intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of a thread per core oversubscribes them
+torch.set_num_threads(1)
+
+TOL = 1e-10
+STRATEGIES = ("linear", "lammps", "geometric", "inverse")
+
+
+def _seq(strategy, lo=1.5, hi=5.5, n_int=9):
+    return kn.get_knot_spacer(strategy)(lo, hi, n_int)
+
+
+def _specs(strategy, exact=False):
+    seq = _seq(strategy)
+    ok_j, spec_j = pt.leg_spec_from_knots(seq, exact=exact)
+    ok_t, spec_t = ts.leg_spec_from_knots(seq, exact=exact)
+    assert ok_j and ok_t
+    return seq, spec_j, spec_t
+
+
+def _radii(seed, n=401, lo=1.0, hi=6.0):
+    # spans below, inside and above the knot range, plus the knots
+    rng = np.random.RandomState(seed)
+    return np.concatenate([rng.uniform(lo, hi, n), _seq("linear")])
+
+
+def _close(a, b, tol=TOL):
+    a = np.asarray(a)
+    b = b.numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    assert a.shape == b.shape
+    assert np.allclose(a, b, atol=tol, rtol=0), np.abs(a - b).max()
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("exact", [False, True])
+def test_leg_spec_and_deboor(strategy, exact):
+    seq, spec_j, spec_t = _specs(strategy, exact)
+    assert tuple(spec_j) == tuple(spec_t)
+    r = _radii(1)
+    idx_j = pt._leg_interval(spec_j, jnp.asarray(r))
+    idx_t = ts._leg_interval(spec_t, torch.as_tensor(r))
+    assert np.array_equal(np.asarray(idx_j), idx_t.numpy())
+    k = np.arange(-2, spec_j.n_int + 3).clip(0, spec_j.n_int)
+    _close(pt._knot_value(spec_j, jnp.asarray(k)),
+           ts._knot_value(spec_t, torch.as_tensor(k), torch.float64))
+    _close(pt._transform(spec_j, jnp.asarray(r)),
+           ts._transform(spec_t, torch.as_tensor(r)))
+    vj, dj = pt._deboor4(jnp.asarray(r), idx_j, spec_j)
+    vt, dt = ts._deboor4(torch.as_tensor(r), idx_t, spec_t)
+    for a, b in zip(vj + dj, vt + dt):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("strategy", ["linear", "inverse"])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_dense_basis(strategy, transposed):
+    _, spec_j, spec_t = _specs(strategy)
+    rng = np.random.RandomState(2)
+    r = rng.uniform(1.0, 6.0, (5, 16))
+    valid = (rng.rand(5, 16) > 0.2).astype(np.float64)
+    for lo, hi in ((0, None), (3, 9)):
+        mj = pt._dense_basis(jnp.asarray(r), jnp.asarray(valid), spec_j,
+                             lo=lo, hi=hi, transposed=transposed)
+        mt = ts._dense_basis(torch.as_tensor(r), torch.as_tensor(valid),
+                             spec_t, lo=lo, hi=hi, transposed=transposed)
+        for a, b in zip(mj, mt):
+            _close(a, b)
+
+
+def test_cardinal_roundtrip_and_blends():
+    # a random clamped spline on uniform knots equals its cardinal
+    # re-expression everywhere on the domain, derivatives included
+    rng = np.random.RandomState(7)
+    n_int, lo, hi = 12, 1.0, 5.5
+    pts = np.linspace(lo, hi, n_int + 1)
+    seq = np.concatenate([[lo] * 3, pts, [hi] * 3])
+    coef = rng.randn(n_int + 3)
+    uc = ts.cardinal_coefficients(seq, coef)
+    _close(pt.cardinal_coefficients(seq, coef), uc)
+    _close(sj.basis_monomial_table(seq), ts.basis_monomial_table(seq))
+    ok, spec = ts.leg_spec_from_knots(seq)
+    spec_c = spec._replace(cardinal=True)
+    r = torch.as_tensor(np.linspace(lo + 1e-9, hi - 1e-9, 507))
+    idx = ts._leg_interval(spec, r)
+    vals, ders = ts._deboor4(r, idx, spec)
+    c = torch.as_tensor(coef)
+    v_ref = sum(vals[t] * c[idx + t] for t in range(4))
+    d_ref = sum(ders[t] * c[idx + t] for t in range(4))
+    cvals, cders, cidx = ts._cardinal4(r, spec_c)
+    u = torch.as_tensor(uc)
+    _close(v_ref, sum(cvals[t] * u[cidx + t] for t in range(4)))
+    _close(d_ref, sum(cders[t] * u[cidx + t] for t in range(4)), 1e-9)
+    # the torch blends equal the JAX blends
+    jv, jd, jidx = pt._cardinal4(jnp.asarray(r.numpy()),
+                                 pt.LegSpec(*spec_c))
+    assert np.array_equal(np.asarray(jidx), cidx.numpy())
+    for a, b in zip(jv + jd, cvals + cders):
+        _close(a, b)
+    # non-uniform knots have no cardinal form
+    pts = np.array([1.0, 2.0, 3.5, 4.0, 5.5])
+    seq = np.concatenate([[1.0] * 3, pts, [5.5] * 3])
+    assert ts.cardinal_coefficients(seq, np.ones(7)) is None
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_basis_window_hi(strategy):
+    _, spec_j, spec_t = _specs(strategy)
+    for r_hi in (2.0, 3.5, 5.4):
+        assert ts.basis_window_hi(spec_t, r_hi) \
+            == pt.basis_window_hi(spec_j, r_hi)
+
+
+def test_switch_poly():
+    r = _radii(3)
+    sj_, dsj = pt._switch_poly(jnp.asarray(r), 2.5, 3.5)
+    st, dst = ts._switch_poly(torch.as_tensor(r), 2.5, 3.5)
+    _close(sj_, st)
+    _close(dsj, dst)

@@ -1,0 +1,20 @@
+"""
+uf3_tpu_torch: the UF3 potential and MD engine in PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A port of ``uf3_tpu`` (the JAX reference, kept beside it): the same
+models, inputs and layouts, with torch tensors on an explicit device.
+Host-only modules of ``uf3_tpu`` (atoms, elements, units, the B-spline
+basis, JSON io) are reused by import; nothing here imports jax or
+pandas.
+
+  io.py               model JSON -> basis + coefficients
+  ops/splines.py      closed-form B-spline primitives
+  ops/potential.py    UF3Potential (nn.Module with the coefficients)
+  ops/neighbors.py    cell-list neighbor lists, filter, reverse slots
+  ops/pair.py         switched 2-body forces
+  ops/trio.py         3-body kernel wrapper, torch twin, assembly
+  ops/_build.py       nvcc build + ctypes loading of csrc/*.cu
+  csrc/trio.cu        the 3-body CUDA kernel
+  forcefield/md.py    3-level r-RESPA MD (NVE / Langevin)
+"""

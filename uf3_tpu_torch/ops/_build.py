@@ -1,0 +1,80 @@
+"""
+Build and load the package's CUDA kernels: ``nvcc`` compiles every
+``csrc/*.cu`` for sm_90a into one shared library with a plain C
+interface under ``build/`` (at first use, not at import), loaded with
+``ctypes``.  Pointers and the stream pass as ``c_void_p``; each C entry
+returns ``cudaGetLastError()`` after its launch.
+"""
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD = os.path.join(_PKG, "build")
+LIBRARY = os.path.join(BUILD, "libuf3_kernels.so")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# uf3_trio_partials_{f32,f64}(d, valid, gwin, live, energy, fc, part,
+#   n_atoms, K, legs, ints, w_lo, ww, c_lo, cw, with_energy, stream)
+_SIGNATURES = {
+    name: [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+           _P]
+    for name in ("uf3_trio_partials_f32", "uf3_trio_partials_f64")}
+
+_loaded = {}  # the library handle once loaded in this process
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: $CUDA_HOME/bin/nvcc, /usr/local/cuda, or PATH."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return found
+
+
+def build(force: bool = False) -> dict:
+    """Compile the kernels unless the library is newer than every
+    source.  Returns {"seconds", "log", "built"}; raises with the
+    compiler's output on failure."""
+    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    if (not force and os.path.isfile(LIBRARY)
+            and os.path.getmtime(LIBRARY)
+            >= max(os.path.getmtime(s) for s in sources)):
+        return {"seconds": 0.0, "log": "", "built": False}
+    os.makedirs(BUILD, exist_ok=True)
+    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
+    cmd = [nvcc_path()] + NVCC_FLAGS + ["-o", tmp] + sources
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, LIBRARY)
+    return {"seconds": seconds, "log": proc.stdout + proc.stderr,
+            "built": True}
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    if "lib" not in _loaded:
+        build()
+        lib = ctypes.CDLL(LIBRARY)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _loaded["lib"] = lib
+    return _loaded["lib"]

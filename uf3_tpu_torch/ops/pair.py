@@ -1,0 +1,95 @@
+"""
+Closed-form 2-body forces on padded neighbor rows, split by the C^2
+r-RESPA switch: the short range S(r) V(r) on the compact 3-body rows
+and the tail (1 - S(r)) V(r) on the full pair rows.
+
+Counterpart of ``_pair_chain``, ``pair_short_forces`` and
+``pair_tail_forces`` (``uf3_tpu/ops/pallas_trio.py``).  Rows are
+computed alone: every pair appears in both endpoints' rows, so
+f_i = sum_j 2 V'(r_ij) d_ij / r_ij needs no cross-atom assembly.
+"""
+
+import torch
+import torch.nn.functional as F
+
+from uf3_tpu_torch.ops.neighbors import (ListCache, NeighborList,
+                                         cached_displacements, list_cache)
+from uf3_tpu_torch.ops.splines import (LegSpec, _cardinal4, _deboor4,
+                                       _leg_interval, _switch_poly)
+
+
+def _pair_chain(r, spec: LegSpec, coefficients, n_basis: int):
+    """Spline value/derivative of the pair term, un-masked: 4-tap
+    cardinal blends (uniform knots) or de Boor, each tap's coefficient
+    gathered at interval + tap.  Basis functions >= ``n_basis`` count
+    as zero (the short-range window).  Returns (v_sum, dv_sum)."""
+    if spec.cardinal:
+        values, derivs, idx = _cardinal4(r, spec)
+    else:
+        idx = _leg_interval(spec, r)
+        values, derivs = _deboor4(r, idx, spec)
+    table = F.pad(coefficients[:n_basis], (0, spec.n_int + 3 - n_basis))
+    v_sum = torch.zeros_like(r)
+    dv_sum = torch.zeros_like(r)
+    for tap in range(4):
+        c_tap = table[idx + tap]
+        v_sum = v_sum + values[tap] * c_tap
+        dv_sum = dv_sum + derivs[tap] * c_tap
+    return v_sum, dv_sum
+
+
+def pair_row_forces(coefficients, d, valid, spec: LegSpec,
+                    n_basis: int, with_energy: bool = True,
+                    side: str = None, r_lo: float = 0.0,
+                    r_hi: float = 0.0):
+    """Pair energy and forces from displacement rows ``d`` (N, K, 3)
+    with float mask ``valid`` (N, K).  ``side`` = "short" or "tail"
+    keeps one side of the switch (with its V dS/dr force term); None
+    keeps the whole pair term.  Returns (energy, forces (N, 3))."""
+    r2 = torch.sum(d * d, dim=-1)
+    r = torch.sqrt(torch.where(r2 > 0, r2, torch.ones_like(r2)))
+    valid2 = (valid * (r > spec.t_min).to(r.dtype)
+              * (r < spec.t_max).to(r.dtype))
+    # the value chain is needed either way: the switched force carries
+    # the V dS/dr term
+    v2, dv2 = _pair_chain(r, spec, coefficients, n_basis)
+    if side is not None:
+        s, ds = _switch_poly(r, r_lo, r_hi)
+        if side == "short":
+            v2, dv2 = v2 * s, dv2 * s + v2 * ds
+        else:
+            v2, dv2 = v2 * (1.0 - s), dv2 * (1.0 - s) - v2 * ds
+    energy = torch.sum(v2 * valid2) if with_energy \
+        else torch.zeros((), dtype=r.dtype, device=r.device)
+    w_pair = 2.0 * dv2 * valid2 / r
+    return energy, torch.sum(w_pair[..., None] * d, dim=1)
+
+
+def pair_short_forces(pair_coefficients, positions, cell,
+                      nbr3: NeighborList, spec_pair: LegSpec = None,
+                      n_basis_pair: int = 0, with_energy: bool = True,
+                      r_lo: float = 0.0, r_hi: float = 0.0,
+                      cache3: ListCache = None):
+    """Innermost r-RESPA force: S(r) V(r) on the 3-body list's rows.
+    Returns (e_short, forces (N, 3), d) with the displacement rows d
+    (N, K3, 3), which the trio force at the same positions reuses."""
+    if cache3 is None:
+        cache3 = list_cache(nbr3, cell, positions.dtype)
+    d = cached_displacements(positions, nbr3, cache3)
+    e, f = pair_row_forces(pair_coefficients, d, cache3.valid, spec_pair,
+                           n_basis_pair, with_energy, "short", r_lo, r_hi)
+    return e, f, d
+
+
+def pair_tail_forces(pair_coefficients, positions, cell,
+                     nbr2: NeighborList, spec_pair: LegSpec = None,
+                     n_basis_pair: int = 0, with_energy: bool = True,
+                     r_lo: float = 0.0, r_hi: float = 0.0,
+                     cache2: ListCache = None):
+    """Outer r-RESPA force: (1 - S(r)) V(r) on the full pair rows.
+    Returns (e_tail, forces (N, 3))."""
+    if cache2 is None:
+        cache2 = list_cache(nbr2, cell, positions.dtype)
+    d = cached_displacements(positions, nbr2, cache2)
+    return pair_row_forces(pair_coefficients, d, cache2.valid, spec_pair,
+                           n_basis_pair, with_energy, "tail", r_lo, r_hi)

@@ -1,0 +1,195 @@
+"""
+3-body forces of the unary UF3 potential: the fused per-atom pair-lane
+pass (``trio_partials``: a CUDA kernel on the card, its plain torch twin
+on the CPU), the reverse-slot assembly of neighbor forces, and the
+shared-gather 2+3-body evaluation.
+
+Counterpart of ``_trio_block_compute``, ``trio_forces_unrolled`` /
+``trio_forces_pallas``, ``_assemble_forces`` and
+``pair_trio_forces_shared`` (``uf3_tpu/ops/pallas_trio.py``).
+"""
+
+import ctypes
+
+import torch
+
+from uf3_tpu_torch.ops import _build
+from uf3_tpu_torch.ops.neighbors import (ListCache, NeighborList,
+                                         cached_displacements, list_cache)
+from uf3_tpu_torch.ops.pair import pair_row_forces
+from uf3_tpu_torch.ops.potential import TrioBundle, UF3Potential
+from uf3_tpu_torch.ops.splines import _dense_basis
+
+
+def trio_partials_torch(d, valid, grid, trio: TrioBundle,
+                        with_energy: bool = True):
+    """Plain torch twin of the trio kernel, line for line after
+    ``_trio_block_compute``: from displacements ``d`` (N, K, 3) and slot
+    mask ``valid`` (N, K) to per-atom energy (N,), center force (N, 3)
+    and the slot partials ``part`` (N, K, 5) = (S1 = w_m, S3', V3').
+    Pair lane (m, n) takes its third leg d[n] - d[m], H from row m and
+    the first-leg basis from row n."""
+    n_atoms, k = d.shape[0], d.shape[1]
+    dtype = d.dtype
+    w_lo, w_hi, c_lo, c_hi = trio.window
+    ww, cw = w_hi - w_lo, c_hi - c_lo
+    comps = d.unbind(-1)
+    valid_f = valid.to(dtype)
+    r2 = comps[0] * comps[0] + comps[1] * comps[1] + comps[2] * comps[2]
+    r = torch.sqrt(torch.where(r2 > 0, r2, torch.ones_like(r2)))
+    a_mat, da_mat = _dense_basis(r, valid_f, trio.spec_l,
+                                 lo=w_lo, hi=w_hi)      # (N, K, Ww)
+    # neighbor-neighbor legs on the pair lanes p = m*K + n: d[n] - d[m]
+    r_mn2 = torch.zeros((n_atoms, k * k), dtype=dtype, device=d.device)
+    for dc in comps:
+        diff_c = (dc[:, None, :] - dc[:, :, None]).reshape(n_atoms, k * k)
+        r_mn2 = r_mn2 + diff_c * diff_c
+    r_mn = torch.sqrt(torch.where(r_mn2 > 0, r_mn2, torch.ones_like(r_mn2)))
+    pair_pre = valid_f.repeat(1, k) * valid_f.repeat_interleave(k, 1)
+    pair_valid = pair_pre * (r_mn2 > 1e-10).to(dtype)
+    c_p, dc_p = _dense_basis(r_mn, pair_valid, trio.spec_n,
+                             lo=c_lo, hi=c_hi, transposed=True)
+    c_p = c_p.reshape(n_atoms, cw, k, k)                 # [a, c, m, n]
+    dc_p = dc_p.reshape(n_atoms, cw, k, k)
+    g_flat = grid[w_lo:w_hi, w_lo:w_hi, c_lo:c_hi].reshape(ww, ww * cw)
+    # H = A @ G as explicit mul-adds in the working type (no TF32)
+    h = sum(a_mat[..., l:l + 1] * g_flat[l] for l in range(ww))
+    h1 = sum(da_mat[..., l:l + 1] * g_flat[l] for l in range(ww))
+    value = torch.zeros((n_atoms, k, k), dtype=dtype, device=d.device)
+    t1 = torch.zeros_like(value)
+    t3 = torch.zeros_like(value)
+    for b_idx, c_list in trio.active_bc:
+        db = torch.zeros_like(value)
+        d1b = torch.zeros_like(value)
+        d3b = torch.zeros_like(value)
+        for c_idx in c_list:
+            col = (b_idx - w_lo) * cw + (c_idx - c_lo)
+            h_bc = h[:, :, col, None]                    # m-role
+            h1_bc = h1[:, :, col, None]
+            if with_energy:
+                db = db + c_p[:, c_idx - c_lo] * h_bc
+            d1b = d1b + c_p[:, c_idx - c_lo] * h1_bc
+            d3b = d3b + dc_p[:, c_idx - c_lo] * h_bc
+        b_col = a_mat[:, None, :, b_idx - w_lo]          # n-role
+        if with_energy:
+            value = value + b_col * db
+        t1 = t1 + b_col * d1b
+        t3 = t3 + b_col * d3b
+    energy = 0.5 * torch.sum(value, dim=(1, 2))
+    w_m = torch.sum(t1, dim=2)                           # (N, K)
+    wr = w_m / r
+    f_center = torch.stack([torch.sum(wr * dc, dim=1) for dc in comps], -1)
+    g3p = t3 / r_mn.reshape(n_atoms, k, k)
+    s3 = torch.sum(g3p, dim=2)
+    v3 = [torch.sum(g3p * dc[:, None, :], dim=2) for dc in comps]
+    return energy, f_center, torch.stack([w_m, s3] + v3, dim=-1)
+
+
+def trio_partials(potential: UF3Potential, d, valid,
+                  with_energy: bool = True):
+    """Energy (N,), center force (N, 3) and slot partials (N, K, 5) of
+    the trio term.  A CUDA tensor runs the hand-written kernel
+    (``csrc/trio.cu``) or raises; a CPU tensor runs the torch twin.
+    ``trio_partials.launches`` counts kernel launches."""
+    trio = potential.trio
+    if d.device.type == "cpu":
+        return trio_partials_torch(d, valid, potential.grid, trio,
+                                   with_energy)
+    if d.device.type != "cuda":
+        raise ValueError(f"no trio kernel for device {d.device}")
+    n_atoms, k = d.shape[0], d.shape[1]
+    dtype = potential.grid_window.dtype
+    if d.shape[2:] != (3,) or tuple(valid.shape) != (n_atoms, k):
+        raise ValueError(f"bad shapes d {tuple(d.shape)}, "
+                         f"valid {tuple(valid.shape)}")
+    if k * k > 1024:
+        raise ValueError(f"capacity {k}: the trio kernel runs one thread "
+                         "per pair lane, at most 1024 (K <= 32)")
+    if dtype not in (torch.float32, torch.float64) or d.dtype != dtype \
+            or valid.dtype != dtype:
+        raise TypeError(f"trio kernel takes float32 or float64 matching "
+                        f"the potential ({dtype}); got d {d.dtype}, "
+                        f"valid {valid.dtype}")
+    for t in (potential.grid_window, potential.live, valid):
+        if t.device != d.device:
+            raise ValueError("trio kernel operands on different devices")
+    spec_l, spec_n = trio.spec_l, trio.spec_n
+    for spec in (spec_l, spec_n):
+        if spec.cardinal or spec.knots is not None:
+            raise ValueError("trio kernel legs take closed-form knots "
+                             "in the clamped basis")
+    d = d.contiguous()
+    valid = valid.contiguous()
+    w_lo, w_hi, c_lo, c_hi = trio.window
+    energy = torch.empty(n_atoms, dtype=dtype, device=d.device)
+    f_center = torch.empty((n_atoms, 3), dtype=dtype, device=d.device)
+    part = torch.empty((n_atoms, k, 5), dtype=dtype, device=d.device)
+    legs = (ctypes.c_double * 8)(spec_l.u0, spec_l.h, spec_l.t_min,
+                                 spec_l.t_max, spec_n.u0, spec_n.h,
+                                 spec_n.t_min, spec_n.t_max)
+    ints = (ctypes.c_int * 4)(spec_l.kind, spec_l.n_int, spec_n.kind,
+                              spec_n.n_int)
+    lib = _build.library()
+    fn = lib.uf3_trio_partials_f32 if dtype == torch.float32 \
+        else lib.uf3_trio_partials_f64
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream(d.device).cuda_stream
+        err = fn(d.data_ptr(), valid.data_ptr(),
+                 potential.grid_window.data_ptr(),
+                 potential.live.data_ptr(), energy.data_ptr(),
+                 f_center.data_ptr(), part.data_ptr(), n_atoms, k,
+                 legs, ints, w_lo, w_hi - w_lo, c_lo, c_hi - c_lo,
+                 int(bool(with_energy)), stream)
+    if err != 0:
+        raise RuntimeError(f"trio kernel launch failed: CUDA error {err}")
+    trio_partials.launches += 1
+    return energy, f_center, part
+
+
+trio_partials.launches = 0
+
+
+def assemble_forces(energy, f_center, part, d, rev_flat, mask):
+    """Neighbor-term assembly: the partials each neighbor's row emitted
+    for this atom, gathered through ``rev_flat`` = idx * K + rev (no
+    scatter), give s1 d/r + s3 d + v3 per slot.  Returns (energy,
+    forces (N, 3))."""
+    r2 = torch.sum(d * d, dim=-1)
+    r = torch.sqrt(torch.where(r2 > 0, r2, torch.ones_like(r2)))
+    rows = part.reshape(-1, part.shape[-1])[rev_flat]   # (N, K, 5)
+    contrib = (rows[..., 0:1] * (d / r[..., None])
+               + rows[..., 1:2] * d + rows[..., 2:5])
+    contrib = torch.where(mask[..., None], contrib,
+                          torch.zeros_like(contrib))
+    return energy, f_center + torch.sum(contrib, dim=1)
+
+
+def trio_forces(potential: UF3Potential, positions, cell,
+                nbr3: NeighborList, with_energy: bool = True,
+                cache3: ListCache = None, d=None):
+    """3-body per-atom energy (N,) and forces (N, 3) on the 3-body
+    list; ``d`` (N, K3, 3) reuses an existing displacement gather."""
+    if cache3 is None:
+        cache3 = list_cache(nbr3, cell, positions.dtype)
+    if d is None:
+        d = cached_displacements(positions, nbr3, cache3)
+    energy, f_center, part = trio_partials(potential, d, cache3.valid,
+                                           with_energy)
+    return assemble_forces(energy, f_center, part, d, cache3.rev_flat,
+                           nbr3.mask)
+
+
+def pair_trio_forces_shared(potential: UF3Potential, positions, cell,
+                            nbr2: NeighborList, nbr3: NeighborList):
+    """Full 2+3-body energy and forces from one (N, K2) displacement
+    gather: the 3-body rows are selected from the pair rows through the
+    filtered list's parent slots ``nbr3.sel``.  Returns (e2, e3_atoms
+    (N,), forces (N, 3))."""
+    cache2 = list_cache(nbr2, cell, positions.dtype)
+    spec = potential.pair_spec
+    d2 = cached_displacements(positions, nbr2, cache2)
+    e2, f2 = pair_row_forces(potential.pair_coefficients, d2,
+                             cache2.valid, spec, spec.n_basis)
+    d3 = torch.gather(d2, 1, nbr3.sel[:, :, None].expand(-1, -1, 3))
+    e3, f3 = trio_forces(potential, positions, cell, nbr3, d=d3)
+    return e2, e3, f2 + f3

@@ -1,15 +1,16 @@
 """
 Smoke run of uf3_tpu_torch on one NVIDIA GPU: builds the CUDA kernels
-from the sources in this checkout, holds each against its plain torch
-twin, then drives the MD engine at the benchmark configuration
-(2+3-body W, 9,826 atoms, float32, 3-level r-RESPA 12/6/36, Langevin
-at 300 K, 2 fs) through the trio kernel.
+from the sources in this checkout (no register spills allowed), holds
+each against its plain torch twin, then drives the MD engine at the
+benchmark configuration (2+3-body W, 9,826 atoms, float32, 3-level
+r-RESPA 12/6/36, Langevin at 300 K, 2 fs) through the trio kernel, and
+times the step's layers.
 
     python3 chip_smoke.py
 
 Exits non-zero, without a result line, when no CUDA device is present
 or any phase fails.  The line before the last is a JSON object with the
-kernels' launch counts, errors and times; the last line is
+kernels' launch counts, errors, times and bounds; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -25,13 +26,16 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-from uf3_tpu.data.atoms import bulk  # noqa: E402
+from uf3_tpu_torch.data.atoms import bulk  # noqa: E402
 from uf3_tpu_torch.forcefield.md import MDSystem  # noqa: E402
 from uf3_tpu_torch.ops import _build  # noqa: E402
 from uf3_tpu_torch.ops import neighbors as nb  # noqa: E402
 from uf3_tpu_torch.ops import trio  # noqa: E402
+from uf3_tpu_torch.ops.pair import (pair_short_forces,  # noqa: E402
+                                    pair_tail_forces)
 from uf3_tpu_torch.ops.potential import (UF3Potential,  # noqa: E402
                                          grid_sparsity)
+from uf3_tpu_torch.ops.splines import _leg_interval  # noqa: E402
 
 MODEL = os.path.join(REPO, "benchmarks_data", "model_2and3.json")
 BENCH = dict(rebuild_every=36, skin=0.5, skin_2b=1.2, capacity_2b=72,
@@ -41,6 +45,9 @@ F64_TOL = 1e-10   # same arithmetic, another summation order
 FORCE_TOL = 2e-4  # eV/A, f32 vs f64 (tests/test_tpu_numerics.py)
 WINDOW_STEPS = 720  # per timed window, as bench.py
 T_TARGET, T_BAND = 300.0, 30.0
+# NVIDIA H100 SXM peaks (data sheet): float32 outside the tensor cores,
+# HBM3 bandwidth
+PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
 
 def card_line() -> str:
@@ -69,9 +76,15 @@ def build_kernels():
     info = _build.build(force=True)
     print(f"kernel build: {info['seconds']:.2f} s "
           f"({_build.LIBRARY} from {_build.CSRC})")
+    spills = []
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+        if "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" \
+                not in line:
+            spills.append(line.strip())
+    if spills:
+        raise AssertionError(f"ptxas reports register spills: {spills}")
     _build.library()
 
 
@@ -106,8 +119,81 @@ def cuda_ms(fn, repeats):
     return start.elapsed_time(stop) / repeats
 
 
+def graph_ms(fn, repeats=20, replays=10):
+    """Mean device time of fn() in ms: ``repeats`` calls captured in one
+    CUDA graph, replayed ``replays`` times between CUDA events, so that
+    the host's per-call cost (Python, ctypes, allocation) does not hide
+    a kernel shorter than it."""
+    fn()
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()  # warm the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(repeats):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * repeats)
+
+
 def max_err(a, b) -> float:
     return float(torch.max(torch.abs(a.double() - b.double())))
+
+
+def trio_bound(pot: UF3Potential, d, valid, with_energy: bool):
+    """The least time the card needs for one trio_partials call on
+    these rows: the flop the kernel's algorithm does for this data (an
+    FMA is 2) over the float32 peak, against each input read once and
+    each output written once over the memory rate.  Returns (ms,
+    "operations" or "bytes", flop, bytes)."""
+    trio_b = pot.trio
+    w_lo, w_hi, c_lo, c_hi = trio_b.window
+    ww, cw = w_hi - w_lo, c_hi - c_lo
+    d = d.double()
+    ok = valid != 0                                      # (N, K)
+    r = torch.sqrt(torch.sum(d * d, -1).clamp_min(1e-300))
+    idx = _leg_interval(trio_b.spec_l, r)                # first tap
+    taps = torch.arange(4, device=d.device)
+    b_live = (((idx[..., None] + taps) >= w_lo)
+              & ((idx[..., None] + taps) < w_hi)).sum(-1)  # (N, K)
+    diff = d[:, None, :, :] - d[:, :, None, :]            # [a, m, n]
+    r_mn2 = torch.sum(diff * diff, -1)
+    r_mn = torch.sqrt(r_mn2.clamp_min(1e-300))
+    eye = torch.eye(d.shape[1], dtype=torch.bool, device=d.device)
+    lane = (ok[:, :, None] & ok[:, None, :] & ~eye & (r_mn2 > 1e-10)
+            & (r_mn >= trio_b.spec_n.t_min) & (r_mn <= trio_b.spec_n.t_max))
+    cidx = _leg_interval(trio_b.spec_n, r_mn)
+    c_live = (((cidx[..., None] + taps) >= c_lo)
+              & ((cidx[..., None] + taps) < c_hi)).sum(-1)  # (N, K, K)
+    b_lane = b_live[:, None, :].expand_as(cidx)           # row n's taps
+    term = 6 if with_energy else 4    # 2 or 3 FMAs per (b, c) term
+    # per live lane: 55 for d[n] - d[m], |.|, the interval and 4 values
+    # + 4 derivatives by Horner; 9 (+1) for the sums over n; then the
+    # (b, c) terms and the b-level FMAs
+    per_lane = (55 + 9 + int(with_energy)
+                + term * b_lane * c_live + term * b_lane)
+    n_rows = int(ok.sum())
+    flop = (float(torch.sum(per_lane * lane))
+            + n_rows * (52 + 4)                    # row bases, fc
+            + 4.0 * ww * cw * float(torch.sum(b_live * ok)))  # H, H1
+    size = pot.grid_window.element_size()
+    n_atoms, k = d.shape[:2]
+    n_bytes = size * (n_atoms * k * 4 + pot.grid_window.numel()
+                      + pot.leg_tables.numel() + n_atoms * (4 + 5 * k))
+    t_flop, t_bytes = flop / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES
+    return (1e3 * max(t_flop, t_bytes),
+            "operations" if t_flop >= t_bytes else "bytes", flop, n_bytes)
 
 
 def compare_trio(device):
@@ -150,23 +236,86 @@ def compare_trio(device):
                 err64 = max(max_err(a, b) for a, b in zip(k64, twin))
                 err64 = max(err64, max_err(f64, f_twin))
                 err32 = max_err(f32, f_twin)
-                kernel_ms = cuda_ms(lambda: trio.trio_partials(
-                    pot32, d32, v32, with_energy), 50)
+                kernel_ms = graph_ms(lambda: trio.trio_partials(
+                    pot32, d32, v32, with_energy))
                 twin_ms = cuda_ms(lambda: trio.trio_partials_torch(
                     d32, v32, pot32.grid, pot32.trio, with_energy), 5)
                 print(f"trio {name:6s} N={len(geom):5d} "
                       f"energy={with_energy!s:5s} f64 max err "
                       f"{err64:.3e} (<= {F64_TOL:g}), f32 max |dF| "
                       f"{err32:.3e} eV/A (<= {FORCE_TOL:g}); f32 kernel "
-                      f"{kernel_ms:.4f} ms, twin {twin_ms:.4f} ms")
+                      f"{kernel_ms:.4f} ms (graph replay), twin "
+                      f"{twin_ms:.4f} ms (eager)")
                 if not (err64 <= F64_TOL and err32 <= FORCE_TOL):
                     raise AssertionError("trio kernel disagrees with its "
                                          "twin")
                 if name == "bench" and len(geom) == 9826 \
                         and not with_energy:
+                    bound_ms, bound_by, flop, n_bytes = trio_bound(
+                        pot32, d32, v32, with_energy)
+                    occ = trio.trio_occupancy(pot32, d32.shape[1],
+                                              with_energy)
+                    print(f"trio bound at the bench shape: {flop:.4g} flop,"
+                          f" {n_bytes:.4g} bytes -> {bound_ms:.5f} ms "
+                          f"({bound_by}); kernel reaches "
+                          f"{100 * bound_ms / kernel_ms:.1f}% of it")
+                    print(f"trio launch plan (f32, K={d32.shape[1]}): {occ}")
                     record = dict(max_abs_err=err32, ms=kernel_ms,
-                                  plain_ms=twin_ms)
+                                  plain_ms=twin_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, library_ms=None,
+                                  registers=occ["registers"],
+                                  warps_per_sm=occ["warps_per_sm"])
+    print("trio launch plan (f64, K=16): "
+          f"{trio.trio_occupancy(grids['bench'], 16)}")
     return record
+
+
+def host_ms(fn, repeats=30):
+    """Mean host time of fn() in ms, each call ended by a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / repeats
+
+
+def layer_times(system: MDSystem, state):
+    """Per-call host times of the step's layers at ``state``, amortised
+    by their cadence in the bench configuration (12/6/36)."""
+    pot, cell, x = system.potential, state.cell, state.positions
+    cache2 = nb.list_cache(state.nbr2, cell, system.dtype)
+    cache3 = nb.list_cache(state.nbr3, cell, system.dtype)
+    r_lo, r_hi = system.respa_switch
+    spec = pot.pair_spec
+    d3 = nb.cached_displacements(x, state.nbr3, cache3)
+    layers = {
+        "pair short, (N, 16) rows": (1.0, lambda: pair_short_forces(
+            pot.pair_coefficients, x, cell, state.nbr3, spec_pair=spec,
+            n_basis_pair=system.n_basis_short, with_energy=False,
+            r_lo=r_lo, r_hi=r_hi, cache3=cache3)),
+        "staleness triggers (needs_rebuild x2)": (1.0, lambda: (
+            nb.needs_rebuild(state.nbr2, x, system.skin_2b)
+            | nb.needs_rebuild(state.nbr3, x, system.skin))),
+        "trio: kernel only": (1 / 6, lambda: trio.trio_partials(
+            pot, d3, cache3.valid, False)),
+        "trio: gather + kernel + assembly": (1 / 6, lambda: trio.trio_forces(
+            pot, x, cell, state.nbr3, with_energy=False, cache3=cache3)),
+        "pair tail, (N, 72) rows": (1 / 12, lambda: pair_tail_forces(
+            pot.pair_coefficients, x, cell, state.nbr2, spec_pair=spec,
+            n_basis_pair=spec.n_basis, with_energy=False, r_lo=r_lo,
+            r_hi=r_hi, cache2=cache2)),
+        "3-body refilter": (1 / 36, lambda: nb.filter_neighbor_list(
+            state.nbr2, x, cell, system.r_cut_3b + system.skin,
+            system.capacity_3b, reference_positions=x)),
+        "full rebuild (wrap, cell list, filter)": (0.0, lambda:
+            system.build_lists(system._wrap(x, cell), cell)),
+    }
+    for name, (cadence, fn) in layers.items():
+        ms = host_ms(fn)
+        print(f"layer {name}: {ms:.4f} ms per call, {cadence * ms:.4f} ms "
+              "per step")
 
 
 def run_main_path(device):
@@ -195,6 +344,7 @@ def run_main_path(device):
         temps.append(system.temperature(state))
         stale = stale or bool(state.stale)
     launches = trio.trio_partials.launches
+    layer_times(system, state)
     elapsed = sorted(times)[1]
     rate = n_atoms * WINDOW_STEPS / elapsed
     print(f"windows (s): {[round(t, 4) for t in times]}, "

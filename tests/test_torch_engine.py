@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from uf3_tpu.data.atoms import bulk
+from uf3_tpu_torch.data.atoms import bulk
 from uf3_tpu_torch.forcefield.md import MDSystem
 
 # one intra-op thread: the suite runs in several worker processes at
@@ -22,7 +22,8 @@ torch.set_num_threads(1)
 MODEL = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "benchmarks_data", "model_2and3.json")
 KW = dict(rebuild_every=12, skin=0.5, skin_2b=1.2, capacity_2b=72,
-          capacity_3b=16, n_respa=6, respa_mid=3, respa_switch=(2.5, 3.5))
+          capacity_3b=16, n_respa=6, respa_mid=3, respa_switch=(2.5, 3.5),
+          device="cpu")
 
 
 def _geom():

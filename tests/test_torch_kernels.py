@@ -2,7 +2,9 @@
 The trio CUDA kernel (uf3_tpu_torch/csrc/trio.cu) against its plain
 torch twin, on the 3-body rows of a rattled 1,024-atom bcc W box, with
 the bench grid and random non-symmetric grids (one with the bench
-model's zero pattern, one dense): 1e-10 in float64 (summation order
+model's zero pattern, one dense), the unary test model's wider window,
+K = 8 and 32 slots, a ragged atom count, sparse and non-prefix slot
+masks and non-linear knot kinds: 1e-10 in float64 (summation order
 only), 2e-4 eV/A in float32 against the float64 twin.
 
 The ``cuda`` tests skip without a GPU.  This file imports no jax, so it
@@ -17,18 +19,22 @@ import numpy as np
 import pytest
 import torch
 
-from uf3_tpu.data.atoms import bulk
+from uf3_tpu_torch.data.atoms import bulk
 from uf3_tpu_torch.forcefield.md import MDSystem
 from uf3_tpu_torch.ops import neighbors as nb
 from uf3_tpu_torch.ops import trio
 from uf3_tpu_torch.ops.potential import UF3Potential, grid_sparsity
+from uf3_tpu_torch.ops.splines import leg_spec_from_knots
+from uf3_tpu_torch.representation import knots as kn
 
 # one intra-op thread: the suite runs in several worker processes at
 # once, and torch's default of a thread per core oversubscribes them
 torch.set_num_threads(1)
 
-MODEL = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "benchmarks_data", "model_2and3.json")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODEL = os.path.join(REPO, "benchmarks_data", "model_2and3.json")
+UNARY = os.path.join(REPO, "tests", "data", "model_unary.json")
+TOLS = [(torch.float64, 1e-10), (torch.float32, 2e-4)]
 
 
 @pytest.fixture(scope="module")
@@ -38,18 +44,21 @@ def rows():
     geom.rattle(0.05, seed=11)
     system = MDSystem(MODEL, geom, dtype=torch.float64, rebuild_every=12,
                       skin=0.5, skin_2b=1.2, capacity_2b=72, capacity_3b=16,
-                      n_respa=6, respa_mid=3, respa_switch=(2.5, 3.5))
+                      n_respa=6, respa_mid=3, respa_switch=(2.5, 3.5),
+                      device="cpu")
     state = system.init_state()
     cache = nb.list_cache(state.nbr3, system.cell, torch.float64)
     d = nb.cached_displacements(state.positions, state.nbr3, cache)
     return system.potential, d, cache.valid, cache, state.nbr3
 
 
-def _with_grid(pot: UF3Potential, grid: np.ndarray) -> UF3Potential:
-    """A new float64 CPU module of ``pot`` with ``grid``."""
+def _with_grid(pot: UF3Potential, grid: np.ndarray,
+               **specs) -> UF3Potential:
+    """A new float64 CPU module of ``pot`` with ``grid`` (and the leg
+    specs ``spec_l`` / ``spec_n`` where given)."""
     active_bc, window, symmetric = grid_sparsity(grid)
     bundle = pot.trio._replace(grid=grid, active_bc=active_bc,
-                               window=window, symmetric=symmetric)
+                               window=window, symmetric=symmetric, **specs)
     return UF3Potential(pot.pair_spec, pot.pair_coefficients.numpy(),
                         bundle, pot.offsets_1b.numpy(),
                         pot.z_to_species.numpy(), pot.r_cut_2b,
@@ -125,6 +134,86 @@ def test_trio_kernel_rejects_bad_operands(rows, cuda_device):
     with pytest.raises(TypeError, match="float32 or float64"):
         trio.trio_partials(pot, dk, vk)  # float64 rows, float32 grid
     wide = torch.zeros((4, 33, 3), device=cuda_device)
-    with pytest.raises(ValueError, match="at most 1024"):
+    with pytest.raises(ValueError, match="K <= 32"):
         trio.trio_partials(pot, wide, torch.zeros((4, 33),
                                                   device=cuda_device))
+
+
+def _matches_twin(pot64: UF3Potential, d, valid, device, dtype, tol):
+    """Kernel partials on ``device`` in ``dtype`` against the float64
+    twin, with and without energy."""
+    pot = _with_grid(pot64, pot64.trio.grid).to(device=device, dtype=dtype)
+    dk, vk = d.to(device, dtype), valid.to(device, dtype)
+    for with_energy in (True, False):
+        kernel = trio.trio_partials(pot, dk, vk, with_energy)
+        torch.cuda.synchronize()
+        twin = trio.trio_partials_torch(d, valid, pot64.grid, pot64.trio,
+                                        with_energy)
+        for a, b in zip(kernel, twin):
+            assert a.shape == b.shape
+            assert _err(a, b) <= tol
+    return twin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 32])
+@pytest.mark.parametrize("dtype, tol", TOLS)
+def test_trio_kernel_slot_counts(rows, cuda_device, k, dtype, tol):
+    pot64, d, valid, _, _ = rows
+    if k < d.shape[1]:
+        d, valid = d[:, :k].contiguous(), valid[:, :k].contiguous()
+    else:  # 16 more live slots: the rows' first 16, stretched by 10 %
+        d = torch.cat([d, 1.1 * d[:, :k - d.shape[1]]], 1)
+        valid = torch.cat([valid, valid[:, :k - valid.shape[1]]], 1)
+    twin = _matches_twin(pot64, d, valid, cuda_device, dtype, tol)
+    assert float(torch.abs(twin[2]).max()) > 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", TOLS)
+def test_trio_kernel_ragged_atom_count(rows, cuda_device, dtype, tol):
+    pot64, d, valid, _, _ = rows
+    n = 1021  # not a multiple of the kernel's atoms per block
+    _matches_twin(pot64, d[:n], valid[:n], cuda_device, dtype, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", TOLS)
+def test_trio_kernel_sparse_masks(rows, cuda_device, dtype, tol):
+    pot64, d, valid, _, _ = rows
+    valid = valid.clone()
+    valid[0] = 0                           # no valid slot
+    valid[1] = 0
+    valid[1, 5] = 1                        # one
+    valid[2] = 0
+    valid[2, [3, 11]] = 1                  # two, not a prefix
+    rng = np.random.RandomState(5)
+    valid[3:] *= torch.as_tensor(rng.rand(valid.shape[0] - 3,
+                                          valid.shape[1]) > 0.3)
+    twin = _matches_twin(pot64, d, valid, cuda_device, dtype, tol)
+    assert float(torch.abs(twin[2][:2]).max()) == 0.0  # no pair lane
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", TOLS)
+def test_trio_kernel_unary_model_window(rows, cuda_device, dtype, tol):
+    _, d, valid, _, _ = rows
+    pot64 = UF3Potential.from_json(UNARY)
+    w_lo, w_hi, c_lo, c_hi = pot64.trio.window
+    assert (w_hi - w_lo, c_hi - c_lo) == (5, 12)
+    _matches_twin(pot64, d, valid, cuda_device, dtype, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["lammps", "geometric", "inverse"])
+def test_trio_kernel_nonlinear_leg_kinds(rows, cuda_device, strategy):
+    pot64, d, valid, _, _ = rows
+    spacer = kn.get_knot_spacer(strategy)
+    spec_l = leg_spec_from_knots(spacer(1.5, 3.5, 6))[1]
+    spec_n = leg_spec_from_knots(spacer(1.5, 7.0, 12))[1]
+    assert spec_l.n_basis == pot64.trio.l_basis
+    assert spec_n.n_basis == pot64.trio.n_basis
+    pot64 = _with_grid(pot64, pot64.trio.grid, spec_l=spec_l,
+                       spec_n=spec_n)
+    for dtype, tol in TOLS:
+        _matches_twin(pot64, d, valid, cuda_device, dtype, tol)

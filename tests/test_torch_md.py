@@ -49,7 +49,7 @@ def test_nve_trajectory_matches_jax():
                           dtype=jnp.float64, **KW)
     st_j = jax_sys.run(jax_sys.init_state(velocities=v0), n_steps=36,
                        dt_fs=2.0)
-    port = MDSystem(MODEL, geom, dtype=torch.float64, **KW)
+    port = MDSystem(MODEL, geom, dtype=torch.float64, device="cpu", **KW)
     st_0 = port.init_state(velocities=v0)
     st_t = port.run(st_0, n_steps=36, dt_fs=2.0)
     d = (np.asarray(st_j.positions) - st_t.positions.numpy()) \

@@ -73,9 +73,11 @@ def test_from_json_matches_jax_builders(jax_bundle):
     assert tuple(pot.trio.spec_n) == tuple(trio.spec_n)
     assert pot.r_cut_2b == float(params.r_cut_2b)
     assert pot.r_cut_3b == float(params.r_cut_3b)
-    # the bench model's static sparsity
+    # the bench model's static sparsity: 27 live (b, c) blocks in a
+    # 3 x 9 window, and the Horner rows of the 6 + 12 leg intervals
     assert pot.trio.window == (3, 6, 3, 12)
-    assert int(buf["live"].sum()) == 27
+    assert sum(len(cs) for _, cs in pot.trio.active_bc) == 27
+    assert buf["leg_tables"].shape == (6 + 12, 20)
     w_lo, w_hi, c_lo, c_hi = pot.trio.window
     assert np.array_equal(buf["grid_window"],
                           buf["grid"][w_lo:w_hi, w_lo:w_hi, c_lo:c_hi])
@@ -102,19 +104,31 @@ def test_from_jax_arrays_matches_from_json(jax_bundle):
 
 
 def test_port_imports_no_jax_or_pandas():
+    """A fresh process that imports every module of the port and runs
+    its MD set-up holds no jax, no pandas and nothing of uf3_tpu."""
     code = (
-        "import sys, torch\n"
-        "from uf3_tpu.data.atoms import bulk\n"
+        "import importlib, pkgutil, sys, torch\n"
+        "import uf3_tpu_torch\n"
+        "for mod in pkgutil.walk_packages(uf3_tpu_torch.__path__,\n"
+        "                                 'uf3_tpu_torch.'):\n"
+        "    importlib.import_module(mod.name)\n"
+        "from uf3_tpu_torch.data.atoms import bulk\n"
         "from uf3_tpu_torch.forcefield.md import MDSystem\n"
         "geom = bulk('W', 'bcc', a=3.1652) * (8, 8, 8)\n"
         "s = MDSystem('benchmarks_data/model_2and3.json', geom,\n"
         "             dtype=torch.float64, rebuild_every=12, skin=0.5,\n"
         "             skin_2b=1.2, capacity_2b=72, capacity_3b=16,\n"
-        "             n_respa=6, respa_mid=3, respa_switch=(2.5, 3.5))\n"
+        "             n_respa=6, respa_mid=3, respa_switch=(2.5, 3.5),\n"
+        "             device='cpu')\n"
         "s.init_state(temperature=300.0, seed=0)\n"
-        "print(sorted(m for m in ('jax', 'pandas') if m in sys.modules))\n")
+        "print(len([m for m in sys.modules\n"
+        "           if m.startswith('uf3_tpu_torch.')]))\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'pandas', 'uf3_tpu')))\n")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-1] == "[]"
+    n_port, foreign = out.stdout.strip().splitlines()[-2:]
+    assert int(n_port) >= 17  # every module of the port was imported
+    assert foreign == "[]"

@@ -133,3 +133,66 @@ def test_switch_poly():
     st, dst = ts._switch_poly(torch.as_tensor(r), 2.5, 3.5)
     _close(sj_, st)
     _close(dsj, dst)
+
+
+def _horner_dense(r, valid, spec, table):
+    """The trio kernel's basis arithmetic in plain torch: the interval
+    lookup floor((transform(r) - u0) * (1 / h)) clamped, Horner on that
+    interval's row of ``table`` (ops/splines.horner_table's layout), the
+    inclusive range gate; scattered into dense (..., n_basis) values and
+    derivatives."""
+    idx = torch.clamp(torch.floor((ts._transform(spec, r) - spec.u0)
+                                  * (1.0 / spec.h)), 0, spec.n_int - 1)
+    idx = idx.to(torch.int64)
+    row = torch.as_tensor(table)[idx]                   # (..., 20)
+    u = (r - row[..., 0]) * row[..., 1]
+    u4 = u[..., None]
+    beta = row[..., 4:20].unflatten(-1, (4, 4))         # [tap, power]
+    val = ((beta[..., 3] * u4 + beta[..., 2]) * u4
+           + beta[..., 1]) * u4 + beta[..., 0]
+    der = (((3.0 * beta[..., 3]) * u4 + 2.0 * beta[..., 2]) * u4
+           + beta[..., 1]) * row[..., 1:2]
+    gate = valid * (r >= spec.t_min) * (r <= spec.t_max)
+    dense = torch.zeros(r.shape + (spec.n_basis,), dtype=r.dtype)
+    dense_d = torch.zeros_like(dense)
+    taps = idx[..., None] + torch.arange(4)
+    dense.scatter_(-1, taps, val * gate[..., None])
+    dense_d.scatter_(-1, taps, der * gate[..., None])
+    return dense, dense_d
+
+
+def _hand_spec(kind, lo=1.5, hi=5.5, n_int=9):
+    """A closed-form LegSpec of kind 1-3 written out by hand."""
+    fwd = {ts.LAMMPS: np.square, ts.GEOMETRIC: np.log,
+           ts.INVERSE: lambda x: 1.0 / x}[kind]
+    u_lo, u_hi = fwd(lo), fwd(hi)
+    return ts.LegSpec(kind, float(u_lo), float((u_hi - u_lo) / n_int),
+                      n_int, lo, hi, n_int + 3)
+
+
+@pytest.mark.parametrize("kind", [ts.LINEAR, ts.LAMMPS, ts.GEOMETRIC,
+                                  ts.INVERSE])
+def test_horner_tables_match_dense_basis(kind):
+    """The per-leg tables the trio kernel evaluates equal the twin's de
+    Boor bases in float64 to 1e-12, at random r across [t_min, t_max],
+    at every knot, at both clamped ends and outside the range."""
+    if kind == ts.LINEAR:  # the bench model's third leg
+        spec = ts.leg_spec_from_knots(kn.get_knot_spacer("linear")(
+            1.5, 7.0, 12))[1]
+    else:
+        spec = _hand_spec(kind)
+    assert spec.kind == kind
+    table = ts.horner_table(spec)
+    assert table.shape == (spec.n_int, ts.HORNER_WIDTH)
+    knots = ts.horner_table(spec)[:, 0]
+    rng = np.random.RandomState(kind)
+    r = torch.as_tensor(np.concatenate([
+        rng.uniform(spec.t_min, spec.t_max, 997), knots,
+        [spec.t_min, spec.t_max, spec.t_min - 0.1, spec.t_max + 0.1]]))
+    valid = torch.as_tensor((rng.rand(r.shape[0]) > 0.1).astype(np.float64))
+    dense, dense_d = _horner_dense(r, valid, spec, table)
+    ref, ref_d = ts._dense_basis(r, valid, spec)
+    assert float(torch.abs(dense - ref).max()) <= 1e-12
+    assert float(torch.abs(dense_d - ref_d).max()) <= 1e-12
+    assert float(torch.abs(ref[-4:-2]).max()) > 0.5   # clamped ends
+    assert float(torch.abs(dense[-2:]).max()) == 0.0  # outside the range

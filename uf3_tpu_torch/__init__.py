@@ -3,11 +3,14 @@ uf3_tpu_torch: the UF3 potential and MD engine in PyTorch, with
 hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of ``uf3_tpu`` (the JAX reference, kept beside it): the same
-models, inputs and layouts, with torch tensors on an explicit device.
-Host-only modules of ``uf3_tpu`` (atoms, elements, units, the B-spline
-basis, JSON io) are reused by import; nothing here imports jax or
-pandas.
+models, inputs and layouts, with torch tensors on the CUDA card by
+default.  Nothing here imports ``uf3_tpu``, jax or pandas: the host
+modules it needs are trimmed copies under the same module names.
 
+  data/               Atoms + bulk, elements, chemical system
+  representation/     B-spline basis, knot spacers, de Boor values
+  util/json_io.py     model file reader
+  forcefield/units.py eV / A / amu units
   io.py               model JSON -> basis + coefficients
   ops/splines.py      closed-form B-spline primitives
   ops/potential.py    UF3Potential (nn.Module with the coefficients)

@@ -4,250 +4,306 @@
 //
 // Replaces the Pallas TPU kernel make_trio_kernel / trio_forces_pallas
 // and its XLA twin trio_forces_unrolled, whose shared per-block body is
-// _trio_block_compute (uf3_tpu/ops/pallas_trio.py).
+// _trio_block_compute (uf3_tpu/ops/pallas_trio.py).  Lane roles as
+// there: pair lane (m, n) takes its third leg d[n] - d[m], H from row m
+// and the first-leg basis from row n.
 //
-// What bounds it on the card: arithmetic, not bytes.  Per atom it reads
-// K*3 + K values and writes K*5 + 4, while each of the K*K pair lanes
-// runs a de Boor recursion plus ~3 FMAs per live (b, c) block (27 at the
-// bench model); the dense leg bases and H = A.G, H1 = dA.G (K x Ww*Cw)
-// stay in shared memory, so no intermediate reaches device memory.  The
-// design: one thread block per center atom with one thread per pair lane
-// p = m*K + n (K = 16 -> 256 threads); the live (b, c) mask and the leg
-// specs are runtime arguments, so one build serves every model.  All
-// arithmetic is plain FMA in the working type (no TF32, no library
-// matmul).  Blocks are independent: nothing carries across atoms.
+// What bounds it on the card: issued instructions, not bytes.  An
+// atom's I/O is K*4 values in and K*5 + 4 out (~0.6 KB at K = 16),
+// while each live pair lane evaluates a third-leg basis and up to
+// 4 x 4 (b, c) terms.  Tensor cores and TMA stay out: the contractions
+// are (K x 3).(3 x Ww*Cw) per atom and at most 4 x 4 per lane, far
+// below a wgmma tile, a tile of I/O per atom is too small for TMA to
+// pay, and in float32 a tensor core would mean TF32, which the port
+// keeps out of every grid contraction.  All arithmetic is plain FMA in
+// the working type.
+//
+// The design:
+// * One warp per atom, several atoms per block (at most 8; fewer when a
+//   wide window makes the warps' shared-memory slices large).  The only
+//   block-wide barrier stages the leg tables and the grid window once
+//   per block; an atom's work syncs with __syncwarp only.  A ragged
+//   last block masks its missing atoms.
+// * Thread lane = h * KMAX + m owns pair row m (TPR = 32 / KMAX threads
+//   per row, in different half-warps so that their reads of row m's H
+//   fall on different banks) and walks its share of the valid n.  The sums over n (S1,
+//   S3', V3', E) stay in registers; the TPR partial rows and the sums
+//   over m (center force, energy) combine with __shfl_xor_sync.
+// * Only live work: a warp ballot over `valid` gives the slots (any
+//   mask, not only a prefix); a row skips the empty slots and its
+//   diagonal, and a lane that fails the 1e-10 A^2 or range gate adds
+//   nothing.  Per lane, the <= 4 non-zero first-leg taps b of row n and
+//   the <= 4 non-zero third-leg taps c are read from H[m, b, c] by
+//   index; taps outside the live window are masked.  Dead (b, c) blocks
+//   inside the window hold exact zeros in H (their grid column is 0),
+//   so no live mask is needed.
+// * No division: each leg's interval lookup (transform, floor, clamp)
+//   is followed by Horner on that interval's cubic coefficients (the
+//   (n_int, 20) tables of ops/splines.horner_table; the derivative's
+//   coefficients follow from the value's), and every 1/r is one rsqrt
+//   (r = r^2 / r).
+// * Sizes at compile time (KMAX = 16 or 32 slots, energy or not),
+//   generality at run time (any K <= KMAX, any window, the four knot
+//   kinds, float32 and float64).
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace {
 
+constexpr int kWarp = 32;
+constexpr int kMaxWarps = 8;            // atoms per block at most
+constexpr int kTab = 20;                // entries per interval row
+constexpr size_t kSmemLimit = 232448;   // 227 KB opt-in per block, sm_90
+constexpr int kErrSmem = -1;            // window too wide for one warp
+constexpr unsigned kFull = 0xffffffffu;
+
 struct Leg {
-  int kind;      // 0 linear, 1 lammps r^2, 2 geometric, 3 inverse
-  double u0;     // first knot in the transformed coordinate
-  double h;      // knot spacing in the transformed coordinate
-  int n_int;     // number of intervals
-  double t_min;  // inclusive range gate
+  int kind;       // 0 linear, 1 lammps r^2, 2 geometric, 3 inverse
+  int n_int;      // number of intervals
+  double u0;      // first knot in the transformed coordinate
+  double inv_h;   // 1 / knot spacing in the transformed coordinate
+  double t_min;   // inclusive range gate
   double t_max;
 };
 
 template <typename T>
-__device__ __forceinline__ T safe_div(T num, T den) {
-  return den != T(0) ? num / den : T(0);
-}
+struct alignas(4 * sizeof(T) > 16 ? 16 : 4 * sizeof(T)) Quad {
+  T v[4];
+};
 
 template <typename T>
-__device__ __forceinline__ T knot_value(const Leg& s, int k) {
-  T u = T(s.u0) + T(k) * T(s.h);
+struct alignas(2 * sizeof(T)) Pair {
+  T h, h1;  // H = A.G and H1 = dA.G at one (b, c) column of row m
+};
+
+__device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
+__device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
+
+// Interval of r on a leg: floor((transform(r) - u0) / h), clamped to
+// [0, n_int - 1].  r2 = r*r and inv_r = 1/r are the caller's.
+template <typename T>
+__device__ __forceinline__ int leg_interval(const Leg& s, T r, T r2,
+                                            T inv_r) {
+  T t;
   switch (s.kind) {
-    case 0: return u;
-    case 1: return sqrt(u > T(0) ? u : T(0));
-    case 2: return exp(u);
-    default: return T(1) / u;
+    case 0: t = r; break;
+    case 1: t = r2; break;
+    case 2: t = log(r); break;
+    default: t = inv_r;
+  }
+  T f = floor((t - T(s.u0)) * T(s.inv_h));
+  f = f > T(0) ? f : T(0);
+  f = f < T(s.n_int - 1) ? f : T(s.n_int - 1);
+  return int(f);
+}
+
+// Values and d/dr of the 4 non-zero basis functions B_{idx + q} at r,
+// by Horner on interval idx's row of a leg table, times gate:
+// B = sum_p beta[q][p] u^p, dB/dr = (dB/du) / (t_{idx+1} - t_idx).
+template <typename T>
+__device__ __forceinline__ void leg_basis(const T* tab, int idx, T r,
+                                          T gate, T val[4], T der[4]) {
+  const Quad<T>* row = reinterpret_cast<const Quad<T>*>(tab + idx * kTab);
+  const Quad<T> head = row[0];
+  const T u = (r - head.v[0]) * head.v[1];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const Quad<T> b = row[1 + q];
+    val[q] = gate * (((b.v[3] * u + b.v[2]) * u + b.v[1]) * u + b.v[0]);
+    der[q] = gate * ((((T(3) * b.v[3]) * u + T(2) * b.v[2]) * u + b.v[1])
+                     * head.v[1]);
   }
 }
 
-template <typename T>
-__device__ __forceinline__ T transform(const Leg& s, T r) {
-  switch (s.kind) {
-    case 0: return r;
-    case 1: return r * r;
-    case 2: return log(r);
-    default: return T(1) / r;
-  }
-}
+// Byte offsets of the dynamic shared memory: the leg tables and the
+// grid window once per block, then one slice per warp.
+struct Layout {
+  int n_tab;       // table entries (both legs)
+  int tab_n;       // first entry of the third leg's rows
+  int g_off;       // the (Ww, Ww*Cw) grid window
+  int warp_off;    // warp slices
+  int hh_off;      // (H, H1) within a warp slice
+  int warp_bytes;  // one warp slice
+};
 
-// Values and d/dr of the 4 non-zero clamped cubic basis functions at r
-// (de Boor over the analytic knot window, zero denominators at the
-// clamped ends give zero terms), gated by valid * (t_min <= r <= t_max).
-// Returns the interval index (first non-zero basis function).
-template <typename T>
-__device__ int leg_basis(T r, T valid, const Leg& s, T* val, T* der) {
-  T raw = floor((transform<T>(s, r) - T(s.u0)) / T(s.h));
-  raw = raw < T(0) ? T(0) : raw;
-  raw = raw > T(s.n_int - 1) ? T(s.n_int - 1) : raw;
-  const int idx = int(raw);
-  T tk[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    int k = idx + j - 3;
-    k = k < 0 ? 0 : (k > s.n_int ? s.n_int : k);
-    tk[j] = knot_value<T>(s, k);
-  }
-  T b[4] = {T(0), T(0), T(0), T(1)};
-#pragma unroll
-  for (int k = 1; k < 3; ++k) {
-    T nb[4] = {T(0), T(0), T(0), T(0)};
-#pragma unroll
-    for (int p = 3 - k; p < 4; ++p) {
-      T term = safe_div(r - tk[p], tk[p + k] - tk[p]) * b[p];
-      if (p + 1 <= 3)
-        term = term + safe_div(tk[p + k + 1] - r, tk[p + k + 1] - tk[p + 1])
-                          * b[p + 1];
-      nb[p] = term;
-    }
-#pragma unroll
-    for (int p = 0; p < 4; ++p) b[p] = nb[p];
-  }
-  const T gate = valid * (r >= T(s.t_min) ? T(1) : T(0))
-                 * (r <= T(s.t_max) ? T(1) : T(0));
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    T term = safe_div(r - tk[p], tk[p + 3] - tk[p]) * b[p];
-    T dterm = T(3) * safe_div(b[p], tk[p + 3] - tk[p]);
-    if (p + 1 <= 3) {
-      term = term + safe_div(tk[p + 4] - r, tk[p + 4] - tk[p + 1]) * b[p + 1];
-      dterm = dterm - T(3) * safe_div(b[p + 1], tk[p + 4] - tk[p + 1]);
-    }
-    val[p] = term * gate;
-    der[p] = dterm * gate;
-  }
-  return idx;
-}
+size_t round32(size_t bytes) { return (bytes + 31) & ~size_t(31); }
 
-// Entry w of a dense basis row: the tap (w - idx) of the 4 active values,
-// zero outside them (selects, so the tap arrays stay in registers).
-template <typename T>
-__device__ __forceinline__ T tap_of(const T* v, int tap) {
-  return tap == 0 ? v[0] : tap == 1 ? v[1] : tap == 2 ? v[2]
-       : tap == 3 ? v[3] : T(0);
-}
-
-template <typename T>
-__global__ void trio_partials_kernel(
-    const T* __restrict__ d, const T* __restrict__ valid,
-    const T* __restrict__ gwin, const uint8_t* __restrict__ live,
-    T* __restrict__ energy, T* __restrict__ fc, T* __restrict__ part,
-    int K, Leg leg_l, Leg leg_n, int w_lo, int ww, int c_lo, int cw,
-    int with_energy) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+template <typename T, int KMAX, bool ENERGY>
+__global__ void __launch_bounds__(kWarp * kMaxWarps)
+trio_kernel(const T* __restrict__ d, const T* __restrict__ valid,
+            const T* __restrict__ gwin, const T* __restrict__ tables,
+            T* __restrict__ energy, T* __restrict__ fc,
+            T* __restrict__ part, int n_atoms, int K, Leg leg_l, Leg leg_n,
+            int w_lo, int ww, int c_lo, int cw, Layout lay) {
+  constexpr int TPR = kWarp / KMAX;  // threads per pair row
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s_tab = reinterpret_cast<T*>(smem);
+  T* s_g = reinterpret_cast<T*>(smem + lay.g_off);
   const int wc = ww * cw;
-  const int kk = K * K;
-  T* sd = reinterpret_cast<T*>(smem_raw);  // (K, 3) displacements
-  T* sval = sd + 3 * K;                    // (K,) slot mask
-  T* sr = sval + K;                        // (K,) |d|
-  T* sa = sr + K;                          // (K, Ww) leg basis
-  T* sda = sa + K * ww;                    // (K, Ww) its derivative
-  T* sh = sda + K * ww;                    // (K, Ww*Cw) H = A.G
-  T* sh1 = sh + K * wc;                    // (K, Ww*Cw) H1 = dA.G
-  T* st1 = sh1 + K * wc;                   // (K*K,) t1 per lane
-  T* sg3 = st1 + kk;                       // (K*K,) t3 / r_mn per lane
-  T* sv = sg3 + kk;                        // (K*K,) value per lane
-  T* sfc = sv + kk;                        // (K, 3) w_m / r_m * d_m
-  T* serow = sfc + 3 * K;                  // (K,) energy row sums
-  int* slive = reinterpret_cast<int*>(serow + K);  // (Ww*Cw,) live mask
-
-  const size_t atom = blockIdx.x;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < 3 * K; i += blockDim.x) sd[i] = d[atom * 3 * K + i];
-  for (int i = tid; i < K; i += blockDim.x) sval[i] = valid[atom * K + i];
-  for (int i = tid; i < wc; i += blockDim.x) slive[i] = live[i];
+  for (int i = threadIdx.x; i < lay.n_tab; i += blockDim.x)
+    s_tab[i] = tables[i];
+  for (int i = threadIdx.x; i < ww * wc; i += blockDim.x) s_g[i] = gwin[i];
   __syncthreads();
 
-  // dense first-leg bases over the live window, one slot per thread
-  for (int m = tid; m < K; m += blockDim.x) {
-    const T x = sd[3 * m], y = sd[3 * m + 1], z = sd[3 * m + 2];
-    const T r2 = x * x + y * y + z * z;
-    const T r = sqrt(r2 > T(0) ? r2 : T(1));
-    sr[m] = r;
-    T v[4], dv[4];
-    const int idx = leg_basis<T>(r, sval[m], leg_l, v, dv);
-    for (int w = 0; w < ww; ++w) {
-      sa[m * ww + w] = tap_of(v, w_lo + w - idx);
-      sda[m * ww + w] = tap_of(dv, w_lo + w - idx);
-    }
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const long long atom =
+      static_cast<long long>(blockIdx.x) * (blockDim.x / kWarp) + warp;
+  if (atom >= n_atoms) return;  // ragged last block
+  unsigned char* ws = smem + lay.warp_off + warp * lay.warp_bytes;
+  Quad<T>* s_d = reinterpret_cast<Quad<T>*>(ws);  // (KMAX) x, y, z, -
+  Quad<T>* s_a = s_d + KMAX;                      // first-leg values
+  Quad<T>* s_da = s_a + KMAX;                     // and d/dr, 4 taps
+  T* s_ir = reinterpret_cast<T*>(s_da + KMAX);    // (KMAX) 1 / |d|
+  int* s_idx = reinterpret_cast<int*>(s_ir + KMAX);  // first tap
+  Pair<T>* s_hh = reinterpret_cast<Pair<T>*>(ws + lay.hh_off);
+  // s_hh[col * KMAX + m], col = (b - w_lo) * Cw + (c - c_lo)
+
+  const T* d_atom = d + atom * 3 * K;
+  for (int i = lane; i < 3 * K; i += kWarp) {
+    const int m = i / 3;
+    s_d[m].v[i - 3 * m] = d_atom[i];
   }
-  __syncthreads();
+  const bool v_lane = lane < K && valid[atom * K + lane] != T(0);
+  const unsigned vmask = __ballot_sync(kFull, v_lane);
+  __syncwarp();
 
-  // grid contraction over the window: H[m, j] = sum_l A[m, l] G[l, j]
-  for (int i = tid; i < K * wc; i += blockDim.x) {
-    const int m = i / wc, j = i - (i / wc) * wc;
+  // first-leg bases, one slot per lane
+  if (lane < K) {
+    const Quad<T> p = s_d[lane];
+    T r2 = p.v[0] * p.v[0] + p.v[1] * p.v[1] + p.v[2] * p.v[2];
+    r2 = r2 > T(0) ? r2 : T(1);
+    const T inv_r = rsqrt_t(r2);
+    const T r = r2 * inv_r;
+    const T gate = (v_lane && r >= T(leg_l.t_min) && r <= T(leg_l.t_max))
+                       ? T(1) : T(0);
+    const int idx = leg_interval<T>(leg_l, r, r2, inv_r);
+    Quad<T> a, da;
+    leg_basis<T>(s_tab, idx, r, gate, a.v, da.v);
+    s_a[lane] = a;
+    s_da[lane] = da;
+    s_ir[lane] = inv_r;
+    s_idx[lane] = idx;
+  }
+  __syncwarp();
+
+  // H[m, col] = sum_l A[m, l] G[l, col] over the <= 4 taps of row m
+  for (int i = lane; i < KMAX * wc; i += kWarp) {
+    const int m = i % KMAX;
+    if (m >= K || !((vmask >> m) & 1u)) continue;
+    const int col = i / KMAX;
+    const int l0 = s_idx[m] - w_lo;
+    const Quad<T> a = s_a[m], da = s_da[m];
     T h = T(0), h1 = T(0);
-    for (int l = 0; l < ww; ++l) {
-      const T g = gwin[l * wc + j];
-      h = h + sa[m * ww + l] * g;
-      h1 = h1 + sda[m * ww + l] * g;
-    }
-    sh[i] = h;
-    sh1[i] = h1;
-  }
-  __syncthreads();
-
-  // pair lanes p = m*K + n: third leg d[n] - d[m], H from row m, A from
-  // row n, accumulated over the live (b, c) blocks in (b, c) order
-  for (int p = tid; p < kk; p += blockDim.x) {
-    const int m = p / K, n = p - (p / K) * K;
-    const T dx = sd[3 * n] - sd[3 * m];
-    const T dy = sd[3 * n + 1] - sd[3 * m + 1];
-    const T dz = sd[3 * n + 2] - sd[3 * m + 2];
-    const T rmn2 = dx * dx + dy * dy + dz * dz;
-    const T rmn = sqrt(rmn2 > T(0) ? rmn2 : T(1));
-    const T pv = sval[m] * sval[n] * (rmn2 > T(1e-10) ? T(1) : T(0));
-    T cv[4], cdv[4];
-    const int cidx = leg_basis<T>(rmn, pv, leg_n, cv, cdv);
-    const T* hm = sh + m * wc;
-    const T* h1m = sh1 + m * wc;
-    T value = T(0), t1 = T(0), t3 = T(0);
-    for (int b = 0; b < ww; ++b) {
-      T db = T(0), d1b = T(0), d3b = T(0);
-      bool any = false;
-      for (int c = 0; c < cw; ++c) {
-        const int col = b * cw + c;
-        if (!slive[col]) continue;
-        any = true;
-        const int tap = c_lo + c - cidx;
-        const T cp = tap_of(cv, tap);
-        const T cdp = tap_of(cdv, tap);
-        if (with_energy) db = db + cp * hm[col];
-        d1b = d1b + cp * h1m[col];
-        d3b = d3b + cdp * hm[col];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int l = l0 + q;
+      if (l >= 0 && l < ww) {
+        const T g = s_g[l * wc + col];
+        h = h + a.v[q] * g;
+        h1 = h1 + da.v[q] * g;
       }
-      if (!any) continue;
-      const T bcol = sa[n * ww + b];
-      if (with_energy) value = value + bcol * db;
-      t1 = t1 + bcol * d1b;
-      t3 = t3 + bcol * d3b;
     }
-    st1[p] = t1;
-    sg3[p] = t3 / rmn;
-    sv[p] = value;
+    s_hh[i] = Pair<T>{h, h1};
   }
-  __syncthreads();
+  __syncwarp();
 
-  // per-slot reductions over n: S1 = w_m, S3' and V3'
-  for (int m = tid; m < K; m += blockDim.x) {
-    T w = T(0), s3 = T(0), vx = T(0), vy = T(0), vz = T(0), e = T(0);
-    for (int n = 0; n < K; ++n) {
-      const T g = sg3[m * K + n];
-      w = w + st1[m * K + n];
-      s3 = s3 + g;
-      vx = vx + g * sd[3 * n];
-      vy = vy + g * sd[3 * n + 1];
-      vz = vz + g * sd[3 * n + 2];
-      e = e + sv[m * K + n];
+  // pair lanes of row m: this thread's share of the valid n != m
+  const int m = lane % KMAX;
+  const bool row_ok = m < K && ((vmask >> m) & 1u);
+  unsigned mine = 0;
+  if (row_ok) {
+    unsigned bits = vmask & ~(1u << m);
+    for (int j = 0; bits; bits &= bits - 1, ++j)
+      if (j % TPR == lane / KMAX) mine |= bits & (0u - bits);
+  }
+  Quad<T> dm;
+  dm.v[0] = dm.v[1] = dm.v[2] = dm.v[3] = T(0);
+  if (row_ok) dm = s_d[m];
+  const int cwk = cw * KMAX;
+  T w = T(0), s3 = T(0), vx = T(0), vy = T(0), vz = T(0), e = T(0);
+  while (mine) {
+    const int n = __ffs(mine) - 1;
+    mine &= mine - 1;
+    const Quad<T> dn = s_d[n];
+    const T dx = dn.v[0] - dm.v[0];
+    const T dy = dn.v[1] - dm.v[1];
+    const T dz = dn.v[2] - dm.v[2];
+    const T rmn2 = dx * dx + dy * dy + dz * dz;
+    if (!(rmn2 > T(1e-10))) continue;
+    const T inv_r = rsqrt_t(rmn2);
+    const T rmn = rmn2 * inv_r;
+    if (!(rmn >= T(leg_n.t_min) && rmn <= T(leg_n.t_max))) continue;
+    const int cidx = leg_interval<T>(leg_n, rmn, rmn2, inv_r);
+    T cv[4], cdv[4];
+    leg_basis<T>(s_tab + lay.tab_n, cidx, rmn, T(1), cv, cdv);
+    int coff[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = cidx + q - c_lo;
+      const bool in = c >= 0 && c < cw;
+      cv[q] = in ? cv[q] : T(0);
+      cdv[q] = in ? cdv[q] : T(0);
+      coff[q] = (in ? c : 0) * KMAX + m;
     }
+    const Quad<T> an = s_a[n];
+    const int b0 = s_idx[n] - w_lo;
+    T t1 = T(0), t3 = T(0), value = T(0);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int b = b0 + p;
+      if (b < 0 || b >= ww) continue;
+      const Pair<T>* hb = s_hh + b * cwk;
+      T db = T(0), d1b = T(0), d3b = T(0);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const Pair<T> hh = hb[coff[q]];
+        if (ENERGY) db = db + cv[q] * hh.h;
+        d1b = d1b + cv[q] * hh.h1;
+        d3b = d3b + cdv[q] * hh.h;
+      }
+      if (ENERGY) value = value + an.v[p] * db;
+      t1 = t1 + an.v[p] * d1b;
+      t3 = t3 + an.v[p] * d3b;
+    }
+    const T g3 = t3 * inv_r;
+    w = w + t1;
+    s3 = s3 + g3;
+    vx = vx + g3 * dn.v[0];
+    vy = vy + g3 * dn.v[1];
+    vz = vz + g3 * dn.v[2];
+    if (ENERGY) e = e + value;
+  }
+#pragma unroll
+  for (int off = KMAX; off < kWarp; off <<= 1) {
+    w = w + __shfl_xor_sync(kFull, w, off);
+    s3 = s3 + __shfl_xor_sync(kFull, s3, off);
+    vx = vx + __shfl_xor_sync(kFull, vx, off);
+    vy = vy + __shfl_xor_sync(kFull, vy, off);
+    vz = vz + __shfl_xor_sync(kFull, vz, off);
+    if (ENERGY) e = e + __shfl_xor_sync(kFull, e, off);
+  }
+  const bool head = lane < KMAX;
+  if (head && m < K) {
     T* out = part + (atom * K + m) * 5;
     out[0] = w;
     out[1] = s3;
     out[2] = vx;
     out[3] = vy;
     out[4] = vz;
-    const T wr = w / sr[m];
-    sfc[3 * m] = wr * sd[3 * m];
-    sfc[3 * m + 1] = wr * sd[3 * m + 1];
-    sfc[3 * m + 2] = wr * sd[3 * m + 2];
-    serow[m] = e;
   }
-  __syncthreads();
-
-  if (tid == 0) {
-    T fx = T(0), fy = T(0), fz = T(0), e = T(0);
-    for (int m = 0; m < K; ++m) {
-      fx = fx + sfc[3 * m];
-      fy = fy + sfc[3 * m + 1];
-      fz = fz + sfc[3 * m + 2];
-      e = e + serow[m];
-    }
+  // center force sum_m w_m / r_m d_m and energy over the warp
+  const T wr = head && row_ok ? w * s_ir[m] : T(0);
+  T fx = wr * dm.v[0], fy = wr * dm.v[1], fz = wr * dm.v[2];
+  e = head ? e : T(0);
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1) {
+    fx = fx + __shfl_xor_sync(kFull, fx, off);
+    fy = fy + __shfl_xor_sync(kFull, fy, off);
+    fz = fz + __shfl_xor_sync(kFull, fz, off);
+    if (ENERGY) e = e + __shfl_xor_sync(kFull, e, off);
+  }
+  if (lane == 0) {
     fc[atom * 3] = fx;
     fc[atom * 3 + 1] = fy;
     fc[atom * 3 + 2] = fz;
@@ -255,57 +311,144 @@ __global__ void trio_partials_kernel(
   }
 }
 
-template <typename T>
-size_t smem_bytes(int K, int ww, int cw) {
-  const size_t n_t = 3 * K + K + K + 2 * K * ww + 2 * K * ww * cw
-                     + 3 * K * K + 3 * K + K;
-  return n_t * sizeof(T) + ww * cw * sizeof(int);
+struct Args {
+  const void* d;
+  const void* valid;
+  const void* gwin;
+  const void* tables;
+  void* energy;
+  void* fc;
+  void* part;
+  int n_atoms, K;
+  Leg leg_l, leg_n;
+  int w_lo, ww, c_lo, cw;
+  void* stream;
+};
+
+// Launch (occ == nullptr) or report the plan: occ = {atoms per block,
+// shared bytes per block, resident blocks per SM, registers per thread,
+// local (spill) bytes per thread}.
+template <typename T, int KMAX, bool ENERGY>
+int run(const Args& a, int* occ) {
+  Layout lay;
+  lay.n_tab = (a.leg_l.n_int + a.leg_n.n_int) * kTab;
+  lay.tab_n = a.leg_l.n_int * kTab;
+  lay.g_off = int(round32(size_t(lay.n_tab) * sizeof(T)));
+  lay.warp_off = lay.g_off
+                 + int(round32(size_t(a.ww) * a.ww * a.cw * sizeof(T)));
+  lay.hh_off = int(round32(KMAX * (13 * sizeof(T) + sizeof(int))));
+  lay.warp_bytes = lay.hh_off
+                   + int(round32(size_t(KMAX) * a.ww * a.cw * 2 * sizeof(T)));
+  int warps = kMaxWarps;
+  while (warps > 1
+         && size_t(lay.warp_off) + size_t(warps) * lay.warp_bytes
+                > kSmemLimit)
+    --warps;
+  const size_t smem = size_t(lay.warp_off) + size_t(warps) * lay.warp_bytes;
+  if (smem > kSmemLimit) return kErrSmem;
+  auto kernel = trio_kernel<T, KMAX, ENERGY>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return int(err);
+  }
+  if (occ != nullptr) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return int(err);
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, warps * kWarp, smem);
+    if (err != cudaSuccess) return int(err);
+    occ[0] = warps;
+    occ[1] = int(smem);
+    occ[2] = blocks;
+    occ[3] = attr.numRegs;
+    occ[4] = int(attr.localSizeBytes);
+    return 0;
+  }
+  if (a.n_atoms == 0) return 0;
+  const int grid = (a.n_atoms + warps - 1) / warps;
+  kernel<<<grid, warps * kWarp, smem, static_cast<cudaStream_t>(a.stream)>>>(
+      static_cast<const T*>(a.d), static_cast<const T*>(a.valid),
+      static_cast<const T*>(a.gwin), static_cast<const T*>(a.tables),
+      static_cast<T*>(a.energy), static_cast<T*>(a.fc),
+      static_cast<T*>(a.part), a.n_atoms, a.K, a.leg_l, a.leg_n, a.w_lo,
+      a.ww, a.c_lo, a.cw, lay);
+  return int(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* d, const void* valid, const void* gwin,
-           const void* live, void* energy, void* fc, void* part,
-           int n_atoms, int K, const double* legs, const int* ints,
-           int w_lo, int ww, int c_lo, int cw, int with_energy,
-           void* stream) {
-  if (n_atoms == 0) return 0;
-  Leg leg_l{ints[0], legs[0], legs[1], ints[1], legs[2], legs[3]};
-  Leg leg_n{ints[2], legs[4], legs[5], ints[3], legs[6], legs[7]};
-  const size_t smem = smem_bytes<T>(K, ww, cw);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        trio_partials_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(smem));
-    if (err != cudaSuccess) return int(err);
-  }
-  trio_partials_kernel<T><<<n_atoms, K * K, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(d), static_cast<const T*>(valid),
-      static_cast<const T*>(gwin), static_cast<const uint8_t*>(live),
-      static_cast<T*>(energy), static_cast<T*>(fc), static_cast<T*>(part),
-      K, leg_l, leg_n, w_lo, ww, c_lo, cw, with_energy);
-  return int(cudaGetLastError());
+int dispatch(const Args& a, int with_energy, int* occ) {
+  if (a.K > 32) return int(cudaErrorInvalidValue);
+  if (a.K <= 16)
+    return with_energy ? run<T, 16, true>(a, occ) : run<T, 16, false>(a, occ);
+  return with_energy ? run<T, 32, true>(a, occ) : run<T, 32, false>(a, occ);
+}
+
+Args make_args(const void* d, const void* valid, const void* gwin,
+               const void* tables, void* energy, void* fc, void* part,
+               int n_atoms, int K, const double* legs, const int* ints,
+               int w_lo, int ww, int c_lo, int cw, void* stream) {
+  Args a;
+  a.d = d;
+  a.valid = valid;
+  a.gwin = gwin;
+  a.tables = tables;
+  a.energy = energy;
+  a.fc = fc;
+  a.part = part;
+  a.n_atoms = n_atoms;
+  a.K = K;
+  a.leg_l = Leg{ints[0], ints[1], legs[0], legs[1], legs[2], legs[3]};
+  a.leg_n = Leg{ints[2], ints[3], legs[4], legs[5], legs[6], legs[7]};
+  a.w_lo = w_lo;
+  a.ww = ww;
+  a.c_lo = c_lo;
+  a.cw = cw;
+  a.stream = stream;
+  return a;
 }
 
 }  // namespace
 
-// legs: (u0, h, t_min, t_max) of the first legs, then of the third leg;
-// ints: (kind, n_int) of the first legs, then of the third leg.
-// Returns cudaGetLastError() after the launch (0 on success).
+// legs: (u0, 1/h, t_min, t_max) of the first legs, then of the third
+// leg; ints: (kind, n_int) of the first legs, then of the third leg;
+// tables: the first legs' (n_int, 20) Horner rows, then the third
+// leg's.  Returns cudaGetLastError() after the launch (0 on success),
+// or -1 when one warp's shared memory for this K and window exceeds
+// 227 KB.
 extern "C" int uf3_trio_partials_f32(
-    const void* d, const void* valid, const void* gwin, const void* live,
+    const void* d, const void* valid, const void* gwin, const void* tables,
     void* energy, void* fc, void* part, int n_atoms, int K,
     const double* legs, const int* ints, int w_lo, int ww, int c_lo, int cw,
     int with_energy, void* stream) {
-  return launch<float>(d, valid, gwin, live, energy, fc, part, n_atoms, K,
-                       legs, ints, w_lo, ww, c_lo, cw, with_energy, stream);
+  return dispatch<float>(make_args(d, valid, gwin, tables, energy, fc, part,
+                                   n_atoms, K, legs, ints, w_lo, ww, c_lo,
+                                   cw, stream),
+                         with_energy, nullptr);
 }
 
 extern "C" int uf3_trio_partials_f64(
-    const void* d, const void* valid, const void* gwin, const void* live,
+    const void* d, const void* valid, const void* gwin, const void* tables,
     void* energy, void* fc, void* part, int n_atoms, int K,
     const double* legs, const int* ints, int w_lo, int ww, int c_lo, int cw,
     int with_energy, void* stream) {
-  return launch<double>(d, valid, gwin, live, energy, fc, part, n_atoms, K,
-                        legs, ints, w_lo, ww, c_lo, cw, with_energy, stream);
+  return dispatch<double>(make_args(d, valid, gwin, tables, energy, fc,
+                                    part, n_atoms, K, legs, ints, w_lo, ww,
+                                    c_lo, cw, stream),
+                          with_energy, nullptr);
+}
+
+// The launch plan of the kernel that uf3_trio_partials_{f32,f64} would
+// run for these sizes: out = {atoms per block, shared bytes per block,
+// resident blocks per SM, registers per thread, local bytes per thread}.
+extern "C" int uf3_trio_occupancy(int is_f64, int K, const int* ints, int ww,
+                                  int cw, int with_energy, int* out) {
+  const double legs[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  const Args a = make_args(nullptr, nullptr, nullptr, nullptr, nullptr,
+                           nullptr, nullptr, 0, K, legs, ints, 0, ww, 0, cw,
+                           nullptr);
+  return is_f64 ? dispatch<double>(a, with_energy, out)
+                : dispatch<float>(a, with_energy, out);
 }

@@ -21,9 +21,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from uf3_tpu.data import elements
-from uf3_tpu.data.atoms import Atoms
-from uf3_tpu.forcefield import units
+from uf3_tpu_torch.data import elements
+from uf3_tpu_torch.data.atoms import Atoms
+from uf3_tpu_torch.forcefield import units
 from uf3_tpu_torch.ops import neighbors as nb
 from uf3_tpu_torch.ops.pair import pair_short_forces, pair_tail_forces
 from uf3_tpu_torch.ops.potential import UF3Potential
@@ -35,6 +35,18 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to uf3_tpu_torch yet (ROADMAP.md, modules "
         f"still to port: {item})")
+
+
+def _resolve_device(device) -> torch.device:
+    """The requested device, or the current CUDA card when none is
+    named; never the CPU unless asked for."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("MDSystem runs on the CUDA card by default and "
+                           "this host has none; pass device=\"cpu\" to run "
+                           "the plain torch version on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 class MDState(NamedTuple):
@@ -55,7 +67,11 @@ class MDState(NamedTuple):
 class MDSystem:
     """Binds a fitted potential to a configuration for device MD.
 
-    ``model`` is a ``UF3Potential`` or the path of a model JSON."""
+    ``model`` is a ``UF3Potential`` or the path of a model JSON;
+    ``atoms`` any object with the reader methods of
+    ``uf3_tpu_torch.data.atoms.Atoms``.  ``device`` defaults to the
+    CUDA card and raises where there is none: a CPU run (the plain torch
+    twins of the kernels) passes ``device="cpu"``."""
 
     def __init__(self, model, atoms: Atoms, dtype=torch.float32,
                  capacity_2b: int = None, capacity_3b: int = None,
@@ -65,8 +81,8 @@ class MDSystem:
                  fused: str = "shared", trio_triangle: bool = False,
                  eager_refilter: bool = True,
                  static_rebuild: bool = False,
-                 masses: np.ndarray = None, device="cpu"):
-        self.device = torch.device(device)
+                 masses: np.ndarray = None, device=None):
+        self.device = _resolve_device(device)
         self.dtype = dtype
         if isinstance(model, UF3Potential):
             model = copy.deepcopy(model)

@@ -11,9 +11,9 @@ from typing import Dict, NamedTuple
 
 import numpy as np
 
-from uf3_tpu.data import composition
-from uf3_tpu.representation.basis import BSplineBasis
-from uf3_tpu.util import json_io
+from uf3_tpu_torch.data import composition
+from uf3_tpu_torch.representation.basis import BSplineBasis
+from uf3_tpu_torch.util import json_io
 
 
 class FittedModel(NamedTuple):

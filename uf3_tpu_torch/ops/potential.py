@@ -16,10 +16,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from uf3_tpu.data import elements
 from uf3_tpu_torch import io
+from uf3_tpu_torch.data import elements
 from uf3_tpu_torch.ops.splines import (LINEAR, LegSpec,
-                                       cardinal_coefficients,
+                                       cardinal_coefficients, horner_table,
                                        leg_spec_from_knots)
 
 
@@ -118,8 +118,9 @@ class UF3Potential(nn.Module):
     """Unary 2+3-body UF3 potential with closed-form knots.
 
     Buffers: ``pair_coefficients`` (n_basis_pair,), ``grid`` (L, L, NC)
-    with its live ``grid_window`` (Ww, Ww, Cw) and block mask ``live``
-    (Ww, Cw), ``offsets_1b`` (S,) and the int64 ``z_to_species`` map.
+    with its live ``grid_window`` (Ww, Ww, Cw), the trio legs' Horner
+    ``leg_tables`` (n_int_l + n_int_n, 20), ``offsets_1b`` (S,) and the
+    int64 ``z_to_species`` map.
     Static attributes: ``pair_spec``, ``trio`` (a TrioBundle whose
     ``grid`` is the float64 numpy source), ``r_cut_2b``, ``r_cut_3b``."""
 
@@ -138,15 +139,14 @@ class UF3Potential(nn.Module):
 
         self.register_buffer("pair_coefficients", buf(pair_coefficients))
         self.register_buffer("grid", buf(trio.grid))
-        # trio kernel operands: the live window of the grid and the
-        # (Ww, Cw) mask of its live (b, c) blocks
+        # trio kernel operands: the live window of the grid (dead (b, c)
+        # blocks in it are exact zeros) and the Horner tables of the
+        # first leg's intervals, then the third leg's
         w_lo, w_hi, c_lo, c_hi = trio.window
-        live = np.zeros((w_hi - w_lo, c_hi - c_lo), dtype=np.uint8)
-        for b, cs in trio.active_bc:
-            live[b - w_lo, [c - c_lo for c in cs]] = 1
         self.register_buffer("grid_window", buf(np.ascontiguousarray(
             trio.grid[w_lo:w_hi, w_lo:w_hi, c_lo:c_hi])))
-        self.register_buffer("live", buf(live, torch.uint8))
+        self.register_buffer("leg_tables", buf(np.concatenate(
+            [horner_table(trio.spec_l), horner_table(trio.spec_n)])))
         self.register_buffer("offsets_1b", buf(offsets_1b))
         self.register_buffer("z_to_species",
                              buf(z_to_species, torch.int64))

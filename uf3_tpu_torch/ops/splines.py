@@ -15,7 +15,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from uf3_tpu.representation import splines as sp
+from uf3_tpu_torch.representation import splines as sp
 
 LINEAR, LAMMPS, GEOMETRIC, INVERSE = 0, 1, 2, 3
 
@@ -63,6 +63,29 @@ def basis_monomial_table(knot_sequence: np.ndarray) -> np.ndarray:
                                      idx=np.full(4, i, dtype=np.int64))
         beta[i] = (vander_inv @ values).T  # (tap, power)
     return beta
+
+
+HORNER_WIDTH = 20  # entries per interval row of ``horner_table``
+
+
+def horner_table(spec: LegSpec) -> np.ndarray:
+    """(n_int, 20) per-interval cubic coefficients of the 4 non-zero
+    basis functions of a closed-form leg, for evaluation by Horner
+    without division.  Row i, in groups of 4 (one vector load each):
+    [t_i, 1 / (t_{i+1} - t_i), 0, 0], then beta[tap, 0:4] for taps
+    0..3, where B_{i + tap}(r) = sum_p beta[tap, p] u^p on
+    u = (r - t_i) / (t_{i+1} - t_i), so that d/dr B_{i + tap}(r) =
+    sum_p p beta[tap, p] u^(p-1) / (t_{i+1} - t_i)."""
+    pts = _knot_value(spec, torch.arange(spec.n_int + 1),
+                      torch.float64).numpy()
+    seq = np.concatenate([[pts[0]] * 3, pts, [pts[-1]] * 3])
+    beta = basis_monomial_table(seq)                   # (n_int, tap, p)
+    inv_w = 1.0 / np.diff(pts)
+    table = np.zeros((spec.n_int, HORNER_WIDTH))
+    table[:, 0] = pts[:-1]
+    table[:, 1] = inv_w
+    table[:, 4:20] = beta.reshape(spec.n_int, 16)
+    return table
 
 
 def cardinal_coefficients(knot_sequence, coefficients):

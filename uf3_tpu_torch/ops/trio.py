@@ -85,12 +85,28 @@ def trio_partials_torch(d, valid, grid, trio: TrioBundle,
     return energy, f_center, torch.stack([w_m, s3] + v3, dim=-1)
 
 
+MAX_SLOTS = 32  # the trio kernel runs one warp per atom
+
+
+def _leg_args(trio: TrioBundle):
+    """The kernel's leg arguments: (u0, 1/h, t_min, t_max) of the first
+    legs then of the third leg as doubles, (kind, n_int) of each as
+    ints."""
+    specs = (trio.spec_l, trio.spec_n)
+    legs = (ctypes.c_double * 8)(*[x for s in specs
+                                   for x in (s.u0, 1.0 / s.h, s.t_min,
+                                             s.t_max)])
+    ints = (ctypes.c_int * 4)(*[x for s in specs for x in (s.kind, s.n_int)])
+    return legs, ints
+
+
 def trio_partials(potential: UF3Potential, d, valid,
                   with_energy: bool = True):
     """Energy (N,), center force (N, 3) and slot partials (N, K, 5) of
-    the trio term.  A CUDA tensor runs the hand-written kernel
-    (``csrc/trio.cu``) or raises; a CPU tensor runs the torch twin.
-    ``trio_partials.launches`` counts kernel launches."""
+    the trio term; ``valid`` is the (N, K) slot mask (0 or 1).  A CUDA
+    tensor runs the hand-written kernel (``csrc/trio.cu``) or raises; a
+    CPU tensor runs the torch twin.  ``trio_partials.launches`` counts
+    kernel launches."""
     trio = potential.trio
     if d.device.type == "cpu":
         return trio_partials_torch(d, valid, potential.grid, trio,
@@ -102,19 +118,18 @@ def trio_partials(potential: UF3Potential, d, valid,
     if d.shape[2:] != (3,) or tuple(valid.shape) != (n_atoms, k):
         raise ValueError(f"bad shapes d {tuple(d.shape)}, "
                          f"valid {tuple(valid.shape)}")
-    if k * k > 1024:
-        raise ValueError(f"capacity {k}: the trio kernel runs one thread "
-                         "per pair lane, at most 1024 (K <= 32)")
+    if k > MAX_SLOTS:
+        raise ValueError(f"capacity {k}: the trio kernel takes K <= "
+                         f"{MAX_SLOTS} slots (one warp per atom)")
     if dtype not in (torch.float32, torch.float64) or d.dtype != dtype \
             or valid.dtype != dtype:
         raise TypeError(f"trio kernel takes float32 or float64 matching "
                         f"the potential ({dtype}); got d {d.dtype}, "
                         f"valid {valid.dtype}")
-    for t in (potential.grid_window, potential.live, valid):
+    for t in (potential.grid_window, potential.leg_tables, valid):
         if t.device != d.device:
             raise ValueError("trio kernel operands on different devices")
-    spec_l, spec_n = trio.spec_l, trio.spec_n
-    for spec in (spec_l, spec_n):
+    for spec in (trio.spec_l, trio.spec_n):
         if spec.cardinal or spec.knots is not None:
             raise ValueError("trio kernel legs take closed-form knots "
                              "in the clamped basis")
@@ -124,11 +139,7 @@ def trio_partials(potential: UF3Potential, d, valid,
     energy = torch.empty(n_atoms, dtype=dtype, device=d.device)
     f_center = torch.empty((n_atoms, 3), dtype=dtype, device=d.device)
     part = torch.empty((n_atoms, k, 5), dtype=dtype, device=d.device)
-    legs = (ctypes.c_double * 8)(spec_l.u0, spec_l.h, spec_l.t_min,
-                                 spec_l.t_max, spec_n.u0, spec_n.h,
-                                 spec_n.t_min, spec_n.t_max)
-    ints = (ctypes.c_int * 4)(spec_l.kind, spec_l.n_int, spec_n.kind,
-                              spec_n.n_int)
+    legs, ints = _leg_args(trio)
     lib = _build.library()
     fn = lib.uf3_trio_partials_f32 if dtype == torch.float32 \
         else lib.uf3_trio_partials_f64
@@ -136,17 +147,46 @@ def trio_partials(potential: UF3Potential, d, valid,
         stream = torch.cuda.current_stream(d.device).cuda_stream
         err = fn(d.data_ptr(), valid.data_ptr(),
                  potential.grid_window.data_ptr(),
-                 potential.live.data_ptr(), energy.data_ptr(),
+                 potential.leg_tables.data_ptr(), energy.data_ptr(),
                  f_center.data_ptr(), part.data_ptr(), n_atoms, k,
                  legs, ints, w_lo, w_hi - w_lo, c_lo, c_hi - c_lo,
                  int(bool(with_energy)), stream)
-    if err != 0:
-        raise RuntimeError(f"trio kernel launch failed: CUDA error {err}")
+    _check(err, k, trio)
     trio_partials.launches += 1
     return energy, f_center, part
 
 
 trio_partials.launches = 0
+
+
+def _check(err: int, k: int, trio: TrioBundle):
+    if err == -1:
+        w_lo, w_hi, c_lo, c_hi = trio.window
+        raise ValueError(f"trio kernel: one warp's shared memory for K={k} "
+                         f"and a {w_hi - w_lo} x {c_hi - c_lo} grid window "
+                         "exceeds the 227 KB a block may hold")
+    if err != 0:
+        raise RuntimeError(f"trio kernel launch failed: CUDA error {err}")
+
+
+def trio_occupancy(potential: UF3Potential, k: int,
+                   with_energy: bool = False) -> dict:
+    """The launch plan of the trio kernel for this potential, its dtype
+    and K slots, from the CUDA runtime: atoms (warps) per block, shared
+    bytes per block, resident blocks and warps per SM, registers and
+    local (spill) bytes per thread."""
+    trio = potential.trio
+    w_lo, w_hi, c_lo, c_hi = trio.window
+    _, ints = _leg_args(trio)
+    out = (ctypes.c_int * 5)()
+    err = _build.library().uf3_trio_occupancy(
+        int(potential.grid_window.dtype == torch.float64), k, ints,
+        w_hi - w_lo, c_hi - c_lo, int(bool(with_energy)), out)
+    _check(err, k, trio)
+    return dict(atoms_per_block=out[0], smem_bytes=out[1],
+                blocks_per_sm=out[2], warps_per_sm=out[2] * out[0],
+                registers=out[3], local_bytes=out[4])
+
 
 
 def assemble_forces(energy, f_center, part, d, rev_flat, mask):

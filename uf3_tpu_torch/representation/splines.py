@@ -1,0 +1,74 @@
+"""
+Cubic B-spline basis values on the host (numpy, float64): the 4
+non-zero basis functions at each point by the Cox-de Boor recursion.
+
+Copy of ``find_spline_indices`` and ``deboor_values`` from
+``uf3_tpu/representation/splines.py``.
+"""
+
+from typing import Tuple
+
+import numpy as np
+
+
+def find_spline_indices(points: np.ndarray,
+                        knot_sequence: np.ndarray,
+                        clip: bool = True) -> np.ndarray:
+    """Index of the first non-zero basis function at each point:
+    ``searchsorted(knots, r, 'left') - 4``, clamped into the valid range
+    with ``clip``."""
+    points = np.asarray(points)
+    idx = np.searchsorted(knot_sequence, points, side="left") - 4
+    if clip:
+        n_splines = len(knot_sequence) - 4
+        idx = np.clip(idx, 0, n_splines - 4)
+    return idx
+
+
+def deboor_values(points: np.ndarray,
+                  knot_sequence: np.ndarray,
+                  idx: np.ndarray = None,
+                  nu: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Values (or nu-th derivatives, nu <= 2) of the 4 non-zero cubic
+    basis functions at each point: (n, 4) with column t = B_{idx + t},
+    and the (n,) first non-zero basis index per point."""
+    t = np.asarray(knot_sequence, dtype=np.float64)
+    r = np.asarray(points, dtype=np.float64)
+    if idx is None:
+        idx = find_spline_indices(r, t)
+    j = idx
+
+    def safe_div(num, den):
+        out = np.zeros_like(num)
+        np.divide(num, den, out=out, where=(den != 0))
+        return out
+
+    tk = t[j[:, None] + np.arange(8)[None, :]]  # knots t[j] .. t[j+7]
+    # degree 0: local position 3 is the interval's characteristic function
+    b = np.zeros((len(r), 4))
+    b[:, 3] = 1.0
+    max_degree = 3 - nu if nu > 0 else 3
+    for k in range(1, max_degree + 1):
+        new = np.zeros_like(b)
+        for p in range(3 - k, 4):
+            term = safe_div(r - tk[:, p], tk[:, p + k] - tk[:, p]) * b[:, p]
+            if p + 1 <= 3:
+                term = term + safe_div(tk[:, p + k + 1] - r,
+                                       tk[:, p + k + 1] - tk[:, p + 1]) \
+                    * b[:, p + 1]
+            new[:, p] = term
+        b = new
+    if nu == 0:
+        return b, idx
+    # derivative: d/dr B^k_i = k (B^{k-1}_i / (t_{i+k} - t_i)
+    #                             - B^{k-1}_{i+1} / (t_{i+k+1} - t_{i+1}))
+    for k in range(max_degree + 1, 4):
+        new = np.zeros_like(b)
+        for p in range(3 - k, 4):
+            term = k * safe_div(b[:, p], tk[:, p + k] - tk[:, p])
+            if p + 1 <= 3:
+                term = term - k * safe_div(b[:, p + 1],
+                                           tk[:, p + k + 1] - tk[:, p + 1])
+            new[:, p] = term
+        b = new
+    return b, idx

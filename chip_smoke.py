@@ -1,10 +1,13 @@
 """
 Smoke run of uf3_tpu_torch on one NVIDIA GPU: builds the CUDA kernels
 from the sources in this checkout (no register spills allowed), holds
-each against its plain torch twin, then drives the MD engine at the
-benchmark configuration (2+3-body W, 9,826 atoms, float32, 3-level
-r-RESPA 12/6/36, Langevin at 300 K, 2 fs) through the trio kernel, and
-times the step's layers.
+each against its plain torch twin at the shapes of every MD path, then
+drives the MD engine through the trio kernel on four paths at the bench
+model's full width (2+3-body W, 9,826 atoms, float32, Langevin at
+300 K, 2 fs): 3-level r-RESPA 12/6/36 (the benchmark configuration),
+plain velocity Verlet with the engine's defaults (and an NVE energy
+drift check), 2-level r-RESPA 12/36; then the small and non-periodic
+cells against the CPU, and the ``md`` command as a user runs it.
 
     python3 chip_smoke.py
 
@@ -16,6 +19,7 @@ kernels' launch counts, errors, times and bounds; the last line is
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -31,8 +35,8 @@ from uf3_tpu_torch.forcefield.md import MDSystem  # noqa: E402
 from uf3_tpu_torch.ops import _build  # noqa: E402
 from uf3_tpu_torch.ops import neighbors as nb  # noqa: E402
 from uf3_tpu_torch.ops import trio  # noqa: E402
-from uf3_tpu_torch.ops.pair import (pair_short_forces,  # noqa: E402
-                                    pair_tail_forces)
+from uf3_tpu_torch.ops.pair import (pair_row_forces,  # noqa: E402
+                                    pair_short_forces, pair_tail_forces)
 from uf3_tpu_torch.ops.potential import (UF3Potential,  # noqa: E402
                                          grid_sparsity)
 from uf3_tpu_torch.ops.splines import _leg_interval  # noqa: E402
@@ -45,6 +49,7 @@ F64_TOL = 1e-10   # same arithmetic, another summation order
 FORCE_TOL = 2e-4  # eV/A, f32 vs f64 (tests/test_tpu_numerics.py)
 WINDOW_STEPS = 720  # per timed window, as bench.py
 T_TARGET, T_BAND = 300.0, 30.0
+NVE_DRIFT = 2e-4  # eV/atom over 720 steps (the criterion in ROADMAP.md)
 # NVIDIA H100 SXM peaks (data sheet): float32 outside the tensor cores,
 # HBM3 bandwidth
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -148,7 +153,7 @@ def graph_ms(fn, repeats=20, replays=10):
 
 
 def max_err(a, b) -> float:
-    return float(torch.max(torch.abs(a.double() - b.double())))
+    return float(torch.max(torch.abs(a.double().cpu() - b.double().cpu())))
 
 
 def trio_bound(pot: UF3Potential, d, valid, with_energy: bool):
@@ -197,25 +202,31 @@ def trio_bound(pot: UF3Potential, d, valid, with_energy: bool):
 
 
 def compare_trio(device):
-    """Kernel vs twin on the engine's 3-body rows: the bench grid and a
-    random non-symmetric one, 1,024 (rattled) and 9,826 atoms, with and
-    without energy.  Returns the record of the main path's shape."""
+    """Kernel vs twin on the engines' 3-body rows: the bench grid and a
+    random non-symmetric one, with and without energy, on the bench
+    lists (16 slots) of 1,024 (rattled) and 9,826 atoms and on the
+    one-tier default list of 9,826 atoms (23 slots: the KMAX = 32
+    instance the plain Verlet path runs).  Returns the records of the
+    9,826-atom shapes by slot count."""
     base = UF3Potential.from_json(MODEL)
     rng = np.random.RandomState(17)
     random_grid = rng.normal(0.0, 0.05, base.trio.grid.shape) \
         * (base.trio.grid != 0.0)
     assert not np.array_equal(random_grid, random_grid.transpose(1, 0, 2))
     grids = {"bench": base, "random": with_grid(base, random_grid)}
-    record = None
-    for reps, rattle in (((8, 8, 8), 0.05), ((17, 17, 17), None)):
+    records = {}
+    for reps, rattle, engine in (((8, 8, 8), 0.05, BENCH),
+                                 ((17, 17, 17), None, BENCH),
+                                 ((17, 17, 17), None, {})):
         geom = bench_geometry(reps, rattle)
         system = MDSystem(base, geom, dtype=torch.float64, device=device,
-                          **BENCH)
+                          **engine)
         state = system.init_state(temperature=T_TARGET, seed=0)
         nbr = state.nbr3
         cache = nb.list_cache(nbr, system.cell, torch.float64)
         d64 = nb.cached_displacements(state.positions, nbr, cache)
         v64 = cache.valid
+        k = d64.shape[1]
         for name, pot64 in grids.items():
             pot64 = pot64.to(device)
             pot32 = with_grid(pot64, pot64.trio.grid).to(
@@ -240,7 +251,7 @@ def compare_trio(device):
                     pot32, d32, v32, with_energy))
                 twin_ms = cuda_ms(lambda: trio.trio_partials_torch(
                     d32, v32, pot32.grid, pot32.trio, with_energy), 5)
-                print(f"trio {name:6s} N={len(geom):5d} "
+                print(f"trio {name:6s} N={len(geom):5d} K={k} "
                       f"energy={with_energy!s:5s} f64 max err "
                       f"{err64:.3e} (<= {F64_TOL:g}), f32 max |dF| "
                       f"{err32:.3e} eV/A (<= {FORCE_TOL:g}); f32 kernel "
@@ -253,21 +264,23 @@ def compare_trio(device):
                         and not with_energy:
                     bound_ms, bound_by, flop, n_bytes = trio_bound(
                         pot32, d32, v32, with_energy)
-                    occ = trio.trio_occupancy(pot32, d32.shape[1],
-                                              with_energy)
-                    print(f"trio bound at the bench shape: {flop:.4g} flop,"
-                          f" {n_bytes:.4g} bytes -> {bound_ms:.5f} ms "
+                    occ = trio.trio_occupancy(pot32, k, with_energy)
+                    print(f"trio bound at N=9826, K={k}: {flop:.4g} flop, "
+                          f"{n_bytes:.4g} bytes -> {bound_ms:.5f} ms "
                           f"({bound_by}); kernel reaches "
                           f"{100 * bound_ms / kernel_ms:.1f}% of it")
-                    print(f"trio launch plan (f32, K={d32.shape[1]}): {occ}")
-                    record = dict(max_abs_err=err32, ms=kernel_ms,
-                                  plain_ms=twin_ms, bound_ms=bound_ms,
-                                  bound_by=bound_by, library_ms=None,
-                                  registers=occ["registers"],
-                                  warps_per_sm=occ["warps_per_sm"])
-    print("trio launch plan (f64, K=16): "
-          f"{trio.trio_occupancy(grids['bench'], 16)}")
-    return record
+                    print(f"trio launch plan (f32, K={k}): {occ}")
+                    records[f"K{k}"] = dict(
+                        max_abs_err=err32, ms=kernel_ms, plain_ms=twin_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=None, registers=occ["registers"],
+                        warps_per_sm=occ["warps_per_sm"])
+    for k in (16, 32):
+        print(f"trio launch plan (f64, KMAX={k}): "
+              f"{trio.trio_occupancy(grids['bench'], k)}")
+    if sorted(records) != ["K16", "K23"]:
+        raise AssertionError(f"unexpected 3-body slot counts {records}")
+    return records
 
 
 def host_ms(fn, repeats=30):
@@ -318,50 +331,104 @@ def layer_times(system: MDSystem, state):
               "per step")
 
 
-def run_main_path(device):
-    """The benchmark configuration, 144 warm-up steps and three timed
-    windows; returns (launches, atom-steps/s, stale)."""
-    trio.trio_partials.launches = 0
+def layer_times_plain(system: MDSystem, state):
+    """Per-call host times of the plain Verlet step's layers, and the
+    device time of its whole force evaluation by graph replay: a host
+    time far above the device time says the step waits on the host."""
+    pot, cell, x = system.potential, state.cell, state.positions
+    cache2 = nb.list_cache(state.nbr2, cell, system.dtype)
+    cache3 = nb.list_cache(state.nbr3, cell, system.dtype)
+    k2, k3 = state.nbr2.idx.shape[1], state.nbr3.idx.shape[1]
+    spec = pot.pair_spec
+    d2 = nb.cached_displacements(x, state.nbr2, cache2)
+    d3 = torch.gather(d2, 1, state.nbr3.sel[:, :, None].expand(-1, -1, 3))
+
+    def force():
+        return system.energy_forces(x, state.nbr2, state.nbr3, cell=cell,
+                                    with_energy=False, cache2=cache2,
+                                    cache3=cache3)
+
+    layers = {
+        f"pair gather, (N, {k2}) rows": lambda: nb.cached_displacements(
+            x, state.nbr2, cache2),
+        f"pair forces on the (N, {k2}) rows": lambda: pair_row_forces(
+            pot.pair_coefficients, d2, cache2.valid, spec, spec.n_basis,
+            False),
+        f"trio on (N, {k3}) rows selected from them: select + kernel + "
+        "assembly": lambda: trio.trio_forces(
+            pot, x, cell, state.nbr3, False, cache3=cache3,
+            d=torch.gather(d2, 1, state.nbr3.sel[:, :, None].expand(
+                -1, -1, 3))),
+        "trio: kernel only": lambda: trio.trio_partials(
+            pot, d3, cache3.valid, False),
+        "staleness trigger (needs_rebuild)": lambda: nb.needs_rebuild(
+            state.nbr2, x, system.skin_2b),
+        "full force (energy_forces, no energy)": force,
+    }
+    for name, fn in layers.items():
+        print(f"layer plain {name}: {host_ms(fn):.4f} ms per call (host)")
+    print("layer plain full force on the device (graph replay): "
+          f"{graph_ms(force):.4f} ms per call")
+
+
+def drive(system: MDSystem, state, steps, **run_kw):
+    """Run ``steps`` steps and wait for the card; returns (state,
+    seconds)."""
+    t0 = time.perf_counter()
+    state = system.run(state, n_steps=steps, **run_kw)
+    torch.cuda.synchronize()
+    return state, time.perf_counter() - t0
+
+
+def run_path(name, device, engine, run_kw):
+    """One MD path at 9,826 atoms in float32 under Langevin: set-up, a
+    144-step warm-up and three timed windows, with the trio launches
+    counted from 0 over them.  Returns (system, state, launches,
+    atom-steps/s, temperatures, stale)."""
     geom = bench_geometry((17, 17, 17))
-    n_atoms = len(geom)
+    trio.trio_partials.launches = 0
     t0 = time.perf_counter()
     system = MDSystem(MODEL, geom, dtype=torch.float32, device=device,
-                      **BENCH)
+                      **engine)
     state = system.init_state(temperature=T_TARGET, seed=0)
-    run_kw = dict(dt_fs=2.0, thermostat="langevin",
-                  temperature=T_TARGET, launch_chunks=10)
-    state = system.run(state, n_steps=144, **run_kw)
-    torch.cuda.synchronize()
-    print(f"main path set-up + 144-step warm-up: "
-          f"{time.perf_counter() - t0:.2f} s")
+    state, _ = drive(system, state, 144, **run_kw)
+    print(f"{name}: set-up + 144-step warm-up "
+          f"{time.perf_counter() - t0:.2f} s (capacities "
+          f"{system.capacity_2b}/{system.capacity_3b})")
     times, temps = [], []
     stale = False
     for _ in range(3):
-        t0 = time.perf_counter()
-        state = system.run(state, n_steps=WINDOW_STEPS, **run_kw)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+        state, seconds = drive(system, state, WINDOW_STEPS, **run_kw)
+        times.append(seconds)
         temps.append(system.temperature(state))
         stale = stale or bool(state.stale)
     launches = trio.trio_partials.launches
-    layer_times(system, state)
-    elapsed = sorted(times)[1]
-    rate = n_atoms * WINDOW_STEPS / elapsed
-    print(f"windows (s): {[round(t, 4) for t in times]}, "
-          f"T (K): {[round(t, 2) for t in temps]}")
-    # the carried r-RESPA forces must equal a fresh full evaluation,
-    # in f32 and against float64 on the same positions
+    rate = len(geom) * WINDOW_STEPS / sorted(times)[1]
+    print(f"{name}: windows (s) {[round(t, 4) for t in times]}, "
+          f"T (K) {[round(t, 2) for t in temps]}")
+    return system, state, launches, rate, temps, stale
+
+
+def check_path(name, system: MDSystem, state, launches, temps,
+               split: bool):
+    """The gates of one MD path on its final state: no overflow, finite
+    state, trio launches, mean T, forces (carried split forces against a
+    fresh evaluation for r-RESPA) and energy against float64."""
     energy, forces = system.energy_forces(state.positions, state.nbr2,
                                           state.nbr3, cell=state.cell)
-    system64 = MDSystem(MODEL, geom, dtype=torch.float64, device=device,
-                        **BENCH)
+    engine = dict(skin=system.skin, skin_2b=system.skin_2b,
+                  capacity_2b=system.capacity_2b,
+                  capacity_3b=system.capacity_3b,
+                  rebuild_every=system.rebuild_every)
+    system64 = MDSystem(MODEL, bench_geometry((17, 17, 17)),
+                        dtype=torch.float64, device=system.device, **engine)
     e64, f64 = system64.energy_forces(state.positions.double(),
                                       state.nbr2, state.nbr3,
                                       cell=state.cell.double())
     split_err = max_err(state.forces, forces)
     f64_err = max_err(forces, f64)
-    print(f"final state: E = {float(state.energy):.6f} eV, fresh "
-          f"{float(energy):.6f} (f64 {float(e64):.6f}); max |F_split - "
+    print(f"{name}: final E = {float(state.energy):.6f} eV, fresh "
+          f"{float(energy):.6f} (f64 {float(e64):.6f}); max |F_state - "
           f"F_fresh| {split_err:.3e}, max |F_f32 - F_f64| {f64_err:.3e} "
           "eV/A")
     checks = {
@@ -370,19 +437,108 @@ def run_main_path(device):
             torch.isfinite(state.energy)
             and torch.isfinite(state.forces).all()
             and torch.isfinite(state.positions).all()),
-        "trio kernel launched on the main path": launches > 0,
+        "trio kernel launched on this path": launches > 0,
         f"mean T within {T_TARGET:g} +- {T_BAND:g} K":
             abs(np.mean(temps) - T_TARGET) <= T_BAND,
-        "split forces match a fresh evaluation": split_err <= FORCE_TOL,
         "f32 forces match f64": f64_err <= FORCE_TOL,
         "energy matches f64": abs(float(energy) - float(e64))
             <= 1e-6 * abs(float(e64)),
     }
-    for name, ok in checks.items():
-        print(f"check {name}: {'ok' if ok else 'FAILED'}")
+    if split:
+        checks["split forces match a fresh evaluation"] = \
+            split_err <= FORCE_TOL
+    for check, ok in checks.items():
+        print(f"check {name} {check}: {'ok' if ok else 'FAILED'}")
     if not all(checks.values()):
-        raise AssertionError("main path checks failed")
-    return launches, rate, stale, n_atoms
+        raise AssertionError(f"{name} checks failed")
+
+
+def run_nve(system: MDSystem, state):
+    """720 NVE steps of 2 fs from ``state``; returns (launches, drift in
+    eV/atom, atom-steps/s)."""
+    n_atoms = state.positions.shape[0]
+    e0 = float(state.energy) + system.kinetic_energy(state)
+    trio.trio_partials.launches = 0
+    state, seconds = drive(system, state, WINDOW_STEPS, dt_fs=2.0)
+    launches = trio.trio_partials.launches
+    e1 = float(state.energy) + system.kinetic_energy(state)
+    drift = abs(e1 - e0) / n_atoms
+    ok = drift <= NVE_DRIFT and not system.overflowed(state) \
+        and launches > 0
+    print(f"plain Verlet NVE: E_total {e0:.6f} -> {e1:.6f} eV over "
+          f"{WINDOW_STEPS} steps, drift {drift:.3e} eV/atom "
+          f"(<= {NVE_DRIFT:g}): {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("plain Verlet NVE check failed")
+    return launches, drift, n_atoms * WINDOW_STEPS / seconds
+
+
+def list_keys(nbr) -> np.ndarray:
+    """Per-row sorted keys of a list's (atom, image shift) set."""
+    idx, shift, mask = (nbr.idx.cpu().numpy(), nbr.shift.cpu().numpy(),
+                        nbr.mask.cpu().numpy())
+    code = ((shift + 2) @ np.array([25, 5, 1])).astype(np.int64)
+    return np.sort(np.where(mask, idx * 125 + code, -1), axis=1)
+
+
+def compare_small_cells(device):
+    """The engine on the card against its own CPU run, float64, from
+    the same inputs: 54 atoms (periodic, the images builder), 128 atoms
+    (the minimum-image builder), a 250-atom cluster (no pbc): entry
+    energy, forces and neighbor sets, then 12 plain Verlet steps."""
+    cells = {
+        "54 atoms, periodic (images)": (3, True, {}),
+        "128 atoms, periodic (minimum image)": (4, True, {}),
+        "250 atoms, cluster (no pbc)": (5, False, dict(capacity_2b=64,
+                                                       capacity_3b=20)),
+    }
+    for name, (reps, pbc, engine) in cells.items():
+        geom = bench_geometry((reps,) * 3, rattle=0.05)
+        geom.pbc = np.array([pbc] * 3)
+        v0 = np.random.RandomState(reps).normal(0.0, 4e-3, (len(geom), 3))
+        states = []
+        for dev in ("cpu", device):
+            system = MDSystem(MODEL, geom, dtype=torch.float64, device=dev,
+                              **engine)
+            entry = system.init_state(velocities=v0)
+            states.append((entry, system.run(entry, n_steps=12, dt_fs=2.0)))
+        (c0, c12), (g0, g12) = states
+        errs = [max(max_err(a.energy, b.energy), max_err(a.forces, b.forces))
+                for a, b in ((c0, g0), (c12, g12))]
+        errs.append(max_err(c12.positions, g12.positions))
+        same = all(np.array_equal(list_keys(a), list_keys(b))
+                   for a, b in ((c0.nbr2, g0.nbr2), (c0.nbr3, g0.nbr3)))
+        ok = max(errs) <= F64_TOL and same
+        print(f"small cells {name}: card vs CPU f64 entry |dE|,|dF| "
+              f"{errs[0]:.3e}, after 12 steps {errs[1]:.3e} (positions "
+              f"{errs[2]:.3e}), neighbor sets equal {same} "
+              f"(K2={c0.nbr2.idx.shape[1]}, K3={c0.nbr3.idx.shape[1]}): "
+              f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"small cells {name}: card and CPU differ")
+
+
+def run_md_command():
+    """``python -m uf3_tpu_torch md`` at its defaults, as a user runs
+    it: exit 0 and a finite T and E on its result line."""
+    cmd = [sys.executable, "-m", "uf3_tpu_torch", "md",
+           os.path.join("benchmarks_data", "model_2and3.json")]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    for line in lines:
+        print(f"md command: {line}")
+    found = re.search(r"\(([-+.\deE]+) atom-steps/s\); T = (\S+) K, "
+                      r"E = (\S+) eV", lines[-1] if lines else "")
+    ok = out.returncode == 0 and found is not None \
+        and all(np.isfinite(float(x)) for x in found.groups())
+    print(f"md command: exit {out.returncode} after {seconds:.2f} s: "
+          f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError(f"md command failed:\n{out.stderr[-4000:]}")
+    return float(found.group(1))
 
 
 def main():
@@ -393,16 +549,50 @@ def main():
     device = torch.device("cuda", 0)
     environment(device)
     build_kernels()
-    record = compare_trio(device)
-    launches, rate, stale, n_atoms = run_main_path(device)
+    records = compare_trio(device)
+    langevin = dict(dt_fs=2.0, thermostat="langevin", temperature=T_TARGET)
+    rates, launches = {}, {}
+    # the benchmark configuration: 3-level r-RESPA 12/6/36
+    system, state, launches["respa3"], rates["3-level r-RESPA 12/6/36"], \
+        temps, stale3 = run_path("3-level r-RESPA", device, BENCH,
+                                 dict(langevin, launch_chunks=10))
+    layer_times(system, state)
+    check_path("3-level r-RESPA", system, state, launches["respa3"], temps,
+               split=True)
+    # plain velocity Verlet with the engine's default arguments
+    system, state, launches["plain"], rates["plain Verlet (defaults)"], \
+        temps, stale1 = run_path("plain Verlet", device, {}, langevin)
+    layer_times_plain(system, state)
+    check_path("plain Verlet", system, state, launches["plain"], temps,
+               split=False)
+    nve_launches, _, rates["plain Verlet NVE"] = run_nve(system, state)
+    launches["plain"] += nve_launches
+    # 2-level r-RESPA: the bench configuration without a mid level
+    system, state, launches["respa2"], rates["2-level r-RESPA 12/36"], \
+        temps, stale2 = run_path("2-level r-RESPA", device,
+                                 dict(BENCH, respa_mid=1),
+                                 dict(langevin, launch_chunks=10))
+    check_path("2-level r-RESPA", system, state, launches["respa2"],
+               temps, split=True)
+    compare_small_cells(device)
+    rates["md command (2,000 atoms, plain Verlet)"] = run_md_command()
     card = card_line()
-    print(f"MD: {rate:.1f} atom-steps/s (median of 3 x {WINDOW_STEPS} "
-          f"steps, {n_atoms} atoms, float32), stale={stale}, card: {card}")
+    for (name, rate), stale in zip(rates.items(),
+                                   (stale3, stale1, stale1, stale2, None)):
+        print(f"MD {name}: {rate:.1f} atom-steps/s"
+              + (f" (median of 3 x {WINDOW_STEPS} steps, 9826 atoms, "
+                 f"float32), stale={stale}" if "command" not in name
+                 and "NVE" not in name else "")
+              + f", card: {card}")
+    print(f"trio launches by path: {launches}")
+    record = dict(records["K16"], max_abs_err=max(
+        r["max_abs_err"] for r in records.values()))
     print(json.dumps({"kernels": [dict(
         name="trio_partials", route="cuda",
         source="uf3_tpu_torch/csrc/trio.cu",
         replaces="uf3_tpu/ops/pallas_trio.py:1044",
-        launches=launches, **record)]}))
+        launches=sum(launches.values()), launches_by_path=launches,
+        **record, by_shape=records)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,19 @@
 """
 The port's MD engine on its own (uf3_tpu_torch/forcefield/md.py): the
 trajectory does not depend on how cycles are grouped into launches,
-and every option off the benchmark path raises NotImplementedError
-naming its ROADMAP.md item.  Parity with the JAX engine is in
+every option not ported yet raises NotImplementedError naming its
+ROADMAP.md item, and the md command runs on the CPU.  Parity with the JAX engine is in
 tests/test_torch_md.py; this file imports no jax.
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
 import torch
 
+from uf3_tpu_torch.__main__ import main
 from uf3_tpu_torch.data.atoms import bulk
 from uf3_tpu_torch.forcefield.md import MDSystem
 
@@ -19,8 +21,9 @@ from uf3_tpu_torch.forcefield.md import MDSystem
 # once, and torch's default of a thread per core oversubscribes them
 torch.set_num_threads(1)
 
-MODEL = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "benchmarks_data", "model_2and3.json")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODEL = os.path.join(REPO, "benchmarks_data", "model_2and3.json")
+BINARY = os.path.join(REPO, "tests", "data", "model_binary.json")
 KW = dict(rebuild_every=12, skin=0.5, skin_2b=1.2, capacity_2b=72,
           capacity_3b=16, n_respa=6, respa_mid=3, respa_switch=(2.5, 3.5),
           device="cpu")
@@ -51,21 +54,57 @@ def test_langevin_launch_chunks_exact():
 
 
 def test_options_off_the_bench_path_raise():
+    """What is still not ported raises NotImplementedError naming its
+    ROADMAP.md item: the engine options off the benchmark path,
+    Nose-Hoover, NPT and the virial, regrowth, binary models."""
     geom = _geom()
     for bad in (dict(fused="separate"), dict(trio_triangle=True),
-                dict(static_rebuild=True), dict(eager_refilter=False),
-                dict(skin_2b=0.5), dict(respa_mid=1), dict(n_respa=1)):
+                dict(static_rebuild=True), dict(eager_refilter=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             MDSystem(MODEL, geom, dtype=torch.float64, **dict(KW, **bad))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        MDSystem(MODEL, bulk("W", "bcc", a=3.1652) * 4, **KW)
+        MDSystem(BINARY, geom, device="cpu")
     with pytest.raises(ValueError, match="multiple of respa_mid"):
         MDSystem(MODEL, geom, **dict(KW, respa_mid=4))
     port = MDSystem(MODEL, geom, dtype=torch.float64, **KW)
     st = port.init_state()
     for kwargs in (dict(thermostat="nose_hoover"),
-                   dict(on_overflow="regrow"), dict(n_steps=9)):
+                   dict(on_overflow="regrow")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             port.run(st, **dict(dict(n_steps=12, dt_fs=2.0), **kwargs))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port.npt_run(st, n_steps=12, dt_fs=2.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        port.stress(st)
+
+
+@pytest.mark.parametrize("reps", [8, 10])
+def test_float32_lattice_on_bin_faces_does_not_overflow(reps):
+    """Perfect bcc W whose lattice planes lie on the cell-list bin
+    faces (4^3 or 5^3 bins of 2^3 unit cells), at the engine's defaults
+    in float32 (10^3 is the md command's default cell): atoms on a face
+    may round into either bin, and the bins are sized for that."""
+    geom = bulk("W", "bcc", a=3.1652) * reps
+    port = MDSystem(MODEL, geom, dtype=torch.float32, device="cpu")
+    assert port._cells_2b[0] == (reps // 2,) * 3
+    state = port.init_state(temperature=300.0)
+    assert not port.overflowed(state)
+    assert int(state.nbr2.mask.sum(1).min()) == 58
+
+
+def test_md_command_on_the_cpu(capsys):
+    """``python -m uf3_tpu_torch md`` prints the JAX command's result
+    line; the flags and subcommands not ported yet raise."""
+    main(["md", MODEL, "--reps", "3", "--steps", "12", "--device", "cpu"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[0] == "54 atoms of W"
+    found = re.fullmatch(r"12 steps in \S+ s \((\S+) atom-steps/s\); "
+                         r"T = (\S+) K, E = (\S+) eV", out[-1])
+    assert found is not None, out[-1]
+    rate, temp, energy = (float(x) for x in found.groups())
+    assert rate > 0 and 0 < temp < 600 and -620 < energy < -580
+    for argv in (["md", MODEL, "--device", "cpu", "--traj", "t.xyz"],
+                 ["md", MODEL, "--device", "cpu", "--static-rebuild"],
+                 ["fit", "settings.yaml"], ["export", MODEL]):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            main(argv)

@@ -92,6 +92,25 @@ def test_cpu_tensors_take_the_twin(rows):
         trio.trio_partials(pot, d.to("meta"), valid.to("meta"))
 
 
+@pytest.fixture(scope="module")
+def rows_one_tier():
+    """(potential, d, valid) of the 3-body rows of the engine's default
+    one-tier list (23 slots) on the same box, f64."""
+    geom = bulk("W", "bcc", a=3.1652) * (8, 8, 8)
+    geom.rattle(0.05, seed=11)
+    system = MDSystem(MODEL, geom, dtype=torch.float64, device="cpu")
+    state = system.init_state()
+    cache = nb.list_cache(state.nbr3, system.cell, torch.float64)
+    d = nb.cached_displacements(state.positions, state.nbr3, cache)
+    return system.potential, d, cache.valid
+
+
+def test_one_tier_default_list_has_23_slots(rows_one_tier):
+    _, d, valid = rows_one_tier
+    assert d.shape[1] == 23
+    assert int(valid.sum(1).max()) <= 23 and int(valid.sum(1).min()) >= 12
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -217,3 +236,43 @@ def test_trio_kernel_nonlinear_leg_kinds(rows, cuda_device, strategy):
                        spec_n=spec_n)
     for dtype, tol in TOLS:
         _matches_twin(pot64, d, valid, cuda_device, dtype, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", TOLS)
+def test_trio_kernel_one_tier_23_slots(rows_one_tier, cuda_device, dtype,
+                                       tol):
+    pot64, d, valid = rows_one_tier
+    launches = trio.trio_partials.launches
+    twin = _matches_twin(pot64, d, valid, cuda_device, dtype, tol)
+    assert trio.trio_partials.launches == launches + 2
+    assert float(torch.abs(twin[2]).max()) > 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw, n_steps", [({}, 1),
+                                         (dict(n_respa=2, rebuild_every=2),
+                                          2)],
+                         ids=["plain_verlet_step", "respa2_outer_step"])
+def test_md_step_on_the_card_matches_cpu(cuda_device, kw, n_steps):
+    """One plain velocity-Verlet step (the minimum-image builder, the
+    shared gather) and one 2-level outer step of two inner steps
+    (trio_short_forces, the pair tail) on the 128-atom cell: the card
+    against the CPU from the same inputs, float64."""
+    geom = bulk("W", "bcc", a=3.1652) * 4
+    geom.rattle(0.05, seed=3)
+    v0 = np.random.RandomState(0).normal(0.0, 4e-3, (len(geom), 3))
+    out = []
+    for device in ("cpu", cuda_device):
+        system = MDSystem(MODEL, geom, dtype=torch.float64, device=device,
+                          **kw)
+        launches = trio.trio_partials.launches
+        state = system.run(system.init_state(velocities=v0),
+                           n_steps=n_steps, dt_fs=2.0)
+        if device != "cpu":
+            assert trio.trio_partials.launches > launches
+        out.append(state)
+    cpu, card = out
+    for name in ("positions", "velocities", "forces", "energy"):
+        assert _err(getattr(cpu, name), getattr(card, name)) <= 1e-10
+    assert float(torch.abs(cpu.forces).max()) > 1e-1

@@ -14,10 +14,14 @@ modules it needs are trimmed copies under the same module names.
   io.py               model JSON -> basis + coefficients
   ops/splines.py      closed-form B-spline primitives
   ops/potential.py    UF3Potential (nn.Module with the coefficients)
-  ops/neighbors.py    cell-list neighbor lists, filter, reverse slots
+  ops/neighbors.py    O(N^2), images and cell-list neighbor lists,
+                      filter, reverse slots
   ops/pair.py         switched 2-body forces
-  ops/trio.py         3-body kernel wrapper, torch twin, assembly
+  ops/trio.py         3-body kernel wrapper, torch twin, assembly,
+                      shared-gather and r-RESPA short forces
   ops/_build.py       nvcc build + ctypes loading of csrc/*.cu
   csrc/trio.cu        the 3-body CUDA kernel
-  forcefield/md.py    3-level r-RESPA MD (NVE / Langevin)
+  forcefield/md.py    MD: velocity Verlet, 2- and 3-level r-RESPA
+                      (NVE / Langevin)
+  __main__.py         python -m uf3_tpu_torch md model.json
 """

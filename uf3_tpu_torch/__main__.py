@@ -1,0 +1,92 @@
+"""
+Command line of the port: a quick MD run on the CUDA card.
+
+    python -m uf3_tpu_torch md model.json [options]
+
+The same flags, defaults and result line as ``python -m uf3_tpu md``
+(2,000 atoms of bcc, 1,000 steps of 2 fs, Langevin at 300 K, plain
+velocity Verlet unless ``--respa`` is given), plus ``--device``, which
+defaults to the card.  The other subcommands of ``uf3_tpu`` are not
+ported yet and raise NotImplementedError naming their ROADMAP.md item.
+"""
+
+import argparse
+import time
+
+import torch
+
+from uf3_tpu_torch import io
+from uf3_tpu_torch.data.atoms import bulk
+from uf3_tpu_torch.forcefield.md import MDSystem, _not_ported
+
+NOT_PORTED = {"featurize": "Featurization", "fit": "Featurization",
+              "predict": "Featurization", "export": "Batch and CLI"}
+
+
+def cmd_md(model_path: str, args) -> None:
+    if args.traj:
+        raise _not_ported("--traj (the trajectory writer)", "Batch and CLI")
+    element = io.load_model(model_path).bspline_config.element_list[0]
+    atoms = bulk(element, "bcc", a=args.lattice) * args.reps
+    print(f"{len(atoms)} atoms of {element}")
+    system = MDSystem(model_path, atoms, dtype=torch.float32,
+                      n_respa=args.respa, respa_mid=args.respa_mid,
+                      static_rebuild=args.static_rebuild,
+                      device=args.device)
+    state = system.init_state(temperature=args.temperature)
+    t0 = time.time()
+    state = system.run(state, n_steps=args.steps, dt_fs=args.dt,
+                       thermostat="langevin",
+                       temperature=args.temperature)
+    if system.device.type == "cuda":
+        torch.cuda.synchronize(system.device)
+    elapsed = time.time() - t0
+    print(f"{args.steps} steps in {elapsed:.2f} s "
+          f"({len(atoms) * args.steps / elapsed:.3e} atom-steps/s); "
+          f"T = {system.temperature(state):.0f} K, "
+          f"E = {float(state.energy):.3f} eV")
+
+
+def parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="uf3_tpu_torch")
+    sub = p.add_subparsers(dest="command", required=True)
+    for name in ("featurize", "fit", "predict"):
+        sub.add_parser(name).add_argument("settings")
+    p_md = sub.add_parser("md")
+    p_md.add_argument("model")
+    p_md.add_argument("--reps", type=int, default=10)
+    p_md.add_argument("--lattice", type=float, default=3.1652)
+    p_md.add_argument("--steps", type=int, default=1000)
+    p_md.add_argument("--dt", type=float, default=2.0)
+    p_md.add_argument("--temperature", type=float, default=300.0)
+    p_md.add_argument("--respa", type=int, default=1,
+                      help="r-RESPA inner steps per outer step "
+                           "(1 = plain velocity Verlet)")
+    p_md.add_argument("--respa-mid", type=int, default=1,
+                      help="3-level r-RESPA: inner steps per mid "
+                           "(3-body force) step; must divide --respa")
+    p_md.add_argument("--static-rebuild", action="store_true",
+                      help="unconditional full neighbor rebuild every "
+                           "cycle (not ported yet)")
+    p_md.add_argument("--traj", default=None,
+                      help="write an extended-xyz trajectory (not ported "
+                           "yet)")
+    p_md.add_argument("--device", default=None,
+                      help="torch device; the CUDA card by default")
+    p_export = sub.add_parser("export")
+    p_export.add_argument("model")
+    p_export.add_argument("--out", default=".")
+    return p
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
+    if args.command == "md":
+        cmd_md(args.model, args)
+    else:
+        raise _not_ported(f"the {args.command} command",
+                          NOT_PORTED[args.command])
+
+
+if __name__ == "__main__":
+    main()

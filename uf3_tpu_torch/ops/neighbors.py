@@ -4,11 +4,12 @@ plus integer image shifts, a mask, the reverse-slot map the 3-body
 force assembly gathers through, and the parent-slot map of a filtered
 list.
 
-Counterpart of ``uf3_tpu/ops/neighbors.py`` (cell-list builder,
-filter, reverse slots, top-2 staleness trigger).  The JAX builder packs
-candidate keys into 31-bit integers for the TPU; here candidates are
-compacted with a cumulative sum and one scatter in int64, which keeps
-the same neighbor set per row and the same overflow flag.
+Counterpart of ``uf3_tpu/ops/neighbors.py`` (O(N^2) minimum-image and
+explicit-image builders, cell-list builder, filter, reverse slots,
+top-2 staleness trigger).  The JAX cell-list builder packs candidate
+keys into 31-bit integers for the TPU; here candidates are compacted
+with a cumulative sum and one scatter in int64, which keeps the same
+neighbor set per row and the same overflow flag.
 """
 
 from typing import NamedTuple, Tuple
@@ -89,6 +90,121 @@ def _compact(within, capacity: int):
     keep = within & (slot < capacity)
     rows, lanes = torch.nonzero(keep, as_tuple=True)
     return rows, lanes, slot[rows, lanes], count
+
+
+BLOCK_ROWS = 512  # rows per distance plane of the O(N^2) builders
+
+
+def _nearest_first(plane, n_rows: int, r_cut: float, capacity: int):
+    """Per-row top-k over candidate planes, ``BLOCK_ROWS`` rows at a
+    time so that memory stays bounded: ``plane(start, stop)`` gives the
+    squared distances (B, C) of rows start..stop-1 to the C candidates.
+    Keeps the nearest ``capacity`` candidates within ``r_cut`` (an
+    overflow drops the farthest).  Returns (candidate ids (N, K), mask
+    (N, K), overflow)."""
+    cand, mask, count = [], [], []
+    for start in range(0, n_rows, BLOCK_ROWS):
+        d2 = plane(start, min(start + BLOCK_ROWS, n_rows))
+        within = (d2 < r_cut * r_cut) & (d2 > 1e-12)
+        count.append(within.sum(dim=1))
+        key = torch.where(within, -d2, torch.full_like(d2, -torch.inf))
+        neg, ids = torch.topk(key, capacity, dim=1)
+        cand.append(ids)
+        mask.append(neg > -torch.inf)
+    return (torch.cat(cand), torch.cat(mask),
+            torch.any(torch.cat(count) > capacity))
+
+
+def build_neighbor_list(positions, cell, pbc, r_cut: float,
+                        capacity: int) -> NeighborList:
+    """O(N^2) minimum-image neighbor search with nearest-first top-k
+    per row, in blocks of ``BLOCK_ROWS`` rows.  Valid where every
+    periodic width is at least 2 ``r_cut`` (``images_required`` is 0);
+    a non-periodic direction takes no image.  ``rev`` is left zero, as
+    in ``build_neighbor_list_cells``."""
+    n_atoms = positions.shape[0]
+    capacity = min(capacity, n_atoms)
+    pbc_vec = torch.tensor(pbc, dtype=positions.dtype,
+                           device=positions.device)
+    frac = cell_transform(positions, torch.linalg.inv(cell))
+
+    def plane(start, stop):
+        # per-component (B, N) arithmetic: no (B, N, 3) image planes
+        block = frac[start:stop]
+        mic = []
+        for c in range(3):
+            dc = frac[None, :, c] - block[:, None, c]
+            mic.append(dc - torch.round(dc) * pbc_vec[c])
+        d2 = torch.zeros_like(mic[0])
+        for k in range(3):
+            dk = mic[0] * cell[0, k] + mic[1] * cell[1, k] \
+                + mic[2] * cell[2, k]
+            d2 = d2 + dk * dk
+        return d2
+
+    idx, mask, overflow = _nearest_first(plane, n_atoms, r_cut, capacity)
+    # the image shift of the selected pairs only, by the same rounding
+    shift = -torch.round(frac[idx] - frac[:, None, :]) * pbc_vec
+    idx, shift = _self_pad(idx, shift, mask)
+    return NeighborList(idx=idx, shift=shift, mask=mask,
+                        rev=torch.zeros_like(idx), overflow=overflow,
+                        reference_positions=positions)
+
+
+def build_neighbor_list_images(positions, cell, pbc, r_cut: float,
+                               capacity: int,
+                               images=(1, 1, 1)) -> NeighborList:
+    """O(N^2 M) neighbor search over an explicit range of periodic
+    images: exact for small periodic cells where the cutoff passes half
+    the cell width, self-image pairs included.  ``images[i]`` copies
+    are scanned on each side along a periodic axis i; candidate
+    c = j M + m is atom j shifted by image m.  Nearest-first top-k per
+    row, in blocks of ``BLOCK_ROWS`` rows; ``rev`` is left zero."""
+    n_atoms = positions.shape[0]
+    ni = [int(images[i]) if pbc[i] else 0 for i in range(3)]
+    grid = np.stack(np.meshgrid(
+        np.arange(-ni[0], ni[0] + 1), np.arange(-ni[1], ni[1] + 1),
+        np.arange(-ni[2], ni[2] + 1), indexing="ij"), axis=-1).reshape(-1, 3)
+    shifts = torch.as_tensor(grid, dtype=positions.dtype,
+                             device=positions.device)       # (M, 3)
+    n_images = shifts.shape[0]
+    capacity = min(capacity, n_atoms * n_images)
+    pos_ext = (positions[:, None, :]
+               + cell_transform(shifts, cell)[None, :, :]).reshape(-1, 3)
+
+    def plane(start, stop):
+        block = positions[start:stop]
+        d2 = torch.zeros((stop - start, pos_ext.shape[0]),
+                         dtype=positions.dtype, device=positions.device)
+        for c in range(3):
+            d2 = d2 + (pos_ext[None, :, c] - block[:, None, c]) ** 2
+        return d2
+
+    cand, mask, overflow = _nearest_first(plane, n_atoms, r_cut, capacity)
+    idx = torch.div(cand, n_images, rounding_mode="floor")
+    shift = shifts[cand % n_images]
+    idx, shift = _self_pad(idx, shift, mask)
+    return NeighborList(idx=idx, shift=shift, mask=mask,
+                        rev=torch.zeros_like(idx), overflow=overflow,
+                        reference_positions=positions)
+
+
+def images_required(cell, pbc, r_cut: float) -> Tuple[int, int, int]:
+    """Periodic image copies per axis for an exact search at ``r_cut``:
+    0 where the minimum-image convention holds (perpendicular width at
+    least 2 ``r_cut``) or the axis is not periodic."""
+    cell = np.asarray(cell, dtype=np.float64)
+    volume = abs(np.linalg.det(cell))
+    out = []
+    for i in range(3):
+        if not pbc[i]:
+            out.append(0)
+            continue
+        area = np.linalg.norm(np.cross(cell[(i + 1) % 3], cell[(i + 2) % 3]))
+        width = volume / area
+        out.append(0 if width >= 2.0 * r_cut
+                   else int(np.ceil(r_cut / width)))
+    return tuple(out)
 
 
 def filter_neighbor_list(nbr: NeighborList, positions, cell,

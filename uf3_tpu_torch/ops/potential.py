@@ -157,6 +157,11 @@ class UF3Potential(nn.Module):
         model = io.load_model(filename)
         config = model.bspline_config
         element_list = list(config.element_list)
+        if config.degree <= 2:
+            raise NotImplementedError(
+                "2-body-only models are not ported to uf3_tpu_torch yet "
+                "(ROADMAP.md, modules still to port: 2-body-only models and "
+                "a separately built 3-body list)")
         pair = build_pair_fast(config, model.coefficients)
         trio = build_trio_bundle(config, model.coefficients)
         if len(element_list) != 1 or pair is None or trio is None:

@@ -1,12 +1,14 @@
 """
 3-body forces of the unary UF3 potential: the fused per-atom pair-lane
 pass (``trio_partials``: a CUDA kernel on the card, its plain torch twin
-on the CPU), the reverse-slot assembly of neighbor forces, and the
-shared-gather 2+3-body evaluation.
+on the CPU), the reverse-slot assembly of neighbor forces, the
+shared-gather 2+3-body evaluation and the short-range r-RESPA force on
+the 3-body rows.
 
 Counterpart of ``_trio_block_compute``, ``trio_forces_unrolled`` /
-``trio_forces_pallas``, ``_assemble_forces`` and
-``pair_trio_forces_shared`` (``uf3_tpu/ops/pallas_trio.py``).
+``trio_forces_pallas``, ``_assemble_forces``,
+``pair_trio_forces_shared`` and ``trio_short_forces``
+(``uf3_tpu/ops/pallas_trio.py``).
 """
 
 import ctypes
@@ -16,7 +18,7 @@ import torch
 from uf3_tpu_torch.ops import _build
 from uf3_tpu_torch.ops.neighbors import (ListCache, NeighborList,
                                          cached_displacements, list_cache)
-from uf3_tpu_torch.ops.pair import pair_row_forces
+from uf3_tpu_torch.ops.pair import pair_row_forces, pair_short_forces
 from uf3_tpu_torch.ops.potential import TrioBundle, UF3Potential
 from uf3_tpu_torch.ops.splines import _dense_basis
 
@@ -220,16 +222,41 @@ def trio_forces(potential: UF3Potential, positions, cell,
 
 
 def pair_trio_forces_shared(potential: UF3Potential, positions, cell,
-                            nbr2: NeighborList, nbr3: NeighborList):
+                            nbr2: NeighborList, nbr3: NeighborList,
+                            with_energy: bool = True,
+                            cache2: ListCache = None,
+                            cache3: ListCache = None):
     """Full 2+3-body energy and forces from one (N, K2) displacement
     gather: the 3-body rows are selected from the pair rows through the
-    filtered list's parent slots ``nbr3.sel``.  Returns (e2, e3_atoms
+    filtered list's parent slots ``nbr3.sel``.  ``with_energy=False``
+    skips the energy sums (zeros come back).  Returns (e2, e3_atoms
     (N,), forces (N, 3))."""
-    cache2 = list_cache(nbr2, cell, positions.dtype)
+    if cache2 is None:
+        cache2 = list_cache(nbr2, cell, positions.dtype)
     spec = potential.pair_spec
     d2 = cached_displacements(positions, nbr2, cache2)
     e2, f2 = pair_row_forces(potential.pair_coefficients, d2,
-                             cache2.valid, spec, spec.n_basis)
+                             cache2.valid, spec, spec.n_basis, with_energy)
     d3 = torch.gather(d2, 1, nbr3.sel[:, :, None].expand(-1, -1, 3))
-    e3, f3 = trio_forces(potential, positions, cell, nbr3, d=d3)
+    e3, f3 = trio_forces(potential, positions, cell, nbr3, with_energy,
+                         cache3=cache3, d=d3)
+    return e2, e3, f2 + f3
+
+
+def trio_short_forces(potential: UF3Potential, positions, cell,
+                      nbr3: NeighborList, n_basis_pair: int,
+                      with_energy: bool = True, r_lo: float = 0.0,
+                      r_hi: float = 0.0, cache3: ListCache = None):
+    """The 2-level r-RESPA inner force: the switched short-range pair
+    force S(r) V(r) (its first ``n_basis_pair`` basis functions) and the
+    3-body force, both on one (N, K3) gather of the 3-body rows.
+    Returns (e_short2, e3_atoms (N,), forces (N, 3))."""
+    if cache3 is None:
+        cache3 = list_cache(nbr3, cell, positions.dtype)
+    e2, f2, d3 = pair_short_forces(
+        potential.pair_coefficients, positions, cell, nbr3,
+        spec_pair=potential.pair_spec, n_basis_pair=n_basis_pair,
+        with_energy=with_energy, r_lo=r_lo, r_hi=r_hi, cache3=cache3)
+    e3, f3 = trio_forces(potential, positions, cell, nbr3, with_energy,
+                         cache3=cache3, d=d3)
     return e2, e3, f2 + f3

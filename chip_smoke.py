@@ -1,13 +1,19 @@
 """
 Smoke run of uf3_tpu_torch on one NVIDIA GPU: builds the CUDA kernels
 from the sources in this checkout (no register spills allowed), holds
-each against its plain torch twin at the shapes of every MD path, then
-drives the MD engine through the trio kernel on four paths at the bench
-model's full width (2+3-body W, 9,826 atoms, float32, Langevin at
-300 K, 2 fs): 3-level r-RESPA 12/6/36 (the benchmark configuration),
-plain velocity Verlet with the engine's defaults (and an NVE energy
-drift check), 2-level r-RESPA 12/36; then the small and non-periodic
-cells against the CPU, and the ``md`` command as a user runs it.
+each against its plain torch twin at the shapes of every MD path, and
+the 3-body virial from its partials against the twin's; then drives
+the MD engine through the trio kernel at the bench model's full
+width (2+3-body W, 9,826 atoms, float32, 2 fs): 3-level r-RESPA 12/6/36
+(the benchmark configuration), plain velocity Verlet with the engine's
+defaults (and an NVE energy drift check) and 2-level r-RESPA 12/36
+under Langevin at 300 K, plain Verlet under Nose-Hoover at 300 K; then
+the small and non-periodic cells and a deterministic SCR NPT run
+against the CPU; then the two-phase melting protocol's path
+(``benchmarks/melting_run.py``) at its full width, 31,104 atoms, with
+each of its stages shortened to 256 steps: Langevin with capacity
+regrowth, SCR NPT, SCR NPT with half the box pinned, SCR NPT released;
+and the ``md`` command as a user runs it.
 
     python3 chip_smoke.py
 
@@ -30,8 +36,9 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-from uf3_tpu_torch.data.atoms import bulk  # noqa: E402
-from uf3_tpu_torch.forcefield.md import MDSystem  # noqa: E402
+from uf3_tpu_torch.data.atoms import Atoms, bulk  # noqa: E402
+from uf3_tpu_torch.forcefield import units  # noqa: E402
+from uf3_tpu_torch.forcefield.md import SCR, MDSystem  # noqa: E402
 from uf3_tpu_torch.ops import _build  # noqa: E402
 from uf3_tpu_torch.ops import neighbors as nb  # noqa: E402
 from uf3_tpu_torch.ops import trio  # noqa: E402
@@ -45,6 +52,16 @@ MODEL = os.path.join(REPO, "benchmarks_data", "model_2and3.json")
 BENCH = dict(rebuild_every=36, skin=0.5, skin_2b=1.2, capacity_2b=72,
              capacity_3b=16, n_respa=12, respa_mid=6,
              respa_switch=(2.5, 3.5))
+# the melting protocol's cell and engine settings
+# (benchmarks/melting_run.py:101-106, 259)
+PROTOCOL = dict(rebuild_every=16, skin=0.6, skin_2b=1.2, capacity_2b=88,
+                capacity_3b=20)
+PROTOCOL_REPS = (48, 18, 18)
+STAGE_STEPS = 256  # per stage (the protocol runs 2,000-10,000)
+STAGE_FRICTION = 10.0  # 1/ps, the protocol's stage 2, in every stage
+STAGE_T_BAND = 0.1   # mean mobile T within 10% of the stage's target
+STRESS_TOL = 1e-5  # eV/A^3, f32 vs f64 per Voigt component
+VIRIAL_F64_TOL = 1e-9  # relative, kernel partials vs twin partials
 F64_TOL = 1e-10   # same arithmetic, another summation order
 FORCE_TOL = 2e-4  # eV/A, f32 vs f64 (tests/test_tpu_numerics.py)
 WINDOW_STEPS = 720  # per timed window, as bench.py
@@ -204,10 +221,14 @@ def trio_bound(pot: UF3Potential, d, valid, with_energy: bool):
 def compare_trio(device):
     """Kernel vs twin on the engines' 3-body rows: the bench grid and a
     random non-symmetric one, with and without energy, on the bench
-    lists (16 slots) of 1,024 (rattled) and 9,826 atoms and on the
+    lists (16 slots) of 1,024 (rattled) and 9,826 atoms, on the
     one-tier default list of 9,826 atoms (23 slots: the KMAX = 32
-    instance the plain Verlet path runs).  Returns the records of the
-    9,826-atom shapes by slot count."""
+    instance the plain Verlet path runs) and on the melting protocol's
+    list of 31,104 atoms (20 slots, KMAX = 32).  On the bench grid the
+    3-body virial from the kernel's partials is held against the twin's
+    on the bench and protocol lists (the random grid lacks the exchange
+    symmetry the virial's identity needs).  Returns the records of the
+    9,826- and 31,104-atom shapes by slot count."""
     base = UF3Potential.from_json(MODEL)
     rng = np.random.RandomState(17)
     random_grid = rng.normal(0.0, 0.05, base.trio.grid.shape) \
@@ -217,7 +238,8 @@ def compare_trio(device):
     records = {}
     for reps, rattle, engine in (((8, 8, 8), 0.05, BENCH),
                                  ((17, 17, 17), None, BENCH),
-                                 ((17, 17, 17), None, {})):
+                                 ((17, 17, 17), None, {}),
+                                 (PROTOCOL_REPS, None, PROTOCOL)):
         geom = bench_geometry(reps, rattle)
         system = MDSystem(base, geom, dtype=torch.float64, device=device,
                           **engine)
@@ -260,27 +282,54 @@ def compare_trio(device):
                 if not (err64 <= F64_TOL and err32 <= FORCE_TOL):
                     raise AssertionError("trio kernel disagrees with its "
                                          "twin")
-                if name == "bench" and len(geom) == 9826 \
+                if name == "bench" and len(geom) >= 9826 \
                         and not with_energy:
+                    if engine:  # the bench and protocol lists
+                        compare_virial(geom, k, (twin[2], d64, v64),
+                                       (k64[2], d64, v64),
+                                       (k32[2], d32, v32))
                     bound_ms, bound_by, flop, n_bytes = trio_bound(
                         pot32, d32, v32, with_energy)
                     occ = trio.trio_occupancy(pot32, k, with_energy)
-                    print(f"trio bound at N=9826, K={k}: {flop:.4g} flop, "
-                          f"{n_bytes:.4g} bytes -> {bound_ms:.5f} ms "
-                          f"({bound_by}); kernel reaches "
+                    print(f"trio bound at N={len(geom)}, K={k}: "
+                          f"{flop:.4g} flop, {n_bytes:.4g} bytes -> "
+                          f"{bound_ms:.5f} ms ({bound_by}); kernel reaches "
                           f"{100 * bound_ms / kernel_ms:.1f}% of it")
                     print(f"trio launch plan (f32, K={k}): {occ}")
                     records[f"K{k}"] = dict(
                         max_abs_err=err32, ms=kernel_ms, plain_ms=twin_ms,
                         bound_ms=bound_ms, bound_by=bound_by,
-                        library_ms=None, registers=occ["registers"],
+                        library_ms=None, n_atoms=len(geom),
+                        registers=occ["registers"],
                         warps_per_sm=occ["warps_per_sm"])
     for k in (16, 32):
         print(f"trio launch plan (f64, KMAX={k}): "
               f"{trio.trio_occupancy(grids['bench'], k)}")
-    if sorted(records) != ["K16", "K23"]:
+    if sorted(records) != ["K16", "K20", "K23"]:
         raise AssertionError(f"unexpected 3-body slot counts {records}")
     return records
+
+
+def compare_virial(geom, k, twin64, kernel64, kernel32):
+    """The 3-body virial (``trio_virial6``) from the kernel's partials
+    against the twin's: float64 within 1e-9 relative, each float32
+    Voigt stress component within 1e-5 eV/A^3.  Each argument is
+    (partials, d, valid)."""
+    v_twin = trio.trio_virial6(*twin64).cpu()
+    v64 = trio.trio_virial6(*kernel64).cpu()
+    v32 = trio.trio_virial6(*kernel32).double().cpu()
+    scale = float(torch.max(torch.abs(v_twin)))
+    rel64 = max_err(v64, v_twin) / scale
+    d_stress = max_err(v32, v_twin) / geom.get_volume()
+    ok = rel64 <= VIRIAL_F64_TOL and d_stress <= STRESS_TOL and scale > 1.0
+    print(f"virial N={len(geom)} K={k}: 3-body virial (Voigt, eV) "
+          f"{[round(float(x), 4) for x in v_twin]}; kernel f64 vs twin "
+          f"{rel64:.3e} relative (<= {VIRIAL_F64_TOL:g}), f32 stress "
+          f"max |d sigma| {d_stress:.3e} eV/A^3 (<= {STRESS_TOL:g}): "
+          f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("virial from the kernel's partials disagrees "
+                             "with the twin's")
 
 
 def host_ms(fn, repeats=30):
@@ -380,17 +429,22 @@ def drive(system: MDSystem, state, steps, **run_kw):
     return state, time.perf_counter() - t0
 
 
-def run_path(name, device, engine, run_kw):
-    """One MD path at 9,826 atoms in float32 under Langevin: set-up, a
-    144-step warm-up and three timed windows, with the trio launches
-    counted from 0 over them.  Returns (system, state, launches,
-    atom-steps/s, temperatures, stale)."""
+def run_path(name, device, engine, run_kw, t_init=T_TARGET, samples=None):
+    """One MD path at 9,826 atoms in float32 from Maxwell-Boltzmann
+    velocities at ``t_init``: set-up, a 144-step warm-up and three timed
+    windows, with the trio launches counted from 0 over them; with a
+    list ``samples``, the run's callback appends T after every launch.
+    Returns (system, state, launches, atom-steps/s, temperatures at the
+    end of each window, stale)."""
     geom = bench_geometry((17, 17, 17))
     trio.trio_partials.launches = 0
     t0 = time.perf_counter()
     system = MDSystem(MODEL, geom, dtype=torch.float32, device=device,
                       **engine)
-    state = system.init_state(temperature=T_TARGET, seed=0)
+    if samples is not None:
+        run_kw = dict(run_kw, callback=lambda st, done: samples.append(
+            system.temperature(st)))
+    state = system.init_state(temperature=t_init, seed=0)
     state, _ = drive(system, state, 144, **run_kw)
     print(f"{name}: set-up + 144-step warm-up "
           f"{time.perf_counter() - t0:.2f} s (capacities "
@@ -414,17 +468,17 @@ def check_path(name, system: MDSystem, state, launches, temps,
     """The gates of one MD path on its final state: no overflow, finite
     state, trio launches, mean T, forces (carried split forces against a
     fresh evaluation for r-RESPA) and energy against float64."""
-    energy, forces = system.energy_forces(state.positions, state.nbr2,
-                                          state.nbr3, cell=state.cell)
+    energy, forces, _ = system.energy_forces(state.positions, state.nbr2,
+                                             state.nbr3, cell=state.cell)
     engine = dict(skin=system.skin, skin_2b=system.skin_2b,
                   capacity_2b=system.capacity_2b,
                   capacity_3b=system.capacity_3b,
                   rebuild_every=system.rebuild_every)
     system64 = MDSystem(MODEL, bench_geometry((17, 17, 17)),
                         dtype=torch.float64, device=system.device, **engine)
-    e64, f64 = system64.energy_forces(state.positions.double(),
-                                      state.nbr2, state.nbr3,
-                                      cell=state.cell.double())
+    e64, f64, _ = system64.energy_forces(state.positions.double(),
+                                         state.nbr2, state.nbr3,
+                                         cell=state.cell.double())
     split_err = max_err(state.forces, forces)
     f64_err = max_err(forces, f64)
     print(f"{name}: final E = {float(state.energy):.6f} eV, fresh "
@@ -518,6 +572,251 @@ def compare_small_cells(device):
             raise AssertionError(f"small cells {name}: card and CPU differ")
 
 
+def run_nose_hoover(device):
+    """Plain velocity Verlet at the engine's defaults under Nose-Hoover
+    at 300 K, tau 100 fs, timed as ``run_path`` times the other paths.
+    The velocities start at 600 K: on a perfect lattice half the kinetic
+    energy goes into the potential within ~100 fs, and Nose-Hoover would
+    not damp the swing that a start at 300 K leaves.  Gates: the mean of
+    the T samples of the last window (one per launch) within 300 +- 30 K,
+    and ``check_path``'s.  Returns (launches, atom-steps/s, stale)."""
+    samples = []
+    system, state, launches, rate, temps, stale = run_path(
+        "Nose-Hoover", device, {},
+        dict(dt_fs=2.0, thermostat="nose_hoover", temperature=T_TARGET,
+             tau_fs=100.0), t_init=2 * T_TARGET, samples=samples)
+    last = samples[-(WINDOW_STEPS // system.rebuild_every):]
+    mean_t = float(np.mean(last))
+    ok = abs(mean_t - T_TARGET) <= T_BAND
+    print(f"Nose-Hoover: last window, {len(last)} samples, mean T "
+          f"{mean_t:.2f} K (min {min(last):.2f}, max {max(last):.2f}), "
+          f"xi {float(state.xi):.4e}: {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("Nose-Hoover misses its temperature")
+    check_path("Nose-Hoover", system, state, launches, temps, split=False)
+    return launches, rate, stale
+
+
+def compare_npt_card_cpu(device):
+    """SCR NPT at T = 0 on the card against the CPU, float64, 54 atoms
+    (the images builder) from the same numpy velocities: P0 = 0.05
+    eV/A^3, tau_p 40 fs, beta 0.2, 48 steps.  With no noise the run is
+    deterministic, and the barostat reads the kernel-fed virial every
+    step: positions and cell within 1e-10."""
+    geom = bench_geometry((3, 3, 3), rattle=0.05)
+    v0 = np.random.RandomState(3).normal(0.0, 4e-3, (len(geom), 3))
+    out = []
+    for dev in ("cpu", device):
+        system = MDSystem(MODEL, geom, dtype=torch.float64, device=dev)
+        out.append(system.npt_run(
+            system.init_state(velocities=v0), n_steps=48, dt_fs=2.0,
+            temperature=0.0, pressure=0.05, tau_p_fs=40.0,
+            compressibility=0.2))
+    (cpu, cells_cpu), (card, cells_card) = out
+    errs = (max_err(cpu.positions, card.positions),
+            max_err(cpu.cell, card.cell))
+    moved = float(torch.max(torch.abs(cpu.cell / geom.cell[0, 0]
+                                      - torch.eye(3, dtype=torch.float64))))
+    ok = max(errs) <= F64_TOL and moved > 1e-3 \
+        and len(cells_cpu) == len(cells_card)
+    print(f"NPT card vs CPU (54 atoms, SCR, T = 0, f64): max |dx| "
+          f"{errs[0]:.3e}, max |d cell| {errs[1]:.3e} (<= {F64_TOL:g}); the "
+          f"cell moved {moved:.3e} relative: {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("SCR NPT on the card differs from the CPU")
+
+
+def count_calls(system: MDSystem, method: str) -> list:
+    """A list that grows by one at each call of ``system``'s method."""
+    calls = []
+    fn = getattr(system, method)
+
+    def counted(*args, **kwargs):
+        calls.append(None)
+        return fn(*args, **kwargs)
+    setattr(system, method, counted)
+    return calls
+
+
+def protocol_stage(name, system: MDSystem, state, target, run, stress64):
+    """One stage of the melting protocol's path: ``run(state, callback)``
+    runs it; the callback samples the mobile atoms' T and the volume
+    after every launch.  Gates: no overflow after regrowth, a finite
+    state and cell, trio launches, the mean T of the second half's
+    samples within 10% of ``target``, a cell that stays a multiple of
+    the entry cell, and the final f32 stress within 1e-5 eV/A^3 of
+    float64.  Returns (state, launches, atom-steps/s)."""
+    n_atoms = state.positions.shape[0]
+    cell0 = state.cell.double().cpu()
+    grown = count_calls(system, "_grow_capacity")
+    builds = count_calls(system, "build_lists")
+    samples = []
+
+    def callback(st, done):
+        samples.append((done, system.temperature(st),
+                        float(torch.abs(torch.linalg.det(st.cell.double())))))
+
+    launches0 = trio.trio_partials.launches
+    t0 = time.perf_counter()
+    state = run(state, callback)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = trio.trio_partials.launches - launches0
+    cell = state.cell.double().cpu()
+    ratio = float(cell[0, 0] / cell0[0, 0])
+    iso = float(torch.max(torch.abs(cell - ratio * cell0))
+                / torch.max(torch.abs(cell0)))
+    second = [t for done, t, _ in samples if done > STAGE_STEPS // 2]
+    mean_t = float(np.mean(second))
+    s32 = system.stress(state).double().cpu()
+    s64 = stress64(state).cpu()
+    d_stress = max_err(s32, s64)
+    rate = n_atoms * STAGE_STEPS / seconds
+    print(f"protocol {name}: {seconds:.2f} s, {rate:.1f} atom-steps/s, "
+          f"{launches} trio launches, {len(grown)} regrows "
+          f"(capacities {system.capacity_2b}/{system.capacity_3b}), "
+          f"{len(builds)} full list builds in "
+          f"{STAGE_STEPS // system.rebuild_every} cycles, "
+          f"stale={bool(state.stale)}")
+    print(f"protocol {name}: volume (A^3) by launch "
+          f"{[round(v, 1) for _, _, v in samples]}; mobile T (K) by launch "
+          f"{[round(t, 1) for _, t, _ in samples]}; final stress (eV/A^3) "
+          f"{[float(f'{x:.4e}') for x in s32]}, |f32 - f64| "
+          f"{d_stress:.3e}")
+    checks = {
+        "no overflow after regrowth": not system.overflowed(state),
+        "finite state and cell": bool(
+            torch.isfinite(state.positions).all()
+            and torch.isfinite(state.velocities).all()
+            and torch.isfinite(state.cell).all()),
+        "trio kernel launched": launches > 0,
+        f"mean mobile T {mean_t:.1f} K within 10% of {target:g} K":
+            abs(mean_t - target) <= STAGE_T_BAND * target,
+        f"cell a multiple of its entry cell ({iso:.2e})": iso <= 1e-5,
+        f"f32 stress within {STRESS_TOL:g} eV/A^3 of f64":
+            d_stress <= STRESS_TOL,
+    }
+    for check, ok in checks.items():
+        print(f"check protocol {name} {check}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError(f"protocol {name} checks failed")
+    return state, launches, rate
+
+
+def layer_times_protocol(system: MDSystem, state):
+    """Per-call host times of the SCR NPT step's layers at the
+    protocol's width, and the device time of its force with and without
+    the virial by graph replay."""
+    cell, x = state.cell, state.positions
+    cache2 = nb.list_cache(state.nbr2, cell, system.dtype)
+    cache3 = nb.list_cache(state.nbr3, cell, system.dtype)
+    dt = 2.0 * units.fs
+    langevin = system._thermostat_fn("langevin", dt, 3500.0,
+                                     STAGE_FRICTION, 100.0)
+    scr = SCR(0.0, 1000.0 * units.fs, 5e-3)
+    scale = torch.ones((), dtype=system.dtype, device=system.device)
+
+    def force(with_virial):
+        return lambda: system.energy_forces(
+            x, state.nbr2, state.nbr3, cell=cell, with_energy=False,
+            with_virial=with_virial, cache2=cache2, cache3=cache3)
+
+    layers = {
+        "SCR NPT step (force + virial, Langevin, barostat)": lambda:
+            system._verlet_step(state, dt, langevin, False, cache2, cache3,
+                                scr, 3500.0, scale),
+        "Langevin step (force, no virial)": lambda: system._verlet_step(
+            state, dt, langevin, False, cache2, cache3),
+        "force + virial (energy_forces)": force(True),
+        "force alone (energy_forces)": force(False),
+        "staleness triggers (needs_rebuild x2)": lambda: system._stale(
+            state.stale, state.nbr2, state.nbr3, x),
+        "full rebuild (wrap, cell list, filter)": lambda:
+            system.build_lists(system._wrap(x, cell), cell),
+    }
+    for name, fn in layers.items():
+        print(f"layer protocol {name}: {host_ms(fn, 10):.4f} ms per call "
+              "(host)")
+    for with_virial in (False, True):
+        print(f"layer protocol force{' + virial' if with_virial else ''} "
+              f"on the device (graph replay): "
+              f"{graph_ms(force(with_virial), repeats=10):.4f} ms per call")
+
+
+def run_protocol(device):
+    """The two-phase melting protocol's path (benchmarks/melting_run.py:
+    99-252) at its full width, 31,104 atoms of bcc W, float32, with its
+    engine settings and each stage cut to 256 steps, friction 10/ps
+    throughout: (1) Langevin at 3,500 K with capacity regrowth, (2) SCR
+    NPT at 3,500 K, P = 0, (3) the half at fractional x < 0.5 pinned
+    (masses 1e12, zero velocity) and SCR NPT at 8,000 K, (4) everything
+    released, SCR NPT at 3,500 K.  Stages 3 and 4 build their system
+    from the current cell and positions, with the capacities grown so
+    far.  Returns (trio launches of the four stages' runs, {stage:
+    atom-steps/s})."""
+    geom = bench_geometry(PROTOCOL_REPS)
+    system = MDSystem(MODEL, geom, dtype=torch.float32, device=device,
+                      **PROTOCOL)
+    system64 = MDSystem(MODEL, geom, dtype=torch.float64, device=device,
+                        **PROTOCOL)
+
+    def stress64(st):
+        return system64.stress(st._replace(positions=st.positions.double(),
+                                           cell=st.cell.double()))
+
+    npt = dict(n_steps=STAGE_STEPS, dt_fs=2.0, pressure=0.0,
+               friction_ps=STAGE_FRICTION, launch_chunks=8)
+    trio.trio_partials.launches = 0
+    state = system.init_state(temperature=3500.0, seed=0)
+    rates, launches = {}, []
+    state, n, rates["1 Langevin 3500 K"] = protocol_stage(
+        "1 Langevin 3500 K", system, state, 3500.0,
+        lambda st, cb: system.run(
+            st, n_steps=STAGE_STEPS, dt_fs=2.0, thermostat="langevin",
+            temperature=3500.0, friction_ps=STAGE_FRICTION,
+            on_overflow="regrow", launch_chunks=8, callback=cb), stress64)
+    launches.append(n)
+    state, n, rates["2 SCR NPT 3500 K"] = protocol_stage(
+        "2 SCR NPT 3500 K", system, state, 3500.0,
+        lambda st, cb: system.npt_run(st, temperature=3500.0, callback=cb,
+                                      **npt)[0], stress64)
+    launches.append(n)
+    layer_times_protocol(system, state)
+
+    def rebuilt(masses=None):
+        atoms = Atoms(geom.get_atomic_numbers(),
+                      state.positions.double().cpu().numpy(),
+                      state.cell.double().cpu().numpy(), pbc=True)
+        return MDSystem(MODEL, atoms, dtype=torch.float32, device=device,
+                        masses=masses, **dict(
+                            PROTOCOL, capacity_2b=system.capacity_2b,
+                            capacity_3b=system.capacity_3b))
+
+    frac_x = (state.positions.double()
+              @ torch.linalg.inv(state.cell.double()))[:, 0] % 1.0
+    frozen = (frac_x < 0.5).cpu().numpy()
+    masses = system.masses.double().cpu().numpy().copy()
+    masses[frozen] = 1e12
+    system = rebuilt(masses)
+    print(f"protocol: {int(frozen.sum())} of {len(frozen)} atoms pinned")
+    velocities = state.velocities.clone()
+    velocities[torch.as_tensor(frozen, device=device)] = 0.0
+    state = system.init_state(velocities=velocities, seed=1)
+    state, n, rates["3 SCR NPT 8000 K, half pinned"] = protocol_stage(
+        "3 SCR NPT 8000 K, half pinned", system, state, 8000.0,
+        lambda st, cb: system.npt_run(st, temperature=8000.0, callback=cb,
+                                      **npt)[0], stress64)
+    launches.append(n)
+    system = rebuilt()
+    state = system.init_state(velocities=state.velocities, seed=2)
+    state, n, rates["4 SCR NPT 3500 K, released"] = protocol_stage(
+        "4 SCR NPT 3500 K, released", system, state, 3500.0,
+        lambda st, cb: system.npt_run(st, temperature=3500.0, callback=cb,
+                                      **npt)[0], stress64)
+    launches.append(n)
+    return sum(launches), rates
+
+
 def run_md_command():
     """``python -m uf3_tpu_torch md`` at its defaults, as a user runs
     it: exit 0 and a finite T and E on its result line."""
@@ -551,39 +850,47 @@ def main():
     build_kernels()
     records = compare_trio(device)
     langevin = dict(dt_fs=2.0, thermostat="langevin", temperature=T_TARGET)
-    rates, launches = {}, {}
+    rates, launches, stale = {}, {}, {}
     # the benchmark configuration: 3-level r-RESPA 12/6/36
-    system, state, launches["respa3"], rates["3-level r-RESPA 12/6/36"], \
-        temps, stale3 = run_path("3-level r-RESPA", device, BENCH,
-                                 dict(langevin, launch_chunks=10))
+    name = "3-level r-RESPA 12/6/36"
+    system, state, launches["respa3"], rates[name], temps, stale[name] = \
+        run_path("3-level r-RESPA", device, BENCH,
+                 dict(langevin, launch_chunks=10))
     layer_times(system, state)
     check_path("3-level r-RESPA", system, state, launches["respa3"], temps,
                split=True)
     # plain velocity Verlet with the engine's default arguments
-    system, state, launches["plain"], rates["plain Verlet (defaults)"], \
-        temps, stale1 = run_path("plain Verlet", device, {}, langevin)
+    name = "plain Verlet (defaults)"
+    system, state, launches["plain"], rates[name], temps, stale[name] = \
+        run_path("plain Verlet", device, {}, langevin)
     layer_times_plain(system, state)
     check_path("plain Verlet", system, state, launches["plain"], temps,
                split=False)
     nve_launches, _, rates["plain Verlet NVE"] = run_nve(system, state)
     launches["plain"] += nve_launches
     # 2-level r-RESPA: the bench configuration without a mid level
-    system, state, launches["respa2"], rates["2-level r-RESPA 12/36"], \
-        temps, stale2 = run_path("2-level r-RESPA", device,
-                                 dict(BENCH, respa_mid=1),
-                                 dict(langevin, launch_chunks=10))
+    name = "2-level r-RESPA 12/36"
+    system, state, launches["respa2"], rates[name], temps, stale[name] = \
+        run_path("2-level r-RESPA", device, dict(BENCH, respa_mid=1),
+                 dict(langevin, launch_chunks=10))
     check_path("2-level r-RESPA", system, state, launches["respa2"],
                temps, split=True)
+    name = "plain Verlet, Nose-Hoover"
+    launches["nose_hoover"], rates[name], stale[name] = \
+        run_nose_hoover(device)
     compare_small_cells(device)
+    compare_npt_card_cpu(device)
+    launches["npt"], protocol_rates = run_protocol(device)
     rates["md command (2,000 atoms, plain Verlet)"] = run_md_command()
     card = card_line()
-    for (name, rate), stale in zip(rates.items(),
-                                   (stale3, stale1, stale1, stale2, None)):
+    for name, rate in rates.items():
         print(f"MD {name}: {rate:.1f} atom-steps/s"
               + (f" (median of 3 x {WINDOW_STEPS} steps, 9826 atoms, "
-                 f"float32), stale={stale}" if "command" not in name
-                 and "NVE" not in name else "")
+                 f"float32), stale={stale[name]}" if name in stale else "")
               + f", card: {card}")
+    for name, rate in protocol_rates.items():
+        print(f"MD melting protocol stage {name}: {rate:.1f} atom-steps/s "
+              f"({STAGE_STEPS} steps, 31104 atoms, float32), card: {card}")
     print(f"trio launches by path: {launches}")
     record = dict(records["K16"], max_abs_err=max(
         r["max_abs_err"] for r in records.values()))

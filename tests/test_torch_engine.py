@@ -2,7 +2,9 @@
 The port's MD engine on its own (uf3_tpu_torch/forcefield/md.py): the
 trajectory does not depend on how cycles are grouped into launches,
 every option not ported yet raises NotImplementedError naming its
-ROADMAP.md item, and the md command runs on the CPU.  Parity with the JAX engine is in
+ROADMAP.md item, the Langevin thermostat and the two barostats hold
+their targets (twins of the JAX engine's statistical tests), and the md
+command runs on the CPU.  Parity with the JAX engine is in
 tests/test_torch_md.py; this file imports no jax.
 """
 
@@ -55,8 +57,10 @@ def test_langevin_launch_chunks_exact():
 
 def test_options_off_the_bench_path_raise():
     """What is still not ported raises NotImplementedError naming its
-    ROADMAP.md item: the engine options off the benchmark path,
-    Nose-Hoover, NPT and the virial, regrowth, binary models."""
+    ROADMAP.md item: the engine options off the benchmark path and
+    binary models; so do the paths the JAX engine has none of, a
+    barostat on r-RESPA and Nose-Hoover NPT.  Nose-Hoover, regrowth,
+    npt_run and stress run (tests/test_torch_npt.py)."""
     geom = _geom()
     for bad in (dict(fused="separate"), dict(trio_triangle=True),
                 dict(static_rebuild=True), dict(eager_refilter=False)):
@@ -68,14 +72,90 @@ def test_options_off_the_bench_path_raise():
         MDSystem(MODEL, geom, **dict(KW, respa_mid=4))
     port = MDSystem(MODEL, geom, dtype=torch.float64, **KW)
     st = port.init_state()
-    for kwargs in (dict(thermostat="nose_hoover"),
-                   dict(on_overflow="regrow")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            port.run(st, **dict(dict(n_steps=12, dt_fs=2.0), **kwargs))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError,
+                       match="barostat on r-RESPA.*ROADMAP.md"):
         port.npt_run(st, n_steps=12, dt_fs=2.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port.stress(st)
+    plain = MDSystem(MODEL, bulk("W", "bcc", a=3.1652) * 3,
+                     dtype=torch.float64, device="cpu")
+    st = plain.init_state()
+    with pytest.raises(NotImplementedError, match="nose_hoover.*ROADMAP.md"):
+        plain.npt_run(st, n_steps=12, dt_fs=2.0, thermostat="nose_hoover")
+    for bad in (dict(thermostat="andersen"), dict(on_overflow="ignore")):
+        with pytest.raises(ValueError):
+            plain.run(st, n_steps=2, dt_fs=2.0, **bad)
+    with pytest.raises(ValueError, match="barostat"):
+        plain.npt_run(st, n_steps=2, dt_fs=2.0, barostat="mttk")
+
+
+# -- statistical twins of the JAX engine's thermostat and barostat tests
+# (tests/test_device_potential.py), 54 atoms, f64
+def _w54():
+    return bulk("W", "bcc", a=3.1652) * 3
+
+
+def test_langevin_thermostat():
+    """900 K velocities cool to 300 K under friction 10/ps in 300 steps
+    (twin of test_langevin_thermostat)."""
+    port = MDSystem(MODEL, _w54(), dtype=torch.float64, device="cpu",
+                    rebuild_every=10)
+    state = port.init_state(temperature=900.0, seed=2)
+    state = port.run(state, n_steps=300, dt_fs=2.0, thermostat="langevin",
+                     temperature=300.0, friction_ps=10.0)
+    assert 150.0 < port.temperature(state) < 500.0
+
+
+def _npt_volume(barostat, pressure, n_steps, seed, tail):
+    geom = _w54()
+    port = MDSystem(MODEL, geom, dtype=torch.float64, device="cpu",
+                    rebuild_every=5, skin=0.5)
+    state = port.init_state(temperature=100.0, seed=seed)
+    _, cells = port.npt_run(state, n_steps=n_steps, dt_fs=2.0,
+                            temperature=100.0, pressure=pressure,
+                            tau_p_fs=20.0 if barostat == "berendsen"
+                            else 40.0, compressibility=0.2,
+                            barostat=barostat)
+    return geom.get_volume(), float(np.mean(
+        [abs(np.linalg.det(c)) for c in cells[-tail:]]))
+
+
+def test_berendsen_pressure_coupling():
+    """At P = 0 Berendsen holds the volume within 3%; 0.2 eV/A^3
+    compresses it by more than 4% (twin of
+    test_berendsen_pressure_coupling)."""
+    v0, v_zero = _npt_volume("berendsen", 0.0, 100, 4, 1)
+    assert abs(v_zero - v0) / v0 < 0.03
+    _, v_comp = _npt_volume("berendsen", 0.2, 100, 4, 1)
+    assert v_comp < 0.96 * v_zero
+
+
+def test_scr_npt_ensemble():
+    """SCR at 100 K: the mean volume of the last 6 launches stays
+    within 4% at P = 0 and drops by more than 3% at 0.2 eV/A^3 (twin of
+    test_scr_npt_ensemble)."""
+    v0, v_zero = _npt_volume("scr", 0.0, 120, 6, 6)
+    assert abs(v_zero - v0) / v0 < 0.04
+    _, v_comp = _npt_volume("scr", 0.2, 120, 6, 6)
+    assert v_comp < 0.97 * v_zero
+
+
+def test_npt_launch_chunks_exact():
+    """SCR at 500 K: four cycles in one launch give the trajectory,
+    noise stream and cell of one cycle per launch (twin of
+    test_npt_launch_chunks_exact)."""
+    out = []
+    for chunks in (1, 4):
+        port = MDSystem(MODEL, _w54(), dtype=torch.float64, device="cpu",
+                        rebuild_every=12)
+        state = port.init_state(temperature=500.0, seed=7)
+        out.append(port.npt_run(state, n_steps=48, dt_fs=1.0,
+                                temperature=500.0, pressure=0.0,
+                                launch_chunks=chunks))
+    (a, cells_a), (b, cells_b) = out
+    assert torch.equal(a.positions, b.positions)
+    assert torch.equal(a.cell, b.cell)
+    assert len(cells_a) == 4 and len(cells_b) == 1
+    assert np.array_equal(cells_a[-1], cells_b[0])
+    assert not np.array_equal(cells_b[0], _w54().cell)
 
 
 @pytest.mark.parametrize("reps", [8, 10])

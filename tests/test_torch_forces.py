@@ -3,8 +3,9 @@ The port's force modules against the JAX ones in float64 on the
 128-atom rattled bcc W fixture of tests/test_fused_kernels.py: switched
 pair short/tail forces, the trio twin (partials, and assembled forces
 against trio_forces_unrolled and the Pallas kernel in interpret mode),
-and the shared-gather 2+3-body evaluation.  Tolerance 1e-10 eV or eV/A:
-the same closed forms, summed in another order.
+the 3-body virial from the trio partials, and the shared-gather
+2+3-body evaluation.  Tolerance 1e-10 eV or eV/A: the same closed
+forms, summed in another order.
 
 The trio grid is the bench model's (symmetric in its first two axes)
 and random non-symmetric grids made with numpy, one with the bench
@@ -13,6 +14,7 @@ roles cannot pass unseen.  (The CUDA kernel is held against this twin
 in tests/test_torch_kernels.py.)
 """
 
+import functools
 import os
 
 import jax
@@ -43,6 +45,13 @@ _block_compute = jax.jit(
     pt._trio_block_compute,
     static_argnames=("spec_l", "spec_n", "l_dim", "nc", "with_energy",
                      "active_bc", "window", "precision"))
+
+
+_block_compute_virial = jax.jit(
+    functools.partial(pt._trio_block_compute, with_energy=False,
+                      with_virial=True),
+    static_argnames=("spec_l", "spec_n", "l_dim", "nc", "active_bc",
+                     "window", "precision"))
 
 
 def _to_port(nbr) -> tnb.NeighborList:
@@ -178,6 +187,34 @@ def test_trio_partials_and_forces(setup, grid):
         _close(fp, ft)
 
 
+@pytest.mark.parametrize("grid", ["bench", "random_sparse"])
+def test_trio_virial_from_partials(setup, grid):
+    """``trio_virial6`` on the twin's slot partials against the JAX
+    block body's virial (``_trio_virial6``), sign included, on the
+    exchange-symmetric bench grid; on a grid without that symmetry the
+    identity it rests on fails, and so does the JAX formula's premise:
+    the two then differ."""
+    s = setup
+    pot = _grid(s["pot"], grid)
+    tb = pot.trio
+    d = tnb.displacements(s["tpos"], s["tcell"], s["tnbr3"].idx,
+                          s["tnbr3"].shift)
+    valid = s["tnbr3"].mask.double()
+    comps = tuple(jnp.asarray(d[..., c].numpy()) for c in range(3))
+    out = _block_compute_virial(
+        comps, jnp.asarray(valid.numpy()), jnp.asarray(tb.grid),
+        pt.LegSpec(*tb.spec_l), pt.LegSpec(*tb.spec_n), tb.l_basis,
+        tb.n_basis, active_bc=tb.active_bc, window=tb.window,
+        precision="highest")
+    _, _, part = ttrio.trio_partials(pot, d, valid, with_energy=False)
+    v6 = ttrio.trio_virial6(part, d, valid)
+    assert float(torch.abs(v6).max()) > 1.0
+    if grid == "bench":
+        _close(out[5], v6)
+    else:
+        assert np.abs(np.asarray(out[5]) - v6.numpy()).max() > 1e-3
+
+
 def test_pair_trio_shared(setup):
     s = setup
     spec, coeff = pt.build_pair_fast(s["model"], dtype=jnp.float64)
@@ -187,8 +224,9 @@ def test_pair_trio_shared(setup):
         spec_pair=spec, n_basis_pair=spec.n_basis, spec_l=tb.spec_l,
         spec_n=tb.spec_n, l_basis=tb.l_basis, n_basis=tb.n_basis,
         active_bc=tb.active_bc, window=tb.window)
-    e2t, e3t, ft = ttrio.pair_trio_forces_shared(
+    e2t, e3t, ft, vt = ttrio.pair_trio_forces_shared(
         s["pot"], s["tpos"], s["tcell"], s["tnbr2"], s["tnbr3"])
+    assert vt is None
     _close(e2j, e2t)
     _close(e3j, e3t)
     _close(fj, ft)

@@ -5,7 +5,10 @@ the bench grid and random non-symmetric grids (one with the bench
 model's zero pattern, one dense), the unary test model's wider window,
 K = 8 and 32 slots, a ragged atom count, sparse and non-prefix slot
 masks and non-linear knot kinds: 1e-10 in float64 (summation order
-only), 2e-4 eV/A in float32 against the float64 twin.
+only), 2e-4 eV/A in float32 against the float64 twin.  The 3-body virial
+from the kernel's partials, on the bench lists (16 slots) and the
+melting protocol's (20 slots): 1e-9 relative in float64, 1e-5 eV/A^3
+per stress component in float32.
 
 The ``cuda`` tests skip without a GPU.  This file imports no jax, so it
 also runs on a GPU host without it:
@@ -109,6 +112,31 @@ def test_one_tier_default_list_has_23_slots(rows_one_tier):
     _, d, valid = rows_one_tier
     assert d.shape[1] == 23
     assert int(valid.sum(1).max()) <= 23 and int(valid.sum(1).min()) >= 12
+
+
+# the melting protocol's engine settings (benchmarks/melting_run.py:105)
+PROTOCOL = dict(rebuild_every=16, skin=0.6, skin_2b=1.2, capacity_2b=88,
+                capacity_3b=20)
+
+
+@pytest.fixture(scope="module")
+def rows_protocol():
+    """(potential, d, valid, volume) of the 3-body rows of the melting
+    protocol's list (20 slots) on the same box, f64."""
+    geom = bulk("W", "bcc", a=3.1652) * (8, 8, 8)
+    geom.rattle(0.05, seed=11)
+    system = MDSystem(MODEL, geom, dtype=torch.float64, device="cpu",
+                      **PROTOCOL)
+    state = system.init_state()
+    cache = nb.list_cache(state.nbr3, system.cell, torch.float64)
+    d = nb.cached_displacements(state.positions, state.nbr3, cache)
+    return system.potential, d, cache.valid, geom.get_volume()
+
+
+def test_protocol_list_has_20_slots(rows_protocol):
+    _, d, valid, _ = rows_protocol
+    assert d.shape[1] == 20
+    assert int(valid.sum(1).max()) <= 20 and int(valid.sum(1).min()) >= 12
 
 
 @pytest.fixture
@@ -276,3 +304,36 @@ def test_md_step_on_the_card_matches_cpu(cuda_device, kw, n_steps):
     for name in ("positions", "velocities", "forces", "energy"):
         assert _err(getattr(cpu, name), getattr(card, name)) <= 1e-10
     assert float(torch.abs(cpu.forces).max()) > 1e-1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 20])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_trio_virial_from_kernel_partials(rows, rows_protocol, cuda_device,
+                                          k, dtype):
+    """The 3-body virial from the kernel's slot partials against the
+    twin's (``trio_virial6``, bench grid): 1e-9 relative in float64;
+    in float32 each Voigt stress component within 1e-5 eV/A^3 of the
+    float64 twin's."""
+    if k == 16:
+        pot64, d, valid, _, _ = rows
+        volume = (8 * 3.1652) ** 3
+    else:
+        pot64, d, valid, volume = rows_protocol
+    assert d.shape[1] == k
+    _, _, part = trio.trio_partials_torch(d, valid, pot64.grid, pot64.trio,
+                                          False)
+    v_twin = trio.trio_virial6(part, d, valid)
+    pot = _with_grid(pot64, pot64.trio.grid).to(device=cuda_device,
+                                                dtype=dtype)
+    dk, vk = d.to(cuda_device, dtype), valid.to(cuda_device, dtype)
+    launches = trio.trio_partials.launches
+    _, _, part_k = trio.trio_partials(pot, dk, vk, False)
+    v_kernel = trio.trio_virial6(part_k, dk, vk).double().cpu()
+    assert trio.trio_partials.launches == launches + 1
+    assert float(torch.abs(v_twin).max()) > 1.0
+    if dtype == torch.float64:
+        assert _err(v_kernel, v_twin) <= 1e-9 * float(
+            torch.abs(v_twin).max())
+    else:
+        assert _err(v_kernel / volume, v_twin / volume) <= 1e-5

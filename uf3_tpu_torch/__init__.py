@@ -16,12 +16,13 @@ modules it needs are trimmed copies under the same module names.
   ops/potential.py    UF3Potential (nn.Module with the coefficients)
   ops/neighbors.py    O(N^2), images and cell-list neighbor lists,
                       filter, reverse slots
-  ops/pair.py         switched 2-body forces
+  ops/pair.py         switched 2-body forces and virial
   ops/trio.py         3-body kernel wrapper, torch twin, assembly,
-                      shared-gather and r-RESPA short forces
+                      virial, shared-gather and r-RESPA short forces
   ops/_build.py       nvcc build + ctypes loading of csrc/*.cu
   csrc/trio.cu        the 3-body CUDA kernel
   forcefield/md.py    MD: velocity Verlet, 2- and 3-level r-RESPA
-                      (NVE / Langevin)
+                      (NVE / Langevin / Nose-Hoover), SCR and
+                      Berendsen NPT, stress, capacity regrowth
   __main__.py         python -m uf3_tpu_torch md model.json
 """

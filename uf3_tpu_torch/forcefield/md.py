@@ -1,15 +1,22 @@
 """
 Molecular dynamics of a unary 2+3-body UF3 potential in torch: plain
 velocity Verlet, 2-level or 3-level r-RESPA, with one-tier or two-tier
-Verlet skins, NVE or Langevin.
+Verlet skins, NVE, Langevin or Nose-Hoover; NPT on plain Verlet under
+Langevin with the stochastic cell-rescaling or the Berendsen barostat,
+from the analytic virial; neighbor capacities that regrow on overflow.
 
-Counterpart of ``uf3_tpu/forcefield/md.py`` (``MDSystem.run`` ->
-``_run_chunk`` / ``_run_chunk_respa`` -> ``_verlet_step``,
-``_respa_cycle``, ``_respa_cycle_3l``).  The neighbor builder follows
-the cell: a cell list for periodic boxes of 512 atoms and 16 bins or
-more, explicit images for periodic cells narrower than twice the
-cutoff, otherwise the O(N^2) minimum-image search (non-periodic
-clusters included).  Per rebuild cycle the lists are refreshed on the
+Counterpart of ``uf3_tpu/forcefield/md.py`` (``MDSystem.run`` and
+``npt_run`` -> ``_run_chunk`` / ``_run_chunk_respa`` -> ``_verlet_step``,
+``_respa_cycle``, ``_respa_cycle_3l``; ``stress``).  One choice departs
+from it on purpose: every kinetic energy that feeds a thermostat or a
+barostat (Nose-Hoover, SCR and Berendsen) sums over mobile atoms only,
+where the reference's Nose-Hoover and Berendsen sums also count pinned
+atoms (ROADMAP.md section 3); without pinned atoms the two agree.
+
+The neighbor builder follows the cell: a cell list for periodic boxes
+of 512 atoms and 16 bins or more, explicit images for periodic cells
+narrower than twice the cutoff, otherwise the O(N^2) minimum-image
+search (non-periodic clusters included).  Per rebuild cycle the lists are refreshed on the
 host's decision (one sync): a full rebuild once half the 2-body skin
 is used, else, with two-tier skins, a refilter of the 3-body list from
 the 2-body list.  The 3-body force runs through the trio kernel on the
@@ -30,18 +37,27 @@ from uf3_tpu_torch.data.atoms import Atoms
 from uf3_tpu_torch.forcefield import units
 from uf3_tpu_torch.ops import neighbors as nb
 from uf3_tpu_torch.ops.pair import pair_short_forces, pair_tail_forces
-from uf3_tpu_torch.ops.potential import UF3Potential
+from uf3_tpu_torch.ops.potential import (UF3Potential, stress_voigt,
+                                         voigt6_to_matrix)
 from uf3_tpu_torch.ops.splines import basis_window_hi
 from uf3_tpu_torch.ops.trio import (pair_trio_forces_shared, trio_forces,
                                     trio_short_forces)
 
 OPTIONS = "engine options off the benchmark path"
+NPT_EXTRA = "barostats on r-RESPA and Nose-Hoover NPT"
+MAX_NPT_REGROWS = 4
 
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to uf3_tpu_torch yet (ROADMAP.md, modules "
         f"still to port: {item})")
+
+
+def _no_reference(what: str):
+    return NotImplementedError(
+        f"{what}: uf3_tpu has no such path to port (ROADMAP.md, modules "
+        f"still to port: {NPT_EXTRA})")
 
 
 def _resolve_device(device) -> torch.device:
@@ -56,6 +72,19 @@ def _resolve_device(device) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def _volume(cell):
+    """|det cell| as the triple product a . (b x c)."""
+    return torch.abs(torch.dot(cell[0], torch.linalg.cross(cell[1], cell[2])))
+
+
+class SCR(NamedTuple):
+    """Constants of the stochastic cell-rescaling barostat [Bernetti &
+    Bussi, J. Chem. Phys. 153, 114107 (2020)]."""
+    pressure: float  # target, eV / A^3
+    tau_p: float     # coupling time, internal units
+    beta_t: float    # isothermal compressibility, A^3 / eV
+
+
 class MDState(NamedTuple):
     positions: torch.Tensor   # (N, 3)
     velocities: torch.Tensor  # (N, 3) internal units
@@ -63,7 +92,8 @@ class MDState(NamedTuple):
     energy: torch.Tensor      # () potential energy, eV
     nbr2: nb.NeighborList
     nbr3: nb.NeighborList
-    generator: torch.Generator  # Langevin noise stream
+    generator: torch.Generator  # Langevin and SCR noise stream
+    xi: torch.Tensor          # () Nose-Hoover thermostat momentum
     stale: torch.Tensor       # () bool: a skin was exceeded
     cell: torch.Tensor        # (3, 3)
     f_short: torch.Tensor = None  # r-RESPA split forces at `positions`,
@@ -258,24 +288,28 @@ class MDSystem:
         return torch.sum(self.potential.offsets_1b[self.species])
 
     def energy_forces(self, positions, nbr2, nbr3, cell=None,
-                      with_energy: bool = True, cache2=None, cache3=None):
-        """Total energy and forces from one shared pair-row gather;
+                      with_energy: bool = True, with_virial: bool = False,
+                      cache2=None, cache3=None):
+        """Total energy, forces and, with ``with_virial``, the analytic
+        (3, 3) virial (else None) from one shared pair-row gather;
         ``with_energy=False`` skips the energy sums (the 1-body energy
         alone comes back).  ``cache2`` / ``cache3`` carry the lists'
         per-cycle invariants."""
         cell = self.cell if cell is None else cell
-        e2, e3, forces = pair_trio_forces_shared(
+        e2, e3, forces, v6 = pair_trio_forces_shared(
             self.potential, positions, cell, nbr2, nbr3, with_energy,
-            cache2, cache3)
-        return self._e1() + e2 + torch.sum(e3), forces
+            cache2, cache3, with_virial)
+        virial = voigt6_to_matrix(v6) if with_virial else None
+        return self._e1() + e2 + torch.sum(e3), forces, virial
 
     # -- state setup --------------------------------------------------------
     def init_state(self, velocities: np.ndarray = None,
                    temperature: float = None, seed: int = 0) -> MDState:
-        """Initial state: given velocities, Maxwell-Boltzmann velocities
-        at ``temperature`` (zero total momentum) drawn from a generator
-        seeded with ``seed`` -- which then drives the Langevin noise --
-        or zero velocities."""
+        """Initial state: given velocities (an array or a tensor),
+        Maxwell-Boltzmann velocities at ``temperature`` (zero total
+        momentum) drawn from a generator seeded with ``seed`` -- which
+        then drives the Langevin and SCR noise -- or zero velocities;
+        the Nose-Hoover momentum starts at zero."""
         positions = self._wrap(self._positions0, self.cell)
         generator = torch.Generator(device=self.device)
         generator.manual_seed(seed)
@@ -290,8 +324,7 @@ class MDSystem:
                     device=self.device)
                 velocities = velocities - torch.mean(velocities, dim=0)
         else:
-            velocities = torch.as_tensor(np.asarray(velocities),
-                                         dtype=self.dtype,
+            velocities = torch.as_tensor(velocities, dtype=self.dtype,
                                          device=self.device)
         nbr2, nbr3 = self.build_lists(positions)
         if bool(nbr2.overflow | nbr3.overflow):
@@ -299,10 +332,12 @@ class MDSystem:
                 "neighbor capacity exceeded at initialization "
                 f"(capacity_2b={self.capacity_2b}, "
                 f"capacity_3b={self.capacity_3b}); increase capacities")
-        energy, forces = self.energy_forces(positions, nbr2, nbr3)
+        energy, forces, _ = self.energy_forces(positions, nbr2, nbr3)
         return MDState(positions=positions, velocities=velocities,
                        forces=forces, energy=energy, nbr2=nbr2, nbr3=nbr3,
                        generator=generator,
+                       xi=torch.zeros((), dtype=self.dtype,
+                                      device=self.device),
                        stale=torch.zeros((), dtype=torch.bool,
                                          device=self.device),
                        cell=self.cell)
@@ -343,64 +378,119 @@ class MDSystem:
             stale = stale | nb.needs_rebuild(nbr3, x, self.skin)
         return stale
 
-    @staticmethod
-    def _langevin(dt, temperature, friction_ps, m):
-        """Langevin c1 and per-atom noise widths cn for one step dt."""
-        c1 = math.exp(-(friction_ps / units.ps) * dt)
-        return c1, torch.sqrt((1 - c1 ** 2) * units.kB * temperature / m)
+    def _mobile_ke(self, v):
+        """Kinetic energy (a 0-d tensor) of the mobile atoms: pinned
+        atoms (effectively infinite masses) carry kT/2 per degree of
+        freedom under Langevin at ~zero velocity and are left out."""
+        if self.mobile_mask is not None:
+            v = v * self.mobile_mask[:, None]
+        return 0.5 * torch.sum(self.masses[:, None] * v * v)
 
-    def _thermostat_update(self, v, generator, thermostat, c1, cn):
-        """Langevin c1/cn kick, or nothing for NVE."""
+    def _thermostat_fn(self, thermostat: Optional[str], dt: float,
+                       temperature: float, friction_ps: float,
+                       tau_fs: float):
+        """The per-step thermostat of one cycle, (v, generator, xi) ->
+        (v, xi): the Langevin c1/cn kick, the Nose-Hoover update of xi
+        (thermostat mass q = dof kB T tau^2, the kinetic energy of the
+        mobile atoms) and its velocity scaling, or nothing (NVE)."""
         if thermostat == "langevin":
-            noise = torch.randn(v.shape, generator=generator,
-                                dtype=v.dtype, device=v.device)
-            return c1 * v + cn * noise
-        return v
+            c1 = math.exp(-(friction_ps / units.ps) * dt)
+            cn = torch.sqrt((1 - c1 ** 2) * units.kB * temperature
+                            / self.masses[:, None])
 
-    def _verlet_step(self, state: MDState, dt: float, thermostat, c1, cn,
-                     with_energy: bool, cache2, cache3) -> MDState:
-        """One velocity-Verlet step on the full force; the energy is
-        computed when ``with_energy``, else carried over."""
+            def langevin(v, generator, xi):
+                noise = torch.randn(v.shape, generator=generator,
+                                    dtype=v.dtype, device=v.device)
+                return c1 * v + cn * noise, xi
+            return langevin
+        if thermostat == "nose_hoover":
+            kt = self.dof * units.kB * temperature
+            q = kt * (tau_fs * units.fs) ** 2
+
+            def nose_hoover(v, generator, xi):
+                xi = xi + dt * (2.0 * self._mobile_ke(v) - kt) / q
+                return v * torch.exp(-xi * dt), xi
+            return nose_hoover
+        return lambda v, generator, xi: (v, xi)
+
+    def _verlet_step(self, state: MDState, dt: float, thermostat,
+                     with_energy: bool, cache2, cache3, scr: SCR = None,
+                     temperature: float = 0.0, scale=None):
+        """One velocity-Verlet step on the full force, then
+        ``thermostat`` and, with ``scr``, one stochastic cell-rescaling
+        step: d(ln V) = -beta_T / tau_p (P0 - P_int) dt + sqrt(2 kB T
+        beta_T dt / (V tau_p)) dW, P_int from the mobile atoms' kinetic
+        energy and the analytic virial.  ``scale`` is the cell's
+        cumulative isotropic factor since the cycle's lists were cached:
+        the force sees cell * scale, and the caches' shift products
+        (linear in the cell) times scale.  The energy is computed when
+        ``with_energy``, else carried over.  Returns (state, scale)."""
         m = self.masses[:, None]
+        cell = state.cell
+        if scr is not None:
+            cell = cell * scale
+            cache2 = cache2._replace(sd=cache2.sd * scale)
+            cache3 = cache3._replace(sd=cache3.sd * scale)
         v = state.velocities + 0.5 * dt * state.forces / m
         x = state.positions + dt * v
-        energy, forces = self.energy_forces(
-            x, state.nbr2, state.nbr3, cell=state.cell,
-            with_energy=with_energy, cache2=cache2, cache3=cache3)
+        energy, forces, virial = self.energy_forces(
+            x, state.nbr2, state.nbr3, cell=cell, with_energy=with_energy,
+            with_virial=scr is not None, cache2=cache2, cache3=cache3)
         v = v + 0.5 * dt * forces / m
-        v = self._thermostat_update(v, state.generator, thermostat, c1, cn)
+        v, xi = thermostat(v, state.generator, state.xi)
+        if scr is not None:
+            volume = _volume(cell)
+            p_int = (2.0 * self._mobile_ke(v) - torch.trace(virial)) \
+                / (3.0 * volume)
+            noise = torch.randn((), generator=state.generator,
+                                dtype=x.dtype, device=x.device)
+            d_eps = (-(scr.beta_t / scr.tau_p) * (scr.pressure - p_int) * dt
+                     + torch.sqrt(2.0 * units.kB * temperature * scr.beta_t
+                                  * dt / (volume * scr.tau_p)) * noise)
+            lam = torch.exp(d_eps / 3.0)
+            x = x * lam
+            v = v / lam
+            scale = scale * lam
         return MDState(positions=x, velocities=v, forces=forces,
                        energy=energy if with_energy else state.energy,
                        nbr2=state.nbr2, nbr3=state.nbr3,
-                       generator=state.generator,
+                       generator=state.generator, xi=xi,
                        stale=self._stale(state.stale, state.nbr2,
                                          state.nbr3, x),
-                       cell=state.cell)
+                       cell=state.cell), scale
 
     def _verlet_cycle(self, state: MDState, n_steps: int, dt_fs: float,
                       thermostat: Optional[str], temperature: float,
-                      friction_ps: float, compute_energy: bool) -> MDState:
+                      friction_ps: float, compute_energy: bool,
+                      tau_fs: float = 100.0, scr: SCR = None) -> MDState:
         """One rebuild cycle of plain velocity Verlet: the neighbor
         refresh, then ``n_steps`` steps; the energy on the last step
-        when ``compute_energy``, else the cycle's entry energy stays."""
+        when ``compute_energy``, else the cycle's entry energy stays.
+        With ``scr`` the cell takes the cycle's cumulative scale at its
+        end."""
         x, nbr2, nbr3 = self._cycle_lists(state)
         cell = state.cell
         cache2 = nb.list_cache(nbr2, cell, self.dtype)
         cache3 = nb.list_cache(nbr3, cell, self.dtype)
         dt = dt_fs * units.fs
-        c1, cn = self._langevin(dt, temperature, friction_ps,
-                                self.masses[:, None])
+        step_thermostat = self._thermostat_fn(thermostat, dt, temperature,
+                                              friction_ps, tau_fs)
         state = state._replace(positions=x, nbr2=nbr2, nbr3=nbr3)
+        scale = torch.ones((), dtype=self.dtype, device=self.device)
         for step in range(n_steps):
-            state = self._verlet_step(
-                state, dt, thermostat, c1, cn,
-                compute_energy and step == n_steps - 1, cache2, cache3)
+            state, scale = self._verlet_step(
+                state, dt, step_thermostat,
+                compute_energy and step == n_steps - 1, cache2, cache3,
+                scr, temperature, scale)
+        if scr is not None:
+            state = state._replace(cell=cell * scale)
         return state
 
     def _run_chunk(self, state: MDState, n_steps: int, dt_fs: float,
                    thermostat: Optional[str] = None,
                    temperature: float = 300.0, friction_ps: float = 2.0,
-                   n_chunks: int = 1) -> MDState:
+                   n_chunks: int = 1, tau_fs: float = 100.0,
+                   scr: SCR = None) -> MDState:
         """One launch of plain velocity Verlet: ``n_chunks`` rebuild
         cycles of ``n_steps`` steps each, the energy on the launch's
         last step.  The returned state carries no r-RESPA split forces.
@@ -409,7 +499,7 @@ class MDSystem:
         for chunk in range(n_chunks):
             state = self._verlet_cycle(state, n_steps, dt_fs, thermostat,
                                        temperature, friction_ps,
-                                       chunk == n_chunks - 1)
+                                       chunk == n_chunks - 1, tau_fs, scr)
         return state
 
     def _respa_split_forces(self, state: MDState):
@@ -429,11 +519,12 @@ class MDSystem:
 
     def _respa_cycle(self, state: MDState, n_outer: int, dt_fs: float,
                      thermostat: Optional[str], temperature: float,
-                     friction_ps: float, compute_energy: bool) -> MDState:
+                     friction_ps: float, compute_energy: bool,
+                     tau_fs: float = 100.0) -> MDState:
         """One rebuild cycle of 2-level r-RESPA: per outer step [tail
         half-kick, n_respa inner velocity-Verlet steps on the short
-        force (switched short pair + 3-body, on the 3-body rows), tail
-        half-kick]."""
+        force (switched short pair + 3-body, on the 3-body rows), each
+        followed by the thermostat, tail half-kick]."""
         pot = self.potential
         dt = dt_fs * units.fs
         dt_out = dt * self.n_respa
@@ -444,7 +535,8 @@ class MDSystem:
         spec = pot.pair_spec
         r_lo, r_hi = self.respa_switch
         m = self.masses[:, None]
-        c1, cn = self._langevin(dt, temperature, friction_ps, m)
+        step_thermostat = self._thermostat_fn(thermostat, dt, temperature,
+                                              friction_ps, tau_fs)
 
         def short_forces(xx, with_energy=False):
             return trio_short_forces(pot, xx, cell, nbr3,
@@ -457,7 +549,7 @@ class MDSystem:
                 n_basis_pair=spec.n_basis, with_energy=with_energy,
                 r_lo=r_lo, r_hi=r_hi, cache2=cache2)
 
-        v = state.velocities
+        v, xi = state.velocities, state.xi
         f_short, f_tail = state.f_short, state.f_tail
         stale = state.stale
         for _ in range(n_outer):
@@ -467,8 +559,7 @@ class MDSystem:
                 x = x + dt * v
                 _, _, f_short = short_forces(x)
                 v = v + 0.5 * dt * f_short / m
-                v = self._thermostat_update(v, state.generator, thermostat,
-                                            c1, cn)
+                v, xi = step_thermostat(v, state.generator, xi)
                 stale = self._stale(stale, nbr2, nbr3, x)
             _, f_tail = tail_forces(x)
             v = v + 0.5 * dt_out * f_tail / m
@@ -479,8 +570,8 @@ class MDSystem:
             energy = self._e1() + e_s + e_t + torch.sum(e3)
         return MDState(positions=x, velocities=v, forces=f_short + f_tail,
                        energy=energy, nbr2=nbr2, nbr3=nbr3,
-                       generator=state.generator, stale=stale, cell=cell,
-                       f_short=f_short, f_tail=f_tail)
+                       generator=state.generator, xi=xi, stale=stale,
+                       cell=cell, f_short=f_short, f_tail=f_tail)
 
     def _respa_split_forces_3l(self, state: MDState):
         """(f_pair_short, f_trio, f_tail) at ``state``'s positions."""
@@ -502,13 +593,14 @@ class MDSystem:
 
     def _respa_cycle_3l(self, state: MDState, n_outer: int, dt_fs: float,
                         thermostat: Optional[str], temperature: float,
-                        friction_ps: float,
-                        compute_energy: bool) -> MDState:
+                        friction_ps: float, compute_energy: bool,
+                        tau_fs: float = 100.0) -> MDState:
         """One rebuild cycle of 3-level r-RESPA: per outer step [tail
         half-kick, n_respa / respa_mid mid steps, tail half-kick]; per
         mid step [trio half-kick, respa_mid inner velocity-Verlet steps
-        on the switched short pair force, trio refresh on the last inner
-        step's displacement rows, trio half-kick]."""
+        on the switched short pair force, each followed by the
+        thermostat, trio refresh on the last inner step's displacement
+        rows, trio half-kick]."""
         pot = self.potential
         dt = dt_fs * units.fs
         n_mid = self.respa_mid
@@ -521,7 +613,8 @@ class MDSystem:
         spec = pot.pair_spec
         r_lo, r_hi = self.respa_switch
         m = self.masses[:, None]
-        c1, cn = self._langevin(dt, temperature, friction_ps, m)
+        step_thermostat = self._thermostat_fn(thermostat, dt, temperature,
+                                              friction_ps, tau_fs)
 
         def ps_forces(xx, with_energy=False):
             return pair_short_forces(
@@ -535,7 +628,7 @@ class MDSystem:
                 n_basis_pair=spec.n_basis, with_energy=with_energy,
                 r_lo=r_lo, r_hi=r_hi, cache2=cache2)
 
-        v = state.velocities
+        v, xi = state.velocities, state.xi
         f_ps, f_mid, f_tail = state.f_short, state.f_mid, state.f_tail
         stale = state.stale
         for _ in range(n_outer):
@@ -547,8 +640,7 @@ class MDSystem:
                     x = x + dt * v
                     _, f_ps, d3 = ps_forces(x)
                     v = v + 0.5 * dt * f_ps / m
-                    v = self._thermostat_update(v, state.generator,
-                                                thermostat, c1, cn)
+                    v, xi = step_thermostat(v, state.generator, xi)
                     stale = self._stale(stale, nbr2, nbr3, x)
                 # the last inner step's rows feed the trio refresh
                 _, f_mid = trio_forces(pot, x, cell, nbr3,
@@ -567,7 +659,7 @@ class MDSystem:
         return MDState(positions=x, velocities=v,
                        forces=f_ps + f_mid + f_tail, energy=energy,
                        nbr2=nbr2, nbr3=nbr3, generator=state.generator,
-                       stale=stale, cell=cell, f_short=f_ps,
+                       xi=xi, stale=stale, cell=cell, f_short=f_ps,
                        f_tail=f_tail, f_mid=f_mid)
 
     def _run_chunk_respa(self, state: MDState, n_outer: int, dt_fs: float,
@@ -575,7 +667,8 @@ class MDSystem:
                          temperature: float = 300.0,
                          friction_ps: float = 2.0,
                          compute_energy: bool = True,
-                         n_chunks: int = 1) -> MDState:
+                         n_chunks: int = 1,
+                         tau_fs: float = 100.0) -> MDState:
         """One launch: ``n_chunks`` rebuild cycles of ``n_outer`` outer
         steps each; the energy is computed at the launch's end when
         ``compute_energy``.  Staleness resets per launch."""
@@ -597,34 +690,75 @@ class MDSystem:
         for chunk in range(n_chunks):
             state = cycle(state, n_outer, dt_fs, thermostat, temperature,
                           friction_ps,
-                          compute_energy and chunk == n_chunks - 1)
+                          compute_energy and chunk == n_chunks - 1, tau_fs)
         return state
+
+    # -- capacity regrowth ----------------------------------------------------
+    def _grow_capacity(self, factor: float = 1.5):
+        """Grow the neighbor-row and cell-bin capacities."""
+        self.capacity_2b = int(np.ceil(self.capacity_2b * factor)) + 1
+        self.capacity_3b = int(np.ceil(self.capacity_3b * factor)) + 1
+        if self._cells_2b is not None:
+            grid_shape, bin_capacity, topology = self._cells_2b
+            self._cells_2b = (grid_shape,
+                              int(np.ceil(bin_capacity * factor)) + 1,
+                              topology)
+
+    def _rebuild_state_lists(self, state: MDState) -> MDState:
+        """Fresh neighbor lists for ``state`` at the current capacities."""
+        positions = self._wrap(state.positions, state.cell)
+        nbr2, nbr3 = self.build_lists(positions, state.cell)
+        return state._replace(positions=positions, nbr2=nbr2, nbr3=nbr3)
+
+    def _snapshot(self, state: MDState):
+        """What a launch that overflows is retried from: the state and
+        the position of its noise stream (a torch generator, unlike a
+        JAX key, advances in place)."""
+        return state, state.generator.get_state()
+
+    def _regrow(self, snapshot, regrows: int, max_regrows: int) -> MDState:
+        """Grow the capacities and return the snapshot with fresh lists
+        and its noise stream rewound, to run the launch that overflowed
+        again; raise after ``max_regrows``."""
+        if regrows >= max_regrows:
+            raise RuntimeError("neighbor capacity still overflowing after "
+                               f"{regrows} regrows (a collapsing cell or "
+                               "diverging positions?)")
+        state, rng_state = snapshot
+        self._grow_capacity()
+        state.generator.set_state(rng_state)
+        return self._rebuild_state_lists(state)
 
     def run(self, state: MDState, n_steps: int, dt_fs: float,
             thermostat: Optional[str] = None, temperature: float = 300.0,
-            friction_ps: float = 2.0, on_overflow: str = "raise",
+            tau_fs: float = 100.0, friction_ps: float = 2.0,
+            on_overflow: str = "raise", max_regrows: int = 4,
             callback=None, launch_chunks: int = 1) -> MDState:
-        """Run ``n_steps`` of MD, NVE (``thermostat=None``) or Langevin,
-        in launches of up to ``launch_chunks`` rebuild cycles of
-        ``rebuild_every`` steps; the trajectory does not depend on
-        ``launch_chunks``.  With r-RESPA, steps left after the last
-        whole outer step run as plain velocity Verlet.
-        ``callback(state, steps_done)`` fires after each launch.
-        Neighbor overflow is checked once per launch: "raise"
-        (RuntimeError) or "warn".  The returned state's ``stale`` says
-        whether any launch outran a skin."""
-        if thermostat not in (None, "langevin"):
-            raise _not_ported(f"thermostat={thermostat!r}", "Nose-Hoover")
-        if on_overflow == "regrow":
-            raise _not_ported("on_overflow='regrow'", OPTIONS)
-        if on_overflow not in ("raise", "warn"):
+        """Run ``n_steps`` of MD, NVE (``thermostat=None``), Langevin
+        (``friction_ps``) or Nose-Hoover (``tau_fs``), in launches of up
+        to ``launch_chunks`` rebuild cycles of ``rebuild_every`` steps;
+        the trajectory does not depend on ``launch_chunks``.  With
+        r-RESPA, steps left after the last whole outer step run as plain
+        velocity Verlet.  ``callback(state, steps_done)`` fires after
+        each launch.  Neighbor overflow is checked once per launch:
+        "raise" (RuntimeError), "warn", or "regrow": rerun the launch
+        from its start with capacities grown 1.5x, at most
+        ``max_regrows`` times in the run.  The returned state's
+        ``stale`` says whether any launch outran a skin."""
+        if thermostat not in (None, "langevin", "nose_hoover"):
+            raise ValueError(f"thermostat={thermostat!r}")
+        if on_overflow not in ("raise", "warn", "regrow"):
             raise ValueError(f"on_overflow={on_overflow!r}")
         inner = min(self.rebuild_every, n_steps)
         any_stale = torch.zeros((), dtype=torch.bool, device=self.device)
         kw = dict(dt_fs=dt_fs, thermostat=thermostat,
-                  temperature=temperature, friction_ps=friction_ps)
+                  temperature=temperature, friction_ps=friction_ps,
+                  tau_fs=tau_fs)
         remaining = n_steps
+        regrows = 0
         while remaining > 0:
+            snapshot = self._snapshot(state) if on_overflow == "regrow" \
+                else None
             if self.n_respa > 1 and remaining >= self.n_respa:
                 n_outer = max(1, min(inner, remaining) // self.n_respa)
                 chunk_steps = n_outer * self.n_respa
@@ -643,9 +777,14 @@ class MDSystem:
                 state = self._run_chunk(state, n_steps=chunk_steps,
                                         n_chunks=n_chunks, **kw)
             if self.overflowed(state):
+                if on_overflow == "regrow":
+                    state = self._regrow(snapshot, regrows, max_regrows)
+                    regrows += 1
+                    continue
                 message = ("neighbor capacity exceeded during MD: pairs "
                            "were dropped at a rebuild; increase "
-                           "capacity_2b/capacity_3b")
+                           "capacity_2b/capacity_3b (or use "
+                           "on_overflow='regrow')")
                 if on_overflow == "raise":
                     raise RuntimeError(message)
                 warnings.warn(message)
@@ -660,11 +799,87 @@ class MDSystem:
                 callback(state, n_steps - remaining)
         return state._replace(stale=any_stale)
 
-    def npt_run(self, *args, **kwargs):
-        raise _not_ported("NPT", "NPT and virial")
+    # -- pressure coupling --------------------------------------------------
+    def npt_run(self, state: MDState, n_steps: int, dt_fs: float,
+                temperature: float = 300.0, pressure: float = 0.0,
+                tau_p_fs: float = 1000.0, compressibility: float = 5e-3,
+                friction_ps: float = 2.0, barostat: str = "scr",
+                thermostat: str = "langevin", callback=None,
+                launch_chunks: int = 1):
+        """NPT MD on plain velocity Verlet under the Langevin
+        thermostat.  Barostats:
+
+        - "scr" (default): stochastic cell rescaling every step inside
+          the launch, from the analytic virial (``_verlet_step``);
+          ``launch_chunks`` groups rebuild cycles per launch as in
+          ``run``;
+        - "berendsen": after each rebuild cycle, positions and cell
+          scaled by (1 - t / tau_p beta (P0 - P))^(1/3), P from
+          ``stress`` and the mobile atoms' kinetic energy (approximate:
+          it does not sample the NPT ensemble).
+
+        A launch whose lists overflow runs again from its start with
+        grown capacities (at most 4 times in the run).  Returns (state,
+        the cell after each launch as numpy (3, 3) arrays).  The
+        reference has no barostat on r-RESPA and no Nose-Hoover NPT:
+        both raise."""
+        if thermostat != "langevin":
+            raise _no_reference(f"npt_run(thermostat={thermostat!r})")
+        if self.n_respa > 1:
+            raise _no_reference("a barostat on r-RESPA (n_respa > 1)")
+        if barostat not in ("scr", "berendsen"):
+            raise ValueError(f"barostat={barostat!r}")
+        scr = SCR(pressure, tau_p_fs * units.fs, compressibility) \
+            if barostat == "scr" else None
+        cells = []
+        inner = min(self.rebuild_every, n_steps)
+        done = regrows = 0
+        while done < n_steps:
+            steps = min(inner, n_steps - done)
+            n_chunks = max(1, min(launch_chunks, (n_steps - done) // steps)) \
+                if scr is not None else 1
+            snapshot = self._snapshot(state)
+            state = self._run_chunk(state, n_steps=steps, dt_fs=dt_fs,
+                                    thermostat="langevin",
+                                    temperature=temperature,
+                                    friction_ps=friction_ps,
+                                    n_chunks=n_chunks, scr=scr)
+            if self.overflowed(state):
+                state = self._regrow(snapshot, regrows, MAX_NPT_REGROWS)
+                regrows += 1
+                continue
+            done += n_chunks * steps
+            if scr is None:
+                scale = self._berendsen_scale(state, dt_fs * steps, pressure,
+                                              tau_p_fs, compressibility)
+                state = state._replace(positions=state.positions * scale,
+                                       cell=state.cell * scale)
+            cells.append(state.cell.cpu().numpy())
+            if callback is not None:
+                callback(state, done)
+        return state, cells
+
+    def _berendsen_scale(self, state: MDState, time_fs: float,
+                         pressure: float, tau_p_fs: float,
+                         compressibility: float) -> float:
+        """Berendsen's isotropic factor over ``time_fs`` from the
+        pressure of the analytic stress and the mobile atoms' kinetic
+        energy (the reference also counts pinned atoms; ROADMAP.md
+        section 3)."""
+        stress = self.stress(state)
+        volume = float(_volume(state.cell))
+        p = float(-(stress[0] + stress[1] + stress[2]) / 3.0
+                  + 2.0 * self._mobile_ke(state.velocities) / (3.0 * volume))
+        return (1.0 - (time_fs / tau_p_fs) * compressibility
+                * (pressure - p)) ** (1.0 / 3.0)
 
     def stress(self, state: MDState):
-        raise _not_ported("the virial and stress", "NPT and virial")
+        """Voigt stress (xx, yy, zz, yz, xz, xy) in eV/A^3 from the
+        analytic virial at the state's positions, lists and cell."""
+        _, _, virial = self.energy_forces(
+            state.positions, state.nbr2, state.nbr3, cell=state.cell,
+            with_energy=False, with_virial=True)
+        return stress_voigt(virial, _volume(state.cell))
 
     # -- observables --------------------------------------------------------
     def overflowed(self, state: MDState) -> bool:
@@ -673,12 +888,12 @@ class MDSystem:
         return bool(state.nbr2.overflow | state.nbr3.overflow)
 
     def temperature(self, state: MDState) -> float:
-        m = self.masses[:, None]
-        v = state.velocities if self.mobile_mask is None \
-            else state.velocities * self.mobile_mask[:, None]
-        ke = 0.5 * torch.sum(m * v ** 2)
+        """Temperature of the mobile atoms, K."""
+        ke = self._mobile_ke(state.velocities)
         return float(2.0 * ke / (self.dof * units.kB))
 
     def kinetic_energy(self, state: MDState) -> float:
+        """Kinetic energy of every atom, pinned ones included (the
+        reference's convention), eV."""
         m = self.masses[:, None]
         return float(0.5 * torch.sum(m * state.velocities ** 2))

@@ -3,8 +3,9 @@ Closed-form 2-body forces on padded neighbor rows, split by the C^2
 r-RESPA switch: the short range S(r) V(r) on the compact 3-body rows
 and the tail (1 - S(r)) V(r) on the full pair rows.
 
-Counterpart of ``_pair_chain``, ``pair_short_forces`` and
-``pair_tail_forces`` (``uf3_tpu/ops/pallas_trio.py``).  Rows are
+Counterpart of ``_pair_chain``, ``pair_short_forces``,
+``pair_tail_forces`` and the pair virial of ``pair_trio_forces_shared``
+(``uf3_tpu/ops/pallas_trio.py``).  Rows are
 computed alone: every pair appears in both endpoints' rows, so
 f_i = sum_j 2 V'(r_ij) d_ij / r_ij needs no cross-atom assembly.
 """
@@ -14,6 +15,7 @@ import torch.nn.functional as F
 
 from uf3_tpu_torch.ops.neighbors import (ListCache, NeighborList,
                                          cached_displacements, list_cache)
+from uf3_tpu_torch.ops.potential import VOIGT_AB
 from uf3_tpu_torch.ops.splines import (LegSpec, _cardinal4, _deboor4,
                                        _leg_interval, _switch_poly)
 
@@ -41,11 +43,13 @@ def _pair_chain(r, spec: LegSpec, coefficients, n_basis: int):
 def pair_row_forces(coefficients, d, valid, spec: LegSpec,
                     n_basis: int, with_energy: bool = True,
                     side: str = None, r_lo: float = 0.0,
-                    r_hi: float = 0.0):
+                    r_hi: float = 0.0, with_virial: bool = False):
     """Pair energy and forces from displacement rows ``d`` (N, K, 3)
     with float mask ``valid`` (N, K).  ``side`` = "short" or "tail"
     keeps one side of the switch (with its V dS/dr force term); None
-    keeps the whole pair term.  Returns (energy, forces (N, 3))."""
+    keeps the whole pair term.  Returns (energy, forces (N, 3)), and
+    with ``with_virial`` also the Voigt virial (6,) 1/2 sum w d_a d_b
+    (each pair sits in both endpoints' rows)."""
     r2 = torch.sum(d * d, dim=-1)
     r = torch.sqrt(torch.where(r2 > 0, r2, torch.ones_like(r2)))
     valid2 = (valid * (r > spec.t_min).to(r.dtype)
@@ -62,7 +66,12 @@ def pair_row_forces(coefficients, d, valid, spec: LegSpec,
     energy = torch.sum(v2 * valid2) if with_energy \
         else torch.zeros((), dtype=r.dtype, device=r.device)
     w_pair = 2.0 * dv2 * valid2 / r
-    return energy, torch.sum(w_pair[..., None] * d, dim=1)
+    forces = torch.sum(w_pair[..., None] * d, dim=1)
+    if not with_virial:
+        return energy, forces
+    w_v = 0.5 * w_pair
+    return energy, forces, torch.stack(
+        [torch.sum(w_v * d[..., a] * d[..., b]) for a, b in VOIGT_AB])
 
 
 def pair_short_forces(pair_coefficients, positions, cell,

@@ -7,7 +7,8 @@ Counterpart of ``build_pair_fast`` / ``build_trio_pallas``
 (``uf3_tpu/ops/pallas_trio.py``) and of the offsets, species map and
 cutoffs of ``params_from_model`` (``uf3_tpu/ops/potential.py``), for
 unary models whose knots have a closed form -- the models the fused MD
-path runs.
+path runs; with the Voigt helpers of the virial (``VOIGT_AB``,
+``stress_voigt``, the engine's ``_voigt6_to_matrix``).
 """
 
 from typing import NamedTuple, Tuple
@@ -21,6 +22,23 @@ from uf3_tpu_torch.data import elements
 from uf3_tpu_torch.ops.splines import (LINEAR, LegSpec,
                                        cardinal_coefficients, horner_table,
                                        leg_spec_from_knots)
+
+
+# Voigt order (xx, yy, zz, yz, xz, xy) of the virial and stress
+VOIGT_AB = ((0, 0), (1, 1), (2, 2), (1, 2), (0, 2), (0, 1))
+
+
+def voigt6_to_matrix(v6):
+    """Symmetric (3, 3) tensor from its Voigt 6-vector."""
+    return torch.stack([torch.stack([v6[0], v6[5], v6[4]]),
+                        torch.stack([v6[5], v6[1], v6[3]]),
+                        torch.stack([v6[4], v6[3], v6[2]])])
+
+
+def stress_voigt(virial, volume):
+    """Voigt stress (xx, yy, zz, yz, xz, xy) from the (3, 3) virial."""
+    sigma = virial / volume
+    return torch.stack([sigma[a, b] for a, b in VOIGT_AB])
 
 
 class TrioBundle(NamedTuple):

@@ -1,12 +1,12 @@
 """
 3-body forces of the unary UF3 potential: the fused per-atom pair-lane
 pass (``trio_partials``: a CUDA kernel on the card, its plain torch twin
-on the CPU), the reverse-slot assembly of neighbor forces, the
-shared-gather 2+3-body evaluation and the short-range r-RESPA force on
-the 3-body rows.
+on the CPU), the reverse-slot assembly of neighbor forces, the 3-body
+virial from the same slot partials, the shared-gather 2+3-body
+evaluation and the short-range r-RESPA force on the 3-body rows.
 
 Counterpart of ``_trio_block_compute``, ``trio_forces_unrolled`` /
-``trio_forces_pallas``, ``_assemble_forces``,
+``trio_forces_pallas``, ``_assemble_forces``, ``_trio_virial6``,
 ``pair_trio_forces_shared`` and ``trio_short_forces``
 (``uf3_tpu/ops/pallas_trio.py``).
 """
@@ -19,7 +19,7 @@ from uf3_tpu_torch.ops import _build
 from uf3_tpu_torch.ops.neighbors import (ListCache, NeighborList,
                                          cached_displacements, list_cache)
 from uf3_tpu_torch.ops.pair import pair_row_forces, pair_short_forces
-from uf3_tpu_torch.ops.potential import TrioBundle, UF3Potential
+from uf3_tpu_torch.ops.potential import VOIGT_AB, TrioBundle, UF3Potential
 from uf3_tpu_torch.ops.splines import _dense_basis
 
 
@@ -206,41 +206,71 @@ def assemble_forces(energy, f_center, part, d, rev_flat, mask):
     return energy, f_center + torch.sum(contrib, dim=1)
 
 
+def trio_virial6(part, d, valid):
+    """The 3-body Voigt virial (6,) from the slot partials ``part``
+    (N, K, 5) = (w_m, S3'_m, V3'_m) of the trio kernel or its twin, the
+    rows ``d`` (N, K, 3) and the slot mask ``valid`` (N, K).
+
+    Counterpart of ``_trio_virial6``: its leg term sum (w_m / r_m) d d
+    plus its third-leg term 1/2 sum_mn g_mn (d_n - d_m)(d_n - d_m),
+    g = t3 / r_mn, equal sum_m d_m,a (w_m d_m,b / r_m + S3'_m d_m,b -
+    V3'_m,b) when g_mn = g_nm: on every grid symmetric under exchange of
+    the first two legs (every decompressed model grid), which
+    ``_trio_virial6`` relies on too.  Each center's own rows, no
+    reverse gather."""
+    r2 = torch.sum(d * d, dim=-1)
+    r = torch.sqrt(torch.where(r2 > 0, r2, torch.ones_like(r2)))
+    u = (part[..., 0:1] / r[..., None] + part[..., 1:2]) * d \
+        - part[..., 2:5]
+    u = torch.where(valid[..., None] != 0, u, torch.zeros_like(u))
+    return torch.stack([torch.sum(d[..., a] * u[..., b])
+                        for a, b in VOIGT_AB])
+
+
 def trio_forces(potential: UF3Potential, positions, cell,
                 nbr3: NeighborList, with_energy: bool = True,
-                cache3: ListCache = None, d=None):
+                cache3: ListCache = None, d=None,
+                with_virial: bool = False):
     """3-body per-atom energy (N,) and forces (N, 3) on the 3-body
-    list; ``d`` (N, K3, 3) reuses an existing displacement gather."""
+    list, and with ``with_virial`` the Voigt virial (6,) from the same
+    partials; ``d`` (N, K3, 3) reuses an existing displacement
+    gather."""
     if cache3 is None:
         cache3 = list_cache(nbr3, cell, positions.dtype)
     if d is None:
         d = cached_displacements(positions, nbr3, cache3)
     energy, f_center, part = trio_partials(potential, d, cache3.valid,
                                            with_energy)
-    return assemble_forces(energy, f_center, part, d, cache3.rev_flat,
-                           nbr3.mask)
+    out = assemble_forces(energy, f_center, part, d, cache3.rev_flat,
+                          nbr3.mask)
+    if with_virial:
+        return out + (trio_virial6(part, d, cache3.valid),)
+    return out
 
 
 def pair_trio_forces_shared(potential: UF3Potential, positions, cell,
                             nbr2: NeighborList, nbr3: NeighborList,
                             with_energy: bool = True,
                             cache2: ListCache = None,
-                            cache3: ListCache = None):
+                            cache3: ListCache = None,
+                            with_virial: bool = False):
     """Full 2+3-body energy and forces from one (N, K2) displacement
     gather: the 3-body rows are selected from the pair rows through the
     filtered list's parent slots ``nbr3.sel``.  ``with_energy=False``
     skips the energy sums (zeros come back).  Returns (e2, e3_atoms
-    (N,), forces (N, 3))."""
+    (N,), forces (N, 3), Voigt virial (6,) or None)."""
     if cache2 is None:
         cache2 = list_cache(nbr2, cell, positions.dtype)
     spec = potential.pair_spec
     d2 = cached_displacements(positions, nbr2, cache2)
-    e2, f2 = pair_row_forces(potential.pair_coefficients, d2,
-                             cache2.valid, spec, spec.n_basis, with_energy)
+    out2 = pair_row_forces(potential.pair_coefficients, d2, cache2.valid,
+                           spec, spec.n_basis, with_energy,
+                           with_virial=with_virial)
     d3 = torch.gather(d2, 1, nbr3.sel[:, :, None].expand(-1, -1, 3))
-    e3, f3 = trio_forces(potential, positions, cell, nbr3, with_energy,
-                         cache3=cache3, d=d3)
-    return e2, e3, f2 + f3
+    out3 = trio_forces(potential, positions, cell, nbr3, with_energy,
+                       cache3=cache3, d=d3, with_virial=with_virial)
+    virial = out2[2] + out3[2] if with_virial else None
+    return out2[0], out3[0], out2[1] + out3[1], virial
 
 
 def trio_short_forces(potential: UF3Potential, positions, cell,

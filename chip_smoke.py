@@ -13,7 +13,14 @@ against the CPU; then the two-phase melting protocol's path
 (``benchmarks/melting_run.py``) at its full width, 31,104 atoms, with
 each of its stages shortened to 256 steps: Langevin with capacity
 regrowth, SCR NPT, SCR NPT with half the box pinned, SCR NPT released;
-and the ``md`` command as a user runs it.
+and the ``md`` command as a user runs it.  Then the reference's general
+force path: the 2-body W model (``model_2.json``) at 9,826 atoms, the
+binary Ne/Xe 2-body model (``model_pair.json``) at 8,788 atoms, a random
+binary 2+3-body model at 4,000 atoms (the factorized 3-body path), a
+model whose 3-body cutoff passes its 2-body cutoff (its own 3-body
+list, the trio kernel on the separate route) and the bench model with
+``fused="separate"``, each against float64 and, on a cut, the CPU; the
+queued overflow check; and the ``md`` command on the 2-body model.
 
     python3 chip_smoke.py
 
@@ -23,12 +30,15 @@ kernels' launch counts, errors, times and bounds; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import copy
+import inspect
 import json
 import os
 import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -36,17 +46,21 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
+from uf3_tpu_torch import io  # noqa: E402
 from uf3_tpu_torch.data.atoms import Atoms, bulk  # noqa: E402
-from uf3_tpu_torch.forcefield import units  # noqa: E402
+from uf3_tpu_torch.data.composition import ChemicalSystem  # noqa: E402
+from uf3_tpu_torch.forcefield import md, units  # noqa: E402
 from uf3_tpu_torch.forcefield.md import SCR, MDSystem  # noqa: E402
 from uf3_tpu_torch.ops import _build  # noqa: E402
 from uf3_tpu_torch.ops import neighbors as nb  # noqa: E402
 from uf3_tpu_torch.ops import trio  # noqa: E402
+from uf3_tpu_torch.ops.factorized import compute_energy_forces  # noqa: E402
 from uf3_tpu_torch.ops.pair import (pair_row_forces,  # noqa: E402
                                     pair_short_forces, pair_tail_forces)
 from uf3_tpu_torch.ops.potential import (UF3Potential,  # noqa: E402
                                          grid_sparsity)
 from uf3_tpu_torch.ops.splines import _leg_interval  # noqa: E402
+from uf3_tpu_torch.representation.basis import BSplineBasis  # noqa: E402
 
 MODEL = os.path.join(REPO, "benchmarks_data", "model_2and3.json")
 BENCH = dict(rebuild_every=36, skin=0.5, skin_2b=1.2, capacity_2b=72,
@@ -429,17 +443,19 @@ def drive(system: MDSystem, state, steps, **run_kw):
     return state, time.perf_counter() - t0
 
 
-def run_path(name, device, engine, run_kw, t_init=T_TARGET, samples=None):
-    """One MD path at 9,826 atoms in float32 from Maxwell-Boltzmann
-    velocities at ``t_init``: set-up, a 144-step warm-up and three timed
-    windows, with the trio launches counted from 0 over them; with a
-    list ``samples``, the run's callback appends T after every launch.
+def run_path(name, device, engine, run_kw, t_init=T_TARGET, samples=None,
+             model=MODEL, geom=None):
+    """One MD path in float32 (``model`` on ``geom``, by default the
+    bench model at 9,826 atoms) from Maxwell-Boltzmann velocities at
+    ``t_init``: set-up, a 144-step warm-up and three timed windows, with
+    the trio launches counted from 0 over them; with a list
+    ``samples``, the run's callback appends T after every launch.
     Returns (system, state, launches, atom-steps/s, temperatures at the
     end of each window, stale)."""
-    geom = bench_geometry((17, 17, 17))
+    geom = bench_geometry((17, 17, 17)) if geom is None else geom
     trio.trio_partials.launches = 0
     t0 = time.perf_counter()
-    system = MDSystem(MODEL, geom, dtype=torch.float32, device=device,
+    system = MDSystem(model, geom, dtype=torch.float32, device=device,
                       **engine)
     if samples is not None:
         run_kw = dict(run_kw, callback=lambda st, done: samples.append(
@@ -463,19 +479,29 @@ def run_path(name, device, engine, run_kw, t_init=T_TARGET, samples=None):
     return system, state, launches, rate, temps, stale
 
 
+def gate(name, checks):
+    """Print each check and raise if any failed."""
+    for check, ok in checks.items():
+        print(f"check {name} {check}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError(f"{name} checks failed")
+
+
 def check_path(name, system: MDSystem, state, launches, temps,
-               split: bool):
+               split: bool, model=MODEL, geom=None, t_target=T_TARGET):
     """The gates of one MD path on its final state: no overflow, finite
-    state, trio launches, mean T, forces (carried split forces against a
-    fresh evaluation for r-RESPA) and energy against float64."""
+    state, trio launches (where the model's route runs the kernel), mean
+    T (unless ``t_target`` is None), forces (carried split forces against
+    a fresh evaluation for r-RESPA) and energy against float64."""
     energy, forces, _ = system.energy_forces(state.positions, state.nbr2,
                                              state.nbr3, cell=state.cell)
     engine = dict(skin=system.skin, skin_2b=system.skin_2b,
                   capacity_2b=system.capacity_2b,
                   capacity_3b=system.capacity_3b,
-                  rebuild_every=system.rebuild_every)
-    system64 = MDSystem(MODEL, bench_geometry((17, 17, 17)),
-                        dtype=torch.float64, device=system.device, **engine)
+                  rebuild_every=system.rebuild_every, fused=system.fused)
+    system64 = MDSystem(model, bench_geometry((17, 17, 17)) if geom is None
+                        else geom, dtype=torch.float64,
+                        device=system.device, **engine)
     e64, f64, _ = system64.energy_forces(state.positions.double(),
                                          state.nbr2, state.nbr3,
                                          cell=state.cell.double())
@@ -491,23 +517,22 @@ def check_path(name, system: MDSystem, state, launches, temps,
             torch.isfinite(state.energy)
             and torch.isfinite(state.forces).all()
             and torch.isfinite(state.positions).all()),
-        "trio kernel launched on this path": launches > 0,
-        f"mean T within {T_TARGET:g} +- {T_BAND:g} K":
-            abs(np.mean(temps) - T_TARGET) <= T_BAND,
         "f32 forces match f64": f64_err <= FORCE_TOL,
         "energy matches f64": abs(float(energy) - float(e64))
             <= 1e-6 * abs(float(e64)),
     }
+    if system.potential.trio is not None:
+        checks["trio kernel launched on this path"] = launches > 0
+    if t_target is not None:
+        checks[f"mean T within {t_target:g} +- {T_BAND:g} K"] = \
+            abs(np.mean(temps) - t_target) <= T_BAND
     if split:
         checks["split forces match a fresh evaluation"] = \
             split_err <= FORCE_TOL
-    for check, ok in checks.items():
-        print(f"check {name} {check}: {'ok' if ok else 'FAILED'}")
-    if not all(checks.values()):
-        raise AssertionError(f"{name} checks failed")
+    gate(name, checks)
 
 
-def run_nve(system: MDSystem, state):
+def run_nve(system: MDSystem, state, name="plain Verlet NVE"):
     """720 NVE steps of 2 fs from ``state``; returns (launches, drift in
     eV/atom, atom-steps/s)."""
     n_atoms = state.positions.shape[0]
@@ -518,12 +543,12 @@ def run_nve(system: MDSystem, state):
     e1 = float(state.energy) + system.kinetic_energy(state)
     drift = abs(e1 - e0) / n_atoms
     ok = drift <= NVE_DRIFT and not system.overflowed(state) \
-        and launches > 0
-    print(f"plain Verlet NVE: E_total {e0:.6f} -> {e1:.6f} eV over "
+        and (launches > 0 or system.potential.trio is None)
+    print(f"{name}: E_total {e0:.6f} -> {e1:.6f} eV over "
           f"{WINDOW_STEPS} steps, drift {drift:.3e} eV/atom "
           f"(<= {NVE_DRIFT:g}): {'ok' if ok else 'FAILED'}")
     if not ok:
-        raise AssertionError("plain Verlet NVE check failed")
+        raise AssertionError(f"{name} check failed")
     return launches, drift, n_atoms * WINDOW_STEPS / seconds
 
 
@@ -696,10 +721,7 @@ def protocol_stage(name, system: MDSystem, state, target, run, stress64):
         f"f32 stress within {STRESS_TOL:g} eV/A^3 of f64":
             d_stress <= STRESS_TOL,
     }
-    for check, ok in checks.items():
-        print(f"check protocol {name} {check}: {'ok' if ok else 'FAILED'}")
-    if not all(checks.values()):
-        raise AssertionError(f"protocol {name} checks failed")
+    gate(f"protocol {name}", checks)
     return state, launches, rate
 
 
@@ -817,27 +839,425 @@ def run_protocol(device):
     return sum(launches), rates
 
 
-def run_md_command():
+def run_md_command(model="model_2and3.json"):
     """``python -m uf3_tpu_torch md`` at its defaults, as a user runs
     it: exit 0 and a finite T and E on its result line."""
     cmd = [sys.executable, "-m", "uf3_tpu_torch", "md",
-           os.path.join("benchmarks_data", "model_2and3.json")]
+           os.path.join("benchmarks_data", model)]
     t0 = time.perf_counter()
     out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                          timeout=600)
     seconds = time.perf_counter() - t0
     lines = out.stdout.strip().splitlines()
     for line in lines:
-        print(f"md command: {line}")
+        print(f"md command ({model}): {line}")
     found = re.search(r"\(([-+.\deE]+) atom-steps/s\); T = (\S+) K, "
                       r"E = (\S+) eV", lines[-1] if lines else "")
     ok = out.returncode == 0 and found is not None \
         and all(np.isfinite(float(x)) for x in found.groups())
-    print(f"md command: exit {out.returncode} after {seconds:.2f} s: "
-          f"{'ok' if ok else 'FAILED'}")
+    print(f"md command ({model}): exit {out.returncode} after "
+          f"{seconds:.2f} s: {'ok' if ok else 'FAILED'}")
     if not ok:
         raise AssertionError(f"md command failed:\n{out.stderr[-4000:]}")
     return float(found.group(1))
+
+
+# -- the reference's general force path (2-body-only, multi-species and
+# separately built 3-body lists), the separate route and the queued
+# overflow check
+MODEL_2 = os.path.join(REPO, "benchmarks_data", "model_2.json")
+MODEL_PAIR = os.path.join(REPO, "benchmarks_data", "model_pair.json")
+LANGEVIN = dict(dt_fs=2.0, thermostat="langevin", temperature=T_TARGET)
+# f64, the fused kernels' closed-form legs against the factorized path:
+# they rebuild each leg's knots as u0 + k h from its first gap, while a
+# model's knots are rounded to 1e-10 A (tests/test_torch_models.py)
+FUSED_FORCE_TOL = 5e-9
+BINARY_NVE_DRIFT = 1e-3  # eV/atom, as tests/test_device_potential.py:787
+
+
+def ne_xe(reps, seed=3, a=5.4):
+    """fcc at ``a`` with half the sites Xe by a seeded draw (the JAX
+    engine's test_binary_md_runs)."""
+    base = bulk("Ne", "fcc", a=a) * reps
+    numbers = base.get_atomic_numbers()
+    numbers[np.random.RandomState(seed).rand(len(numbers)) > 0.5] = 54
+    return Atoms(numbers, base.get_positions(), base.get_cell(), pbc=True)
+
+
+def binary23_model():
+    """Ne/Xe 2+3-body: the port's BSplineBasis, r 1.0-5.0 A, resolution
+    8, coefficients from RandomState(11) at scale 0.05 (the model of the
+    JAX engine's test_multi_fused_matches_factorized), with each pair's
+    last three coefficients at zero, as a fit with the basis's trailing
+    trim holds them: random ones make the pair term jump at 5 A."""
+    basis = BSplineBasis(ChemicalSystem(["Ne", "Xe"], degree=3),
+                         r_min_map=1.0, r_max_map=5.0, resolution_map=8)
+    coefficients = np.random.RandomState(11).normal(
+        scale=0.05, size=sum(basis.partition_sizes))
+    sizes, offsets = basis.get_interaction_partitions()
+    for pair in basis.interactions_map[2]:
+        end = offsets[pair] + sizes[pair]
+        coefficients[end - 3:end] = 0.0
+    return io.FittedModel(basis, coefficients)
+
+
+def long_trio_model():
+    """Unary W whose 3-body cutoff passes its 2-body cutoff: pair r
+    1.5-3.0 A in 8 intervals, trio legs up to (4, 4, 8) A in (6, 6, 12),
+    coefficients from RandomState(0) at scale 0.05."""
+    basis = BSplineBasis(
+        ChemicalSystem(["W"], degree=3), r_min_map={("W", "W"): 1.5},
+        r_max_map={("W", "W"): 3.0, ("W", "W", "W"): [4.0, 4.0, 8.0]},
+        resolution_map={("W", "W"): 8, ("W", "W", "W"): [6, 6, 12]})
+    return io.FittedModel(basis, np.random.RandomState(0).normal(
+        scale=0.05, size=sum(basis.partition_sizes)))
+
+
+def card_vs_cpu(name, model, geom, device, n_steps, dt_fs):
+    """The engine on the card against its own CPU run, float64, from the
+    same inputs: entry energy, forces and virial, then ``n_steps`` NVE
+    steps, within 1e-10."""
+    v0 = np.random.RandomState(len(geom)).normal(0.0, 2e-3, (len(geom), 3))
+    out = []
+    for dev in ("cpu", device):
+        system = MDSystem(model, geom, dtype=torch.float64, device=dev)
+        entry = system.init_state(velocities=v0)
+        virial = system.energy_forces(entry.positions, entry.nbr2,
+                                      entry.nbr3, with_virial=True)[2]
+        out.append((entry, virial,
+                    system.run(entry, n_steps=n_steps, dt_fs=dt_fs)))
+    (c0, cv, cn), (g0, gv, gn) = out
+    errs = [max(max_err(c0.energy, g0.energy), max_err(c0.forces, g0.forces),
+                max_err(cv, gv)),
+            max(max_err(cn.positions, gn.positions),
+                max_err(cn.forces, gn.forces))]
+    ok = max(errs) <= F64_TOL
+    print(f"{name}: card vs CPU f64, {len(geom)} atoms: entry |dE|, |dF|, "
+          f"|dW| {errs[0]:.3e}, after {n_steps} steps |dx|, |dF| "
+          f"{errs[1]:.3e} (<= {F64_TOL:g}): {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError(f"{name}: card and CPU differ")
+
+
+def run_two_body_w(device):
+    """``model_2.json`` (2-body W) at the bench width, 9,826 atoms, the
+    engine's defaults, float32, by the factorized path: Langevin at 300 K
+    (144-step warm-up, 3 x 720 steps), then 720 NVE steps.  Returns
+    (atom-steps/s, NVE atom-steps/s, stale)."""
+    name = "2-body W (model_2.json)"
+    system, state, launches, rate, temps, stale = run_path(
+        name, device, {}, LANGEVIN, model=MODEL_2)
+    assert system.degree == 2 and state.nbr3 is None
+    check_path(name, system, state, launches, temps, split=False,
+               model=MODEL_2)
+    _, _, nve_rate = run_nve(system, state, f"{name} NVE")
+    return rate, nve_rate, stale
+
+
+def run_binary_pair(device):
+    """``model_pair.json`` (Ne/Xe, 2-body) on fcc at a = 5.4 A, 13^3 x 4
+    = 8,788 atoms, half Xe, Langevin at 50 K with 1 fs steps (3 x 720
+    after 144), float32; then the card against the CPU on a 500-atom
+    cut.  Returns (atom-steps/s, stale)."""
+    name = "binary Ne/Xe 2-body (model_pair.json)"
+    geom = ne_xe((13, 13, 13))
+    run_kw = dict(dt_fs=1.0, thermostat="langevin", temperature=50.0)
+    system, state, launches, rate, temps, stale = run_path(
+        name, device, {}, run_kw, t_init=50.0, model=MODEL_PAIR, geom=geom)
+    check_path(name, system, state, launches, temps, split=False,
+               model=MODEL_PAIR, geom=geom, t_target=None)
+    card_vs_cpu(name, MODEL_PAIR, ne_xe((5, 5, 5)), device, 12, 1.0)
+    return rate, stale
+
+
+def run_binary_trio(device):
+    """The random binary 2+3-body model (``binary23_model``), fcc Ne/Xe
+    at a = 5.4 A, 10^3 x 4 = 4,000 atoms, by the factorized path: forces
+    and virial in float32 against float64, the device and host time of
+    one ``compute_energy_forces`` call, the card against the CPU on a
+    500-atom cut, and 200 NVE steps of 1 fs from 10 K.  Returns
+    (atom-steps/s of the NVE run, device ms, host ms)."""
+    name = "binary Ne/Xe 2+3-body (factorized)"
+    model = binary23_model()
+    geom = ne_xe((10, 10, 10), seed=5)
+    system = MDSystem(model, geom, dtype=torch.float32, device=device)
+    system64 = MDSystem(model, geom, dtype=torch.float64, device=device)
+    assert system.potential.trio is None and system.degree == 3
+    state = system.init_state(temperature=10.0, seed=0)
+    x, cell = state.positions, state.cell
+    _, f32, v32 = system.energy_forces(x, state.nbr2, state.nbr3,
+                                       with_virial=True)
+    _, f64, v64 = system64.energy_forces(x.double(), state.nbr2, state.nbr3,
+                                         cell=cell.double(), with_virial=True)
+    d_force = max_err(f32, f64)
+    d_stress = max_err(v32, v64) / geom.get_volume()
+    print(f"{name}: {len(geom)} atoms, K2={state.nbr2.idx.shape[1]}, "
+          f"K3={state.nbr3.idx.shape[1]}, "
+          f"{len(system.potential.factorized.trio_specs)} ordered trio "
+          f"types; f32 vs f64 max |dF| {d_force:.3e} eV/A, max |d sigma| "
+          f"{d_stress:.3e} eV/A^3")
+    fp, species = system.potential.factorized, system.species
+
+    def force():
+        return compute_energy_forces(fp, species, x, cell, state.nbr2,
+                                     state.nbr3)
+    dev_ms = graph_ms(force, repeats=5, replays=4)
+    hst_ms = host_ms(force, 10)
+    print(f"layer {name} compute_energy_forces: device {dev_ms:.4f} ms "
+          f"(graph replay), host {hst_ms:.4f} ms per call")
+    card_vs_cpu(name, model, ne_xe((5, 5, 5), seed=5), device, 6, 1.0)
+    e0 = float(state.energy) + system.kinetic_energy(state)
+    state, seconds = drive(system, state, 200, dt_fs=1.0)
+    e1 = float(state.energy) + system.kinetic_energy(state)
+    drift = abs(e1 - e0) / len(geom)
+    print(f"{name}: 200 NVE steps from 10 K in {seconds:.2f} s, E_total "
+          f"{e0:.6f} -> {e1:.6f} eV, drift {drift:.3e} eV/atom, T "
+          f"{system.temperature(state):.2f} K")
+    gate(name, {
+        "f32 forces match f64": d_force <= FORCE_TOL,
+        "f32 stress matches f64": d_stress <= STRESS_TOL,
+        "no overflow": not system.overflowed(state),
+        "finite state": bool(torch.isfinite(state.positions).all()
+                             and torch.isfinite(state.forces).all()),
+        f"NVE drift <= {BINARY_NVE_DRIFT:g} eV/atom":
+            drift <= BINARY_NVE_DRIFT})
+    return len(geom) * 200 / seconds, dev_ms, hst_ms
+
+
+def run_separate_3body(device):
+    """``long_trio_model`` at 9,826 atoms, skin 0.5 A, 32 3-body slots:
+    its 3-body list is built on its own, with reverse slots, and the
+    separate route runs the trio kernel (KMAX = 32) on it.  The kernel
+    against its twin on that list (rattled 0.05 A, f64 and f32), the
+    separate route against the factorized path on the same lists (f64),
+    both lists' neighbor sets against the O(N^2) builder, then Langevin
+    at 300 K (3 x 720 steps after 144).  Returns (kernel record,
+    launches, atom-steps/s, stale)."""
+    name = "3-body cutoff beyond the 2-body cutoff (separate route)"
+    model = long_trio_model()
+    engine = dict(skin=0.5, capacity_3b=32)
+    geom = bench_geometry((17, 17, 17), rattle=0.05)
+    system64 = MDSystem(model, geom, dtype=torch.float64, device=device,
+                        **engine)
+    assert system64.separate_3b and system64.fused == "shared"
+    state = system64.init_state()
+    x, cell, nbr = state.positions, state.cell, state.nbr3
+    cache = nb.list_cache(nbr, cell, torch.float64)
+    d64 = nb.cached_displacements(x, nbr, cache)
+    v64 = cache.valid
+    pot64 = system64.potential
+    pot32 = copy.deepcopy(pot64).to(dtype=torch.float32)
+    d32, v32 = d64.float(), v64.float()
+    twin = trio.trio_partials_torch(d64, v64, pot64.grid, pot64.trio, False)
+    f_twin = trio.assemble_forces(*twin, d64, cache.rev_flat, nbr.mask)[1]
+    k64 = trio.trio_partials(pot64, d64, v64, False)
+    k32 = trio.trio_partials(pot32, d32, v32, False)
+    torch.cuda.synchronize()
+    err64 = max(max(max_err(a, b) for a, b in zip(k64, twin)), max_err(
+        trio.assemble_forces(*k64, d64, cache.rev_flat, nbr.mask)[1],
+        f_twin))
+    err32 = max_err(trio.assemble_forces(*k32, d32, cache.rev_flat,
+                                         nbr.mask)[1], f_twin)
+    kernel_ms = graph_ms(lambda: trio.trio_partials(pot32, d32, v32, False))
+    twin_ms = cuda_ms(lambda: trio.trio_partials_torch(
+        d32, v32, pot32.grid, pot32.trio, False), 5)
+    bound_ms, bound_by, flop, n_bytes = trio_bound(pot32, d32, v32, False)
+    occ = trio.trio_occupancy(pot32, 32, False)
+    k = d64.shape[1]
+    print(f"trio separate list N={len(geom)} K={k} (valid slots "
+          f"{int(v64.sum(1).min())}-{int(v64.sum(1).max())}): f64 max err "
+          f"{err64:.3e} (<= {F64_TOL:g}), f32 max |dF| {err32:.3e} eV/A "
+          f"(<= {FORCE_TOL:g}); f32 kernel {kernel_ms:.4f} ms (graph "
+          f"replay), twin {twin_ms:.4f} ms (eager); bound {flop:.4g} flop, "
+          f"{n_bytes:.4g} bytes -> {bound_ms:.5f} ms ({bound_by}), "
+          f"{100 * bound_ms / kernel_ms:.1f}% of it; launch plan {occ}")
+    record = dict(max_abs_err=err32, ms=kernel_ms, plain_ms=twin_ms,
+                  bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                  n_atoms=len(geom), registers=occ["registers"],
+                  warps_per_sm=occ["warps_per_sm"],
+                  list="built on its own (separate route)")
+    e_s, f_s, v_s = system64.energy_forces(x, state.nbr2, nbr,
+                                           with_virial=True)
+    e_f, f_f, v_f = system64.energy_forces_virial(x, state.nbr2, nbr)
+    d_route = max_err(f_s, f_f)
+    print(f"{name}: separate route vs factorized path, f64: |dE| "
+          f"{abs(float(e_s - e_f)):.3e} eV, max |dF| {d_route:.3e} eV/A, "
+          f"max |dW| {max_err(v_s, v_f):.3e} eV")
+    same_sets = {}
+    for tag, nbr_l, r_cut, capacity in (
+            ("2-body", state.nbr2, system64.r_cut_2b + system64.skin_2b,
+             system64.capacity_2b),
+            ("3-body", nbr, system64.r_cut_3b + system64.skin,
+             system64.capacity_3b)):
+        ref = nb.build_neighbor_list(x, cell, system64.pbc, r_cut, capacity)
+        same_sets[tag] = np.array_equal(list_keys(ref), list_keys(nbr_l)) \
+            and bool(ref.overflow) == bool(nbr_l.overflow) is False
+    print(f"{name}: neighbor sets equal to the O(N^2) builder's {same_sets} "
+          f"(K2={state.nbr2.idx.shape[1]}, K3={k})")
+    gate(name, {
+        "trio kernel matches its twin": err64 <= F64_TOL
+            and err32 <= FORCE_TOL,
+        f"separate route within {FUSED_FORCE_TOL:g} eV/A of the "
+        "factorized path": d_route <= FUSED_FORCE_TOL,
+        "neighbor sets equal the O(N^2) builder's": all(same_sets.values()),
+        "32 slots, reverse slots from the builder": k == 32
+            and nbr.sel is None})
+    system, state, launches, rate, temps, stale = run_path(
+        name, device, engine, LANGEVIN, model=model)
+    check_path(name, system, state, launches, temps, split=False,
+               model=model, t_target=None)
+    return record, launches, rate, stale
+
+
+def run_fused_separate(device):
+    """The bench model at the engine's defaults with
+    ``fused="separate"``: the pair force and the trio kernel on their
+    own gathers, 9,826 atoms, Langevin at 300 K, timed as the shared
+    route's run; its forces against the shared route's on the final
+    state's lists, f64, within 1e-10.  Returns (launches, atom-steps/s,
+    stale)."""
+    name = "plain Verlet, fused=\"separate\""
+    system, state, launches, rate, temps, stale = run_path(
+        name, device, dict(fused="separate"), LANGEVIN)
+    check_path(name, system, state, launches, temps, split=False)
+    out = []
+    for fused in ("shared", "separate"):
+        system64 = MDSystem(MODEL, bench_geometry((17, 17, 17)),
+                            dtype=torch.float64, device=device, fused=fused)
+        out.append(system64.energy_forces(
+            state.positions.double(), state.nbr2, state.nbr3,
+            cell=state.cell.double(), with_virial=True))
+    (e_a, f_a, v_a), (e_b, f_b, v_b) = out
+    errs = (abs(float(e_a - e_b)), max_err(f_a, f_b), max_err(v_a, v_b))
+    print(f"{name}: vs the shared route, f64: |dE| {errs[0]:.3e}, max |dF| "
+          f"{errs[1]:.3e}, max |dW| {errs[2]:.3e}")
+    gate(name, {"forces equal the shared route's (1e-10)":
+                max(errs) <= F64_TOL})
+    return launches, rate, stale
+
+
+def function_lines(module):
+    """(first line, last line, name) of every function and method of a
+    module, to place a warning's line."""
+    spans = []
+    for obj in list(vars(module).values()) + list(
+            vars(module.MDSystem).values()):
+        obj = getattr(obj, "__func__", obj)
+        if inspect.isfunction(obj) and obj.__module__ == module.__name__:
+            lines, first = inspect.getsourcelines(obj)
+            spans.append((first, first + len(lines) - 1, obj.__name__))
+    return spans
+
+
+def run_async_overflow(device):
+    """The queued overflow check on the card.  200 steps (10 launches of
+    20) at the engine's defaults, 9,826 atoms, with sync=False and then
+    sync=True: how many flags were read without a wait, and the host
+    syncs that ``torch.cuda.set_sync_debug_mode("warn")`` reports, by
+    function; none may come from the overflow check.  Then the 54-atom
+    cell squeezed 0.78x after init, in one launch with a spin kernel at
+    its end standing in for a launch the card is still running: a
+    sync=False run leaves its flag in flight and the next call raises,
+    and ``overflowed`` reads a flag an asynchronous run left queued."""
+    name = "queued overflow check"
+    spans = function_lines(md)
+    overflow_fns = {"run", "_poll_overflow", "_drain_pending", "_queue_flag",
+                    "_flag_ready", "_flag_value", "overflowed"}
+    reads = dict(waited=0, arrived=0)
+    flag_value = md._flag_value
+
+    def counted(entry):
+        reads["arrived" if md._flag_ready(entry) else "waited"] += 1
+        return flag_value(entry)
+
+    system = MDSystem(MODEL, bench_geometry((17, 17, 17)),
+                      dtype=torch.float32, device=device)
+    state = system.init_state(temperature=T_TARGET, seed=0)
+    results = {}
+    md._flag_value = counted
+    try:
+        for sync in (False, True):
+            reads.update(waited=0, arrived=0)
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    state = system.run(state, n_steps=200, sync=sync,
+                                       **LANGEVIN)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            in_flight = len(system._pending_overflow)
+            run_reads = dict(reads)
+            system.overflowed(state)  # reads what is still queued
+            sites = {}
+            for w in caught:
+                if "synchronizing" not in str(w.message):
+                    continue
+                where = f"{os.path.basename(w.filename)}:{w.lineno}"
+                if w.filename == md.__file__:
+                    where = next((fn for a, b, fn in spans
+                                  if a <= w.lineno <= b), where)
+                sites[where] = sites.get(where, 0) + 1
+            results[sync] = (run_reads, in_flight, sites)
+            print(f"{name}: run(sync={sync}) over 10 launches: flags read "
+                  f"on arrival {run_reads['arrived']}, waited for "
+                  f"{run_reads['waited']}, left in flight {in_flight}; host "
+                  f"syncs by function {sites}")
+    finally:
+        md._flag_value = flag_value
+
+    def squeezed():
+        small = MDSystem(MODEL, bench_geometry((3, 3, 3)),
+                         dtype=torch.float64, device=device,
+                         rebuild_every=1, skin=0.4)
+        st = small.init_state(temperature=10.0, seed=3)
+        center = torch.mean(st.positions, dim=0)
+        launch = small._run_chunk
+
+        def busy_launch(*args, **kwargs):
+            out = launch(*args, **kwargs)
+            torch.cuda._sleep(50_000_000)
+            return out
+        small._run_chunk = busy_launch
+        return small, st._replace(
+            positions=center + 0.78 * (st.positions - center))
+
+    small, st = squeezed()
+    raised_in = None
+    try:
+        out = small.run(st, n_steps=1, dt_fs=0.1, sync=False)
+        queued = len(small._pending_overflow)
+        try:
+            small.run(out, n_steps=2, dt_fs=0.1)
+        except RuntimeError as err:
+            raised_in = "the next call" if "capacity exceeded" in str(err) \
+                else None
+    except RuntimeError as err:
+        queued = 0
+        raised_in = "the same call" if "capacity exceeded" in str(err) \
+            else None
+    small, st = squeezed()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = small.run(st, n_steps=1, dt_fs=0.1, sync=False,
+                        on_overflow="warn", check_every=10**6)
+    warned = any("capacity exceeded" in str(w.message) for w in caught)
+    left = len(small._pending_overflow)
+    seen = small.overflowed(out)
+    print(f"{name}: squeezed cell, sync=False left {queued} flags in flight "
+          f"and raised in {raised_in}; with 'warn', {left} flags left in "
+          f"flight, warned during the run {warned}, overflowed() {seen}")
+    no_waits, _, sites = results[False]
+    gate(name, {
+        "sync=False waits for no flag": no_waits["waited"] == 0
+            and no_waits["arrived"] + results[False][1] == 10,
+        "the overflow check makes no host sync": not any(
+            fn in overflow_fns for fn in list(sites)
+            + list(results[True][2])),
+        "the squeezed cell raises at the next call": raised_in
+            == "the next call",
+        "overflowed reads a queued flag": seen and left > 0 and not warned})
 
 
 def main():
@@ -849,7 +1269,7 @@ def main():
     environment(device)
     build_kernels()
     records = compare_trio(device)
-    langevin = dict(dt_fs=2.0, thermostat="langevin", temperature=T_TARGET)
+    langevin = LANGEVIN
     rates, launches, stale = {}, {}, {}
     # the benchmark configuration: 3-level r-RESPA 12/6/36
     name = "3-level r-RESPA 12/6/36"
@@ -868,6 +1288,11 @@ def main():
                split=False)
     nve_launches, _, rates["plain Verlet NVE"] = run_nve(system, state)
     launches["plain"] += nve_launches
+    # the same path with the pair force and the trio kernel on their own
+    # gathers, in the same call
+    name = "plain Verlet (defaults), fused=\"separate\""
+    launches["fused_separate"], rates[name], stale[name] = \
+        run_fused_separate(device)
     # 2-level r-RESPA: the bench configuration without a mid level
     name = "2-level r-RESPA 12/36"
     system, state, launches["respa2"], rates[name], temps, stale[name] = \
@@ -882,15 +1307,31 @@ def main():
     compare_npt_card_cpu(device)
     launches["npt"], protocol_rates = run_protocol(device)
     rates["md command (2,000 atoms, plain Verlet)"] = run_md_command()
+    # the reference's general force path
+    name = "2-body W (model_2.json)"
+    rates[name], rates[f"{name} NVE"], stale[name] = run_two_body_w(device)
+    name = "binary Ne/Xe 2-body (model_pair.json)"
+    rates[name], stale[name] = run_binary_pair(device)
+    factorized = run_binary_trio(device)
+    rates["binary Ne/Xe 2+3-body, NVE (4,000 atoms)"] = factorized[0]
+    name = "3-body cutoff beyond the 2-body cutoff (separate route)"
+    records["K32-separate"], launches["separate_3body"], rates[name], \
+        stale[name] = run_separate_3body(device)
+    run_async_overflow(device)
+    rates["md command, model_2.json (2,000 atoms)"] = run_md_command(
+        "model_2.json")
     card = card_line()
     for name, rate in rates.items():
         print(f"MD {name}: {rate:.1f} atom-steps/s"
-              + (f" (median of 3 x {WINDOW_STEPS} steps, 9826 atoms, "
-                 f"float32), stale={stale[name]}" if name in stale else "")
+              + (f" (median of 3 x {WINDOW_STEPS} steps), stale="
+                 f"{stale[name]}" if name in stale else "")
               + f", card: {card}")
     for name, rate in protocol_rates.items():
         print(f"MD melting protocol stage {name}: {rate:.1f} atom-steps/s "
               f"({STAGE_STEPS} steps, 31104 atoms, float32), card: {card}")
+    print(f"factorized compute_energy_forces, 4,000 atoms: device "
+          f"{factorized[1]:.4f} ms, host {factorized[2]:.4f} ms per call, "
+          f"card: {card}")
     print(f"trio launches by path: {launches}")
     record = dict(records["K16"], max_abs_err=max(
         r["max_abs_err"] for r in records.values()))

@@ -57,17 +57,18 @@ def test_langevin_launch_chunks_exact():
 
 def test_options_off_the_bench_path_raise():
     """What is still not ported raises NotImplementedError naming its
-    ROADMAP.md item: the engine options off the benchmark path and
-    binary models; so do the paths the JAX engine has none of, a
-    barostat on r-RESPA and Nose-Hoover NPT.  Nose-Hoover, regrowth,
-    npt_run and stress run (tests/test_torch_npt.py)."""
+    ROADMAP.md item: the engine options off the benchmark path; so do
+    the paths the JAX engine has none of, a barostat on r-RESPA and
+    Nose-Hoover NPT.  Nose-Hoover, regrowth, npt_run and stress run
+    (tests/test_torch_npt.py); fused="separate" and binary models run
+    (tests/test_torch_models.py)."""
     geom = _geom()
-    for bad in (dict(fused="separate"), dict(trio_triangle=True),
-                dict(static_rebuild=True), dict(eager_refilter=False)):
+    for bad in (dict(trio_triangle=True), dict(static_rebuild=True),
+                dict(eager_refilter=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             MDSystem(MODEL, geom, dtype=torch.float64, **dict(KW, **bad))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        MDSystem(BINARY, geom, device="cpu")
+    binary = MDSystem(BINARY, bulk("Ne", "fcc", a=5.4) * 3, device="cpu")
+    assert binary.degree == 2 and binary.potential.trio is None
     with pytest.raises(ValueError, match="multiple of respa_mid"):
         MDSystem(MODEL, geom, **dict(KW, respa_mid=4))
     port = MDSystem(MODEL, geom, dtype=torch.float64, **KW)

@@ -337,3 +337,100 @@ def test_trio_virial_from_kernel_partials(rows, rows_protocol, cuda_device,
             torch.abs(v_twin).max())
     else:
         assert _err(v_kernel / volume, v_twin / volume) <= 1e-5
+
+
+def long_trio_model():
+    """A unary W model whose 3-body cutoff (4 A) passes its 2-body
+    cutoff (3 A): the engine builds its 3-body list on its own and runs
+    the trio kernel on it (the separate route)."""
+    from uf3_tpu_torch import io
+    from uf3_tpu_torch.data.composition import ChemicalSystem
+    from uf3_tpu_torch.representation.basis import BSplineBasis
+    basis = BSplineBasis(
+        ChemicalSystem(["W"], degree=3), r_min_map={("W", "W"): 1.5},
+        r_max_map={("W", "W"): 3.0, ("W", "W", "W"): [4.0, 4.0, 8.0]},
+        resolution_map={("W", "W"): 8, ("W", "W", "W"): [6, 6, 12]})
+    return io.FittedModel(basis, np.random.RandomState(0).normal(
+        scale=0.05, size=sum(basis.partition_sizes)))
+
+
+@pytest.fixture(scope="module")
+def rows_separate():
+    """(potential, d, valid, list cache, 3-body list) of the separately
+    built 32-slot 3-body list of the same box, f64."""
+    geom = bulk("W", "bcc", a=3.1652) * (8, 8, 8)
+    geom.rattle(0.05, seed=11)
+    system = MDSystem(long_trio_model(), geom, dtype=torch.float64,
+                      device="cpu", capacity_3b=32)
+    state = system.init_state()
+    cache = nb.list_cache(state.nbr3, system.cell, torch.float64)
+    d = nb.cached_displacements(state.positions, state.nbr3, cache)
+    return system.potential, d, cache.valid, cache, state.nbr3
+
+
+def test_separate_list_has_32_slots_and_reverse_slots(rows_separate):
+    _, d, valid, _, nbr = rows_separate
+    assert d.shape[1] == 32 and nbr.sel is None
+    assert int(valid.sum(1).max()) <= 32 and int(valid.sum(1).min()) >= 14
+    idx, rev, mask = nbr.idx.numpy(), nbr.rev.numpy(), nbr.mask.numpy()
+    a, s = np.nonzero(mask)
+    assert np.array_equal(idx[idx[a, s], rev[a, s]], a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", TOLS)
+def test_trio_kernel_on_a_separately_built_list(rows_separate, cuda_device,
+                                                dtype, tol):
+    """The KMAX = 32 instance on a list that did not come from the
+    filter, its reverse slots from the builder: partials and assembled
+    forces against the twin's."""
+    pot64, d, valid, cache, nbr = rows_separate
+    twin = _matches_twin(pot64, d, valid, cuda_device, dtype, tol)
+    pot = _with_grid(pot64, pot64.trio.grid).to(device=cuda_device,
+                                                dtype=dtype)
+    dk, vk = d.to(cuda_device, dtype), valid.to(cuda_device, dtype)
+    out = trio.trio_partials(pot, dk, vk, False)
+    rev, mask = cache.rev_flat.to(cuda_device), nbr.mask.to(cuda_device)
+    f_kernel = trio.assemble_forces(*out, dk, rev, mask)[1]
+    f_twin = trio.assemble_forces(*twin, d, cache.rev_flat, nbr.mask)[1]
+    assert _err(f_kernel, f_twin) <= tol
+    assert float(torch.abs(f_twin).max()) > 1e-1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["separate_3body", "model_2", "binary"])
+def test_factorized_and_separate_steps_on_the_card_match_cpu(cuda_device,
+                                                             model):
+    """Two plain velocity-Verlet steps on the card against the CPU,
+    float64: the separate route (trio kernel) of the model whose 3-body
+    cutoff passes its 2-body cutoff, and the factorized path of the
+    2-body W and the binary Ne/Xe model files."""
+    if model == "binary":
+        from uf3_tpu_torch.data.atoms import Atoms
+        base = bulk("Ne", "fcc", a=5.4) * 3
+        numbers = base.get_atomic_numbers()
+        numbers[np.random.RandomState(3).rand(len(numbers)) > 0.5] = 54
+        geom = Atoms(numbers, base.get_positions(), base.get_cell(),
+                     pbc=True)
+        source = os.path.join(REPO, "tests", "data", "model_binary.json")
+    else:
+        geom = bulk("W", "bcc", a=3.1652) * 4
+        source = long_trio_model() if model == "separate_3body" \
+            else os.path.join(REPO, "benchmarks_data", "model_2.json")
+    geom.rattle(0.05, seed=3)
+    v0 = np.random.RandomState(0).normal(0.0, 4e-3, (len(geom), 3))
+    out = []
+    for device in ("cpu", cuda_device):
+        system = MDSystem(source, geom, dtype=torch.float64, device=device,
+                          capacity_3b=32)
+        launches = trio.trio_partials.launches
+        state = system.run(system.init_state(velocities=v0), n_steps=2,
+                           dt_fs=2.0)
+        if device != "cpu":
+            assert (trio.trio_partials.launches > launches) \
+                == (model == "separate_3body")
+        out.append(state)
+    cpu, card = out
+    for name in ("positions", "velocities", "forces", "energy"):
+        assert _err(getattr(cpu, name), getattr(card, name)) <= 1e-10
+    assert float(torch.abs(cpu.forces).max()) > 1e-2

@@ -8,6 +8,8 @@ image shift) plus the overflow flag; the reverse slots and parent slots
 are checked for consistency.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,7 +41,8 @@ def box():
     for a, b in zip(topo_t, topo_j):
         assert np.array_equal(a, b)
     # the engine's bin capacity, sized from the measured occupancy
-    bin_capacity = MDSystem._cell_list_setup(geom, R2)[1]
+    bin_capacity = MDSystem._cell_list_geometry(geom.positions, cell, pbc,
+                                                R2)[1]
     return pos, cell, pbc, grid_shape, topo_j, bin_capacity
 
 
@@ -146,3 +149,84 @@ def test_wrap_trigger_capacity(box):
     for r_cut in (4.0, 6.7):
         assert tnb.estimate_capacity(1024, 32.0 ** 3, r_cut) \
             == jnb.estimate_capacity(1024, 32.0 ** 3, r_cut)
+
+
+def _long_trio_model():
+    """A unary W model whose 3-body cutoff (4 A) passes its 2-body
+    cutoff (3 A), random coefficients."""
+    from uf3_tpu_torch import io
+    from uf3_tpu_torch.data.composition import ChemicalSystem
+    from uf3_tpu_torch.representation.basis import BSplineBasis
+    basis = BSplineBasis(
+        ChemicalSystem(["W"], degree=3), r_min_map={("W", "W"): 1.5},
+        r_max_map={("W", "W"): 3.0, ("W", "W", "W"): [4.0, 4.0, 8.0]},
+        resolution_map={("W", "W"): 8, ("W", "W", "W"): [6, 6, 12]})
+    return io.FittedModel(basis, np.random.RandomState(0).normal(
+        scale=0.05, size=sum(basis.partition_sizes)))
+
+
+@pytest.mark.parametrize("reps, scale, model, after", [
+    ((8, 8, 8), 0.9, "bench", "cells"),
+    ((8, 8, 4), 0.9, "bench", "images"),
+    ((8, 8, 8), 0.85, "long_trio", "cells")],
+    ids=["fewer-bins", "to-images", "separate-3body"])
+def test_builders_follow_a_shrinking_cell(reps, scale, model, after):
+    """Port only (the reference fixes its builders at construction): a
+    periodic cell compressed past its bins' margin over r_cut + skin.
+    The bench model's builder chosen for the entry cell drops pairs
+    there (its 6 A list reaches across the narrowed bins); a full
+    rebuild in the new cell chooses again (fewer bins, or the images
+    builder once fewer than 16 bins are left), and its lists hold the
+    neighbor sets and overflow flag of the O(N^2) or images builder on
+    the same positions, the separately built 3-body list too (with
+    reverse slots)."""
+    from uf3_tpu_torch.data.atoms import bulk as t_bulk
+    from uf3_tpu_torch.forcefield.md import MDSystem as Engine
+    geom = t_bulk("W", "bcc", a=3.1652) * reps
+    geom.rattle(0.05, seed=2)
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmarks_data", "model_2and3.json")
+    port = Engine(path if model == "bench" else _long_trio_model(), geom,
+                  dtype=torch.float64, device="cpu", capacity_2b=120,
+                  capacity_3b=64)
+    lists = [("_2b", port.r_cut_2b + port.skin_2b, port.capacity_2b)]
+    if port.separate_3b:
+        lists.append(("_3b", port.r_cut_3b + port.skin, port.capacity_3b))
+    entry = {tag: (getattr(port, "_images" + tag),
+                   getattr(port, "_cells" + tag)) for tag, _, _ in lists}
+    assert all(cells is not None for _, cells in entry.values())
+    cell = port.cell * scale
+    x = port._wrap(torch.tensor(geom.positions) * scale, cell)
+    nbr2, nbr3 = port.build_lists(x, cell)
+    built = {"_2b": nbr2, "_3b": nbr3}
+    pbc = port.pbc
+    for tag, r_cut, capacity in lists:
+        images, cells = getattr(port, "_images" + tag), \
+            getattr(port, "_cells" + tag)
+        if after == "cells":
+            assert cells is not None
+            assert all(n < m for n, m in zip(cells[0], entry[tag][1][0]))
+            ref = tnb.build_neighbor_list(x, cell, pbc, r_cut, capacity)
+        else:
+            assert cells is None and images == (1, 1, 1)
+            ref = tnb.build_neighbor_list_images(x, cell, pbc, r_cut,
+                                                 capacity, images=images)
+        assert _same_sets(ref, built[tag])
+        assert bool(ref.overflow) is bool(built[tag].overflow) is False
+        if model == "bench":
+            stale = port._build(x, cell, r_cut, capacity, *entry[tag])
+            assert not _same_sets(ref, stale)
+    if port.separate_3b:
+        assert nbr3.sel is None
+        _check_rev(nbr3)
+    else:
+        _check_rev(nbr3)
+        ref3 = tnb.filter_neighbor_list(
+            tnb.build_neighbor_list(x, cell, pbc, port.r_cut_2b
+                                    + port.skin_2b, port.capacity_2b),
+            x, cell, port.r_cut_3b + port.skin, port.capacity_3b)
+        assert _same_sets(ref3, nbr3)
+    # an unchanged cell is not read again; a collapsed one raises
+    assert port._geometry_cell is cell
+    with pytest.raises(RuntimeError, match="no finite positive volume"):
+        port.build_lists(x, cell * 0.0)

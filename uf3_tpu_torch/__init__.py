@@ -13,6 +13,9 @@ modules it needs are trimmed copies under the same module names.
   forcefield/units.py eV / A / amu units
   io.py               model JSON -> basis + coefficients
   ops/splines.py      closed-form B-spline primitives
+  ops/spline_jax.py   B-splines on general knots, polynomial tables
+  ops/factorized.py   FactorizedPotential and the general force path
+                      (any species, 2-body only, any knots)
   ops/potential.py    UF3Potential (nn.Module with the coefficients)
   ops/neighbors.py    O(N^2), images and cell-list neighbor lists,
                       filter, reverse slots
@@ -23,6 +26,7 @@ modules it needs are trimmed copies under the same module names.
   csrc/trio.cu        the 3-body CUDA kernel
   forcefield/md.py    MD: velocity Verlet, 2- and 3-level r-RESPA
                       (NVE / Langevin / Nose-Hoover), SCR and
-                      Berendsen NPT, stress, capacity regrowth
+                      Berendsen NPT, stress, capacity regrowth, the
+                      queued overflow check
   __main__.py         python -m uf3_tpu_torch md model.json
 """

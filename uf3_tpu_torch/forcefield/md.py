@@ -1,27 +1,45 @@
 """
-Molecular dynamics of a unary 2+3-body UF3 potential in torch: plain
-velocity Verlet, 2-level or 3-level r-RESPA, with one-tier or two-tier
-Verlet skins, NVE, Langevin or Nose-Hoover; NPT on plain Verlet under
-Langevin with the stochastic cell-rescaling or the Berendsen barostat,
-from the analytic virial; neighbor capacities that regrow on overflow.
+Molecular dynamics of a fitted UF3 potential in torch: plain velocity
+Verlet, 2-level or 3-level r-RESPA, with one-tier or two-tier Verlet
+skins, NVE, Langevin or Nose-Hoover; NPT on plain Verlet under Langevin
+with the stochastic cell-rescaling or the Berendsen barostat, from the
+analytic virial; neighbor capacities that regrow on overflow.
 
 Counterpart of ``uf3_tpu/forcefield/md.py`` (``MDSystem.run`` and
 ``npt_run`` -> ``_run_chunk`` / ``_run_chunk_respa`` -> ``_verlet_step``,
-``_respa_cycle``, ``_respa_cycle_3l``; ``stress``).  One choice departs
-from it on purpose: every kinetic energy that feeds a thermostat or a
-barostat (Nose-Hoover, SCR and Berendsen) sums over mobile atoms only,
-where the reference's Nose-Hoover and Berendsen sums also count pinned
-atoms (ROADMAP.md section 3); without pinned atoms the two agree.
+``_respa_cycle``, ``_respa_cycle_3l``; ``energy_forces``,
+``energy_forces_virial``, ``stress``).  The force takes the reference's
+routes: a unary 2+3-body model with closed-form knots runs the fused
+kernels, from one shared (N, K2) gather when its 3-body list was
+filtered from the 2-body list, else ("separate") the pair force and the
+trio kernel on their own gathers; every other model (2-body only, more
+than one species, knots with no closed form) runs the factorized path
+(``ops/factorized.py``).  A model whose 3-body cutoff passes the 2-body
+cutoff gets its own 3-body list, with reverse slots.
+
+Three choices depart from the reference on purpose:
+- every kinetic energy that feeds a thermostat or a barostat
+  (Nose-Hoover, SCR and Berendsen) sums over mobile atoms only, where
+  the reference's Nose-Hoover and Berendsen sums also count pinned
+  atoms (ROADMAP.md section 3); without pinned atoms the two agree;
+- a 3-body list built on its own carries reverse slots, which the
+  reference's (``with_rev=False``) lacks, so that its neighbor forces
+  are gathered from the right rows;
+- each list's builder is checked against the cell at every full
+  rebuild in a new cell (NPT), and chosen again where it would drop
+  pairs (the reference fixes it at construction).
 
 The neighbor builder follows the cell: a cell list for periodic boxes
 of 512 atoms and 16 bins or more, explicit images for periodic cells
 narrower than twice the cutoff, otherwise the O(N^2) minimum-image
-search (non-periodic clusters included).  Per rebuild cycle the lists are refreshed on the
-host's decision (one sync): a full rebuild once half the 2-body skin
-is used, else, with two-tier skins, a refilter of the 3-body list from
-the 2-body list.  The 3-body force runs through the trio kernel on the
-card.  Options off these paths raise NotImplementedError naming the
-ROADMAP.md item that will port them.
+search (non-periodic clusters included).  Per rebuild cycle the lists
+are refreshed on the host's decision (one sync): a full rebuild once
+half the 2-body skin is used, else, with two-tier skins, a refilter of
+the 3-body list from the 2-body list.  Each launch's overflow flag goes
+to the host without a wait (``run(sync=False)``).  The 3-body force of
+the fused routes runs through the trio kernel on the card.  Options off
+these paths raise NotImplementedError naming the ROADMAP.md item that
+will port them.
 """
 
 import copy
@@ -36,7 +54,11 @@ from uf3_tpu_torch.data import elements
 from uf3_tpu_torch.data.atoms import Atoms
 from uf3_tpu_torch.forcefield import units
 from uf3_tpu_torch.ops import neighbors as nb
-from uf3_tpu_torch.ops.pair import pair_short_forces, pair_tail_forces
+from uf3_tpu_torch.ops.factorized import (FactorizedPotential,
+                                          compute_energy_forces,
+                                          pair_contributions_fast)
+from uf3_tpu_torch.ops.pair import (pair_row_forces, pair_short_forces,
+                                    pair_tail_forces)
 from uf3_tpu_torch.ops.potential import (UF3Potential, stress_voigt,
                                          voigt6_to_matrix)
 from uf3_tpu_torch.ops.splines import basis_window_hi
@@ -72,9 +94,59 @@ def _resolve_device(device) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def _load(model) -> UF3Potential:
+    """A private UF3Potential from a model JSON's path, a fitted model
+    (``bspline_config`` and ``coefficients``), a UF3Potential or a
+    FactorizedPotential."""
+    if isinstance(model, UF3Potential):
+        return copy.deepcopy(model)
+    if isinstance(model, FactorizedPotential):
+        return UF3Potential.from_factorized(copy.deepcopy(model))
+    if hasattr(model, "bspline_config"):
+        return UF3Potential.from_model(model)
+    return UF3Potential.from_json(model)
+
+
 def _volume(cell):
     """|det cell| as the triple product a . (b x c)."""
     return torch.abs(torch.dot(cell[0], torch.linalg.cross(cell[1], cell[2])))
+
+
+# -- overflow flags on their way to the host ---------------------------------
+def _queue_flag(flag):
+    """A launch's overflow flag in flight to the host: on the card a
+    non-blocking copy into pinned memory and an event recorded after it;
+    on the CPU the flag itself."""
+    if flag.device.type != "cuda":
+        return flag, None
+    host = torch.empty((), dtype=torch.bool, pin_memory=True)
+    host.copy_(flag, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(flag.device))
+    return host, event
+
+
+def _flag_ready(entry) -> bool:
+    """Whether a queued flag has reached the host (no wait)."""
+    return entry[1] is None or entry[1].query()
+
+
+def _flag_value(entry) -> bool:
+    """A queued flag's value, waiting for its copy if it is in flight."""
+    if entry[1] is not None:
+        entry[1].synchronize()
+    return bool(entry[0])
+
+
+def _report_overflow(on_overflow: str):
+    message = ("neighbor capacity exceeded during MD: pairs were dropped "
+               "at a rebuild (farthest-first for the O(N^2) builders, "
+               "stencil order for the cell list); increase "
+               "capacity_2b/capacity_3b (or use on_overflow='regrow')")
+    if on_overflow == "warn":
+        warnings.warn(message)
+    else:
+        raise RuntimeError(message)
 
 
 class SCR(NamedTuple):
@@ -91,7 +163,7 @@ class MDState(NamedTuple):
     forces: torch.Tensor      # (N, 3) eV / A
     energy: torch.Tensor      # () potential energy, eV
     nbr2: nb.NeighborList
-    nbr3: nb.NeighborList
+    nbr3: Optional[nb.NeighborList]  # None for a 2-body-only model
     generator: torch.Generator  # Langevin and SCR noise stream
     xi: torch.Tensor          # () Nose-Hoover thermostat momentum
     stale: torch.Tensor       # () bool: a skin was exceeded
@@ -106,11 +178,15 @@ class MDState(NamedTuple):
 class MDSystem:
     """Binds a fitted potential to a configuration for device MD.
 
-    ``model`` is a ``UF3Potential`` or the path of a model JSON;
-    ``atoms`` any object with the reader methods of
-    ``uf3_tpu_torch.data.atoms.Atoms``.  ``device`` defaults to the
-    CUDA card and raises where there is none: a CPU run (the plain torch
-    twins of the kernels) passes ``device="cpu"``."""
+    ``model`` is the path of a model JSON, a fitted model (an object
+    with ``bspline_config`` and ``coefficients``, as ``io.load_model``
+    returns), a ``UF3Potential`` or a ``FactorizedPotential`` (which
+    runs the factorized route alone); ``atoms`` any object with the
+    reader methods of ``uf3_tpu_torch.data.atoms.Atoms``.  ``fused``
+    chooses the route of a model with fused kernels: "shared" (one
+    (N, K2) gather) or "separate".  ``device`` defaults to the CUDA card
+    and raises where there is none: a CPU run (the plain torch twins of
+    the kernels) passes ``device="cpu"``."""
 
     def __init__(self, model, atoms: Atoms, dtype=torch.float32,
                  capacity_2b: int = None, capacity_3b: int = None,
@@ -123,13 +199,10 @@ class MDSystem:
                  masses: np.ndarray = None, device=None):
         self.device = _resolve_device(device)
         self.dtype = dtype
-        if isinstance(model, UF3Potential):
-            model = copy.deepcopy(model)
-        else:
-            model = UF3Potential.from_json(model)
-        self.potential = model.to(device=self.device, dtype=dtype)
-        if fused != "shared":
-            raise _not_ported(f"fused={fused!r}", OPTIONS)
+        self.potential = _load(model).to(device=self.device, dtype=dtype)
+        if fused not in ("shared", "separate"):
+            raise ValueError("fused must be 'separate' or 'shared'")
+        self.fused = fused
         if trio_triangle:
             raise _not_ported("the triangle-lane trio layout", OPTIONS)
         if static_rebuild:
@@ -137,17 +210,23 @@ class MDSystem:
         self.skin = float(skin)
         self.skin_2b = float(skin_2b) if skin_2b is not None else self.skin
         self.rebuild_every = int(rebuild_every)
+        self.degree = self.potential.degree
         self.r_cut_2b = self.potential.r_cut_2b
         self.r_cut_3b = self.potential.r_cut_3b
-        if self.r_cut_3b > self.r_cut_2b:
-            raise _not_ported("a 3-body cutoff beyond the 2-body cutoff",
-                              "2-body-only models and a separately built "
-                              "3-body list")
+        # a 3-body cutoff beyond the 2-body one: the 3-body list is built
+        # on its own, at the same positions as the 2-body list
+        self.separate_3b = self.degree > 2 and self.r_cut_3b > self.r_cut_2b
         # two-tier skins: a larger 2-body skin makes full rebuilds rare,
         # and the 3-body list is refiltered from it every cycle
-        self.two_tier = self.skin_2b > self.skin
+        self.two_tier = (self.skin_2b > self.skin and self.degree > 2
+                         and not self.separate_3b)
         if self.two_tier and not eager_refilter:
             raise _not_ported("eager_refilter=False", OPTIONS)
+        # the skin the rebuild trigger and the staleness flag read: a
+        # separately built 3-body list shares the 2-body list's build
+        # positions, so the smaller of the two skins binds
+        self._list_skin = min(self.skin, self.skin_2b) if self.separate_3b \
+            else self.skin_2b
         self.n_respa = int(n_respa)
         self.respa_mid = int(respa_mid)
         if self.respa_mid > 1 and self.n_respa <= 1:
@@ -178,25 +257,34 @@ class MDSystem:
         volume = atoms.get_volume() if any(self.pbc) else 1e6
         self.capacity_2b = capacity_2b or nb.estimate_capacity(
             n_atoms, volume, self.r_cut_2b + self.skin_2b)
-        self.capacity_3b = capacity_3b or nb.estimate_capacity(
-            n_atoms, volume, self.r_cut_3b + self.skin)
+        self.capacity_3b = (capacity_3b or nb.estimate_capacity(
+            n_atoms, volume, self.r_cut_3b + self.skin)) \
+            if self.degree > 2 else 0
         self._positions0 = torch.as_tensor(atoms.get_positions(),
                                            dtype=dtype, device=self.device)
-        # periodic cells narrower than twice the cutoff: the
-        # minimum-image search would drop pairs, so scan explicit images
-        self._images_2b = None
-        if any(self.pbc):
-            req = nb.images_required(atoms.get_cell(), self.pbc,
-                                     self.r_cut_2b + self.skin_2b)
-            if max(req) > 0:
-                self._images_2b = tuple(max(1, r) if p else 0
-                                        for r, p in zip(req, self.pbc))
-        self._cells_2b = self._cell_list_setup(
-            atoms, self.r_cut_2b + self.skin_2b)
+        # each list's builder (images per axis, cell-list geometry), for
+        # the cell it was chosen in
+        positions, cell = atoms.get_positions(), atoms.get_cell()
+        self._images_2b, self._cells_2b = self._list_geometry(
+            positions, cell, self.r_cut_2b + self.skin_2b)
+        self._images_3b = self._cells_3b = None
+        if self.separate_3b:
+            self._images_3b, self._cells_3b = self._list_geometry(
+                positions, cell, self.r_cut_3b + self.skin)
+        self._geometry_cell = self.cell
+        # per-launch overflow flags not yet read on the host
+        self._pending_overflow = []
 
     def _respa_setup(self, respa_switch):
         """Validate the r-RESPA cadence and switch band; set the short
         force's basis window."""
+        if not (self.degree > 2 and self.r_cut_3b <= self.r_cut_2b):
+            raise ValueError("n_respa > 1 requires a 2+3-body model with "
+                             "r_cut_3b <= r_cut_2b")
+        if self.potential.trio is None or self.potential.pair_spec is None:
+            raise ValueError("n_respa > 1 runs on the fused kernels, as in "
+                             "uf3_tpu: it requires a unary 2+3-body model "
+                             "whose knots have a closed form")
         if respa_switch is None:
             respa_switch = (self.r_cut_3b - 0.5, self.r_cut_3b)
         if respa_switch[1] > self.r_cut_3b + 1e-9:
@@ -219,22 +307,26 @@ class MDSystem:
         self.n_basis_short = basis_window_hi(self.potential.pair_spec,
                                              self.respa_switch[1])
 
+    # -- neighbor geometry ----------------------------------------------------
     @staticmethod
-    def _cell_list_setup(atoms, r_cut):
-        if not np.any(atoms.get_pbc()) or len(atoms) < 512:
+    def _cell_list_geometry(positions, cell, pbc, r_cut):
+        """(grid shape, bin capacity, bin topology) of a cell list at
+        ``r_cut`` for these numpy positions and cell, or None where the
+        O(N^2) or images builders serve (no periodic axis, fewer than
+        512 atoms or 16 bins)."""
+        if not np.any(pbc) or len(positions) < 512:
             return None
-        grid_shape = nb.grid_shape_for(atoms.get_cell(), r_cut,
-                                       atoms.get_pbc())
+        grid_shape = nb.grid_shape_for(cell, r_cut, pbc)
         n_bins = int(np.prod(grid_shape))
         if n_bins < 16:
             return None
-        # size bins from the measured initial occupancy, not the mean:
-        # lattice planes aligned with bin boundaries put up to ~1.8x
-        # the mean in one bin.  An atom on a bin face may fall on either
-        # side of it once the builder recomputes its fractional
-        # coordinate in float32 (bcc W at 8^3 or 10^3 overflowed so), so
-        # it counts in every bin within 1e-5 of it
-        frac = atoms.get_positions() @ np.linalg.inv(atoms.get_cell())
+        # size bins from the measured occupancy, not the mean: lattice
+        # planes aligned with bin boundaries put up to ~1.8x the mean in
+        # one bin.  An atom on a bin face may fall on either side of it
+        # once the builder recomputes its fractional coordinate in
+        # float32 (bcc W at 8^3 or 10^3 overflowed so), so it counts in
+        # every bin within 1e-5 of it
+        frac = np.asarray(positions) @ np.linalg.inv(cell)
         frac = frac - np.floor(frac)
         dims = np.asarray(grid_shape)
         sides = [np.floor((frac + eps) * dims).astype(int) % dims
@@ -248,34 +340,95 @@ class MDSystem:
                                 ids[:, 1:] != ids[:, :-1]], axis=1)
         occ = np.bincount(ids[first], minlength=n_bins).max()
         bin_capacity = max(8, int(np.ceil(occ * 1.3)) + 2)
-        topology = nb.bin_topology(grid_shape, atoms.get_pbc())
+        topology = nb.bin_topology(grid_shape, pbc)
         return grid_shape, bin_capacity, topology
 
+    def _list_geometry(self, positions, cell, r_cut):
+        """(images, cells) of one list's builder in this cell: explicit
+        images per axis where a periodic width is below 2 ``r_cut`` (else
+        None), and the cell-list geometry (or None); the builder takes
+        the cell list where there is one."""
+        images = None
+        if any(self.pbc):
+            req = nb.images_required(cell, self.pbc, r_cut)
+            if max(req) > 0:
+                images = tuple(max(1, r) if p else 0
+                               for r, p in zip(req, self.pbc))
+        return images, self._cell_list_geometry(positions, cell, self.pbc,
+                                                r_cut)
+
+    def _builder_exact(self, cell, r_cut, images, cells) -> bool:
+        """Whether a list's builder finds every pair within ``r_cut`` in
+        this (numpy) cell: cell-list bins at least ``r_cut`` wide, or
+        enough periodic images."""
+        if cells is not None:
+            return all(now >= was for now, was in zip(
+                nb.grid_shape_for(cell, r_cut, self.pbc), cells[0]))
+        have = images or (0, 0, 0)
+        return all(need <= h for need, h in
+                   zip(nb.images_required(cell, self.pbc, r_cut), have))
+
+    def _fit_geometry(self, positions, cell):
+        """Port-only guard at a full rebuild in a cell the builders were
+        not chosen for (NPT): keep each list's builder while it stays
+        exact, and choose it again from this cell and these positions,
+        as at construction, where it would drop pairs.  A cell with no
+        finite positive volume raises (one host read of the cell)."""
+        if cell is self._geometry_cell or not any(self.pbc):
+            return
+        self._geometry_cell = cell
+        cell_np = cell.detach().double().cpu().numpy()
+        if not (np.isfinite(cell_np).all()
+                and abs(np.linalg.det(cell_np)) > 0):
+            raise RuntimeError(f"no neighbor list fits the cell {cell_np}: "
+                               "it has no finite positive volume")
+        lists = [("_2b", self.r_cut_2b + self.skin_2b)]
+        if self.separate_3b:
+            lists.append(("_3b", self.r_cut_3b + self.skin))
+        positions_np = None
+        for tag, r_cut in lists:
+            images = getattr(self, "_images" + tag)
+            cells = getattr(self, "_cells" + tag)
+            if self._builder_exact(cell_np, r_cut, images, cells):
+                continue
+            if positions_np is None:
+                positions_np = positions.detach().double().cpu().numpy()
+            images, cells = self._list_geometry(positions_np, cell_np, r_cut)
+            setattr(self, "_images" + tag, images)
+            setattr(self, "_cells" + tag, cells)
+
     # -- neighbor construction ---------------------------------------------
-    def _build_2b(self, positions, cell):
-        """The 2-body list by the builder this cell takes."""
-        r_cut = self.r_cut_2b + self.skin_2b
-        if self._cells_2b is not None:
-            grid_shape, bin_capacity, topology = self._cells_2b
+    def _build(self, positions, cell, r_cut, capacity, images, cells):
+        """One list by the builder this cell takes."""
+        if cells is not None:
+            grid_shape, bin_capacity, topology = cells
             return nb.build_neighbor_list_cells(
-                positions, cell, self.pbc, r_cut, self.capacity_2b,
-                grid_shape, bin_capacity, topology)
-        if self._images_2b is not None:
+                positions, cell, self.pbc, r_cut, capacity, grid_shape,
+                bin_capacity, topology)
+        if images is not None:
             return nb.build_neighbor_list_images(
-                positions, cell, self.pbc, r_cut, self.capacity_2b,
-                images=self._images_2b)
+                positions, cell, self.pbc, r_cut, capacity, images=images)
         return nb.build_neighbor_list(positions, cell, self.pbc, r_cut,
-                                      self.capacity_2b)
+                                      capacity)
 
     def build_lists(self, positions, cell=None):
-        """(2-body list, 3-body list filtered from it) for positions
-        wrapped into the primary cell."""
+        """(2-body list, 3-body list) for positions wrapped into the
+        primary cell: the 3-body list filtered from the 2-body list, or
+        built on its own (with reverse slots) when its cutoff is the
+        larger; None for a 2-body-only model."""
         cell = self.cell if cell is None else cell
-        nbr2 = self._build_2b(positions, cell)
-        nbr3 = nb.filter_neighbor_list(nbr2, positions, cell,
-                                       self.r_cut_3b + self.skin,
-                                       self.capacity_3b)
-        return nbr2, nbr3
+        self._fit_geometry(positions, cell)
+        nbr2 = self._build(positions, cell, self.r_cut_2b + self.skin_2b,
+                           self.capacity_2b, self._images_2b, self._cells_2b)
+        if self.degree <= 2:
+            return nbr2, None
+        r_cut_3 = self.r_cut_3b + self.skin
+        if self.separate_3b:
+            return nbr2, nb.with_reverse_slots(self._build(
+                positions, cell, r_cut_3, self.capacity_3b,
+                self._images_3b, self._cells_3b))
+        return nbr2, nb.filter_neighbor_list(nbr2, positions, cell, r_cut_3,
+                                             self.capacity_3b)
 
     def _wrap(self, positions, cell):
         """Wrap into the primary cell (an exact lattice translation);
@@ -291,16 +444,70 @@ class MDSystem:
                       with_energy: bool = True, with_virial: bool = False,
                       cache2=None, cache3=None):
         """Total energy, forces and, with ``with_virial``, the analytic
-        (3, 3) virial (else None) from one shared pair-row gather;
-        ``with_energy=False`` skips the energy sums (the 1-body energy
-        alone comes back).  ``cache2`` / ``cache3`` carry the lists'
-        per-cycle invariants."""
+        (3, 3) virial (else None), by the model's route: the shared
+        gather (``with_energy=False`` then skips the energy sums and the
+        1-body energy alone comes back), the separate gathers, or the
+        factorized path (which always computes the energy).
+        ``cache2`` / ``cache3`` carry the lists' per-cycle invariants."""
         cell = self.cell if cell is None else cell
-        e2, e3, forces, v6 = pair_trio_forces_shared(
-            self.potential, positions, cell, nbr2, nbr3, with_energy,
-            cache2, cache3, with_virial)
-        virial = voigt6_to_matrix(v6) if with_virial else None
-        return self._e1() + e2 + torch.sum(e3), forces, virial
+        pot = self.potential
+        if pot.trio is not None and nbr3 is not None:
+            if pot.pair_spec is not None and nbr3.sel is not None \
+                    and self.fused == "shared":
+                e2, e3, forces, v6 = pair_trio_forces_shared(
+                    pot, positions, cell, nbr2, nbr3, with_energy, cache2,
+                    cache3, with_virial)
+                virial = voigt6_to_matrix(v6) if with_virial else None
+                return self._e1() + e2 + torch.sum(e3), forces, virial
+            return self._separate_forces(positions, cell, nbr2, nbr3,
+                                         with_energy, with_virial, cache2,
+                                         cache3)
+        d2 = None if cache2 is None \
+            else nb.cached_displacements(positions, nbr2, cache2)
+        d3 = None if cache3 is None or nbr3 is None \
+            else nb.cached_displacements(positions, nbr3, cache3)
+        energy, forces, virial = compute_energy_forces(
+            self._factorized(), self.species, positions, cell, nbr2, nbr3,
+            d2=d2, d3=d3)
+        return energy, forces, virial if with_virial else None
+
+    def _separate_forces(self, positions, cell, nbr2, nbr3, with_energy,
+                         with_virial, cache2, cache3):
+        """The pair force on its own (N, K2) gather (closed form, else
+        the factorized pair path) and the trio kernel on its own (N, K3)
+        gather of the 3-body list."""
+        pot = self.potential
+        if cache2 is None:
+            cache2 = nb.list_cache(nbr2, cell, positions.dtype)
+        d2 = nb.cached_displacements(positions, nbr2, cache2)
+        if pot.pair_spec is not None:
+            out2 = pair_row_forces(pot.pair_coefficients, d2, cache2.valid,
+                                   pot.pair_spec, pot.pair_spec.n_basis,
+                                   with_energy, with_virial=with_virial)
+            e2, f2 = out2[0], out2[1]
+            v2 = voigt6_to_matrix(out2[2]) if with_virial else None
+        else:
+            e2, f2, v2 = pair_contributions_fast(
+                self._factorized(), self.species, positions, cell, nbr2,
+                d=d2)
+            e2 = torch.sum(e2)
+        out3 = trio_forces(pot, positions, cell, nbr3, with_energy,
+                           cache3=cache3, with_virial=with_virial)
+        virial = v2 + voigt6_to_matrix(out3[2]) if with_virial else None
+        return self._e1() + e2 + torch.sum(out3[0]), f2 + out3[1], virial
+
+    def _factorized(self) -> FactorizedPotential:
+        if self.potential.factorized is None:
+            raise ValueError("this potential carries no factorized tables "
+                             "(built from the fused pieces alone)")
+        return self.potential.factorized
+
+    def energy_forces_virial(self, positions, nbr2, nbr3, cell=None):
+        """Energy, forces and (3, 3) virial by the factorized path,
+        whatever the model's route (the reference's oracle)."""
+        cell = self.cell if cell is None else cell
+        return compute_energy_forces(self._factorized(), self.species,
+                                     positions, cell, nbr2, nbr3)
 
     # -- state setup --------------------------------------------------------
     def init_state(self, velocities: np.ndarray = None,
@@ -327,20 +534,21 @@ class MDSystem:
             velocities = torch.as_tensor(velocities, dtype=self.dtype,
                                          device=self.device)
         nbr2, nbr3 = self.build_lists(positions)
-        if bool(nbr2.overflow | nbr3.overflow):
+        state = MDState(positions=positions, velocities=velocities,
+                        forces=None, energy=None, nbr2=nbr2, nbr3=nbr3,
+                        generator=generator,
+                        xi=torch.zeros((), dtype=self.dtype,
+                                       device=self.device),
+                        stale=torch.zeros((), dtype=torch.bool,
+                                          device=self.device),
+                        cell=self.cell)
+        if bool(self._overflow_flag(state)):
             raise ValueError(
                 "neighbor capacity exceeded at initialization "
                 f"(capacity_2b={self.capacity_2b}, "
                 f"capacity_3b={self.capacity_3b}); increase capacities")
         energy, forces, _ = self.energy_forces(positions, nbr2, nbr3)
-        return MDState(positions=positions, velocities=velocities,
-                       forces=forces, energy=energy, nbr2=nbr2, nbr3=nbr3,
-                       generator=generator,
-                       xi=torch.zeros((), dtype=self.dtype,
-                                      device=self.device),
-                       stale=torch.zeros((), dtype=torch.bool,
-                                         device=self.device),
-                       cell=self.cell)
+        return state._replace(forces=forces, energy=energy)
 
     # -- integrator ---------------------------------------------------------
     def _rebuild_switch(self, state: MDState):
@@ -352,7 +560,7 @@ class MDSystem:
         lists as they are.  Returns (positions, nbr2, nbr3)."""
         cell = state.cell
         x = state.positions
-        if bool(nb.needs_rebuild(state.nbr2, x, 0.5 * self.skin_2b)):
+        if bool(nb.needs_rebuild(state.nbr2, x, 0.5 * self._list_skin)):
             x_w = self._wrap(x, cell)
             nbr2, nbr3 = self.build_lists(x_w, cell)
             return x_w, nbr2, nbr3
@@ -368,12 +576,14 @@ class MDSystem:
         across the cycles of one launch."""
         x, nbr2, nbr3 = self._rebuild_switch(state)
         nbr2 = nbr2._replace(overflow=nbr2.overflow | state.nbr2.overflow)
-        nbr3 = nbr3._replace(overflow=nbr3.overflow | state.nbr3.overflow)
+        if nbr3 is not None:
+            nbr3 = nbr3._replace(overflow=nbr3.overflow
+                                 | state.nbr3.overflow)
         return x, nbr2, nbr3
 
     def _stale(self, stale, nbr2, nbr3, x):
         """Sticky flag: a skin was outrun at positions ``x``."""
-        stale = stale | nb.needs_rebuild(nbr2, x, self.skin_2b)
+        stale = stale | nb.needs_rebuild(nbr2, x, self._list_skin)
         if self.two_tier:
             stale = stale | nb.needs_rebuild(nbr3, x, self.skin)
         return stale
@@ -430,7 +640,8 @@ class MDSystem:
         if scr is not None:
             cell = cell * scale
             cache2 = cache2._replace(sd=cache2.sd * scale)
-            cache3 = cache3._replace(sd=cache3.sd * scale)
+            if cache3 is not None:
+                cache3 = cache3._replace(sd=cache3.sd * scale)
         v = state.velocities + 0.5 * dt * state.forces / m
         x = state.positions + dt * v
         energy, forces, virial = self.energy_forces(
@@ -471,7 +682,8 @@ class MDSystem:
         x, nbr2, nbr3 = self._cycle_lists(state)
         cell = state.cell
         cache2 = nb.list_cache(nbr2, cell, self.dtype)
-        cache3 = nb.list_cache(nbr3, cell, self.dtype)
+        cache3 = None if nbr3 is None \
+            else nb.list_cache(nbr3, cell, self.dtype)
         dt = dt_fs * units.fs
         step_thermostat = self._thermostat_fn(thermostat, dt, temperature,
                                               friction_ps, tau_fs)
@@ -697,12 +909,15 @@ class MDSystem:
     def _grow_capacity(self, factor: float = 1.5):
         """Grow the neighbor-row and cell-bin capacities."""
         self.capacity_2b = int(np.ceil(self.capacity_2b * factor)) + 1
-        self.capacity_3b = int(np.ceil(self.capacity_3b * factor)) + 1
-        if self._cells_2b is not None:
-            grid_shape, bin_capacity, topology = self._cells_2b
-            self._cells_2b = (grid_shape,
-                              int(np.ceil(bin_capacity * factor)) + 1,
-                              topology)
+        if self.degree > 2:
+            self.capacity_3b = int(np.ceil(self.capacity_3b * factor)) + 1
+        for tag in ("_cells_2b", "_cells_3b"):
+            cells = getattr(self, tag)
+            if cells is not None:
+                grid_shape, bin_capacity, topology = cells
+                setattr(self, tag, (grid_shape,
+                                    int(np.ceil(bin_capacity * factor)) + 1,
+                                    topology))
 
     def _rebuild_state_lists(self, state: MDState) -> MDState:
         """Fresh neighbor lists for ``state`` at the current capacities."""
@@ -732,19 +947,29 @@ class MDSystem:
     def run(self, state: MDState, n_steps: int, dt_fs: float,
             thermostat: Optional[str] = None, temperature: float = 300.0,
             tau_fs: float = 100.0, friction_ps: float = 2.0,
-            on_overflow: str = "raise", max_regrows: int = 4,
-            callback=None, launch_chunks: int = 1) -> MDState:
+            on_overflow: str = "raise", check_every: int = 50,
+            max_regrows: int = 4, callback=None, launch_chunks: int = 1,
+            sync: bool = True) -> MDState:
         """Run ``n_steps`` of MD, NVE (``thermostat=None``), Langevin
         (``friction_ps``) or Nose-Hoover (``tau_fs``), in launches of up
         to ``launch_chunks`` rebuild cycles of ``rebuild_every`` steps;
         the trajectory does not depend on ``launch_chunks``.  With
         r-RESPA, steps left after the last whole outer step run as plain
         velocity Verlet.  ``callback(state, steps_done)`` fires after
-        each launch.  Neighbor overflow is checked once per launch:
-        "raise" (RuntimeError), "warn", or "regrow": rerun the launch
-        from its start with capacities grown 1.5x, at most
-        ``max_regrows`` times in the run.  The returned state's
-        ``stale`` says whether any launch outran a skin."""
+        each launch.  The returned state's ``stale`` says whether any
+        launch outran a skin.
+
+        Neighbor overflow: each launch's flag is queued on its way to the
+        host and read without a wait once it has arrived; the oldest is
+        waited for only when ``check_every`` are in flight.  With
+        ``sync`` every flag this call queued is read before it returns;
+        with ``sync=False`` an overflow may surface in a later call or
+        in ``overflowed``.  ``on_overflow``: "raise" (RuntimeError once a
+        flag reads True), "warn" (a warning per launch that overflowed),
+        or "regrow": check each launch at once and rerun it from its
+        start with capacities grown 1.5x, at most ``max_regrows`` times
+        in the run (flags an earlier asynchronous call left in flight
+        grow the capacities first)."""
         if thermostat not in (None, "langevin", "nose_hoover"):
             raise ValueError(f"thermostat={thermostat!r}")
         if on_overflow not in ("raise", "warn", "regrow"):
@@ -756,6 +981,12 @@ class MDSystem:
                   tau_fs=tau_fs)
         remaining = n_steps
         regrows = 0
+        if on_overflow == "regrow":
+            if self._drain_pending():
+                self._grow_capacity()
+                state = self._rebuild_state_lists(state)
+        else:
+            self._poll_overflow(on_overflow, check_every)
         while remaining > 0:
             snapshot = self._snapshot(state) if on_overflow == "regrow" \
                 else None
@@ -776,28 +1007,62 @@ class MDSystem:
                 steps = n_chunks * chunk_steps
                 state = self._run_chunk(state, n_steps=chunk_steps,
                                         n_chunks=n_chunks, **kw)
-            if self.overflowed(state):
-                if on_overflow == "regrow":
+            if on_overflow == "regrow":
+                if self.overflowed(state):
                     state = self._regrow(snapshot, regrows, max_regrows)
                     regrows += 1
                     continue
-                message = ("neighbor capacity exceeded during MD: pairs "
-                           "were dropped at a rebuild; increase "
-                           "capacity_2b/capacity_3b (or use "
-                           "on_overflow='regrow')")
-                if on_overflow == "raise":
-                    raise RuntimeError(message)
-                warnings.warn(message)
+            else:
+                self._pending_overflow.append(
+                    _queue_flag(self._overflow_flag(state)))
             # each launch's flag covers that launch only
             false_flag = torch.zeros_like(state.stale)
             state = state._replace(
                 nbr2=state.nbr2._replace(overflow=false_flag),
-                nbr3=state.nbr3._replace(overflow=false_flag))
+                nbr3=None if state.nbr3 is None
+                else state.nbr3._replace(overflow=false_flag))
+            if on_overflow != "regrow":
+                self._poll_overflow(on_overflow, check_every)
             any_stale = any_stale | state.stale
             remaining -= steps
             if callback is not None:
                 callback(state, n_steps - remaining)
+        if on_overflow != "regrow":
+            if sync:
+                hit = self._drain_pending(warn=on_overflow == "warn")
+                if hit and on_overflow == "raise":
+                    _report_overflow(on_overflow)
+            else:
+                self._poll_overflow(on_overflow, check_every)
         return state._replace(stale=any_stale)
+
+    def _drain_pending(self, warn: bool = False) -> bool:
+        """Read every queued overflow flag, waiting where one is in
+        flight; whether any was set.  With ``warn`` each set flag
+        warns."""
+        hit = False
+        for entry in self._pending_overflow:
+            if _flag_value(entry):
+                hit = True
+                if warn:
+                    _report_overflow("warn")
+        self._pending_overflow.clear()
+        return hit
+
+    def _poll_overflow(self, on_overflow: str, check_every: int):
+        """Read the queued flags that have reached the host, oldest
+        first, without a wait; wait for the oldest only while
+        ``check_every`` or more are queued.  Launches run in order, so
+        no finished launch goes unread behind an unfinished one.  A set
+        flag warns and the reading goes on ("warn"), or the queue is
+        dropped and it raises."""
+        pending = self._pending_overflow
+        while pending and (_flag_ready(pending[0])
+                           or len(pending) >= max(1, check_every)):
+            if _flag_value(pending.pop(0)):
+                if on_overflow != "warn":
+                    pending.clear()
+                _report_overflow(on_overflow)
 
     # -- pressure coupling --------------------------------------------------
     def npt_run(self, state: MDState, n_steps: int, dt_fs: float,
@@ -882,10 +1147,19 @@ class MDSystem:
         return stress_voigt(virial, _volume(state.cell))
 
     # -- observables --------------------------------------------------------
+    @staticmethod
+    def _overflow_flag(state: MDState):
+        """The state's lists' overflow flags, ORed (a device bool)."""
+        if state.nbr3 is None:
+            return state.nbr2.overflow
+        return state.nbr2.overflow | state.nbr3.overflow
+
     def overflowed(self, state: MDState) -> bool:
         """True when a neighbor capacity was exceeded at a build since
-        the flags were last reset (host sync)."""
-        return bool(state.nbr2.overflow | state.nbr3.overflow)
+        the state's flags were last reset, or a flag still queued by an
+        asynchronous ``run`` reads True; reads them all (host sync)."""
+        queued = self._drain_pending()
+        return bool(self._overflow_flag(state)) or queued
 
     def temperature(self, state: MDState) -> float:
         """Temperature of the mobile atoms, K."""

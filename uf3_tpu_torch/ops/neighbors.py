@@ -5,8 +5,9 @@ force assembly gathers through, and the parent-slot map of a filtered
 list.
 
 Counterpart of ``uf3_tpu/ops/neighbors.py`` (O(N^2) minimum-image and
-explicit-image builders, cell-list builder, filter, reverse slots,
-top-2 staleness trigger).  The JAX cell-list builder packs candidate
+explicit-image builders, cell-list builder, filter, reverse slots --
+the builders' ``with_rev`` as ``with_reverse_slots`` --, top-2
+staleness trigger).  The JAX cell-list builder packs candidate
 keys into 31-bit integers for the TPU; here candidates are compacted
 with a cumulative sum and one scatter in int64, which keeps the same
 neighbor set per row and the same overflow flag.
@@ -71,6 +72,12 @@ def _reverse_slots(idx, shift, mask):
         cand_shift == -shift[:, :, None, :], dim=-1)
     rev = torch.argmax(match.to(torch.uint8), dim=-1)
     return torch.where(mask, rev, torch.zeros_like(rev))
+
+
+def with_reverse_slots(nbr: NeighborList) -> NeighborList:
+    """The list with its reverse-slot map filled in (the builders leave
+    it zero; a 3-body list that is assembled across atoms needs it)."""
+    return nbr._replace(rev=_reverse_slots(nbr.idx, nbr.shift, nbr.mask))
 
 
 def _self_pad(idx, shift, mask):
@@ -304,9 +311,10 @@ def build_neighbor_list_cells(positions, cell, pbc, r_cut: float,
 
     Neighbors are kept in stencil order; on a capacity overflow (row or
     bin, flagged in ``overflow``) the row is truncated, and atoms past
-    a full bin get an empty row.  ``rev`` is left zero: only the 3-body
-    list derived by ``filter_neighbor_list`` is assembled across atoms
-    and carries reverse slots."""
+    a full bin get an empty row.  ``rev`` is left zero: only a 3-body
+    list is assembled across atoms, and it carries reverse slots
+    (``filter_neighbor_list``, or ``with_reverse_slots`` on a list built
+    on its own)."""
     device = positions.device
     dtype = positions.dtype
     n_atoms = positions.shape[0]

@@ -1,14 +1,15 @@
 """
-The fitted potential on device: ``UF3Potential`` holds the closed-form
-pair spline, the dense 3-body coefficient grid with its static
-sparsity, and the 1-body offsets as buffers of one ``nn.Module``.
+The fitted potential on device: ``UF3Potential`` holds the factorized
+tables of any model (``ops/factorized.py``) and, where the model has
+them, the closed-form pair spline and the dense 3-body coefficient
+grid with its static sparsity that the fused kernels read, with the
+1-body offsets, as buffers of one ``nn.Module``.
 
 Counterpart of ``build_pair_fast`` / ``build_trio_pallas``
-(``uf3_tpu/ops/pallas_trio.py``) and of the offsets, species map and
-cutoffs of ``params_from_model`` (``uf3_tpu/ops/potential.py``), for
-unary models whose knots have a closed form -- the models the fused MD
-path runs; with the Voigt helpers of the virial (``VOIGT_AB``,
-``stress_voigt``, the engine's ``_voigt6_to_matrix``).
+(``uf3_tpu/ops/pallas_trio.py``) and of the engine's
+``build_potential`` call (``uf3_tpu/forcefield/md.py``); with the Voigt
+helpers of the virial (``VOIGT_AB``, ``stress_voigt``, the engine's
+``_voigt6_to_matrix``).
 """
 
 from typing import NamedTuple, Tuple
@@ -18,7 +19,7 @@ import torch
 from torch import nn
 
 from uf3_tpu_torch import io
-from uf3_tpu_torch.data import elements
+from uf3_tpu_torch.ops.factorized import FactorizedPotential, params_from_model
 from uf3_tpu_torch.ops.splines import (LINEAR, LegSpec,
                                        cardinal_coefficients, horner_table,
                                        leg_spec_from_knots)
@@ -133,19 +134,25 @@ def _leg_spec(spec) -> LegSpec:
 
 
 class UF3Potential(nn.Module):
-    """Unary 2+3-body UF3 potential with closed-form knots.
+    """The fitted potential on device: ``factorized``, the reference's
+    general tables of any model (a ``FactorizedPotential``, or None
+    where only the closed-form pieces were given), and the pieces of the
+    fused kernels where the model has them.
 
-    Buffers: ``pair_coefficients`` (n_basis_pair,), ``grid`` (L, L, NC)
-    with its live ``grid_window`` (Ww, Ww, Cw), the trio legs' Horner
-    ``leg_tables`` (n_int_l + n_int_n, 20), ``offsets_1b`` (S,) and the
-    int64 ``z_to_species`` map.
-    Static attributes: ``pair_spec``, ``trio`` (a TrioBundle whose
-    ``grid`` is the float64 numpy source), ``r_cut_2b``, ``r_cut_3b``."""
+    Closed-form pieces: ``pair_spec`` with the ``pair_coefficients``
+    buffer (n_basis_pair,) for a single pair spline with closed-form
+    knots, and for the single symmetric-leg trio of a unary 2+3-body
+    model ``trio`` (a TrioBundle whose ``grid`` is the float64 numpy
+    source) with the buffers ``grid`` (L, L, NC), its live
+    ``grid_window`` (Ww, Ww, Cw) and the legs' Horner ``leg_tables``
+    (n_int_l + n_int_n, 20); each None where the model has no such
+    piece.  Always: ``offsets_1b`` (S,), the int64 ``z_to_species`` map,
+    ``r_cut_2b`` and ``r_cut_3b`` (0 without a 3-body term)."""
 
     def __init__(self, pair_spec: LegSpec, pair_coefficients,
                  trio: TrioBundle, offsets_1b, z_to_species,
                  r_cut_2b: float, r_cut_3b: float,
-                 dtype=torch.float64, device=None):
+                 dtype=torch.float64, device=None, factorized=None):
         super().__init__()
         self.pair_spec = pair_spec
         self.trio = trio
@@ -155,51 +162,65 @@ class UF3Potential(nn.Module):
         def buf(x, dt=dtype):
             return torch.tensor(np.asarray(x), dtype=dt, device=device)
 
-        self.register_buffer("pair_coefficients", buf(pair_coefficients))
-        self.register_buffer("grid", buf(trio.grid))
-        # trio kernel operands: the live window of the grid (dead (b, c)
-        # blocks in it are exact zeros) and the Horner tables of the
-        # first leg's intervals, then the third leg's
-        w_lo, w_hi, c_lo, c_hi = trio.window
-        self.register_buffer("grid_window", buf(np.ascontiguousarray(
-            trio.grid[w_lo:w_hi, w_lo:w_hi, c_lo:c_hi])))
-        self.register_buffer("leg_tables", buf(np.concatenate(
-            [horner_table(trio.spec_l), horner_table(trio.spec_n)])))
+        self.register_buffer("pair_coefficients", None if pair_spec is None
+                             else buf(pair_coefficients))
+        if trio is None:
+            for name in ("grid", "grid_window", "leg_tables"):
+                self.register_buffer(name, None)
+        else:
+            self.register_buffer("grid", buf(trio.grid))
+            # trio kernel operands: the live window of the grid (dead
+            # (b, c) blocks in it are exact zeros) and the Horner tables
+            # of the first leg's intervals, then the third leg's
+            w_lo, w_hi, c_lo, c_hi = trio.window
+            self.register_buffer("grid_window", buf(np.ascontiguousarray(
+                trio.grid[w_lo:w_hi, w_lo:w_hi, c_lo:c_hi])))
+            self.register_buffer("leg_tables", buf(np.concatenate(
+                [horner_table(trio.spec_l), horner_table(trio.spec_n)])))
         self.register_buffer("offsets_1b", buf(offsets_1b))
         self.register_buffer("z_to_species",
                              buf(z_to_species, torch.int64))
+        self.factorized = None if factorized is None \
+            else factorized.to(device=device, dtype=dtype)
+
+    @property
+    def degree(self) -> int:
+        """3 with a 3-body term, else 2."""
+        return 3 if self.r_cut_3b > 0 else 2
 
     @classmethod
     def from_json(cls, filename: str, dtype=torch.float64, device=None):
         """Load a fitted model JSON (no pandas, no jax)."""
-        model = io.load_model(filename)
+        return cls.from_model(io.load_model(filename), dtype=dtype,
+                              device=device)
+
+    @classmethod
+    def from_model(cls, model, dtype=torch.float64, device=None):
+        """From a fitted model (``io.load_model``'s, or any object with
+        ``bspline_config`` and ``coefficients``): the factorized tables
+        always, the closed-form pieces where the model has them."""
+        tables, n_pairs, trio_specs, r_cut_2b, r_cut_3b = \
+            params_from_model(model)
+        factorized = FactorizedPotential(tables, n_pairs, trio_specs,
+                                         r_cut_2b, r_cut_3b)
         config = model.bspline_config
-        element_list = list(config.element_list)
-        if config.degree <= 2:
-            raise NotImplementedError(
-                "2-body-only models are not ported to uf3_tpu_torch yet "
-                "(ROADMAP.md, modules still to port: 2-body-only models and "
-                "a separately built 3-body list)")
         pair = build_pair_fast(config, model.coefficients)
-        trio = build_trio_bundle(config, model.coefficients)
-        if len(element_list) != 1 or pair is None or trio is None:
-            raise NotImplementedError(
-                "only unary 2+3-body models whose knots have a closed form "
-                "are ported to uf3_tpu_torch yet (ROADMAP.md, modules still "
-                "to port: multi-species and knots with no closed form)")
-        z_list = [elements.atomic_numbers[el] for el in element_list]
-        z_to_species = np.zeros(max(z_list) + 1, dtype=np.int64)
-        for s, z in enumerate(z_list):
-            z_to_species[z] = s
-        solutions = io.arrange_coefficients(model.coefficients, config)
-        offsets_1b = np.array([float(np.asarray(solutions[el]).flat[0])
-                               for el in element_list])
-        r_cut_2b = max(float(config.r_max_map[p])
-                       for p in config.interactions_map[2])
-        seqs = config.knots_map[config.interactions_map[3][0]]
-        r_cut_3b = float(max(seqs[0][-1], seqs[1][-1]))
-        return cls(pair[0], pair[1], trio, offsets_1b, z_to_species,
-                   r_cut_2b, r_cut_3b, dtype=dtype, device=device)
+        return cls(*(pair or (None, None)),
+                   build_trio_bundle(config, model.coefficients),
+                   tables["offsets_1b"], tables["z_to_species"], r_cut_2b,
+                   r_cut_3b, dtype=dtype, device=device,
+                   factorized=factorized)
+
+    @classmethod
+    def from_factorized(cls, factorized: FactorizedPotential):
+        """The factorized tables alone, in their dtype and on their
+        device: no closed-form pieces."""
+        return cls(None, None, None, factorized.offsets_1b.cpu().numpy(),
+                   factorized.z_to_species.cpu().numpy(),
+                   factorized.r_cut_2b, factorized.r_cut_3b,
+                   dtype=factorized.offsets_1b.dtype,
+                   device=factorized.offsets_1b.device,
+                   factorized=factorized)
 
     @classmethod
     def from_jax_arrays(cls, trio, pair, offsets_1b, z_to_species,

@@ -220,6 +220,13 @@ def _deboor4(r, idx, spec: LegSpec):
     clamped-end clipping (zero denominators give zero terms)."""
     tk = [_knot_value(spec, torch.clamp(idx + j - 3, 0, spec.n_int),
                       r.dtype) for j in range(8)]
+    return _deboor_taps(r, tk)
+
+
+def _deboor_taps(r, tk):
+    """The Cox-de Boor recursion on the 8-knot window ``tk`` (a list of
+    tensors shaped like r): values and first derivatives of the 4
+    non-zero cubic basis functions, as two lists of 4."""
     zero = torch.zeros_like(r)
     b = [zero, zero, zero, torch.ones_like(r)]
     for k in range(1, 3):  # degrees 1, 2

@@ -16,11 +16,18 @@ regrowth, SCR NPT, SCR NPT with half the box pinned, SCR NPT released;
 and the ``md`` command as a user runs it.  Then the reference's general
 force path: the 2-body W model (``model_2.json``) at 9,826 atoms, the
 binary Ne/Xe 2-body model (``model_pair.json``) at 8,788 atoms, a random
-binary 2+3-body model at 4,000 atoms (the factorized 3-body path), a
-model whose 3-body cutoff passes its 2-body cutoff (its own 3-body
-list, the trio kernel on the separate route) and the bench model with
-``fused="separate"``, each against float64 and, on a cut, the CPU; the
-queued overflow check; and the ``md`` command on the 2-body model.
+binary 2+3-body model at 4,000 atoms (the fused multi-species route
+beside the factorized 3-body path), a model whose 3-body cutoff passes
+its 2-body cutoff (its own 3-body list, the trio kernel on the separate
+route) and the bench model with ``fused="separate"``, each against
+float64 and, on a cut, the CPU; the queued overflow check; and the
+``md`` command on the 2-body model.  Then the fused multi-species route
+at full width (the random Ne/Xe 2+3-body model, 8,788 atoms, the
+species-gated instance of the trio kernel held against its plain
+version per ordered trio type and summed, Langevin at 10 K and 720 NVE
+steps); plain Verlet with ``static_rebuild`` (host syncs per cycle
+beside the adaptive schedule's); the bench's 3-level r-RESPA with
+``eager_refilter=False``; and ``md --static-rebuild``.
 
     python3 chip_smoke.py
 
@@ -52,6 +59,7 @@ from uf3_tpu_torch.data.composition import ChemicalSystem  # noqa: E402
 from uf3_tpu_torch.forcefield import md, units  # noqa: E402
 from uf3_tpu_torch.forcefield.md import SCR, MDSystem  # noqa: E402
 from uf3_tpu_torch.ops import _build  # noqa: E402
+from uf3_tpu_torch.ops import multi  # noqa: E402
 from uf3_tpu_torch.ops import neighbors as nb  # noqa: E402
 from uf3_tpu_torch.ops import trio  # noqa: E402
 from uf3_tpu_torch.ops.factorized import compute_energy_forces  # noqa: E402
@@ -106,6 +114,12 @@ def environment(device):
         print(f"triton: {triton.__version__}")
     except ImportError:
         print("triton: not importable")
+
+
+def reset_counts():
+    """Every kernel wrapper's launch count to 0."""
+    trio.trio_partials.launches = 0
+    trio.trio_partials_gated.launches = 0
 
 
 def build_kernels():
@@ -453,7 +467,7 @@ def run_path(name, device, engine, run_kw, t_init=T_TARGET, samples=None,
     Returns (system, state, launches, atom-steps/s, temperatures at the
     end of each window, stale)."""
     geom = bench_geometry((17, 17, 17)) if geom is None else geom
-    trio.trio_partials.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     system = MDSystem(model, geom, dtype=torch.float32, device=device,
                       **engine)
@@ -839,11 +853,12 @@ def run_protocol(device):
     return sum(launches), rates
 
 
-def run_md_command(model="model_2and3.json"):
-    """``python -m uf3_tpu_torch md`` at its defaults, as a user runs
-    it: exit 0 and a finite T and E on its result line."""
+def run_md_command(model="model_2and3.json", *flags):
+    """``python -m uf3_tpu_torch md`` at its defaults (and ``flags``),
+    as a user runs it: exit 0 and a finite T and E on its result
+    line."""
     cmd = [sys.executable, "-m", "uf3_tpu_torch", "md",
-           os.path.join("benchmarks_data", model)]
+           os.path.join("benchmarks_data", model), *flags]
     t0 = time.perf_counter()
     out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                          timeout=600)
@@ -972,17 +987,21 @@ def run_binary_pair(device):
 
 def run_binary_trio(device):
     """The random binary 2+3-body model (``binary23_model``), fcc Ne/Xe
-    at a = 5.4 A, 10^3 x 4 = 4,000 atoms, by the factorized path: forces
-    and virial in float32 against float64, the device and host time of
-    one ``compute_energy_forces`` call, the card against the CPU on a
-    500-atom cut, and 200 NVE steps of 1 fs from 10 K.  Returns
-    (atom-steps/s of the NVE run, device ms, host ms)."""
-    name = "binary Ne/Xe 2+3-body (factorized)"
+    at a = 5.4 A, 10^3 x 4 = 4,000 atoms, by the fused
+    multi-species route (the engine's) and by the factorized path: the
+    fused route's forces and virial in float32 against float64, the
+    fused route against the factorized path in float64 (1e-9), the
+    device and host time of one force call on each route, the card
+    against the CPU on a 500-atom cut, and 200 NVE steps of 1 fs from
+    10 K.  Returns (atom-steps/s of the NVE run, {route: (device ms,
+    host ms)})."""
+    name = "binary Ne/Xe 2+3-body, 4,000 atoms"
     model = binary23_model()
     geom = ne_xe((10, 10, 10), seed=5)
     system = MDSystem(model, geom, dtype=torch.float32, device=device)
     system64 = MDSystem(model, geom, dtype=torch.float64, device=device)
     assert system.potential.trio is None and system.degree == 3
+    assert system._multi_route()
     state = system.init_state(temperature=10.0, seed=0)
     x, cell = state.positions, state.cell
     _, f32, v32 = system.energy_forces(x, state.nbr2, state.nbr3,
@@ -996,32 +1015,59 @@ def run_binary_trio(device):
           f"{len(system.potential.factorized.trio_specs)} ordered trio "
           f"types; f32 vs f64 max |dF| {d_force:.3e} eV/A, max |d sigma| "
           f"{d_stress:.3e} eV/A^3")
+    x64, cell64 = x.double(), cell.double()
+    e_m, f_m, v_m = system64.energy_forces(x64, state.nbr2, state.nbr3,
+                                           cell=cell64, with_virial=True)
+    e_f, f_f, v_f = system64.energy_forces_virial(x64, state.nbr2,
+                                                  state.nbr3, cell=cell64)
+    d_route = max(abs(float(e_m - e_f)), max_err(f_m, f_f),
+                  max_err(v_m, v_f))
+    print(f"{name}: fused multi-species route vs factorized path, f64: "
+          f"|dE|, |dF|, |dW| {abs(float(e_m - e_f)):.3e}, "
+          f"{max_err(f_m, f_f):.3e}, {max_err(v_m, v_f):.3e}")
     fp, species = system.potential.factorized, system.species
+    cache2, cache3 = system.list_caches(state.nbr2, state.nbr3, cell)
 
-    def force():
+    def factorized():
         return compute_energy_forces(fp, species, x, cell, state.nbr2,
                                      state.nbr3)
-    dev_ms = graph_ms(force, repeats=5, replays=4)
-    hst_ms = host_ms(force, 10)
-    print(f"layer {name} compute_energy_forces: device {dev_ms:.4f} ms "
-          f"(graph replay), host {hst_ms:.4f} ms per call")
+
+    def fused():
+        return system.energy_forces(x, state.nbr2, state.nbr3, cell=cell,
+                                    with_energy=False, cache2=cache2,
+                                    cache3=cache3)
+    times = {}
+    for route, fn, repeats in (("fused multi-species energy_forces", fused,
+                                20),
+                               ("factorized compute_energy_forces",
+                                factorized, 5)):
+        times[route] = (graph_ms(fn, repeats=repeats, replays=4),
+                        host_ms(fn, 10))
+        print(f"layer {name} {route}: device {times[route][0]:.4f} ms "
+              f"(graph replay), host {times[route][1]:.4f} ms per call")
     card_vs_cpu(name, model, ne_xe((5, 5, 5), seed=5), device, 6, 1.0)
     e0 = float(state.energy) + system.kinetic_energy(state)
+    reset_counts()
     state, seconds = drive(system, state, 200, dt_fs=1.0)
+    gated = trio.trio_partials_gated.launches
     e1 = float(state.energy) + system.kinetic_energy(state)
     drift = abs(e1 - e0) / len(geom)
     print(f"{name}: 200 NVE steps from 10 K in {seconds:.2f} s, E_total "
           f"{e0:.6f} -> {e1:.6f} eV, drift {drift:.3e} eV/atom, T "
-          f"{system.temperature(state):.2f} K")
+          f"{system.temperature(state):.2f} K, {gated} gated trio "
+          "launches")
     gate(name, {
         "f32 forces match f64": d_force <= FORCE_TOL,
         "f32 stress matches f64": d_stress <= STRESS_TOL,
+        "fused route within 1e-9 of the factorized path (f64)":
+            d_route <= 1e-9,
         "no overflow": not system.overflowed(state),
         "finite state": bool(torch.isfinite(state.positions).all()
                              and torch.isfinite(state.forces).all()),
         f"NVE drift <= {BINARY_NVE_DRIFT:g} eV/atom":
-            drift <= BINARY_NVE_DRIFT})
-    return len(geom) * 200 / seconds, dev_ms, hst_ms
+            drift <= BINARY_NVE_DRIFT,
+        "the gated trio kernel launched on this path": gated > 0})
+    return len(geom) * 200 / seconds, times, gated
 
 
 def run_separate_3body(device):
@@ -1135,6 +1181,316 @@ def run_fused_separate(device):
                 max(errs) <= F64_TOL})
     return launches, rate, stale
 
+# -- the fused multi-species route at full width, and the rebuild schedules
+def gated_bound(pot, t, d, valid, s_slot, species, with_energy: bool):
+    """The least time the card needs for ordered type ``t``'s launch of
+    the species-gated instance on these rows, counted as ``trio_bound``
+    counts the unary instance's, over this type's live lanes: rows m
+    valid, of species s_m and under a center of species s_c; lanes
+    (m, n) with n valid and of species s_n.  Bytes: the rows, mask and
+    species ids read once, the type's window and tables, the outputs
+    written once.  Returns (ms, "operations" or "bytes", flop, bytes)."""
+    desc = pot.trio_multi.descs[t]
+    l_lo, l_hi, b_lo, b_hi, c_lo, c_hi = desc.window
+    bw, cw = b_hi - b_lo, c_hi - c_lo
+    d = d.double()
+    center = (species == desc.s_c)[:, None]
+    ok_m = (valid != 0) & (s_slot == desc.s_m) & center       # (N, K)
+    ok_n = (valid != 0) & (s_slot == desc.s_n)
+    r = torch.sqrt(torch.sum(d * d, -1).clamp_min(1e-300))
+    taps = torch.arange(4, device=d.device)
+
+    def live(idx, lo, hi):
+        return (((idx[..., None] + taps) >= lo)
+                & ((idx[..., None] + taps) < hi)).sum(-1)
+    l_live = live(_leg_interval(desc.spec_l1, r), l_lo, l_hi)
+    b_live = live(_leg_interval(desc.spec_l2, r), b_lo, b_hi)
+    diff = d[:, None, :, :] - d[:, :, None, :]                 # [a, m, n]
+    r_mn2 = torch.sum(diff * diff, -1)
+    r_mn = torch.sqrt(r_mn2.clamp_min(1e-300))
+    eye = torch.eye(d.shape[1], dtype=torch.bool, device=d.device)
+    lane = (ok_m[:, :, None] & ok_n[:, None, :] & ~eye & (r_mn2 > 1e-10)
+            & (r_mn >= desc.spec_n.t_min) & (r_mn <= desc.spec_n.t_max))
+    c_live = live(_leg_interval(desc.spec_n, r_mn), c_lo, c_hi)
+    b_lane = b_live[:, None, :].expand_as(c_live)
+    term = 6 if with_energy else 4
+    per_lane = (55 + 9 + int(with_energy)
+                + term * b_lane * c_live + term * b_lane)
+    flop = (float(torch.sum(per_lane * lane))
+            + int(ok_m.sum()) * (52 + 4) + int(ok_n.sum()) * 26
+            + 4.0 * bw * cw * float(torch.sum(l_live * ok_m)))
+    tables = pot.trio_types[t]
+    size = tables.grid_window.element_size()
+    n_atoms, k = d.shape[:2]
+    n_bytes = (size * (n_atoms * k * 4 + n_atoms * (4 + 5 * k)
+                       + tables.grid_window.numel()
+                       + tables.leg_tables.numel())
+               + 8 * (n_atoms * k + n_atoms))
+    t_flop, t_bytes = flop / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES
+    return (1e3 * max(t_flop, t_bytes),
+            "operations" if t_flop >= t_bytes else "bytes", flop, n_bytes)
+
+
+def compare_gated(system64: MDSystem, state, geom):
+    """The species-gated instance against its plain version
+    (``trio_multi_partials_torch``) on the engine's 3-body rows of
+    ``state``: per ordered type and summed over the types (with the
+    assembled forces and the virial from the summed partials), float64
+    within 1e-10 and float32 within 2e-4 eV/A of the float64 version;
+    then float32 times without energy, as the MD steps run it: per
+    type, the launch by graph replay and the plain version by CUDA
+    events; the whole pass (zeroed outputs, one launch per type) by
+    graph replay; bounds; the launch plan.  Returns the kernel record."""
+    pot64 = system64.potential
+    pot32 = copy.deepcopy(pot64).to(dtype=torch.float32)
+    _, cache = system64.list_caches(state.nbr2, state.nbr3, state.cell)
+    nbr = state.nbr3
+    d64 = nb.cached_displacements(state.positions, nbr, cache)
+    v64, s_slot, species = cache.valid, cache.s_slot, system64.species
+    d32, v32 = d64.float(), v64.float()
+    k = d64.shape[1]
+    descs = pot64.trio_multi.descs
+    err64 = err32 = 0.0
+    for with_energy in (True, False):
+        sums = {}
+        for t, desc in enumerate(descs):
+            twin = multi.trio_multi_partials_torch(
+                d64, v64, s_slot, species, pot64.trio_types[t].grid, desc,
+                with_energy)
+            k64 = multi.trio_multi_partials(pot64, t, d64, v64, s_slot,
+                                            species, with_energy)
+            k32 = multi.trio_multi_partials(pot32, t, d32, v32, s_slot,
+                                            species, with_energy)
+            torch.cuda.synchronize()
+            err64 = max(err64, max(max_err(a, b) for a, b in zip(k64, twin)))
+            err32 = max(err32, max(max_err(a, b) for a, b in zip(k32, twin)))
+            for key, out in (("twin", twin), ("k64", k64), ("k32", k32)):
+                sums[key] = out if key not in sums \
+                    else [a + b for a, b in zip(sums[key], out)]
+        rows = {key: (out, d64 if key != "k32" else d32,
+                      v64 if key != "k32" else v32)
+                for key, out in sums.items()}
+        forces = {key: trio.assemble_forces(*out, dd, cache.rev_flat,
+                                            nbr.mask)[1]
+                  for key, (out, dd, _) in rows.items()}
+        err64 = max(err64, max_err(forces["k64"], forces["twin"]))
+        err32 = max(err32, max_err(forces["k32"], forces["twin"]))
+        if not with_energy:
+            compare_virial(geom, k,
+                           (sums["twin"][2], d64, v64),
+                           (sums["k64"][2], d64, v64),
+                           (sums["k32"][2], d32, v32))
+    print(f"gated trio N={len(species)} K={k}, {len(descs)} ordered types: "
+          f"f64 max err {err64:.3e} (<= {F64_TOL:g}), f32 max err "
+          f"{err32:.3e} (<= {FORCE_TOL:g}), per type and summed")
+    if not (err64 <= F64_TOL and err32 <= FORCE_TOL):
+        raise AssertionError("gated trio kernel disagrees with its plain "
+                             "version")
+    by_type = []
+    for t, desc in enumerate(descs):
+        out = (d32.new_zeros(len(species)), d32.new_zeros((len(species), 3)),
+               d32.new_zeros((len(species), k, 5)))
+        ms = graph_ms(lambda: multi.trio_multi_partials(
+            pot32, t, d32, v32, s_slot, species, False, out))
+        plain = cuda_ms(lambda: multi.trio_multi_partials_torch(
+            d32, v32, s_slot, species, pot32.trio_types[t].grid, desc,
+            False), 3)
+        bound = gated_bound(pot32, t, d32, v32, s_slot, species, False)
+        occ = trio.trio_gated_occupancy(desc, k, False)
+        by_type.append(dict(type=(desc.s_c, desc.s_m, desc.s_n), ms=ms,
+                            plain_ms=plain, bound_ms=bound[0],
+                            bound_by=bound[1], flop=bound[2],
+                            bytes=bound[3], registers=occ["registers"],
+                            local_bytes=occ["local_bytes"],
+                            warps_per_sm=occ["warps_per_sm"],
+                            smem_bytes=occ["smem_bytes"]))
+        print(f"gated trio type {by_type[-1]['type']} (window "
+              f"{desc.window}): f32 launch {ms:.4f} ms (graph replay), "
+              f"plain {plain:.4f} ms; bound {bound[2]:.4g} flop, "
+              f"{bound[3]:.4g} bytes -> {bound[0]:.5f} ms ({bound[1]}); "
+              f"launch plan {occ}")
+
+    def whole_pass():
+        n = len(species)
+        out = (d32.new_zeros(n), d32.new_zeros((n, 3)),
+               d32.new_zeros((n, k, 5)))
+        for t in range(len(descs)):
+            multi.trio_multi_partials(pot32, t, d32, v32, s_slot, species,
+                                      False, out)
+        return out
+
+    def plain_pass():
+        shared = {}
+        out = None
+        for t, desc in enumerate(descs):
+            x = multi.trio_multi_partials_torch(
+                d32, v32, s_slot, species, pot32.trio_types[t].grid, desc,
+                False, shared)
+            out = x if out is None else [a + b for a, b in zip(out, x)]
+        return out
+    ms = graph_ms(whole_pass)
+    plain_ms = cuda_ms(plain_pass, 3)
+    flop = sum(b["flop"] for b in by_type)
+    # the pass reads the rows, mask and species once, writes once
+    n_atoms = len(species)
+    size = d32.element_size()
+    n_bytes = (size * (n_atoms * k * 4 + n_atoms * (4 + 5 * k))
+               + 8 * (n_atoms * k + n_atoms)
+               + size * sum(t.grid_window.numel() + t.leg_tables.numel()
+                            for t in pot32.trio_types))
+    t_flop, t_bytes = flop / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES
+    bound_ms = 1e3 * max(t_flop, t_bytes)
+    bound_by = "operations" if t_flop >= t_bytes else "bytes"
+    plans = {f"{'f64' if f64 else 'f32'} KMAX={kmax}": trio.trio_gated_occupancy(
+        descs[0], kmax, f64) for f64 in (False, True) for kmax in (16, 32)}
+    print(f"gated trio whole pass ({len(descs)} launches, outputs zeroed "
+          f"once and summed in the kernel): f32 {ms:.4f} ms (graph "
+          f"replay), plain {plain_ms:.4f} ms (eager, bases shared across "
+          f"types); bound {flop:.4g} flop, {n_bytes:.4g} bytes -> "
+          f"{bound_ms:.5f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of "
+          f"it; launch plans (no energy) {plans}")
+    return dict(max_abs_err=err32, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                n_atoms=n_atoms, k=k, launches_per_call=len(descs),
+                registers=by_type[0]["registers"], by_type=by_type)
+
+
+MULTI_T = 10.0  # K, the fused multi-species path's Langevin target
+
+
+def run_multi_route(device):
+    """The fused multi-species route at full width: the random Ne/Xe
+    2+3-body model on fcc at a = 5.4 A, 13^3 x 4 = 8,788 atoms, half Xe
+    by a seeded draw, float32, 1 fs, Langevin at 10 K (144-step warm-up,
+    3 x 720 steps), then 720 NVE steps (drift <= 1e-3 eV/atom).  Gates:
+    f32 forces (2e-4 eV/A), energy and stress (1e-5 eV/A^3) against
+    f64, gated launches on the path, the gated instance against its
+    plain version on the path's rows, the card against the CPU in f64 on
+    a 500-atom cut.  Returns (kernel record, gated launches, atom-steps/s
+    of the Langevin and NVE runs, stale)."""
+    name = "binary Ne/Xe 2+3-body, fused multi-species route"
+    model = binary23_model()
+    geom = ne_xe((13, 13, 13))
+    run_kw = dict(dt_fs=1.0, thermostat="langevin", temperature=MULTI_T)
+    system, state, launches, rate, temps, stale = run_path(
+        name, device, {}, run_kw, t_init=MULTI_T, model=model, geom=geom)
+    gated = trio.trio_partials_gated.launches
+    assert system._multi_route() and launches == 0
+    check_path(name, system, state, launches, temps, split=False,
+               model=model, geom=geom, t_target=None)
+    system64 = MDSystem(model, geom, dtype=torch.float64, device=device,
+                        capacity_2b=system.capacity_2b,
+                        capacity_3b=system.capacity_3b)
+    state64 = state._replace(positions=state.positions.double(),
+                             cell=state.cell.double())
+    d_stress = max_err(system.stress(state).double(),
+                       system64.stress(state64))
+    record = compare_gated(system64, state64, geom)
+    e0 = float(state.energy) + system.kinetic_energy(state)
+    reset_counts()
+    state, seconds = drive(system, state, WINDOW_STEPS, dt_fs=1.0)
+    nve_gated = trio.trio_partials_gated.launches
+    e1 = float(state.energy) + system.kinetic_energy(state)
+    drift = abs(e1 - e0) / len(geom)
+    nve_rate = len(geom) * WINDOW_STEPS / seconds
+    print(f"{name}: {len(geom)} atoms, K2={state.nbr2.idx.shape[1]}, "
+          f"K3={state.nbr3.idx.shape[1]}; Langevin {MULTI_T:g} K, T by "
+          f"window {[round(t, 2) for t in temps]}; gated launches "
+          f"{gated} (Langevin), {nve_gated} (NVE); f32 stress max |d "
+          f"sigma| {d_stress:.3e} eV/A^3; NVE {WINDOW_STEPS} steps, E_total "
+          f"{e0:.6f} -> {e1:.6f} eV, drift {drift:.3e} eV/atom")
+    gate(name, {
+        f"f32 stress within {STRESS_TOL:g} eV/A^3 of f64":
+            d_stress <= STRESS_TOL,
+        "the gated trio kernel launched on this path": gated > 0
+            and nve_gated > 0,
+        f"NVE drift <= {BINARY_NVE_DRIFT:g} eV/atom":
+            drift <= BINARY_NVE_DRIFT,
+        "no overflow": not system.overflowed(state)})
+    card_vs_cpu(name, model, ne_xe((5, 5, 5)), device, 6, 1.0)
+    return record, dict(langevin=gated, nve=nve_gated), rate, nve_rate, stale
+
+
+def sync_sites(caught) -> dict:
+    """Host syncs among recorded warnings, by function of the engine
+    (``forcefield/md.py``) or by file:line elsewhere."""
+    spans = function_lines(md)
+    sites = {}
+    for w in caught:
+        if "synchronizing" not in str(w.message):
+            continue
+        where = f"{os.path.basename(w.filename)}:{w.lineno}"
+        if w.filename == md.__file__:
+            where = next((fn for a, b, fn in spans if a <= w.lineno <= b),
+                         where)
+        sites[where] = sites.get(where, 0) + 1
+    return sites
+
+
+def count_syncs(system: MDSystem, state, n_steps, **run_kw):
+    """Run ``n_steps`` with ``sync=False`` under
+    ``torch.cuda.set_sync_debug_mode("warn")``; returns (state, host
+    syncs by site, as ``sync_sites``)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state = system.run(state, n_steps=n_steps, sync=False, **run_kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    system.overflowed(state)  # reads what is still queued
+    return state, sync_sites(caught)
+
+
+def run_static_rebuild(device):
+    """Plain velocity Verlet at the engine's defaults (9,826 atoms,
+    Langevin at 300 K) with ``static_rebuild=True``: a full rebuild
+    every cycle, no decision.  Timed as ``run_path`` times the other
+    paths, with ``check_path``'s gates; then the host syncs of 10 cycles
+    (200 steps, ``run(sync=False)``), by function, against the adaptive
+    schedule's on the same state.  Returns (launches, atom-steps/s,
+    stale, {schedule: syncs per cycle})."""
+    name = "plain Verlet, static_rebuild"
+    system, state, launches, rate, temps, stale = run_path(
+        name, device, dict(static_rebuild=True), LANGEVIN)
+    branches = dict(system.rebuild_branches)
+    check_path(name, system, state, launches, temps, split=False)
+    per_cycle, by_function = {}, {}
+    adaptive = MDSystem(MODEL, bench_geometry((17, 17, 17)),
+                        dtype=torch.float32, device=device)
+    for label, sys_ in (("static_rebuild", system), ("adaptive", adaptive)):
+        _, sites = count_syncs(sys_, state, 200, **LANGEVIN)
+        per_cycle[label] = sum(sites.values()) / 10
+        by_function[label] = sites
+        print(f"{name}: host syncs over 10 cycles, {label} schedule: "
+              f"{sum(sites.values())} ({per_cycle[label]:g} per cycle), by "
+              f"function {sites}")
+    print(f"{name}: cycles by branch {branches}")
+    gate(name, {"a full rebuild in every cycle": branches["keep"] == 0
+                and branches["refilter"] == 0 and branches["full"] > 0,
+                "no host sync from the rebuild decision":
+                    "_rebuild_switch" not in by_function["static_rebuild"]
+                    and "_rebuild_switch" in by_function["adaptive"]})
+    return launches, rate, stale, per_cycle
+
+
+def run_legacy_refilter(device):
+    """The bench configuration (3-level r-RESPA 12/6/36, skins 1.2/0.5
+    A, 9,826 atoms, Langevin at 300 K, launches of 10 cycles) with
+    ``eager_refilter=False``: the 3-body list refiltered only once 0.4
+    of its skin is used.  Rate, ``stale`` and the cycles by branch
+    (keep / refilter / full).  Returns (launches, atom-steps/s, stale,
+    branches)."""
+    name = "3-level r-RESPA 12/6/36, eager_refilter=False"
+    system, state, launches, rate, temps, stale = run_path(
+        name, device, dict(BENCH, eager_refilter=False),
+        dict(LANGEVIN, launch_chunks=10))
+    check_path(name, system, state, launches, temps, split=True)
+    branches = dict(system.rebuild_branches)
+    print(f"{name}: cycles by branch {branches}, stale={stale}")
+    return launches, rate, stale, branches
+
 
 def function_lines(module):
     """(first line, last line, name) of every function and method of a
@@ -1160,7 +1516,6 @@ def run_async_overflow(device):
     sync=False run leaves its flag in flight and the next call raises,
     and ``overflowed`` reads a flag an asynchronous run left queued."""
     name = "queued overflow check"
-    spans = function_lines(md)
     overflow_fns = {"run", "_poll_overflow", "_drain_pending", "_queue_flag",
                     "_flag_ready", "_flag_value", "overflowed"}
     reads = dict(waited=0, arrived=0)
@@ -1190,15 +1545,7 @@ def run_async_overflow(device):
             in_flight = len(system._pending_overflow)
             run_reads = dict(reads)
             system.overflowed(state)  # reads what is still queued
-            sites = {}
-            for w in caught:
-                if "synchronizing" not in str(w.message):
-                    continue
-                where = f"{os.path.basename(w.filename)}:{w.lineno}"
-                if w.filename == md.__file__:
-                    where = next((fn for a, b, fn in spans
-                                  if a <= w.lineno <= b), where)
-                sites[where] = sites.get(where, 0) + 1
+            sites = sync_sites(caught)
             results[sync] = (run_reads, in_flight, sites)
             print(f"{name}: run(sync={sync}) over 10 launches: flags read "
                   f"on arrival {run_reads['arrived']}, waited for "
@@ -1312,14 +1659,31 @@ def main():
     rates[name], rates[f"{name} NVE"], stale[name] = run_two_body_w(device)
     name = "binary Ne/Xe 2-body (model_pair.json)"
     rates[name], stale[name] = run_binary_pair(device)
-    factorized = run_binary_trio(device)
-    rates["binary Ne/Xe 2+3-body, NVE (4,000 atoms)"] = factorized[0]
+    binary = run_binary_trio(device)
+    rates["binary Ne/Xe 2+3-body, fused route, NVE (4,000 atoms)"] = \
+        binary[0]
     name = "3-body cutoff beyond the 2-body cutoff (separate route)"
     records["K32-separate"], launches["separate_3body"], rates[name], \
         stale[name] = run_separate_3body(device)
     run_async_overflow(device)
     rates["md command, model_2.json (2,000 atoms)"] = run_md_command(
         "model_2.json")
+    # the fused multi-species route at full width, and the rebuild
+    # schedules
+    gated_launches = {"binary 2+3-body, 4,000 atoms, NVE": binary[2]}
+    name = "binary Ne/Xe 2+3-body, fused multi-species route"
+    record_gated, by_run, rates[name], rates[f"{name} NVE"], stale[name] = \
+        run_multi_route(device)
+    gated_launches.update({f"multi route 8,788 atoms, {run}": n
+                           for run, n in by_run.items()})
+    name = "plain Verlet (defaults), static_rebuild"
+    launches["static_rebuild"], rates[name], stale[name], syncs = \
+        run_static_rebuild(device)
+    name = "3-level r-RESPA 12/6/36, eager_refilter=False"
+    launches["legacy_refilter"], rates[name], stale[name], branches = \
+        run_legacy_refilter(device)
+    rates["md command --static-rebuild (2,000 atoms)"] = run_md_command(
+        "model_2and3.json", "--static-rebuild")
     card = card_line()
     for name, rate in rates.items():
         print(f"MD {name}: {rate:.1f} atom-steps/s"
@@ -1329,18 +1693,28 @@ def main():
     for name, rate in protocol_rates.items():
         print(f"MD melting protocol stage {name}: {rate:.1f} atom-steps/s "
               f"({STAGE_STEPS} steps, 31104 atoms, float32), card: {card}")
-    print(f"factorized compute_energy_forces, 4,000 atoms: device "
-          f"{factorized[1]:.4f} ms, host {factorized[2]:.4f} ms per call, "
-          f"card: {card}")
+    for route, (dev_ms, hst_ms) in binary[1].items():
+        print(f"binary 2+3-body, 4,000 atoms, {route}: device "
+              f"{dev_ms:.4f} ms, host {hst_ms:.4f} ms per call, card: {card}")
+    print(f"host syncs per cycle, plain Verlet defaults, 9,826 atoms: "
+          f"{syncs}, card: {card}")
+    print(f"3-level r-RESPA, eager_refilter=False: cycles by branch "
+          f"{branches}")
     print(f"trio launches by path: {launches}")
+    print(f"gated trio launches by path: {gated_launches}")
     record = dict(records["K16"], max_abs_err=max(
         r["max_abs_err"] for r in records.values()))
-    print(json.dumps({"kernels": [dict(
-        name="trio_partials", route="cuda",
-        source="uf3_tpu_torch/csrc/trio.cu",
-        replaces="uf3_tpu/ops/pallas_trio.py:1044",
-        launches=sum(launches.values()), launches_by_path=launches,
-        **record, by_shape=records)]}))
+    print(json.dumps({"kernels": [
+        dict(name="trio_partials", route="cuda",
+             source="uf3_tpu_torch/csrc/trio.cu",
+             replaces="uf3_tpu/ops/pallas_trio.py:1044",
+             launches=sum(launches.values()), launches_by_path=launches,
+             **record, by_shape=records),
+        dict(name="trio_partials_gated", route="cuda",
+             source="uf3_tpu_torch/csrc/trio.cu",
+             replaces="uf3_tpu/ops/pallas_trio.py:1337",
+             launches=sum(gated_launches.values()),
+             launches_by_path=gated_launches, **record_gated)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

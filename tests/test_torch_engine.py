@@ -1,7 +1,7 @@
 """
 The port's MD engine on its own (uf3_tpu_torch/forcefield/md.py): the
 trajectory does not depend on how cycles are grouped into launches,
-every option not ported yet raises NotImplementedError naming its
+the option not ported yet raises NotImplementedError naming its
 ROADMAP.md item, the Langevin thermostat and the two barostats hold
 their targets (twins of the JAX engine's statistical tests), and the md
 command runs on the CPU.  Parity with the JAX engine is in
@@ -57,16 +57,21 @@ def test_langevin_launch_chunks_exact():
 
 def test_options_off_the_bench_path_raise():
     """What is still not ported raises NotImplementedError naming its
-    ROADMAP.md item: the engine options off the benchmark path; so do
-    the paths the JAX engine has none of, a barostat on r-RESPA and
-    Nose-Hoover NPT.  Nose-Hoover, regrowth, npt_run and stress run
-    (tests/test_torch_npt.py); fused="separate" and binary models run
-    (tests/test_torch_models.py)."""
+    ROADMAP.md item: the triangle-lane trio layout; so do the paths the
+    JAX engine has none of, a barostat on r-RESPA and Nose-Hoover NPT.
+    static_rebuild and eager_refilter=False construct here and run
+    (tests/test_torch_schedules.py); Nose-Hoover, regrowth, npt_run and
+    stress run (tests/test_torch_npt.py); fused="separate" and binary
+    models run (tests/test_torch_models.py, test_torch_multi.py)."""
     geom = _geom()
-    for bad in (dict(trio_triangle=True), dict(static_rebuild=True),
-                dict(eager_refilter=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            MDSystem(MODEL, geom, dtype=torch.float64, **dict(KW, **bad))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        MDSystem(MODEL, geom, dtype=torch.float64,
+                 **dict(KW, trio_triangle=True))
+    for ported in (dict(static_rebuild=True), dict(eager_refilter=False)):
+        port = MDSystem(MODEL, geom, dtype=torch.float64,
+                        **dict(KW, **ported))
+        assert port.static_rebuild == ported.get("static_rebuild", False)
+        assert port.eager_refilter == ported.get("eager_refilter", True)
     binary = MDSystem(BINARY, bulk("Ne", "fcc", a=5.4) * 3, device="cpu")
     assert binary.degree == 2 and binary.potential.trio is None
     with pytest.raises(ValueError, match="multiple of respa_mid"):
@@ -175,7 +180,8 @@ def test_float32_lattice_on_bin_faces_does_not_overflow(reps):
 
 def test_md_command_on_the_cpu(capsys):
     """``python -m uf3_tpu_torch md`` prints the JAX command's result
-    line; the flags and subcommands not ported yet raise."""
+    line; the flag and subcommands not ported yet raise
+    (``--static-rebuild`` runs: tests/test_torch_schedules.py)."""
     main(["md", MODEL, "--reps", "3", "--steps", "12", "--device", "cpu"])
     out = capsys.readouterr().out.strip().splitlines()
     assert out[0] == "54 atoms of W"
@@ -185,7 +191,6 @@ def test_md_command_on_the_cpu(capsys):
     rate, temp, energy = (float(x) for x in found.groups())
     assert rate > 0 and 0 < temp < 600 and -620 < energy < -580
     for argv in (["md", MODEL, "--device", "cpu", "--traj", "t.xyz"],
-                 ["md", MODEL, "--device", "cpu", "--static-rebuild"],
                  ["fit", "settings.yaml"], ["export", MODEL]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             main(argv)

@@ -316,17 +316,18 @@ def test_compute_energy_forces_matches_jax(cases, name, static):
 
 def test_multi_fused_matches_factorized(cases):
     """Twin of test_multi_fused_matches_factorized: the port's engine on
-    the random binary 2+3-body model (the JAX engine routes it through
-    its fused multi-species kernels, the port through the factorized
-    path), built from the JAX tables and from the model itself, against
-    JAX compute_energy_forces with ``static`` on the same positions:
-    energy, forces and virial within 1e-9."""
+    the random binary 2+3-body model, built from the model itself (the
+    fused multi-species route, as the JAX engine routes it) and from the
+    JAX tables (a ``FactorizedPotential``, which runs the factorized
+    path alone), against JAX compute_energy_forces with ``static`` on
+    the same positions: energy, forces and virial within 1e-9."""
     c = cases["random_binary"]
     e_j, f_j, v_j = c["ref"]["total_True"]
     for model in (c["port"], random_binary_model()[1]):
         port = MDSystem(model, c["geom"], dtype=torch.float64, device="cpu",
                         rebuild_every=5)
         assert port.potential.trio is None and port.degree == 3
+        assert port._multi_route() == (model is not c["port"])
         state = port.init_state(temperature=10.0, seed=0)
         energy, forces, virial = port.energy_forces(
             state.positions, state.nbr2, state.nbr3, with_virial=True)

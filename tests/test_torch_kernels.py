@@ -10,12 +10,19 @@ from the kernel's partials, on the bench lists (16 slots) and the
 melting protocol's (20 slots): 1e-9 relative in float64, 1e-5 eV/A^3
 per stress component in float32.
 
+The species-gated instance of the kernel (one ordered trio type of a
+multi-species model per launch) against its plain version
+``trio_multi_partials_torch``, per type and summed over the types, on
+the random Ne/Xe 2+3-body model at K = 16 and 32 slots: the same
+tolerances; and a type window too wide for shared memory raises.
+
 The ``cuda`` tests skip without a GPU.  This file imports no jax, so it
 also runs on a GPU host without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
 
+import copy
 import os
 
 import numpy as np
@@ -24,6 +31,7 @@ import torch
 
 from uf3_tpu_torch.data.atoms import bulk
 from uf3_tpu_torch.forcefield.md import MDSystem
+from uf3_tpu_torch.ops import multi
 from uf3_tpu_torch.ops import neighbors as nb
 from uf3_tpu_torch.ops import trio
 from uf3_tpu_torch.ops.potential import UF3Potential, grid_sparsity
@@ -434,3 +442,148 @@ def test_factorized_and_separate_steps_on_the_card_match_cpu(cuda_device,
     for name in ("positions", "velocities", "forces", "energy"):
         assert _err(getattr(cpu, name), getattr(card, name)) <= 1e-10
     assert float(torch.abs(cpu.forces).max()) > 1e-2
+
+
+# -- the species-gated instance (the fused multi-species route) ---------------
+def binary23_model():
+    """Ne/Xe 2+3-body, r 1.0-5.0 A, resolution 8, coefficients from
+    RandomState(11) at scale 0.05 (the model of the JAX package's
+    test_multi_fused_matches_factorized)."""
+    from uf3_tpu_torch import io
+    from uf3_tpu_torch.data.composition import ChemicalSystem
+    from uf3_tpu_torch.representation.basis import BSplineBasis
+    basis = BSplineBasis(ChemicalSystem(["Ne", "Xe"], degree=3),
+                         r_min_map=1.0, r_max_map=5.0, resolution_map=8)
+    return io.FittedModel(basis, np.random.RandomState(11).normal(
+        scale=0.05, size=sum(basis.partition_sizes)))
+
+
+@pytest.fixture(scope="module", params=[16, 32], ids=["K16", "K32"])
+def rows_multi(request):
+    """(potential, d, valid, s_slot, species, list cache, 3-body list)
+    of the 3-body rows of fcc Ne/Xe (half Xe by a seeded draw, 256 or
+    500 atoms, rattled 0.08 A) on the multi-species route, f64: a = 5.8
+    A keeps 12-16 neighbors in 16 slots, a = 5.4 A 18 in 32."""
+    from uf3_tpu_torch.data.atoms import Atoms
+    k = request.param
+    a, reps = (5.8, 4) if k == 16 else (5.4, 5)
+    base = bulk("Ne", "fcc", a=a) * reps
+    numbers = base.get_atomic_numbers()
+    numbers[np.random.RandomState(3).rand(len(numbers)) > 0.5] = 54
+    geom = Atoms(numbers, base.get_positions(), base.get_cell(), pbc=True)
+    geom.rattle(0.08, seed=1)
+    system = MDSystem(binary23_model(), geom, dtype=torch.float64,
+                      device="cpu", capacity_3b=k)
+    state = system.init_state()
+    assert not system.overflowed(state)
+    _, cache = system.list_caches(state.nbr2, state.nbr3, system.cell)
+    d = nb.cached_displacements(state.positions, state.nbr3, cache)
+    return (system.potential, d, cache.valid, cache.s_slot, system.species,
+            cache, state.nbr3)
+
+
+def test_multi_rows_cover_both_instances(rows_multi):
+    """K = 16 and 32 (the two KMAX instances); each type's center
+    species is absent from some rows, and each type has live rows."""
+    pot, d, valid, s_slot, species, _, _ = rows_multi
+    assert d.shape[1] in (16, 32)
+    assert len(pot.trio_multi.descs) == 8 and pot.trio_multi_mirrored
+    for desc in pot.trio_multi.descs:
+        rows = species == desc.s_c
+        assert 0 < int(rows.sum()) < len(species)
+        assert bool(((s_slot == desc.s_m) & (valid != 0))[rows].any())
+
+
+def test_cpu_tensors_take_the_gated_twin(rows_multi):
+    """On the CPU the multi-species pass is the plain version, and the
+    kernel's wrapper raises rather than fall back."""
+    pot, d, valid, s_slot, species, _, _ = rows_multi
+    launches = trio.trio_partials_gated.launches
+    out = multi.trio_multi_partials(pot, 0, d, valid, s_slot, species)
+    ref = multi.trio_multi_partials_torch(d, valid, s_slot, species,
+                                          pot.trio_types[0].grid,
+                                          pot.trio_multi.descs[0])
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert trio.trio_partials_gated.launches == launches
+    t0 = pot.trio_types[0]
+    with pytest.raises(ValueError, match="no trio kernel"):
+        trio.trio_partials_gated(t0.grid_window, t0.leg_tables,
+                                 pot.trio_multi.descs[0], d, valid, s_slot,
+                                 species, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", TOLS)
+def test_gated_kernel_matches_twin(rows_multi, cuda_device, dtype, tol):
+    """Per ordered type (energy, center force, partials) and summed
+    over the 8 types (with the assembled forces): the kernel against
+    trio_multi_partials_torch, with and without energy."""
+    pot64, d, valid, s_slot, species, cache, nbr = rows_multi
+    pot = copy.deepcopy(pot64).to(device=cuda_device, dtype=dtype)
+    dk, vk = d.to(cuda_device, dtype), valid.to(cuda_device, dtype)
+    sk, ck = s_slot.to(cuda_device), species.to(cuda_device)
+    rev, mask = cache.rev_flat.to(cuda_device), nbr.mask.to(cuda_device)
+    descs = pot64.trio_multi.descs
+    launches = trio.trio_partials_gated.launches
+    for with_energy in (True, False):
+        total_k = total_t = None
+        for t, desc in enumerate(descs):
+            kernel = multi.trio_multi_partials(pot, t, dk, vk, sk, ck,
+                                               with_energy)
+            torch.cuda.synchronize()
+            twin = multi.trio_multi_partials_torch(
+                d, valid, s_slot, species, pot64.trio_types[t].grid, desc,
+                with_energy)
+            for a, b in zip(kernel, twin):
+                assert a.shape == b.shape
+                assert _err(a, b) <= tol
+            total_k = kernel if total_k is None \
+                else [a + b for a, b in zip(total_k, kernel)]
+            total_t = twin if total_t is None \
+                else [a + b for a, b in zip(total_t, twin)]
+        f_k = trio.assemble_forces(*total_k, dk, rev, mask)[1]
+        f_t = trio.assemble_forces(*total_t, d, cache.rev_flat, nbr.mask)[1]
+        assert _err(f_k, f_t) <= tol
+        assert float(torch.abs(f_t).max()) > 1e-2
+        if dtype == torch.float64:
+            v_k = trio.trio_virial6(total_k[2], dk, vk).cpu()
+            v_t = trio.trio_virial6(total_t[2], d, valid)
+            assert _err(v_k, v_t) <= 1e-9 * float(torch.abs(v_t).max())
+    assert trio.trio_partials_gated.launches == launches + 2 * len(descs)
+
+
+@pytest.mark.cuda
+def test_gated_kernel_accumulates_and_rejects_bad_operands(rows_multi,
+                                                           cuda_device):
+    """The instance adds into its outputs (two launches of one type give
+    twice one launch's partials); float64 rows with a float32 table,
+    int32 species ids and a window too wide for shared memory raise."""
+    pot64, d, valid, s_slot, species, _, _ = rows_multi
+    pot = copy.deepcopy(pot64).to(device=cuda_device)
+    dk, vk = d.to(cuda_device), valid.to(cuda_device)
+    sk, ck = s_slot.to(cuda_device), species.to(cuda_device)
+    once = multi.trio_multi_partials(pot, 1, dk, vk, sk, ck)
+    twice = multi.trio_multi_partials(pot, 1, dk, vk, sk, ck)
+    multi.trio_multi_partials(pot, 1, dk, vk, sk, ck, out=twice)
+    torch.cuda.synchronize()
+    for a, b in zip(once, twice):
+        assert _err(2.0 * a, b) <= 1e-12 * max(1.0, float(a.abs().max()))
+    t1, desc = pot.trio_types[1], pot64.trio_multi.descs[1]
+    with pytest.raises(TypeError, match="float32 or float64"):
+        trio.trio_partials_gated(t1.grid_window.float(), t1.leg_tables, desc,
+                                 dk, vk, sk, ck, once)
+    with pytest.raises(TypeError, match="int64"):
+        trio.trio_partials_gated(t1.grid_window, t1.leg_tables, desc, dk, vk,
+                                 sk.int(), ck, once)
+    spec = leg_spec_from_knots(kn.generate_uniform_knots(0.5, 6.0, 40))[1]
+    wide = desc._replace(spec_l1=spec, spec_l2=spec, spec_n=spec,
+                         window=(0, 43, 0, 43, 0, 43))
+    with pytest.raises(ValueError, match="exceeds the 227 KB"):
+        trio.trio_gated_occupancy(wide, d.shape[1], True)
+    with pytest.raises(ValueError, match="exceeds the 227 KB"):
+        trio.trio_partials_gated(
+            torch.zeros((43, 43, 43), dtype=torch.float64,
+                        device=cuda_device),
+            torch.zeros((120, 20), dtype=torch.float64, device=cuda_device),
+            wide, dk, vk, sk, ck, once)

@@ -13,7 +13,7 @@ in float64 on the CPU, from the same numpy inputs:
   ``model_2.json`` (cells within 1e-9), each port system built through
   ``FactorizedPotential.from_jax_params`` of the JAX engine's tables;
 - the fused routes against each other ("shared" and "separate", 1e-10),
-  binary MD on the port alone, the options that still raise, and the md
+  binary MD on the port alone, the option that still raises, and the md
   command on the 2-body model.
 
 JAX is run once, in one module fixture.
@@ -338,9 +338,10 @@ def test_separate_route_matches_shared():
 # -- what raises ----------------------------------------------------------------
 def test_respa_and_unported_options_raise():
     """r-RESPA on a 2-body model, or with the 3-body cutoff beyond the
-    2-body one, raises the reference's ValueError; the engine options
-    not ported yet raise NotImplementedError naming their ROADMAP.md
-    item by its title."""
+    2-body one, raises the reference's ValueError; the engine option
+    not ported yet (the triangle-lane trio layout) raises
+    NotImplementedError naming its ROADMAP.md item by its title, while
+    static_rebuild and eager_refilter=False, ported since, construct."""
     geom = _w(3)
     with pytest.raises(ValueError, match="requires a 2\\+3-body model"):
         MDSystem(MODEL_2, geom, dtype=torch.float64, device="cpu",
@@ -353,13 +354,17 @@ def test_respa_and_unported_options_raise():
                  geom, dtype=torch.float64, device="cpu", n_respa=2)
     with pytest.raises(ValueError, match="fused"):
         MDSystem(MODEL_23, geom, device="cpu", fused="fused")
-    for bad in (dict(trio_triangle=True), dict(static_rebuild=True),
-                dict(skin_2b=1.2, eager_refilter=False)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, modules still to port: "
-                                 "engine options off the benchmark path"):
-            MDSystem(MODEL_23, geom, dtype=torch.float64, device="cpu",
-                     **bad)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md, modules still to port: "
+                             "engine options off the benchmark path"):
+        MDSystem(MODEL_23, geom, dtype=torch.float64, device="cpu",
+                 trio_triangle=True)
+    for ported in (dict(static_rebuild=True),
+                   dict(skin_2b=1.2, eager_refilter=False)):
+        port = MDSystem(MODEL_23, geom, dtype=torch.float64, device="cpu",
+                        **ported)
+        assert port.static_rebuild or (port.two_tier
+                                       and not port.eager_refilter)
 
 
 def test_md_command_runs_the_2body_model(capsys):

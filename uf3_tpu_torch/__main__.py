@@ -65,9 +65,10 @@ def parser() -> argparse.ArgumentParser:
     p_md.add_argument("--respa-mid", type=int, default=1,
                       help="3-level r-RESPA: inner steps per mid "
                            "(3-body force) step; must divide --respa")
-    p_md.add_argument("--static-rebuild", action="store_true",
+    p_md.add_argument("--static-rebuild", "--static_rebuild",
+                      action="store_true",
                       help="unconditional full neighbor rebuild every "
-                           "cycle (not ported yet)")
+                           "cycle")
     p_md.add_argument("--traj", default=None,
                       help="write an extended-xyz trajectory (not ported "
                            "yet)")

@@ -9,11 +9,15 @@ Counterpart of ``uf3_tpu/forcefield/md.py`` (``MDSystem.run`` and
 ``npt_run`` -> ``_run_chunk`` / ``_run_chunk_respa`` -> ``_verlet_step``,
 ``_respa_cycle``, ``_respa_cycle_3l``; ``energy_forces``,
 ``energy_forces_virial``, ``stress``).  The force takes the reference's
-routes: a unary 2+3-body model with closed-form knots runs the fused
-kernels, from one shared (N, K2) gather when its 3-body list was
-filtered from the 2-body list, else ("separate") the pair force and the
-trio kernel on their own gathers; every other model (2-body only, more
-than one species, knots with no closed form) runs the factorized path
+routes, in its order: a 2+3-body model without the unary fused pieces
+whose knots all have a closed form (more than one species, as a rule)
+runs the fused multi-species route (``ops/multi.py``: a pair chain per
+pair type on one (N, K2) gather, the species-gated trio kernel once
+per ordered trio type); a unary 2+3-body model with closed-form knots
+runs the fused kernels, from one shared (N, K2) gather when its 3-body
+list was filtered from the 2-body list, else ("separate") the pair
+force and the trio kernel on their own gathers; every other model
+(2-body only, knots with no closed form) runs the factorized path
 (``ops/factorized.py``).  A model whose 3-body cutoff passes the 2-body
 cutoff gets its own 3-body list, with reverse slots.
 
@@ -33,13 +37,17 @@ The neighbor builder follows the cell: a cell list for periodic boxes
 of 512 atoms and 16 bins or more, explicit images for periodic cells
 narrower than twice the cutoff, otherwise the O(N^2) minimum-image
 search (non-periodic clusters included).  Per rebuild cycle the lists
-are refreshed on the host's decision (one sync): a full rebuild once
-half the 2-body skin is used, else, with two-tier skins, a refilter of
-the 3-body list from the 2-body list.  Each launch's overflow flag goes
-to the host without a wait (``run(sync=False)``).  The 3-body force of
-the fused routes runs through the trio kernel on the card.  Options off
-these paths raise NotImplementedError naming the ROADMAP.md item that
-will port them.
+are refreshed on one of the reference's schedules: by default on the
+host's decision (one sync), a full rebuild once half the 2-body skin
+is used, else, with two-tier skins, a refilter of the 3-body list from
+the 2-body list; with ``eager_refilter=False`` the refilter only once
+0.4 of the 3-body skin is used (keep / refilter / full, one sync); with
+``static_rebuild`` a full rebuild every cycle, with no decision.  Each
+launch's overflow flag goes to the host without a wait
+(``run(sync=False)``).  The 3-body force of the fused routes runs
+through the trio kernel on the card.  The triangle-lane trio layout
+raises NotImplementedError naming the ROADMAP.md item that will port
+it.
 """
 
 import copy
@@ -57,6 +65,7 @@ from uf3_tpu_torch.ops import neighbors as nb
 from uf3_tpu_torch.ops.factorized import (FactorizedPotential,
                                           compute_energy_forces,
                                           pair_contributions_fast)
+from uf3_tpu_torch.ops.multi import pair_forces_multi, trio_forces_multi
 from uf3_tpu_torch.ops.pair import (pair_row_forces, pair_short_forces,
                                     pair_tail_forces)
 from uf3_tpu_torch.ops.potential import (UF3Potential, stress_voigt,
@@ -67,6 +76,7 @@ from uf3_tpu_torch.ops.trio import (pair_trio_forces_shared, trio_forces,
 
 OPTIONS = "engine options off the benchmark path"
 NPT_EXTRA = "barostats on r-RESPA and Nose-Hoover NPT"
+MULTI_RESPA = "r-RESPA on the multi-species route"
 MAX_NPT_REGROWS = 4
 
 
@@ -76,10 +86,10 @@ def _not_ported(what: str, item: str):
         f"still to port: {item})")
 
 
-def _no_reference(what: str):
+def _no_reference(what: str, item: str = NPT_EXTRA):
     return NotImplementedError(
         f"{what}: uf3_tpu has no such path to port (ROADMAP.md, modules "
-        f"still to port: {NPT_EXTRA})")
+        f"still to port: {item})")
 
 
 def _resolve_device(device) -> torch.device:
@@ -184,9 +194,13 @@ class MDSystem:
     runs the factorized route alone); ``atoms`` any object with the
     reader methods of ``uf3_tpu_torch.data.atoms.Atoms``.  ``fused``
     chooses the route of a model with fused kernels: "shared" (one
-    (N, K2) gather) or "separate".  ``device`` defaults to the CUDA card
-    and raises where there is none: a CPU run (the plain torch twins of
-    the kernels) passes ``device="cpu"``."""
+    (N, K2) gather) or "separate".  ``static_rebuild`` rebuilds the
+    lists in full every cycle; ``eager_refilter=False`` refilters the
+    3-body list of two-tier skins only once 0.4 of its skin is used.
+    ``device`` defaults to the CUDA card and raises where there is
+    none: a CPU run (the plain torch twins of the kernels) passes
+    ``device="cpu"``.  ``rebuild_branches`` counts the cycles that kept
+    the lists, refiltered the 3-body list or rebuilt them in full."""
 
     def __init__(self, model, atoms: Atoms, dtype=torch.float32,
                  capacity_2b: int = None, capacity_3b: int = None,
@@ -205,8 +219,9 @@ class MDSystem:
         self.fused = fused
         if trio_triangle:
             raise _not_ported("the triangle-lane trio layout", OPTIONS)
-        if static_rebuild:
-            raise _not_ported("static_rebuild", OPTIONS)
+        self.static_rebuild = bool(static_rebuild)
+        self.eager_refilter = bool(eager_refilter)
+        self.rebuild_branches = dict(keep=0, refilter=0, full=0)
         self.skin = float(skin)
         self.skin_2b = float(skin_2b) if skin_2b is not None else self.skin
         self.rebuild_every = int(rebuild_every)
@@ -220,8 +235,6 @@ class MDSystem:
         # and the 3-body list is refiltered from it every cycle
         self.two_tier = (self.skin_2b > self.skin and self.degree > 2
                          and not self.separate_3b)
-        if self.two_tier and not eager_refilter:
-            raise _not_ported("eager_refilter=False", OPTIONS)
         # the skin the rebuild trigger and the staleness flag read: a
         # separately built 3-body list shares the 2-body list's build
         # positions, so the smaller of the two skins binds
@@ -281,6 +294,11 @@ class MDSystem:
         if not (self.degree > 2 and self.r_cut_3b <= self.r_cut_2b):
             raise ValueError("n_respa > 1 requires a 2+3-body model with "
                              "r_cut_3b <= r_cut_2b")
+        if self._multi_route():
+            # the reference's r-RESPA split unpacks the unary pair spline
+            # (pair_fast), which a multi-species model does not have
+            raise _no_reference("n_respa > 1 on a multi-species model",
+                                MULTI_RESPA)
         if self.potential.trio is None or self.potential.pair_spec is None:
             raise ValueError("n_respa > 1 runs on the fused kernels, as in "
                              "uf3_tpu: it requires a unary 2+3-body model "
@@ -440,17 +458,39 @@ class MDSystem:
     def _e1(self):
         return torch.sum(self.potential.offsets_1b[self.species])
 
+    def _multi_route(self) -> bool:
+        """Whether the model takes the fused multi-species route."""
+        pot = self.potential
+        return pot.trio_multi is not None and pot.pair_multi is not None \
+            and self.degree > 2
+
+    def list_caches(self, nbr2, nbr3, cell):
+        """The lists' per-cycle invariants (``nb.list_cache``), with the
+        species columns on the multi-species route."""
+        species = pair_type = None
+        if self._multi_route():
+            species, pair_type = self.species, self.potential.pair_type
+        cache2 = nb.list_cache(nbr2, cell, self.dtype, species, pair_type)
+        cache3 = None if nbr3 is None \
+            else nb.list_cache(nbr3, cell, self.dtype, species)
+        return cache2, cache3
+
     def energy_forces(self, positions, nbr2, nbr3, cell=None,
                       with_energy: bool = True, with_virial: bool = False,
                       cache2=None, cache3=None):
         """Total energy, forces and, with ``with_virial``, the analytic
-        (3, 3) virial (else None), by the model's route: the shared
-        gather (``with_energy=False`` then skips the energy sums and the
-        1-body energy alone comes back), the separate gathers, or the
-        factorized path (which always computes the energy).
-        ``cache2`` / ``cache3`` carry the lists' per-cycle invariants."""
+        (3, 3) virial (else None), by the model's route: the fused
+        multi-species route or the shared gather (``with_energy=False``
+        then skips the energy sums and the 1-body energy alone comes
+        back), the separate gathers, or the factorized path (which
+        always computes the energy).  ``cache2`` / ``cache3`` carry the
+        lists' per-cycle invariants (``list_caches``)."""
         cell = self.cell if cell is None else cell
         pot = self.potential
+        if self._multi_route() and nbr3 is not None:
+            return self._multi_forces(positions, cell, nbr2, nbr3,
+                                      with_energy, with_virial, cache2,
+                                      cache3)
         if pot.trio is not None and nbr3 is not None:
             if pot.pair_spec is not None and nbr3.sel is not None \
                     and self.fused == "shared":
@@ -495,6 +535,25 @@ class MDSystem:
                            cache3=cache3, with_virial=with_virial)
         virial = v2 + voigt6_to_matrix(out3[2]) if with_virial else None
         return self._e1() + e2 + torch.sum(out3[0]), f2 + out3[1], virial
+
+    def _multi_forces(self, positions, cell, nbr2, nbr3, with_energy,
+                      with_virial, cache2, cache3):
+        """The fused multi-species route: the pair chain per pair type
+        on one (N, K2) gather, the species-gated trio kernel per ordered
+        trio type on the 3-body rows, one assembly."""
+        pot = self.potential
+        if cache2 is None or cache3 is None:
+            cache2, cache3 = self.list_caches(nbr2, nbr3, cell)
+        d2 = nb.cached_displacements(positions, nbr2, cache2)
+        out2 = pair_forces_multi(
+            [t.coefficients for t in pot.pair_types], pot.pair_multi.specs,
+            d2, cache2, with_energy, with_virial)
+        out3 = trio_forces_multi(pot, self.species, positions, nbr3, cache3,
+                                 with_energy, with_virial)
+        virial = voigt6_to_matrix(out2[2] + out3[2]) if with_virial \
+            else None
+        return (self._e1() + out2[0] + torch.sum(out3[0]),
+                out2[1] + out3[1], virial)
 
     def _factorized(self) -> FactorizedPotential:
         if self.potential.factorized is None:
@@ -552,19 +611,36 @@ class MDSystem:
 
     # -- integrator ---------------------------------------------------------
     def _rebuild_switch(self, state: MDState):
-        """Neighbor refresh at a cycle boundary: a full rebuild once the
-        two largest drifts since the 2-body build pass half its skin;
-        otherwise, with two-tier skins, a refilter of the 3-body list
-        from the 2-body list at the current positions (which resets the
-        3-body staleness reference every cycle), and with one tier the
-        lists as they are.  Returns (positions, nbr2, nbr3)."""
+        """Neighbor refresh at a cycle boundary.  With
+        ``static_rebuild``: a full rebuild, no decision.  Otherwise a
+        full rebuild once the two largest drifts since the 2-body build
+        pass half its skin; else, with two-tier skins, a refilter of the
+        3-body list from the 2-body list at the current positions (which
+        resets the 3-body staleness reference) every cycle, or with
+        ``eager_refilter=False`` only once its two largest drifts pass
+        0.4 of the 3-body skin; with one tier the lists as they are.
+        One host read of the decision.  Counts the branch in
+        ``rebuild_branches``.  Returns (positions, nbr2, nbr3)."""
         cell = state.cell
         x = state.positions
-        if bool(nb.needs_rebuild(state.nbr2, x, 0.5 * self._list_skin)):
+        if self.static_rebuild:
+            branch = "full"
+        else:
+            trigger = nb.needs_rebuild(state.nbr2, x, 0.5 * self._list_skin)
+            if self.two_tier and not self.eager_refilter:
+                lazy = nb.needs_rebuild(state.nbr3, x, 0.4 * self.skin)
+                code = int(torch.where(trigger, 2, lazy.to(torch.int64)))
+                branch = ("keep", "refilter", "full")[code]
+            elif bool(trigger):
+                branch = "full"
+            else:
+                branch = "refilter" if self.two_tier else "keep"
+        self.rebuild_branches[branch] += 1
+        if branch == "full":
             x_w = self._wrap(x, cell)
             nbr2, nbr3 = self.build_lists(x_w, cell)
             return x_w, nbr2, nbr3
-        if not self.two_tier:
+        if branch == "keep":
             return x, state.nbr2, state.nbr3
         nbr3 = nb.filter_neighbor_list(
             state.nbr2, x, cell, self.r_cut_3b + self.skin,
@@ -681,9 +757,7 @@ class MDSystem:
         end."""
         x, nbr2, nbr3 = self._cycle_lists(state)
         cell = state.cell
-        cache2 = nb.list_cache(nbr2, cell, self.dtype)
-        cache3 = None if nbr3 is None \
-            else nb.list_cache(nbr3, cell, self.dtype)
+        cache2, cache3 = self.list_caches(nbr2, nbr3, cell)
         dt = dt_fs * units.fs
         step_thermostat = self._thermostat_fn(thermostat, dt, temperature,
                                               friction_ps, tau_fs)

@@ -30,6 +30,13 @@ _SIGNATURES = {
            _P]
     for name in ("uf3_trio_partials_f32", "uf3_trio_partials_f64")}
 _SIGNATURES["uf3_trio_occupancy"] = [_I, _I, _P, _I, _I, _I, _P]
+# uf3_trio_multi_partials_{f32,f64}(d, valid, s_slot, s_center, gwin,
+#   tables, energy, fc, part, n_atoms, K, legs, ints, win, species,
+#   with_energy, stream); uf3_trio_multi_occupancy(is_f64, K, ints, win,
+#   with_energy, out)
+for _name in ("uf3_trio_multi_partials_f32", "uf3_trio_multi_partials_f64"):
+    _SIGNATURES[_name] = [_P] * 9 + [_I, _I, _P, _P, _P, _P, _I, _P]
+_SIGNATURES["uf3_trio_multi_occupancy"] = [_I, _I, _P, _P, _I, _P]
 
 _loaded = {}  # the library handle once loaded in this process
 

@@ -48,12 +48,25 @@ class ListCache(NamedTuple):
     sd: torch.Tensor        # (N, K, 3) shift @ cell
     valid: torch.Tensor     # (N, K) float mask
     rev_flat: torch.Tensor  # (N, K) idx * K + rev (3-body assembly)
+    s_slot: torch.Tensor = None  # (N, K) int64 species of each slot
+    ptype: torch.Tensor = None   # (N, K) int64 pair type of each slot
 
 
-def list_cache(nbr: NeighborList, cell, dtype) -> ListCache:
-    return ListCache(sd=cell_transform(nbr.shift.to(dtype), cell),
-                     valid=nbr.mask.to(dtype),
-                     rev_flat=nbr.idx * nbr.idx.shape[1] + nbr.rev)
+def list_cache(nbr: NeighborList, cell, dtype, species=None,
+               pair_type=None) -> ListCache:
+    """The list's per-cycle invariants; with ``species`` (N,) also the
+    slots' species, and with the (S, S) ``pair_type`` table their pair
+    types (the multi-species route's columns, as the reference's
+    ``build_pair_cache``)."""
+    cache = ListCache(sd=cell_transform(nbr.shift.to(dtype), cell),
+                      valid=nbr.mask.to(dtype),
+                      rev_flat=nbr.idx * nbr.idx.shape[1] + nbr.rev)
+    if species is None:
+        return cache
+    s_slot = species[nbr.idx]
+    ptype = None if pair_type is None \
+        else pair_type[species[:, None], s_slot]
+    return cache._replace(s_slot=s_slot, ptype=ptype)
 
 
 def cached_displacements(positions, nbr: NeighborList, cache: ListCache):

@@ -2,10 +2,12 @@
 The fitted potential on device: ``UF3Potential`` holds the factorized
 tables of any model (``ops/factorized.py``) and, where the model has
 them, the closed-form pair spline and the dense 3-body coefficient
-grid with its static sparsity that the fused kernels read, with the
-1-body offsets, as buffers of one ``nn.Module``.
+grid with its static sparsity that the fused kernels read, or the
+per-type tables of the fused multi-species route (``ops/multi.py``),
+with the 1-body offsets, as buffers of one ``nn.Module``.
 
-Counterpart of ``build_pair_fast`` / ``build_trio_pallas``
+Counterpart of ``build_pair_fast`` / ``build_trio_pallas`` /
+``build_trio_multi`` / ``build_pair_multi``
 (``uf3_tpu/ops/pallas_trio.py``) and of the engine's
 ``build_potential`` call (``uf3_tpu/forcefield/md.py``); with the Voigt
 helpers of the virial (``VOIGT_AB``, ``stress_voigt``, the engine's
@@ -105,25 +107,33 @@ def build_trio_bundle(config, coefficients):
                       symmetric=symmetric)
 
 
-def grid_sparsity(grid: np.ndarray):
-    """Static sparsity of a dense (L, L, NC) grid: the (b, c) blocks
-    with a non-zero G[:, b, c] column, the live window (w_lo, w_hi,
-    c_lo, c_hi) and whether G[l, b, c] == G[b, l, c].  Trimmed and
-    symmetry-dead coefficients are exact zeros, so skipping the dead
-    blocks is exact."""
+def type_sparsity(grid: np.ndarray):
+    """(active_bc, window) of a dense (L, M, NC) grid: the (b, c) blocks
+    with a non-zero G[:, b, c] column and the live spans (l_lo, l_hi,
+    b_lo, b_hi, c_lo, c_hi); the whole grid when nothing is live."""
     alive = ~np.all(grid == 0.0, axis=0)           # (M, NC)
     active_bc = tuple(
         (b, tuple(int(c) for c in np.nonzero(alive[b])[0]))
         for b in range(grid.shape[1]) if alive[b].any())
-    if active_bc:
-        l_alive = np.nonzero(~np.all(grid == 0.0, axis=(1, 2)))[0]
-        bs = [b for b, _ in active_bc]
-        cs = [c for _, cl in active_bc for c in cl]
-        w_lo = int(min(l_alive.min(), min(bs)))
-        w_hi = int(max(l_alive.max(), max(bs))) + 1
-        window = (w_lo, w_hi, int(min(cs)), int(max(cs)) + 1)
-    else:
-        window = (0, grid.shape[0], 0, grid.shape[2])
+    if not active_bc:
+        return active_bc, (0, grid.shape[0], 0, grid.shape[1], 0,
+                           grid.shape[2])
+    l_alive = np.nonzero(~np.all(grid == 0.0, axis=(1, 2)))[0]
+    bs = [b for b, _ in active_bc]
+    cs = [c for _, cl in active_bc for c in cl]
+    return active_bc, (int(l_alive.min()), int(l_alive.max()) + 1,
+                       int(min(bs)), int(max(bs)) + 1,
+                       int(min(cs)), int(max(cs)) + 1)
+
+
+def grid_sparsity(grid: np.ndarray):
+    """Static sparsity of a dense (L, L, NC) grid: the (b, c) blocks
+    with a non-zero G[:, b, c] column, the live window (w_lo, w_hi,
+    c_lo, c_hi) of the first two legs together and whether G[l, b, c]
+    == G[b, l, c].  Trimmed and symmetry-dead coefficients are exact
+    zeros, so skipping the dead blocks is exact."""
+    active_bc, (l_lo, l_hi, b_lo, b_hi, c_lo, c_hi) = type_sparsity(grid)
+    window = (min(l_lo, b_lo), max(l_hi, b_hi), c_lo, c_hi)
     symmetric = bool(np.array_equal(grid, grid.transpose(1, 0, 2)))
     return active_bc, window, symmetric
 
@@ -131,6 +141,15 @@ def grid_sparsity(grid: np.ndarray):
 def _leg_spec(spec) -> LegSpec:
     """A LegSpec from any object with LegSpec's fields."""
     return LegSpec(*(getattr(spec, f) for f in LegSpec._fields))
+
+
+class _Tables(nn.Module):
+    """The buffers of one trio or pair type of the multi-species route."""
+
+    def __init__(self, **tensors):
+        super().__init__()
+        for name, tensor in tensors.items():
+            self.register_buffer(name, tensor)
 
 
 class UF3Potential(nn.Module):
@@ -146,13 +165,22 @@ class UF3Potential(nn.Module):
     source) with the buffers ``grid`` (L, L, NC), its live
     ``grid_window`` (Ww, Ww, Cw) and the legs' Horner ``leg_tables``
     (n_int_l + n_int_n, 20); each None where the model has no such
-    piece.  Always: ``offsets_1b`` (S,), the int64 ``z_to_species`` map,
-    ``r_cut_2b`` and ``r_cut_3b`` (0 without a 3-body term)."""
+    piece.  The fused multi-species route (a model with no such pieces
+    whose knots all have a closed form): ``trio_multi`` (a ``TrioMulti``
+    of host descs and float64 grids) with ``trio_types``, per ordered
+    type the buffers ``grid`` (L, M, NC), its live ``grid_window`` (Lw,
+    Bw, Cw) and the three legs' ``leg_tables``, and ``pair_multi`` (a
+    ``PairMulti``) with ``pair_types``, per pair type its
+    ``coefficients``, and the int64 (S, S) ``pair_type`` table; None and
+    empty where the model has no such route.  Always: ``offsets_1b``
+    (S,), the int64 ``z_to_species`` map, ``r_cut_2b`` and ``r_cut_3b``
+    (0 without a 3-body term)."""
 
     def __init__(self, pair_spec: LegSpec, pair_coefficients,
                  trio: TrioBundle, offsets_1b, z_to_species,
                  r_cut_2b: float, r_cut_3b: float,
-                 dtype=torch.float64, device=None, factorized=None):
+                 dtype=torch.float64, device=None, factorized=None,
+                 trio_multi=None, pair_multi=None):
         super().__init__()
         self.pair_spec = pair_spec
         self.trio = trio
@@ -161,6 +189,8 @@ class UF3Potential(nn.Module):
 
         def buf(x, dt=dtype):
             return torch.tensor(np.asarray(x), dtype=dt, device=device)
+
+        self._multi_buffers(trio_multi, pair_multi, buf)
 
         self.register_buffer("pair_coefficients", None if pair_spec is None
                              else buf(pair_coefficients))
@@ -183,6 +213,30 @@ class UF3Potential(nn.Module):
         self.factorized = None if factorized is None \
             else factorized.to(device=device, dtype=dtype)
 
+    def _multi_buffers(self, trio_multi, pair_multi, buf):
+        """The multi-species route's host bundles and device tables."""
+        from uf3_tpu_torch.ops.multi import mirrored
+        self.trio_multi = trio_multi
+        self.pair_multi = pair_multi
+        self.trio_multi_mirrored = trio_multi is not None and mirrored(
+            trio_multi.descs, trio_multi.grids)
+        self.trio_types = nn.ModuleList()
+        for desc, grid in zip(*((trio_multi.descs, trio_multi.grids)
+                                if trio_multi is not None else ((), ()))):
+            l_lo, l_hi, b_lo, b_hi, c_lo, c_hi = desc.window
+            self.trio_types.append(_Tables(
+                grid=buf(grid),
+                grid_window=buf(np.ascontiguousarray(
+                    grid[l_lo:l_hi, b_lo:b_hi, c_lo:c_hi])),
+                leg_tables=buf(np.concatenate(
+                    [horner_table(desc.spec_l1), horner_table(desc.spec_l2),
+                     horner_table(desc.spec_n)]))))
+        self.pair_types = nn.ModuleList(
+            _Tables(coefficients=buf(c)) for c in
+            (pair_multi.coefficients if pair_multi is not None else ()))
+        self.register_buffer("pair_type", None if pair_multi is None
+                             else buf(pair_multi.pair_type, torch.int64))
+
     @property
     def degree(self) -> int:
         """3 with a 3-body term, else 2."""
@@ -198,18 +252,30 @@ class UF3Potential(nn.Module):
     def from_model(cls, model, dtype=torch.float64, device=None):
         """From a fitted model (``io.load_model``'s, or any object with
         ``bspline_config`` and ``coefficients``): the factorized tables
-        always, the closed-form pieces where the model has them."""
+        always, the closed-form pieces where the model has them, and
+        where it has none of them (a multi-species model, or one whose
+        pair or trio misses the unary fused form) the multi-species
+        route's, where its knots have a closed form."""
+        # imported here: ops/multi.py imports the force modules, which
+        # import this one
+        from uf3_tpu_torch.ops.multi import build_pair_multi, \
+            build_trio_multi
         tables, n_pairs, trio_specs, r_cut_2b, r_cut_3b = \
             params_from_model(model)
         factorized = FactorizedPotential(tables, n_pairs, trio_specs,
                                          r_cut_2b, r_cut_3b)
         config = model.bspline_config
-        pair = build_pair_fast(config, model.coefficients)
-        return cls(*(pair or (None, None)),
-                   build_trio_bundle(config, model.coefficients),
-                   tables["offsets_1b"], tables["z_to_species"], r_cut_2b,
-                   r_cut_3b, dtype=dtype, device=device,
-                   factorized=factorized)
+        coefficients = model.coefficients
+        pair = build_pair_fast(config, coefficients)
+        trio = build_trio_bundle(config, coefficients)
+        trio_multi = pair_multi = None
+        if trio is None or pair is None:
+            trio_multi = build_trio_multi(config, coefficients)
+            pair_multi = build_pair_multi(config, coefficients)
+        return cls(*(pair or (None, None)), trio, tables["offsets_1b"],
+                   tables["z_to_species"], r_cut_2b, r_cut_3b, dtype=dtype,
+                   device=device, factorized=factorized,
+                   trio_multi=trio_multi, pair_multi=pair_multi)
 
     @classmethod
     def from_factorized(cls, factorized: FactorizedPotential):
@@ -239,3 +305,36 @@ class UF3Potential(nn.Module):
         return cls(_leg_spec(pair[0]), np.asarray(pair[1]), bundle,
                    np.asarray(offsets_1b), np.asarray(z_to_species),
                    r_cut_2b, r_cut_3b, dtype=dtype, device=device)
+
+    @classmethod
+    def from_jax_multi(cls, descs, grids, pair_multi, offsets_1b,
+                       z_to_species, r_cut_2b: float, r_cut_3b: float,
+                       dtype=torch.float64, device=None):
+        """Weights converter of the JAX package's multi-species route:
+        ``descs`` its ``TrioMulti.descs`` (or objects with
+        ``TrioTypeDesc``'s fields), ``grids`` its ``TrioMulti.grids``,
+        ``pair_multi`` its ``build_pair_multi`` tuple (specs,
+        coefficients, pair-type table, ...), ``offsets_1b`` /
+        ``z_to_species`` from ``PotentialParams``; arrays as numpy.
+        Carries no factorized tables."""
+        from uf3_tpu_torch.ops.multi import PairMulti, TrioMulti, \
+            TrioTypeDesc
+        trio_multi = TrioMulti(
+            descs=tuple(TrioTypeDesc(
+                spec_l1=_leg_spec(d.spec_l1), spec_l2=_leg_spec(d.spec_l2),
+                spec_n=_leg_spec(d.spec_n), s_c=int(d.s_c), s_m=int(d.s_m),
+                s_n=int(d.s_n), window=tuple(int(w) for w in d.window),
+                active_bc=tuple((int(b), tuple(int(c) for c in cl))
+                                for b, cl in d.active_bc))
+                        for d in descs),
+            grids=tuple(np.asarray(g, dtype=np.float64) for g in grids))
+        specs, coefficients, pair_type = pair_multi[:3]
+        pair = PairMulti(
+            specs=tuple(_leg_spec(s) for s in specs),
+            coefficients=tuple(np.asarray(c, dtype=np.float64)
+                               for c in coefficients),
+            pair_type=np.asarray(pair_type, dtype=np.int64))
+        return cls(None, None, None, np.asarray(offsets_1b),
+                   np.asarray(z_to_species, dtype=np.int64),
+                   r_cut_2b, r_cut_3b, dtype=dtype, device=device,
+                   trio_multi=trio_multi, pair_multi=pair)

@@ -22,12 +22,13 @@ its 2-body cutoff (its own 3-body list, the trio kernel on the separate
 route) and the bench model with ``fused="separate"``, each against
 float64 and, on a cut, the CPU; the queued overflow check; and the
 ``md`` command on the 2-body model.  Then the fused multi-species route
-at full width (the random Ne/Xe 2+3-body model, 8,788 atoms, the
-species-gated instance of the trio kernel held against its plain
-version per ordered trio type and summed, Langevin at 10 K and 720 NVE
-steps); plain Verlet with ``static_rebuild`` (host syncs per cycle
-beside the adaptive schedule's); the bench's 3-level r-RESPA with
-``eager_refilter=False``; and ``md --static-rebuild``.
+at full width (the random Ne/Xe 2+3-body model, 8,788 atoms, Langevin
+at 10 K and 720 NVE steps, one launch of the multi-species trio kernel
+per force call, the kernel held against its plain version on the
+path's rows and on a 4,000-atom ternary Ne/Ar/Xe cut); plain Verlet
+with ``static_rebuild`` (host syncs per cycle beside the adaptive
+schedule's); the bench's 3-level r-RESPA with ``eager_refilter=False``;
+and ``md --static-rebuild``.
 
     python3 chip_smoke.py
 
@@ -119,7 +120,7 @@ def environment(device):
 def reset_counts():
     """Every kernel wrapper's launch count to 0."""
     trio.trio_partials.launches = 0
-    trio.trio_partials_gated.launches = 0
+    multi.trio_multi_partials_all.launches = 0
 
 
 def build_kernels():
@@ -458,12 +459,13 @@ def drive(system: MDSystem, state, steps, **run_kw):
 
 
 def run_path(name, device, engine, run_kw, t_init=T_TARGET, samples=None,
-             model=MODEL, geom=None):
+             model=MODEL, geom=None, calls=None):
     """One MD path in float32 (``model`` on ``geom``, by default the
     bench model at 9,826 atoms) from Maxwell-Boltzmann velocities at
     ``t_init``: set-up, a 144-step warm-up and three timed windows, with
     the trio launches counted from 0 over them; with a list
-    ``samples``, the run's callback appends T after every launch.
+    ``samples``, the run's callback appends T after every launch; with a
+    list ``calls``, each force call (``energy_forces``) appends to it.
     Returns (system, state, launches, atom-steps/s, temperatures at the
     end of each window, stale)."""
     geom = bench_geometry((17, 17, 17)) if geom is None else geom
@@ -471,6 +473,8 @@ def run_path(name, device, engine, run_kw, t_init=T_TARGET, samples=None,
     t0 = time.perf_counter()
     system = MDSystem(model, geom, dtype=torch.float32, device=device,
                       **engine)
+    if calls is not None:
+        count_calls(system, "energy_forces", calls)
     if samples is not None:
         run_kw = dict(run_kw, callback=lambda st, done: samples.append(
             system.temperature(st)))
@@ -665,9 +669,10 @@ def compare_npt_card_cpu(device):
         raise AssertionError("SCR NPT on the card differs from the CPU")
 
 
-def count_calls(system: MDSystem, method: str) -> list:
-    """A list that grows by one at each call of ``system``'s method."""
-    calls = []
+def count_calls(system: MDSystem, method: str, calls: list = None) -> list:
+    """A list (``calls``, or a new one) that grows by one at each call of
+    ``system``'s method."""
+    calls = [] if calls is None else calls
     fn = getattr(system, method)
 
     def counted(*args, **kwargs):
@@ -899,13 +904,14 @@ def ne_xe(reps, seed=3, a=5.4):
     return Atoms(numbers, base.get_positions(), base.get_cell(), pbc=True)
 
 
-def binary23_model():
-    """Ne/Xe 2+3-body: the port's BSplineBasis, r 1.0-5.0 A, resolution
-    8, coefficients from RandomState(11) at scale 0.05 (the model of the
-    JAX engine's test_multi_fused_matches_factorized), with each pair's
-    last three coefficients at zero, as a fit with the basis's trailing
-    trim holds them: random ones make the pair term jump at 5 A."""
-    basis = BSplineBasis(ChemicalSystem(["Ne", "Xe"], degree=3),
+def species23_model(elements=("Ne", "Xe")):
+    """A random 2+3-body model over ``elements``: the port's BSplineBasis, r
+    1.0-5.0 A, resolution 8, coefficients from RandomState(11) at scale
+    0.05 (for Ne/Xe the model of the JAX engine's
+    test_multi_fused_matches_factorized), with each pair's last three
+    coefficients at zero, as a fit with the basis's trailing trim holds
+    them: random ones make the pair term jump at 5 A."""
+    basis = BSplineBasis(ChemicalSystem(list(elements), degree=3),
                          r_min_map=1.0, r_max_map=5.0, resolution_map=8)
     coefficients = np.random.RandomState(11).normal(
         scale=0.05, size=sum(basis.partition_sizes))
@@ -986,7 +992,7 @@ def run_binary_pair(device):
 
 
 def run_binary_trio(device):
-    """The random binary 2+3-body model (``binary23_model``), fcc Ne/Xe
+    """The random binary 2+3-body model (``species23_model``), fcc Ne/Xe
     at a = 5.4 A, 10^3 x 4 = 4,000 atoms, by the fused
     multi-species route (the engine's) and by the factorized path: the
     fused route's forces and virial in float32 against float64, the
@@ -996,7 +1002,7 @@ def run_binary_trio(device):
     10 K.  Returns (atom-steps/s of the NVE run, {route: (device ms,
     host ms)})."""
     name = "binary Ne/Xe 2+3-body, 4,000 atoms"
-    model = binary23_model()
+    model = species23_model()
     geom = ne_xe((10, 10, 10), seed=5)
     system = MDSystem(model, geom, dtype=torch.float32, device=device)
     system64 = MDSystem(model, geom, dtype=torch.float64, device=device)
@@ -1047,15 +1053,16 @@ def run_binary_trio(device):
               f"(graph replay), host {times[route][1]:.4f} ms per call")
     card_vs_cpu(name, model, ne_xe((5, 5, 5), seed=5), device, 6, 1.0)
     e0 = float(state.energy) + system.kinetic_energy(state)
+    calls = count_calls(system, "energy_forces")
     reset_counts()
     state, seconds = drive(system, state, 200, dt_fs=1.0)
-    gated = trio.trio_partials_gated.launches
+    launches = multi.trio_multi_partials_all.launches
     e1 = float(state.energy) + system.kinetic_energy(state)
     drift = abs(e1 - e0) / len(geom)
     print(f"{name}: 200 NVE steps from 10 K in {seconds:.2f} s, E_total "
           f"{e0:.6f} -> {e1:.6f} eV, drift {drift:.3e} eV/atom, T "
-          f"{system.temperature(state):.2f} K, {gated} gated trio "
-          "launches")
+          f"{system.temperature(state):.2f} K, {launches} multi-species "
+          f"trio launches for {len(calls)} force calls")
     gate(name, {
         "f32 forces match f64": d_force <= FORCE_TOL,
         "f32 stress matches f64": d_stress <= STRESS_TOL,
@@ -1066,8 +1073,9 @@ def run_binary_trio(device):
                              and torch.isfinite(state.forces).all()),
         f"NVE drift <= {BINARY_NVE_DRIFT:g} eV/atom":
             drift <= BINARY_NVE_DRIFT,
-        "the gated trio kernel launched on this path": gated > 0})
-    return len(geom) * 200 / seconds, times, gated
+        "one multi-species trio launch per force call": launches > 0
+            and launches == len(calls)})
+    return len(geom) * 200 / seconds, times, launches
 
 
 def run_separate_3body(device):
@@ -1182,14 +1190,15 @@ def run_fused_separate(device):
     return launches, rate, stale
 
 # -- the fused multi-species route at full width, and the rebuild schedules
-def gated_bound(pot, t, d, valid, s_slot, species, with_energy: bool):
-    """The least time the card needs for ordered type ``t``'s launch of
-    the species-gated instance on these rows, counted as ``trio_bound``
-    counts the unary instance's, over this type's live lanes: rows m
-    valid, of species s_m and under a center of species s_c; lanes
-    (m, n) with n valid and of species s_n.  Bytes: the rows, mask and
-    species ids read once, the type's window and tables, the outputs
-    written once.  Returns (ms, "operations" or "bytes", flop, bytes)."""
+GATED_MS_BEFORE = 0.2200  # the 8 per-type launches it replaced (PERF.md)
+UNARY_K16_MS_BEFORE = 0.0373  # the unary kernel at K = 16 (PERF.md)
+
+
+def type_flops(pot, t, d, valid, s_slot, species, with_energy: bool):
+    """The flop ordered type ``t``'s lanes take in one multi-species pass
+    on these rows, counted as ``trio_bound`` counts the unary kernel's:
+    rows m valid, of species s_m and under a center of species s_c; lanes
+    (m, n) with n valid and of species s_n."""
     desc = pot.trio_multi.descs[t]
     l_lo, l_hi, b_lo, b_hi, c_lo, c_hi = desc.window
     bw, cw = b_hi - b_lo, c_hi - c_lo
@@ -1216,31 +1225,41 @@ def gated_bound(pot, t, d, valid, s_slot, species, with_energy: bool):
     term = 6 if with_energy else 4
     per_lane = (55 + 9 + int(with_energy)
                 + term * b_lane * c_live + term * b_lane)
-    flop = (float(torch.sum(per_lane * lane))
+    return (float(torch.sum(per_lane * lane))
             + int(ok_m.sum()) * (52 + 4) + int(ok_n.sum()) * 26
             + 4.0 * bw * cw * float(torch.sum(l_live * ok_m)))
-    tables = pot.trio_types[t]
-    size = tables.grid_window.element_size()
+
+
+def multi_bound(pot, d, valid, s_slot, species, with_energy: bool):
+    """The least time the card needs for one multi-species pass on these
+    rows: the flop of every ordered type's lanes (``type_flops``) over
+    the float32 peak, against the bytes over the memory rate: the rows,
+    mask and species ids read once, the packed metadata, the outputs
+    written once.  Returns (ms, "operations" or "bytes", flop, bytes)."""
+    flop = sum(type_flops(pot, t, d, valid, s_slot, species, with_energy)
+               for t in range(len(pot.trio_multi.descs)))
+    size = d.element_size()
     n_atoms, k = d.shape[:2]
-    n_bytes = (size * (n_atoms * k * 4 + n_atoms * (4 + 5 * k)
-                       + tables.grid_window.numel()
-                       + tables.leg_tables.numel())
-               + 8 * (n_atoms * k + n_atoms))
+    n_bytes = (size * (n_atoms * k * 4 + n_atoms * (4 + 5 * k))
+               + 8 * (n_atoms * k + n_atoms)
+               + sum(b.numel() * b.element_size()
+                     for b in pot.trio_packed.buffers()))
     t_flop, t_bytes = flop / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES
     return (1e3 * max(t_flop, t_bytes),
             "operations" if t_flop >= t_bytes else "bytes", flop, n_bytes)
 
 
-def compare_gated(system64: MDSystem, state, geom):
-    """The species-gated instance against its plain version
-    (``trio_multi_partials_torch``) on the engine's 3-body rows of
-    ``state``: per ordered type and summed over the types (with the
-    assembled forces and the virial from the summed partials), float64
-    within 1e-10 and float32 within 2e-4 eV/A of the float64 version;
-    then float32 times without energy, as the MD steps run it: per
-    type, the launch by graph replay and the plain version by CUDA
-    events; the whole pass (zeroed outputs, one launch per type) by
-    graph replay; bounds; the launch plan.  Returns the kernel record."""
+def compare_multi(name, system64: MDSystem, state, geom):
+    """The multi-species trio kernel against its plain version
+    (``trio_multi_partials_all_torch``) on the engine's 3-body rows of
+    ``state``, through the route's wrapper ``trio_multi_partials_all``:
+    every output and the assembled forces, float64 within 1e-10 and
+    float32 within 2e-4 eV/A of the float64 version, with and without
+    energy; the virial from the partials (f64 1e-9 relative, f32 stress
+    1e-5 eV/A^3); one launch per call.  Then float32 times without
+    energy, as the MD steps run it: the launch by graph replay, the
+    wrapper's host time, the plain version by CUDA events; the bound;
+    the launch plans.  Returns the kernel record."""
     pot64 = system64.potential
     pot32 = copy.deepcopy(pot64).to(dtype=torch.float32)
     _, cache = system64.list_caches(state.nbr2, state.nbr3, state.cell)
@@ -1249,110 +1268,93 @@ def compare_gated(system64: MDSystem, state, geom):
     v64, s_slot, species = cache.valid, cache.s_slot, system64.species
     d32, v32 = d64.float(), v64.float()
     k = d64.shape[1]
-    descs = pot64.trio_multi.descs
+    n_types = len(pot64.trio_multi.descs)
     err64 = err32 = 0.0
+    counted = True
     for with_energy in (True, False):
-        sums = {}
-        for t, desc in enumerate(descs):
-            twin = multi.trio_multi_partials_torch(
-                d64, v64, s_slot, species, pot64.trio_types[t].grid, desc,
-                with_energy)
-            k64 = multi.trio_multi_partials(pot64, t, d64, v64, s_slot,
-                                            species, with_energy)
-            k32 = multi.trio_multi_partials(pot32, t, d32, v32, s_slot,
-                                            species, with_energy)
-            torch.cuda.synchronize()
-            err64 = max(err64, max(max_err(a, b) for a, b in zip(k64, twin)))
-            err32 = max(err32, max(max_err(a, b) for a, b in zip(k32, twin)))
-            for key, out in (("twin", twin), ("k64", k64), ("k32", k32)):
-                sums[key] = out if key not in sums \
-                    else [a + b for a, b in zip(sums[key], out)]
-        rows = {key: (out, d64 if key != "k32" else d32,
-                      v64 if key != "k32" else v32)
-                for key, out in sums.items()}
-        forces = {key: trio.assemble_forces(*out, dd, cache.rev_flat,
-                                            nbr.mask)[1]
-                  for key, (out, dd, _) in rows.items()}
-        err64 = max(err64, max_err(forces["k64"], forces["twin"]))
-        err32 = max(err32, max_err(forces["k32"], forces["twin"]))
+        plain = multi.trio_multi_partials_all_torch(pot64, d64, v64, s_slot,
+                                                    species, with_energy)
+        f_plain = trio.assemble_forces(*plain, d64, cache.rev_flat,
+                                       nbr.mask)[1]
+        launches = multi.trio_multi_partials_all.launches
+        k64 = multi.trio_multi_partials_all(pot64, d64, v64, s_slot, species,
+                                            with_energy)
+        k32 = multi.trio_multi_partials_all(pot32, d32, v32, s_slot, species,
+                                            with_energy)
+        torch.cuda.synchronize()
+        counted = counted and (multi.trio_multi_partials_all.launches
+                               == launches + 2)
+        err64 = max(err64, max(max_err(a, b) for a, b in zip(k64, plain)))
+        err32 = max(err32, max(max_err(a, b) for a, b in zip(k32, plain)))
+        for out, dd, tol in ((k64, d64, "64"), (k32, d32, "32")):
+            f = trio.assemble_forces(*out, dd, cache.rev_flat, nbr.mask)[1]
+            if tol == "64":
+                err64 = max(err64, max_err(f, f_plain))
+            else:
+                err32 = max(err32, max_err(f, f_plain))
         if not with_energy:
-            compare_virial(geom, k,
-                           (sums["twin"][2], d64, v64),
-                           (sums["k64"][2], d64, v64),
-                           (sums["k32"][2], d32, v32))
-    print(f"gated trio N={len(species)} K={k}, {len(descs)} ordered types: "
-          f"f64 max err {err64:.3e} (<= {F64_TOL:g}), f32 max err "
-          f"{err32:.3e} (<= {FORCE_TOL:g}), per type and summed")
-    if not (err64 <= F64_TOL and err32 <= FORCE_TOL):
-        raise AssertionError("gated trio kernel disagrees with its plain "
-                             "version")
-    by_type = []
-    for t, desc in enumerate(descs):
-        out = (d32.new_zeros(len(species)), d32.new_zeros((len(species), 3)),
-               d32.new_zeros((len(species), k, 5)))
-        ms = graph_ms(lambda: multi.trio_multi_partials(
-            pot32, t, d32, v32, s_slot, species, False, out))
-        plain = cuda_ms(lambda: multi.trio_multi_partials_torch(
-            d32, v32, s_slot, species, pot32.trio_types[t].grid, desc,
-            False), 3)
-        bound = gated_bound(pot32, t, d32, v32, s_slot, species, False)
-        occ = trio.trio_gated_occupancy(desc, k, False)
-        by_type.append(dict(type=(desc.s_c, desc.s_m, desc.s_n), ms=ms,
-                            plain_ms=plain, bound_ms=bound[0],
-                            bound_by=bound[1], flop=bound[2],
-                            bytes=bound[3], registers=occ["registers"],
-                            local_bytes=occ["local_bytes"],
-                            warps_per_sm=occ["warps_per_sm"],
-                            smem_bytes=occ["smem_bytes"]))
-        print(f"gated trio type {by_type[-1]['type']} (window "
-              f"{desc.window}): f32 launch {ms:.4f} ms (graph replay), "
-              f"plain {plain:.4f} ms; bound {bound[2]:.4g} flop, "
-              f"{bound[3]:.4g} bytes -> {bound[0]:.5f} ms ({bound[1]}); "
-              f"launch plan {occ}")
+            compare_virial(geom, k, (plain[2], d64, v64),
+                           (k64[2], d64, v64), (k32[2], d32, v32))
+    print(f"multi trio {name}: N={len(species)} K={k}, {n_types} ordered "
+          f"types: f64 max err {err64:.3e} (<= {F64_TOL:g}), f32 max err "
+          f"{err32:.3e} (<= {FORCE_TOL:g}), one launch per call: {counted}")
+    if not (err64 <= F64_TOL and err32 <= FORCE_TOL and counted):
+        raise AssertionError("multi-species trio kernel disagrees with its "
+                             "plain version")
+    args = (pot32, d32, v32, s_slot, species, False)
+    ms = graph_ms(lambda: multi.trio_multi_partials_all(*args))
+    wrapper_ms = host_ms(lambda: multi.trio_multi_partials_all(*args))
+    plain_ms = cuda_ms(lambda: multi.trio_multi_partials_all_torch(*args), 3)
+    bound_ms, bound_by, flop, n_bytes = multi_bound(pot32, d32, v32, s_slot,
+                                                    species, False)
+    plans = {f"{'f64' if f64 else 'f32'} KMAX={kmax}":
+             multi.trio_multi_occupancy(pot64, kmax, f64, n_atoms=len(species))
+             for f64 in (False, True) for kmax in (16, 32)}
+    used = multi.trio_multi_occupancy(pot32, k, False, n_atoms=len(species))
+    share = 100 * bound_ms / ms
+    card = card_line()
+    print(f"multi trio {name}: f32 pass {ms:.4f} ms (graph replay); "
+          f"wrapper {wrapper_ms:.4f} ms per call on the host; plain version "
+          f"{plain_ms:.4f} ms (eager); bound {flop:.4g} flop, {n_bytes:.4g} "
+          f"bytes -> {bound_ms:.5f} ms ({bound_by}), {share:.1f}% of it; "
+          f"before, 8 gated launches on the 8,788-atom binary "
+          f"cell: {GATED_MS_BEFORE:.4f} ms; card: {card}")
+    brief = {key: (f"{p['registers']} regs, {p['atoms_per_block']} warps x "
+                   f"{p['blocks_per_sm']} blocks/SM, {p['smem_bytes']} B "
+                   f"shared, {p['local_bytes']} B local")
+             for key, p in plans.items()}
+    print(f"multi trio {name} launch plans (no energy, S = "
+          f"{pot64.trio_multi_plan[0]}): {brief}; this call's (f32, K={k}): "
+          f"{used}")
+    if any(plan["local_bytes"] for plan in plans.values()):
+        raise AssertionError(f"multi-species trio kernel spills: {plans}")
+    return dict(max_abs_err=err32, max_abs_err_f64=err64, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, n_atoms=len(species), k=k,
+                n_types=n_types, launches_per_call=1,
+                wrapper_host_ms=wrapper_ms, flop=flop, bytes=n_bytes,
+                registers=used["registers"],
+                warps_per_sm=used["warps_per_sm"],
+                smem_bytes=used["smem_bytes"], plans=plans)
 
-    def whole_pass():
-        n = len(species)
-        out = (d32.new_zeros(n), d32.new_zeros((n, 3)),
-               d32.new_zeros((n, k, 5)))
-        for t in range(len(descs)):
-            multi.trio_multi_partials(pot32, t, d32, v32, s_slot, species,
-                                      False, out)
-        return out
 
-    def plain_pass():
-        shared = {}
-        out = None
-        for t, desc in enumerate(descs):
-            x = multi.trio_multi_partials_torch(
-                d32, v32, s_slot, species, pot32.trio_types[t].grid, desc,
-                False, shared)
-            out = x if out is None else [a + b for a, b in zip(out, x)]
-        return out
-    ms = graph_ms(whole_pass)
-    plain_ms = cuda_ms(plain_pass, 3)
-    flop = sum(b["flop"] for b in by_type)
-    # the pass reads the rows, mask and species once, writes once
-    n_atoms = len(species)
-    size = d32.element_size()
-    n_bytes = (size * (n_atoms * k * 4 + n_atoms * (4 + 5 * k))
-               + 8 * (n_atoms * k + n_atoms)
-               + size * sum(t.grid_window.numel() + t.leg_tables.numel()
-                            for t in pot32.trio_types))
-    t_flop, t_bytes = flop / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES
-    bound_ms = 1e3 * max(t_flop, t_bytes)
-    bound_by = "operations" if t_flop >= t_bytes else "bytes"
-    plans = {f"{'f64' if f64 else 'f32'} KMAX={kmax}": trio.trio_gated_occupancy(
-        descs[0], kmax, f64) for f64 in (False, True) for kmax in (16, 32)}
-    print(f"gated trio whole pass ({len(descs)} launches, outputs zeroed "
-          f"once and summed in the kernel): f32 {ms:.4f} ms (graph "
-          f"replay), plain {plain_ms:.4f} ms (eager, bases shared across "
-          f"types); bound {flop:.4g} flop, {n_bytes:.4g} bytes -> "
-          f"{bound_ms:.5f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of "
-          f"it; launch plans (no energy) {plans}")
-    return dict(max_abs_err=err32, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                n_atoms=n_atoms, k=k, launches_per_call=len(descs),
-                registers=by_type[0]["registers"], by_type=by_type)
+def compare_ternary(device):
+    """The multi-species trio kernel on a ternary cut: ``species23_model``
+    over Ne/Ar/Xe (27 ordered trio types) on fcc at a = 5.4 A, 10^3 x 4
+    = 4,000 atoms, species by a seeded draw, rattled 0.08 A, float64
+    lists (``compare_multi``).  Returns the kernel record."""
+    base = bulk("Ne", "fcc", a=5.4) * (10, 10, 10)
+    numbers = np.array([10, 18, 54])[np.random.RandomState(7).randint(
+        3, size=len(base))]
+    geom = Atoms(numbers, base.get_positions(), base.get_cell(), pbc=True)
+    geom.rattle(0.08, seed=1)
+    system64 = MDSystem(species23_model(("Ne", "Ar", "Xe")), geom,
+                        dtype=torch.float64, device=device)
+    assert system64._multi_route()
+    assert len(system64.potential.trio_multi.descs) == 27
+    state = system64.init_state()
+    return compare_multi("ternary Ne/Ar/Xe, 4,000 atoms", system64, state,
+                         geom)
 
 
 MULTI_T = 10.0  # K, the fused multi-species path's Langevin target
@@ -1364,17 +1366,21 @@ def run_multi_route(device):
     by a seeded draw, float32, 1 fs, Langevin at 10 K (144-step warm-up,
     3 x 720 steps), then 720 NVE steps (drift <= 1e-3 eV/atom).  Gates:
     f32 forces (2e-4 eV/A), energy and stress (1e-5 eV/A^3) against
-    f64, gated launches on the path, the gated instance against its
-    plain version on the path's rows, the card against the CPU in f64 on
-    a 500-atom cut.  Returns (kernel record, gated launches, atom-steps/s
-    of the Langevin and NVE runs, stale)."""
+    f64, one launch of the multi-species trio kernel per force call in
+    both runs, the kernel against its plain version on the path's rows
+    (``compare_multi``), the card against the CPU in f64 on a 500-atom
+    cut.  Returns (kernel record, launches by run, atom-steps/s of the
+    Langevin and NVE runs, stale)."""
     name = "binary Ne/Xe 2+3-body, fused multi-species route"
-    model = binary23_model()
+    model = species23_model()
     geom = ne_xe((13, 13, 13))
     run_kw = dict(dt_fs=1.0, thermostat="langevin", temperature=MULTI_T)
+    calls = []
     system, state, launches, rate, temps, stale = run_path(
-        name, device, {}, run_kw, t_init=MULTI_T, model=model, geom=geom)
-    gated = trio.trio_partials_gated.launches
+        name, device, {}, run_kw, t_init=MULTI_T, model=model, geom=geom,
+        calls=calls)
+    multi_launches = multi.trio_multi_partials_all.launches
+    n_calls = len(calls)
     assert system._multi_route() and launches == 0
     check_path(name, system, state, launches, temps, split=False,
                model=model, geom=geom, t_target=None)
@@ -1385,30 +1391,36 @@ def run_multi_route(device):
                              cell=state.cell.double())
     d_stress = max_err(system.stress(state).double(),
                        system64.stress(state64))
-    record = compare_gated(system64, state64, geom)
+    record = compare_multi("binary Ne/Xe, 8,788 atoms", system64, state64,
+                           geom)
     e0 = float(state.energy) + system.kinetic_energy(state)
+    del calls[:]
     reset_counts()
     state, seconds = drive(system, state, WINDOW_STEPS, dt_fs=1.0)
-    nve_gated = trio.trio_partials_gated.launches
+    nve_launches, nve_calls = multi.trio_multi_partials_all.launches, \
+        len(calls)
     e1 = float(state.energy) + system.kinetic_energy(state)
     drift = abs(e1 - e0) / len(geom)
     nve_rate = len(geom) * WINDOW_STEPS / seconds
     print(f"{name}: {len(geom)} atoms, K2={state.nbr2.idx.shape[1]}, "
           f"K3={state.nbr3.idx.shape[1]}; Langevin {MULTI_T:g} K, T by "
-          f"window {[round(t, 2) for t in temps]}; gated launches "
-          f"{gated} (Langevin), {nve_gated} (NVE); f32 stress max |d "
+          f"window {[round(t, 2) for t in temps]}; multi-species trio "
+          f"launches {multi_launches} for {n_calls} force calls "
+          f"(Langevin), {nve_launches} for {nve_calls} (NVE); f32 stress "
+          f"max |d "
           f"sigma| {d_stress:.3e} eV/A^3; NVE {WINDOW_STEPS} steps, E_total "
           f"{e0:.6f} -> {e1:.6f} eV, drift {drift:.3e} eV/atom")
     gate(name, {
         f"f32 stress within {STRESS_TOL:g} eV/A^3 of f64":
             d_stress <= STRESS_TOL,
-        "the gated trio kernel launched on this path": gated > 0
-            and nve_gated > 0,
+        "one multi-species trio launch per force call": multi_launches > 0
+            and multi_launches == n_calls and nve_launches == nve_calls,
         f"NVE drift <= {BINARY_NVE_DRIFT:g} eV/atom":
             drift <= BINARY_NVE_DRIFT,
         "no overflow": not system.overflowed(state)})
     card_vs_cpu(name, model, ne_xe((5, 5, 5)), device, 6, 1.0)
-    return record, dict(langevin=gated, nve=nve_gated), rate, nve_rate, stale
+    return record, dict(langevin=multi_launches, nve=nve_launches), rate, \
+        nve_rate, stale
 
 
 def sync_sites(caught) -> dict:
@@ -1670,12 +1682,13 @@ def main():
         "model_2.json")
     # the fused multi-species route at full width, and the rebuild
     # schedules
-    gated_launches = {"binary 2+3-body, 4,000 atoms, NVE": binary[2]}
+    multi_launches = {"binary 2+3-body, 4,000 atoms, NVE": binary[2]}
     name = "binary Ne/Xe 2+3-body, fused multi-species route"
-    record_gated, by_run, rates[name], rates[f"{name} NVE"], stale[name] = \
+    record_multi, by_run, rates[name], rates[f"{name} NVE"], stale[name] = \
         run_multi_route(device)
-    gated_launches.update({f"multi route 8,788 atoms, {run}": n
+    multi_launches.update({f"multi route 8,788 atoms, {run}": n
                            for run, n in by_run.items()})
+    record_ternary = compare_ternary(device)
     name = "plain Verlet (defaults), static_rebuild"
     launches["static_rebuild"], rates[name], stale[name], syncs = \
         run_static_rebuild(device)
@@ -1701,7 +1714,12 @@ def main():
     print(f"3-level r-RESPA, eager_refilter=False: cycles by branch "
           f"{branches}")
     print(f"trio launches by path: {launches}")
-    print(f"gated trio launches by path: {gated_launches}")
+    print(f"multi-species trio launches by path: {multi_launches}")
+    print(f"trio_partials K=16, 9,826 atoms: {records['K16']['ms']:.4f} ms "
+          f"(before: {UNARY_K16_MS_BEFORE:.4f} ms); trio_multi_partials_all, "
+          f"8,788-atom binary cell: {record_multi['ms']:.4f} ms per force "
+          f"call, 1 launch (before: {GATED_MS_BEFORE:.4f} ms, 8 launches); "
+          f"card: {card}")
     record = dict(records["K16"], max_abs_err=max(
         r["max_abs_err"] for r in records.values()))
     print(json.dumps({"kernels": [
@@ -1710,11 +1728,14 @@ def main():
              replaces="uf3_tpu/ops/pallas_trio.py:1044",
              launches=sum(launches.values()), launches_by_path=launches,
              **record, by_shape=records),
-        dict(name="trio_partials_gated", route="cuda",
-             source="uf3_tpu_torch/csrc/trio.cu",
+        dict(name="trio_multi_partials_all", route="cuda",
+             source="uf3_tpu_torch/csrc/trio_multi.cu",
              replaces="uf3_tpu/ops/pallas_trio.py:1337",
-             launches=sum(gated_launches.values()),
-             launches_by_path=gated_launches, **record_gated)]}))
+             launches=sum(multi_launches.values()),
+             launches_by_path=multi_launches,
+             **dict(record_multi, max_abs_err=max(
+                 record_multi["max_abs_err"], record_ternary["max_abs_err"])),
+             ternary=record_ternary)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

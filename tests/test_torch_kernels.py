@@ -10,11 +10,17 @@ from the kernel's partials, on the bench lists (16 slots) and the
 melting protocol's (20 slots): 1e-9 relative in float64, 1e-5 eV/A^3
 per stress component in float32.
 
-The species-gated instance of the kernel (one ordered trio type of a
-multi-species model per launch) against its plain version
-``trio_multi_partials_torch``, per type and summed over the types, on
-the random Ne/Xe 2+3-body model at K = 16 and 32 slots: the same
-tolerances; and a type window too wide for shared memory raises.
+The multi-species trio kernel (uf3_tpu_torch/csrc/trio_multi.cu: one
+launch over every ordered trio type) against its plain version
+``trio_multi_partials_all_torch`` on random Ne/Xe (8 ordered types) and
+Ne/Ar/Xe (27) 2+3-body models at K = 16 and 32 slots, a ragged atom
+count, a sparse mask and centers with
+no live type: the same tolerances; one launch per call and per force
+call of the route; no spills; bad operands and a type window too wide
+for shared memory raise.  On the CPU: the packed per-type metadata
+against each type's own tables, the plain version against the sum of
+the per-type passes, and the build (a changed source or header rebuilds
+the library, with a stand-in nvcc).
 
 The ``cuda`` tests skip without a GPU.  This file imports no jax, so it
 also runs on a GPU host without it:
@@ -24,6 +30,7 @@ also runs on a GPU host without it:
 
 import copy
 import os
+import time
 
 import numpy as np
 import pytest
@@ -31,11 +38,12 @@ import torch
 
 from uf3_tpu_torch.data.atoms import bulk
 from uf3_tpu_torch.forcefield.md import MDSystem
-from uf3_tpu_torch.ops import multi
+from uf3_tpu_torch.ops import _build, multi
 from uf3_tpu_torch.ops import neighbors as nb
 from uf3_tpu_torch.ops import trio
-from uf3_tpu_torch.ops.potential import UF3Potential, grid_sparsity
-from uf3_tpu_torch.ops.splines import leg_spec_from_knots
+from uf3_tpu_torch.ops.potential import (UF3Potential, grid_sparsity,
+                                         type_sparsity)
+from uf3_tpu_torch.ops.splines import horner_table, leg_spec_from_knots
 from uf3_tpu_torch.representation import knots as kn
 
 # one intra-op thread: the suite runs in several worker processes at
@@ -444,35 +452,34 @@ def test_factorized_and_separate_steps_on_the_card_match_cpu(cuda_device,
     assert float(torch.abs(cpu.forces).max()) > 1e-2
 
 
-# -- the species-gated instance (the fused multi-species route) ---------------
-def binary23_model():
-    """Ne/Xe 2+3-body, r 1.0-5.0 A, resolution 8, coefficients from
-    RandomState(11) at scale 0.05 (the model of the JAX package's
-    test_multi_fused_matches_factorized)."""
+# -- the multi-species kernel (the fused multi-species route) -----------------
+def species_model(elements):
+    """A random 2+3-body model over ``elements``, r 1.0-5.0 A, resolution
+    8, coefficients from RandomState(11) at scale 0.05: for Ne/Xe the
+    model of the JAX package's test_multi_fused_matches_factorized (8
+    ordered trio types), for Ne/Ar/Xe a ternary one (27)."""
     from uf3_tpu_torch import io
     from uf3_tpu_torch.data.composition import ChemicalSystem
     from uf3_tpu_torch.representation.basis import BSplineBasis
-    basis = BSplineBasis(ChemicalSystem(["Ne", "Xe"], degree=3),
+    basis = BSplineBasis(ChemicalSystem(elements, degree=3),
                          r_min_map=1.0, r_max_map=5.0, resolution_map=8)
     return io.FittedModel(basis, np.random.RandomState(11).normal(
         scale=0.05, size=sum(basis.partition_sizes)))
 
 
-@pytest.fixture(scope="module", params=[16, 32], ids=["K16", "K32"])
-def rows_multi(request):
+def _species_rows(elements, numbers_of, k):
     """(potential, d, valid, s_slot, species, list cache, 3-body list)
-    of the 3-body rows of fcc Ne/Xe (half Xe by a seeded draw, 256 or
-    500 atoms, rattled 0.08 A) on the multi-species route, f64: a = 5.8
-    A keeps 12-16 neighbors in 16 slots, a = 5.4 A 18 in 32."""
+    of the 3-body rows of rattled (0.08 A) fcc with species
+    ``numbers_of(n_sites)`` on the multi-species route, f64: a = 5.8 A
+    (256 atoms) keeps 12-16 neighbors in 16 slots, a = 5.4 A (500) 18 in
+    32."""
     from uf3_tpu_torch.data.atoms import Atoms
-    k = request.param
     a, reps = (5.8, 4) if k == 16 else (5.4, 5)
     base = bulk("Ne", "fcc", a=a) * reps
-    numbers = base.get_atomic_numbers()
-    numbers[np.random.RandomState(3).rand(len(numbers)) > 0.5] = 54
+    numbers = numbers_of(len(base))
     geom = Atoms(numbers, base.get_positions(), base.get_cell(), pbc=True)
     geom.rattle(0.08, seed=1)
-    system = MDSystem(binary23_model(), geom, dtype=torch.float64,
+    system = MDSystem(species_model(elements), geom, dtype=torch.float64,
                       device="cpu", capacity_3b=k)
     state = system.init_state()
     assert not system.overflowed(state)
@@ -480,6 +487,25 @@ def rows_multi(request):
     d = nb.cached_displacements(state.positions, state.nbr3, cache)
     return (system.potential, d, cache.valid, cache.s_slot, system.species,
             cache, state.nbr3)
+
+
+@pytest.fixture(scope="module", params=[16, 32], ids=["K16", "K32"])
+def rows_multi(request):
+    """Ne/Xe rows (half Xe by a seeded draw), as ``_species_rows``."""
+    def numbers_of(n):
+        numbers = np.full(n, 10)
+        numbers[np.random.RandomState(3).rand(n) > 0.5] = 54
+        return numbers
+    return _species_rows(["Ne", "Xe"], numbers_of, request.param)
+
+
+@pytest.fixture(scope="module", params=[16, 32], ids=["K16", "K32"])
+def rows_ternary(request):
+    """Ne/Ar/Xe rows (species by a seeded draw), as ``_species_rows``."""
+    def numbers_of(n):
+        return np.array([10, 18, 54])[np.random.RandomState(5).randint(3,
+                                                                       size=n)]
+    return _species_rows(["Ne", "Ar", "Xe"], numbers_of, request.param)
 
 
 def test_multi_rows_cover_both_instances(rows_multi):
@@ -494,96 +520,383 @@ def test_multi_rows_cover_both_instances(rows_multi):
         assert bool(((s_slot == desc.s_m) & (valid != 0))[rows].any())
 
 
+def test_ternary_rows_cover_27_types(rows_ternary):
+    """The ternary rows: 27 mirrored ordered types, each with centers of
+    its species whose rows hold slots of its s_m and of its s_n."""
+    pot, d, valid, s_slot, species, _, _ = rows_ternary
+    assert d.shape[1] in (16, 32) and pot.trio_multi_plan[0] == 3
+    assert len(pot.trio_multi.descs) == 27 and pot.trio_multi_mirrored
+    for desc in pot.trio_multi.descs:
+        rows = species == desc.s_c
+        assert 0 < int(rows.sum()) < len(species)
+        for s in (desc.s_m, desc.s_n):
+            assert bool(((s_slot == s) & (valid != 0))[rows].any())
+
+
 def test_cpu_tensors_take_the_gated_twin(rows_multi):
-    """On the CPU the multi-species pass is the plain version, and the
-    kernel's wrapper raises rather than fall back."""
+    """On the CPU the multi-species pass is its plain version (the
+    species-gated pass of each ordered type, summed), and the kernel's
+    entry point raises rather than fall back."""
     pot, d, valid, s_slot, species, _, _ = rows_multi
-    launches = trio.trio_partials_gated.launches
-    out = multi.trio_multi_partials(pot, 0, d, valid, s_slot, species)
-    ref = multi.trio_multi_partials_torch(d, valid, s_slot, species,
-                                          pot.trio_types[0].grid,
-                                          pot.trio_multi.descs[0])
+    launches = multi.trio_multi_partials_all.launches
+    out = multi.trio_multi_partials_all(pot, d, valid, s_slot, species)
+    ref = multi.trio_multi_partials_all_torch(pot, d, valid, s_slot,
+                                              species)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
-    assert trio.trio_partials_gated.launches == launches
-    t0 = pot.trio_types[0]
+    total = [torch.zeros_like(x) for x in ref]
+    for desc, tables in zip(pot.trio_multi.descs, pot.trio_types):
+        x = multi.trio_multi_partials_torch(d, valid, s_slot, species,
+                                            tables.grid, desc)
+        total = [a + b for a, b in zip(total, x)]
+    for a, b in zip(total, ref):
+        assert _err(a, b) <= 1e-14
+    assert float(torch.abs(ref[2]).max()) > 1e-2
+    assert multi.trio_multi_partials_all.launches == launches
     with pytest.raises(ValueError, match="no trio kernel"):
-        trio.trio_partials_gated(t0.grid_window, t0.leg_tables,
-                                 pot.trio_multi.descs[0], d, valid, s_slot,
-                                 species, out)
+        multi.launch_trio_multi(pot, d, valid, s_slot, species)
+
+
+def _unpack(pot, t):
+    """Ordered type t as the kernel reads it from ``pot.trio_packed``:
+    its three legs' Horner rows, grid window, window, record and
+    reals."""
+    pack = pot.trio_packed
+    s = pot.trio_multi_plan[0]
+    rec = pack.ints.numpy()[s ** 3 + multi.PACK_RECORD * t:][
+        :multi.PACK_RECORD]
+    tables = pack.tables.numpy()
+    legs = [tables[rec[3 * j + 2]:rec[3 * j + 2] + 20 * rec[3 * j + 1]]
+            .reshape(-1, 20) for j in range(3)]
+    l_lo, lw, b_lo, bw, c_lo, cw, g_off = (int(x) for x in rec[9:])
+    grid = pack.grids.numpy()[g_off:g_off + lw * bw * cw].reshape(lw, bw,
+                                                                  cw)
+    window = (l_lo, l_lo + lw, b_lo, b_lo + bw, c_lo, c_lo + cw)
+    reals = pack.reals.numpy()[multi.PACK_REALS * t:][:multi.PACK_REALS]
+    return legs, grid, window, rec, reals
+
+
+@pytest.mark.parametrize("elements", [["Ne", "Xe"], ["Ne", "Ar", "Xe"]],
+                         ids=["binary", "ternary"])
+def test_packed_metadata_reproduces_each_type(elements):
+    """Per ordered type, its Horner rows, grid window and window read
+    back from the packed buffers equal its legs' own Horner tables, its
+    grid's live window and its desc exactly;
+    type_of names each type once (a full model leaves no -1); each
+    distinct leg table is stored once; every buffer is a whole number of
+    16-byte copies."""
+    pot = UF3Potential.from_model(species_model(elements))
+    descs = pot.trio_multi.descs
+    s, max_cols = pot.trio_multi_plan
+    assert s == len(elements) and len(descs) == s ** 3
+    type_of = pot.trio_packed.ints.numpy()[:s ** 3].reshape(s, s, s)
+    assert sorted(type_of.ravel().tolist()) == list(range(len(descs)))
+    for t, desc in enumerate(descs):
+        assert type_of[desc.s_c, desc.s_m, desc.s_n] == t
+        legs, grid, window, rec, reals = _unpack(pot, t)
+        specs = (desc.spec_l1, desc.spec_l2, desc.spec_n)
+        for leg, spec in zip(legs, specs):
+            assert np.array_equal(leg, horner_table(spec))
+        l_lo, l_hi, b_lo, b_hi, c_lo, c_hi = desc.window
+        assert np.array_equal(grid, pot.trio_multi.grids[t][
+            l_lo:l_hi, b_lo:b_hi, c_lo:c_hi])
+        assert window == desc.window
+        for j, spec in enumerate(specs):
+            assert (rec[3 * j], rec[3 * j + 1]) == (spec.kind, spec.n_int)
+            assert np.array_equal(reals[4 * j:4 * j + 4],
+                                  [spec.u0, 1.0 / spec.h, spec.t_min,
+                                   spec.t_max])
+    distinct = {sp for d in descs for sp in (d.spec_l1, d.spec_l2, d.spec_n)}
+    n_tab = sum(20 * sp.n_int for sp in distinct)
+    assert pot.trio_packed.tables.numel() == n_tab + (-n_tab) % 4
+    assert max_cols == max((d.window[3] - d.window[2])
+                           * (d.window[5] - d.window[4]) for d in descs)
+    for buffer in pot.trio_packed.buffers():
+        assert buffer.numel() % 4 == 0 and buffer.is_contiguous()
+    assert pot.trio_packed.ints.dtype == torch.int32
+    f32 = copy.deepcopy(pot).to(dtype=torch.float32)
+    assert f32.trio_packed.ints.dtype == torch.int32
+    assert f32.trio_packed.reals.dtype == torch.float32
+
+
+def _with_types(pot, keep):
+    """``pot``'s multi-species route (float64, CPU) with only the ordered
+    types whose desc passes ``keep``."""
+    tm = pot.trio_multi
+    kept = [t for t, desc in enumerate(tm.descs) if keep(desc)]
+    return UF3Potential(
+        None, None, None, pot.offsets_1b.numpy(), pot.z_to_species.numpy(),
+        pot.r_cut_2b, pot.r_cut_3b,
+        trio_multi=multi.TrioMulti(descs=tuple(tm.descs[t] for t in kept),
+                                   grids=tuple(tm.grids[t] for t in kept)),
+        pair_multi=pot.pair_multi)
+
+
+def test_packed_metadata_marks_missing_types(rows_multi):
+    """A model without the types of one center species: type_of is -1
+    exactly there, and the plain version leaves those centers' outputs
+    zero and the others' as with every type.  Packing a type twice or a
+    species outside [0, S) raises."""
+    pot, d, valid, s_slot, species, _, _ = rows_multi
+    sub = _with_types(pot, lambda desc: desc.s_c == 0)
+    type_of = sub.trio_packed.ints.numpy()[:8].reshape(2, 2, 2)
+    assert (type_of[1] == -1).all()
+    assert sorted(type_of[0].ravel().tolist()) == [0, 1, 2, 3]
+    out = multi.trio_multi_partials_all(sub, d, valid, s_slot, species)
+    ref = multi.trio_multi_partials_all(pot, d, valid, s_slot, species)
+    none = species == 1
+    for a, b in zip(out, ref):
+        assert float(torch.abs(a[none]).max()) == 0.0
+        assert _err(a[~none], b[~none]) <= 1e-14
+    descs, grids = pot.trio_multi.descs, pot.trio_multi.grids
+    with pytest.raises(ValueError, match="given twice"):
+        multi.pack_trio_multi(descs + descs[:1], grids + grids[:1], 2)
+    with pytest.raises(ValueError, match="species outside"):
+        multi.pack_trio_multi(descs, grids, 1)
+
+
+def _multi_matches_plain(pot64, rows, cuda_device, dtype, tol,
+                         cache=None, nbr=None):
+    """One launch of the multi-species kernel per call against its plain
+    version on the CPU rows ``rows`` = (d, valid, s_slot, species), with
+    and without energy: every output, and with the list cache and 3-body
+    list the assembled forces and (float64) the virial from the
+    partials."""
+    d, valid, s_slot, species = rows
+    pot = copy.deepcopy(pot64).to(device=cuda_device, dtype=dtype)
+    dk, vk = d.to(cuda_device, dtype), valid.to(cuda_device, dtype)
+    sk, ck = s_slot.to(cuda_device), species.to(cuda_device)
+    for with_energy in (True, False):
+        launches = multi.trio_multi_partials_all.launches
+        kernel = multi.trio_multi_partials_all(pot, dk, vk, sk, ck,
+                                               with_energy)
+        torch.cuda.synchronize()
+        assert multi.trio_multi_partials_all.launches == launches + 1
+        plain = multi.trio_multi_partials_all_torch(pot64, d, valid, s_slot,
+                                                    species, with_energy)
+        for a, b in zip(kernel, plain):
+            assert a.shape == b.shape
+            assert _err(a, b) <= tol
+        if cache is None:
+            continue
+        rev, mask = cache.rev_flat.to(cuda_device), nbr.mask.to(cuda_device)
+        f_k = trio.assemble_forces(*kernel, dk, rev, mask)[1]
+        f_p = trio.assemble_forces(*plain, d, cache.rev_flat, nbr.mask)[1]
+        assert _err(f_k, f_p) <= tol
+        assert float(torch.abs(f_p).max()) > 1e-2
+        if dtype == torch.float64:
+            v_k = trio.trio_virial6(kernel[2], dk, vk).cpu()
+            v_p = trio.trio_virial6(plain[2], d, valid)
+            assert _err(v_k, v_p) <= 1e-9 * float(torch.abs(v_p).max())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype, tol", TOLS)
-def test_gated_kernel_matches_twin(rows_multi, cuda_device, dtype, tol):
-    """Per ordered type (energy, center force, partials) and summed
-    over the 8 types (with the assembled forces): the kernel against
-    trio_multi_partials_torch, with and without energy."""
+def test_multi_kernel_matches_plain(rows_multi, cuda_device, dtype, tol):
+    """Binary Ne/Xe, K = 16 and 32: the kernel against its plain version
+    (every output, the assembled forces, the f64 virial), one launch per
+    call."""
     pot64, d, valid, s_slot, species, cache, nbr = rows_multi
-    pot = copy.deepcopy(pot64).to(device=cuda_device, dtype=dtype)
-    dk, vk = d.to(cuda_device, dtype), valid.to(cuda_device, dtype)
-    sk, ck = s_slot.to(cuda_device), species.to(cuda_device)
-    rev, mask = cache.rev_flat.to(cuda_device), nbr.mask.to(cuda_device)
-    descs = pot64.trio_multi.descs
-    launches = trio.trio_partials_gated.launches
-    for with_energy in (True, False):
-        total_k = total_t = None
-        for t, desc in enumerate(descs):
-            kernel = multi.trio_multi_partials(pot, t, dk, vk, sk, ck,
-                                               with_energy)
-            torch.cuda.synchronize()
-            twin = multi.trio_multi_partials_torch(
-                d, valid, s_slot, species, pot64.trio_types[t].grid, desc,
-                with_energy)
-            for a, b in zip(kernel, twin):
-                assert a.shape == b.shape
-                assert _err(a, b) <= tol
-            total_k = kernel if total_k is None \
-                else [a + b for a, b in zip(total_k, kernel)]
-            total_t = twin if total_t is None \
-                else [a + b for a, b in zip(total_t, twin)]
-        f_k = trio.assemble_forces(*total_k, dk, rev, mask)[1]
-        f_t = trio.assemble_forces(*total_t, d, cache.rev_flat, nbr.mask)[1]
-        assert _err(f_k, f_t) <= tol
-        assert float(torch.abs(f_t).max()) > 1e-2
-        if dtype == torch.float64:
-            v_k = trio.trio_virial6(total_k[2], dk, vk).cpu()
-            v_t = trio.trio_virial6(total_t[2], d, valid)
-            assert _err(v_k, v_t) <= 1e-9 * float(torch.abs(v_t).max())
-    assert trio.trio_partials_gated.launches == launches + 2 * len(descs)
+    _multi_matches_plain(pot64, (d, valid, s_slot, species), cuda_device,
+                         dtype, tol, cache, nbr)
 
 
 @pytest.mark.cuda
-def test_gated_kernel_accumulates_and_rejects_bad_operands(rows_multi,
-                                                           cuda_device):
-    """The instance adds into its outputs (two launches of one type give
-    twice one launch's partials); float64 rows with a float32 table,
-    int32 species ids and a window too wide for shared memory raise."""
+@pytest.mark.parametrize("dtype, tol", TOLS)
+def test_multi_kernel_matches_plain_ternary(rows_ternary, cuda_device, dtype,
+                                            tol):
+    """Ternary Ne/Ar/Xe (27 ordered types), K = 16 and 32."""
+    pot64, d, valid, s_slot, species, cache, nbr = rows_ternary
+    _multi_matches_plain(pot64, (d, valid, s_slot, species), cuda_device,
+                         dtype, tol, cache=cache, nbr=nbr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", TOLS)
+def test_multi_kernel_ragged_and_sparse(rows_ternary, cuda_device, dtype,
+                                        tol):
+    """A ragged atom count (37 atoms: the last block part empty) and a
+    sparse, non-prefix slot mask."""
+    pot64, d, valid, s_slot, species, _, _ = rows_ternary
+    n = 37
+    _multi_matches_plain(pot64, (d[:n], valid[:n], s_slot[:n], species[:n]),
+                         cuda_device, dtype, tol)
+    keep = torch.tensor(np.random.RandomState(4).rand(*valid.shape) > 0.4)
+    sparse = valid * keep.to(valid.dtype)
+    sparse[:, 0] = 0.0
+    assert 0 < float(sparse.sum()) < 0.7 * float(valid.sum())
+    _multi_matches_plain(pot64, (d, sparse, s_slot, species), cuda_device,
+                         dtype, tol)
+
+
+@pytest.mark.cuda
+def test_multi_kernel_center_without_live_type(rows_multi, cuda_device):
+    """Centers of a species the model has no type for, and a center
+    whose slots are all masked: zero outputs, the rest as the plain
+    version (f64, 1e-10)."""
     pot64, d, valid, s_slot, species, _, _ = rows_multi
-    pot = copy.deepcopy(pot64).to(device=cuda_device)
+    sub = _with_types(pot64, lambda desc: desc.s_c == 0)
+    empty = valid.clone()
+    first0 = int(torch.nonzero(species == 0)[0])
+    empty[first0] = 0.0
+    _multi_matches_plain(sub, (d, empty, s_slot, species), cuda_device,
+                         torch.float64, 1e-10)
+    pot = copy.deepcopy(sub).to(device=cuda_device)
+    out = multi.launch_trio_multi(pot, d.to(cuda_device),
+                                  empty.to(cuda_device),
+                                  s_slot.to(cuda_device),
+                                  species.to(cuda_device))
+    none = (species == 1).to(cuda_device)
+    none[first0] = True
+    for x in out:
+        assert float(torch.abs(x[none]).max()) == 0.0
+        assert float(torch.abs(x[~none]).max()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", TOLS)
+def test_multi_kernel_dense_windows(rows_multi, cuda_device, dtype, tol):
+    """Dense random grids (every type's window its whole grid, 8 x 8 x 13
+    here): in float64 at K = 32 the warps' slices leave no room, so the
+    tables and grids are read from device memory; in float32 at K = 16
+    they are staged.  Both against the plain version."""
+    pot64, d, valid, s_slot, species, _, _ = rows_multi
+    rng = np.random.RandomState(8)
+    descs, grids = [], []
+    for desc, grid in zip(pot64.trio_multi.descs, pot64.trio_multi.grids):
+        dense = rng.normal(0.0, 0.05, grid.shape)
+        active_bc, window = type_sparsity(dense)
+        descs.append(desc._replace(window=window, active_bc=active_bc))
+        grids.append(dense)
+    dense_pot = UF3Potential(
+        None, None, None, pot64.offsets_1b.numpy(),
+        pot64.z_to_species.numpy(), pot64.r_cut_2b, pot64.r_cut_3b,
+        trio_multi=multi.TrioMulti(descs=tuple(descs), grids=tuple(grids)),
+        pair_multi=pot64.pair_multi)
+    k = d.shape[1]
+    plan = multi.trio_multi_occupancy(dense_pot, k,
+                                      dtype == torch.float64)
+    assert plan["local_bytes"] == 0
+    if dtype == torch.float64 and k == 32:
+        assert not plan["grids_staged"]
+    if dtype == torch.float32 and k == 16:
+        assert plan["tables_staged"] and plan["grids_staged"]
+    _multi_matches_plain(dense_pot, (d, valid, s_slot, species), cuda_device,
+                         dtype, tol)
+
+
+@pytest.mark.cuda
+def test_multi_kernel_rejects_bad_operands(rows_multi, cuda_device):
+    """float64 rows on a float32 potential and int32 species ids raise
+    TypeError; 33 slots and a type window too wide for one warp's shared
+    memory raise ValueError."""
+    pot64, d, valid, s_slot, species, _, _ = rows_multi
+    pot32 = copy.deepcopy(pot64).to(device=cuda_device, dtype=torch.float32)
     dk, vk = d.to(cuda_device), valid.to(cuda_device)
     sk, ck = s_slot.to(cuda_device), species.to(cuda_device)
-    once = multi.trio_multi_partials(pot, 1, dk, vk, sk, ck)
-    twice = multi.trio_multi_partials(pot, 1, dk, vk, sk, ck)
-    multi.trio_multi_partials(pot, 1, dk, vk, sk, ck, out=twice)
-    torch.cuda.synchronize()
-    for a, b in zip(once, twice):
-        assert _err(2.0 * a, b) <= 1e-12 * max(1.0, float(a.abs().max()))
-    t1, desc = pot.trio_types[1], pot64.trio_multi.descs[1]
     with pytest.raises(TypeError, match="float32 or float64"):
-        trio.trio_partials_gated(t1.grid_window.float(), t1.leg_tables, desc,
-                                 dk, vk, sk, ck, once)
+        multi.launch_trio_multi(pot32, dk, vk, sk, ck)
+    pot = copy.deepcopy(pot64).to(device=cuda_device)
     with pytest.raises(TypeError, match="int64"):
-        trio.trio_partials_gated(t1.grid_window, t1.leg_tables, desc, dk, vk,
-                                 sk.int(), ck, once)
+        multi.launch_trio_multi(pot, dk, vk, sk.int(), ck)
+    wide_k = torch.zeros((4, 33, 3), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="K <= 32"):
+        multi.launch_trio_multi(
+            pot, wide_k, wide_k[..., 0],
+            torch.zeros((4, 33), dtype=torch.int64, device=cuda_device),
+            ck[:4])
     spec = leg_spec_from_knots(kn.generate_uniform_knots(0.5, 6.0, 40))[1]
-    wide = desc._replace(spec_l1=spec, spec_l2=spec, spec_n=spec,
-                         window=(0, 43, 0, 43, 0, 43))
+    desc = pot64.trio_multi.descs[0]._replace(
+        spec_l1=spec, spec_l2=spec, spec_n=spec, s_c=0, s_m=0, s_n=0,
+        window=(0, 43, 0, 43, 0, 43), active_bc=())
+    wide = UF3Potential(
+        None, None, None, pot64.offsets_1b.numpy(),
+        pot64.z_to_species.numpy(), pot64.r_cut_2b, pot64.r_cut_3b,
+        trio_multi=multi.TrioMulti(descs=(desc,),
+                                   grids=(np.zeros((43, 43, 43)),)),
+        pair_multi=pot64.pair_multi).to(device=cuda_device)
     with pytest.raises(ValueError, match="exceeds the 227 KB"):
-        trio.trio_gated_occupancy(wide, d.shape[1], True)
+        multi.trio_multi_occupancy(wide, d.shape[1], True)
     with pytest.raises(ValueError, match="exceeds the 227 KB"):
-        trio.trio_partials_gated(
-            torch.zeros((43, 43, 43), dtype=torch.float64,
-                        device=cuda_device),
-            torch.zeros((120, 20), dtype=torch.float64, device=cuda_device),
-            wide, dk, vk, sk, ck, once)
+        multi.launch_trio_multi(wide, dk, vk, sk, ck)
+
+
+@pytest.mark.cuda
+def test_multi_kernel_plans_have_no_spills(rows_multi, rows_ternary,
+                                           cuda_device):
+    """Every instance (f32 / f64, KMAX = 16 / 32, energy or not) on the
+    binary and ternary packs: no local (spill) memory, at least one warp
+    per block and one block per SM, tables and grids in shared memory."""
+    for pot in (rows_multi[0], rows_ternary[0]):
+        for is_f64 in (False, True):
+            for k in (16, 32):
+                for with_energy in (False, True):
+                    plan = multi.trio_multi_occupancy(pot, k, is_f64,
+                                                      with_energy)
+                    assert plan["local_bytes"] == 0, plan
+                    assert plan["atoms_per_block"] >= 1, plan
+                    assert plan["blocks_per_sm"] >= 1, plan
+                    assert plan["tables_staged"] and plan["grids_staged"]
+
+
+@pytest.mark.cuda
+def test_multi_route_launches_once_per_force_call(cuda_device):
+    """MDSystem on the fused multi-species route: one kernel launch per
+    force call, energy, forces and virial within 1e-10 of the CPU."""
+    from uf3_tpu_torch.data.atoms import Atoms
+    base = bulk("Ne", "fcc", a=5.4) * 3
+    numbers = np.array([10, 18, 54])[np.random.RandomState(5).randint(
+        3, size=len(base))]
+    geom = Atoms(numbers, base.get_positions(), base.get_cell(), pbc=True)
+    geom.rattle(0.08, seed=1)
+    model = species_model(["Ne", "Ar", "Xe"])
+    out = []
+    for device in ("cpu", cuda_device):
+        system = MDSystem(model, geom, dtype=torch.float64, device=device)
+        assert system._multi_route()
+        state = system.init_state()
+        launches = multi.trio_multi_partials_all.launches
+        out.append(system.energy_forces(state.positions, state.nbr2,
+                                        state.nbr3, with_virial=True))
+        assert multi.trio_multi_partials_all.launches == launches + (
+            device != "cpu")
+    for a, b in zip(*out):
+        assert _err(a, b) <= 1e-10
+
+
+# -- the build -----------------------------------------------------------------
+FAKE_NVCC = """#!/bin/sh
+echo "$@" >> "{log}"
+prev=""
+for arg in "$@"; do
+  if [ "$prev" = "-o" ]; then touch "$arg"; fi
+  prev="$arg"
+done
+"""
+
+
+def test_build_tracks_sources_and_headers(tmp_path, monkeypatch):
+    """The library is rebuilt when a source or a header is newer than
+    it, by one nvcc call over every source (a stand-in nvcc that logs
+    its arguments and touches its output), and not otherwise."""
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu", "common.cuh"):
+        (csrc / name).write_text("")
+    log = tmp_path / "nvcc.log"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC.format(log=log))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    monkeypatch.setattr(_build, "BUILD", str(build))
+    monkeypatch.setattr(_build, "LIBRARY", str(build / "lib.so"))
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
+    assert _build.build()["built"]
+    call = log.read_text().split()
+    assert call[-2:] == [str(csrc / "a.cu"), str(csrc / "b.cu")]
+    assert os.listdir(build) == ["lib.so"]
+    assert not _build.build()["built"]
+    later = time.time() + 100
+    os.utime(csrc / "common.cuh", (later, later))
+    assert _build.build()["built"]
+    assert len(log.read_text().splitlines()) == 2

@@ -9,10 +9,11 @@ model of the JAX package's test_multi_fused_matches_factorized) on fcc
 - ``build_trio_multi`` and ``build_pair_multi`` against JAX's: the
   ordered types, their specs, windows, live blocks and grids, the pair
   specs, coefficients and pair-type table (1e-14);
-- ``pair_forces_multi`` and ``trio_forces_multi`` (the plain version of
-  the species-gated trio pass, summed over the 8 ordered types, with
-  the virial from the summed partials) against JAX's on the JAX lists
-  (1e-10), each ordered type with s_m != s_n included;
+- ``pair_forces_multi`` and ``trio_forces_multi`` (on the CPU the plain
+  version of the multi-species trio pass: the species-gated pass of
+  each of the 8 ordered types, summed, with the virial from the summed
+  partials) against JAX's on the JAX lists (1e-10), each ordered type
+  with s_m != s_n included;
 - ``MDSystem.energy_forces`` on the fused route against JAX's (its
   1-body, pair and trio terms as the JAX engine sums them) and against
   the port's factorized path (1e-9), the potential built by
@@ -185,8 +186,8 @@ def _port_system(r, model=None, rebuild_every=5, **kw):
 
 def test_pair_and_trio_passes_match_jax(ref):
     """pair_forces_multi and trio_forces_multi (the plain version of the
-    species-gated pass, once per ordered type) on the JAX lists: energy,
-    forces and virial within 1e-10."""
+    all-types pass: the species-gated pass once per ordered type,
+    summed) on the JAX lists: energy, forces and virial within 1e-10."""
     r = ref
     port = _port_system(r)
     pot = port.potential
@@ -208,8 +209,9 @@ def test_pair_and_trio_passes_match_jax(ref):
     # rows untouched
     d3 = tnb.cached_displacements(pos, r["nbr3"], cache3)
     for t, desc in enumerate(pot.trio_multi.descs):
-        e, fc, part = multi.trio_multi_partials(
-            pot, t, d3, cache3.valid, cache3.s_slot, port.species)
+        e, fc, part = multi.trio_multi_partials_torch(
+            d3, cache3.valid, cache3.s_slot, port.species,
+            pot.trio_types[t].grid, desc)
         other = port.species != desc.s_c
         assert float(torch.abs(part[other]).max()) == 0.0
         assert float(torch.abs(fc[other]).max()) == 0.0

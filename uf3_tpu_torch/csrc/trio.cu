@@ -46,144 +46,36 @@
 //   generality at run time (any K <= KMAX, any window, the four knot
 //   kinds, float32 and float64).
 //
-// The species-gated instance (GATED) runs one ordered trio type
-// (s_c, s_m, s_n) of a multi-species model per launch: the reference's
-// _trio_block_compute_multi, which it runs as XLA inside
-// trio_forces_multi.  Against the unary instance:
-// * two slot masks: row m owns H where its slot is valid and of species
-//   s_m (the center's species s_c is checked first: a warp whose center
-//   is another species exits at once), and the ballot that lists the n
-//   of a row reads the slots valid and of species s_n;
-// * a third leg table: row n's basis is the second leg's (its own spec,
-//   range gate and interval), no longer row m's first-leg basis;
-// * three windows (l, b, c): H = A.G over the l rows of the type's grid
-//   window, for its b x c columns;
-// * outputs are added to (energy, center force, partials), which the
-//   caller zeroes once and sums over the types' launches.
+// The multi-species pass over every ordered trio type is its own kernel
+// (trio_multi.cu); the helpers both use are in trio_common.cuh.
 
-#include <cuda_runtime.h>
+#include "trio_common.cuh"
 
 namespace {
-
-constexpr int kWarp = 32;
-constexpr int kMaxWarps = 8;            // atoms per block at most
-constexpr int kTab = 20;                // entries per interval row
-constexpr size_t kSmemLimit = 232448;   // 227 KB opt-in per block, sm_90
-constexpr int kErrSmem = -1;            // window too wide for one warp
-constexpr unsigned kFull = 0xffffffffu;
-
-struct Leg {
-  int kind;       // 0 linear, 1 lammps r^2, 2 geometric, 3 inverse
-  int n_int;      // number of intervals
-  double u0;      // first knot in the transformed coordinate
-  double inv_h;   // 1 / knot spacing in the transformed coordinate
-  double t_min;   // inclusive range gate
-  double t_max;
-};
-
-template <typename T>
-struct alignas(4 * sizeof(T) > 16 ? 16 : 4 * sizeof(T)) Quad {
-  T v[4];
-};
-
-template <typename T>
-struct alignas(2 * sizeof(T)) Pair {
-  T h, h1;  // H = A.G and H1 = dA.G at one (b, c) column of row m
-};
-
-__device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
-__device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
-
-// Interval of r on a leg: floor((transform(r) - u0) / h), clamped to
-// [0, n_int - 1].  r2 = r*r and inv_r = 1/r are the caller's.
-template <typename T>
-__device__ __forceinline__ int leg_interval(const Leg& s, T r, T r2,
-                                            T inv_r) {
-  T t;
-  switch (s.kind) {
-    case 0: t = r; break;
-    case 1: t = r2; break;
-    case 2: t = log(r); break;
-    default: t = inv_r;
-  }
-  T f = floor((t - T(s.u0)) * T(s.inv_h));
-  f = f > T(0) ? f : T(0);
-  f = f < T(s.n_int - 1) ? f : T(s.n_int - 1);
-  return int(f);
-}
-
-// Values and d/dr of the 4 non-zero basis functions B_{idx + q} at r,
-// by Horner on interval idx's row of a leg table, times gate:
-// B = sum_p beta[q][p] u^p, dB/dr = (dB/du) / (t_{idx+1} - t_idx).
-template <typename T>
-__device__ __forceinline__ void leg_basis(const T* tab, int idx, T r,
-                                          T gate, T val[4], T der[4]) {
-  const Quad<T>* row = reinterpret_cast<const Quad<T>*>(tab + idx * kTab);
-  const Quad<T> head = row[0];
-  const T u = (r - head.v[0]) * head.v[1];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const Quad<T> b = row[1 + q];
-    val[q] = gate * (((b.v[3] * u + b.v[2]) * u + b.v[1]) * u + b.v[0]);
-    der[q] = gate * ((((T(3) * b.v[3]) * u + T(2) * b.v[2]) * u + b.v[1])
-                     * head.v[1]);
-  }
-}
-
-// The species of one ordered trio type (GATED instance).
-struct Species {
-  int c, m, n;
-};
-
-// Values of the 4 non-zero basis functions B_{idx + q} at r, times gate.
-template <typename T>
-__device__ __forceinline__ void leg_values(const T* tab, int idx, T r,
-                                           T gate, T val[4]) {
-  const Quad<T>* row = reinterpret_cast<const Quad<T>*>(tab + idx * kTab);
-  const Quad<T> head = row[0];
-  const T u = (r - head.v[0]) * head.v[1];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const Quad<T> b = row[1 + q];
-    val[q] = gate * (((b.v[3] * u + b.v[2]) * u + b.v[1]) * u + b.v[0]);
-  }
-}
 
 // Byte offsets of the dynamic shared memory: the leg tables and the
 // grid window once per block, then one slice per warp.
 struct Layout {
-  int n_tab;       // table entries (all legs)
-  int tab_b;       // first entry of the second leg's rows (GATED)
+  int n_tab;       // table entries (both legs)
   int tab_n;       // first entry of the third leg's rows
-  int g_off;       // the (Lw, Bw*Cw) grid window
+  int g_off;       // the (Ww, Ww*Cw) grid window
   int warp_off;    // warp slices
   int hh_off;      // (H, H1) within a warp slice
   int warp_bytes;  // one warp slice
 };
 
-size_t round32(size_t bytes) { return (bytes + 31) & ~size_t(31); }
-
-// One warp per atom (see the design above).  Unary instance: leg_b,
-// b_lo, bw repeat leg_l, w_lo, ww, and s_slot, s_center, sp are unused.
-#define TRIO_PARAMS                                                          \
-  const T *__restrict__ d, const T *__restrict__ valid,                      \
-      const long long *__restrict__ s_slot,                                  \
-      const long long *__restrict__ s_center, const T *__restrict__ gwin,    \
-      const T *__restrict__ tables, T *__restrict__ energy,                  \
-      T *__restrict__ fc, T *__restrict__ part, int n_atoms, int K,          \
-      Leg leg_l, Leg leg_b, Leg leg_n, int w_lo, int ww, int b_lo, int bw,   \
-      int c_lo, int cw, Species sp, Layout lay
-#define TRIO_ARGS                                                            \
-  d, valid, s_slot, s_center, gwin, tables, energy, fc, part, n_atoms, K,    \
-      leg_l, leg_b, leg_n, w_lo, ww, b_lo, bw, c_lo, cw, sp, lay
-
-template <typename T, int KMAX, bool ENERGY, bool GATED>
-__device__ __forceinline__ void trio_body(TRIO_PARAMS) {
+template <typename T, int KMAX, bool ENERGY>
+__global__ void __launch_bounds__(kWarp * kMaxWarps)
+trio_kernel(const T* __restrict__ d, const T* __restrict__ valid,
+            const T* __restrict__ gwin, const T* __restrict__ tables,
+            T* __restrict__ energy, T* __restrict__ fc,
+            T* __restrict__ part, int n_atoms, int K, Leg leg_l, Leg leg_n,
+            int w_lo, int ww, int c_lo, int cw, Layout lay) {
   constexpr int TPR = kWarp / KMAX;  // threads per pair row
   extern __shared__ __align__(16) unsigned char smem[];
   T* s_tab = reinterpret_cast<T*>(smem);
   T* s_g = reinterpret_cast<T*>(smem + lay.g_off);
-  const int wc = bw * cw;  // columns of the grid window and of H
+  const int wc = ww * cw;
   for (int i = threadIdx.x; i < lay.n_tab; i += blockDim.x)
     s_tab[i] = tables[i];
   for (int i = threadIdx.x; i < ww * wc; i += blockDim.x) s_g[i] = gwin[i];
@@ -194,30 +86,22 @@ __device__ __forceinline__ void trio_body(TRIO_PARAMS) {
   const long long atom =
       static_cast<long long>(blockIdx.x) * (blockDim.x / kWarp) + warp;
   if (atom >= n_atoms) return;  // ragged last block
-  if (GATED && s_center[atom] != sp.c) return;  // no row of this type
   unsigned char* ws = smem + lay.warp_off + warp * lay.warp_bytes;
   Quad<T>* s_d = reinterpret_cast<Quad<T>*>(ws);  // (KMAX) x, y, z, -
   Quad<T>* s_a = s_d + KMAX;                      // first-leg values
   Quad<T>* s_da = s_a + KMAX;                     // and d/dr, 4 taps
-  Quad<T>* s_b = GATED ? s_da + KMAX : s_a;       // second-leg values
-  T* s_ir = reinterpret_cast<T*>(s_da + (GATED ? 2 : 1) * KMAX);  // 1/|d|
+  T* s_ir = reinterpret_cast<T*>(s_da + KMAX);    // (KMAX) 1 / |d|
   int* s_idx = reinterpret_cast<int*>(s_ir + KMAX);  // first tap
-  int* s_bidx = GATED ? s_idx + KMAX : s_idx;        // second leg's
   Pair<T>* s_hh = reinterpret_cast<Pair<T>*>(ws + lay.hh_off);
-  // s_hh[col * KMAX + m], col = (b - b_lo) * Cw + (c - c_lo)
+  // s_hh[col * KMAX + m], col = (b - w_lo) * Cw + (c - c_lo)
 
-  const bool v_lane = lane < K && valid[atom * K + lane] != T(0);
-  const long long s_lane = GATED && lane < K ? s_slot[atom * K + lane] : 0;
-  const bool m_lane = v_lane && (!GATED || s_lane == sp.m);
-  const bool n_lane = v_lane && (!GATED || s_lane == sp.n);
-  const unsigned vmask = __ballot_sync(kFull, m_lane);  // rows m
-  const unsigned nmask = GATED ? __ballot_sync(kFull, n_lane) : vmask;
-  if (GATED && (vmask == 0u || nmask == 0u)) return;  // adds nothing
   const T* d_atom = d + atom * 3 * K;
   for (int i = lane; i < 3 * K; i += kWarp) {
     const int m = i / 3;
     s_d[m].v[i - 3 * m] = d_atom[i];
   }
+  const bool v_lane = lane < K && valid[atom * K + lane] != T(0);
+  const unsigned vmask = __ballot_sync(kFull, v_lane);
   __syncwarp();
 
   // first-leg bases, one slot per lane
@@ -227,7 +111,7 @@ __device__ __forceinline__ void trio_body(TRIO_PARAMS) {
     r2 = r2 > T(0) ? r2 : T(1);
     const T inv_r = rsqrt_t(r2);
     const T r = r2 * inv_r;
-    const T gate = (m_lane && r >= T(leg_l.t_min) && r <= T(leg_l.t_max))
+    const T gate = (v_lane && r >= T(leg_l.t_min) && r <= T(leg_l.t_max))
                        ? T(1) : T(0);
     const int idx = leg_interval<T>(leg_l, r, r2, inv_r);
     Quad<T> a, da;
@@ -236,16 +120,6 @@ __device__ __forceinline__ void trio_body(TRIO_PARAMS) {
     s_da[lane] = da;
     s_ir[lane] = inv_r;
     s_idx[lane] = idx;
-    if (GATED) {
-      const T gate_b =
-          (n_lane && r >= T(leg_b.t_min) && r <= T(leg_b.t_max)) ? T(1)
-                                                                  : T(0);
-      const int bidx = leg_interval<T>(leg_b, r, r2, inv_r);
-      Quad<T> b;
-      leg_values<T>(s_tab + lay.tab_b, bidx, r, gate_b, b.v);
-      s_b[lane] = b;
-      s_bidx[lane] = bidx;
-    }
   }
   __syncwarp();
 
@@ -275,7 +149,7 @@ __device__ __forceinline__ void trio_body(TRIO_PARAMS) {
   const bool row_ok = m < K && ((vmask >> m) & 1u);
   unsigned mine = 0;
   if (row_ok) {
-    unsigned bits = nmask & ~(1u << m);
+    unsigned bits = vmask & ~(1u << m);
     for (int j = 0; bits; bits &= bits - 1, ++j)
       if (j % TPR == lane / KMAX) mine |= bits & (0u - bits);
   }
@@ -308,13 +182,13 @@ __device__ __forceinline__ void trio_body(TRIO_PARAMS) {
       cdv[q] = in ? cdv[q] : T(0);
       coff[q] = (in ? c : 0) * KMAX + m;
     }
-    const Quad<T> an = s_b[n];
-    const int b0 = s_bidx[n] - b_lo;
+    const Quad<T> an = s_a[n];
+    const int b0 = s_idx[n] - w_lo;
     T t1 = T(0), t3 = T(0), value = T(0);
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
       const int b = b0 + p;
-      if (b < 0 || b >= bw) continue;
+      if (b < 0 || b >= ww) continue;
       const Pair<T>* hb = s_hh + b * cwk;
       T db = T(0), d1b = T(0), d3b = T(0);
 #pragma unroll
@@ -346,21 +220,13 @@ __device__ __forceinline__ void trio_body(TRIO_PARAMS) {
     if (ENERGY) e = e + __shfl_xor_sync(kFull, e, off);
   }
   const bool head = lane < KMAX;
-  if (head && m < K && (!GATED || row_ok)) {
+  if (head && m < K) {
     T* out = part + (atom * K + m) * 5;
-    if (GATED) {
-      out[0] += w;
-      out[1] += s3;
-      out[2] += vx;
-      out[3] += vy;
-      out[4] += vz;
-    } else {
-      out[0] = w;
-      out[1] = s3;
-      out[2] = vx;
-      out[3] = vy;
-      out[4] = vz;
-    }
+    out[0] = w;
+    out[1] = s3;
+    out[2] = vx;
+    out[3] = vy;
+    out[4] = vz;
   }
   // center force sum_m w_m / r_m d_m and energy over the warp
   const T wr = head && row_ok ? w * s_ir[m] : T(0);
@@ -374,69 +240,41 @@ __device__ __forceinline__ void trio_body(TRIO_PARAMS) {
     if (ENERGY) e = e + __shfl_xor_sync(kFull, e, off);
   }
   if (lane == 0) {
-    if (GATED) {
-      fc[atom * 3] += fx;
-      fc[atom * 3 + 1] += fy;
-      fc[atom * 3 + 2] += fz;
-      if (ENERGY) energy[atom] += T(0.5) * e;
-    } else {
-      fc[atom * 3] = fx;
-      fc[atom * 3 + 1] = fy;
-      fc[atom * 3 + 2] = fz;
-      energy[atom] = T(0.5) * e;
-    }
+    fc[atom * 3] = fx;
+    fc[atom * 3 + 1] = fy;
+    fc[atom * 3 + 2] = fz;
+    energy[atom] = T(0.5) * e;
   }
-}
-
-template <typename T, int KMAX, bool ENERGY>
-__global__ void __launch_bounds__(kWarp * kMaxWarps)
-trio_kernel(TRIO_PARAMS) {
-  trio_body<T, KMAX, ENERGY, false>(TRIO_ARGS);
-}
-
-// The gated instance names one resident block per SM as its minimum: at
-// ptxas's default register budget its float64 KMAX = 16 no-energy
-// instance spilled (80 registers); with it, none spills.
-template <typename T, int KMAX, bool ENERGY>
-__global__ void __launch_bounds__(kWarp * kMaxWarps, 1)
-trio_gated_kernel(TRIO_PARAMS) {
-  trio_body<T, KMAX, ENERGY, true>(TRIO_ARGS);
 }
 
 struct Args {
   const void* d;
   const void* valid;
-  const void* s_slot;
-  const void* s_center;
   const void* gwin;
   const void* tables;
   void* energy;
   void* fc;
   void* part;
   int n_atoms, K;
-  Leg leg_l, leg_b, leg_n;
-  int w_lo, ww, b_lo, bw, c_lo, cw;
-  Species sp;
+  Leg leg_l, leg_n;
+  int w_lo, ww, c_lo, cw;
   void* stream;
 };
 
 // Launch (occ == nullptr) or report the plan: occ = {atoms per block,
 // shared bytes per block, resident blocks per SM, registers per thread,
 // local (spill) bytes per thread}.
-template <typename T, int KMAX, bool ENERGY, bool GATED>
+template <typename T, int KMAX, bool ENERGY>
 int run(const Args& a, int* occ) {
   Layout lay;
-  lay.tab_b = a.leg_l.n_int * kTab;
-  lay.tab_n = lay.tab_b + (GATED ? a.leg_b.n_int * kTab : 0);
-  lay.n_tab = lay.tab_n + a.leg_n.n_int * kTab;
+  lay.n_tab = (a.leg_l.n_int + a.leg_n.n_int) * kTab;
+  lay.tab_n = a.leg_l.n_int * kTab;
   lay.g_off = int(round32(size_t(lay.n_tab) * sizeof(T)));
   lay.warp_off = lay.g_off
-                 + int(round32(size_t(a.ww) * a.bw * a.cw * sizeof(T)));
-  // per slot: d, A, dA (+ the second leg's values) and 1/|d|; the taps
-  lay.hh_off = int(round32(KMAX * ((GATED ? 17 : 13) * sizeof(T)
-                                   + (GATED ? 2 : 1) * sizeof(int))));
+                 + int(round32(size_t(a.ww) * a.ww * a.cw * sizeof(T)));
+  lay.hh_off = int(round32(KMAX * (13 * sizeof(T) + sizeof(int))));
   lay.warp_bytes = lay.hh_off
-                   + int(round32(size_t(KMAX) * a.bw * a.cw * 2 * sizeof(T)));
+                   + int(round32(size_t(KMAX) * a.ww * a.cw * 2 * sizeof(T)));
   int warps = kMaxWarps;
   while (warps > 1
          && size_t(lay.warp_off) + size_t(warps) * lay.warp_bytes
@@ -444,8 +282,7 @@ int run(const Args& a, int* occ) {
     --warps;
   const size_t smem = size_t(lay.warp_off) + size_t(warps) * lay.warp_bytes;
   if (smem > kSmemLimit) return kErrSmem;
-  auto kernel = GATED ? trio_gated_kernel<T, KMAX, ENERGY>
-                      : trio_kernel<T, KMAX, ENERGY>;
+  auto kernel = trio_kernel<T, KMAX, ENERGY>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -470,28 +307,19 @@ int run(const Args& a, int* occ) {
   const int grid = (a.n_atoms + warps - 1) / warps;
   kernel<<<grid, warps * kWarp, smem, static_cast<cudaStream_t>(a.stream)>>>(
       static_cast<const T*>(a.d), static_cast<const T*>(a.valid),
-      static_cast<const long long*>(a.s_slot),
-      static_cast<const long long*>(a.s_center),
       static_cast<const T*>(a.gwin), static_cast<const T*>(a.tables),
       static_cast<T*>(a.energy), static_cast<T*>(a.fc),
-      static_cast<T*>(a.part), a.n_atoms, a.K, a.leg_l, a.leg_b, a.leg_n,
-      a.w_lo, a.ww, a.b_lo, a.bw, a.c_lo, a.cw, a.sp, lay);
+      static_cast<T*>(a.part), a.n_atoms, a.K, a.leg_l, a.leg_n, a.w_lo,
+      a.ww, a.c_lo, a.cw, lay);
   return int(cudaGetLastError());
 }
 
-template <typename T, bool GATED>
+template <typename T>
 int dispatch(const Args& a, int with_energy, int* occ) {
   if (a.K > 32) return int(cudaErrorInvalidValue);
   if (a.K <= 16)
-    return with_energy ? run<T, 16, true, GATED>(a, occ)
-                       : run<T, 16, false, GATED>(a, occ);
-  return with_energy ? run<T, 32, true, GATED>(a, occ)
-                     : run<T, 32, false, GATED>(a, occ);
-}
-
-Leg make_leg(const double* legs, const int* ints, int i) {
-  return Leg{ints[2 * i], ints[2 * i + 1], legs[4 * i], legs[4 * i + 1],
-             legs[4 * i + 2], legs[4 * i + 3]};
+    return with_energy ? run<T, 16, true>(a, occ) : run<T, 16, false>(a, occ);
+  return with_energy ? run<T, 32, true>(a, occ) : run<T, 32, false>(a, occ);
 }
 
 Args make_args(const void* d, const void* valid, const void* gwin,
@@ -501,8 +329,6 @@ Args make_args(const void* d, const void* valid, const void* gwin,
   Args a;
   a.d = d;
   a.valid = valid;
-  a.s_slot = nullptr;
-  a.s_center = nullptr;
   a.gwin = gwin;
   a.tables = tables;
   a.energy = energy;
@@ -510,38 +336,13 @@ Args make_args(const void* d, const void* valid, const void* gwin,
   a.part = part;
   a.n_atoms = n_atoms;
   a.K = K;
-  a.leg_l = make_leg(legs, ints, 0);
-  a.leg_b = a.leg_l;
-  a.leg_n = make_leg(legs, ints, 1);
+  a.leg_l = Leg{ints[0], ints[1], legs[0], legs[1], legs[2], legs[3]};
+  a.leg_n = Leg{ints[2], ints[3], legs[4], legs[5], legs[6], legs[7]};
   a.w_lo = w_lo;
   a.ww = ww;
-  a.b_lo = w_lo;
-  a.bw = ww;
   a.c_lo = c_lo;
   a.cw = cw;
-  a.sp = Species{0, 0, 0};
   a.stream = stream;
-  return a;
-}
-
-// legs: (u0, 1/h, t_min, t_max) of the first, second and third legs;
-// ints: (kind, n_int) of each; win: (l_lo, l_hi, b_lo, b_hi, c_lo, c_hi);
-// species: (s_c, s_m, s_n).
-Args make_multi_args(const void* d, const void* valid, const void* s_slot,
-                     const void* s_center, const void* gwin,
-                     const void* tables, void* energy, void* fc, void* part,
-                     int n_atoms, int K, const double* legs, const int* ints,
-                     const int* win, const int* species, void* stream) {
-  Args a = make_args(d, valid, gwin, tables, energy, fc, part, n_atoms, K,
-                     legs, ints, win[0], win[1] - win[0], win[4],
-                     win[5] - win[4], stream);
-  a.s_slot = s_slot;
-  a.s_center = s_center;
-  a.leg_b = make_leg(legs, ints, 1);
-  a.leg_n = make_leg(legs, ints, 2);
-  a.b_lo = win[2];
-  a.bw = win[3] - win[2];
-  a.sp = Species{species[0], species[1], species[2]};
   return a;
 }
 
@@ -558,10 +359,10 @@ extern "C" int uf3_trio_partials_f32(
     void* energy, void* fc, void* part, int n_atoms, int K,
     const double* legs, const int* ints, int w_lo, int ww, int c_lo, int cw,
     int with_energy, void* stream) {
-  return dispatch<float, false>(make_args(d, valid, gwin, tables, energy,
-                                          fc, part, n_atoms, K, legs, ints,
-                                          w_lo, ww, c_lo, cw, stream),
-                                with_energy, nullptr);
+  return dispatch<float>(make_args(d, valid, gwin, tables, energy, fc, part,
+                                   n_atoms, K, legs, ints, w_lo, ww, c_lo,
+                                   cw, stream),
+                         with_energy, nullptr);
 }
 
 extern "C" int uf3_trio_partials_f64(
@@ -569,10 +370,10 @@ extern "C" int uf3_trio_partials_f64(
     void* energy, void* fc, void* part, int n_atoms, int K,
     const double* legs, const int* ints, int w_lo, int ww, int c_lo, int cw,
     int with_energy, void* stream) {
-  return dispatch<double, false>(make_args(d, valid, gwin, tables, energy,
-                                           fc, part, n_atoms, K, legs, ints,
-                                           w_lo, ww, c_lo, cw, stream),
-                                 with_energy, nullptr);
+  return dispatch<double>(make_args(d, valid, gwin, tables, energy, fc,
+                                    part, n_atoms, K, legs, ints, w_lo, ww,
+                                    c_lo, cw, stream),
+                          with_energy, nullptr);
 }
 
 // The launch plan of the kernel that uf3_trio_partials_{f32,f64} would
@@ -584,49 +385,6 @@ extern "C" int uf3_trio_occupancy(int is_f64, int K, const int* ints, int ww,
   const Args a = make_args(nullptr, nullptr, nullptr, nullptr, nullptr,
                            nullptr, nullptr, 0, K, legs, ints, 0, ww, 0, cw,
                            nullptr);
-  return is_f64 ? dispatch<double, false>(a, with_energy, out)
-                : dispatch<float, false>(a, with_energy, out);
-}
-
-// The species-gated instance: one ordered trio type (s_c, s_m, s_n) per
-// launch, its energy, center force and partials ADDED to energy, fc and
-// part (zeroed by the caller once for all types).  s_slot (N, K) and
-// s_center (N,) are int64 species ids; gwin is the type's (Lw, Bw*Cw)
-// grid window; tables the three legs' Horner rows in order.  Same
-// return codes as uf3_trio_partials_*.
-extern "C" int uf3_trio_multi_partials_f32(
-    const void* d, const void* valid, const void* s_slot,
-    const void* s_center, const void* gwin, const void* tables,
-    void* energy, void* fc, void* part, int n_atoms, int K,
-    const double* legs, const int* ints, const int* win, const int* species,
-    int with_energy, void* stream) {
-  return dispatch<float, true>(
-      make_multi_args(d, valid, s_slot, s_center, gwin, tables, energy, fc,
-                      part, n_atoms, K, legs, ints, win, species, stream),
-      with_energy, nullptr);
-}
-
-extern "C" int uf3_trio_multi_partials_f64(
-    const void* d, const void* valid, const void* s_slot,
-    const void* s_center, const void* gwin, const void* tables,
-    void* energy, void* fc, void* part, int n_atoms, int K,
-    const double* legs, const int* ints, const int* win, const int* species,
-    int with_energy, void* stream) {
-  return dispatch<double, true>(
-      make_multi_args(d, valid, s_slot, s_center, gwin, tables, energy, fc,
-                      part, n_atoms, K, legs, ints, win, species, stream),
-      with_energy, nullptr);
-}
-
-// The launch plan of the species-gated instance (as uf3_trio_occupancy).
-extern "C" int uf3_trio_multi_occupancy(int is_f64, int K, const int* ints,
-                                        const int* win, int with_energy,
-                                        int* out) {
-  const double legs[12] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
-  const int species[3] = {0, 0, 0};
-  const Args a = make_multi_args(nullptr, nullptr, nullptr, nullptr, nullptr,
-                                 nullptr, nullptr, nullptr, nullptr, 0, K,
-                                 legs, ints, win, species, nullptr);
-  return is_f64 ? dispatch<double, true>(a, with_energy, out)
-                : dispatch<float, true>(a, with_energy, out);
+  return is_f64 ? dispatch<double>(a, with_energy, out)
+                : dispatch<float>(a, with_energy, out);
 }

@@ -30,13 +30,14 @@ _SIGNATURES = {
            _P]
     for name in ("uf3_trio_partials_f32", "uf3_trio_partials_f64")}
 _SIGNATURES["uf3_trio_occupancy"] = [_I, _I, _P, _I, _I, _I, _P]
-# uf3_trio_multi_partials_{f32,f64}(d, valid, s_slot, s_center, gwin,
-#   tables, energy, fc, part, n_atoms, K, legs, ints, win, species,
-#   with_energy, stream); uf3_trio_multi_occupancy(is_f64, K, ints, win,
-#   with_energy, out)
-for _name in ("uf3_trio_multi_partials_f32", "uf3_trio_multi_partials_f64"):
-    _SIGNATURES[_name] = [_P] * 9 + [_I, _I, _P, _P, _P, _P, _I, _P]
-_SIGNATURES["uf3_trio_multi_occupancy"] = [_I, _I, _P, _P, _I, _P]
+# uf3_trio_multi_{f32,f64}(d, valid, s_slot, s_center, ints, reals,
+#   tables, grids, energy, fc, part, n_atoms, K, n_species, max_cols,
+#   n_ints, n_reals, n_tables, n_grids, with_energy, stream);
+# uf3_trio_multi_occupancy(is_f64, n_atoms, K, n_species, max_cols,
+#   n_ints, n_reals, n_tables, n_grids, with_energy, out)
+for _name in ("uf3_trio_multi_f32", "uf3_trio_multi_f64"):
+    _SIGNATURES[_name] = [_P] * 11 + [_I] * 9 + [_P]
+_SIGNATURES["uf3_trio_multi_occupancy"] = [_I] * 10 + [_P]
 
 _loaded = {}  # the library handle once loaded in this process
 
@@ -55,12 +56,13 @@ def nvcc_path() -> str:
 
 def build(force: bool = False) -> dict:
     """Compile the kernels unless the library is newer than every
-    source.  Returns {"seconds", "log", "built"}; raises with the
-    compiler's output on failure."""
+    source and header.  Returns {"seconds", "log", "built"}; raises with
+    the compiler's output on failure."""
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    inputs = sources + glob.glob(os.path.join(CSRC, "*.cuh"))
     if (not force and os.path.isfile(LIBRARY)
             and os.path.getmtime(LIBRARY)
-            >= max(os.path.getmtime(s) for s in sources)):
+            >= max(os.path.getmtime(s) for s in inputs)):
         return {"seconds": 0.0, "log": "", "built": False}
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{LIBRARY}.{os.getpid()}.tmp"

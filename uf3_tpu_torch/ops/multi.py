@@ -1,35 +1,40 @@
 """
 The fused multi-species route of a 2+3-body model whose knots all have
-a closed form: per ordered trio type (s_c, s_m, s_n) the pair-lane pass
-of the trio kernel under species gates, its partials summed over the
-types before one reverse-slot assembly; the pair term as one chain per
-pair type on one (N, K2) gather.
+a closed form: the 3-body pass over every ordered trio type (s_c, s_m,
+s_n) in one launch of a CUDA kernel (``trio_multi_partials_all``,
+``csrc/trio_multi.cu``), its partials summed over the types before one
+reverse-slot assembly; the pair term as one chain per pair type on one
+(N, K2) gather.
 
 Counterpart of ``TrioTypeDesc``, ``TrioMulti``, ``build_trio_multi``,
 ``_trio_block_compute_multi``, ``trio_forces_multi``,
 ``build_pair_multi`` and ``pair_forces_multi``
 (``uf3_tpu/ops/pallas_trio.py``).  The reference runs its trio part as
-XLA; here each type's pass is the species-gated instance of the trio
-kernel on the card (``trio_partials_gated``, ``csrc/trio.cu``) and
-``trio_multi_partials_torch`` on the CPU.  The pair part is plain torch
-(``pair_row_forces`` per pair type), as the reference's is XLA.
+XLA, all types in one block body; here it is one kernel launch on the
+card, fed by the per-type metadata ``pack_trio_multi`` packs once at
+construction, and on the CPU its plain version
+``trio_multi_partials_all_torch`` (``trio_multi_partials_torch`` per
+type, summed).  The pair part is plain torch (``pair_row_forces`` per
+pair type), as the reference's is XLA.
 """
 
+import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from uf3_tpu_torch import io
+from uf3_tpu_torch.ops import _build
 from uf3_tpu_torch.ops.neighbors import (ListCache, NeighborList,
                                          cached_displacements)
 from uf3_tpu_torch.ops.pair import pair_row_forces
 from uf3_tpu_torch.ops.potential import type_sparsity
 from uf3_tpu_torch.ops.splines import (LINEAR, LegSpec, _dense_basis,
-                                       cardinal_coefficients,
+                                       cardinal_coefficients, horner_table,
                                        leg_spec_from_knots)
-from uf3_tpu_torch.ops.trio import (assemble_forces, trio_partials_gated,
-                                    trio_virial6)
+from uf3_tpu_torch.ops.trio import (MAX_SLOTS, _check_window,
+                                    assemble_forces, trio_virial6)
 
 
 class TrioTypeDesc(NamedTuple):
@@ -138,6 +143,82 @@ def mirrored(descs, grids) -> bool:
                 or not np.array_equal(grids[j], grid.transpose(1, 0, 2)):
             return False
     return True
+
+
+# ints per ordered type in the packed metadata after type_of, and reals
+# (csrc/trio_multi.cu kRec, kReal)
+PACK_RECORD, PACK_REALS = 16, 12
+
+
+class TrioMultiPack(NamedTuple):
+    """The multi-species trio kernel's metadata, packed once: ``ints``
+    (int32) the (S, S, S) ``type_of`` table (the index of the ordered
+    type (s_c, s_m, s_n) in ``descs``, -1 where the model has none),
+    then per type ``PACK_RECORD`` ints: (kind, n_int, table offset) of
+    its first, second and third legs, its window (l_lo, Lw, b_lo, Bw,
+    c_lo, Cw) and the offset of its grid window in ``grids``; ``reals``
+    (float64) per type ``PACK_REALS``: (u0, 1/h, t_min, t_max) of the
+    three legs; ``tables`` each distinct leg's (n_int, 20) Horner rows
+    once, end to end; ``grids`` each type's (Lw, Bw, Cw) live grid window,
+    end to end.  Each array is zero-padded to a multiple of 4 elements
+    (16-byte bulk copies).  ``max_cols`` is the widest Bw * Cw."""
+    ints: np.ndarray
+    reals: np.ndarray
+    tables: np.ndarray
+    grids: np.ndarray
+    n_species: int
+    max_cols: int
+
+
+def _pad4(x: np.ndarray) -> np.ndarray:
+    return np.concatenate([x, np.zeros((-len(x)) % 4, dtype=x.dtype)])
+
+
+def pack_trio_multi(descs, grids, n_species: int) -> TrioMultiPack:
+    """Pack the ordered types ``descs`` (``TrioTypeDesc``) and their dense
+    grids over ``n_species`` species for the multi-species trio kernel
+    (see ``TrioMultiPack``).  Raises on a species id outside
+    [0, n_species), an ordered type given twice, and a leg without a
+    closed form in the clamped basis."""
+    s = n_species
+    type_of = np.full((s, s, s), -1, dtype=np.int32)
+    records = np.zeros((len(descs), PACK_RECORD), dtype=np.int32)
+    reals = np.zeros((len(descs), PACK_REALS))
+    tables, table_at, windows = [], {}, []
+    n_tab = n_grid = 0
+    for t, (desc, grid) in enumerate(zip(descs, grids)):
+        key = (desc.s_c, desc.s_m, desc.s_n)
+        if not all(0 <= x < s for x in key):
+            raise ValueError(f"trio type {key}: species outside [0, {s})")
+        if type_of[key] != -1:
+            raise ValueError(f"trio type {key} given twice")
+        type_of[key] = t
+        for j, spec in enumerate((desc.spec_l1, desc.spec_l2, desc.spec_n)):
+            if spec.cardinal or spec.knots is not None:
+                raise ValueError("trio kernel legs take closed-form knots "
+                                 "in the clamped basis")
+            if spec not in table_at:
+                table_at[spec] = n_tab
+                tables.append(horner_table(spec).ravel())
+                n_tab += tables[-1].size
+            records[t, 3 * j:3 * j + 3] = (spec.kind, spec.n_int,
+                                           table_at[spec])
+            reals[t, 4 * j:4 * j + 4] = (spec.u0, 1.0 / spec.h, spec.t_min,
+                                         spec.t_max)
+        l_lo, l_hi, b_lo, b_hi, c_lo, c_hi = desc.window
+        windows.append(np.asarray(grid, dtype=np.float64)[
+            l_lo:l_hi, b_lo:b_hi, c_lo:c_hi].ravel())
+        records[t, 9:] = (l_lo, l_hi - l_lo, b_lo, b_hi - b_lo, c_lo,
+                          c_hi - c_lo, n_grid)
+        n_grid += windows[-1].size
+    max_cols = max(((d.window[3] - d.window[2]) * (d.window[5] - d.window[4])
+                    for d in descs), default=1)
+    return TrioMultiPack(
+        ints=_pad4(np.concatenate([type_of.ravel(), records.ravel()])),
+        reals=_pad4(reals.ravel()),
+        tables=_pad4(np.concatenate(tables) if tables else np.zeros(0)),
+        grids=_pad4(np.concatenate(windows) if windows else np.zeros(0)),
+        n_species=s, max_cols=int(max_cols))
 
 
 # -- the pair term --------------------------------------------------------------
@@ -252,30 +333,127 @@ def trio_multi_partials_torch(d, valid, s_slot, s_center, grid,
     return energy, f_center, torch.stack([w_m, s3] + v3, dim=-1)
 
 
-def trio_multi_partials(potential, t: int, d, valid, s_slot, s_center,
-                        with_energy: bool = True, out=None,
-                        shared: dict = None):
-    """Ordered type ``t``'s pass of ``potential``'s multi-species trio,
-    added into ``out`` = (energy (N,), center force (N, 3), partials
-    (N, K, 5)) (zeros when None), which it returns.  A CUDA tensor runs
-    the species-gated instance of the trio kernel or raises; a CPU
-    tensor runs ``trio_multi_partials_torch`` (with ``shared``, see
-    there)."""
-    desc = potential.trio_multi.descs[t]
-    tables = potential.trio_types[t]
-    if out is None:
-        n_atoms, k = d.shape[0], d.shape[1]
-        out = (d.new_zeros(n_atoms), d.new_zeros((n_atoms, 3)),
-               d.new_zeros((n_atoms, k, 5)))
-    if d.device.type != "cpu":
-        return trio_partials_gated(tables.grid_window, tables.leg_tables,
-                                   desc, d, valid, s_slot, s_center, out,
-                                   with_energy)
-    for acc, x in zip(out, trio_multi_partials_torch(
-            d, valid, s_slot, s_center, tables.grid, desc, with_energy,
-            shared)):
-        acc.add_(x)
+def trio_multi_partials_all_torch(potential, d, valid, s_slot, s_center,
+                                  with_energy: bool = True):
+    """Plain torch version of the multi-species pass over every ordered
+    type of ``potential``'s trio: ``trio_multi_partials_torch`` per
+    type, summed (the types share their ungated leg bases).  Fresh
+    (energy (N,), center force (N, 3), partials (N, K, 5))."""
+    n_atoms, k = d.shape[0], d.shape[1]
+    out = (d.new_zeros(n_atoms), d.new_zeros((n_atoms, 3)),
+           d.new_zeros((n_atoms, k, 5)))
+    shared = {}
+    for desc, tables in zip(potential.trio_multi.descs,
+                            potential.trio_types):
+        x = trio_multi_partials_torch(d, valid, s_slot, s_center,
+                                      tables.grid, desc, with_energy,
+                                      shared)
+        out = tuple(a + b for a, b in zip(out, x))
     return out
+
+
+def trio_multi_partials_all(potential, d, valid, s_slot, s_center,
+                            with_energy: bool = True):
+    """Energy (N,), center force (N, 3) and slot partials (N, K, 5) of
+    ``potential``'s multi-species trio, summed over every ordered type,
+    from rows ``d`` (N, K, 3), the slot mask ``valid`` (N, K) and the
+    int64 species ids of the slots ``s_slot`` (N, K) and centers
+    ``s_center`` (N,).  A CUDA tensor runs one launch of the kernel
+    (``launch_trio_multi``) or raises; a CPU tensor runs
+    ``trio_multi_partials_all_torch``.  ``trio_multi_partials_all.launches``
+    counts kernel launches."""
+    if d.device.type == "cpu":
+        return trio_multi_partials_all_torch(potential, d, valid, s_slot,
+                                             s_center, with_energy)
+    return launch_trio_multi(potential, d, valid, s_slot, s_center,
+                             with_energy)
+
+
+trio_multi_partials_all.launches = 0
+
+
+def launch_trio_multi(potential, d, valid, s_slot, s_center,
+                      with_energy: bool = True):
+    """One launch of the multi-species trio kernel
+    (``csrc/trio_multi.cu``) on CUDA tensors, as
+    ``trio_multi_partials_all``.  Raises
+    on any other device, on operands it does not take, and when one
+    warp's shared memory for K and the widest type window exceeds
+    227 KB."""
+    if d.device.type != "cuda":
+        raise ValueError(f"no trio kernel for device {d.device}")
+    pack = potential.trio_packed
+    n_species, max_cols = potential.trio_multi_plan
+    n_atoms, k = d.shape[0], d.shape[1]
+    dtype = pack.reals.dtype
+    if d.shape[2:] != (3,) or tuple(valid.shape) != (n_atoms, k) \
+            or tuple(s_slot.shape) != (n_atoms, k) \
+            or tuple(s_center.shape) != (n_atoms,):
+        raise ValueError(f"bad shapes d {tuple(d.shape)}, valid "
+                         f"{tuple(valid.shape)}, s_slot "
+                         f"{tuple(s_slot.shape)}, s_center "
+                         f"{tuple(s_center.shape)}")
+    if k > MAX_SLOTS:
+        raise ValueError(f"capacity {k}: the trio kernel takes K <= "
+                         f"{MAX_SLOTS} slots (one warp per atom)")
+    if dtype not in (torch.float32, torch.float64) or d.dtype != dtype \
+            or valid.dtype != dtype:
+        raise TypeError(f"trio kernel takes float32 or float64 matching "
+                        f"the potential ({dtype}); got d {d.dtype}, valid "
+                        f"{valid.dtype}")
+    if s_slot.dtype != torch.int64 or s_center.dtype != torch.int64:
+        raise TypeError("trio kernel species ids are int64")
+    buffers = (pack.ints, pack.reals, pack.tables, pack.grids)
+    for t in (valid, s_slot, s_center) + buffers:
+        if t.device != d.device:
+            raise ValueError("trio kernel operands on different devices")
+    if any(b.data_ptr() % 16 for b in buffers):
+        raise ValueError("the packed trio metadata must be 16-byte aligned "
+                         "(bulk copies)")
+    d, valid = d.contiguous(), valid.contiguous()
+    s_slot, s_center = s_slot.contiguous(), s_center.contiguous()
+    energy = torch.empty(n_atoms, dtype=dtype, device=d.device)
+    f_center = torch.empty((n_atoms, 3), dtype=dtype, device=d.device)
+    part = torch.empty((n_atoms, k, 5), dtype=dtype, device=d.device)
+    lib = _build.library()
+    fn = lib.uf3_trio_multi_f32 if dtype == torch.float32 \
+        else lib.uf3_trio_multi_f64
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream(d.device).cuda_stream
+        err = fn(d.data_ptr(), valid.data_ptr(), s_slot.data_ptr(),
+                 s_center.data_ptr(), *(b.data_ptr() for b in buffers),
+                 energy.data_ptr(), f_center.data_ptr(), part.data_ptr(),
+                 n_atoms, k, n_species, max_cols,
+                 *(b.numel() for b in buffers), int(bool(with_energy)),
+                 stream)
+    _check_window(err, k, f"{max_cols}-column")
+    trio_multi_partials_all.launches += 1
+    return energy, f_center, part
+
+
+def trio_multi_occupancy(potential, k: int, is_f64: bool,
+                         with_energy: bool = False,
+                         n_atoms: int = 0) -> dict:
+    """The launch plan of the multi-species trio kernel for this
+    potential's packed types, K slots and float64 or float32, from the
+    CUDA runtime: atoms (warps) per block, shared bytes per block,
+    resident blocks and warps per SM, registers and local (spill) bytes
+    per thread, whether the tables and the grids sit in shared memory,
+    and the blocks a launch over ``n_atoms`` atoms takes."""
+    pack = potential.trio_packed
+    n_species, max_cols = potential.trio_multi_plan
+    out = (ctypes.c_int * 9)()
+    err = _build.library().uf3_trio_multi_occupancy(
+        int(is_f64), n_atoms, k, n_species, max_cols,
+        *(b.numel() for b in (pack.ints, pack.reals, pack.tables,
+                               pack.grids)),
+        int(bool(with_energy)), out)
+    _check_window(err, k, f"{max_cols}-column")
+    return dict(atoms_per_block=out[0], smem_bytes=out[1],
+                blocks_per_sm=out[2], warps_per_sm=out[2] * out[0],
+                registers=out[3], local_bytes=out[4],
+                tables_staged=bool(out[5]), grids_staged=bool(out[6]),
+                blocks=out[7], sms=out[8])
 
 
 def trio_forces_multi(potential, species, positions, nbr3: NeighborList,
@@ -283,7 +461,7 @@ def trio_forces_multi(potential, species, positions, nbr3: NeighborList,
                       with_virial: bool = False, d=None):
     """3-body per-atom energy (N,) and forces (N, 3) of the multi-species
     trio on the 3-body list (``cache3`` with its species columns): one
-    pass per ordered type, the partials summed over types, one
+    pass over every ordered type (one kernel launch on the card), one
     reverse-slot assembly; with ``with_virial`` also the Voigt virial
     (6,) from the summed partials, whose pair lanes are symmetric over a
     mirrored set of types (``mirrored``).  ``d`` reuses a gather."""
@@ -292,14 +470,8 @@ def trio_forces_multi(potential, species, positions, nbr3: NeighborList,
                          "type's mirror (c, n, m) on the transposed grid")
     if d is None:
         d = cached_displacements(positions, nbr3, cache3)
-    n_atoms, k = d.shape[0], d.shape[1]
-    out = (d.new_zeros(n_atoms), d.new_zeros((n_atoms, 3)),
-           d.new_zeros((n_atoms, k, 5)))
-    shared = {}
-    for t in range(len(potential.trio_multi.descs)):
-        trio_multi_partials(potential, t, d, cache3.valid, cache3.s_slot,
-                            species, with_energy, out, shared)
-    energy, f_center, part = out
+    energy, f_center, part = trio_multi_partials_all(
+        potential, d, cache3.valid, cache3.s_slot, species, with_energy)
     result = assemble_forces(energy, f_center, part, d, cache3.rev_flat,
                              nbr3.mask)
     if with_virial:

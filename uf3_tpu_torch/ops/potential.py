@@ -144,7 +144,8 @@ def _leg_spec(spec) -> LegSpec:
 
 
 class _Tables(nn.Module):
-    """The buffers of one trio or pair type of the multi-species route."""
+    """Buffers of the multi-species route: of one trio or pair type, or
+    the trio kernel's packed metadata."""
 
     def __init__(self, **tensors):
         super().__init__()
@@ -168,8 +169,10 @@ class UF3Potential(nn.Module):
     piece.  The fused multi-species route (a model with no such pieces
     whose knots all have a closed form): ``trio_multi`` (a ``TrioMulti``
     of host descs and float64 grids) with ``trio_types``, per ordered
-    type the buffers ``grid`` (L, M, NC), its live ``grid_window`` (Lw,
-    Bw, Cw) and the three legs' ``leg_tables``, and ``pair_multi`` (a
+    type the buffer ``grid`` (L, M, NC) of the plain version, the
+    multi-species trio kernel's metadata ``trio_packed`` (buffers ``ints``, ``reals``,
+    ``tables``, ``grids`` of ``ops.multi.pack_trio_multi``) with
+    ``trio_multi_plan`` (S, widest Bw * Cw), and ``pair_multi`` (a
     ``PairMulti``) with ``pair_types``, per pair type its
     ``coefficients``, and the int64 (S, S) ``pair_type`` table; None and
     empty where the model has no such route.  Always: ``offsets_1b``
@@ -190,7 +193,8 @@ class UF3Potential(nn.Module):
         def buf(x, dt=dtype):
             return torch.tensor(np.asarray(x), dtype=dt, device=device)
 
-        self._multi_buffers(trio_multi, pair_multi, buf)
+        self._multi_buffers(trio_multi, pair_multi, buf,
+                            len(np.asarray(offsets_1b)))
 
         self.register_buffer("pair_coefficients", None if pair_spec is None
                              else buf(pair_coefficients))
@@ -213,24 +217,26 @@ class UF3Potential(nn.Module):
         self.factorized = None if factorized is None \
             else factorized.to(device=device, dtype=dtype)
 
-    def _multi_buffers(self, trio_multi, pair_multi, buf):
-        """The multi-species route's host bundles and device tables."""
-        from uf3_tpu_torch.ops.multi import mirrored
+    def _multi_buffers(self, trio_multi, pair_multi, buf, n_species):
+        """The multi-species route's host bundles and device tables: per
+        type and, for the trio kernel, packed once over all types."""
+        from uf3_tpu_torch.ops.multi import mirrored, pack_trio_multi
         self.trio_multi = trio_multi
+        self.trio_packed = None
+        self.trio_multi_plan = None
+        if trio_multi is not None:
+            pack = pack_trio_multi(trio_multi.descs, trio_multi.grids,
+                                   n_species)
+            self.trio_packed = _Tables(
+                ints=buf(pack.ints, torch.int32), reals=buf(pack.reals),
+                tables=buf(pack.tables), grids=buf(pack.grids))
+            self.trio_multi_plan = (pack.n_species, pack.max_cols)
         self.pair_multi = pair_multi
         self.trio_multi_mirrored = trio_multi is not None and mirrored(
             trio_multi.descs, trio_multi.grids)
-        self.trio_types = nn.ModuleList()
-        for desc, grid in zip(*((trio_multi.descs, trio_multi.grids)
-                                if trio_multi is not None else ((), ()))):
-            l_lo, l_hi, b_lo, b_hi, c_lo, c_hi = desc.window
-            self.trio_types.append(_Tables(
-                grid=buf(grid),
-                grid_window=buf(np.ascontiguousarray(
-                    grid[l_lo:l_hi, b_lo:b_hi, c_lo:c_hi])),
-                leg_tables=buf(np.concatenate(
-                    [horner_table(desc.spec_l1), horner_table(desc.spec_l2),
-                     horner_table(desc.spec_n)]))))
+        self.trio_types = nn.ModuleList(
+            _Tables(grid=buf(grid)) for grid in
+            (trio_multi.grids if trio_multi is not None else ()))
         self.pair_types = nn.ModuleList(
             _Tables(coefficients=buf(c)) for c in
             (pair_multi.coefficients if pair_multi is not None else ()))

@@ -175,105 +175,6 @@ def _check_window(err: int, k: int, shape: str):
         raise RuntimeError(f"trio kernel launch failed: CUDA error {err}")
 
 
-def _gated_args(desc):
-    """The species-gated instance's leg, window and species arguments:
-    (u0, 1/h, t_min, t_max) of the first, second and third legs as
-    doubles, (kind, n_int) of each, the window (l_lo, l_hi, b_lo, b_hi,
-    c_lo, c_hi) and (s_c, s_m, s_n) as ints."""
-    specs = (desc.spec_l1, desc.spec_l2, desc.spec_n)
-    for spec in specs:
-        if spec.cardinal or spec.knots is not None:
-            raise ValueError("trio kernel legs take closed-form knots in "
-                             "the clamped basis")
-    legs = (ctypes.c_double * 12)(*[x for s in specs
-                                    for x in (s.u0, 1.0 / s.h, s.t_min,
-                                              s.t_max)])
-    ints = (ctypes.c_int * 6)(*[x for s in specs for x in (s.kind, s.n_int)])
-    win = (ctypes.c_int * 6)(*desc.window)
-    species = (ctypes.c_int * 3)(desc.s_c, desc.s_m, desc.s_n)
-    return legs, ints, win, species
-
-
-def _window_shape(desc) -> str:
-    l_lo, l_hi, b_lo, b_hi, c_lo, c_hi = desc.window
-    return f"{l_hi - l_lo} x {b_hi - b_lo} x {c_hi - c_lo}"
-
-
-def trio_partials_gated(grid_window, leg_tables, desc, d, valid, s_slot,
-                        s_center, out, with_energy: bool = True):
-    """The species-gated instance of the trio kernel (``csrc/trio.cu``)
-    for one ordered trio type ``desc`` (a ``TrioTypeDesc``): its energy,
-    center force and slot partials are added to ``out`` = (energy (N,),
-    fc (N, 3), part (N, K, 5)), which it returns.  ``grid_window`` is
-    the type's (Lw, Bw, Cw) live grid window and ``leg_tables`` its three
-    legs' Horner rows; ``s_slot`` (N, K) and ``s_center`` (N,) are int64
-    species ids.  CUDA tensors only: it launches the kernel or raises.
-    ``trio_partials_gated.launches`` counts kernel launches."""
-    if d.device.type != "cuda":
-        raise ValueError(f"no trio kernel for device {d.device}")
-    n_atoms, k = d.shape[0], d.shape[1]
-    dtype = grid_window.dtype
-    if d.shape[2:] != (3,) or tuple(valid.shape) != (n_atoms, k) \
-            or tuple(s_slot.shape) != (n_atoms, k) \
-            or tuple(s_center.shape) != (n_atoms,) \
-            or tuple(out[0].shape) != (n_atoms,) \
-            or tuple(out[1].shape) != (n_atoms, 3) \
-            or tuple(out[2].shape) != (n_atoms, k, 5):
-        raise ValueError(f"bad shapes d {tuple(d.shape)}, valid "
-                         f"{tuple(valid.shape)}, s_slot "
-                         f"{tuple(s_slot.shape)}, s_center "
-                         f"{tuple(s_center.shape)}, out "
-                         f"{[tuple(o.shape) for o in out]}")
-    if k > MAX_SLOTS:
-        raise ValueError(f"capacity {k}: the trio kernel takes K <= "
-                         f"{MAX_SLOTS} slots (one warp per atom)")
-    if dtype not in (torch.float32, torch.float64) or d.dtype != dtype \
-            or valid.dtype != dtype or any(o.dtype != dtype for o in out):
-        raise TypeError(f"trio kernel takes float32 or float64 matching "
-                        f"the potential ({dtype}); got d {d.dtype}, valid "
-                        f"{valid.dtype}, out {[o.dtype for o in out]}")
-    if s_slot.dtype != torch.int64 or s_center.dtype != torch.int64:
-        raise TypeError("trio kernel species ids are int64")
-    for t in (grid_window, leg_tables, valid, s_slot, s_center) + tuple(out):
-        if t.device != d.device:
-            raise ValueError("trio kernel operands on different devices")
-    if not all(o.is_contiguous() for o in out):
-        raise ValueError("trio kernel outputs must be contiguous")
-    d, valid = d.contiguous(), valid.contiguous()
-    s_slot, s_center = s_slot.contiguous(), s_center.contiguous()
-    legs, ints, win, species = _gated_args(desc)
-    lib = _build.library()
-    fn = lib.uf3_trio_multi_partials_f32 if dtype == torch.float32 \
-        else lib.uf3_trio_multi_partials_f64
-    with torch.cuda.device(d.device):
-        stream = torch.cuda.current_stream(d.device).cuda_stream
-        err = fn(d.data_ptr(), valid.data_ptr(), s_slot.data_ptr(),
-                 s_center.data_ptr(), grid_window.data_ptr(),
-                 leg_tables.data_ptr(), out[0].data_ptr(),
-                 out[1].data_ptr(), out[2].data_ptr(), n_atoms, k, legs,
-                 ints, win, species, int(bool(with_energy)), stream)
-    _check_window(err, k, _window_shape(desc))
-    trio_partials_gated.launches += 1
-    return out
-
-
-trio_partials_gated.launches = 0
-
-
-def trio_gated_occupancy(desc, k: int, is_f64: bool,
-                         with_energy: bool = False) -> dict:
-    """The launch plan of the species-gated instance for this type, as
-    ``trio_occupancy``."""
-    _, ints, win, _ = _gated_args(desc)
-    out = (ctypes.c_int * 5)()
-    err = _build.library().uf3_trio_multi_occupancy(
-        int(is_f64), k, ints, win, int(bool(with_energy)), out)
-    _check_window(err, k, _window_shape(desc))
-    return dict(atoms_per_block=out[0], smem_bytes=out[1],
-                blocks_per_sm=out[2], warps_per_sm=out[2] * out[0],
-                registers=out[3], local_bytes=out[4])
-
-
 def trio_occupancy(potential: UF3Potential, k: int,
                    with_energy: bool = False) -> dict:
     """The launch plan of the trio kernel for this potential, its dtype
@@ -291,7 +192,6 @@ def trio_occupancy(potential: UF3Potential, k: int,
     return dict(atoms_per_block=out[0], smem_bytes=out[1],
                 blocks_per_sm=out[2], warps_per_sm=out[2] * out[0],
                 registers=out[3], local_bytes=out[4])
-
 
 
 def assemble_forces(energy, f_center, part, d, rev_flat, mask):

@@ -28,7 +28,15 @@ per force call, the kernel held against its plain version on the
 path's rows and on a 4,000-atom ternary Ne/Ar/Xe cut); plain Verlet
 with ``static_rebuild`` (host syncs per cycle beside the adaptive
 schedule's); the bench's 3-level r-RESPA with ``eager_refilter=False``;
-and ``md --static-rebuild``.
+and ``md --static-rebuild``.  Then the calculator and what runs on it:
+``UFCalculator`` at 9,826 atoms in float64 and float32 (one trio
+launch per force call, the card against the CPU on a cut, the trio
+kernel's float64 instance against its plain version and bound), FIRE
+on that cell, elastic constants and phonons against the CPU, the LAMMPS
+export read back on the card, a checkpoint round trip that continues
+bitwise, ``batch_relax`` over Ne/Xe structures of three signatures, the
+calculator on the fused multi-species route at 8,788 atoms, and ``md
+--traj``.
 
     python3 chip_smoke.py
 
@@ -40,11 +48,14 @@ kernels' launch counts, errors, times and bounds; the last line is
 
 import copy
 import inspect
+import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -56,8 +67,11 @@ sys.path.insert(0, REPO)
 
 from uf3_tpu_torch import io  # noqa: E402
 from uf3_tpu_torch.data.atoms import Atoms, bulk  # noqa: E402
+from uf3_tpu_torch.data import io as data_io  # noqa: E402
 from uf3_tpu_torch.data.composition import ChemicalSystem  # noqa: E402
-from uf3_tpu_torch.forcefield import md, units  # noqa: E402
+from uf3_tpu_torch.forcefield import batch, lammps, md, units  # noqa: E402
+from uf3_tpu_torch.forcefield.calculator import UFCalculator  # noqa: E402
+from uf3_tpu_torch.forcefield.properties import elastic, phonon  # noqa: E402
 from uf3_tpu_torch.forcefield.md import SCR, MDSystem  # noqa: E402
 from uf3_tpu_torch.ops import _build  # noqa: E402
 from uf3_tpu_torch.ops import multi  # noqa: E402
@@ -90,9 +104,10 @@ FORCE_TOL = 2e-4  # eV/A, f32 vs f64 (tests/test_tpu_numerics.py)
 WINDOW_STEPS = 720  # per timed window, as bench.py
 T_TARGET, T_BAND = 300.0, 30.0
 NVE_DRIFT = 2e-4  # eV/atom over 720 steps (the criterion in ROADMAP.md)
-# NVIDIA H100 SXM peaks (data sheet): float32 outside the tensor cores,
-# HBM3 bandwidth
+# NVIDIA H100 SXM peaks (data sheet, at 700 W): float32 and float64
+# outside the tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+PEAK_F64_FLOPS = 34e12
 
 
 def card_line() -> str:
@@ -202,10 +217,12 @@ def max_err(a, b) -> float:
     return float(torch.max(torch.abs(a.double().cpu() - b.double().cpu())))
 
 
-def trio_bound(pot: UF3Potential, d, valid, with_energy: bool):
+def trio_bound(pot: UF3Potential, d, valid, with_energy: bool,
+               peak=PEAK_F32_FLOPS):
     """The least time the card needs for one trio_partials call on
     these rows: the flop the kernel's algorithm does for this data (an
-    FMA is 2) over the float32 peak, against each input read once and
+    FMA is 2) over the ``peak`` rate (float32 by default), against each
+    input read once and
     each output written once over the memory rate.  Returns (ms,
     "operations" or "bytes", flop, bytes)."""
     trio_b = pot.trio
@@ -242,7 +259,7 @@ def trio_bound(pot: UF3Potential, d, valid, with_energy: bool):
     n_atoms, k = d.shape[:2]
     n_bytes = size * (n_atoms * k * 4 + pot.grid_window.numel()
                       + pot.leg_tables.numel() + n_atoms * (4 + 5 * k))
-    t_flop, t_bytes = flop / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES
+    t_flop, t_bytes = flop / peak, n_bytes / PEAK_BYTES
     return (1e3 * max(t_flop, t_bytes),
             "operations" if t_flop >= t_bytes else "bytes", flop, n_bytes)
 
@@ -861,7 +878,7 @@ def run_protocol(device):
 def run_md_command(model="model_2and3.json", *flags):
     """``python -m uf3_tpu_torch md`` at its defaults (and ``flags``),
     as a user runs it: exit 0 and a finite T and E on its result
-    line."""
+    line.  Returns (atom-steps/s, E in eV)."""
     cmd = [sys.executable, "-m", "uf3_tpu_torch", "md",
            os.path.join("benchmarks_data", model), *flags]
     t0 = time.perf_counter()
@@ -879,7 +896,7 @@ def run_md_command(model="model_2and3.json", *flags):
           f"{seconds:.2f} s: {'ok' if ok else 'FAILED'}")
     if not ok:
         raise AssertionError(f"md command failed:\n{out.stderr[-4000:]}")
-    return float(found.group(1))
+    return float(found.group(1)), float(found.group(3))
 
 
 # -- the reference's general force path (2-body-only, multi-species and
@@ -1230,10 +1247,12 @@ def type_flops(pot, t, d, valid, s_slot, species, with_energy: bool):
             + 4.0 * bw * cw * float(torch.sum(l_live * ok_m)))
 
 
-def multi_bound(pot, d, valid, s_slot, species, with_energy: bool):
+def multi_bound(pot, d, valid, s_slot, species, with_energy: bool,
+                peak=PEAK_F32_FLOPS):
     """The least time the card needs for one multi-species pass on these
     rows: the flop of every ordered type's lanes (``type_flops``) over
-    the float32 peak, against the bytes over the memory rate: the rows,
+    the ``peak`` rate (float32 by default), against the bytes over the
+    memory rate: the rows,
     mask and species ids read once, the packed metadata, the outputs
     written once.  Returns (ms, "operations" or "bytes", flop, bytes)."""
     flop = sum(type_flops(pot, t, d, valid, s_slot, species, with_energy)
@@ -1244,7 +1263,7 @@ def multi_bound(pot, d, valid, s_slot, species, with_energy: bool):
                + 8 * (n_atoms * k + n_atoms)
                + sum(b.numel() * b.element_size()
                      for b in pot.trio_packed.buffers()))
-    t_flop, t_bytes = flop / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES
+    t_flop, t_bytes = flop / peak, n_bytes / PEAK_BYTES
     return (1e3 * max(t_flop, t_bytes),
             "operations" if t_flop >= t_bytes else "bytes", flop, n_bytes)
 
@@ -1619,6 +1638,445 @@ def run_async_overflow(device):
         "overflowed reads a queued flag": seen and left > 0 and not warned})
 
 
+# -- the calculator on the card (ROADMAP.md item 4): single points,
+# FIRE, batch relaxation, elastic constants, phonons, checkpoints,
+# trajectories and the LAMMPS export
+CALC_CUT = (6, 6, 6)    # 432 atoms: the card against the CPU in f64
+FIRE_FMAX, FIRE_STEPS = 0.05, 500
+CALL_REPEATS = 20       # timed get_forces calls per calculator
+ELASTIC_TOL, PHONON_TOL = 1e-6, 1e-6   # GPa, THz: card vs CPU, f64
+MULTI_CPU_TOL = 1e-9    # the multi-species route, card vs CPU, f64
+
+
+def shifted(geom, dx=0.01):
+    """A rigid translation of ``geom``: the same forces, another
+    structure for the calculator's cache."""
+    out = geom.copy()
+    out.set_positions(geom.positions + dx)
+    return out
+
+
+def profiled_device_ms(fn, calls=5):
+    """Device busy time per call of fn() in ms: the kernels' and copies'
+    time that torch.profiler records over ``calls`` calls; None where it
+    records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "self_device_time_total", 0.0)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    return total_us / 1e3 / calls if total_us > 0 else None
+
+
+def calc_call_times(calc, geom, kernel_counter):
+    """Host ms per ``get_forces`` call on the card (alternating ``geom``
+    and a translated copy, so that no call reuses the last result; each
+    call ends with its result on the host), the kernel launches per call
+    over those calls, and the device busy ms per call."""
+    pair = (geom, shifted(geom))
+    calc.get_forces(pair[1])
+    torch.cuda.synchronize()
+    before = kernel_counter.launches
+    t0 = time.perf_counter()
+    for i in range(CALL_REPEATS):
+        calc.get_forces(pair[i % 2])
+    host = 1e3 * (time.perf_counter() - t0) / CALL_REPEATS
+    per_call = (kernel_counter.launches - before) / CALL_REPEATS
+    turn = itertools.count()
+    device = profiled_device_ms(
+        lambda: calc.get_forces(pair[next(turn) % 2]))
+    return host, per_call, device
+
+
+def calculator_kernel_f64(calc, geom):
+    """The trio kernel's float64 instance on the calculator's 3-body
+    rows of ``geom`` (with energy, as the calculator calls it): error
+    against its plain version, time by graph replay, the plain version's
+    time, the float64 bound and the launch plan."""
+    system, pot = calc.system, calc.potential
+    cell = torch.as_tensor(geom.get_cell(), dtype=torch.float64,
+                           device=calc.device)
+    x = system._wrap(torch.as_tensor(geom.get_positions(),
+                                     dtype=torch.float64,
+                                     device=calc.device), cell)
+    _, nbr3 = system.build_lists(x, cell)
+    cache3 = nb.list_cache(nbr3, cell, torch.float64)
+    d, valid = nb.cached_displacements(x, nbr3, cache3), cache3.valid
+    kernel = trio.trio_partials(pot, d, valid, True)
+    plain = trio.trio_partials_torch(d, valid, pot.grid, pot.trio, True)
+    torch.cuda.synchronize()
+    err = max(max_err(a, b) for a, b in zip(kernel, plain))
+    ms = graph_ms(lambda: trio.trio_partials(pot, d, valid, True))
+    plain_ms = cuda_ms(lambda: trio.trio_partials_torch(
+        d, valid, pot.grid, pot.trio, True), 3)
+    bound_ms, bound_by, flop, n_bytes = trio_bound(pot, d, valid, True,
+                                                   peak=PEAK_F64_FLOPS)
+    occ = trio.trio_occupancy(pot, d.shape[1], True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, flop=flop,
+                bytes=n_bytes, n_atoms=len(geom), k=d.shape[1],
+                with_energy=True, registers=occ["registers"],
+                warps_per_sm=occ["warps_per_sm"])
+
+
+def run_calculator(device):
+    """``UFCalculator`` at the bench model's full width: bcc W 17^3 =
+    9,826 atoms rattled 0.05 A, in float64 (the default) and float32 on
+    the card.  Gates: f32 against f64 (forces 2e-4 eV/A, energy 1e-6
+    relative, stress 1e-5 eV/A^3), one trio launch per force call, the
+    card against the CPU's plain versions in f64 on a 432-atom cut
+    (1e-10).  Prints host and device ms per ``get_forces`` call (a full
+    list build at the call's positions and the force).  Returns
+    (the f64 calculator, the geometry, launches by path, the f64
+    kernel record, times)."""
+    geom = bench_geometry((17, 17, 17), rattle=0.05)
+    results, launches, times = {}, {}, {}
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        reset_counts()
+        t0 = time.perf_counter()
+        calc = UFCalculator(MODEL, dtype=dtype, device=device)
+        energy = calc.get_potential_energy(geom)
+        forces = calc.get_forces(geom)
+        stress = calc.get_stress(geom)
+        first_s = time.perf_counter() - t0
+        host, per_call, dev = calc_call_times(calc, geom, trio.trio_partials)
+        launches[f"calculator {tag}, 9,826 atoms"] = \
+            trio.trio_partials.launches
+        results[tag] = (calc, energy, forces, stress, per_call)
+        times[tag] = (host, dev)
+        print(f"calculator {tag}: {len(geom)} atoms, E = {energy:.9f} eV, "
+              f"capacities {calc.system.capacity_2b}/"
+              f"{calc.system.capacity_3b}; first call (set-up, energy, "
+              f"forces, stress) {first_s:.2f} s; get_forces "
+              f"{host:.4f} ms per call on the host, device busy "
+              + ("not measured" if dev is None else f"{dev:.4f} ms")
+              + f", {per_call:g} trio launches per call; card: "
+              f"{card_line()}")
+    calc64, e64, f64, s64, calls64 = results["f64"]
+    _, e32, f32, s32, calls32 = results["f32"]
+    cut = bench_geometry(CALC_CUT, rattle=0.05)
+    cpu = UFCalculator(MODEL, device="cpu")
+    card_cut = UFCalculator(MODEL, device=device)
+    cut_err = max(abs(cpu.get_potential_energy(cut)
+                      - card_cut.get_potential_energy(cut)),
+                  np.abs(cpu.get_forces(cut) - card_cut.get_forces(cut)).max(),
+                  np.abs(cpu.get_stress(cut) - card_cut.get_stress(cut)).max())
+    d_f, d_s = np.abs(f32 - f64).max(), np.abs(s32 - s64).max()
+    d_e = abs(e32 - e64) / abs(e64)
+    print(f"calculator: f32 vs f64 max |dF| {d_f:.3e} eV/A, |dE|/|E| "
+          f"{d_e:.3e}, max |d sigma| {d_s:.3e} eV/A^3; card vs CPU f64 on "
+          f"{len(cut)} atoms {cut_err:.3e}; stress f64 "
+          f"{[round(float(x), 8) for x in s64]} eV/A^3")
+    gate("calculator", {
+        f"f32 forces within {FORCE_TOL:g} eV/A of f64": d_f <= FORCE_TOL,
+        "f32 energy within 1e-6 of f64": d_e <= 1e-6,
+        f"f32 stress within {STRESS_TOL:g} eV/A^3 of f64": d_s <= STRESS_TOL,
+        "one trio launch per force call": calls64 == calls32 == 1,
+        f"card vs CPU f64 within {F64_TOL:g}": cut_err <= F64_TOL,
+        "finite": bool(np.isfinite(f64).all() and np.isfinite(s64).all())})
+    kernel = calculator_kernel_f64(calc64, geom)
+    print(f"trio f64 at the calculator's rows (N={kernel['n_atoms']}, "
+          f"K={kernel['k']}, with energy): {kernel['ms']:.4f} ms (graph "
+          f"replay), plain {kernel['plain_ms']:.4f} ms; bound "
+          f"{kernel['flop']:.4g} flop / {PEAK_F64_FLOPS:.3g} flop/s, "
+          f"{kernel['bytes']:.4g} bytes -> {kernel['bound_ms']:.5f} ms "
+          f"({kernel['bound_by']}), "
+          f"{100 * kernel['bound_ms'] / kernel['ms']:.1f}% of it; max err "
+          f"{kernel['max_abs_err']:.3e}; {kernel['registers']} registers, "
+          f"{kernel['warps_per_sm']} warps/SM; card: {card_line()}")
+    if not kernel["max_abs_err"] <= F64_TOL:
+        raise AssertionError("trio f64 kernel disagrees with its plain "
+                             "version at the calculator's rows")
+    return calc64, geom, launches, kernel, times
+
+
+def run_fire(calc, geom):
+    """FIRE relaxation of the rattled 9,826-atom cell in float64 on the
+    card to fmax 0.05 eV/A.  Gates: converged within its step limit, the
+    energy fell.  Returns (force calls = trio launches, seconds)."""
+    e0 = calc.get_potential_energy(geom)
+    reset_counts()
+    t0 = time.perf_counter()
+    relaxed = calc.relax_fmax(geom, fmax=FIRE_FMAX, steps=FIRE_STEPS)
+    seconds = time.perf_counter() - t0
+    calls = trio.trio_partials.launches
+    fmax = float(np.linalg.norm(calc.get_forces(relaxed), axis=1).max())
+    e1 = calc.get_potential_energy(relaxed)
+    print(f"FIRE, {len(geom)} atoms, f64: {calls} force calls in "
+          f"{seconds:.3f} s ({1e3 * seconds / calls:.3f} ms per call), "
+          f"fmax {fmax:.4f} eV/A, E {e0:.6f} -> {e1:.6f} eV; card: "
+          f"{card_line()}")
+    gate("FIRE", {f"fmax < {FIRE_FMAX:g} within {FIRE_STEPS} steps":
+                  fmax < FIRE_FMAX and calls < FIRE_STEPS,
+                  "energy fell": e1 < e0})
+    return calls, seconds
+
+
+def run_batch_relax(device):
+    """``batch_relax`` on the random Ne/Xe 2+3-body model over
+    structures of other sizes and species counts, rattled 0.05 A: Ne/Xe
+    fcc 3^3 x 4 (108 atoms), Xe fcc 3^3 x 4 (108), Ne/Xe 4^3 x 4 (256);
+    the cached system is replaced at each entry.  Gates: every entry
+    relaxed below fmax, energies fell, one system per entry, the
+    multi-species kernel launched.  Returns its launches."""
+    calc = UFCalculator(species23_model(), device=device)
+    entries = [ne_xe((3, 3, 3)), bulk("Xe", "fcc", a=5.4) * 3,
+               ne_xe((4, 4, 4))]
+    for geom in entries:
+        geom.rattle(0.05, seed=2)
+    e0 = [calc.get_potential_energy(g) for g in entries]
+    systems = []
+    inner = calc._system_for
+
+    def tracked(atoms):
+        system = inner(atoms)
+        if not systems or systems[-1] is not system:
+            systems.append(system)
+        return system
+    calc._system_for = tracked
+    reset_counts()
+    t0 = time.perf_counter()
+    relaxed, energies, forces = batch.batch_relax(entries, calc,
+                                                  fmax=FIRE_FMAX)
+    seconds = time.perf_counter() - t0
+    launches = multi.trio_multi_partials_all.launches
+    fmax = [float(np.linalg.norm(f, axis=1).max()) for f in forces]
+    print(f"batch_relax, {[len(g) for g in entries]} atoms: {seconds:.2f} "
+          f"s, {launches} multi-species trio launches, fmax {fmax}, E "
+          f"{[round(e, 4) for e in e0]} -> {[round(e, 4) for e in energies]}"
+          f" eV, {len(systems)} systems; card: {card_line()}")
+    gate("batch_relax", {
+        "every entry relaxed": len(relaxed) == len(entries)
+            and max(fmax) < FIRE_FMAX,
+        "energies fell": all(b < a for a, b in zip(e0, energies)),
+        "the cached system replaced at each entry":
+            len(systems) == len(entries),
+        "multi-species trio kernel launched": launches > 0})
+    return launches
+
+
+def run_properties(device):
+    """Elastic constants of bcc W 3^3 and phonons of bcc W (n_super=3,
+    n_points=8) in float64 on the card, against the physical windows of
+    ``tests/test_properties.py`` and the CPU (1e-6 GPa, 1e-6 THz).
+    Returns launches by path."""
+    launches = {}
+    out = []
+    for dev in (device, "cpu"):
+        calc = UFCalculator(MODEL, device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = elastic.get_elastic_constants(bench_geometry((3, 3, 3)), calc)
+        t1 = time.perf_counter()
+        n_elastic = trio.trio_partials.launches
+        ph = phonon.compute_phonon_data(bench_geometry((1, 1, 1)), calc,
+                                        n_super=3, n_points=8)
+        t2 = time.perf_counter()
+        out.append((res, np.asarray(ph["frequencies"]), t1 - t0, t2 - t1))
+        if len(out) == 1:
+            launches["elastic constants, 54 atoms"] = n_elastic
+            launches["phonons, 54-atom supercell"] = \
+                trio.trio_partials.launches - n_elastic
+    (res, freq, t_el, t_ph), (res_cpu, freq_cpu, _, _) = out
+    d_c = float(np.abs(res["elastic_tensor"]
+                       - res_cpu["elastic_tensor"]).max())
+    d_nu = float(np.abs(freq - freq_cpu).max())
+    tensor = np.asarray(res["elastic_tensor"])
+    print(f"elastic constants (card, f64): C11 {res['C11']:.4f}, C12 "
+          f"{res['C12']:.4f}, C44 {res['C44']:.4f}, B "
+          f"{res['bulk_modulus']:.4f} GPa in {t_el:.2f} s; card vs CPU "
+          f"{d_c:.3e} GPa; phonons: max {freq.max():.4f} THz, min "
+          f"{freq.min():.4f} in {t_ph:.2f} s, card vs CPU {d_nu:.3e} THz; "
+          f"launches {launches}")
+    gate("elastic constants and phonons", {
+        "C11, C12, C44, B in the windows of tests/test_properties.py":
+            450 < res["C11"] < 620 and 120 < res["C12"] < 260
+            and 80 < res["C44"] < 220 and 250 < res["bulk_modulus"] < 360,
+        "cubic symmetry": bool(np.allclose(tensor, tensor.T, atol=5.0)),
+        f"elastic card vs CPU within {ELASTIC_TOL:g} GPa":
+            d_c <= ELASTIC_TOL,
+        "phonon max in 5-7.5 THz, none below -0.05, acoustic at Gamma":
+            5.0 < freq.max() < 7.5 and freq.min() > -0.05
+            and bool(np.all(np.sort(np.abs(freq[0]))[:3] < 0.05)),
+        f"phonons card vs CPU within {PHONON_TOL:g} THz": d_nu <= PHONON_TOL,
+        "trio kernel launched": min(launches.values()) > 0})
+    return launches
+
+
+def calculator_multi_f64(calc, geom):
+    """The multi-species kernel's float64 instance on the calculator's
+    3-body rows of ``geom`` (with energy): error against its plain
+    version, time by graph replay, the float64 bound."""
+    system, pot = calc.system, calc.potential
+    cell = torch.as_tensor(geom.get_cell(), dtype=torch.float64,
+                           device=calc.device)
+    x = system._wrap(torch.as_tensor(geom.get_positions(),
+                                     dtype=torch.float64,
+                                     device=calc.device), cell)
+    nbr2, nbr3 = system.build_lists(x, cell)
+    _, cache = system.list_caches(nbr2, nbr3, cell)
+    d = nb.cached_displacements(x, nbr3, cache)
+    args = (pot, d, cache.valid, cache.s_slot, system.species, True)
+    kernel = multi.trio_multi_partials_all(*args)
+    plain = multi.trio_multi_partials_all_torch(*args)
+    torch.cuda.synchronize()
+    err = max(max_err(a, b) for a, b in zip(kernel, plain))
+    ms = graph_ms(lambda: multi.trio_multi_partials_all(*args))
+    plain_ms = cuda_ms(lambda: multi.trio_multi_partials_all_torch(*args), 3)
+    bound_ms, bound_by, flop, n_bytes = multi_bound(
+        pot, d, cache.valid, cache.s_slot, system.species, True,
+        peak=PEAK_F64_FLOPS)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, flop=flop,
+                bytes=n_bytes, n_atoms=len(geom), k=d.shape[1],
+                with_energy=True)
+
+
+def run_calculator_multi(device):
+    """``UFCalculator`` on the fused multi-species route: the random
+    Ne/Xe 2+3-body model on 8,788 atoms, f64.  Gates: one multi-species
+    trio launch per force call, the card against the CPU on a 500-atom
+    cut within 1e-9.  Returns (launches, the f64 kernel record, host and
+    device ms per call)."""
+    model = species23_model()
+    geom = ne_xe((13, 13, 13))
+    geom.rattle(0.05, seed=5)
+    reset_counts()
+    calc = UFCalculator(model, device=device)
+    energy = calc.get_potential_energy(geom)
+    stress = calc.get_stress(geom)
+    host, per_call, dev = calc_call_times(calc, geom,
+                                          multi.trio_multi_partials_all)
+    launches = multi.trio_multi_partials_all.launches
+    cut = ne_xe((5, 5, 5))
+    cut.rattle(0.05, seed=5)
+    cpu = UFCalculator(model, device="cpu")
+    card_cut = UFCalculator(model, device=device)
+    cut_err = max(abs(cpu.get_potential_energy(cut)
+                      - card_cut.get_potential_energy(cut)),
+                  np.abs(cpu.get_forces(cut) - card_cut.get_forces(cut)).max(),
+                  np.abs(cpu.get_stress(cut) - card_cut.get_stress(cut)).max())
+    print(f"calculator, multi-species route: {len(geom)} atoms f64, E = "
+          f"{energy:.9f} eV, stress {[round(float(x), 8) for x in stress]}; "
+          f"get_forces {host:.4f} ms per call on the host, device busy "
+          + ("not measured" if dev is None else f"{dev:.4f} ms")
+          + f", {per_call:g} multi-species trio launches per call; card vs "
+          f"CPU f64 on {len(cut)} atoms {cut_err:.3e}; card: {card_line()}")
+    gate("calculator, multi-species route", {
+        "one multi-species trio launch per force call": per_call == 1,
+        f"card vs CPU f64 within {MULTI_CPU_TOL:g}": cut_err <= MULTI_CPU_TOL,
+        "the fused multi-species route": calc.system._multi_route()})
+    kernel = calculator_multi_f64(calc, geom)
+    print(f"trio_multi f64 at the calculator's rows (N={kernel['n_atoms']}, "
+          f"K={kernel['k']}, with energy): {kernel['ms']:.4f} ms (graph "
+          f"replay), plain {kernel['plain_ms']:.4f} ms; bound "
+          f"{kernel['flop']:.4g} flop / {PEAK_F64_FLOPS:.3g} flop/s, "
+          f"{kernel['bytes']:.4g} bytes -> {kernel['bound_ms']:.5f} ms "
+          f"({kernel['bound_by']}), "
+          f"{100 * kernel['bound_ms'] / kernel['ms']:.1f}% of it; max err "
+          f"{kernel['max_abs_err']:.3e}; card: {card_line()}")
+    if not kernel["max_abs_err"] <= F64_TOL:
+        raise AssertionError("trio_multi f64 kernel disagrees with its plain "
+                             "version at the calculator's rows")
+    return launches, kernel, (host, dev)
+
+
+def run_checkpoint(device):
+    """A checkpoint round trip on the card: plain Verlet under Langevin
+    at 300 K on 9,826 atoms (f32, ``static_rebuild``: each cycle starts
+    from a full build, as after a load), 40 steps, saved; 40 more
+    steps uninterrupted, and 40 from the loaded checkpoint.  Gate: the
+    two continuations agree bitwise (no atomics on this path), noise
+    generator included.  Returns the trio launches."""
+    system = MDSystem(MODEL, bench_geometry((17, 17, 17)),
+                      dtype=torch.float32, static_rebuild=True,
+                      device=device)
+    reset_counts()
+    state = system.init_state(temperature=T_TARGET, seed=0)
+    state = system.run(state, n_steps=40, **LANGEVIN)
+    path = os.path.join(tempfile.mkdtemp(), "checkpoint.npz")
+    batch.save_md_checkpoint(path, state)
+    straight = system.run(state, n_steps=40, **LANGEVIN)
+    resumed = system.run(batch.load_md_checkpoint(path, system),
+                         n_steps=40, **LANGEVIN)
+    torch.cuda.synchronize()
+    launches = trio.trio_partials.launches
+    shutil.rmtree(os.path.dirname(path))
+    diffs = {name: max_err(getattr(straight, name), getattr(resumed, name))
+             for name in ("positions", "velocities", "forces", "energy")}
+    same = all(torch.equal(getattr(straight, name), getattr(resumed, name))
+               for name in diffs) and torch.equal(
+        straight.generator.get_state(), resumed.generator.get_state())
+    print(f"checkpoint on the card: continuation vs uninterrupted, max "
+          f"|d| {diffs}, bitwise {same}; {launches} trio launches")
+    gate("checkpoint", {"bitwise continuation": same,
+                        "trio kernel launched": launches > 0})
+    return launches
+
+
+def run_md_traj():
+    """``python -m uf3_tpu_torch md --traj`` at its defaults (2,000
+    atoms, 1,000 steps, a launch every 20): one frame per launch, each
+    parsed back with 2,000 atoms, the last at the printed energy."""
+    tmp = tempfile.mkdtemp()
+    path = os.path.join(tmp, "md.xyz")
+    rate, energy = run_md_command("model_2and3.json", "--traj", path)
+    frames = data_io.read_xyz(path)
+    size = os.path.getsize(path)
+    shutil.rmtree(tmp)
+    launches = 1000 // 20
+    print(f"md --traj: {len(frames)} frames ({size} bytes) for {launches} "
+          f"launches, last frame E {frames[-1].info['energy']:.6f} eV "
+          f"(printed {energy:.3f})")
+    gate("md --traj", {
+        "one frame per launch": len(frames) == launches,
+        "2,000 atoms per frame, forces": all(
+            len(f) == 2000 and "fx" in f.arrays for f in frames),
+        "last frame at the printed energy":
+            abs(frames[-1].info["energy"] - energy) <= 1e-3})
+    return rate
+
+
+def run_export(calc, geom):
+    """``python -m uf3_tpu_torch export`` of the bench model, read back
+    (``model_from_uf3_pot_file``) into a calculator on the card: forces
+    within 1e-10 eV/A of the original's in f64, energies without the
+    1-body terms (the file format carries none) within 1e-10 relative.
+    Returns the trio launches."""
+    tmp = tempfile.mkdtemp()
+    out = subprocess.run([sys.executable, "-m", "uf3_tpu_torch", "export",
+                          MODEL, "--out", tmp], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"export failed:\n{out.stderr[-4000:]}")
+    for line in out.stdout.strip().splitlines():
+        print(f"export command: {line}")
+    path = os.path.join(tmp, "W.uf3")
+    model2 = lammps.model_from_uf3_pot_file(path)
+    shutil.rmtree(tmp)
+    reset_counts()
+    calc2 = UFCalculator(model2, device=calc.device)
+    f2, e2 = calc2.get_forces(geom), calc2.get_potential_energy(geom)
+    launches = trio.trio_partials.launches
+    d_f = float(np.abs(calc.get_forces(geom) - f2).max())
+    e1 = calc.get_potential_energy(geom, force_consistent=True)
+    d_e = abs(e1 - e2) / abs(e1)
+    print(f"export round trip on the card, {len(geom)} atoms f64: max |dF| "
+          f"{d_f:.3e} eV/A, |dE|/|E| {d_e:.3e} (no 1-body terms)")
+    gate("export", {"forces within 1e-10 eV/A": d_f <= 1e-10,
+                    "energy within 1e-10": d_e <= 1e-10,
+                    "trio kernel launched": launches > 0})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: uf3_tpu_torch's kernels need an NVIDIA GPU",
@@ -1665,7 +2123,7 @@ def main():
     compare_small_cells(device)
     compare_npt_card_cpu(device)
     launches["npt"], protocol_rates = run_protocol(device)
-    rates["md command (2,000 atoms, plain Verlet)"] = run_md_command()
+    rates["md command (2,000 atoms, plain Verlet)"] = run_md_command()[0]
     # the reference's general force path
     name = "2-body W (model_2.json)"
     rates[name], rates[f"{name} NVE"], stale[name] = run_two_body_w(device)
@@ -1679,7 +2137,7 @@ def main():
         stale[name] = run_separate_3body(device)
     run_async_overflow(device)
     rates["md command, model_2.json (2,000 atoms)"] = run_md_command(
-        "model_2.json")
+        "model_2.json")[0]
     # the fused multi-species route at full width, and the rebuild
     # schedules
     multi_launches = {"binary 2+3-body, 4,000 atoms, NVE": binary[2]}
@@ -1696,7 +2154,22 @@ def main():
     launches["legacy_refilter"], rates[name], stale[name], branches = \
         run_legacy_refilter(device)
     rates["md command --static-rebuild (2,000 atoms)"] = run_md_command(
-        "model_2and3.json", "--static-rebuild")
+        "model_2and3.json", "--static-rebuild")[0]
+    # the calculator and what runs on it (ROADMAP.md item 4)
+    calc64, calc_geom, calc_launches, calc_kernel, calc_times = \
+        run_calculator(device)
+    launches.update(calc_launches)
+    fire_calls, fire_s = run_fire(calc64, calc_geom)
+    launches["FIRE, 9,826 atoms, f64"] = fire_calls
+    launches.update(run_properties(device))
+    launches["export round trip, 9,826 atoms, f64"] = run_export(
+        calc64, calc_geom)
+    launches["checkpoint round trip, 9,826 atoms"] = run_checkpoint(device)
+    multi_launches["batch_relax, 108/108/256 atoms"] = \
+        run_batch_relax(device)
+    multi_launches["calculator, 8,788 atoms, f64"], multi_kernel, \
+        multi_times = run_calculator_multi(device)
+    rates["md --traj (2,000 atoms)"] = run_md_traj()
     card = card_line()
     for name, rate in rates.items():
         print(f"MD {name}: {rate:.1f} atom-steps/s"
@@ -1713,6 +2186,13 @@ def main():
           f"{syncs}, card: {card}")
     print(f"3-level r-RESPA, eager_refilter=False: cycles by branch "
           f"{branches}")
+    for tag, (hst_ms, dev_ms) in dict(calc_times, multi=multi_times).items():
+        print(f"calculator {tag}: get_forces {hst_ms:.4f} ms per call on "
+              "the host, device busy "
+              + ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms")
+              + f", card: {card}")
+    print(f"FIRE relaxation, 9,826 atoms, f64: {fire_calls} force calls in "
+          f"{fire_s:.3f} s, card: {card}")
     print(f"trio launches by path: {launches}")
     print(f"multi-species trio launches by path: {multi_launches}")
     print(f"trio_partials K=16, 9,826 atoms: {records['K16']['ms']:.4f} ms "
@@ -1727,7 +2207,7 @@ def main():
              source="uf3_tpu_torch/csrc/trio.cu",
              replaces="uf3_tpu/ops/pallas_trio.py:1044",
              launches=sum(launches.values()), launches_by_path=launches,
-             **record, by_shape=records),
+             **record, by_shape=records, calculator_f64=calc_kernel),
         dict(name="trio_multi_partials_all", route="cuda",
              source="uf3_tpu_torch/csrc/trio_multi.cu",
              replaces="uf3_tpu/ops/pallas_trio.py:1337",
@@ -1735,7 +2215,7 @@ def main():
              launches_by_path=multi_launches,
              **dict(record_multi, max_abs_err=max(
                  record_multi["max_abs_err"], record_ternary["max_abs_err"])),
-             ternary=record_ternary)]}))
+             ternary=record_ternary, calculator_f64=multi_kernel)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

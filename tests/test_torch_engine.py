@@ -180,8 +180,9 @@ def test_float32_lattice_on_bin_faces_does_not_overflow(reps):
 
 def test_md_command_on_the_cpu(capsys):
     """``python -m uf3_tpu_torch md`` prints the JAX command's result
-    line; the flag and subcommands not ported yet raise
-    (``--static-rebuild`` runs: tests/test_torch_schedules.py)."""
+    line; the subcommands not ported yet raise (``--static-rebuild``
+    runs: tests/test_torch_schedules.py; ``--traj`` and ``export``:
+    tests/test_torch_batch.py)."""
     main(["md", MODEL, "--reps", "3", "--steps", "12", "--device", "cpu"])
     out = capsys.readouterr().out.strip().splitlines()
     assert out[0] == "54 atoms of W"
@@ -190,7 +191,7 @@ def test_md_command_on_the_cpu(capsys):
     assert found is not None, out[-1]
     rate, temp, energy = (float(x) for x in found.groups())
     assert rate > 0 and 0 < temp < 600 and -620 < energy < -580
-    for argv in (["md", MODEL, "--device", "cpu", "--traj", "t.xyz"],
-                 ["fit", "settings.yaml"], ["export", MODEL]):
+    for argv in (["featurize", "settings.yaml"], ["fit", "settings.yaml"],
+                 ["predict", "settings.yaml"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             main(argv)

@@ -71,6 +71,7 @@ def test_model_loading_matches_uf3_tpu(path):
     _equal_maps(config.knots_map, ref.knots_map)
     assert config.symmetry == ref.symmetry
     assert config.partition_sizes == ref.partition_sizes
+    assert config.r_cut == ref.r_cut
     assert config.get_interaction_partitions() \
         == ref.get_interaction_partitions()
     model = ls.WeightedLinearModel.from_json(path)
@@ -92,7 +93,7 @@ def test_elements_and_units_match_uf3_tpu():
     assert t_el.atomic_numbers == j_el.atomic_numbers
     assert t_el.element_order_key == j_el.element_order_key
     assert np.array_equal(t_el.atomic_masses, j_el.atomic_masses)
-    for name in ("fs", "ps", "kB"):
+    for name in ("fs", "ps", "kB", "GPa", "bar"):
         assert getattr(t_units, name) == getattr(j_units, name), name
 
 
@@ -150,10 +151,19 @@ def test_port_sources_import_nothing_of_uf3_tpu():
     files = glob.glob(os.path.join(REPO, "uf3_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) > 20
+    # the calculator and what runs on it are scanned too
+    scanned = {os.path.relpath(path, REPO) for path in files}
+    assert {os.path.join("uf3_tpu_torch", *name.split("/")) for name in (
+        "data/io.py", "data/symmetry.py", "forcefield/calculator.py",
+        "forcefield/optimize.py", "forcefield/batch.py",
+        "forcefield/lammps.py", "forcefield/properties/elastic.py",
+        "forcefield/properties/phonon.py")} <= scanned
     for path in files:
         for name in _imports(path):
             assert name.split(".")[0] != "uf3_tpu", (path, name)
-            assert name.split(".")[0] not in ("jax", "pandas"), (path, name)
+            # neither jax nor pandas nor PyYAML is on the GPU hosts
+            assert name.split(".")[0] not in ("jax", "pandas", "yaml"), \
+                (path, name)
 
 
 def test_mdsystem_defaults_to_the_card(monkeypatch):

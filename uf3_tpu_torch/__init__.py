@@ -7,7 +7,8 @@ models, inputs and layouts, with torch tensors on the CUDA card by
 default.  Nothing here imports ``uf3_tpu``, jax or pandas: the host
 modules it needs are trimmed copies under the same module names.
 
-  data/               Atoms + bulk, elements, chemical system
+  data/               Atoms + bulk, elements, chemical system,
+                      extended-xyz io, crystal symmetry
   representation/     B-spline basis, knot spacers, de Boor values
   util/json_io.py     model file reader
   forcefield/units.py eV / A / amu units
@@ -28,5 +29,11 @@ modules it needs are trimmed copies under the same module names.
                       (NVE / Langevin / Nose-Hoover), SCR and
                       Berendsen NPT, stress, capacity regrowth, the
                       queued overflow check
-  __main__.py         python -m uf3_tpu_torch md model.json
+  forcefield/calculator.py  UFCalculator: energy, forces, stress on
+                      the engine's force routes
+  forcefield/optimize.py, batch.py, properties/  FIRE and cell
+                      relaxation, batch drivers, checkpoints,
+                      trajectories, elastic constants, phonons
+  forcefield/lammps.py  LAMMPS export and UFLammps (native backend)
+  __main__.py         python -m uf3_tpu_torch {md,export} model.json
 """

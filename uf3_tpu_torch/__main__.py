@@ -1,13 +1,18 @@
 """
-Command line of the port: a quick MD run on the CUDA card.
+Command line of the port: a quick MD run on the CUDA card, and the
+LAMMPS export of a model.
 
     python -m uf3_tpu_torch md model.json [options]
+    python -m uf3_tpu_torch export model.json [--out DIR]
 
-The same flags, defaults and result line as ``python -m uf3_tpu md``
-(2,000 atoms of bcc, 1,000 steps of 2 fs, Langevin at 300 K, plain
-velocity Verlet unless ``--respa`` is given), plus ``--device``, which
-defaults to the card.  The other subcommands of ``uf3_tpu`` are not
-ported yet and raise NotImplementedError naming their ROADMAP.md item.
+``md`` takes the same flags, defaults and result line as ``python -m
+uf3_tpu md`` (2,000 atoms of bcc, 1,000 steps of 2 fs, Langevin at
+300 K, plain velocity Verlet unless ``--respa`` is given; ``--traj``
+writes an extended-xyz frame per launch), plus ``--device``, which
+defaults to the card.  ``export`` writes the native ``pair_style uf3``
+file and prints its ``pair_style`` / ``pair_coeff`` lines, on the host.
+The other subcommands of ``uf3_tpu`` are not ported yet and raise
+NotImplementedError naming their ROADMAP.md item.
 """
 
 import argparse
@@ -17,15 +22,15 @@ import torch
 
 from uf3_tpu_torch import io
 from uf3_tpu_torch.data.atoms import bulk
+from uf3_tpu_torch.forcefield import lammps
+from uf3_tpu_torch.forcefield.batch import TrajectoryWriter
 from uf3_tpu_torch.forcefield.md import MDSystem, _not_ported
 
 NOT_PORTED = {"featurize": "Featurization", "fit": "Featurization",
-              "predict": "Featurization", "export": "Batch and CLI"}
+              "predict": "Featurization"}
 
 
 def cmd_md(model_path: str, args) -> None:
-    if args.traj:
-        raise _not_ported("--traj (the trajectory writer)", "Batch and CLI")
     element = io.load_model(model_path).bspline_config.element_list[0]
     atoms = bulk(element, "bcc", a=args.lattice) * args.reps
     print(f"{len(atoms)} atoms of {element}")
@@ -34,10 +39,14 @@ def cmd_md(model_path: str, args) -> None:
                       static_rebuild=args.static_rebuild,
                       device=args.device)
     state = system.init_state(temperature=args.temperature)
+    callback = None
+    if args.traj:
+        callback = TrajectoryWriter(args.traj, system)
     t0 = time.time()
     state = system.run(state, n_steps=args.steps, dt_fs=args.dt,
                        thermostat="langevin",
-                       temperature=args.temperature)
+                       temperature=args.temperature,
+                       callback=callback)
     if system.device.type == "cuda":
         torch.cuda.synchronize(system.device)
     elapsed = time.time() - t0
@@ -45,6 +54,13 @@ def cmd_md(model_path: str, args) -> None:
           f"({len(atoms) * args.steps / elapsed:.3e} atom-steps/s); "
           f"T = {system.temperature(state):.0f} K, "
           f"E = {float(state.energy):.3f} eV")
+
+
+def cmd_export(model_path: str, out_dir: str) -> None:
+    model = io.load_model(model_path)
+    path = lammps.write_uf3_lammps_pot_files(model=model, pot_dir=out_dir)
+    print(f"potential written to {path}")
+    print(lammps.generate_lammps_input(model, path))
 
 
 def parser() -> argparse.ArgumentParser:
@@ -70,8 +86,8 @@ def parser() -> argparse.ArgumentParser:
                       help="unconditional full neighbor rebuild every "
                            "cycle")
     p_md.add_argument("--traj", default=None,
-                      help="write an extended-xyz trajectory (not ported "
-                           "yet)")
+                      help="write an extended-xyz trajectory (one "
+                           "frame per launch) to this path")
     p_md.add_argument("--device", default=None,
                       help="torch device; the CUDA card by default")
     p_export = sub.add_parser("export")
@@ -84,6 +100,8 @@ def main(argv=None) -> None:
     args = parser().parse_args(argv)
     if args.command == "md":
         cmd_md(args.model, args)
+    elif args.command == "export":
+        cmd_export(args.model, args.out)
     else:
         raise _not_ported(f"the {args.command} command",
                           NOT_PORTED[args.command])

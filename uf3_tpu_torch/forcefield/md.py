@@ -249,6 +249,7 @@ class MDSystem:
         if self.n_respa > 1:
             self._respa_setup(respa_switch)
         numbers = np.asarray(atoms.get_atomic_numbers())
+        self.atomic_numbers = numbers
         z_map = self.potential.z_to_species.cpu().numpy()
         self.species = torch.as_tensor(z_map[numbers], device=self.device)
         m_host = np.asarray(elements.atomic_masses[numbers] if masses is None
@@ -1245,3 +1246,12 @@ class MDSystem:
         reference's convention), eV."""
         m = self.masses[:, None]
         return float(0.5 * torch.sum(m * state.velocities ** 2))
+
+    def to_atoms(self, atoms_template: Atoms, state: MDState) -> Atoms:
+        """A copy of ``atoms_template`` at the state's positions, with
+        its velocities (internal units) in ``arrays["velocities"]``."""
+        out = atoms_template.copy()
+        out.set_positions(state.positions.detach().double().cpu().numpy())
+        out.set_array("velocities",
+                      state.velocities.detach().double().cpu().numpy())
+        return out

@@ -1,9 +1,10 @@
 """
-Model loading without pandas: a fitted UF3 model JSON to its B-spline
-basis and flat coefficient vector, as
-``uf3_tpu.regression.least_squares.WeightedLinearModel.from_json`` and
-``arrange_coefficients`` produce them (that module imports pandas at
-module level, which the GPU hosts do not carry).
+Model loading without pandas: a fitted UF3 model JSON, or the
+dictionary it decodes to, to its B-spline basis and flat coefficient
+vector, as ``uf3_tpu.regression.least_squares.WeightedLinearModel``'s
+``from_json`` / ``from_dict`` and ``arrange_coefficients`` produce them
+(that module imports pandas at module level, which the GPU hosts do not
+carry).
 """
 
 import warnings
@@ -63,11 +64,17 @@ def flat_coefficients(solution: Dict, config: BSplineBasis) -> np.ndarray:
     return flattened
 
 
-def load_model(filename: str) -> FittedModel:
-    """Read a fitted model JSON (``WeightedLinearModel.to_json``)."""
-    config = json_io.load_interaction_map(filename)
+def from_dict(config: Dict) -> FittedModel:
+    """A fitted model from its decoded dictionary: the basis settings
+    and the per-interaction coefficients (3-body as wedge vectors or full
+    L x M x N grids), as ``WeightedLinearModel.from_dict``."""
     basis = BSplineBasis.from_dict(config)
     return FittedModel(basis, flat_coefficients(config, basis))
+
+
+def load_model(filename: str) -> FittedModel:
+    """Read a fitted model JSON (``WeightedLinearModel.to_json``)."""
+    return from_dict(json_io.load_interaction_map(filename))
 
 
 def arrange_coefficients(coefficients, bspline_config) -> Dict:

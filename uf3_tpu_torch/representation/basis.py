@@ -4,7 +4,8 @@ B-spline basis of a fitted model: per-interaction knot sequences, the
 vector, enough to turn a model file into coefficient grids.
 
 Trimmed copy of ``BSplineBasis`` (``uf3_tpu/representation/basis.py``):
-``from_dict`` and the knot bookkeeping, ``get_interaction_partitions``,
+``from_dict`` and the knot bookkeeping, the cutoff ``r_cut``,
+``get_interaction_partitions``,
 and the 3-body ``compress_3B`` / ``decompress_3B`` with the flatten
 template and the symmetry helpers they use.  The regularizer, the
 fitting trims (frozen columns), featurization helpers and the
@@ -135,6 +136,7 @@ class BSplineBasis:
         self.flat_weights: Dict[Tuple, np.ndarray] = {}
         self.template_mask: Dict[Tuple, np.ndarray] = {}
         self.partition_sizes: List[int] = []
+        self.r_cut = 0.0
         self.update_knots(r_max_map, r_min_map, resolution_map, knots_map)
         self.update_basis_functions()
 
@@ -174,6 +176,16 @@ class BSplineBasis:
     @property
     def interactions(self):
         return self.chemical_system.interactions
+
+    def get_cutoff(self) -> float:
+        """Largest center-atom cutoff over all interactions."""
+        values = []
+        for interaction, r_max in self.r_max_map.items():
+            if np.isscalar(r_max) or isinstance(r_max, (int, float)):
+                values.append(float(r_max))
+            else:  # trio: only legs touching the central atom matter
+                values.append(float(max(r_max[:len(interaction) - 1])))
+        return max(values)
 
     # -- knot management ----------------------------------------------------
     def update_knots(self, r_max_map=None, r_min_map=None,
@@ -218,6 +230,7 @@ class BSplineBasis:
                                                    self.r_min_map[trio],
                                                    self.r_max_map[trio],
                                                    self.resolution_map[trio])
+        self.r_cut = self.get_cutoff()
 
     def _load_knots_map(self, knots_map: Dict) -> None:
         for pair in self.interactions_map.get(2, []):

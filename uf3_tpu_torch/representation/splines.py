@@ -2,8 +2,8 @@
 Cubic B-spline basis values on the host (numpy, float64): the 4
 non-zero basis functions at each point by the Cox-de Boor recursion.
 
-Copy of ``find_spline_indices`` and ``deboor_values`` from
-``uf3_tpu/representation/splines.py``.
+Copy of ``find_spline_indices``, ``deboor_values`` and
+``evaluate_spline`` from ``uf3_tpu/representation/splines.py``.
 """
 
 from typing import Tuple
@@ -72,3 +72,14 @@ def deboor_values(points: np.ndarray,
             new[:, p] = term
         b = new
     return b, idx
+
+
+def evaluate_spline(points: np.ndarray,
+                    knot_sequence: np.ndarray,
+                    coefficients: np.ndarray,
+                    nu: int = 0) -> np.ndarray:
+    """Evaluate sum_i c_i B_i^(nu)(r) at each point (pair-potential eval)."""
+    values, idx = deboor_values(points, knot_sequence, nu=nu)
+    c = np.asarray(coefficients)
+    taps = c[idx[:, None] + np.arange(4)[None, :]]
+    return np.sum(values * taps, axis=1)

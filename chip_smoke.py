@@ -36,7 +36,14 @@ on that cell, elastic constants and phonons against the CPU, the LAMMPS
 export read back on the card, a checkpoint round trip that continues
 bitwise, ``batch_relax`` over Ne/Xe structures of three signatures, the
 calculator on the fused multi-species route at 8,788 atoms, and ``md
---traj``.
+--traj``.  Then the fit on the card (``run_fit``): a training set of the
+tungsten set's size (1,939 strained and rattled bcc W cells of 16, 54,
+128 and 127 atoms, 150,924 atoms) labeled by the bench model through
+``UFCalculator``, featurized on the card in the bench model's basis,
+the Gram matrix on the card and the solve on the host, the fitted model
+held to its teacher on a 20% hold-out and run in MD at 9,826 atoms,
+and the ``featurize`` / ``fit`` / ``predict`` commands with ``md`` on
+their model.
 
     python3 chip_smoke.py
 
@@ -2077,6 +2084,273 @@ def run_export(calc, geom):
     return launches
 
 
+# -- the fit on the card (ROADMAP.md item 5): a training set of the
+# tungsten set's size, labeled by the repo's W potential, featurized on
+# the card, the Gram on the card, the solve on the host, the fitted
+# model checked on a hold-out set and run
+# (count, bcc W repetitions, one vacancy): 1,939 configurations, 150,924
+# atoms, the size of the tungsten set behind examples/tungsten_fit.py
+FIT_SET = ((339, 2, False), (800, 3, False), (700, 4, False),
+           (100, 4, True))
+FIT_STRAIN = 0.02               # isotropic, uniform in +-2%
+FIT_RATTLE = (0.03, 0.15)       # A, rattle stdev uniform in this range
+FIT_HOLDOUT = 0.2
+# curvature 1e-12 on both (the ridge at its defaults): the 1e-8 of
+# examples/tungsten_fit.py holds this teacher's curved pair core and
+# 3-body grid 2.7e-2 eV/A away from it (PERF.md, CPU rehearsal)
+FIT_REG = dict(c2=1e-12, c3=1e-12)
+FIT_FEATURE_TOL = 1e-10         # card vs CPU, f64
+# hold-out RMSE against the teacher's labels: the teacher lies in the
+# fitted span, so the error is the regularizer's bias (CPU rehearsal at
+# 56 configurations: 8.5e-5 eV/A, 9.1e-7 eV/atom; PERF.md)
+FIT_FORCE_RMSE, FIT_ENERGY_RMSE = 5e-4, 1e-5    # eV/A, eV/atom
+FIT_MD_STEPS = 720
+FIT_CMD_CONFIGS = 50
+
+
+def fit_training_set(seed, counts=FIT_SET):
+    """bcc W cells (a = 3.1652 A), each isotropically strained within
+    +-2% and rattled by a stdev in 0.03-0.15 A, drawn from ``seed``."""
+    rng = np.random.RandomState(seed)
+    geoms = []
+    for count, reps, vacancy in counts:
+        for _ in range(count):
+            geom = bulk("W", "bcc", a=3.1652) * reps
+            if vacancy:
+                geom.delete([rng.randint(len(geom))])
+            geom.set_cell(geom.get_cell() * (1.0 + rng.uniform(
+                -FIT_STRAIN, FIT_STRAIN)), scale_atoms=True)
+            geom.rattle(rng.uniform(*FIT_RATTLE),
+                        seed=int(rng.randint(2 ** 31 - 1)))
+            geoms.append(geom)
+    return geoms
+
+
+def label(calc, geoms):
+    """The teacher's energies and forces of ``geoms``: one force call
+    each (the forces come from the energy's call)."""
+    energies, forces = [], []
+    for geom in geoms:
+        energies.append(calc.get_potential_energy(geom))
+        forces.append(calc.get_forces(geom))
+    return energies, forces
+
+
+def busy_share(fn):
+    """(wall ms, device busy ms) of one call of fn() under torch.profiler;
+    busy is None where it records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(getattr(e, "self_device_time_total", 0.0)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    return 1e3 * wall, (busy_us / 1e3 if busy_us > 0 else None)
+
+
+def run_fit_command(geoms, energies, forces, tmp, device):
+    """``python -m uf3_tpu_torch featurize`` and ``fit`` on the card, on
+    an extended-xyz file of ``geoms`` written with ``write_xyz``, with
+    JSON settings naming the bench model's basis; then ``md`` runs the
+    model they wrote for 100 steps.  Returns the model's path."""
+    data_dir = os.path.join(tmp, "data")
+    os.makedirs(data_dir)
+    frames = []
+    for geom, energy, force in zip(geoms, energies, forces):
+        frame = geom.copy()
+        frame.info["energy"] = energy
+        for c, name in enumerate(("fx", "fy", "fz")):
+            frame.arrays[name] = force[:, c]
+        frames.append(frame)
+    data_io.write_xyz(os.path.join(data_dir, "train.xyz"), frames)
+    model_path = os.path.join(tmp, "fitted_cmd.json")
+    settings = {
+        "elements": ["W"], "degree": 3,
+        "data": {"sources": {"path": data_dir, "pattern": "*.xyz"}},
+        # the bench model's basis
+        "basis": {"r_min": {"W-W": 0.001, "W-W-W": [1.5, 1.5, 1.5]},
+                  "r_max": {"W-W": 5.5, "W-W-W": [3.5, 3.5, 7.0]},
+                  "resolution": {"W-W": 15, "W-W-W": [6, 6, 12]}},
+        "features": {"features_path": os.path.join(tmp, "features.npz")},
+        "model": {"model_path": model_path},
+        "learning": {"features_path": os.path.join(tmp, "features.npz"),
+                     "regularizer": {"curvature_2b": FIT_REG["c2"],
+                                     "curvature_3b": FIT_REG["c3"]}}}
+    path = os.path.join(tmp, "settings.json")
+    with open(path, "w") as f:
+        json.dump(settings, f)
+    for command in ("featurize", "fit", "predict"):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "uf3_tpu_torch",
+                              command, path], cwd=REPO, capture_output=True,
+                             text=True, timeout=600)
+        for line in out.stdout.strip().splitlines():
+            print(f"{command} command: {line}")
+        print(f"{command} command: exit {out.returncode} after "
+              f"{time.perf_counter() - t0:.2f} s")
+        if out.returncode != 0:
+            raise AssertionError(f"{command} command failed:\n"
+                                 f"{out.stderr[-4000:]}")
+    rate, energy = run_md_command(model_path, "--steps", "100")
+    gate("fit command", {"model written": os.path.isfile(model_path),
+                         "md ran it 100 steps": np.isfinite(energy)})
+    return model_path
+
+
+def run_fit(device, counts=FIT_SET, seed=0):
+    """The fit on the card: a training set of ``counts`` (by default the
+    tungsten set's size, 1,939 configurations), labeled with energies and
+    forces by ``UFCalculator`` on the bench model in f64, split 80/20;
+    ``featurize_batches`` on the card in the bench model's own basis, the
+    Gram on the card (``gram_from_batches``), the solve on the host, the
+    model written with ``to_json``, its hold-out RMSE against the labels
+    through ``UFCalculator``, 720 steps of Langevin MD with it at 9,826
+    atoms, and the ``featurize`` / ``fit`` / ``predict`` commands on 50
+    configurations with ``md`` on their model.  Gates: features card vs
+    CPU within 1e-10 on one configuration per size, every configuration
+    featurized once (redos counted), the hold-out RMSEs, the MD, the
+    commands.  Returns the trio launches by step."""
+    from uf3_tpu_torch.ops import featurize as feat
+    from uf3_tpu_torch.regression import least_squares as ls
+    card = card_line()
+    geoms = fit_training_set(seed, counts)
+    n_atoms_all = sum(len(g) for g in geoms)
+    launches = {}
+    teacher = UFCalculator(MODEL, device=device)
+    reset_counts()
+    t0 = time.perf_counter()
+    energies, forces = label(teacher, geoms)
+    torch.cuda.synchronize()
+    launches["fit: labeling"] = trio.trio_partials.launches
+    print(f"fit: {len(geoms)} configurations, {n_atoms_all} atoms, labeled "
+          f"by UFCalculator (f64) in {time.perf_counter() - t0:.2f} s, "
+          f"{launches['fit: labeling']} trio launches; card: {card}")
+    order = np.random.RandomState(seed).permutation(len(geoms))
+    n_test = int(round(FIT_HOLDOUT * len(geoms)))
+    test, train = order[:n_test], np.sort(order[n_test:])
+    basis = io.load_model(MODEL).bspline_config
+    # the card against the CPU, one configuration per size
+    firsts = np.cumsum([0] + [c for c, _, _ in counts])[:-1]
+    feat_err = 0.0
+    for i in firsts:
+        card_e, card_f = feat.featurize_configuration_device(
+            basis, geoms[i], device=device)
+        cpu_e, cpu_f = feat.featurize_configuration_device(
+            basis, geoms[i], device="cpu")
+        feat_err = max(feat_err, np.abs(card_e - cpu_e).max(),
+                       np.abs(card_f - cpu_f).max())
+    print(f"fit: features card vs CPU on {len(firsts)} configurations "
+          f"({[len(geoms[i]) for i in firsts]} atoms): max |d| "
+          f"{feat_err:.3e}")
+    tr_geoms = [geoms[i] for i in train]
+    tr_e, tr_f = [energies[i] for i in train], [forces[i] for i in train]
+    tr_atoms = sum(len(g) for g in tr_geoms)
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    batches = list(feat.featurize_batches(basis, tr_geoms, tr_e, tr_f,
+                                          device=device, stats=stats))
+    torch.cuda.synchronize()
+    feat_s = time.perf_counter() - t0
+    seen = sorted(i for b in batches for i in b.index)
+    print(f"fit: featurized {len(tr_geoms)} configurations ({tr_atoms} "
+          f"atoms) on the card in {feat_s:.3f} s: "
+          f"{1e3 * feat_s / len(tr_geoms):.4f} ms per configuration, "
+          f"{len(tr_geoms) / feat_s:.1f} configurations/s, "
+          f"{tr_atoms / feat_s:.1f} atoms/s; {stats['calls']} calls, batch "
+          f"sizes by atom count {stats['batch_sizes']}, redos "
+          f"{stats['redos']}, peak memory "
+          f"{stats['peak_bytes'] / 2 ** 30:.3f} GiB; card: {card}")
+    # the device's busy share over one bucket: a batch of 128-atom cells
+    big = [g for g in tr_geoms if len(g) == 128]
+    size = stats["batch_sizes"].get(128, 1)
+    chunk = big[:size]
+    wall_ms, busy_ms = busy_share(lambda: list(feat.featurize_batches(
+        basis, chunk, [0.0] * len(chunk), [np.zeros((128, 3))] * len(chunk),
+        device=device, batch_size=size)))
+    print(f"fit: one bucket call, {len(chunk)} configurations of 128 atoms: "
+          f"{wall_ms:.3f} ms wall, device busy "
+          + ("not measured" if busy_ms is None else
+             f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%)")
+          + f"; card: {card}")
+    model = ls.WeightedLinearModel(basis, device=device, **FIT_REG)
+    e_var, f_var = ls.VarianceRecorder(), ls.VarianceRecorder()
+    rows = [(b.x_e, b.y_e, b.x_f, b.y_f) for b in batches]
+    t0 = time.perf_counter()
+    grams = model.gram_from_batches(rows, e_var, f_var)
+    torch.cuda.synchronize()
+    gram_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    model.gram_from_batches(rows)   # again, without the targets' copies
+    torch.cuda.synchronize()
+    gram_again_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    weights = ls.calc_E_F_weights(e_var.n, f_var.n, e_var.std, f_var.std)
+    model.fit_with_gram(*model.combine_weighted_gram(*grams, *weights, 0.5))
+    solve_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"fit: Gram on the card over {f_var.n + e_var.n} rows x "
+          f"{model.n_feats} features in {len(rows)} batches "
+          f"{gram_ms:.3f} ms (with the targets' variances; again "
+          f"without them {gram_again_ms:.3f} ms), solve on the host "
+          f"{solve_ms:.3f} ms; card: {card}")
+    del batches, rows, grams
+    tmp = tempfile.mkdtemp()
+    fitted = os.path.join(tmp, "fitted.json")
+    model.to_json(fitted)
+    reset_counts()
+    check = UFCalculator(fitted, device=device)
+    te_e, te_f = label(check, [geoms[i] for i in test])
+    launches["fit: hold-out check"] = trio.trio_partials.launches
+    rmse_e = ls.rmse_metric(
+        [e / len(geoms[i]) for e, i in zip(te_e, test)],
+        [energies[i] / len(geoms[i]) for i in test])
+    rmse_f = ls.rmse_metric(np.concatenate(te_f),
+                            np.concatenate([forces[i] for i in test]))
+    print(f"fit: hold-out {len(test)} configurations: RMSE energy "
+          f"{rmse_e:.4e} eV/atom, forces {rmse_f:.4e} eV/A against the "
+          f"teacher; {launches['fit: hold-out check']} trio launches")
+    reset_counts()
+    system = MDSystem(fitted, bench_geometry((17, 17, 17)),
+                      dtype=torch.float32, device=device)
+    state = system.init_state(temperature=T_TARGET)
+    state = system.run(state, n_steps=FIT_MD_STEPS, dt_fs=2.0,
+                       thermostat="langevin", temperature=T_TARGET)
+    torch.cuda.synchronize()
+    launches["fit: MD with the fitted model"] = trio.trio_partials.launches
+    md_ok = not system.overflowed(state) and bool(
+        torch.isfinite(state.positions).all()) and np.isfinite(
+        float(state.energy))
+    print(f"fit: MD with the fitted model, {17 ** 3 * 2} atoms, "
+          f"{FIT_MD_STEPS} steps: T {system.temperature(state):.1f} K, E "
+          f"{float(state.energy):.4f} eV; "
+          f"{launches['fit: MD with the fitted model']} trio launches")
+    cmd_geoms = [geoms[i] for i in train[:FIT_CMD_CONFIGS]]
+    run_fit_command(cmd_geoms, [energies[i] for i in train[:FIT_CMD_CONFIGS]],
+                    [forces[i] for i in train[:FIT_CMD_CONFIGS]], tmp, device)
+    shutil.rmtree(tmp)
+    gate("fit", {
+        f"features card vs CPU within {FIT_FEATURE_TOL:g}":
+            feat_err <= FIT_FEATURE_TOL,
+        "every training configuration featurized once":
+            seen == list(range(len(tr_geoms))),
+        f"hold-out force RMSE <= {FIT_FORCE_RMSE:g} eV/A":
+            rmse_f <= FIT_FORCE_RMSE,
+        f"hold-out energy RMSE <= {FIT_ENERGY_RMSE:g} eV/atom":
+            rmse_e <= FIT_ENERGY_RMSE,
+        "fitted model's MD: no overflow, finite": md_ok,
+        "trio kernel launched in the labeling and the check":
+            launches["fit: labeling"] > 0
+            and launches["fit: hold-out check"] > 0})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: uf3_tpu_torch's kernels need an NVIDIA GPU",
@@ -2170,6 +2444,8 @@ def main():
     multi_launches["calculator, 8,788 atoms, f64"], multi_kernel, \
         multi_times = run_calculator_multi(device)
     rates["md --traj (2,000 atoms)"] = run_md_traj()
+    # the fit on the card (ROADMAP.md item 5)
+    launches.update(run_fit(device))
     card = card_line()
     for name, rate in rates.items():
         print(f"MD {name}: {rate:.1f} atom-steps/s"

@@ -8,6 +8,7 @@ command runs on the CPU.  Parity with the JAX engine is in
 tests/test_torch_md.py; this file imports no jax.
 """
 
+import json
 import os
 import re
 
@@ -178,11 +179,13 @@ def test_float32_lattice_on_bin_faces_does_not_overflow(reps):
     assert int(state.nbr2.mask.sum(1).min()) == 58
 
 
-def test_md_command_on_the_cpu(capsys):
+def test_md_command_on_the_cpu(capsys, tmp_path):
     """``python -m uf3_tpu_torch md`` prints the JAX command's result
-    line; the subcommands not ported yet raise (``--static-rebuild``
-    runs: tests/test_torch_schedules.py; ``--traj`` and ``export``:
-    tests/test_torch_batch.py)."""
+    line; what the fit commands do not port yet raises: an HDF5
+    features file (``--static-rebuild`` runs:
+    tests/test_torch_schedules.py; ``--traj`` and ``export``:
+    tests/test_torch_batch.py; featurize, fit and predict:
+    tests/test_torch_fit.py)."""
     main(["md", MODEL, "--reps", "3", "--steps", "12", "--device", "cpu"])
     out = capsys.readouterr().out.strip().splitlines()
     assert out[0] == "54 atoms of W"
@@ -191,7 +194,12 @@ def test_md_command_on_the_cpu(capsys):
     assert found is not None, out[-1]
     rate, temp, energy = (float(x) for x in found.groups())
     assert rate > 0 and 0 < temp < 600 and -620 < energy < -580
-    for argv in (["featurize", "settings.yaml"], ["fit", "settings.yaml"],
-                 ["predict", "settings.yaml"]):
+    settings = tmp_path / "settings.json"
+    settings.write_text(json.dumps({
+        "elements": ["W"], "degree": 3,
+        "features": {"features_path": str(tmp_path / "features.h5")},
+        "learning": {"features_path": str(tmp_path / "features.h5")}}))
+    for argv in (["featurize", str(settings)], ["fit", str(settings)],
+                 ["predict", str(settings)]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            main(argv)
+            main(argv + ["--device", "cpu"])

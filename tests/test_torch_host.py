@@ -157,13 +157,16 @@ def test_port_sources_import_nothing_of_uf3_tpu():
         "data/io.py", "data/symmetry.py", "forcefield/calculator.py",
         "forcefield/optimize.py", "forcefield/batch.py",
         "forcefield/lammps.py", "forcefield/properties/elastic.py",
-        "forcefield/properties/phonon.py")} <= scanned
+        "forcefield/properties/phonon.py", "ops/featurize.py",
+        "regression/least_squares.py", "regression/regularize.py",
+        "util/user_config.py", "util/subsample.py")} <= scanned
     for path in files:
         for name in _imports(path):
             assert name.split(".")[0] != "uf3_tpu", (path, name)
-            # neither jax nor pandas nor PyYAML is on the GPU hosts
-            assert name.split(".")[0] not in ("jax", "pandas", "yaml"), \
-                (path, name)
+            # neither jax nor pandas nor PyYAML nor h5py is on the GPU
+            # hosts
+            assert name.split(".")[0] not in ("jax", "pandas", "yaml",
+                                              "h5py"), (path, name)
 
 
 def test_mdsystem_defaults_to_the_card(monkeypatch):

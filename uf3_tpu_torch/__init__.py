@@ -4,13 +4,19 @@ hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of ``uf3_tpu`` (the JAX reference, kept beside it): the same
 models, inputs and layouts, with torch tensors on the CUDA card by
-default.  Nothing here imports ``uf3_tpu``, jax or pandas: the host
-modules it needs are trimmed copies under the same module names.
+default.  Nothing here imports ``uf3_tpu``, jax, pandas, PyYAML or
+h5py: the host modules it needs are trimmed copies under the same
+module names.
 
   data/               Atoms + bulk, elements, chemical system,
-                      extended-xyz io, crystal symmetry
-  representation/     B-spline basis, knot spacers, de Boor values
-  util/json_io.py     model file reader
+                      extended-xyz io and training sources, crystal
+                      symmetry
+  representation/     B-spline basis (with the fitting trims and the
+                      regularizer), knot spacers, de Boor values
+  regression/         WeightedLinearModel: Gram matrices on the device,
+                      the solve on the host; regularizer matrices
+  util/json_io.py     model file reader and writer
+  util/user_config.py settings of the fit commands
   forcefield/units.py eV / A / amu units
   io.py               model JSON -> basis + coefficients
   ops/splines.py      closed-form B-spline primitives
@@ -20,6 +26,8 @@ modules it needs are trimmed copies under the same module names.
   ops/potential.py    UF3Potential (nn.Module with the coefficients)
   ops/neighbors.py    O(N^2), images and cell-list neighbor lists,
                       filter, reverse slots
+  ops/featurize.py    device featurization of configurations and
+                      datasets (unary; multi-species configurations)
   ops/pair.py         switched 2-body forces and virial
   ops/trio.py         3-body kernel wrapper, torch twin, assembly,
                       virial, shared-gather and r-RESPA short forces
@@ -35,5 +43,6 @@ modules it needs are trimmed copies under the same module names.
                       relaxation, batch drivers, checkpoints,
                       trajectories, elastic constants, phonons
   forcefield/lammps.py  LAMMPS export and UFLammps (native backend)
-  __main__.py         python -m uf3_tpu_torch {md,export} model.json
+  __main__.py         python -m uf3_tpu_torch {featurize,fit,predict}
+                      settings.json, {md,export} model.json
 """

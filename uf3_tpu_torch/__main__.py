@@ -1,33 +1,134 @@
 """
-Command line of the port: a quick MD run on the CUDA card, and the
-LAMMPS export of a model.
+Command line of the port: the fit pipeline, a quick MD run on the CUDA
+card, and the LAMMPS export of a model.
 
+    python -m uf3_tpu_torch featurize settings.json  sources -> features.npz
+    python -m uf3_tpu_torch fit settings.json        features -> model JSON
+    python -m uf3_tpu_torch predict settings.json    RMSE of the model
     python -m uf3_tpu_torch md model.json [options]
     python -m uf3_tpu_torch export model.json [--out DIR]
 
-``md`` takes the same flags, defaults and result line as ``python -m
-uf3_tpu md`` (2,000 atoms of bcc, 1,000 steps of 2 fs, Langevin at
-300 K, plain velocity Verlet unless ``--respa`` is given; ``--traj``
-writes an extended-xyz frame per launch), plus ``--device``, which
+``featurize``, ``fit`` and ``predict`` read the settings of ``python -m
+uf3_tpu``'s commands, written as JSON (``util/user_config.py``); the
+sources are extended-xyz files, featurized on the device
+(``ops/featurize.py``), and the features file is ``.npz`` (x_e, y_e,
+x_f, y_f, the configuration keys and sizes, the column names) where
+``uf3_tpu`` writes HDF5.  ``md`` takes the same flags, defaults and
+result line as ``python -m uf3_tpu md`` (2,000 atoms of bcc, 1,000
+steps of 2 fs, Langevin at 300 K, plain velocity Verlet unless
+``--respa`` is given; ``--traj`` writes an extended-xyz frame per
+launch).  Every command but ``export`` takes ``--device``, which
 defaults to the card.  ``export`` writes the native ``pair_style uf3``
 file and prints its ``pair_style`` / ``pair_coeff`` lines, on the host.
-The other subcommands of ``uf3_tpu`` are not ported yet and raise
-NotImplementedError naming their ROADMAP.md item.
+What is not ported yet raises NotImplementedError naming its ROADMAP.md
+item.
 """
 
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from uf3_tpu_torch import io
+from uf3_tpu_torch.data import io as data_io
 from uf3_tpu_torch.data.atoms import bulk
 from uf3_tpu_torch.forcefield import lammps
 from uf3_tpu_torch.forcefield.batch import TrajectoryWriter
 from uf3_tpu_torch.forcefield.md import MDSystem, _not_ported
+from uf3_tpu_torch.ops.featurize import featurize_dataset_device
+from uf3_tpu_torch.regression import least_squares as ls
+from uf3_tpu_torch.util import user_config
 
-NOT_PORTED = {"featurize": "Featurization", "fit": "Featurization",
-              "predict": "Featurization"}
+FEATURIZATION = "Featurization"
+FEATURE_KEYS = ("x_e", "y_e", "x_f", "y_f")
+
+
+def _npz_path(path: str) -> str:
+    if path.endswith((".h5", ".hdf5")):
+        raise _not_ported(f"the HDF5 features file {path} (this package "
+                          "writes .npz)", FEATURIZATION)
+    return path
+
+
+def load_features(path: str):
+    """(x_e, y_e, x_f, y_f) of a features file ``featurize`` wrote."""
+    with np.load(_npz_path(path)) as data:
+        return tuple(data[k] for k in FEATURE_KEYS)
+
+
+def cmd_featurize(settings_path: str, device=None) -> None:
+    settings = user_config.read_config(settings_path)
+    handlers = user_config.generate_handlers(settings, device=device)
+    features_path = _npz_path(settings["features"]["features_path"])
+    if "features" not in handlers:
+        raise _not_ported("featurizing a basis outside the device fast "
+                          "path (multi-species, 2-body only or knots "
+                          "without a closed form: the host featurizer "
+                          "BasisFeaturizer)", FEATURIZATION)
+    sources = settings["data"]["sources"]
+    paths = data_io.identify_paths(experiment_path=sources.get("path", "."),
+                                   filename_pattern=sources.get("pattern"))
+    keys, geometries = data_io.read_sources(
+        paths, max_samples=settings["data"].get("max_per_file", -1),
+        min_diff=settings["data"].get("min_diff", 0.0))
+    print(f"{len(geometries)} configurations")
+    missing = [k for k, g in zip(keys, geometries)
+               if not all(c in g.arrays for c in ("fx", "fy", "fz"))]
+    if missing:
+        raise ValueError(f"configurations without forces: {missing[:5]}")
+    energies = [g.info.get("energy", 0.0) for g in geometries]
+    forces = [np.stack([g.arrays[c] for c in ("fx", "fy", "fz")], axis=1)
+              for g in geometries]
+    basis = handlers["basis"]
+    stats = {}
+    arrays = featurize_dataset_device(basis, geometries, energies, forces,
+                                      device=device, stats=stats)
+    with open(features_path, "wb") as f:
+        np.savez(f, **dict(zip(FEATURE_KEYS, arrays)),
+                 keys=np.array(keys), sizes=np.array([len(g) for g in
+                                                      geometries]),
+                 columns=np.array(basis.get_column_names()))
+    print(f"features written to {features_path} ({stats['calls']} device "
+          f"calls, {stats['redos']} configurations redone at their "
+          "measured neighbor count)")
+
+
+def cmd_fit(settings_path: str, device=None) -> None:
+    settings = user_config.read_config(settings_path)
+    handlers = user_config.generate_handlers(settings, device=device)
+    x_e, y_e, x_f, y_f = load_features(
+        settings["learning"]["features_path"])
+    model = handlers["learning"]
+    if x_e.shape[1] != model.n_feats:
+        raise ValueError(f"{x_e.shape[1]} feature columns, the basis has "
+                         f"{model.n_feats}")
+    model.fit(x_e, y_e, x_f, y_f,
+              weight=settings["learning"].get("weight", 0.5))
+    model_path = settings["model"]["model_path"]
+    model.to_json(model_path)
+    print(f"model written to {model_path}")
+
+
+def cmd_predict(settings_path: str, device=None) -> None:
+    settings = user_config.read_config(settings_path)
+    handlers = user_config.generate_handlers(settings, device=device)
+    x_e, y_e, x_f, y_f = load_features(
+        settings["learning"]["features_path"])
+    model = handlers.get("model")
+    if model is None:
+        model = ls.WeightedLinearModel.from_json(
+            settings["model"]["model_path"], device=device)
+
+    def predict(x):
+        return model.predict(torch.as_tensor(
+            x, dtype=torch.float64, device=model.device)).cpu().numpy()
+
+    rmse_e = ls.rmse_metric(y_e, predict(x_e))
+    rmse_f = ls.rmse_metric(y_f, predict(x_f))
+    print(f"RMSE (energy): {rmse_e:.3F}\nRMSE (forces): {rmse_f:.3F}")
+    print(f"RMSE (energy, eV/atom): {rmse_e:.6e}; RMSE (forces, eV/A): "
+          f"{rmse_f:.6e}; {len(y_e)} configurations on {model.device}")
 
 
 def cmd_md(model_path: str, args) -> None:
@@ -63,11 +164,18 @@ def cmd_export(model_path: str, out_dir: str) -> None:
     print(lammps.generate_lammps_input(model, path))
 
 
+FIT_COMMANDS = {"featurize": cmd_featurize, "fit": cmd_fit,
+                "predict": cmd_predict}
+
+
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="uf3_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
-    for name in ("featurize", "fit", "predict"):
-        sub.add_parser(name).add_argument("settings")
+    for name in FIT_COMMANDS:
+        p_fit = sub.add_parser(name)
+        p_fit.add_argument("settings")
+        p_fit.add_argument("--device", default=None,
+                           help="torch device; the CUDA card by default")
     p_md = sub.add_parser("md")
     p_md.add_argument("model")
     p_md.add_argument("--reps", type=int, default=10)
@@ -103,8 +211,7 @@ def main(argv=None) -> None:
     elif args.command == "export":
         cmd_export(args.model, args.out)
     else:
-        raise _not_ported(f"the {args.command} command",
-                          NOT_PORTED[args.command])
+        FIT_COMMANDS[args.command](args.settings, device=args.device)
 
 
 if __name__ == "__main__":

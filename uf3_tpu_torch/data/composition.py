@@ -3,8 +3,8 @@ Chemical-system description: the sorted element list and the pair and
 trio interactions a B-spline basis is keyed by.
 
 Trimmed copy of ``uf3_tpu/data/composition.py`` (the symbol sorting and
-the part of ``ChemicalSystem`` that ``BSplineBasis.from_dict`` needs;
-no species hashing).  Orderings follow the reference UF3:
+the part of ``ChemicalSystem`` that ``BSplineBasis.from_dict`` and
+``as_dict`` need; no species hashing).  Orderings follow the reference UF3:
   * element_list is the de-duplicated input sorted by the order key;
   * pairs are combinations-with-replacement, each sorted, the list
     ordered by order key;
@@ -52,6 +52,9 @@ class ChemicalSystem:
     def from_dict(config: Dict) -> "ChemicalSystem":
         return ChemicalSystem(element_list=config["element_list"],
                               degree=config["degree"])
+
+    def as_dict(self) -> Dict:
+        return dict(element_list=list(self.element_list), degree=self.degree)
 
     def _build_interactions_map(self) -> Dict[int, List]:
         imap: Dict[int, Any] = {1: list(self.element_list)}

@@ -1,13 +1,20 @@
 """
 Extended-xyz reading and writing: configurations with their energy in
-the comment line and forces in a 'force'/'forces' property column.
+the comment line and forces in a 'force'/'forces' property column; a
+training set's files found by pattern and read with per-file
+subsampling.
 
 Copy of ``read_xyz`` and ``write_xyz`` with their comment and property
-parsers from ``uf3_tpu/data/io.py`` (that module imports pandas at
-module level, which the GPU hosts do not carry): for the same
-configurations it writes the same text.
+parsers, and of ``identify_paths``, from ``uf3_tpu/data/io.py`` (that
+module imports pandas at module level, which the GPU hosts do not
+carry): for the same configurations it writes the same text.
+``read_sources`` is ``parse_with_subsampling`` for extended-xyz files,
+returning named configurations where the reference fills a pandas
+``DataCoordinator``.
 """
 
+import fnmatch
+import os
 import re
 from io import StringIO
 from typing import Dict, List, Tuple, Union
@@ -16,6 +23,7 @@ import numpy as np
 
 from uf3_tpu_torch.data import elements
 from uf3_tpu_torch.data.atoms import Atoms
+from uf3_tpu_torch.util import subsample
 
 _KV_RE = re.compile(r'(\S+?)=(?:"([^"]*)"|(\S+))')
 
@@ -139,3 +147,50 @@ def write_xyz(filename: str, geometries: List[Atoms],
                     row += [f"{geom.arrays[c][i]:.10f}"
                             for c in ("fx", "fy", "fz")]
                 f.write(" ".join(row) + "\n")
+
+
+def identify_paths(experiment_path: str = ".",
+                   filename: str = None,
+                   filename_pattern: str = None) -> List[str]:
+    data_paths = []
+    if filename is not None:
+        if os.path.isfile(filename):
+            data_paths.append(filename)
+        elif os.path.isfile(os.path.join(experiment_path, filename)):
+            data_paths.append(filename)
+    if filename_pattern is not None:
+        for directory, _, files in os.walk(experiment_path):
+            for name in files:
+                if fnmatch.fnmatch(name, filename_pattern):
+                    data_paths.append(os.path.join(directory, name))
+    return data_paths
+
+
+def read_sources(data_paths: List[str], max_samples: int = -1,
+                 min_diff: float = 0.0) -> Tuple[List[str], List[Atoms]]:
+    """Configurations of extended-xyz files, named "<file>_<i>" (the
+    file's path past the paths' common directory, "/" as "-"), with
+    per-file farthest-point subsampling on per-atom energies (0 where a
+    frame has none) when both ``max_samples`` and ``min_diff`` are
+    positive.  Files that do not parse are skipped."""
+    common_path = os.path.dirname(os.path.commonprefix(data_paths))
+    keys, geometries = [], []
+    for data_path in data_paths:
+        prefix = data_path[len(common_path):].replace("/", "-").lstrip("-")
+        try:
+            found = read_xyz(data_path)
+        except (ValueError, IndexError, KeyError, FileNotFoundError):
+            continue
+        if not found:
+            continue
+        energy_list = np.array([g.info.get("energy", 0.0) / len(g)
+                                for g in found])
+        if max_samples > 0 and min_diff > 0:
+            samples = subsample.farthest_point_sampling(
+                energy_list, max_samples=max_samples, min_diff=min_diff)
+        else:
+            samples = np.arange(len(energy_list))
+        for i in np.sort(samples):
+            keys.append(f"{prefix}_{i}")
+            geometries.append(found[i])
+    return keys, geometries

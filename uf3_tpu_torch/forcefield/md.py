@@ -98,9 +98,9 @@ def _resolve_device(device) -> torch.device:
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
-        raise RuntimeError("MDSystem runs on the CUDA card by default and "
-                           "this host has none; pass device=\"cpu\" to run "
-                           "the plain torch version on the CPU")
+        raise RuntimeError("uf3_tpu_torch runs on the CUDA card by default "
+                           "and this host has none; pass device=\"cpu\" to "
+                           "run the plain torch version on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
 
 

@@ -1,0 +1,372 @@
+"""
+Weighted regularized linear least squares for UF potentials, without
+pandas: the Gram matrix (X^T X) and ordinate (X^T y) are accumulated in
+float64 on the model's device, by default the CUDA card, batch by batch
+as features arrive; they are blended with the per-channel 1/(sqrt(n)
+sigma) weights and the energy/force balance, the squared regularizer
+is added, the frozen (trimmed) columns are eliminated, and the normal
+equations are solved in float64 on the host.
+
+Counterpart of ``uf3_tpu/regression/least_squares.py`` (which imports
+pandas, absent from the GPU hosts): ``VarianceRecorder``, the
+frozen-column helpers, ``calc_E_F_weights``, ``WeightedLinearModel``
+(``fit_with_gram``, ``fit``, ``combine_weighted_gram``, ``predict``,
+``score``, ``from_dict`` / ``from_json``, ``as_dict`` / ``to_json``,
+``load``) and the metrics.  The HDF5 feature tables of
+``fit_from_file`` and ``batched_predict`` are replaced by feature
+batches (``fit_from_batches``, ``gram_from_batches``), as the
+single-device counterpart of ``uf3_tpu/parallel/mesh.py``'s
+``fit_sharded``.
+"""
+
+from typing import Collection, Dict, Iterable, Tuple
+
+import numpy as np
+import torch
+
+from uf3_tpu_torch import io
+from uf3_tpu_torch.forcefield.md import _resolve_device
+from uf3_tpu_torch.representation.basis import BSplineBasis
+from uf3_tpu_torch.util import json_io
+
+
+class VarianceRecorder:
+    """Streaming population mean/std over batches.
+
+    Internally carries Chan-style moments (count, mean, M2 = summed
+    squared deviations), which merge exactly across batches of any
+    size; ``mean``/``std`` are derived views of the moments.  Used by
+    the fit pipeline to size the 1/(sqrt(n) sigma) channel weights
+    (reference semantics: uf3/regression/least_squares.py:19-60).
+    """
+
+    def __init__(self, mean=0, std=0, n=0):
+        self.n = int(n)
+        self._mean = np.asarray(mean, dtype=float) if n else 0.0
+        self._m2 = (np.asarray(std, dtype=float) ** 2 * n) if n else 0.0
+
+    @property
+    def mean(self):
+        return self._mean
+
+    @property
+    def std(self):
+        return np.sqrt(self._m2 / self.n) if self.n else 0.0
+
+    def update(self, batch: Collection) -> Tuple:
+        batch = np.asarray(batch, dtype=float)
+        n_b = len(batch)
+        if n_b:
+            mean_b = batch.mean(axis=0)
+            m2_b = ((batch - mean_b) ** 2).sum(axis=0)
+            total = self.n + n_b
+            delta = mean_b - self._mean
+            self._m2 = (self._m2 + m2_b
+                        + delta * delta * (self.n * n_b / total))
+            self._mean = self._mean + delta * (n_b / total)
+            self.n = total
+        return self.mean, self.std, self.n
+
+
+def _host(array) -> np.ndarray:
+    if isinstance(array, torch.Tensor):
+        return array.detach().cpu().numpy()
+    return np.asarray(array)
+
+
+# ---------------------------------------------------------------------------
+# gram/ordinate primitives
+# ---------------------------------------------------------------------------
+def lu_factorization(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return np.linalg.solve(a, b)
+
+
+def apply_weights(x, y, weights):
+    if weights is None:
+        return x, y
+    if len(weights) != len(x):
+        raise ValueError("Number of weights does not match samples.")
+    if not np.all(np.asarray(weights) >= 0):
+        raise ValueError("Negative weights provided.")
+    w = np.sqrt(weights)
+    return np.multiply(x.T, w).T, np.multiply(y, w)
+
+
+# ---------------------------------------------------------------------------
+# frozen-column elimination
+# ---------------------------------------------------------------------------
+def get_freezing_mask(n_feats: int, col_idx: np.ndarray) -> np.ndarray:
+    return np.setdiff1d(np.arange(n_feats), col_idx)
+
+
+def freeze_columns(x, y, mask, frozen_c, col_idx):
+    """Eliminate frozen columns, moving their contribution into y; numpy
+    arrays, or tensors on their own device."""
+    if isinstance(x, torch.Tensor):
+        x_fixed = x[:, torch.as_tensor(col_idx, device=x.device)]
+        shift = x_fixed @ torch.as_tensor(frozen_c, dtype=x.dtype,
+                                          device=x.device)
+        return x[:, torch.as_tensor(mask, device=x.device)], y - shift
+    x = np.asarray(x)
+    x_fixed = x[:, col_idx]
+    return x[:, mask], np.subtract(y, np.dot(x_fixed, frozen_c))
+
+
+def freeze_regularizer(regularizer, mask):
+    return regularizer[:, mask]
+
+
+def revert_frozen_coefficients(solution, n_coeff, mask, frozen_c,
+                               frozen_idx) -> np.ndarray:
+    full = np.zeros(n_coeff, dtype=np.asarray(solution).dtype)
+    full[np.asarray(mask, dtype=int)] = solution
+    full[np.asarray(frozen_idx, dtype=int)] = frozen_c
+    return full
+
+
+def calc_E_F_weights(n_e, n_f, std_e, std_f) -> Tuple[float, float]:
+    """Per-channel weights 1/(sqrt(n) * sigma); degenerate energies fall
+    back to weight 1 (reference least_squares.py:1147-1169)."""
+    if std_e == 0:
+        return 1.0, 1.0 / np.sqrt(n_f)
+    return 1.0 / np.sqrt(n_e) / std_e, 1.0 / np.sqrt(n_f) / std_f
+
+
+# ---------------------------------------------------------------------------
+# model
+# ---------------------------------------------------------------------------
+class WeightedLinearModel:
+    """Energy+force weighted regularized least squares over a basis set.
+
+    The Gram matrices are accumulated on ``device`` (the CUDA card unless
+    ``device="cpu"``; it raises where there is none) in float64; the
+    solve runs on the host in float64."""
+
+    def __init__(self,
+                 bspline_config: BSplineBasis,
+                 regularizer: np.ndarray = None,
+                 data_coverage: np.ndarray = None,
+                 device=None,
+                 **params):
+        self.device = _resolve_device(device)
+        self.coefficients = None
+        self.regularizer = regularizer
+        self.bspline_config = bspline_config
+        n_basis = self.n_feats
+        if data_coverage is not None:
+            if len(data_coverage) != n_basis:
+                raise ValueError(f"Incorrect data_coverage shape: "
+                                 f"{len(data_coverage)} != {n_basis}")
+            self.data_coverage = np.asarray(data_coverage, dtype=bool)
+        else:
+            self.data_coverage = np.zeros(n_basis, dtype=bool)
+        if self.regularizer is None:
+            self.set_params(**params)
+
+    def set_params(self, **params):
+        self.bspline_config = params.get("bspline_config",
+                                         self.bspline_config)
+        try:
+            self.regularizer = params["regularizer"]
+        except KeyError:
+            pass
+        if "regularizer" not in params and self.regularizer is None:
+            scalars = {k: v for k, v in params.items()
+                       if isinstance(v, (int, float, np.floating))}
+            self.regularizer = \
+                self.bspline_config.get_regularization_matrix(**scalars)
+
+    # -- delegation views onto the basis config ------------------------------
+    n_feats = property(lambda self: self.bspline_config.n_feats)
+    frozen_c = property(lambda self: self.bspline_config.frozen_c)
+    col_idx = property(lambda self: self.bspline_config.col_idx)
+    mask = property(
+        lambda self: get_freezing_mask(self.n_feats, self.col_idx))
+
+    def __repr__(self):
+        fit = "True" if self.coefficients is not None else "False"
+        return "\n".join(["WeightedLinearModel:", f"    Fit: {fit}",
+                          f"    Device: {self.device}"])
+
+    # -- Gram accumulation on the device -------------------------------------
+    def _frozen_rows(self, x, y):
+        """Rows as float64 tensors on the model's device, frozen columns
+        eliminated."""
+        x = torch.as_tensor(x, dtype=torch.float64, device=self.device)
+        y = torch.as_tensor(y, dtype=torch.float64, device=self.device)
+        return freeze_columns(x, y, self.mask, self.frozen_c, self.col_idx)
+
+    def _gram(self, x, y, batch_size: int):
+        """(X^T X, X^T y) of the frozen rows on the device, accumulated
+        over row batches of ``batch_size`` (numpy rows cross to the
+        device one batch at a time)."""
+        n_columns = len(self.mask)
+        gram = torch.zeros((n_columns, n_columns), dtype=torch.float64,
+                           device=self.device)
+        ordinate = torch.zeros(n_columns, dtype=torch.float64,
+                               device=self.device)
+        for start in range(0, len(y), batch_size):
+            xb, yb = self._frozen_rows(x[start:start + batch_size],
+                                       y[start:start + batch_size])
+            gram += xb.T @ xb
+            ordinate += xb.T @ yb
+        return gram, ordinate
+
+    def gram_from_batches(self, batches: Iterable,
+                          e_variance: VarianceRecorder = None,
+                          f_variance: VarianceRecorder = None):
+        """Energy and force Gram matrices and ordinates, summed on the
+        device over ``batches`` of (x_e, y_e, x_f, y_f) (numpy arrays or
+        tensors; rows as ``featurize_dataset_device`` orders them), with
+        the frozen columns eliminated; the targets stream into the
+        variance recorders when given.  Returns (gram_e, gram_f, ord_e,
+        ord_f) as float64 tensors on the device."""
+        n_columns = len(self.mask)
+        gram_e, gram_f = (torch.zeros((n_columns, n_columns),
+                                      dtype=torch.float64, device=self.device)
+                          for _ in range(2))
+        ord_e, ord_f = (torch.zeros(n_columns, dtype=torch.float64,
+                                    device=self.device) for _ in range(2))
+        for x_e, y_e, x_f, y_f in batches:
+            x_e, y_e = self._frozen_rows(x_e, y_e)
+            x_f, y_f = self._frozen_rows(x_f, y_f)
+            if e_variance is not None and f_variance is not None:
+                e_variance.update(_host(y_e))
+                f_variance.update(_host(y_f))
+            gram_e += x_e.T @ x_e
+            ord_e += x_e.T @ y_e
+            gram_f += x_f.T @ x_f
+            ord_f += x_f.T @ y_f
+        return gram_e, gram_f, ord_e, ord_f
+
+    # -- fitting ------------------------------------------------------------
+    def fit_with_gram(self, gram, ordinate):
+        """Solve the regularized normal equations on the host in float64
+        (``gram`` and ``ordinate`` over the unfrozen columns, arrays or
+        tensors)."""
+        gram = _host(gram).astype(np.float64)
+        ordinate = _host(ordinate).astype(np.float64)
+        coverage = (np.sum(gram, axis=0) != 0)
+        coverage = revert_frozen_coefficients(coverage, self.n_feats,
+                                              self.mask, self.frozen_c,
+                                              self.col_idx)
+        self.data_coverage = np.logical_or(self.data_coverage,
+                                           coverage.astype(bool))
+        reg = freeze_regularizer(self.regularizer, self.mask)
+        coefficients = lu_factorization(gram + reg.T @ reg, ordinate)
+        self.coefficients = revert_frozen_coefficients(
+            coefficients, self.n_feats, self.mask, self.frozen_c,
+            self.col_idx)
+
+    def fit(self, x_e, y_e, x_f=None, y_f=None, weight: float = 0.5,
+            batch_size: int = 2500):
+        """Fit energy (and force) rows: arrays or tensors, each Gram
+        accumulated on the device over row batches of ``batch_size``."""
+        y_e_frozen = _host(y_e) - np.dot(_host(x_e)[:, self.col_idx],
+                                         self.frozen_c)
+        gram_e, ord_e = self._gram(x_e, y_e, batch_size)
+        if x_f is not None:
+            energy_weight, force_weight = calc_E_F_weights(
+                len(y_e), len(y_f), np.std(y_e_frozen), np.std(_host(y_f)))
+            gram_f, ord_f = self._gram(x_f, y_f, batch_size)
+            gram, ordinate = self.combine_weighted_gram(
+                gram_e, gram_f, ord_e, ord_f,
+                energy_weight, force_weight, weight)
+        else:
+            gram, ordinate = gram_e, ord_e
+        self.fit_with_gram(gram, ordinate)
+
+    def fit_from_batches(self, batches: Iterable, weight: float = 0.5):
+        """Fit over ``batches`` of (x_e, y_e, x_f, y_f): Gram matrices
+        summed on the device, the channel weights from the streamed
+        targets' variances, the solve on the host."""
+        e_var = VarianceRecorder()
+        f_var = VarianceRecorder()
+        gram_e, gram_f, ord_e, ord_f = self.gram_from_batches(
+            batches, e_variance=e_var, f_variance=f_var)
+        energy_weight, force_weight = calc_E_F_weights(
+            e_var.n, f_var.n, e_var.std, f_var.std)
+        gram, ordinate = self.combine_weighted_gram(
+            gram_e, gram_f, ord_e, ord_f, energy_weight, force_weight,
+            weight)
+        self.fit_with_gram(gram, ordinate)
+
+    @staticmethod
+    def combine_weighted_gram(gram_e, gram_f, ord_e, ord_f,
+                              energy_weight, force_weight, weight):
+        gram = (weight * energy_weight ** 2 * gram_e
+                + (1 - weight) * force_weight ** 2 * gram_f)
+        ordinate = (weight * energy_weight ** 2 * ord_e
+                    + (1 - weight) * force_weight ** 2 * ord_f)
+        return gram, ordinate
+
+    # -- prediction ---------------------------------------------------------
+    def predict(self, x):
+        """x @ coefficients: numpy on the host, a tensor on its device."""
+        if isinstance(x, torch.Tensor):
+            return x @ torch.as_tensor(self.coefficients, dtype=x.dtype,
+                                       device=x.device)
+        return np.dot(x, self.coefficients)
+
+    def score(self, x, y, weights=None, normalize=True):
+        if weights is not None:
+            x, y = apply_weights(x, y, weights)
+        score = -rmse_metric(y, self.predict(x))
+        if normalize:
+            score /= np.std(y)
+        return score
+
+    # -- serialization ------------------------------------------------------
+    @staticmethod
+    def from_dict(config: Dict, device=None) -> "WeightedLinearModel":
+        """A model from the dictionary ``as_dict`` (of this package or of
+        ``uf3_tpu``) produces."""
+        bspline_config = BSplineBasis.from_dict(config)
+        model = WeightedLinearModel(
+            bspline_config,
+            regularizer=config.get("regularizer"),
+            data_coverage=config.get("data_coverage"),
+            device=device)
+        model.load(solution=config)
+        return model
+
+    @staticmethod
+    def from_json(filename: str, device=None) -> "WeightedLinearModel":
+        return WeightedLinearModel.from_dict(
+            json_io.load_interaction_map(filename), device=device)
+
+    def as_dict(self) -> Dict:
+        solution = io.arrange_coefficients(self.coefficients,
+                                           self.bspline_config)
+        for trio in self.bspline_config.interactions_map.get(3, []):
+            solution[trio] = self.bspline_config.decompress_3B(
+                solution[trio], trio)
+        return dict(coefficients=solution,
+                    knots=self.bspline_config.knots_map,
+                    data_coverage=self.data_coverage,
+                    **self.bspline_config.as_dict())
+
+    def to_json(self, filename: str):
+        json_io.dump_interaction_map(self.as_dict(), filename=filename,
+                                     write=True)
+
+    def load(self, solution: Dict = None, filename: str = None):
+        """Arrange per-interaction coefficient vectors (3B possibly as a
+        full L x M x N grid) into the flat coefficient vector."""
+        if filename is not None:
+            solution = json_io.load_interaction_map(filename)
+        elif solution is None:
+            raise ValueError("Neither solution nor filename provided.")
+        self.coefficients = io.flat_coefficients(solution,
+                                                 self.bspline_config)
+
+
+# ---------------------------------------------------------------------------
+# metrics
+# ---------------------------------------------------------------------------
+def rmse_metric(predicted, actual) -> float:
+    return np.sqrt(np.mean(np.subtract(predicted, actual) ** 2))
+
+
+def mae_metric(predicted, actual) -> float:
+    return np.mean(np.abs(np.subtract(predicted, actual)))

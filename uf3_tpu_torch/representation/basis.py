@@ -1,18 +1,20 @@
 """
-B-spline basis of a fitted model: per-interaction knot sequences, the
-3-body symmetry template, and the partition of the flat coefficient
-vector, enough to turn a model file into coefficient grids.
+B-spline basis of a model: per-interaction knot sequences, the 3-body
+symmetry template, the partition of the flat coefficient vector, the
+columns the edge trims freeze, and the regularizer of the fit.
 
 Trimmed copy of ``BSplineBasis`` (``uf3_tpu/representation/basis.py``):
-``from_dict`` and the knot bookkeeping, the cutoff ``r_cut``,
-``get_interaction_partitions``,
-and the 3-body ``compress_3B`` / ``decompress_3B`` with the flatten
-template and the symmetry helpers they use.  The regularizer, the
-fitting trims (frozen columns), featurization helpers and the
-``knots_path`` file options are left out.  Parity notes (the reference
-UF3's defaults): pairs r in [1, 8] with 15 intervals; trios [min, min,
-min] -> [max, max, 2 max] with [5, 5, 10] intervals; trims leading
-{2: 0, 3: 3}, trailing {2: 3, 3: 3}.
+``from_dict`` / ``as_dict`` and the knot bookkeeping, the cutoff
+``r_cut``, ``n_feats``, ``get_interaction_partitions`` and
+``get_column_names``, the 3-body ``compress_3B`` /
+``compress_3B_batch`` / ``decompress_3B`` with the flatten template and
+the symmetry helpers they use, the frozen columns
+(``generate_frozen_indices``: ``col_idx``, ``frozen_c``) and
+``get_regularization_matrix``.  The ``knots_path`` file options are left
+out.  Parity notes (the reference UF3's defaults): pairs r in [1, 8]
+with 15 intervals; trios [min, min, min] -> [max, max, 2 max] with
+[5, 5, 10] intervals; trims leading {2: 0, 3: 3}, trailing
+{2: 3, 3: 3}.
 """
 
 import itertools
@@ -22,6 +24,7 @@ from typing import Any, Dict, List, Tuple, Union
 import numpy as np
 
 from uf3_tpu_torch.data import composition
+from uf3_tpu_torch.regression import regularize
 from uf3_tpu_torch.representation import knots as kn
 
 
@@ -135,7 +138,10 @@ class BSplineBasis:
         self.symmetry: Dict[Tuple, int] = {}
         self.flat_weights: Dict[Tuple, np.ndarray] = {}
         self.template_mask: Dict[Tuple, np.ndarray] = {}
+        self.templates: Dict[Tuple, np.ndarray] = {}
         self.partition_sizes: List[int] = []
+        self.frozen_c = np.array([])
+        self.col_idx = np.array([], dtype=int)
         self.r_cut = 0.0
         self.update_knots(r_max_map, r_min_map, resolution_map, knots_map)
         self.update_basis_functions()
@@ -160,6 +166,15 @@ class BSplineBasis:
                 settings[trim_key] = {int(k): v for k, v in value.items()}
         return BSplineBasis(chemical_system, **settings)
 
+    def as_dict(self) -> Dict:
+        return dict(
+            knot_strategy=self.knot_strategy,
+            offset_1b=self.offset_1b,
+            leading_trim={str(k): v for k, v in self.leading_trim.items()},
+            trailing_trim={str(k): v for k, v in self.trailing_trim.items()},
+            knots_map=self.knots_map,
+            **self.chemical_system.as_dict())
+
     # -- convenience properties ---------------------------------------------
     @property
     def degree(self) -> int:
@@ -176,6 +191,10 @@ class BSplineBasis:
     @property
     def interactions(self):
         return self.chemical_system.interactions
+
+    @property
+    def n_feats(self) -> int:
+        return int(np.sum(self.get_feature_partition_sizes()))
 
     def get_cutoff(self) -> float:
         """Largest center-atom cutoff over all interactions."""
@@ -286,6 +305,10 @@ class BSplineBasis:
                         for i in range(3)]
             self.set_flatten_template_3B()
         self.partition_sizes = self.get_feature_partition_sizes()
+        self.col_idx, self.frozen_c = self.generate_frozen_indices(
+            offset_1b=self.offset_1b,
+            n_lead=self.leading_trim,
+            n_trail=self.trailing_trim)
 
     # -- 3-body symmetry compression ----------------------------------------
     def set_flatten_template_3B(self) -> None:
@@ -299,6 +322,7 @@ class BSplineBasis:
             mask = np.where(flat > 0)[0]
             self.template_mask[trio] = mask
             self.flat_weights[trio] = flat[mask]
+            self.templates[trio] = template
 
     def compress_3B(self, grid: np.ndarray, interaction: Tuple,
                     fitting: bool = True) -> np.ndarray:
@@ -310,6 +334,31 @@ class BSplineBasis:
         else:
             redundancy = {1: 1.0, 2: 0.5, 3: 1.0 / 6.0}[symmetry]
         return vec.flat[self.template_mask[interaction]] * redundancy
+
+    def compress_3B_batch(self, grids: np.ndarray, interaction: Tuple,
+                          fitting: bool = True) -> np.ndarray:
+        """compress_3B vectorized over arbitrary leading axes:
+        grids (..., L, M, N) -> (..., n_wedge)."""
+        symmetry = self.symmetry[interaction]
+        grids = np.asarray(grids)
+        lead = grids.ndim - 3
+        if symmetry == 1:
+            vec = grids
+        elif symmetry == 2:
+            vec = grids + np.swapaxes(grids, -3, -2)
+        else:
+            def t(p):
+                return np.transpose(
+                    grids, tuple(range(lead)) + tuple(lead + i
+                                                      for i in p))
+            vec = (t((0, 1, 2)) + t((0, 2, 1)) + t((1, 0, 2))
+                   + t((1, 2, 0)) + t((2, 0, 1)) + t((2, 1, 0)))
+        if fitting:
+            redundancy = self.flat_weights[interaction]
+        else:
+            redundancy = {1: 1.0, 2: 0.5, 3: 1.0 / 6.0}[symmetry]
+        flat = vec.reshape(grids.shape[:lead] + (-1,))
+        return flat[..., self.template_mask[interaction]] * redundancy
 
     def decompress_3B(self, vec: np.ndarray,
                       interaction: Tuple) -> np.ndarray:
@@ -326,7 +375,7 @@ class BSplineBasis:
             grid = symmetrize_3B(grid, 3)
         return grid
 
-    # -- partitioning -------------------------------------------------------
+    # -- partitioning / trims -------------------------------------------------------
     def get_feature_partition_sizes(self) -> List[int]:
         sizes = [1] * len(self.element_list)
         for degree in range(2, self.degree + 1):
@@ -348,3 +397,103 @@ class BSplineBasis:
             sizes[interaction] = sizes_list[j]
             starts[interaction] = int(offsets[j])
         return sizes, starts
+
+    def get_column_names(self) -> List[str]:
+        names = ["y"] + [f"n_{el}" for el in self.element_list]
+        sizes = self.get_interaction_partitions()[0]
+        for degree in range(2, self.degree + 1):
+            for interaction in self.interactions_map[degree]:
+                tag = "".join(interaction)
+                names.extend(f"{tag}{i}"
+                             for i in range(sizes[interaction]))
+        return names
+
+    def generate_frozen_indices(self,
+                                offset_1b: bool = True,
+                                n_lead: Dict[int, int] = None,
+                                n_trail: Dict[int, int] = None,
+                                value: float = 0.0):
+        """Feature-column indices (and values) pinned by the edge trims."""
+        n_lead = n_lead or self.leading_trim
+        n_trail = n_trail or self.trailing_trim
+        sizes, offsets = self.get_interaction_partitions()
+        col_idx: List[int] = []
+        for pair in self.interactions_map.get(2, []):
+            offset, size = offsets[pair], sizes[pair]
+            col_idx.extend(offset + t for t in range(n_lead[2]))
+            col_idx.extend(offset + size - t for t in range(1, n_trail[2] + 1))
+        for trio in self.interactions_map.get(3, []):
+            template = np.zeros_like(self.templates[trio])
+            for t in range(n_lead[3]):
+                template[t, :, :] = 1
+                template[:, t, :] = 1
+                template[:, :, t] = 1
+            for t in range(1, n_trail[3] + 1):
+                template[-t, :, :] = 1
+                template[:, -t, :] = 1
+                template[:, :, -t] = 1
+            compressed = self.compress_3B(template, trio)
+            base = offsets[trio]
+            col_idx.extend(int(base + i)
+                           for i in np.where(compressed > 0)[0])
+        if not offset_1b:
+            col_idx = list(range(len(self.element_list))) + col_idx
+        col_idx = np.array(col_idx, dtype=int)
+        frozen_c = np.full(len(col_idx), value)
+        return col_idx, frozen_c
+
+    # -- regularization -----------------------------------------------------
+    def get_regularization_matrix(self,
+                                  ridge_map: Dict = None,
+                                  curvature_map: Dict = None,
+                                  **kwargs) -> np.ndarray:
+        import re
+        ridge_map = dict(ridge_map or {})
+        curvature_map = dict(curvature_map or {})
+        for key, value in kwargs.items():
+            degree = int(re.sub(r"[^0-9]", "", key))
+            if key.lower().startswith("r"):
+                ridge_map[degree] = float(value)
+            elif key.lower().startswith("c"):
+                curvature_map[degree] = float(value)
+        grid = regularize.DEFAULT_REGULARIZER_GRID
+        ridge_map = {1: grid["ridge_1b"], 2: grid["ridge_2b"],
+                     3: grid["ridge_3b"], **ridge_map}
+        curvature_map = {1: 0.0, 2: grid["curve_2b"],
+                         3: grid["curve_3b"], **curvature_map}
+        matrices = [np.sqrt(ridge_map[1])
+                    * regularize.get_ridge_penalty_matrix(
+                        len(self.element_list))]
+        for degree in range(2, self.degree + 1):
+            for interaction in self.interactions_map[degree]:
+                if degree == 2:
+                    matrices.append(self._regularizer_2b(
+                        interaction, ridge_map[2], curvature_map[2]))
+                else:
+                    matrices.append(self._regularizer_3b(
+                        interaction, ridge_map[3], curvature_map[3]))
+        return regularize.combine_regularizer_matrices(matrices)
+
+    def _regularizer_2b(self, interaction, ridge, curvature) -> np.ndarray:
+        size = self.resolution_map[interaction] + 3
+        matrix = np.sqrt(ridge) * regularize.get_ridge_penalty_matrix(size)
+        if curvature > 0:
+            matrix_c = np.sqrt(curvature) \
+                * regularize.get_curvature_penalty_matrix_1D(size)
+            matrix = np.vstack((matrix, matrix_c))
+        return matrix
+
+    def _regularizer_3b(self, interaction, ridge, curvature) -> np.ndarray:
+        mask = self.template_mask[interaction]
+        matrix = np.sqrt(ridge) * regularize.get_ridge_penalty_matrix(
+            len(mask))
+        if curvature > 0:
+            res = self.resolution_map[interaction]
+            matrix_c = regularize.get_curvature_penalty_matrix_3D(
+                res[0] + 3, res[1] + 3, res[2] + 3, flatten=False)
+            compressed = np.zeros((len(mask), len(mask)))
+            for row_i, grid_i in enumerate(mask):
+                compressed[row_i] = self.compress_3B(matrix_c[grid_i],
+                                                     interaction)
+            matrix = np.vstack((matrix, np.sqrt(curvature) * compressed))
+        return matrix

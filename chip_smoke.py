@@ -43,7 +43,15 @@ tungsten set's size (1,939 strained and rattled bcc W cells of 16, 54,
 the Gram matrix on the card and the solve on the host, the fitted model
 held to its teacher on a 20% hold-out and run in MD at 9,826 atoms,
 and the ``featurize`` / ``fit`` / ``predict`` commands with ``md`` on
-their model.
+their model.  Last, the multi-species fit (``run_fit_multi``): 1,000
+strained and rattled binary fcc Ne/Xe cells of 32, 108 and 256 atoms
+(129,600 atoms), one in ten without forces, labeled by the random Ne/Xe
+2+3-body model through ``UFCalculator`` on the fused multi-species
+route, featurized on the card by the multi-species dataset path, fitted
+and held to the teacher, its model run in MD at 8,788 atoms on the same
+route; then the commands on ``model_pair.json``'s 2-body basis (the
+multi-species device route) and on a basis of moved knots (the host
+route).
 
     python3 chip_smoke.py
 
@@ -91,6 +99,8 @@ from uf3_tpu_torch.ops.potential import (UF3Potential,  # noqa: E402
                                          grid_sparsity)
 from uf3_tpu_torch.ops.splines import _leg_interval  # noqa: E402
 from uf3_tpu_torch.representation.basis import BSplineBasis  # noqa: E402
+from uf3_tpu_torch.representation.knots import \
+    get_knot_spacer as knot_spacer  # noqa: E402
 
 MODEL = os.path.join(REPO, "benchmarks_data", "model_2and3.json")
 BENCH = dict(rebuild_every=36, skin=0.5, skin_2b=1.2, capacity_2b=72,
@@ -912,10 +922,13 @@ def run_md_command(model="model_2and3.json", *flags):
 MODEL_2 = os.path.join(REPO, "benchmarks_data", "model_2.json")
 MODEL_PAIR = os.path.join(REPO, "benchmarks_data", "model_pair.json")
 LANGEVIN = dict(dt_fs=2.0, thermostat="langevin", temperature=T_TARGET)
-# f64, the fused kernels' closed-form legs against the factorized path:
-# they rebuild each leg's knots as u0 + k h from its first gap, while a
-# model's knots are rounded to 1e-10 A (tests/test_torch_models.py)
-FUSED_FORCE_TOL = 5e-9
+# f64, the fused routes against the factorized path: since the kernels'
+# tables hold the model's own knots (5e-9 and 1e-9 when they rebuilt
+# them from the first knot gap), what is left is the summation order:
+# on the card 2.2e-14 eV/A (separate route, 9,826 atoms) and |dE|, |dF|,
+# |dW| at most 3.2e-12 (multi-species route, 4,000 atoms; PERF.md)
+FUSED_FORCE_TOL = 1e-12
+FUSED_ROUTE_TOL = 5e-11
 BINARY_NVE_DRIFT = 1e-3  # eV/atom, as tests/test_device_potential.py:787
 
 
@@ -1020,7 +1033,7 @@ def run_binary_trio(device):
     at a = 5.4 A, 10^3 x 4 = 4,000 atoms, by the fused
     multi-species route (the engine's) and by the factorized path: the
     fused route's forces and virial in float32 against float64, the
-    fused route against the factorized path in float64 (1e-9), the
+    fused route against the factorized path in float64 (5e-11), the
     device and host time of one force call on each route, the card
     against the CPU on a 500-atom cut, and 200 NVE steps of 1 fs from
     10 K.  Returns (atom-steps/s of the NVE run, {route: (device ms,
@@ -1090,8 +1103,8 @@ def run_binary_trio(device):
     gate(name, {
         "f32 forces match f64": d_force <= FORCE_TOL,
         "f32 stress matches f64": d_stress <= STRESS_TOL,
-        "fused route within 1e-9 of the factorized path (f64)":
-            d_route <= 1e-9,
+        f"fused route within {FUSED_ROUTE_TOL:g} of the factorized path "
+        "(f64)": d_route <= FUSED_ROUTE_TOL,
         "no overflow": not system.overflowed(state),
         "finite state": bool(torch.isfinite(state.positions).all()
                              and torch.isfinite(state.forces).all()),
@@ -2154,49 +2167,83 @@ def busy_share(fn):
     return 1e3 * wall, (busy_us / 1e3 if busy_us > 0 else None)
 
 
+def labeled_frames(geoms, energies, forces):
+    """Copies of ``geoms`` carrying their labels as extended-xyz writes
+    them: the energy, and the forces where they are not None."""
+    frames = []
+    for geom, energy, force in zip(geoms, energies, forces):
+        frame = geom.copy()
+        frame.info["energy"] = energy
+        if force is not None:
+            for c, name in enumerate(("fx", "fy", "fz")):
+                frame.arrays[name] = force[:, c]
+        frames.append(frame)
+    return frames
+
+
+def run_commands(name, frames, settings, tmp, device, commands=(
+        "featurize", "fit", "predict")):
+    """``python -m uf3_tpu_torch featurize`` / ``fit`` / ``predict`` as
+    a user runs them (on the card by default; with ``--device cpu`` when
+    ``device`` is the CPU), on an extended-xyz file of ``frames`` in
+    ``tmp``/data and the JSON ``settings`` (sources, features and model
+    paths filled in here).  Returns (the model's path, the route the
+    featurizer took, predict's energy and force RMSE or None)."""
+    data_dir = os.path.join(tmp, "data")
+    os.makedirs(data_dir)
+    data_io.write_xyz(os.path.join(data_dir, "train.xyz"), frames)
+    model_path = os.path.join(tmp, "fitted_cmd.json")
+    features = os.path.join(tmp, "features.npz")
+    settings = dict(settings,
+                    data={"sources": {"path": data_dir, "pattern": "*.xyz"}},
+                    features=dict(settings.get("features", {}),
+                                  features_path=features),
+                    model={"model_path": model_path},
+                    learning=dict(settings.get("learning", {}),
+                                  features_path=features))
+    path = os.path.join(tmp, "settings.json")
+    with open(path, "w") as f:
+        json.dump(settings, f)
+    flags = [] if torch.device(device).type == "cuda" \
+        else ["--device", "cpu"]
+    route, rmse = None, None
+    for command in commands:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "uf3_tpu_torch",
+                              command, path, *flags], cwd=REPO,
+                             capture_output=True, text=True, timeout=600)
+        for line in out.stdout.strip().splitlines():
+            print(f"{name} {command} command: {line}")
+            found = re.match(r"route: (.+?) \(", line)
+            route = found.group(1) if found else route
+            found = re.search(r"RMSE \(energy, eV/atom\): (\S+); RMSE "
+                              r"\(forces, eV/A\): (\S+);", line)
+            rmse = tuple(float(x) for x in found.groups()) if found \
+                else rmse
+        print(f"{name} {command} command: exit {out.returncode} after "
+              f"{time.perf_counter() - t0:.2f} s")
+        if out.returncode != 0:
+            raise AssertionError(f"{name} {command} command failed:\n"
+                                 f"{out.stderr[-4000:]}")
+    return model_path, route, rmse
+
+
 def run_fit_command(geoms, energies, forces, tmp, device):
     """``python -m uf3_tpu_torch featurize`` and ``fit`` on the card, on
     an extended-xyz file of ``geoms`` written with ``write_xyz``, with
     JSON settings naming the bench model's basis; then ``md`` runs the
     model they wrote for 100 steps.  Returns the model's path."""
-    data_dir = os.path.join(tmp, "data")
-    os.makedirs(data_dir)
-    frames = []
-    for geom, energy, force in zip(geoms, energies, forces):
-        frame = geom.copy()
-        frame.info["energy"] = energy
-        for c, name in enumerate(("fx", "fy", "fz")):
-            frame.arrays[name] = force[:, c]
-        frames.append(frame)
-    data_io.write_xyz(os.path.join(data_dir, "train.xyz"), frames)
-    model_path = os.path.join(tmp, "fitted_cmd.json")
     settings = {
         "elements": ["W"], "degree": 3,
-        "data": {"sources": {"path": data_dir, "pattern": "*.xyz"}},
         # the bench model's basis
         "basis": {"r_min": {"W-W": 0.001, "W-W-W": [1.5, 1.5, 1.5]},
                   "r_max": {"W-W": 5.5, "W-W-W": [3.5, 3.5, 7.0]},
                   "resolution": {"W-W": 15, "W-W-W": [6, 6, 12]}},
-        "features": {"features_path": os.path.join(tmp, "features.npz")},
-        "model": {"model_path": model_path},
-        "learning": {"features_path": os.path.join(tmp, "features.npz"),
-                     "regularizer": {"curvature_2b": FIT_REG["c2"],
+        "learning": {"regularizer": {"curvature_2b": FIT_REG["c2"],
                                      "curvature_3b": FIT_REG["c3"]}}}
-    path = os.path.join(tmp, "settings.json")
-    with open(path, "w") as f:
-        json.dump(settings, f)
-    for command in ("featurize", "fit", "predict"):
-        t0 = time.perf_counter()
-        out = subprocess.run([sys.executable, "-m", "uf3_tpu_torch",
-                              command, path], cwd=REPO, capture_output=True,
-                             text=True, timeout=600)
-        for line in out.stdout.strip().splitlines():
-            print(f"{command} command: {line}")
-        print(f"{command} command: exit {out.returncode} after "
-              f"{time.perf_counter() - t0:.2f} s")
-        if out.returncode != 0:
-            raise AssertionError(f"{command} command failed:\n"
-                                 f"{out.stderr[-4000:]}")
+    model_path, _, _ = run_commands(
+        "fit", labeled_frames(geoms, energies, forces), settings,
+        os.path.join(tmp, "commands"), device)
     rate, energy = run_md_command(model_path, "--steps", "100")
     gate("fit command", {"model written": os.path.isfile(model_path),
                          "md ran it 100 steps": np.isfinite(energy)})
@@ -2351,6 +2398,294 @@ def run_fit(device, counts=FIT_SET, seed=0):
     return launches
 
 
+# -- the multi-species fit on the card (ROADMAP.md section 1 item 1):
+# the random Ne/Xe 2+3-body model as the teacher of a training set of
+# (count, fcc repetitions) at a = 5.4 A: 1,000 configurations, 129,600
+# atoms (the size of the tungsten set; the reference's Ne/Xe LAMMPS set
+# is not in the repository)
+FIT_MULTI_SET = ((300, 2), (400, 3), (300, 4))
+FIT_MULTI_XE = (0.2, 0.8)       # Xe fraction, uniform in this range
+FIT_MULTI_ENERGY_ONLY = 10      # one configuration in ten: energy alone
+FIT_MULTI_CHECK = 20            # configurations featurized on card and CPU
+# hold-out RMSE against the teacher, which lies in the fitted span:
+# twice the CPU rehearsal of this phase on the same data, 3.3535e-8
+# eV/A and 8.8522e-10 eV/atom (PERF.md), well within the unary
+# phase's 5e-4 eV/A and 1e-5 eV/atom
+FIT_MULTI_FORCE_RMSE, FIT_MULTI_ENERGY_RMSE = 6.7e-8, 1.77e-9
+FIT_PAIR_CONFIGS, FIT_HOST_CONFIGS = 50, 20
+# the host route's fit of the bench model's labels in a basis of moved
+# knots, which does not span the teacher: twice the CPU rehearsal's
+# 2.93e-2 eV/A on the same 20 configurations (PERF.md)
+HOST_FORCE_RMSE = 0.06
+
+
+def fit_multi_teacher():
+    """``species23_model()`` with its frozen columns (the basis's edge
+    trims) at their frozen values, as a fit holds them: the teacher then
+    lies in the span of its basis's features."""
+    model = species23_model()
+    basis = model.bspline_config
+    coefficients = np.array(model.coefficients, dtype=np.float64)
+    coefficients[basis.col_idx] = basis.frozen_c
+    return io.FittedModel(basis, coefficients)
+
+
+def fit_multi_training_set(seed, counts=FIT_MULTI_SET):
+    """Binary fcc Ne/Xe cells (a = 5.4 A), each with a Xe fraction drawn
+    in 0.2-0.8, isotropically strained within +-2% and rattled by a stdev
+    in 0.03-0.15 A, drawn from ``seed``."""
+    rng = np.random.RandomState(seed)
+    geoms = []
+    for count, reps in counts:
+        for _ in range(count):
+            base = bulk("Ne", "fcc", a=5.4) * reps
+            numbers = base.get_atomic_numbers()
+            share = rng.uniform(*FIT_MULTI_XE)
+            numbers[rng.rand(len(numbers)) < share] = 54
+            geom = Atoms(numbers, base.get_positions(), base.get_cell(),
+                         pbc=True)
+            geom.set_cell(geom.get_cell() * (1.0 + rng.uniform(
+                -FIT_STRAIN, FIT_STRAIN)), scale_atoms=True)
+            geom.rattle(rng.uniform(*FIT_RATTLE),
+                        seed=int(rng.randint(2 ** 31 - 1)))
+            geoms.append(geom)
+    return geoms
+
+
+def moved_knots_settings(seed=0):
+    """A unary W 2+3-body basis whose interior knots are moved by up to
+    15% of their gap (seeded): no closed form, so the featurize command
+    takes the host route.  Its settings, keyed as in the model files."""
+    rng = np.random.RandomState(seed)
+
+    def moved(lo, hi, n_int):
+        seq = np.array(knot_spacer("linear")(lo, hi, n_int))
+        gap = seq[4] - seq[3]
+        seq[4:-4] += rng.uniform(-0.15, 0.15, len(seq) - 8) * gap
+        return seq.tolist()
+    center = moved(1.5, 3.5, 6)
+    return {"elements": ["W"], "degree": 3,
+            "basis": {"knots_map": {"W-W": moved(1.5, 5.5, 15),
+                                    "W-W-W": [center, center,
+                                              moved(1.5, 7.0, 12)]}},
+            "learning": {"regularizer": {"curvature_2b": FIT_REG["c2"],
+                                         "curvature_3b": FIT_REG["c3"]}}}
+
+
+def run_fit_multi_commands(geoms, tmp, device):
+    """The commands on the bases the device fast path does not take:
+    ``featurize`` / ``fit`` / ``predict`` on ``FIT_PAIR_CONFIGS`` of
+    ``geoms`` labeled by ``model_pair.json`` in that file's own 2-body
+    Ne/Xe basis (the multi-species device route), ``md`` on the model
+    they wrote; then on ``FIT_HOST_CONFIGS`` bcc W 2^3 cells labeled by
+    the bench model in a basis of moved knots (the host route).
+    Returns {route: (energy RMSE, force RMSE)}."""
+    pair_basis = io.load_model(MODEL_PAIR).bspline_config
+    teacher = UFCalculator(MODEL_PAIR, device=device)
+    pair_geoms = geoms[:FIT_PAIR_CONFIGS]
+    energies, forces = label(teacher, pair_geoms)
+    settings = {
+        "elements": list(pair_basis.element_list), "degree": 2,
+        "basis": {"knots_map": {"-".join(p): pair_basis.knots_map[p].tolist()
+                                for p in pair_basis.interactions_map[2]}},
+        "learning": {"regularizer": {"curvature_2b": FIT_REG["c2"]}}}
+    model_path, route, rmse = run_commands(
+        "fit multi (model_pair.json's basis)",
+        labeled_frames(pair_geoms, energies, forces), settings,
+        os.path.join(tmp, "pair"), device)
+    fitted = io.load_model(model_path).bspline_config
+    same_basis = all(np.array_equal(fitted.knots_map[p],
+                                    pair_basis.knots_map[p])
+                     for p in pair_basis.interactions_map[2])
+    _, md_energy = run_md_command(model_path, "--steps", "100",
+                                  "--lattice", "4.5", "--dt", "1",
+                                  "--temperature", "10",
+                                  *([] if torch.device(device).type
+                                    == "cuda" else ["--device", "cpu"]))
+    routes = {route: rmse}
+    host_geoms = fit_training_set(1, ((FIT_HOST_CONFIGS, 2, False),))
+    energies, forces = label(UFCalculator(MODEL, device=device), host_geoms)
+    _, host_route, host_rmse = run_commands(
+        "fit multi (moved knots)",
+        labeled_frames(host_geoms, energies, forces),
+        moved_knots_settings(), os.path.join(tmp, "host"), device)
+    routes[host_route] = host_rmse
+    print(f"fit multi commands: routes and (energy, force) RMSE against "
+          f"the teachers {routes}")
+    gate("fit multi commands", {
+        "model_pair.json's basis: the multi-species device route, its "
+        "own knots": route == "device multi" and same_basis,
+        f"model_pair.json's basis: RMSE <= {FIT_MULTI_ENERGY_RMSE:g} "
+        f"eV/atom, {FIT_MULTI_FORCE_RMSE:g} eV/A": rmse is not None
+            and rmse[0] <= FIT_MULTI_ENERGY_RMSE
+            and rmse[1] <= FIT_MULTI_FORCE_RMSE,
+        "md ran the fitted pair model": np.isfinite(md_energy),
+        "moved knots: the host route": host_route == "host",
+        f"moved knots: force RMSE <= {HOST_FORCE_RMSE:g} eV/A":
+            host_rmse is not None and host_rmse[1] <= HOST_FORCE_RMSE})
+    return routes
+
+
+def run_fit_multi(device, counts=FIT_MULTI_SET, seed=0):
+    """The multi-species fit on the card: a training set of ``counts``
+    (by default 1,000 binary Ne/Xe configurations, 129,600 atoms)
+    labeled with energies and forces by ``UFCalculator`` on the teacher
+    (``fit_multi_teacher``) in f64 on the fused multi-species route,
+    one configuration in ten keeping its energy alone, split 80/20;
+    ``featurize_batches`` on the multi-species device path in the
+    teacher's basis, the Gram on the card, the solve on the host; the
+    fitted model's hold-out RMSE against the teacher through
+    ``UFCalculator``; 720 Langevin steps at 10 K with it at 8,788 atoms on
+    the fused multi-species route; the commands on the other routes
+    (``run_fit_multi_commands``).  Gates: features card vs CPU within
+    1e-10 on 20 configurations, one energy row and no force row for each
+    configuration without forces, every configuration featurized once,
+    the hold-out RMSEs, the MD (multi-species kernel launches, no
+    overflow), the commands.  Returns the multi-species kernel's
+    launches by step."""
+    from uf3_tpu_torch.ops import featurize as feat
+    from uf3_tpu_torch.regression import least_squares as ls
+    card = card_line()
+    geoms = fit_multi_training_set(seed, counts)
+    n_atoms_all = sum(len(g) for g in geoms)
+    model = fit_multi_teacher()
+    basis = model.bspline_config
+    launches = {}
+    teacher = UFCalculator(model, device=device)
+    reset_counts()
+    t0 = time.perf_counter()
+    energies, forces_all = label(teacher, geoms)
+    torch.cuda.synchronize()
+    label_s = time.perf_counter() - t0
+    launches["fit multi: labeling"] = multi.trio_multi_partials_all.launches
+    print(f"fit multi: {len(geoms)} configurations, {n_atoms_all} atoms, "
+          f"labeled by UFCalculator (f64, fused multi-species route) in "
+          f"{label_s:.2f} s, {launches['fit multi: labeling']} "
+          f"trio_multi launches; card: {card}")
+    forces = [None if i % FIT_MULTI_ENERGY_ONLY == FIT_MULTI_ENERGY_ONLY - 1
+              else f for i, f in enumerate(forces_all)]
+    order = np.random.RandomState(seed).permutation(len(geoms))
+    n_test = int(round(FIT_HOLDOUT * len(geoms)))
+    test, train = order[:n_test], np.sort(order[n_test:])
+    tr_geoms = [geoms[i] for i in train]
+    tr_e, tr_f = [energies[i] for i in train], [forces[i] for i in train]
+    # the card against the CPU on the first training configurations
+    check = list(range(min(FIT_MULTI_CHECK, len(tr_geoms))))
+    card_rows, cpu_rows = (feat.featurize_dataset_device(
+        basis, [tr_geoms[i] for i in check], [tr_e[i] for i in check],
+        [tr_f[i] for i in check], device=dev) for dev in (device, "cpu"))
+    feat_err = max(np.abs(a - b).max() for a, b in zip(card_rows, cpu_rows))
+    check_rows = sum(3 * len(tr_geoms[i]) for i in check
+                     if tr_f[i] is not None)
+    print(f"fit multi: features card vs CPU on {len(check)} configurations "
+          f"({sum(len(tr_geoms[i]) for i in check)} atoms, "
+          f"{sum(tr_f[i] is None for i in check)} without forces): max |d| "
+          f"{feat_err:.3e}")
+    tr_atoms = sum(len(g) for g in tr_geoms)
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    batches = list(feat.featurize_batches(basis, tr_geoms, tr_e, tr_f,
+                                          device=device, stats=stats))
+    torch.cuda.synchronize()
+    feat_s = time.perf_counter() - t0
+    seen = sorted(i for b in batches for i in b.index)
+    energy_only_ok = all(
+        (b.force_rows[k] == 0) == (tr_f[i] is None)
+        and b.x_f.shape[0] == sum(b.force_rows) == b.y_f.shape[0]
+        and b.x_e.shape[0] == len(b.index)
+        for b in batches for k, i in enumerate(b.index))
+    print(f"fit multi: featurized {len(tr_geoms)} configurations "
+          f"({tr_atoms} atoms, {sum(f is None for f in tr_f)} without "
+          f"forces) on the card, route {stats['route']}, in {feat_s:.3f} s: "
+          f"{1e3 * feat_s / len(tr_geoms):.4f} ms per configuration, "
+          f"{len(tr_geoms) / feat_s:.1f} configurations/s, "
+          f"{tr_atoms / feat_s:.1f} atoms/s; {stats['calls']} calls, batch "
+          f"sizes by atom count {stats['batch_sizes']}, redos "
+          f"{stats['redos']}, peak memory "
+          f"{stats['peak_bytes'] / 2 ** 30:.3f} GiB; card: {card}")
+    # the device's busy share over one bucket call of 108-atom cells
+    mid = [g for g in tr_geoms if len(g) == 108]
+    size = stats["batch_sizes"].get(108, 1)
+    chunk = mid[:size]
+    wall_ms, busy_ms = busy_share(lambda: list(feat.featurize_batches(
+        basis, chunk, [0.0] * len(chunk), [np.zeros((108, 3))] * len(chunk),
+        device=device, batch_size=size)))
+    print(f"fit multi: one bucket call, {len(chunk)} configurations of 108 "
+          f"atoms: {wall_ms:.3f} ms wall, device busy "
+          + ("not measured" if busy_ms is None else
+             f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%)")
+          + f"; card: {card}")
+    fit = ls.WeightedLinearModel(basis, device=device, **FIT_REG)
+    e_var, f_var = ls.VarianceRecorder(), ls.VarianceRecorder()
+    t0 = time.perf_counter()
+    grams = fit.gram_from_batches(batches, e_var, f_var)
+    torch.cuda.synchronize()
+    gram_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    fit.fit_with_gram(*fit.weighted_gram(*grams, e_var, f_var))
+    solve_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"fit multi: Gram on the card over {e_var.n} energy and "
+          f"{f_var.n} force rows x {fit.n_feats} features in "
+          f"{len(batches)} batches {gram_ms:.3f} ms, solve on the host "
+          f"{solve_ms:.3f} ms; card: {card}")
+    del batches, grams
+    tmp = tempfile.mkdtemp()
+    fitted = os.path.join(tmp, "fitted_multi.json")
+    fit.to_json(fitted)
+    reset_counts()
+    check_calc = UFCalculator(fitted, device=device)
+    te_e, te_f = label(check_calc, [geoms[i] for i in test])
+    launches["fit multi: hold-out check"] = \
+        multi.trio_multi_partials_all.launches
+    rmse_e = ls.rmse_metric(
+        [e / len(geoms[i]) for e, i in zip(te_e, test)],
+        [energies[i] / len(geoms[i]) for i in test])
+    rmse_f = ls.rmse_metric(np.concatenate(te_f),
+                            np.concatenate([forces_all[i] for i in test]))
+    print(f"fit multi: hold-out {len(test)} configurations: RMSE energy "
+          f"{rmse_e:.4e} eV/atom, forces {rmse_f:.4e} eV/A against the "
+          f"teacher; {launches['fit multi: hold-out check']} trio_multi "
+          "launches")
+    reset_counts()
+    system = MDSystem(fitted, ne_xe((13, 13, 13)), dtype=torch.float32,
+                      device=device)
+    state = system.init_state(temperature=MULTI_T, seed=0)
+    state, md_s = drive(system, state, WINDOW_STEPS, dt_fs=1.0,
+                        thermostat="langevin", temperature=MULTI_T)
+    launches["fit multi: MD with the fitted model"] = \
+        multi.trio_multi_partials_all.launches
+    md_ok = not system.overflowed(state) and bool(
+        torch.isfinite(state.positions).all()) and np.isfinite(
+        float(state.energy))
+    print(f"fit multi: MD with the fitted model, {len(state.positions)} "
+          f"atoms, {WINDOW_STEPS} Langevin steps at {MULTI_T:g} K in "
+          f"{md_s:.2f} s: "
+          f"T {system.temperature(state):.2f} K, E "
+          f"{float(state.energy):.4f} eV; "
+          f"{launches['fit multi: MD with the fitted model']} trio_multi "
+          "launches")
+    run_fit_multi_commands([geoms[i] for i in train], tmp, device)
+    shutil.rmtree(tmp)
+    gate("fit multi", {
+        f"features card vs CPU within {FIT_FEATURE_TOL:g}":
+            feat_err <= FIT_FEATURE_TOL,
+        "one energy row and no force row without forces": energy_only_ok
+            and card_rows[2].shape[0] == check_rows,
+        "every training configuration featurized once":
+            seen == list(range(len(tr_geoms))),
+        f"hold-out force RMSE <= {FIT_MULTI_FORCE_RMSE:g} eV/A":
+            rmse_f <= FIT_MULTI_FORCE_RMSE,
+        f"hold-out energy RMSE <= {FIT_MULTI_ENERGY_RMSE:g} eV/atom":
+            rmse_e <= FIT_MULTI_ENERGY_RMSE,
+        "fitted model's MD on the fused multi-species route, no overflow, "
+        "finite": md_ok and system._multi_route(),
+        "trio_multi launched in the labeling, the check and the MD":
+            all(n > 0 for n in launches.values())})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: uf3_tpu_torch's kernels need an NVIDIA GPU",
@@ -2444,8 +2779,9 @@ def main():
     multi_launches["calculator, 8,788 atoms, f64"], multi_kernel, \
         multi_times = run_calculator_multi(device)
     rates["md --traj (2,000 atoms)"] = run_md_traj()
-    # the fit on the card (ROADMAP.md item 5)
+    # the fit on the card (ROADMAP.md item 5), and the multi-species fit
     launches.update(run_fit(device))
+    multi_launches.update(run_fit_multi(device))
     card = card_line()
     for name, rate in rates.items():
         print(f"MD {name}: {rate:.1f} atom-steps/s"

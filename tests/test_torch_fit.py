@@ -21,6 +21,7 @@ import json
 import os
 
 import numpy as np
+import jax.numpy as jnp
 import pandas as pd
 import pytest
 import torch
@@ -28,6 +29,8 @@ import torch
 from uf3_tpu.data.atoms import bulk as j_bulk
 from uf3_tpu.data.composition import ChemicalSystem as JChem
 from uf3_tpu.forcefield.calculator import UFCalculator as JCalc
+from uf3_tpu.ops import pallas_trio as pt
+from uf3_tpu.ops import potential as jpot
 from uf3_tpu.regression import least_squares as jls
 from uf3_tpu.regression import regularize as jreg
 from uf3_tpu.representation.basis import BSplineBasis as JBasis
@@ -41,6 +44,7 @@ from uf3_tpu_torch.data.atoms import Atoms, bulk
 from uf3_tpu_torch.data.composition import ChemicalSystem
 from uf3_tpu_torch.forcefield.calculator import UFCalculator
 from uf3_tpu_torch.ops import featurize as tf
+from uf3_tpu_torch.ops.potential import UF3Potential
 from uf3_tpu_torch.regression import least_squares as ls
 from uf3_tpu_torch.regression import regularize as treg
 from uf3_tpu_torch.representation.basis import BSplineBasis
@@ -289,10 +293,11 @@ def test_model_json_read_by_both_packages(tungsten, device_rows, tmp_path):
     assert np.array_equal(loaded.coefficients, ours.coefficients)
     # the fitted model's energy and forces are its predictions on the
     # configuration's rows: exactly on uf3_tpu's host calculator; on the
-    # port's (the engine's fused route, as uf3_tpu's engine) within the
-    # closed-form legs' error on knots rounded to 1e-10 A, which this
-    # fitted pair spline amplifies to ~2e-6 eV/atom, ~1e-7 eV/A
-    # (ROADMAP.md section 3)
+    # port's (the engine's fused route) within what its uniform cardinal
+    # pair path leaves on knots rounded to 1e-10 A, 1.7e-10 eV/atom and
+    # 7.0e-10 eV/A on this fitted pair spline, bounded at twice that
+    # (ROADMAP.md section 3: 1.5e-5 eV/atom before the legs took the
+    # file's knots and the cardinal ends their own interval)
     geom = device_rows[1][0][0]
     n = len(geom)
     host = JCalc(theirs)
@@ -302,9 +307,154 @@ def test_model_json_read_by_both_packages(tungsten, device_rows, tmp_path):
                   - ours.predict(x_f[:3 * n])).max() <= 1e-12
     calc = UFCalculator(path_ours, device="cpu")
     assert calc.get_potential_energy(port_atoms(geom)) / n \
-        == pytest.approx(ours.predict(x_e[0]), abs=2e-5)
+        == pytest.approx(ours.predict(x_e[0]), abs=4e-10)
     assert np.abs(calc.get_forces(port_atoms(geom)).T.reshape(-1)
-                  - ours.predict(x_f[:3 * n])).max() <= 1e-6
+                  - ours.predict(x_f[:3 * n])).max() <= 1.5e-9
+
+
+@pytest.mark.parametrize("path", MODELS, ids=os.path.basename)
+def test_fused_route_matches_host_oracle(path):
+    """Fault 2 of ROADMAP.md section 3: the port's fused route (the
+    engine's, through ``UFCalculator``) on a model file's own knots
+    against ``uf3_tpu``'s host calculator, in float64 on 128 atoms:
+    forces within 1e-11 eV/A and energy within 1e-11 eV/atom (1.4e-9
+    eV/A when the legs were rebuilt from the first knot gap).  The JAX
+    package's specs, through the weights converter, stay off by more."""
+    model = jls.WeightedLinearModel.from_json(path)
+    elements_ = list(model.bspline_config.element_list)
+    base = j_bulk("W", "bcc", a=3.1652) * 4
+    numbers = np.full(len(base), el_number(elements_[0]))
+    if len(elements_) > 1:
+        numbers[np.random.RandomState(0).rand(len(base)) > 0.5] = \
+            el_number(elements_[1])
+    geom = port_atoms(base)
+    geom.numbers = numbers
+    geom.rattle(0.05, seed=3)
+    jgeom = j_atoms(geom)
+    host = JCalc(model)
+    e_ref = host.get_potential_energy(jgeom)
+    f_ref = host.get_forces(jgeom)
+    calc = UFCalculator(path, device="cpu")
+    n = len(geom)
+    assert abs(calc.get_potential_energy(geom) - e_ref) / n <= 1e-11
+    assert np.abs(calc.get_forces(geom) - f_ref).max() <= 1e-11
+    if len(elements_) == 1:
+        params, _ = jpot.build_potential(model, dtype=jnp.float64)
+        trio = pt.build_trio_pallas(model, dtype=jnp.float64)
+        spec, coefficients = pt.build_pair_fast(model, dtype=jnp.float64)
+        converted = UF3Potential.from_jax_arrays(
+            trio._replace(grid=np.asarray(trio.grid)),
+            (spec, np.asarray(coefficients)), np.asarray(params.offsets_1b),
+            np.asarray(params.z_to_species), float(params.r_cut_2b),
+            float(params.r_cut_3b))
+        jax_specs = UFCalculator(converted, device="cpu")
+        assert np.abs(jax_specs.get_forces(geom) - f_ref).max() > 1e-10
+
+
+def el_number(symbol) -> int:
+    return int(JChem([symbol]).numbers[0])
+
+
+def j_atoms(geom):
+    from uf3_tpu.data.atoms import Atoms as JAtoms
+    return JAtoms(numbers=geom.get_atomic_numbers(),
+                  positions=geom.get_positions(), cell=geom.get_cell(),
+                  pbc=geom.get_pbc())
+
+
+# penalties at 1 make these few rows a well-posed problem, whose two
+# solutions differ by the summation order of their Gram matrices alone:
+# coefficients 3e-14-8e-12 of the largest apart, predictions 3e-15-5e-12
+# eV (at 1e-3, 2e-11-6e-9 and 1e-13-4e-11)
+WELL_POSED = dict(r1=1.0, r2=1.0, r3=1.0, c2=1.0, c3=1.0)
+
+
+def _fits(ref_basis, basis, rows, ref_rows=None):
+    """The port's ``fit`` and ``fit_from_batches`` (the energy rows of
+    two configurations in a batch of their own, with no force row)
+    against ``uf3_tpu``'s ``fit`` of ``ref_rows`` (the same rows, or
+    without force rows where there are none): predictions within 1e-12
+    of the largest target, coefficients within 1e-10 of the largest."""
+    x_e, y_e, x_f, y_f = rows
+    ref = jls.WeightedLinearModel(ref_basis, **WELL_POSED)
+    ref.fit(*(ref_rows or rows))
+    scale = np.abs(ref.coefficients).max()
+    ours = ls.WeightedLinearModel(basis, device="cpu", **WELL_POSED)
+    ours.fit(x_e, y_e, x_f, y_f)
+    batched = ls.WeightedLinearModel(basis, device="cpu", **WELL_POSED)
+    batched.fit_from_batches([
+        tuple(torch.as_tensor(a) for a in (x_e[:2], y_e[:2], x_f[:0],
+                                           y_f[:0])),
+        tuple(torch.as_tensor(a) for a in (x_e[2:], y_e[2:], x_f, y_f))])
+    y_scale = max(np.abs(y).max() for y in (y_e, y_f) if len(y))
+    for model in (ours, batched):
+        assert np.abs(model.coefficients - ref.coefficients).max() \
+            <= 1e-10 * scale
+        for x in (x_e, x_f):
+            if len(x):
+                assert np.abs(model.predict(x) - ref.predict(x)).max() \
+                    <= 1e-12 * y_scale
+    return ours
+
+
+def test_fit_with_energy_only_configurations_matches_uf3_tpu(tungsten):
+    """A training set where configurations 1 and 3 have no forces, and
+    one where none has (``fit_forces`` off): the device rows, the fits
+    against ``uf3_tpu``'s on the same rows."""
+    ref_basis, basis = tungsten
+    geoms, energies, forces = training_set(n=5)
+    some = [None if i in (1, 3) else f for i, f in enumerate(forces)]
+    rows = tf.featurize_dataset_device(
+        basis, [port_atoms(g) for g in geoms], energies, some,
+        device="cpu")
+    assert rows[0].shape[0] == 5 and rows[2].shape[0] == 3 * 3 * 16
+    full = tf.featurize_dataset_device(
+        basis, [port_atoms(g) for g in geoms], energies, forces,
+        device="cpu")
+    keep = np.concatenate([np.arange(48 * i, 48 * (i + 1))
+                           for i in (0, 2, 4)])
+    assert np.array_equal(rows[0], full[0])
+    assert np.array_equal(rows[2], full[2][keep])
+    assert np.array_equal(rows[3], full[3][keep])
+    _fits(ref_basis, basis, rows)
+    featurizer = tf.Featurizer(basis, fit_forces=False, device="cpu")
+    assert featurizer.route == "device"
+    energy_only = featurizer.featurize_dataset(
+        [port_atoms(g) for g in geoms], energies, forces)
+    assert energy_only[2].shape == (0, basis.n_feats)
+    assert list(featurizer.force_rows(geoms, forces)) == [0] * 5
+    _fits(ref_basis, basis, energy_only, ref_rows=energy_only[:2])
+
+
+def test_multi_species_fit_matches_uf3_tpu():
+    """Rows of the Ne/Xe 2+3-body ``species23``-shaped basis (r 1-5 A,
+    resolution 8) from the multi-species dataset path, one configuration
+    without forces, fitted by both packages."""
+    from uf3_tpu.data.atoms import Atoms as JAtoms
+    maps = dict(r_min_map=1.0, r_max_map=5.0, resolution_map=8)
+    ref_basis = JBasis(JChem(["Ne", "Xe"], degree=3), **maps)
+    basis = BSplineBasis(ChemicalSystem(["Ne", "Xe"], degree=3), **maps)
+    rng = np.random.RandomState(8)
+    geoms, energies, forces = [], [], []
+    for i, reps in enumerate([2, 2, 2, 2]):
+        base = j_bulk("Ne", "fcc", a=5.4) * reps
+        numbers = np.asarray(base.get_atomic_numbers()).copy()
+        numbers[rng.rand(len(numbers)) > 0.5] = 54
+        geom = JAtoms(numbers=numbers, positions=base.get_positions(),
+                      cell=base.get_cell(), pbc=True)
+        geom.rattle(0.1, seed=i)
+        geoms.append(port_atoms(geom))
+        energies.append(float(-0.05 * len(geom) + rng.rand()))
+        forces.append(None if i == 1 else
+                      rng.normal(scale=0.05, size=(len(geom), 3)))
+    stats = {}
+    rows = tf.featurize_dataset_device(basis, geoms, energies, forces,
+                                       device="cpu", stats=stats)
+    assert stats["route"] == "device multi"
+    assert rows[0].shape == (4, basis.n_feats)
+    assert rows[2].shape == (3 * 3 * 32, basis.n_feats)
+    ours = _fits(ref_basis, basis, rows)
+    assert np.array_equal(ours.coefficients[ours.col_idx], ours.frozen_c)
 
 
 def write_sources(directory, n=4):

@@ -5,7 +5,9 @@ pair short/tail forces, the trio twin (partials, and assembled forces
 against trio_forces_unrolled and the Pallas kernel in interpret mode),
 the 3-body virial from the trio partials, and the shared-gather
 2+3-body evaluation.  Tolerance 1e-10 eV or eV/A: the same closed
-forms, summed in another order.
+forms on the same leg specs (the port's potential built through the
+weights converter from the JAX package's bundles), summed in another
+order.
 
 The trio grid is the bench model's (symmetric in its first two axes)
 and random non-symmetric grids made with numpy, one with the bench
@@ -26,6 +28,7 @@ import torch
 from uf3_tpu.data.atoms import bulk
 from uf3_tpu.ops import neighbors as jnb
 from uf3_tpu.ops import pallas_trio as pt
+from uf3_tpu.ops import potential as jpot
 from uf3_tpu.regression import least_squares as ls
 from uf3_tpu_torch.ops import neighbors as tnb
 from uf3_tpu_torch.ops import pair as tpair
@@ -76,11 +79,28 @@ def setup():
     nbr2 = jnb.build_neighbor_list(pos, cell, geom.pbc, 5.5, 64,
                                    with_rev=False)
     nbr3 = jnb.filter_neighbor_list(nbr2, pos, cell, 3.5, 24)
-    pot = UF3Potential.from_json(MODEL)
+    pot = converted(model)
     return dict(model=model, pos=pos, cell=cell, nbr2=nbr2, nbr3=nbr3,
                 tpos=torch.tensor(geom.positions),
                 tcell=torch.tensor(geom.cell), tnbr2=_to_port(nbr2),
                 tnbr3=_to_port(nbr3), pot=pot)
+
+
+def converted(model) -> UF3Potential:
+    """The port's potential through the weights converter from the JAX
+    package's own pair and trio bundles, so that both packages run the
+    same leg specs.  (``UF3Potential.from_json`` evaluates the file's own
+    knots, where the JAX package rebuilds them from the first knot gap:
+    ROADMAP.md section 3; tests/test_torch_fit.py holds it to the host
+    oracle.)"""
+    params, _ = jpot.build_potential(model, dtype=jnp.float64)
+    trio = pt.build_trio_pallas(model, dtype=jnp.float64)
+    spec, coefficients = pt.build_pair_fast(model, dtype=jnp.float64)
+    return UF3Potential.from_jax_arrays(
+        trio._replace(grid=np.asarray(trio.grid)),
+        (spec, np.asarray(coefficients)), np.asarray(params.offsets_1b),
+        np.asarray(params.z_to_species), float(params.r_cut_2b),
+        float(params.r_cut_3b))
 
 
 def _with_grid(pot: UF3Potential, grid: np.ndarray) -> UF3Potential:

@@ -5,7 +5,9 @@ package's originals, and the port's import and device rules:
 
 - every model JSON the tests name loads to the same knots, partitions,
   flat coefficients and 3-body grids (exact: the same numpy code);
-- elements, units, knot spacers and de Boor values are equal;
+- elements, units, knot spacers and de Boor values are equal, and so
+  are the Szudzik species hashes (twins of ``tests/test_composition.py``'s
+  hash tests), the interaction hashes and the composition counts;
 - ``bulk`` supercells, rattled with the same seed, give the same
   positions and cell;
 - no file of the port, nor ``chip_smoke.py``, imports ``uf3_tpu``;
@@ -109,6 +111,44 @@ def test_chemical_system_matches_uf3_tpu(elements, degree):
         == j_comp.sort_interaction_symbols(("W", "Xe", "Ne"))
 
 
+def test_szudzik_roundtrip():
+    """Twin of ``tests/test_composition.py``'s: the hashes of sorted
+    species rows unpack to the rows, and equal ``uf3_tpu``'s."""
+    rng = np.random.RandomState(0)
+    arr = rng.randint(1, 110, size=(50, 3))
+    arr[:, 1:] = np.sort(arr[:, 1:], axis=1)
+    hashes = t_comp.get_szudzik_hash(arr)
+    assert np.array_equal(hashes, j_comp.get_szudzik_hash(arr))
+    assert np.all(t_comp.unpack_szudzik_hash(hashes, 3) == arr)
+    assert np.array_equal(t_comp.szudzik_unpair(hashes),
+                          j_comp.szudzik_unpair(hashes))
+
+
+def test_szudzik_pair_formula():
+    assert t_comp.szudzik_pair(np.array([[3, 2]]))[0] == 11
+    assert t_comp.szudzik_pair(np.array([[2, 3]]))[0] == 14
+    assert t_comp.szudzik_pair(np.array([[5, 5]]))[0] == 35
+
+
+@pytest.mark.parametrize("elements, degree", [(["W"], 3), (["Xe", "Ne"], 2),
+                                              (["Xe", "Ne", "W"], 3)])
+def test_interaction_hashes_and_composition_match_uf3_tpu(elements, degree):
+    ours = t_comp.ChemicalSystem(elements, degree)
+    ref = j_comp.ChemicalSystem(elements, degree)
+    assert ours.numbers == ref.numbers
+    assert ours.interaction_hashes.keys() == ref.interaction_hashes.keys()
+    for key in ref.interaction_hashes:
+        assert np.array_equal(ours.interaction_hashes[key],
+                              ref.interaction_hashes[key])
+    geom = t_atoms.bulk("W", "bcc", a=3.1652) * 2
+    geom.numbers[::3] = 54
+    geom.numbers[1::5] = 10
+    assert np.array_equal(ours.get_composition_tuple(geom),
+                          ref.get_composition_tuple(geom))
+    assert t_el.symbols_to_numbers(["Ne", 54, "W"]) \
+        == j_el.symbols_to_numbers(["Ne", 54, "W"])
+
+
 @pytest.mark.parametrize("strategy", STRATEGIES)
 def test_knots_and_deboor_match_uf3_tpu(strategy):
     seq_t = t_knots.get_knot_spacer(strategy)(1.5, 5.5, 9)
@@ -159,7 +199,9 @@ def test_port_sources_import_nothing_of_uf3_tpu():
         "forcefield/lammps.py", "forcefield/properties/elastic.py",
         "forcefield/properties/phonon.py", "ops/featurize.py",
         "regression/least_squares.py", "regression/regularize.py",
-        "util/user_config.py", "util/subsample.py")} <= scanned
+        "util/user_config.py", "util/subsample.py", "data/geometry.py",
+        "representation/featurize_np.py",
+        "representation/process.py")} <= scanned
     for path in files:
         for name in _imports(path):
             assert name.split(".")[0] != "uf3_tpu", (path, name)

@@ -7,6 +7,7 @@ positions within 1e-8 A modulo lattice translations (the two engines
 wrap at different rebuilds) and the same energy within 1e-8 eV.
 """
 
+import functools
 import os
 
 import jax.numpy as jnp
@@ -16,8 +17,11 @@ import torch
 from uf3_tpu.data.atoms import bulk
 from uf3_tpu.forcefield import units
 from uf3_tpu.forcefield.md import MDSystem as JaxMDSystem
+from uf3_tpu.ops import pallas_trio as pt
+from uf3_tpu.ops import potential as jpot
 from uf3_tpu.regression import least_squares as ls
 from uf3_tpu_torch.forcefield.md import MDSystem
+from uf3_tpu_torch.ops.potential import UF3Potential
 
 # one intra-op thread: the suite runs in several worker processes at
 # once, and torch's default of a thread per core oversubscribes them
@@ -26,6 +30,25 @@ torch.set_num_threads(1)
 MODEL = os.path.join("benchmarks_data", "model_2and3.json")
 KW = dict(rebuild_every=12, skin=0.5, skin_2b=1.2, capacity_2b=72,
           capacity_3b=16, n_respa=6, respa_mid=3, respa_switch=(2.5, 3.5))
+
+@functools.lru_cache(maxsize=None)
+def port_model() -> UF3Potential:
+    """The port's potential of MODEL through the weights converter from
+    the JAX package's own pair and trio bundles, so that both engines run
+    the same leg specs (``UF3Potential.from_json`` evaluates the file's
+    own knots, where the JAX package rebuilds them from the first knot
+    gap: ROADMAP.md section 3; tests/test_torch_fit.py holds it to the
+    host oracle)."""
+    model = ls.WeightedLinearModel.from_json(MODEL)
+    params, _ = jpot.build_potential(model, dtype=jnp.float64)
+    trio = pt.build_trio_pallas(model, dtype=jnp.float64)
+    spec, coefficients = pt.build_pair_fast(model, dtype=jnp.float64)
+    return UF3Potential.from_jax_arrays(
+        trio._replace(grid=np.asarray(trio.grid)),
+        (spec, np.asarray(coefficients)), np.asarray(params.offsets_1b),
+        np.asarray(params.z_to_species), float(params.r_cut_2b),
+        float(params.r_cut_3b))
+
 
 
 def _geom():
@@ -49,7 +72,7 @@ def test_nve_trajectory_matches_jax():
                           dtype=jnp.float64, **KW)
     st_j = jax_sys.run(jax_sys.init_state(velocities=v0), n_steps=36,
                        dt_fs=2.0)
-    port = MDSystem(MODEL, geom, dtype=torch.float64, device="cpu", **KW)
+    port = MDSystem(port_model(), geom, dtype=torch.float64, device="cpu", **KW)
     st_0 = port.init_state(velocities=v0)
     st_t = port.run(st_0, n_steps=36, dt_fs=2.0)
     d = (np.asarray(st_j.positions) - st_t.positions.numpy()) \

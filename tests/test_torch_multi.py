@@ -35,6 +35,7 @@ from uf3_tpu.data import elements
 from uf3_tpu.forcefield import units
 from uf3_tpu.forcefield.md import MDSystem as JaxMDSystem
 from uf3_tpu.ops import pallas_trio as pt
+from uf3_tpu.ops import spline_jax as sj
 from uf3_tpu_torch.forcefield.md import MDSystem
 from uf3_tpu_torch.ops import multi
 from uf3_tpu_torch.ops import neighbors as tnb
@@ -132,6 +133,13 @@ def _fields(spec):
 
 
 def _same_spec(a, b):
+    """The port's leg spec ``a`` against the JAX package's ``b``: the
+    port's carries the file's knots, which its kernels' tables and plain
+    versions evaluate on (ROADMAP.md section 3); the JAX package's none."""
+    assert b.knots is None and len(a.knots) == a.n_int + 1
+    assert abs(a.knots[0] - a.t_min) < 1e-14 \
+        and abs(a.knots[-1] - a.t_max) < 1e-14
+    a = a._replace(knots=None)
     for x, y in zip(_fields(a), _fields(b)):
         if isinstance(x, float):
             assert abs(x - y) < 1e-14
@@ -164,8 +172,22 @@ def test_builders_match_jax(ref):
     for ours, theirs in zip(pm.specs, jp[0]):
         _same_spec(ours, theirs)
     assert len(pm.coefficients) == len(jp[1]) == 3
-    for ours, theirs in zip(pm.coefficients, jp[1]):
-        assert np.abs(ours - np.asarray(theirs)).max() < 1e-14
+    sizes, offsets = config.get_interaction_partitions()
+    for ours, pair in zip(pm.coefficients, config.interactions_map[2]):
+        # the file's own coefficients between the three at each end,
+        # which are matched on their end interval alone, making the
+        # file's spline piece by piece to 1e-14 of its largest term (the
+        # JAX package's forward recursion carries its rounding along the
+        # leg: 6e-14 of the coefficients here)
+        clamped = model.coefficients[offsets[pair]:offsets[pair]
+                                     + sizes[pair]]
+        assert np.array_equal(ours[3:-3], clamped[3:-3])
+        beta = sj.basis_monomial_table(config.knots_map[pair])
+        poly = np.stack([clamped[i:i + 4] @ beta[i]
+                         for i in range(len(beta))])
+        recon = np.stack([ours[i:i + 4] @ pt.CARDINAL_M
+                          for i in range(len(beta))])
+        assert np.abs(recon - poly).max() <= 1e-14 * np.abs(poly).max()
     assert np.array_equal(pm.pair_type, np.asarray(jp[2]))
     # a degree-2 model has no multi-species trio
     assert multi.build_trio_multi(_degree2_config(), np.zeros(0)) is None

@@ -16,6 +16,7 @@ JAX results are computed once, in one module fixture
 (``tests/conftest.py`` clears JAX's caches after each test).
 """
 
+import functools
 import os
 
 import jax.numpy as jnp
@@ -26,8 +27,11 @@ import torch
 from uf3_tpu.data.atoms import bulk
 from uf3_tpu.forcefield import units
 from uf3_tpu.forcefield.md import MDSystem as JaxMDSystem
+from uf3_tpu.ops import pallas_trio as pt
+from uf3_tpu.ops import potential as jpot
 from uf3_tpu.regression import least_squares as ls
 from uf3_tpu_torch.forcefield.md import MDSystem
+from uf3_tpu_torch.ops.potential import UF3Potential
 
 # one intra-op thread: the suite runs in several worker processes at
 # once, and torch's default of a thread per core oversubscribes them
@@ -46,6 +50,25 @@ NPT = dict(n_steps=48, dt_fs=2.0, temperature=0.0, pressure=0.05,
            tau_p_fs=40.0, compressibility=0.2)
 VIRIAL_TOL = 1e-9
 POS_TOL = 1e-8
+
+@functools.lru_cache(maxsize=None)
+def port_model() -> UF3Potential:
+    """The port's potential of MODEL through the weights converter from
+    the JAX package's own pair and trio bundles, so that both engines run
+    the same leg specs (``UF3Potential.from_json`` evaluates the file's
+    own knots, where the JAX package rebuilds them from the first knot
+    gap: ROADMAP.md section 3; tests/test_torch_fit.py holds it to the
+    host oracle)."""
+    model = ls.WeightedLinearModel.from_json(MODEL)
+    params, _ = jpot.build_potential(model, dtype=jnp.float64)
+    trio = pt.build_trio_pallas(model, dtype=jnp.float64)
+    spec, coefficients = pt.build_pair_fast(model, dtype=jnp.float64)
+    return UF3Potential.from_jax_arrays(
+        trio._replace(grid=np.asarray(trio.grid)),
+        (spec, np.asarray(coefficients)), np.asarray(params.offsets_1b),
+        np.asarray(params.z_to_species), float(params.r_cut_2b),
+        float(params.r_cut_3b))
+
 
 
 def _geom(reps, rattle=0.05, seed=11):
@@ -119,7 +142,7 @@ def test_virial_matches_jax(ref, cell):
     the JAX fused and factorized virials differ by ~3e-9 relative."""
     r = ref[cell]
     geom = _geom((3, 3, 3) if cell == "54" else (8, 8, 4))
-    port = MDSystem(MODEL, geom, dtype=torch.float64, device="cpu")
+    port = MDSystem(port_model(), geom, dtype=torch.float64, device="cpu")
     assert (port._cells_2b is None) == (r["cells"] is None)
     state = port.init_state()
     assert np.abs(state.positions.numpy() - r["positions"]).max() < 1e-12
@@ -128,6 +151,13 @@ def test_virial_matches_jax(ref, cell):
     virial = virial.numpy()
     assert np.abs(virial - r["virial"]).max() < VIRIAL_TOL
     assert np.allclose(virial, r["oracle"], atol=1e-9)
+    # on the file's own knots the port's fused virial is the oracle's
+    # (the JAX fused route's ~3e-9 relative was its closed-form legs:
+    # ROADMAP.md section 3)
+    own = MDSystem(MODEL, geom, dtype=torch.float64, device="cpu")
+    virial_own = own.energy_forces(state.positions, state.nbr2, state.nbr3,
+                                   with_virial=True)[2].numpy()
+    assert np.abs(virial_own - r["oracle"]).max() < VIRIAL_TOL
     assert np.array_equal(virial, virial.T)
     assert np.abs(virial).max() > 1.0
     e0, f0, none = port.energy_forces(state.positions, state.nbr2,
@@ -163,7 +193,7 @@ def test_virial_is_the_strain_derivative():
 
 
 def test_stress_matches_jax(ref):
-    port = MDSystem(MODEL, _geom((3, 3, 3)), dtype=torch.float64,
+    port = MDSystem(port_model(), _geom((3, 3, 3)), dtype=torch.float64,
                     device="cpu")
     stress = port.stress(port.init_state()).numpy()
     assert stress.shape == (6,)

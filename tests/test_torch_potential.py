@@ -2,8 +2,10 @@
 The port's model loader and weights converter
 (uf3_tpu_torch/io.py, ops/potential.py) against the JAX package's
 WeightedLinearModel.from_json + build_pair_fast / build_trio_pallas /
-build_potential: the float64 buffers must be bitwise equal.  Also checks
-that the port imports neither jax nor pandas.
+build_potential: the float64 buffers must be bitwise equal, but for
+what follows from the leg specs, which the port builds on the file's
+own knots (ROADMAP.md section 3).  Also checks that the port imports
+neither jax nor pandas.
 """
 
 import os
@@ -17,9 +19,11 @@ import torch
 
 from uf3_tpu.ops import pallas_trio as pt
 from uf3_tpu.ops import potential as jpot
+from uf3_tpu.ops import spline_jax as sj
 from uf3_tpu.regression import least_squares as ls
 from uf3_tpu_torch import io
 from uf3_tpu_torch.ops.potential import UF3Potential
+from uf3_tpu_torch.ops.splines import horner_table
 
 # one intra-op thread: the suite runs in several worker processes at
 # once, and torch's default of a thread per core oversubscribes them
@@ -56,12 +60,45 @@ def test_loader_matches_weighted_linear_model(jax_bundle):
         assert np.array_equal(sol_j[key], sol_t[key])
 
 
+def same_spline(knots, clamped, cardinal, tol=1e-14) -> bool:
+    """Whether ``cardinal`` taps over uniform cardinal B-splines make the
+    clamped spline of ``clamped`` on ``knots``: each interval's cubic
+    within ``tol`` of the largest coefficient of any piece."""
+    beta = sj.basis_monomial_table(knots)
+    poly = np.stack([clamped[i:i + 4] @ beta[i] for i in range(len(beta))])
+    recon = np.stack([cardinal[i:i + 4] @ pt.CARDINAL_M
+                      for i in range(len(beta))])
+    return np.abs(recon - poly).max() <= tol * np.abs(poly).max()
+
+
+def _as_jax_spec(spec, ref):
+    """The port's leg spec with the JAX package's spacing and no knots:
+    the port takes the mean knot gap and carries the file's knots, where
+    the JAX package takes the first gap (ROADMAP.md section 3)."""
+    assert abs(spec.h - ref.h) <= 1e-10
+    return tuple(spec._replace(h=ref.h, knots=None))
+
+
 def test_from_json_matches_jax_builders(jax_bundle):
-    _, trio, pair, params = jax_bundle
+    model, trio, pair, params = jax_bundle
     pot = UF3Potential.from_json(MODEL)
     buf = _buffers(pot)
-    assert tuple(pot.pair_spec) == tuple(pair[0])
-    assert np.array_equal(buf["pair_coefficients"], np.asarray(pair[1]))
+    knots = model.bspline_config.knots_map
+    pair_knots = knots[model.bspline_config.interactions_map[2][0]]
+    assert _as_jax_spec(pot.pair_spec, pair[0]) == tuple(pair[0])
+    assert pot.pair_spec.knots == tuple(pair_knots[3:-3])
+    # the cardinal coefficients: the file's own between the three at
+    # each end, which are matched on their end interval alone
+    # (ops/splines.cardinal_coefficients); the spline they make is the
+    # file's, piece by piece, to 1e-14 of its largest term (the JAX
+    # package's forward recursion carries its rounding along the leg:
+    # 2.8e-12 here)
+    sizes, offsets = model.bspline_config.get_interaction_partitions()
+    pair_name = model.bspline_config.interactions_map[2][0]
+    clamped = model.coefficients[offsets[pair_name]:offsets[pair_name]
+                                 + sizes[pair_name]]
+    assert np.array_equal(buf["pair_coefficients"][3:-3], clamped[3:-3])
+    assert same_spline(pair_knots, clamped, buf["pair_coefficients"])
     assert np.array_equal(buf["grid"], np.asarray(trio.grid))
     assert np.array_equal(buf["offsets_1b"], np.asarray(params.offsets_1b))
     assert np.array_equal(buf["z_to_species"],
@@ -69,8 +106,8 @@ def test_from_json_matches_jax_builders(jax_bundle):
     for field in ("l_basis", "n_basis", "active_bc", "window",
                   "symmetric"):
         assert getattr(pot.trio, field) == getattr(trio, field), field
-    assert tuple(pot.trio.spec_l) == tuple(trio.spec_l)
-    assert tuple(pot.trio.spec_n) == tuple(trio.spec_n)
+    assert _as_jax_spec(pot.trio.spec_l, trio.spec_l) == tuple(trio.spec_l)
+    assert _as_jax_spec(pot.trio.spec_n, trio.spec_n) == tuple(trio.spec_n)
     assert pot.r_cut_2b == float(params.r_cut_2b)
     assert pot.r_cut_3b == float(params.r_cut_3b)
     # the bench model's static sparsity: 27 live (b, c) blocks in a
@@ -98,11 +135,25 @@ def test_from_jax_arrays_matches_from_json(jax_bundle):
     b = {k: v for k, v in _buffers(ref).items()
          if not k.startswith("factorized.")}
     assert a.keys() == b.keys()
+    # each side's pair coefficients and Horner tables come from its own
+    # leg specs: the converter keeps the JAX package's (first knot gap,
+    # JAX's cardinal recursion), from_json the file's knots
+    # (ROADMAP.md section 3); every other buffer is the same
+    assert np.array_equal(a["pair_coefficients"], np.asarray(pair[1]))
+    assert np.array_equal(a["leg_tables"], np.concatenate(
+        [horner_table(conv.trio.spec_l), horner_table(conv.trio.spec_n)]))
+    assert np.array_equal(b["leg_tables"], np.concatenate(
+        [horner_table(ref.trio.spec_l), horner_table(ref.trio.spec_n)]))
     for key in a:
         assert a[key].dtype == b[key].dtype, key
-        assert np.array_equal(a[key], b[key]), key
-    assert conv.trio._replace(grid=None) == ref.trio._replace(grid=None)
-    assert conv.pair_spec == ref.pair_spec
+        if key not in ("pair_coefficients", "leg_tables"):
+            assert np.array_equal(a[key], b[key]), key
+    assert conv.trio._replace(grid=None, spec_l=None, spec_n=None) \
+        == ref.trio._replace(grid=None, spec_l=None, spec_n=None)
+    for mine, theirs in ((ref.pair_spec, conv.pair_spec),
+                         (ref.trio.spec_l, conv.trio.spec_l),
+                         (ref.trio.spec_n, conv.trio.spec_n)):
+        assert _as_jax_spec(mine, theirs) == tuple(theirs)
     # float32 buffers round the same float64 sources
     f32 = UF3Potential.from_json(MODEL, dtype=torch.float32)
     assert np.array_equal(f32.grid.numpy(), b["grid"].astype(np.float32))

@@ -16,6 +16,7 @@ from the same numpy inputs:
 JAX is run once, in one module fixture.
 """
 
+import functools
 import os
 import re
 
@@ -28,9 +29,12 @@ from uf3_tpu.data import elements
 from uf3_tpu.data.atoms import bulk
 from uf3_tpu.forcefield import units
 from uf3_tpu.forcefield.md import MDSystem as JaxMDSystem
+from uf3_tpu.ops import pallas_trio as pt
+from uf3_tpu.ops import potential as jpot
 from uf3_tpu.regression import least_squares as ls
 from uf3_tpu_torch.__main__ import main
 from uf3_tpu_torch.forcefield.md import MDSystem
+from uf3_tpu_torch.ops.potential import UF3Potential
 
 # one intra-op thread: the suite runs in several worker processes at
 # once, and torch's default of a thread per core oversubscribes them
@@ -44,6 +48,25 @@ SMALL = dict(skin=0.5, skin_2b=1.2, rebuild_every=4)
 SCHEDULES = {"static_rebuild": dict(static_rebuild=True),
              "legacy_refilter": dict(eager_refilter=False)}
 N_STEPS, DT_FS = 60, 2.0
+
+@functools.lru_cache(maxsize=None)
+def port_model() -> UF3Potential:
+    """The port's potential of MODEL through the weights converter from
+    the JAX package's own pair and trio bundles, so that both engines run
+    the same leg specs (``UF3Potential.from_json`` evaluates the file's
+    own knots, where the JAX package rebuilds them from the first knot
+    gap: ROADMAP.md section 3; tests/test_torch_fit.py holds it to the
+    host oracle)."""
+    model = ls.WeightedLinearModel.from_json(MODEL)
+    params, _ = jpot.build_potential(model, dtype=jnp.float64)
+    trio = pt.build_trio_pallas(model, dtype=jnp.float64)
+    spec, coefficients = pt.build_pair_fast(model, dtype=jnp.float64)
+    return UF3Potential.from_jax_arrays(
+        trio._replace(grid=np.asarray(trio.grid)),
+        (spec, np.asarray(coefficients)), np.asarray(params.offsets_1b),
+        np.asarray(params.z_to_species), float(params.r_cut_2b),
+        float(params.r_cut_3b))
+
 
 
 def _velocities(geom, temperature, seed=0):
@@ -78,7 +101,7 @@ def test_schedule_matches_jax(ref, name):
     and energy within 1e-9 of the JAX engine's under the same schedule.
     The static schedule rebuilds in full every cycle; the legacy one
     keeps, refilters and rebuilds."""
-    port = MDSystem(MODEL, ref["geom"], dtype=torch.float64, device="cpu",
+    port = MDSystem(port_model(), ref["geom"], dtype=torch.float64, device="cpu",
                     **SMALL, **SCHEDULES[name])
     assert port.two_tier
     st = port.run(port.init_state(velocities=ref["v0"]), n_steps=N_STEPS,

@@ -14,6 +14,7 @@ the images builder), 128 atoms (4^3: the minimum-image builder) and a
 module, hold every JAX result the tests read.
 """
 
+import functools
 import os
 
 import jax.numpy as jnp
@@ -26,11 +27,13 @@ from uf3_tpu.forcefield import units
 from uf3_tpu.forcefield.md import MDSystem as JaxMDSystem
 from uf3_tpu.ops import neighbors as jnb
 from uf3_tpu.ops import pallas_trio as pt
+from uf3_tpu.ops import potential as jpot
 from uf3_tpu.regression import least_squares as ls
 from uf3_tpu_torch.forcefield.md import MDSystem
 from uf3_tpu_torch.ops import neighbors as tnb
 from uf3_tpu_torch.ops.pair import pair_tail_forces
 from uf3_tpu_torch.ops.trio import trio_short_forces
+from uf3_tpu_torch.ops.potential import UF3Potential
 
 # one intra-op thread: the suite runs in several worker processes at
 # once, and torch's default of a thread per core oversubscribes them
@@ -42,6 +45,25 @@ RESPA2 = dict(n_respa=3, rebuild_every=6)
 RESPA3 = dict(n_respa=4, respa_mid=2, rebuild_every=8, capacity_2b=64,
               capacity_3b=20)
 POS_TOL = ENERGY_TOL = 1e-8
+
+@functools.lru_cache(maxsize=None)
+def port_model() -> UF3Potential:
+    """The port's potential of MODEL through the weights converter from
+    the JAX package's own pair and trio bundles, so that both engines run
+    the same leg specs (``UF3Potential.from_json`` evaluates the file's
+    own knots, where the JAX package rebuilds them from the first knot
+    gap: ROADMAP.md section 3; tests/test_torch_fit.py holds it to the
+    host oracle)."""
+    model = ls.WeightedLinearModel.from_json(MODEL)
+    params, _ = jpot.build_potential(model, dtype=jnp.float64)
+    trio = pt.build_trio_pallas(model, dtype=jnp.float64)
+    spec, coefficients = pt.build_pair_fast(model, dtype=jnp.float64)
+    return UF3Potential.from_jax_arrays(
+        trio._replace(grid=np.asarray(trio.grid)),
+        (spec, np.asarray(coefficients)), np.asarray(params.offsets_1b),
+        np.asarray(params.z_to_species), float(params.r_cut_2b),
+        float(params.r_cut_3b))
+
 
 
 def _geom(reps, rattle=0.05, seed=3, pbc=True):
@@ -248,7 +270,7 @@ def _port_list(nbr):
 
 
 def test_trio_short_forces_match_jax(respa2):
-    port = MDSystem(MODEL, respa2["geom"], dtype=torch.float64,
+    port = MDSystem(port_model(), respa2["geom"], dtype=torch.float64,
                     device="cpu", **RESPA2)
     r_lo, r_hi = port.respa_switch
     out = trio_short_forces(port.potential,
@@ -287,7 +309,7 @@ def test_respa2_force_split_exact(respa2):
 # -- trajectories -----------------------------------------------------------
 def test_plain_verlet_defaults_match_jax(plain):
     geom = plain["geom"]
-    port = MDSystem(MODEL, geom, dtype=torch.float64, device="cpu")
+    port = MDSystem(port_model(), geom, dtype=torch.float64, device="cpu")
     builds = _Counted(port)
     st = port.run(port.init_state(velocities=plain["v0"]), n_steps=24,
                   dt_fs=2.0)
@@ -298,7 +320,7 @@ def test_plain_verlet_defaults_match_jax(plain):
 
 def test_respa2_matches_jax(respa2):
     geom = respa2["geom"]
-    port = MDSystem(MODEL, geom, dtype=torch.float64, device="cpu",
+    port = MDSystem(port_model(), geom, dtype=torch.float64, device="cpu",
                     **RESPA2)
     builds = _Counted(port)
     st = port.run(port.init_state(velocities=respa2["v0"]), n_steps=36,
@@ -313,7 +335,7 @@ def test_leftover_plain_steps_and_carried_forces_match_jax(respa2):
     whose state carries no split forces: the next r-RESPA launch
     recomputes them at the current positions."""
     geom = respa2["geom"]
-    port = MDSystem(MODEL, geom, dtype=torch.float64, device="cpu",
+    port = MDSystem(port_model(), geom, dtype=torch.float64, device="cpu",
                     **RESPA2)
     done = []
     st = port.run(port.init_state(velocities=respa2["v0"]), n_steps=26,
@@ -327,7 +349,7 @@ def test_leftover_plain_steps_and_carried_forces_match_jax(respa2):
 
 def test_respa3_one_tier_cluster_matches_jax(respa3):
     geom = respa3["geom"]
-    port = MDSystem(MODEL, geom, dtype=torch.float64, device="cpu",
+    port = MDSystem(port_model(), geom, dtype=torch.float64, device="cpu",
                     **RESPA3)
     st = port.run(port.init_state(velocities=respa3["v0"]), n_steps=24,
                   dt_fs=2.0)

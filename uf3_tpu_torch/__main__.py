@@ -10,10 +10,12 @@ card, and the LAMMPS export of a model.
 
 ``featurize``, ``fit`` and ``predict`` read the settings of ``python -m
 uf3_tpu``'s commands, written as JSON (``util/user_config.py``); the
-sources are extended-xyz files, featurized on the device
-(``ops/featurize.py``), and the features file is ``.npz`` (x_e, y_e,
-x_f, y_f, the configuration keys and sizes, the column names) where
-``uf3_tpu`` writes HDF5.  ``md`` takes the same flags, defaults and
+sources are extended-xyz files, featurized on the route the basis allows
+(``ops/featurize.Featurizer``: the unary or the multi-species path on
+the device, or the host featurizer for knots with no closed form; a
+configuration without forces gives its energy row alone), and the
+features file is ``.npz`` (x_e, y_e, x_f, y_f, the configuration keys,
+sizes and force rows, the column names) where ``uf3_tpu`` writes HDF5.  ``md`` takes the same flags, defaults and
 result line as ``python -m uf3_tpu md`` (2,000 atoms of bcc, 1,000
 steps of 2 fs, Langevin at 300 K, plain velocity Verlet unless
 ``--respa`` is given; ``--traj`` writes an extended-xyz frame per
@@ -36,12 +38,14 @@ from uf3_tpu_torch.data.atoms import bulk
 from uf3_tpu_torch.forcefield import lammps
 from uf3_tpu_torch.forcefield.batch import TrajectoryWriter
 from uf3_tpu_torch.forcefield.md import MDSystem, _not_ported
-from uf3_tpu_torch.ops.featurize import featurize_dataset_device
 from uf3_tpu_torch.regression import least_squares as ls
 from uf3_tpu_torch.util import user_config
 
 FEATURIZATION = "Featurization"
 FEATURE_KEYS = ("x_e", "y_e", "x_f", "y_f")
+ROUTES = {"device": "the unary 2+3-body path on the device",
+          "device multi": "the multi-species path on the device",
+          "host": "the host featurizer: knots with no closed form"}
 
 
 def _npz_path(path: str) -> str:
@@ -61,11 +65,6 @@ def cmd_featurize(settings_path: str, device=None) -> None:
     settings = user_config.read_config(settings_path)
     handlers = user_config.generate_handlers(settings, device=device)
     features_path = _npz_path(settings["features"]["features_path"])
-    if "features" not in handlers:
-        raise _not_ported("featurizing a basis outside the device fast "
-                          "path (multi-species, 2-body only or knots "
-                          "without a closed form: the host featurizer "
-                          "BasisFeaturizer)", FEATURIZATION)
     sources = settings["data"]["sources"]
     paths = data_io.identify_paths(experiment_path=sources.get("path", "."),
                                    filename_pattern=sources.get("pattern"))
@@ -73,25 +72,28 @@ def cmd_featurize(settings_path: str, device=None) -> None:
         paths, max_samples=settings["data"].get("max_per_file", -1),
         min_diff=settings["data"].get("min_diff", 0.0))
     print(f"{len(geometries)} configurations")
-    missing = [k for k, g in zip(keys, geometries)
-               if not all(c in g.arrays for c in ("fx", "fy", "fz"))]
-    if missing:
-        raise ValueError(f"configurations without forces: {missing[:5]}")
     energies = [g.info.get("energy", 0.0) for g in geometries]
+    # a configuration without forces gives its energy row alone
     forces = [np.stack([g.arrays[c] for c in ("fx", "fy", "fz")], axis=1)
+              if all(c in g.arrays for c in ("fx", "fy", "fz")) else None
               for g in geometries]
-    basis = handlers["basis"]
+    featurizer = handlers["features"]
+    print(f"route: {featurizer.route} ({ROUTES[featurizer.route]})")
     stats = {}
-    arrays = featurize_dataset_device(basis, geometries, energies, forces,
-                                      device=device, stats=stats)
+    arrays = featurizer.featurize_dataset(geometries, energies, forces,
+                                          stats=stats)
+    force_rows = featurizer.force_rows(geometries, forces)
+    basis = handlers["basis"]
     with open(features_path, "wb") as f:
         np.savez(f, **dict(zip(FEATURE_KEYS, arrays)),
                  keys=np.array(keys), sizes=np.array([len(g) for g in
                                                       geometries]),
+                 force_rows=force_rows,
                  columns=np.array(basis.get_column_names()))
-    print(f"features written to {features_path} ({stats['calls']} device "
-          f"calls, {stats['redos']} configurations redone at their "
-          "measured neighbor count)")
+    print(f"features written to {features_path} ({len(arrays[1])} energy "
+          f"rows, {len(arrays[3])} force rows; {stats['calls']} calls, "
+          f"{stats['redos']} configurations redone at their measured "
+          "neighbor count)")
 
 
 def cmd_fit(settings_path: str, device=None) -> None:
@@ -125,10 +127,12 @@ def cmd_predict(settings_path: str, device=None) -> None:
             x, dtype=torch.float64, device=model.device)).cpu().numpy()
 
     rmse_e = ls.rmse_metric(y_e, predict(x_e))
-    rmse_f = ls.rmse_metric(y_f, predict(x_f))
+    # no force row (fit_forces off, or no configuration with forces)
+    rmse_f = ls.rmse_metric(y_f, predict(x_f)) if len(y_f) else np.nan
     print(f"RMSE (energy): {rmse_e:.3F}\nRMSE (forces): {rmse_f:.3F}")
     print(f"RMSE (energy, eV/atom): {rmse_e:.6e}; RMSE (forces, eV/A): "
-          f"{rmse_f:.6e}; {len(y_e)} configurations on {model.device}")
+          f"{rmse_f:.6e}; {len(y_e)} configurations, {len(y_f)} force "
+          f"rows on {model.device}")
 
 
 def cmd_md(model_path: str, args) -> None:

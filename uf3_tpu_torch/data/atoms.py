@@ -3,8 +3,8 @@ A minimal atomic configuration and cubic crystal builder: what the MD
 engine, the calculator and its drivers read from a configuration
 (numbers, positions, cell, pbc, volume, masses, symbols), supercells,
 a seeded rattle, the edits relaxation and finite differences make
-(positions, scaled cell, wrap, per-atom arrays, deletion), and the
-calculator protocol (``calc``, ``get_potential_energy``,
+(positions, translation, scaled cell, wrap, per-atom arrays, deletion),
+and the calculator protocol (``calc``, ``get_potential_energy``,
 ``get_forces``, ``get_stress``).
 
 Trimmed copy of ``Atoms`` and ``bulk`` from ``uf3_tpu/data/atoms.py``:
@@ -68,6 +68,9 @@ class Atoms:
     def set_positions(self, positions: Sequence) -> None:
         self.positions = np.array(positions,
                                   dtype=np.float64).reshape(len(self), 3)
+
+    def translate(self, displacement: Sequence) -> None:
+        self.positions = self.positions + np.asarray(displacement)
 
     def get_cell(self) -> np.ndarray:
         return self.cell.copy()

@@ -1,11 +1,13 @@
 """
-Periodic-table data the port reads: symbol <-> atomic number, the
-element ordering key that canonicalizes interactions, and atomic
-masses.
+Periodic-table data the port reads: symbol <-> atomic number (and the
+symbols-to-numbers list converter), the element ordering key that
+canonicalizes interactions, and atomic masses.
 
 Trimmed copy of ``uf3_tpu/data/elements.py`` (the same tables, which
 fitted-model files depend on).
 """
+
+from typing import Iterable, List, Union
 
 import numpy as np
 
@@ -52,6 +54,19 @@ atomic_masses = np.array([
     267.122, 268.126, 271.134, 270.133, 269.1338, 278.156, 281.165, 282.169,
     285.177, 286.182, 289.190, 289.194, 293.204, 293.208, 294.214,
 ])
+
+
+def symbols_to_numbers(symbols: Union[str, Iterable]) -> List[int]:
+    """Convert symbol(s) (or number(s)) to a list of atomic numbers."""
+    if isinstance(symbols, str):
+        symbols = [symbols]
+    numbers = []
+    for item in symbols:
+        if isinstance(item, str):
+            numbers.append(atomic_numbers[item])
+        else:
+            numbers.append(int(item))
+    return numbers
 
 
 def order_value(symbol: str) -> int:

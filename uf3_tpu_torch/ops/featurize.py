@@ -19,20 +19,28 @@ For every center c and neighbor slot m, the partial tensors
 Counterpart of ``uf3_tpu/ops/featurize_jax.py``: ``FeaturizeSpec``,
 ``featurize_device``, ``build_featurize_spec``, the on-device 3-body
 compression, ``featurize_configuration_device``, the dataset path
-``featurize_dataset_device`` (unary, as the reference's) and the
-multi-species ``featurize_device_multi`` /
-``featurize_configuration_device_multi``.  Plain torch: the reference
-computes these as XLA contractions, outside any Pallas kernel.  Every
-three-operand contraction is written as two pairwise ones.
+``featurize_dataset_device`` and the multi-species
+``featurize_device_multi`` / ``featurize_configuration_device_multi``.
+Plain torch: the reference computes these as XLA contractions, outside
+any Pallas kernel.  Every three-operand contraction is written as two
+pairwise ones.  ``Featurizer`` is the ``featurize`` command's handler:
+it takes the unary device path where the basis allows it, the
+multi-species device path for every other basis with closed-form knots
+(multi-species, or 2-body only), and the host featurizer
+(``representation/process.py``) for knots with no closed form.
 
 Differences from the reference, by design:
 
 - the functions take a leading batch axis: a dataset bucket of
   configurations of one shape is one call (the reference maps over the
   configurations), and the 3-body grids are folded onto the
-  symmetry-unique wedge before the neighbor gather, which is linear in
-  the grid axis and so commutes with it: the gathered rows are
-  (n_wedge,) wide instead of (L*M*NC,);
+  symmetry-unique wedge right after each outer product, before the
+  neighbor gather, which is linear in the grid axis and so commutes
+  with it: the gathered rows are (n_wedge,) wide instead of (L*M*NC,);
+- the dataset path takes multi-species and 2-body-only bases too
+  (species is a per-atom input, so configurations of one shape share a
+  call whatever their species), where the reference featurizes them on
+  the host (``featurize_jax.py:23``);
 - each neighbor list is sized from its own cutoff (images and
   capacity), where the reference sizes both from the 2-body cutoff
   (``featurize_jax.py:463,535``) and drops 3-body neighbors without a
@@ -40,10 +48,14 @@ Differences from the reference, by design:
 - the lists are built on the device by ``ops/neighbors.py``; a
   configuration whose estimated capacity overflows is built again at
   its measured neighbor count and featurized alone: no truncated row
-  is kept.
+  is kept;
+- a configuration without forces gives its energy row and no force
+  rows, as the reference's ``BasisFeaturizer.evaluate`` does.
 """
 
-from typing import Callable, Dict, Iterator, List, NamedTuple, Tuple
+import functools
+from typing import (Callable, Dict, Iterator, List, NamedTuple, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -53,6 +65,8 @@ from uf3_tpu_torch.forcefield.md import _resolve_device
 from uf3_tpu_torch.ops import neighbors as nb
 from uf3_tpu_torch.ops.splines import LegSpec, _dense_basis, \
     leg_spec_from_knots
+from uf3_tpu_torch.representation.process import BasisFeaturizer, \
+    check_elements
 
 BUCKET_GRANULE = 8       # capacities rounded up to a multiple of this
 MEMORY_BUDGET = 0.25     # share of the card's memory one batch may take
@@ -93,11 +107,12 @@ def _trimmed_basis(r, valid, spec: LegSpec, lead: int, trail: int):
 
 
 def _batched(positions, cell, *lists):
-    """Single-configuration arguments with a leading batch axis of 1."""
+    """Single-configuration arguments with a leading batch axis of 1
+    (None passes through)."""
     if positions.dim() == 3:
         return (positions, cell) + tuple(lists)
     return ((positions[None], cell[None])
-            + tuple(a[None] for a in lists))
+            + tuple(None if a is None else a[None] for a in lists))
 
 
 def _displacements(positions, cell, idx, shift):
@@ -270,14 +285,23 @@ def build_featurize_spec(bspline_config):
         n_basis=len(seqs[2]) - 4)
 
 
-def _compression_arrays(bspline_config, trio, dtype, device):
+def _compression_arrays(bspline_config, trio, dtype, device,
+                        transposed: bool = False):
     """Static 3B compression data for the device path: (flat wedge
-    indices into the L*M*NC grid, per-wedge weights, symmetry)."""
-    idx = torch.as_tensor(np.asarray(bspline_config.template_mask[trio]),
-                          dtype=torch.int64, device=device)
+    indices into the L*M*NC grid, or with ``transposed`` into its
+    (M, L, NC) transpose, per-wedge weights, symmetry)."""
+    idx = np.asarray(bspline_config.template_mask[trio], dtype=np.int64)
+    symmetry = int(bspline_config.symmetry[trio])
+    if transposed and symmetry == 1:
+        # the symmetrized grids of symmetry 2 and 3 are unchanged by
+        # the transpose; symmetry 1 reads the wedge through it
+        shape = tuple(len(s) - 4 for s in bspline_config.knots_map[trio])
+        a, b, w = np.unravel_index(idx, shape)
+        idx = np.ravel_multi_index((b, a, w),
+                                   (shape[1], shape[0], shape[2]))
     weights = torch.as_tensor(np.asarray(bspline_config.flat_weights[trio]),
                               dtype=dtype, device=device)
-    return idx, weights, int(bspline_config.symmetry[trio])
+    return torch.as_tensor(idx, device=device), weights, symmetry
 
 
 def _compress_device(grid_flat, comp_idx, comp_w, symmetry, shape):
@@ -298,14 +322,19 @@ def _compress_device(grid_flat, comp_idx, comp_w, symmetry, shape):
     return torch.index_select(flat, -1, comp_idx) * comp_w
 
 
-def compressor(bspline_config, trio, dtype, device) -> Callable:
+def compressor(bspline_config, trio, dtype, device,
+               transposed: bool = False) -> Callable:
     """The fold of a trio's flattened grid axis onto its training wedge
-    (``compress_3B`` with fitting weights), on the device."""
-    comp_idx, comp_w, symmetry = _compression_arrays(bspline_config, trio,
-                                                     dtype, device)
-    shape = tuple(len(s) - 4 for s in bspline_config.knots_map[trio])
+    (``compress_3B`` with fitting weights), on the device; with
+    ``transposed``, the same fold of the grid given as its (M, L, NC)
+    transpose."""
+    comp_idx, comp_w, symmetry = _compression_arrays(
+        bspline_config, trio, dtype, device, transposed)
+    shape = [len(s) - 4 for s in bspline_config.knots_map[trio]]
+    if transposed:
+        shape[0], shape[1] = shape[1], shape[0]
     return lambda grid: _compress_device(grid, comp_idx, comp_w, symmetry,
-                                         shape)
+                                         tuple(shape))
 
 
 def _bucket_capacity(count: int, granule: int = BUCKET_GRANULE) -> int:
@@ -358,216 +387,6 @@ def _measured(positions, cell, pbc, r_cut: float, images,
 def _stack(lists: List[nb.NeighborList]) -> Lists:
     return Lists(*(torch.stack([getattr(n, f) for n in lists])
                    for f in Lists._fields))
-
-
-def _cutoffs(spec: FeaturizeSpec) -> Tuple[float, float]:
-    """The 2-body and the 3-body lists' own cutoffs."""
-    return spec.pair.t_max, spec.trio_l.t_max
-
-
-def featurize_configuration_device(bspline_config, geom,
-                                   spec: FeaturizeSpec = None,
-                                   dtype=torch.float64, device=None):
-    """
-    Device-path equivalent of BasisFeaturizer.evaluate_configuration
-    for unary 2+3-body systems: returns (energy feature vector without
-    the target column, force feature array (N, 3, n_feats)) as numpy.
-    The lists are built on the device at their measured capacities.
-    """
-    device = _resolve_device(device)
-    if spec is None:
-        spec = build_featurize_spec(bspline_config)
-    if spec is None:
-        raise ValueError("configuration outside the device fast path")
-    trio = bspline_config.interactions_map[3][0]
-    e, f = _featurize_one(spec, geom, dtype, device,
-                          compressor(bspline_config, trio, dtype, device))
-    return e.cpu().numpy(), f.cpu().numpy()
-
-
-def _featurize_one(spec, geom, dtype, device, fold):
-    """(energy vector (F,), force features (N, 3, F)) of one
-    configuration at measured capacities, on the device."""
-    cell, pbc = _cell_of(geom, dtype, device)
-    positions = torch.as_tensor(np.asarray(geom.get_positions()),
-                                dtype=dtype, device=device)
-    if any(pbc):
-        positions = nb.wrap_positions(positions, cell, pbc)
-    r2, r3 = _cutoffs(spec)
-    cell_np = cell.cpu().numpy()
-    nbr2 = _measured(positions, cell, pbc, r2, _images(cell_np, pbc, r2),
-                     False)
-    nbr3 = _measured(positions, cell, pbc, r3, _images(cell_np, pbc, r3),
-                     True)
-    l2, l3 = _stack([nbr2]), _stack([nbr3])
-    e, f = _assemble(spec, positions[None], cell[None], l2, l3, fold)
-    return e[0], f[0]
-
-
-def _assemble(spec, positions, cells, l2: Lists, l3: Lists, fold):
-    """Feature vectors of a batch: energy (B, F) with the atom count in
-    column 0, forces (B, N, 3, F) with 0 in column 0."""
-    e2, f2, e3, f3 = featurize_device(spec, positions, cells, *l2, *l3,
-                                      fold=fold)
-    n_cfg, n_atoms = positions.shape[:2]
-    counts = torch.full((n_cfg, 1), float(n_atoms), dtype=positions.dtype,
-                        device=positions.device)
-    zeros = torch.zeros((n_cfg, n_atoms, 3, 1), dtype=positions.dtype,
-                        device=positions.device)
-    return (torch.cat([counts, e2, e3], dim=1),
-            torch.cat([zeros, f2, f3], dim=3))
-
-
-class FeatureBatch(NamedTuple):
-    """Fitting rows of some configurations of a dataset, on the device:
-    per-atom energy rows (one per configuration) and force rows
-    (fx_0..fx_{N-1}, fy..., fz... per configuration)."""
-    index: List[int]         # the configurations' positions in the dataset
-    x_e: torch.Tensor        # (n, F)
-    y_e: torch.Tensor        # (n,)
-    x_f: torch.Tensor        # (3 sum N, F)
-    y_f: torch.Tensor        # (3 sum N,)
-
-
-def _force_rows(force) -> np.ndarray:
-    """Targets fx..., fy..., fz... from (N, 3) or (3, N) forces."""
-    force = np.asarray(force, dtype=np.float64)
-    if force.shape[0] != 3:
-        force = force.T
-    return force.reshape(-1)
-
-
-def _rows(index, e_vecs, f_vecs, energies, forces, dtype, device):
-    n_atoms = f_vecs.shape[1]
-    y_e = torch.as_tensor(np.array([energies[i] for i in index]) / n_atoms,
-                          dtype=dtype, device=device)
-    y_f = torch.as_tensor(np.concatenate([_force_rows(forces[i])
-                                          for i in index]),
-                          dtype=dtype, device=device)
-    x_f = f_vecs.transpose(1, 2).reshape(-1, f_vecs.shape[-1])
-    return FeatureBatch(list(index), e_vecs / n_atoms, y_e, x_f, y_f)
-
-
-def featurize_batches(bspline_config, geometries, energies, forces,
-                      dtype=torch.float64, device=None,
-                      batch_size: int = None,
-                      stats: Dict = None) -> Iterator[FeatureBatch]:
-    """
-    Device featurization of a dataset, one ``FeatureBatch`` of device
-    tensors per batched call: configurations are grouped by shape
-    (atom count, pbc, images, estimated capacities) and each group is
-    featurized in calls of ``batch_size`` configurations (by default as
-    many as a quarter of the card's memory holds, from the peak memory
-    of the group's first call; 8 on the CPU).  Both lists are built on
-    the device, each from its own cutoff, at capacities estimated from
-    the density; a configuration whose list overflows is built again at
-    its measured count and featurized alone.  ``stats``, when given,
-    receives the redo count, the batch sizes, the calls and the peak
-    memory.
-    """
-    device = _resolve_device(device)
-    spec = build_featurize_spec(bspline_config)
-    if spec is None:
-        raise ValueError("dataset outside the device fast path")
-    trio = bspline_config.interactions_map[3][0]
-    fold = compressor(bspline_config, trio, dtype, device)
-    stats = {} if stats is None else stats
-    stats.update(redos=0, calls=0, batch_sizes={}, peak_bytes=0)
-    on_card = device.type == "cuda"
-    r2, r3 = _cutoffs(spec)
-    buckets: Dict[Tuple, List[int]] = {}
-    alone = []   # clusters: measured capacities, one call each
-    for i, geom in enumerate(geometries):
-        cell, pbc = _cell_of(geom, torch.float64, "cpu")
-        if not any(pbc):
-            alone.append(i)
-            continue
-        cell = cell.numpy()
-        volume = abs(np.linalg.det(cell))
-        n_atoms = len(geom)
-        key = (n_atoms, pbc, _images(cell, pbc, r2), _images(cell, pbc, r3),
-               _bucket_capacity(nb.estimate_capacity(n_atoms, volume, r2)),
-               _bucket_capacity(nb.estimate_capacity(n_atoms, volume, r3)))
-        buckets.setdefault(key, []).append(i)
-    redo = []
-    for (n_atoms, pbc, im2, im3, cap2, cap3), entries in buckets.items():
-        size = batch_size or (1 if on_card else CPU_BATCH)
-        start = 0
-        while start < len(entries):
-            chunk = entries[start:start + size]
-            if on_card:
-                torch.cuda.reset_peak_memory_stats(device)
-                base = torch.cuda.memory_allocated(device)
-            positions, cells, l2, l3 = [], [], [], []
-            for i in chunk:
-                cell, _ = _cell_of(geometries[i], dtype, device)
-                x = nb.wrap_positions(torch.as_tensor(
-                    np.asarray(geometries[i].get_positions()), dtype=dtype,
-                    device=device), cell, pbc)
-                positions.append(x)
-                cells.append(cell)
-                l2.append(_build(x, cell, pbc, r2, cap2, im2, False))
-                l3.append(_build(x, cell, pbc, r3, cap3, im3, True))
-            overflow = torch.stack([a.overflow | b.overflow
-                                    for a, b in zip(l2, l3)]).cpu().numpy()
-            e_vecs, f_vecs = _assemble(spec, torch.stack(positions),
-                                       torch.stack(cells), _stack(l2),
-                                       _stack(l3), fold)
-            stats["calls"] += 1
-            start += len(chunk)
-            if on_card:
-                peak = torch.cuda.max_memory_allocated(device)
-                stats["peak_bytes"] = max(stats["peak_bytes"], peak)
-                if batch_size is None and start == len(chunk):
-                    per_cfg = max(1, (peak - base) / len(chunk))
-                    budget = MEMORY_BUDGET * torch.cuda.get_device_properties(
-                        device).total_memory
-                    size = int(max(1, min(MAX_BATCH, budget // per_cfg)))
-            stats["batch_sizes"][n_atoms] = size
-            keep = np.flatnonzero(~overflow)
-            redo.extend(chunk[b] for b in np.flatnonzero(overflow))
-            if len(keep):
-                rows = torch.as_tensor(keep, device=device)
-                yield _rows([chunk[b] for b in keep],
-                            e_vecs.index_select(0, rows),
-                            f_vecs.index_select(0, rows), energies, forces,
-                            dtype, device)
-    stats["redos"] = len(redo)
-    for i in alone + redo:
-        e, f = _featurize_one(spec, geometries[i], dtype, device, fold)
-        stats["calls"] += 1
-        yield _rows([i], e[None], f[None], energies, forces, dtype, device)
-
-
-def featurize_dataset_device(bspline_config, geometries, energies, forces,
-                             dtype=torch.float64, device=None,
-                             batch_size: int = None, stats: Dict = None):
-    """
-    Device featurization of a dataset into fitting arrays
-    (x_e, y_e, x_f, y_f) as numpy, with per-atom energy normalization,
-    matching ``regression.least_squares.dataframe_to_tuples`` semantics
-    of the reference: per-atom energy rows in dataset order, then the
-    force rows fx_0..fx_{N-1}, fy..., fz... of each configuration in
-    dataset order.  ``featurize_batches`` gives the same rows batch by
-    batch on the device (for a Gram matrix that never leaves it).
-    """
-    e_rows, f_rows = [None] * len(geometries), [None] * len(geometries)
-    for batch in featurize_batches(bspline_config, geometries, energies,
-                                   forces, dtype=dtype, device=device,
-                                   batch_size=batch_size, stats=stats):
-        x_e, y_e = batch.x_e.cpu().numpy(), batch.y_e.cpu().numpy()
-        x_f, y_f = batch.x_f.cpu().numpy(), batch.y_f.cpu().numpy()
-        offset = 0
-        for b, i in enumerate(batch.index):
-            n_rows = 3 * len(geometries[i])
-            e_rows[i] = (x_e[b], y_e[b])
-            f_rows[i] = (x_f[offset:offset + n_rows],
-                         y_f[offset:offset + n_rows])
-            offset += n_rows
-    return (np.stack([e[0] for e in e_rows]),
-            np.array([e[1] for e in e_rows]),
-            np.concatenate([f[0] for f in f_rows]),
-            np.concatenate([f[1] for f in f_rows]))
 
 
 # ---------------------------------------------------------------------------
@@ -653,12 +472,15 @@ def build_featurize_spec_multi(bspline_config):
 
 
 def _trio_block_grids(tb: TrioBlock, d, r, r_mn, r_mn2, unit, mask3,
-                      s_c_row, s_slot3, rev_rows):
+                      s_c_row, s_slot3, rev_rows, folds=None):
     """Energy grid + force grids (B, ...) for one trio interaction.  Both
     derivative chains (m leg and n leg) are explicit because
     heterogeneous trios are single-counted: an atom of species s_m only
     ever occupies the m role (the unary path recovers the n chain from
-    the ordered-pair double count instead)."""
+    the ordered-pair double count instead).  ``folds``, when given, is
+    the trio's (fold, fold of the transposed grid) pair (``compressor``),
+    applied right after each outer product: the results are then
+    (B, G') and (B, N, 3, G')."""
     gate_c = s_c_row == tb.s_c
     mask_m = mask3 & (s_slot3 == tb.s_m) & gate_c[..., None]
     mask_n = mask3 & (s_slot3 == tb.s_n) & gate_c[..., None]
@@ -669,26 +491,28 @@ def _trio_block_grids(tb: TrioBlock, d, r, r_mn, r_mn2, unit, mask3,
     c_mat, dc_mat = _trimmed_basis(r_mn, pair_ok, tb.spec_n, tb.lead,
                                    tb.trail)
     dc_over_r = dc_mat / r_mn[..., None]
-    # m chain: the n role contracted first
-    p0, p1m, p3m, pvm = _chain(a1, da1, a2, c_mat, dc_over_r, d, _identity)
-    # n chain: the m role contracted first, on the transposed pair
-    # grids, its grid axes then put back in (a, b, w) order
     shape = (tb.l1_basis, tb.l2_basis, tb.n_basis)
-    _, p1n, p3n, pvn = _chain(a2, da2, a1, c_mat.transpose(2, 3),
-                              dc_over_r.transpose(2, 3), d, _identity)
 
     def to_abw(p):
+        # the n chain's grid axis, (b, a, w) ordered, in (a, b, w) order
         lead = p.shape[:-1]
         p = p.reshape(lead + (shape[1], shape[0], shape[2]))
         return p.transpose(-3, -2).reshape(lead + (-1,))
 
-    p1n, p3n, pvn = to_abw(p1n), to_abw(p3n), to_abw(pvn)
+    fold_m, fold_n = folds if folds is not None else (_identity, to_abw)
+    # m chain: the n role contracted first
+    p0, p1m, p3m, pvm = _chain(a1, da1, a2, c_mat, dc_over_r, d, fold_m)
+    # n chain: the m role contracted first, on the transposed pair grids
+    _, p1n, p3n, pvn = _chain(a2, da2, a1, c_mat.transpose(2, 3),
+                              dc_over_r.transpose(2, 3), d, fold_n)
     e3 = tb.weight * torch.sum(p0, dim=(1, 2))
     mask_f = mask3.to(d.dtype)
     forces = tb.weight * (
         torch.einsum("zcmg,zcmx->zcxg", p1m + p1n, unit)
         + _neighbor_terms(p1m, p3m, pvm, unit, d, mask_f, rev_rows)
         + _neighbor_terms(p1n, p3n, pvn, unit, d, mask_f, rev_rows))
+    if folds is not None:
+        return e3, forces
     return e3.reshape(e3.shape[:1] + shape), \
         forces.reshape(forces.shape[:3] + shape)
 
@@ -696,15 +520,22 @@ def _trio_block_grids(tb: TrioBlock, d, r, r_mn, r_mn2, unit, mask3,
 def featurize_device_multi(mspec: MultiFeaturizeSpec,
                            species, positions, cell,
                            nbr_idx, nbr_shift, nbr_mask, nbr_rev,
-                           nbr3_idx, nbr3_shift, nbr3_mask, nbr3_rev):
+                           nbr3_idx=None, nbr3_shift=None, nbr3_mask=None,
+                           nbr3_rev=None, folds=None):
     """
-    Energy + force features for one multi-species configuration:
-    species-gated masks over shared neighbor geometry, one pass per
-    interaction.
+    Energy + force features of one multi-species configuration
+    (species (N,), positions (N, 3), cell (3, 3), (N, K) lists), or of a
+    stack of configurations of one shape (every input and output then
+    takes a leading B axis): species-gated masks over shared neighbor
+    geometry, one pass per interaction.  The 3-body list may be None
+    when the basis has no trio.
 
     Returns (e2_blocks, f2_blocks, e3_grids, f3_grids) -- tuples in
-    interactions_map order; 3B grids uncompressed (L1, L2, NC).
+    interactions_map order; 3B grids uncompressed (L1, L2, NC), or with
+    ``folds`` (per trio the pair ``compressor`` makes, the second for
+    the transposed grid) folded onto the wedge: (G',) and (N, 3, G').
     """
+    single = positions.dim() == 2
     (positions, cell, species, idx2, shift2, mask2, _, idx3, shift3, mask3,
      rev3) = _batched(positions, cell, species, nbr_idx, nbr_shift,
                       nbr_mask, nbr_rev, nbr3_idx, nbr3_shift, nbr3_mask,
@@ -720,8 +551,8 @@ def featurize_device_multi(mspec: MultiFeaturizeSpec,
                 | ((s[..., None] == pb.s_b) & (s_slot2 == pb.s_a)))
         e2, f2 = _pair_features(pb.spec, pb.lead, pb.trail, d2v,
                                 mask2 & gate)
-        e2_blocks.append(e2[0])
-        f2_blocks.append(f2[0])
+        e2_blocks.append(e2)
+        f2_blocks.append(f2)
     # ---- 3-body ----
     e3_grids, f3_grids = [], []
     if mspec.trios:
@@ -733,13 +564,142 @@ def featurize_device_multi(mspec: MultiFeaturizeSpec,
         s_slot3 = torch.gather(s, 1, idx3.reshape(s.shape[0], -1)).reshape(
             idx3.shape)
         rev_rows = _rev_rows(idx3, rev3)
-        for tb in mspec.trios:
-            e3, f3 = _trio_block_grids(tb, d, r, r_mn, r_mn2, unit, mask3,
-                                       s, s_slot3, rev_rows)
-            e3_grids.append(e3[0])
-            f3_grids.append(f3[0])
-    return (tuple(e2_blocks), tuple(f2_blocks), tuple(e3_grids),
-            tuple(f3_grids))
+        for t, tb in enumerate(mspec.trios):
+            e3, f3 = _trio_block_grids(
+                tb, d, r, r_mn, r_mn2, unit, mask3, s, s_slot3, rev_rows,
+                None if folds is None else folds[t])
+            e3_grids.append(e3)
+            f3_grids.append(f3)
+    out = (e2_blocks, f2_blocks, e3_grids, f3_grids)
+    if single:
+        return tuple(tuple(x[0] for x in part) for part in out)
+    return tuple(tuple(part) for part in out)
+
+
+# ---------------------------------------------------------------------------
+# host orchestration: configurations, batches, datasets
+# ---------------------------------------------------------------------------
+class Plan(NamedTuple):
+    """How a basis runs on the device: each list's cutoff (no 3-body
+    list for a 2-body basis), the species index of each atomic number,
+    and the batched call (positions (B, N, 3), cells (B, 3, 3), species
+    (B, N), the stacked lists) giving energy (B, F) with the atom counts
+    by element first, and forces (B, N, 3, F) with zeros there."""
+    route: str
+    r2: float
+    r3: Optional[float]
+    species_of: Dict[int, int]
+    assemble: Callable
+
+
+def _assemble(spec, fold, positions, cells, species, l2: Lists,
+              l3: Lists):
+    """The unary path's feature vectors of a batch."""
+    e2, f2, e3, f3 = featurize_device(spec, positions, cells, *l2, *l3,
+                                      fold=fold)
+    n_cfg, n_atoms = positions.shape[:2]
+    counts = torch.full((n_cfg, 1), float(n_atoms), dtype=positions.dtype,
+                        device=positions.device)
+    zeros = torch.zeros((n_cfg, n_atoms, 3, 1), dtype=positions.dtype,
+                        device=positions.device)
+    return (torch.cat([counts, e2, e3], dim=1),
+            torch.cat([zeros, f2, f3], dim=3))
+
+
+def _assemble_multi(mspec, folds, positions, cells, species, l2: Lists,
+                    l3: Optional[Lists]):
+    """The multi-species path's feature vectors of a batch."""
+    e2, f2, e3, f3 = featurize_device_multi(
+        mspec, species, positions, cells, *l2,
+        *(l3 if l3 is not None else (None,) * 4), folds=folds)
+    n_cfg, n_atoms = positions.shape[:2]
+    elements_ = torch.arange(mspec.n_elements, device=species.device)
+    counts = (species[..., None] == elements_).sum(dim=1).to(
+        positions.dtype)
+    zeros = torch.zeros((n_cfg, n_atoms, 3, mspec.n_elements),
+                        dtype=positions.dtype, device=positions.device)
+    return (torch.cat([counts, *e2, *e3], dim=1),
+            torch.cat([zeros, *f2, *f3], dim=3))
+
+
+def device_plan(bspline_config, dtype=torch.float64, device=None,
+                spec: FeaturizeSpec = None,
+                mspec: MultiFeaturizeSpec = None) -> Optional[Plan]:
+    """The device path a basis takes: the unary 2+3-body path where
+    ``build_featurize_spec`` allows it, else the multi-species path
+    (multi-species or 2-body-only bases with closed-form knots); None
+    for knots with no closed form.  ``spec`` / ``mspec`` pick a path."""
+    config = bspline_config
+    species_of = {elements.atomic_numbers[el]: i
+                  for i, el in enumerate(config.element_list)}
+    if mspec is None:
+        spec = spec or build_featurize_spec(config)
+    if spec is not None:
+        trio = config.interactions_map[3][0]
+        fold = compressor(config, trio, dtype, device)
+        return Plan("device", spec.pair.t_max, spec.trio_l.t_max,
+                    species_of, functools.partial(_assemble, spec, fold))
+    mspec = mspec or build_featurize_spec_multi(config)
+    if mspec is None:
+        return None
+    trios = config.interactions_map[3] if config.degree > 2 else []
+    folds = tuple((compressor(config, trio, dtype, device),
+                   compressor(config, trio, dtype, device, transposed=True))
+                  for trio in trios)
+    r3 = max((max(tb.spec_l1.t_max, tb.spec_l2.t_max)
+              for tb in mspec.trios), default=None)
+    return Plan("device multi", max(pb.spec.t_max for pb in mspec.pairs),
+                r3, species_of,
+                functools.partial(_assemble_multi, mspec, folds))
+
+
+def _species(geom, plan: Plan, device) -> torch.Tensor:
+    return torch.as_tensor([plan.species_of[int(z)]
+                            for z in geom.get_atomic_numbers()],
+                           dtype=torch.int64, device=device)
+
+
+def _positions(geom, cell, pbc, dtype, device):
+    positions = torch.as_tensor(np.asarray(geom.get_positions()),
+                                dtype=dtype, device=device)
+    return nb.wrap_positions(positions, cell, pbc) if any(pbc) \
+        else positions
+
+
+def _featurize_one(plan: Plan, geom, dtype, device):
+    """(energy vector (F,), force features (N, 3, F)) of one
+    configuration at measured capacities, on the device."""
+    cell, pbc = _cell_of(geom, dtype, device)
+    positions = _positions(geom, cell, pbc, dtype, device)
+    cell_np = cell.cpu().numpy()
+    l2 = _stack([_measured(positions, cell, pbc, plan.r2,
+                           _images(cell_np, pbc, plan.r2), False)])
+    l3 = None
+    if plan.r3 is not None:
+        l3 = _stack([_measured(positions, cell, pbc, plan.r3,
+                               _images(cell_np, pbc, plan.r3), True)])
+    e, f = plan.assemble(positions[None], cell[None],
+                         _species(geom, plan, device)[None], l2, l3)
+    return e[0], f[0]
+
+
+def featurize_configuration_device(bspline_config, geom,
+                                   spec: FeaturizeSpec = None,
+                                   dtype=torch.float64, device=None):
+    """
+    Device-path equivalent of BasisFeaturizer.evaluate_configuration
+    for unary 2+3-body systems: returns (energy feature vector without
+    the target column, force feature array (N, 3, n_feats)) as numpy.
+    The lists are built on the device at their measured capacities.
+    """
+    device = _resolve_device(device)
+    if spec is None:
+        spec = build_featurize_spec(bspline_config)
+    if spec is None:
+        raise ValueError("configuration outside the device fast path")
+    e, f = _featurize_one(device_plan(bspline_config, dtype, device,
+                                      spec=spec), geom, dtype, device)
+    return e.cpu().numpy(), f.cpu().numpy()
 
 
 def featurize_configuration_device_multi(bspline_config, geom,
@@ -757,44 +717,227 @@ def featurize_configuration_device_multi(bspline_config, geom,
         mspec = build_featurize_spec_multi(bspline_config)
     if mspec is None:
         raise ValueError("configuration outside the device fast path")
-    config = bspline_config
-    element_list = list(config.chemical_system.element_list)
-    s_of = {elements.atomic_numbers[el]: i
-            for i, el in enumerate(element_list)}
-    species_np = np.array([s_of[z] for z in geom.get_atomic_numbers()],
-                          dtype=np.int64)
-    n_atoms = len(geom)
-    cell, pbc = _cell_of(geom, dtype, device)
-    positions = torch.as_tensor(np.asarray(geom.get_positions()),
-                                dtype=dtype, device=device)
-    if any(pbc):
-        positions = nb.wrap_positions(positions, cell, pbc)
-    cell_np = cell.cpu().numpy()
-    r2_max = max(pb.spec.t_max for pb in mspec.pairs)
-    nbr2 = _measured(positions, cell, pbc, r2_max,
-                     _images(cell_np, pbc, r2_max), False)
-    if mspec.trios:
-        r3_max = max(max(tb.spec_l1.t_max, tb.spec_l2.t_max)
-                     for tb in mspec.trios)
-        nbr3 = _measured(positions, cell, pbc, r3_max,
-                         _images(cell_np, pbc, r3_max), True)
-    else:
-        nbr3 = nbr2._replace(idx=nbr2.idx[:, :1], shift=nbr2.shift[:, :1],
-                             mask=torch.zeros_like(nbr2.mask[:, :1]),
-                             rev=nbr2.rev[:, :1])
-    species = torch.as_tensor(species_np, device=device)
-    e2_b, f2_b, e3_g, f3_g = featurize_device_multi(
-        mspec, species, positions, cell,
-        nbr2.idx, nbr2.shift, nbr2.mask, nbr2.rev,
-        nbr3.idx, nbr3.shift, nbr3.mask, nbr3.rev)
-    counts = np.array([np.sum(species_np == i)
-                       for i in range(mspec.n_elements)], dtype=float)
-    e_parts = [counts] + [b.cpu().numpy() for b in e2_b]
-    f_parts = [np.zeros((n_atoms, 3, mspec.n_elements))] \
-        + [b.cpu().numpy() for b in f2_b]
-    for t, trio in enumerate(config.interactions_map[3]
-                             if config.degree > 2 else []):
-        e_parts.append(config.compress_3B(e3_g[t].cpu().numpy(), trio))
-        f_parts.append(config.compress_3B_batch(f3_g[t].cpu().numpy(),
-                                                trio))
-    return np.concatenate(e_parts), np.concatenate(f_parts, axis=2)
+    e, f = _featurize_one(device_plan(bspline_config, dtype, device,
+                                      mspec=mspec), geom, dtype, device)
+    return e.cpu().numpy(), f.cpu().numpy()
+
+
+class FeatureBatch(NamedTuple):
+    """Fitting rows of some configurations of a dataset, on the device:
+    per-atom energy rows (one per configuration) and force rows
+    (fx_0..fx_{N-1}, fy..., fz... per configuration that has forces)."""
+    index: List[int]         # the configurations' positions in the dataset
+    x_e: torch.Tensor        # (n, F)
+    y_e: torch.Tensor        # (n,)
+    x_f: torch.Tensor        # (sum of force_rows, F)
+    y_f: torch.Tensor        # (sum of force_rows,)
+    force_rows: List[int]    # per configuration: 3 N, or 0 without forces
+
+
+def has_forces(forces, i: int) -> bool:
+    """Whether configuration i has force targets (``forces`` None: no
+    configuration has)."""
+    return forces is not None and forces[i] is not None
+
+
+def _force_rows(force) -> np.ndarray:
+    """Targets fx..., fy..., fz... from (N, 3) forces."""
+    return np.asarray(force, dtype=np.float64).T.reshape(-1)
+
+
+def _rows(index, e_vecs, f_vecs, energies, forces, dtype, device):
+    n_atoms = f_vecs.shape[1]
+    y_e = torch.as_tensor(np.array([energies[i] for i in index]) / n_atoms,
+                          dtype=dtype, device=device)
+    keep = [b for b, i in enumerate(index) if has_forces(forces, i)]
+    if len(keep) < len(index):
+        f_vecs = f_vecs.index_select(0, torch.as_tensor(
+            keep, dtype=torch.int64, device=device))
+    x_f = f_vecs.transpose(1, 2).reshape(-1, f_vecs.shape[-1])
+    y_f = torch.as_tensor(np.concatenate(
+        [_force_rows(forces[index[b]]) for b in keep]) if keep
+        else np.zeros(0), dtype=dtype, device=device)
+    return FeatureBatch(list(index), e_vecs / n_atoms, y_e, x_f, y_f,
+                        [3 * n_atoms if has_forces(forces, i) else 0
+                         for i in index])
+
+
+def featurize_batches(bspline_config, geometries, energies, forces,
+                      dtype=torch.float64, device=None,
+                      batch_size: int = None,
+                      stats: Dict = None) -> Iterator[FeatureBatch]:
+    """
+    Device featurization of a dataset, one ``FeatureBatch`` of device
+    tensors per batched call, on the path the basis takes
+    (``device_plan``): configurations are grouped by shape (atom count,
+    pbc, images, estimated capacities; not species) and each group is
+    featurized in calls of ``batch_size`` configurations (by default as
+    many as a quarter of the card's memory holds, from the peak memory
+    of the group's first call; 8 on the CPU).  The lists are built on
+    the device, each from its own cutoff, at capacities estimated from
+    the density; a configuration whose list overflows is built again at
+    its measured count and featurized alone.  ``forces`` holds (N, 3)
+    arrays; an entry None (or ``forces`` None) gives that configuration
+    (every configuration) its energy row alone.  ``stats``, when given,
+    receives the route, the redo count, the batch sizes, the calls and
+    the peak memory.
+    """
+    device = _resolve_device(device)
+    plan = device_plan(bspline_config, dtype, device)
+    if plan is None:
+        raise ValueError("basis outside the device paths (knots with no "
+                         "closed form): the host featurizer "
+                         "representation.process.BasisFeaturizer takes it")
+    stats = {} if stats is None else stats
+    stats.update(route=plan.route, redos=0, calls=0, batch_sizes={},
+                 peak_bytes=0)
+    on_card = device.type == "cuda"
+    buckets: Dict[Tuple, List[int]] = {}
+    alone = []   # clusters: measured capacities, one call each
+    for i, geom in enumerate(geometries):
+        check_elements(geom, bspline_config.element_list, i)
+        cell, pbc = _cell_of(geom, torch.float64, "cpu")
+        if not any(pbc):
+            alone.append(i)
+            continue
+        cell = cell.numpy()
+        volume = abs(np.linalg.det(cell))
+        n_atoms = len(geom)
+        key = (n_atoms, pbc) + tuple(
+            (_images(cell, pbc, r), _bucket_capacity(
+                nb.estimate_capacity(n_atoms, volume, r)))
+            if r is not None else None for r in (plan.r2, plan.r3))
+        buckets.setdefault(key, []).append(i)
+    redo = []
+    for (n_atoms, pbc, list2, list3), entries in buckets.items():
+        size = batch_size or (1 if on_card else CPU_BATCH)
+        start = 0
+        while start < len(entries):
+            chunk = entries[start:start + size]
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+                base = torch.cuda.memory_allocated(device)
+            positions, cells, species, l2, l3 = [], [], [], [], []
+            for i in chunk:
+                cell, _ = _cell_of(geometries[i], dtype, device)
+                x = _positions(geometries[i], cell, pbc, dtype, device)
+                positions.append(x)
+                cells.append(cell)
+                species.append(_species(geometries[i], plan, device))
+                l2.append(_build(x, cell, pbc, plan.r2, list2[1], list2[0],
+                                 False))
+                if list3 is not None:
+                    l3.append(_build(x, cell, pbc, plan.r3, list3[1],
+                                     list3[0], True))
+            flags = [n.overflow for n in l2 + l3]
+            overflow = torch.stack(flags).reshape(
+                -1, len(chunk)).any(dim=0).cpu().numpy()
+            e_vecs, f_vecs = plan.assemble(
+                torch.stack(positions), torch.stack(cells),
+                torch.stack(species), _stack(l2),
+                _stack(l3) if l3 else None)
+            stats["calls"] += 1
+            start += len(chunk)
+            if on_card:
+                peak = torch.cuda.max_memory_allocated(device)
+                stats["peak_bytes"] = max(stats["peak_bytes"], peak)
+                if batch_size is None and start == len(chunk):
+                    per_cfg = max(1, (peak - base) / len(chunk))
+                    budget = MEMORY_BUDGET * torch.cuda.get_device_properties(
+                        device).total_memory
+                    size = int(max(1, min(MAX_BATCH, budget // per_cfg)))
+            stats["batch_sizes"][n_atoms] = size
+            keep = np.flatnonzero(~overflow)
+            redo.extend(chunk[b] for b in np.flatnonzero(overflow))
+            if len(keep):
+                rows = torch.as_tensor(keep, device=device)
+                yield _rows([chunk[b] for b in keep],
+                            e_vecs.index_select(0, rows),
+                            f_vecs.index_select(0, rows), energies, forces,
+                            dtype, device)
+    stats["redos"] = len(redo)
+    for i in alone + redo:
+        e, f = _featurize_one(plan, geometries[i], dtype, device)
+        stats["calls"] += 1
+        yield _rows([i], e[None], f[None], energies, forces, dtype, device)
+
+
+def featurize_dataset_device(bspline_config, geometries, energies, forces,
+                             dtype=torch.float64, device=None,
+                             batch_size: int = None, stats: Dict = None):
+    """
+    Device featurization of a dataset into fitting arrays
+    (x_e, y_e, x_f, y_f) as numpy, with per-atom energy normalization,
+    matching ``regression.least_squares.dataframe_to_tuples`` semantics
+    of the reference: per-atom energy rows in dataset order, then the
+    force rows fx_0..fx_{N-1}, fy..., fz... of each configuration that
+    has forces, in dataset order.  ``featurize_batches`` gives the same
+    rows batch by batch on the device (for a Gram matrix that never
+    leaves it).
+    """
+    e_rows, f_rows = [None] * len(geometries), [None] * len(geometries)
+    n_columns = None
+    for batch in featurize_batches(bspline_config, geometries, energies,
+                                   forces, dtype=dtype, device=device,
+                                   batch_size=batch_size, stats=stats):
+        x_e, y_e = batch.x_e.cpu().numpy(), batch.y_e.cpu().numpy()
+        x_f, y_f = batch.x_f.cpu().numpy(), batch.y_f.cpu().numpy()
+        n_columns = x_e.shape[1]
+        offset = 0
+        for b, i in enumerate(batch.index):
+            n_rows = batch.force_rows[b]
+            e_rows[i] = (x_e[b], y_e[b])
+            f_rows[i] = (x_f[offset:offset + n_rows],
+                         y_f[offset:offset + n_rows])
+            offset += n_rows
+    return (np.stack([e[0] for e in e_rows]),
+            np.array([e[1] for e in e_rows]),
+            np.concatenate([f[0] for f in f_rows]).reshape(-1, n_columns),
+            np.concatenate([f[1] for f in f_rows]))
+
+
+class Featurizer:
+    """
+    The fitting rows of a dataset for any basis, by the route the basis
+    allows (``route``): ``"device"``, the unary 2+3-body path;
+    ``"device multi"``, the multi-species path, for every other basis
+    with closed-form knots (multi-species, or 2-body only); ``"host"``,
+    the host featurizer ``BasisFeaturizer``, for knots with no closed
+    form.  ``fit_forces`` False gives no force rows; ``prefix`` is the
+    reference's column prefix, carried as it carries it.  The device
+    routes run on ``device``, the CUDA card unless it says otherwise.
+    """
+
+    def __init__(self, bspline_config, fit_forces: bool = True,
+                 prefix: str = "x", device=None, dtype=torch.float64):
+        self.bspline_config = bspline_config
+        self.fit_forces = bool(fit_forces)
+        self.prefix = prefix
+        self.device = _resolve_device(device)
+        self.dtype = dtype
+        plan = device_plan(bspline_config, dtype, self.device)
+        self.route = "host" if plan is None else plan.route
+
+    def force_rows(self, geometries, forces) -> np.ndarray:
+        """Force rows per configuration: 3 N, or 0 without forces or
+        with ``fit_forces`` False."""
+        return np.array([3 * len(g) if self.fit_forces
+                         and has_forces(forces, i) else 0
+                         for i, g in enumerate(geometries)], dtype=np.int64)
+
+    def featurize_dataset(self, geometries, energies, forces,
+                          stats: Dict = None):
+        """(x_e, y_e, x_f, y_f) as numpy, in the order of
+        ``featurize_dataset_device``; ``forces`` as it takes them."""
+        forces = forces if self.fit_forces else None
+        if self.route == "host":
+            if stats is not None:
+                stats.update(route=self.route, calls=len(geometries),
+                             redos=0)
+            return BasisFeaturizer(
+                self.bspline_config, fit_forces=self.fit_forces,
+                prefix=self.prefix).featurize_dataset(geometries, energies,
+                                                      forces)
+        return featurize_dataset_device(
+            self.bspline_config, geometries, energies, forces,
+            dtype=self.dtype, device=self.device, stats=stats)

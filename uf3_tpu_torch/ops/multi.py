@@ -90,7 +90,7 @@ def build_trio_multi(config, coefficients) -> Optional[TrioMulti]:
             variants.append(((s_c, s_n, s_m), grid.transpose(1, 0, 2),
                              [seqs[1], seqs[0], seqs[2]]))
         for (c, m, n), g, sq in variants:
-            found = [leg_spec_from_knots(s) for s in sq]
+            found = [leg_spec_from_knots(s, exact=True) for s in sq]
             if not all(ok for ok, _ in found):
                 return None
             active_bc, window = type_sparsity(g)
@@ -112,7 +112,7 @@ def build_pair_multi(config, coefficients) -> Optional[PairMulti]:
     pair_type = np.zeros((n_species, n_species), dtype=np.int64)
     specs, coeffs = [], []
     for p_idx, pair in enumerate(config.interactions_map[2]):
-        ok, spec = leg_spec_from_knots(config.knots_map[pair])
+        ok, spec = leg_spec_from_knots(config.knots_map[pair], exact=True)
         if not ok:
             return None
         s_a, s_b = element_list.index(pair[0]), element_list.index(pair[1])
@@ -194,7 +194,7 @@ def pack_trio_multi(descs, grids, n_species: int) -> TrioMultiPack:
             raise ValueError(f"trio type {key} given twice")
         type_of[key] = t
         for j, spec in enumerate((desc.spec_l1, desc.spec_l2, desc.spec_n)):
-            if spec.cardinal or spec.knots is not None:
+            if spec.cardinal:
                 raise ValueError("trio kernel legs take closed-form knots "
                                  "in the clamped basis")
             if spec not in table_at:

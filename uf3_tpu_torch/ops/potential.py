@@ -64,7 +64,7 @@ def build_pair_fast(config, coefficients):
     if len(pairs) != 1:
         return None
     pair = pairs[0]
-    ok, spec = leg_spec_from_knots(config.knots_map[pair])
+    ok, spec = leg_spec_from_knots(config.knots_map[pair], exact=True)
     if not ok:
         return None
     sizes, offsets = config.get_interaction_partitions()
@@ -93,8 +93,8 @@ def build_trio_bundle(config, coefficients):
             for s in config.knots_map[trio]]
     if not np.array_equal(seqs[0], seqs[1]):
         return None
-    ok_l, spec_l = leg_spec_from_knots(seqs[0])
-    ok_n, spec_n = leg_spec_from_knots(seqs[2])
+    ok_l, spec_l = leg_spec_from_knots(seqs[0], exact=True)
+    ok_n, spec_n = leg_spec_from_knots(seqs[2], exact=True)
     if not (ok_l and ok_n):
         return None
     solutions = io.arrange_coefficients(coefficients, config)

@@ -10,6 +10,7 @@ transformed coordinate, so the interval lookup is a floor and the
 8-knot de Boor window is an analytic clip expression.
 """
 
+import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -92,23 +93,30 @@ def cardinal_coefficients(knot_sequence, coefficients):
     """Re-express a clamped cubic spline with uniform interior knots
     over uniform cardinal B-splines (same basis count).  Exact: any C^2
     piecewise cubic on uniform breakpoints lies in the cardinal span.
-    Returns the (n_int + 3,) vector, or None for non-uniform knots."""
+    The clamped basis functions 3 .. n-4 are cardinal ones already and
+    keep their coefficients; the three at each end span what the three
+    cardinal ones there span on the domain, and are matched on the end
+    interval alone, so no rounding travels along the leg.  Returns the
+    (n_int + 3,) vector, or None for non-uniform knots or fewer than 4
+    intervals."""
     seq = np.asarray(knot_sequence, dtype=np.float64)
     gaps = np.diff(seq[3:-3])
-    if not np.allclose(gaps, gaps[0], rtol=1e-8, atol=1e-10):
+    if len(gaps) < 4 or not np.allclose(gaps, gaps[0], rtol=1e-8,
+                                        atol=1e-10):
         return None
     coefficients = np.asarray(coefficients, dtype=np.float64)
     beta = basis_monomial_table(seq)          # (n_int, tap, power)
+    uc = coefficients.copy()
+    # first interval: taps 0-2 (clamped) against cardinal taps 0-2;
+    # last interval: taps 1-3 against cardinal taps 1-3
+    for sl, taps, row in ((slice(0, 3), slice(0, 3), 0),
+                          (slice(-3, None), slice(1, 4), -1)):
+        poly = coefficients[sl] @ beta[row, taps]
+        uc[sl] = np.linalg.lstsq(CARDINAL_M[taps].T, poly, rcond=None)[0]
     n_int = beta.shape[0]
     poly = np.stack([coefficients[i:i + 4] @ beta[i]
                      for i in range(n_int)])  # (n_int, power)
-    uc = np.zeros(n_int + 3)
-    uc[0:4] = np.linalg.solve(CARDINAL_M.T, poly[0])
-    for i in range(1, n_int):
-        # only the new tap is unknown; match the cubic term
-        uc[i + 3] = (6.0 * poly[i, 3] + uc[i] - 3.0 * uc[i + 1]
-                     + 3.0 * uc[i + 2])
-    recon = np.stack([CARDINAL_M.T @ uc[i:i + 4] for i in range(n_int)])
+    recon = np.stack([uc[i:i + 4] @ CARDINAL_M for i in range(n_int)])
     scale = max(1.0, np.abs(poly).max())
     if np.abs(recon - poly).max() > 1e-8 * scale:
         return None
@@ -118,7 +126,11 @@ def cardinal_coefficients(knot_sequence, coefficients):
 def leg_spec_from_knots(seq: np.ndarray,
                         exact: bool = False) -> Tuple[bool, LegSpec]:
     """Detect the generating strategy of a clamped knot sequence.
-    Returns (ok, spec); ok=False means no closed form applies."""
+    Returns (ok, spec); ok=False means no closed form applies.  The
+    spacing is the mean gap (u_last - u0) / n_int, which finds each
+    interval to within the knots' rounding; with ``exact`` the spec
+    carries the sequence's own knots, which the basis then evaluates on
+    (``_knot_value``, ``horner_table``)."""
     seq = np.asarray(seq, dtype=np.float64)
     pts = seq[3:-3]
     n_int = len(pts) - 1
@@ -131,7 +143,7 @@ def leg_spec_from_knots(seq: np.ndarray,
         gaps = np.diff(u)
         if np.allclose(gaps, gaps[0], rtol=1e-6, atol=1e-9):
             return True, LegSpec(
-                kind, float(u[0]), float(gaps[0]), n_int,
+                kind, float(u[0]), float((u[-1] - u[0]) / n_int), n_int,
                 float(seq[0]), float(seq[-1]), n_int + 3,
                 tuple(float(p) for p in pts) if exact else None)
     return False, None
@@ -176,11 +188,16 @@ def _cardinal4(r, spec: LegSpec):
     return values, derivs, idx
 
 
+@functools.lru_cache(maxsize=256)
+def _knot_table(knots: Tuple[float, ...], dtype, device) -> torch.Tensor:
+    return torch.tensor(knots, dtype=dtype, device=device)
+
+
 def _knot_value(spec: LegSpec, k, dtype):
-    """r-space knot value for (clipped) uniform index k."""
+    """r-space knot value for (clipped) uniform index k: the spec's own
+    knots where it carries them, else u0 + k h transformed back."""
     if spec.knots is not None:
-        table = torch.tensor(spec.knots, dtype=dtype, device=k.device)
-        return table[k]
+        return _knot_table(spec.knots, dtype, k.device)[k]
     u = spec.u0 + k.to(dtype) * spec.h
     if spec.kind == LINEAR:
         return u

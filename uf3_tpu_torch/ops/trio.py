@@ -132,7 +132,7 @@ def trio_partials(potential: UF3Potential, d, valid,
         if t.device != d.device:
             raise ValueError("trio kernel operands on different devices")
     for spec in (trio.spec_l, trio.spec_n):
-        if spec.cardinal or spec.knots is not None:
+        if spec.cardinal:
             raise ValueError("trio kernel legs take closed-form knots "
                              "in the clamped basis")
     d = d.contiguous()

@@ -217,17 +217,21 @@ class WeightedLinearModel:
                           f_variance: VarianceRecorder = None):
         """Energy and force Gram matrices and ordinates, summed on the
         device over ``batches`` of (x_e, y_e, x_f, y_f) (numpy arrays or
-        tensors; rows as ``featurize_dataset_device`` orders them), with
-        the frozen columns eliminated; the targets stream into the
-        variance recorders when given.  Returns (gram_e, gram_f, ord_e,
-        ord_f) as float64 tensors on the device."""
+        tensors; rows as ``featurize_dataset_device`` orders them; a
+        batch may hold no force rows) or of ``FeatureBatch``es, with the
+        frozen columns eliminated; the targets stream into the variance
+        recorders when given.  Returns (gram_e, gram_f, ord_e, ord_f) as
+        float64 tensors on the device."""
         n_columns = len(self.mask)
         gram_e, gram_f = (torch.zeros((n_columns, n_columns),
                                       dtype=torch.float64, device=self.device)
                           for _ in range(2))
         ord_e, ord_f = (torch.zeros(n_columns, dtype=torch.float64,
                                     device=self.device) for _ in range(2))
-        for x_e, y_e, x_f, y_f in batches:
+        for batch in batches:
+            if hasattr(batch, "x_e"):   # a FeatureBatch
+                batch = (batch.x_e, batch.y_e, batch.x_f, batch.y_f)
+            x_e, y_e, x_f, y_f = batch
             x_e, y_e = self._frozen_rows(x_e, y_e)
             x_f, y_f = self._frozen_rows(x_f, y_f)
             if e_variance is not None and f_variance is not None:
@@ -261,11 +265,13 @@ class WeightedLinearModel:
     def fit(self, x_e, y_e, x_f=None, y_f=None, weight: float = 0.5,
             batch_size: int = 2500):
         """Fit energy (and force) rows: arrays or tensors, each Gram
-        accumulated on the device over row batches of ``batch_size``."""
+        accumulated on the device over row batches of ``batch_size``.
+        Without force rows (None, or none at all) the fit takes the
+        energy rows alone, as ``fit`` without forces in the reference."""
         y_e_frozen = _host(y_e) - np.dot(_host(x_e)[:, self.col_idx],
                                          self.frozen_c)
         gram_e, ord_e = self._gram(x_e, y_e, batch_size)
-        if x_f is not None:
+        if x_f is not None and len(x_f):
             energy_weight, force_weight = calc_E_F_weights(
                 len(y_e), len(y_f), np.std(y_e_frozen), np.std(_host(y_f)))
             gram_f, ord_f = self._gram(x_f, y_f, batch_size)
@@ -279,17 +285,28 @@ class WeightedLinearModel:
     def fit_from_batches(self, batches: Iterable, weight: float = 0.5):
         """Fit over ``batches`` of (x_e, y_e, x_f, y_f): Gram matrices
         summed on the device, the channel weights from the streamed
-        targets' variances, the solve on the host."""
+        targets' variances, the solve on the host; the energy rows
+        alone where the batches hold no force row."""
         e_var = VarianceRecorder()
         f_var = VarianceRecorder()
         gram_e, gram_f, ord_e, ord_f = self.gram_from_batches(
             batches, e_variance=e_var, f_variance=f_var)
+        self.fit_with_gram(*self.weighted_gram(
+            gram_e, gram_f, ord_e, ord_f, e_var, f_var, weight))
+
+    def weighted_gram(self, gram_e, gram_f, ord_e, ord_f,
+                      e_variance: VarianceRecorder,
+                      f_variance: VarianceRecorder, weight: float = 0.5):
+        """The blended (gram, ordinate) of ``gram_from_batches``' sums,
+        weighted by the recorded targets' channel weights; the energy
+        channel alone where no force row was recorded."""
+        if f_variance.n == 0:
+            return gram_e, ord_e
         energy_weight, force_weight = calc_E_F_weights(
-            e_var.n, f_var.n, e_var.std, f_var.std)
-        gram, ordinate = self.combine_weighted_gram(
+            e_variance.n, f_variance.n, e_variance.std, f_variance.std)
+        return self.combine_weighted_gram(
             gram_e, gram_f, ord_e, ord_f, energy_weight, force_weight,
             weight)
-        self.fit_with_gram(gram, ordinate)
 
     @staticmethod
     def combine_weighted_gram(gram_e, gram_f, ord_e, ord_f,

@@ -1,0 +1,250 @@
+"""
+BasisFeaturizer without pandas: energy and force feature vectors of a
+configuration on the host (1-body composition, 2-body, compressed
+3-body; numpy, float64), and the fitting arrays of a dataset.
+
+Counterpart of ``uf3_tpu/representation/process.py``: ``__init__`` with
+``fit_forces`` and ``prefix``, the passthrough properties,
+``featurize_energy_2B`` / ``force_2B`` / ``energy_3B`` / ``force_3B`` and
+``evaluate_configuration``.  The DataFrame and HDF5 side (``evaluate``,
+``batched_to_hdf``) is replaced by ``featurize_dataset``, which returns
+(x_e, y_e, x_f, y_f) in ``dataframe_to_tuples`` order.  This is the
+route for bases whose knots have no closed form; the device featurizer
+(``ops/featurize.py``) takes every other basis.
+
+One difference by design: the ghost supercell is built deep enough for
+the longest 3-body center leg, twice its length, where the reference
+builds it at the basis's ``r_cut`` (``process.py:176``); in a cell
+smaller than the 3-body legs the reference's then misses the far
+neighbor of a ghost center and drops force terms of in-cell atoms.
+"""
+
+import warnings
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+
+from uf3_tpu_torch.data import geometry as geo
+from uf3_tpu_torch.representation import featurize_np as fnp
+from uf3_tpu_torch.representation.basis import BSplineBasis
+
+
+def flatten_by_interactions(vector_map: Dict, pair_tuples: List) -> np.ndarray:
+    return np.concatenate([vector_map[pair] for pair in pair_tuples], axis=-1)
+
+
+class BasisFeaturizer:
+    """Generate energy/force features from configurations."""
+
+    def __init__(self, bspline_config: BSplineBasis,
+                 fit_forces: bool = True, prefix: str = "x"):
+        self.bspline_config = bspline_config
+        self.fit_forces = fit_forces
+        self.prefix = prefix
+        self.columns = bspline_config.get_column_names()
+
+    # -- passthrough properties --------------------------------------------
+    @property
+    def chemical_system(self):
+        return self.bspline_config.chemical_system
+
+    @property
+    def degree(self):
+        return self.chemical_system.degree
+
+    @property
+    def element_list(self):
+        return self.chemical_system.element_list
+
+    @property
+    def interactions_map(self):
+        return self.chemical_system.interactions_map
+
+    @property
+    def r_cut(self):
+        return self.bspline_config.r_cut
+
+    @property
+    def knots_map(self):
+        return self.bspline_config.knots_map
+
+    @property
+    def interaction_hashes(self):
+        return self.chemical_system.interaction_hashes
+
+    @property
+    def leading_trim(self):
+        return self.bspline_config.leading_trim
+
+    @property
+    def trailing_trim(self):
+        return self.bspline_config.trailing_trim
+
+    @property
+    def supercell_cutoff(self) -> float:
+        """Depth of the ghost supercell: the basis's ``r_cut``, and for
+        3-body terms twice the longest center leg, which holds both
+        neighbors of every ghost center within a leg of the cell."""
+        r_cut = float(self.r_cut)
+        if self.degree > 2:
+            legs = [float(seq[-1]) for trio in self.interactions_map[3]
+                    for seq in self.knots_map[trio][:2]]
+            r_cut = max(r_cut, 2.0 * max(legs))
+        return r_cut
+
+    def __repr__(self):
+        return "\n".join(["BasisFeaturizer:",
+                          f"    Fit forces: {self.fit_forces}",
+                          f"    Column prefix: {self.prefix}",
+                          repr(self.bspline_config)])
+
+    # -- per-configuration featurization ------------------------------------
+    def featurize_energy_2B(self, geom, supercell=None) -> np.ndarray:
+        if supercell is None:
+            supercell = geom
+        pair_tuples = self.interactions_map[2]
+        distances_map = fnp.distances_by_interaction(
+            geom, pair_tuples, self.bspline_config.r_min_map,
+            self.bspline_config.r_max_map, supercell=supercell)
+        feature_map = {
+            pair: fnp.energy_features_2b(distances_map[pair],
+                                         self.knots_map[pair],
+                                         self.leading_trim[2],
+                                         self.trailing_trim[2])
+            for pair in pair_tuples}
+        return flatten_by_interactions(feature_map, pair_tuples)
+
+    def featurize_force_2B(self, geom, supercell=None) -> np.ndarray:
+        if supercell is None:
+            supercell = geom
+        pair_tuples = self.interactions_map[2]
+        dist_map, deriv_map = fnp.derivatives_by_interaction(
+            geom, pair_tuples, self.r_cut,
+            self.bspline_config.r_min_map, self.bspline_config.r_max_map,
+            supercell)
+        feature_map = {}
+        for pair in pair_tuples:
+            i_idx, j_idx, unit = deriv_map[pair]
+            feature_map[pair] = fnp.force_features_2b(
+                dist_map[pair], i_idx, j_idx, unit, len(geom),
+                self.knots_map[pair],
+                self.leading_trim[2], self.trailing_trim[2])
+        return flatten_by_interactions(feature_map, pair_tuples)
+
+    def featurize_energy_3B(self, geom, supercell=None) -> np.ndarray:
+        if supercell is None:
+            supercell = geom
+        trio_list = self.interactions_map[3]
+        knot_sets = [self.knots_map[trio] for trio in trio_list]
+        grids = fnp.energy_grids_3b(geom, knot_sets,
+                                    self.interaction_hashes[3],
+                                    supercell=supercell,
+                                    n_lead=self.leading_trim[3],
+                                    n_trail=self.trailing_trim[3])
+        vectors = [self.bspline_config.compress_3B(grids[i], trio)
+                   for i, trio in enumerate(trio_list)]
+        return np.concatenate(vectors)
+
+    def featurize_force_3B(self, geom, supercell=None) -> np.ndarray:
+        if supercell is None:
+            supercell = geom
+        trio_list = self.interactions_map[3]
+        knot_sets = [self.knots_map[trio] for trio in trio_list]
+        grids = fnp.force_grids_3b(geom, knot_sets,
+                                   self.interaction_hashes[3],
+                                   supercell=supercell,
+                                   n_lead=self.leading_trim[3],
+                                   n_trail=self.trailing_trim[3])
+        return np.concatenate(
+            [self.bspline_config.compress_3B_batch(grids[i], trio)
+             for i, trio in enumerate(trio_list)], axis=-1)
+
+    def _supercell(self, geom):
+        if np.any(geom.get_pbc()):
+            return geo.get_supercell(geom, r_cut=self.supercell_cutoff)
+        return geom
+
+    def featurize_configuration(self, geom, with_forces: bool = True):
+        """(energy feature vector without the target column, force
+        features (N, 3, n_feats) or None without ``with_forces``)."""
+        supercell = self._supercell(geom)
+        vector = np.concatenate([
+            self.chemical_system.get_composition_tuple(geom),
+            self.featurize_energy_2B(geom, supercell)])
+        if self.degree > 2:
+            vector = np.concatenate(
+                [vector, self.featurize_energy_3B(geom, supercell)])
+        if not with_forces:
+            return vector, None
+        vectors = np.concatenate([
+            np.zeros((len(geom), 3, len(self.element_list))),
+            self.featurize_force_2B(geom, supercell)], axis=2)
+        if self.degree > 2:
+            vectors = np.concatenate(
+                [vectors, self.featurize_force_3B(geom, supercell)], axis=2)
+        return vector, vectors
+
+    def evaluate_configuration(self, geom, name: str = None,
+                               energy: float = None, forces=None,
+                               energy_key: str = "energy") -> Dict:
+        """One energy row and/or 3N force rows of features for a
+        configuration, keyed as the reference keys them; ``forces`` as
+        [fx, fy, fz]."""
+        invalid = set(geom.get_chemical_symbols()) - set(self.element_list)
+        if invalid:
+            warnings.warn(f"Invalid elements: {', '.join(sorted(invalid))}",
+                          RuntimeWarning)
+            return {}
+        if energy is None and forces is None:
+            return {}
+        vector, vectors = self.featurize_configuration(
+            geom, with_forces=forces is not None)
+        eval_map = {}
+        if energy is not None:
+            key = (name, energy_key) if name is not None else energy_key
+            eval_map[key] = np.insert(vector, 0, energy)
+        if forces is not None:
+            for c, component in enumerate(["fx", "fy", "fz"]):
+                for a in range(len(geom)):
+                    row = np.insert(vectors[a, c, :], 0, forces[c][a])
+                    tag = f"{component}_{a}"
+                    key = (name, tag) if name is not None else tag
+                    eval_map[key] = row
+        return eval_map
+
+    # -- datasets -------------------------------------------------------------
+    def featurize_dataset(self, geometries: Sequence, energies: Sequence,
+                          forces: Sequence = None
+                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                     np.ndarray]:
+        """Fitting arrays (x_e, y_e, x_f, y_f) of a dataset in
+        ``dataframe_to_tuples`` order: per-atom energy rows, one per
+        configuration, then the force rows fx_0..fx_{N-1}, fy..., fz... of
+        each configuration that has forces (``forces`` None, or an entry
+        None, gives none; so does ``fit_forces`` False)."""
+        x_e, y_e, x_f, y_f = [], [], [], []
+        for i, geom in enumerate(geometries):
+            check_elements(geom, self.element_list, i)
+            force = None if forces is None or not self.fit_forces \
+                else forces[i]
+            vector, vectors = self.featurize_configuration(
+                geom, with_forces=force is not None)
+            n_atoms = len(geom)
+            x_e.append(vector / n_atoms)
+            y_e.append(energies[i] / n_atoms)
+            if force is not None:
+                x_f.append(vectors.transpose(1, 0, 2).reshape(
+                    3 * n_atoms, -1))
+                y_f.append(np.asarray(force, dtype=np.float64).T.reshape(-1))
+        n_columns = len(self.columns) - 1
+        return (np.stack(x_e), np.array(y_e, dtype=np.float64),
+                np.concatenate(x_f) if x_f else np.zeros((0, n_columns)),
+                np.concatenate(y_f) if y_f else np.zeros(0))
+
+
+def check_elements(geom, element_list, index: int) -> None:
+    """Raise for a configuration holding elements outside the basis."""
+    invalid = set(geom.get_chemical_symbols()) - set(element_list)
+    if invalid:
+        raise ValueError(f"configuration {index} holds elements outside "
+                         f"the basis: {', '.join(sorted(invalid))}")

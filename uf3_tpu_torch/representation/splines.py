@@ -2,8 +2,9 @@
 Cubic B-spline basis values on the host (numpy, float64): the 4
 non-zero basis functions at each point by the Cox-de Boor recursion.
 
-Copy of ``find_spline_indices``, ``deboor_values`` and
-``evaluate_spline`` from ``uf3_tpu/representation/splines.py``.
+Copy of ``find_spline_indices``, ``deboor_values``,
+``evaluate_basis_sums``, ``featurize_force_2b`` and ``evaluate_spline``
+from ``uf3_tpu/representation/splines.py``.
 """
 
 from typing import Tuple
@@ -72,6 +73,60 @@ def deboor_values(points: np.ndarray,
             new[:, p] = term
         b = new
     return b, idx
+
+
+def evaluate_basis_sums(points: np.ndarray,
+                        knot_sequence: np.ndarray,
+                        nu: int = 0,
+                        n_lead: int = 0,
+                        n_trail: int = 0) -> np.ndarray:
+    """
+    Per-basis-function sums over all points: the 2-body energy feature
+    vector.  Equivalent to the reference's dense evaluation
+    (bspline.py:810-849) but via the 4-tap kernel + scatter-add.
+    """
+    n_splines = len(knot_sequence) - 4
+    out = np.zeros(n_splines)
+    points = np.asarray(points, dtype=np.float64)
+    if len(points) == 0:
+        return out
+    values, idx = deboor_values(points, knot_sequence, nu=nu)
+    for tap in range(4):
+        np.add.at(out, idx + tap, values[:, tap])
+    if n_lead > 0:
+        out[:n_lead] = 0.0
+    if n_trail > 0:
+        out[n_splines - n_trail:] = 0.0
+    return out
+
+
+def featurize_force_2b(points: np.ndarray,
+                       drij_dR: np.ndarray,
+                       knot_sequence: np.ndarray,
+                       n_lead: int = 0,
+                       n_trail: int = 0) -> np.ndarray:
+    """
+    2-body force features: x[a, c, s] = -sum_p B'_s(r_p) * drij_dR[a, c, p].
+
+    Matches reference bspline.py:852-895 (which loops over basis functions
+    with per-spline strict-interior masks; for C^2 cubic splines the
+    boundary terms those masks exclude are identically zero).
+    """
+    n_atoms, _, n_distances = drij_dR.shape
+    n_splines = len(knot_sequence) - 4
+    x = np.zeros((n_atoms, 3, n_splines))
+    if n_distances == 0:
+        return x
+    values, idx = deboor_values(points, knot_sequence, nu=1)
+    for tap in range(4):
+        contrib = drij_dR * values[None, None, :, tap]  # (n_atoms, 3, n_d)
+        # scatter-add along the spline axis
+        np.add.at(x.transpose(2, 0, 1), idx + tap, contrib.transpose(2, 0, 1))
+    if n_lead > 0:
+        x[:, :, :n_lead] = 0.0
+    if n_trail > 0:
+        x[:, :, n_splines - n_trail:] = 0.0
+    return -x
 
 
 def evaluate_spline(points: np.ndarray,

@@ -1,8 +1,8 @@
 """
 Settings of the ``featurize``, ``fit`` and ``predict`` commands, with
 type-checked defaults, and the handler factory that builds the
-ChemicalSystem / BSplineBasis / device featurizer spec /
-WeightedLinearModel objects from one settings dictionary.
+ChemicalSystem / BSplineBasis / Featurizer / WeightedLinearModel
+objects from one settings dictionary.
 
 Counterpart of the part of ``uf3_tpu/util/user_config.py`` those
 commands read (``read_config``, ``generate_handlers`` for ``elements``,
@@ -10,7 +10,8 @@ commands read (``read_config``, ``generate_handlers`` for ``elements``,
 are written as JSON, which is a subset of the YAML ``uf3_tpu`` reads, so
 one file serves both packages; the GPU hosts carry no YAML parser.  The
 basis's ``r_min`` / ``r_max`` / ``resolution`` may also be maps keyed
-as in the model files ("W-W", "W-W-W"), which only this package reads.  The
+as in the model files ("W-W", "W-W-W"), and its ``knots_map`` (knot
+sequences of any spacing) one too, which only this package reads.  The
 defaults are those of ``uf3_tpu/default_options.yaml`` that these
 commands read, with the features file as ``.npz`` (the GPU hosts carry
 no HDF5 library either).
@@ -44,8 +45,10 @@ DEFAULT_SETTINGS = {
         "fit_offsets": True,
         "trailing_trim": 3,
         "knot_strategy": "linear",
+        "knots_map": None,
     },
-    "features": {"features_path": "features.npz"},
+    "features": {"features_path": "features.npz", "fit_forces": True,
+                 "column_prefix": "x"},
     "model": {"model_path": "model.json"},
     "learning": {
         "features_path": "features.npz",
@@ -115,7 +118,7 @@ def _build_chemical_system(settings, handlers, device):
 
 def _build_basis(settings, handlers, device):
     block = {**settings["basis"], **handlers["chemical_system"].as_dict()}
-    for key in ("r_min", "r_max", "resolution"):
+    for key in ("r_min", "r_max", "resolution", "knots_map"):
         # per-interaction maps keyed as in the model files ("W-W-W")
         if isinstance(block.get(key), dict):
             block[key] = json_io.decode_interaction_map(block[key])
@@ -123,7 +126,11 @@ def _build_basis(settings, handlers, device):
 
 
 def _build_features(settings, handlers, device):
-    return featurize.build_featurize_spec(handlers["basis"])
+    block = settings["features"]
+    return featurize.Featurizer(handlers["basis"],
+                                fit_forces=block.get("fit_forces", True),
+                                prefix=block.get("column_prefix", "x"),
+                                device=device)
 
 
 def _build_model(settings, handlers, device):
@@ -158,8 +165,10 @@ _HANDLER_RECIPES = (
 
 def generate_handlers(settings: Dict, device=None) -> Dict:
     """Build pipeline objects from a settings dictionary: the chemical
-    system, the basis, the device featurizer's spec (``features``;
-    absent when the basis is outside the device fast path), a model
+    system, the basis, the featurizer (``features``: a
+    ``featurize.Featurizer``, which picks the device or host route the
+    basis allows, with the settings' ``fit_forces`` and
+    ``column_prefix``), a model
     loaded from ``model.model_path`` when that file exists (``model``)
     and the model to fit (``learning``), both on ``device``.  Each
     handler is attempted only when its settings sections and upstream

@@ -51,7 +51,15 @@ route, featurized on the card by the multi-species dataset path, fitted
 and held to the teacher, its model run in MD at 8,788 atoms on the same
 route; then the commands on ``model_pair.json``'s 2-body basis (the
 multi-species device route) and on a basis of moved knots (the host
-route).
+route).  Then multi-shard MD and fitting on ``torch.distributed``
+(``run_halo``): a NCCL group of world size 1 (one card holds one rank)
+with a 4-shard mesh; the halo-exchange chunk and the
+replicated-positions chunk in float64 at 9,826 atoms against the
+single device; the halo chunk's float32 3-level r-RESPA NVE run with
+its re-decompositions, one trio launch per mid step for all shards and
+halo-sized collectives, beside the single-device rate; the trio
+kernel's center weight on the path's rows; the sharded fits on the fit
+commands' features.
 
     python3 chip_smoke.py
 
@@ -98,9 +106,12 @@ from uf3_tpu_torch.ops.pair import (pair_row_forces,  # noqa: E402
 from uf3_tpu_torch.ops.potential import (UF3Potential,  # noqa: E402
                                          grid_sparsity)
 from uf3_tpu_torch.ops.splines import _leg_interval  # noqa: E402
+from uf3_tpu_torch.parallel import halo  # noqa: E402
+from uf3_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from uf3_tpu_torch.representation.basis import BSplineBasis  # noqa: E402
 from uf3_tpu_torch.representation.knots import \
     get_knot_spacer as knot_spacer  # noqa: E402
+from uf3_tpu_torch.util import user_config  # noqa: E402
 
 MODEL = os.path.join(REPO, "benchmarks_data", "model_2and3.json")
 BENCH = dict(rebuild_every=36, skin=0.5, skin_2b=1.2, capacity_2b=72,
@@ -235,13 +246,14 @@ def max_err(a, b) -> float:
 
 
 def trio_bound(pot: UF3Potential, d, valid, with_energy: bool,
-               peak=PEAK_F32_FLOPS):
+               peak=PEAK_F32_FLOPS, extra_bytes: int = 0):
     """The least time the card needs for one trio_partials call on
     these rows: the flop the kernel's algorithm does for this data (an
     FMA is 2) over the ``peak`` rate (float32 by default), against each
     input read once and
-    each output written once over the memory rate.  Returns (ms,
-    "operations" or "bytes", flop, bytes)."""
+    each output written once, plus ``extra_bytes`` moved beside these
+    rows, over the memory rate.  Returns (ms, "operations" or "bytes",
+    flop, bytes)."""
     trio_b = pot.trio
     w_lo, w_hi, c_lo, c_hi = trio_b.window
     ww, cw = w_hi - w_lo, c_hi - c_lo
@@ -275,7 +287,8 @@ def trio_bound(pot: UF3Potential, d, valid, with_energy: bool,
     size = pot.grid_window.element_size()
     n_atoms, k = d.shape[:2]
     n_bytes = size * (n_atoms * k * 4 + pot.grid_window.numel()
-                      + pot.leg_tables.numel() + n_atoms * (4 + 5 * k))
+                      + pot.leg_tables.numel() + n_atoms * (4 + 5 * k)) \
+        + extra_bytes
     t_flop, t_bytes = flop / peak, n_bytes / PEAK_BYTES
     return (1e3 * max(t_flop, t_bytes),
             "operations" if t_flop >= t_bytes else "bytes", flop, n_bytes)
@@ -2250,7 +2263,7 @@ def run_fit_command(geoms, energies, forces, tmp, device):
     return model_path
 
 
-def run_fit(device, counts=FIT_SET, seed=0):
+def run_fit(device, counts=FIT_SET, seed=0, keep=None):
     """The fit on the card: a training set of ``counts`` (by default the
     tungsten set's size, 1,939 configurations), labeled with energies and
     forces by ``UFCalculator`` on the bench model in f64, split 80/20;
@@ -2262,7 +2275,8 @@ def run_fit(device, counts=FIT_SET, seed=0):
     configurations with ``md`` on their model.  Gates: features card vs
     CPU within 1e-10 on one configuration per size, every configuration
     featurized once (redos counted), the hold-out RMSEs, the MD, the
-    commands.  Returns the trio launches by step."""
+    commands.  ``keep``, a directory, receives the commands' settings
+    and features.  Returns the trio launches by step."""
     from uf3_tpu_torch.ops import featurize as feat
     from uf3_tpu_torch.regression import least_squares as ls
     card = card_line()
@@ -2381,6 +2395,9 @@ def run_fit(device, counts=FIT_SET, seed=0):
     cmd_geoms = [geoms[i] for i in train[:FIT_CMD_CONFIGS]]
     run_fit_command(cmd_geoms, [energies[i] for i in train[:FIT_CMD_CONFIGS]],
                     [forces[i] for i in train[:FIT_CMD_CONFIGS]], tmp, device)
+    if keep is not None:   # the commands' settings and features
+        for name in ("settings.json", "features.npz"):
+            shutil.copy(os.path.join(tmp, "commands", name), keep)
     shutil.rmtree(tmp)
     gate("fit", {
         f"features card vs CPU within {FIT_FEATURE_TOL:g}":
@@ -2686,6 +2703,471 @@ def run_fit_multi(device, counts=FIT_MULTI_SET, seed=0):
     return launches
 
 
+# -- multi-shard MD and fitting on torch.distributed (ROADMAP.md section
+# 1, Parallel and halo): a NCCL group of world size 1 holds a 4-shard
+# mesh on the card (NCCL holds one rank per GPU; one rank may hold
+# several shards)
+HALO_SHARDS = 4
+HALO_RESPA = dict(n_respa=12, respa_mid=6, respa_switch=(2.5, 3.5),
+                  rebuild_every=36)
+HALO_CHUNK = 36          # steps per chunk; a stale chunk re-decomposes
+HALO_WARMUP = 144
+HALO_E_TOL = 1e-10       # relative, the reference's bounds
+HALO_F_TOL = 1e-9        # eV/A (tests/test_halo.py:84-111), and virial
+HALO_X_TOL, HALO_V_TOL = 1e-9, 1e-11   # trajectories (:114-215)
+REPLICATED_XV_TOL, REPLICATED_FE_TOL = 1e-12, 1e-10  # test_parallel.py
+SHARDED_FIT_TOL = 1e-10  # relative, predictions against model.fit
+HALO_RESPA_CHUNK = dict(n_respa=HALO_RESPA["n_respa"],
+                        respa_mid=HALO_RESPA["respa_mid"])
+
+
+def init_nccl(device, tmp):
+    """A NCCL process group of world size 1 on ``device`` from a file
+    store in ``tmp`` (no TCP port)."""
+    torch.cuda.set_device(device)
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+        rank=0, world_size=1)
+    return torch.distributed.group.WORLD
+
+
+def halo_dec(system: MDSystem, positions, mesh):
+    """The slab decomposition of ``positions`` at the system's cutoffs,
+    skin and capacities, its lists built on the mesh's card."""
+    return halo.decompose(
+        positions, system.cell.double().cpu().numpy(), mesh.n_shards,
+        r_cut_2b=system.r_cut_2b, r_cut_3b=system.r_cut_3b,
+        skin=system.skin, capacity_2b=system.capacity_2b,
+        capacity_3b=system.capacity_3b,
+        masses=system.masses.double().cpu().numpy(), device=mesh.device)
+
+
+def halo_chunk(system, mesh, dec, v0=None, x_own=None, dt_fs=1.0, **kw):
+    """One call of a halo chunk from ``dec`` (velocities ``v0`` global,
+    zero when None); returns the chunk's outputs."""
+    chunk, shard = halo.halo_md_step_factory(system, mesh, **kw)
+    d = shard(dec)
+    v = torch.zeros_like(d.x_own) if v0 is None \
+        else shard(halo.scatter_velocities(dec, v0))
+    return chunk(d, d.x_own if x_own is None else shard(x_own), v,
+                 dt_fs * units.fs)
+
+
+def respa_split_loop(system: MDSystem, x, v, nbr2, nbr3, n_steps,
+                     dt_fs=1.0):
+    """3-level r-RESPA on one device on fixed lists, the halo chunk's
+    split (tests/test_halo.py:114-215): positions, velocities."""
+    pot, cell = system.potential, system.cell
+    spec = pot.pair_spec
+    r_lo, r_hi = system.respa_switch
+    m = system.masses[:, None]
+    dt = dt_fs * units.fs
+    short = lambda xx: pair_short_forces(  # noqa: E731
+        pot.pair_coefficients, xx, cell, nbr3, spec_pair=spec,
+        n_basis_pair=spec.n_basis, with_energy=False, r_lo=r_lo,
+        r_hi=r_hi)[1]
+    mid = lambda xx: trio.trio_forces(  # noqa: E731
+        pot, xx, cell, nbr3, False)[1]
+    tail = lambda xx: pair_tail_forces(  # noqa: E731
+        pot.pair_coefficients, xx, cell, nbr2, spec_pair=spec,
+        n_basis_pair=spec.n_basis, with_energy=False, r_lo=r_lo,
+        r_hi=r_hi)[1]
+    n_respa, n_mid = system.n_respa, system.respa_mid
+    fp, fm, ft = short(x), mid(x), tail(x)
+    for _ in range(n_steps // n_respa):
+        v = v + 0.5 * dt * n_respa * ft / m
+        for _ in range(n_respa // n_mid):
+            v = v + 0.5 * dt * n_mid * fm / m
+            for _ in range(n_mid):
+                v = v + 0.5 * dt * fp / m
+                x = x + dt * v
+                fp = short(x)
+                v = v + 0.5 * dt * fp / m
+            fm = mid(x)
+            v = v + 0.5 * dt * n_mid * fm / m
+        ft = tail(x)
+        v = v + 0.5 * dt * n_respa * ft / m
+    return x, v
+
+
+def halo_parity_f64(device, mesh):
+    """The halo chunk and the replicated path in float64 at full width
+    (bcc W 17^3 rattled 0.05 A, the engine's default capacities):
+    energy, forces and virial at n_steps = 0 against the factorized
+    oracle ``energy_forces_virial`` and the fused single-device force; 5
+    NVE steps and 12 steps of 3-level r-RESPA 12/6 against the
+    single-device loops on fixed lists; the replicated chunk 5 steps
+    against the single device."""
+    geom = bench_geometry((17, 17, 17), rattle=0.05)
+    n = len(geom)
+    system = MDSystem(MODEL, geom, dtype=torch.float64, device=device,
+                      **HALO_RESPA)
+    t0 = time.perf_counter()
+    dec = halo_dec(system, geom.get_positions(), mesh)
+    torch.cuda.synchronize()
+    rows = dec.center_w.numel()
+    print(f"halo f64: decomposition {time.perf_counter() - t0:.3f} s: "
+          f"C_own {dec.c_own}, C_halo {dec.c_halo}, L "
+          f"{dec.center_w.shape[1]}, S*L {rows} rows ({1 - n / rows:.3f} "
+          f"not owned), capacities {system.capacity_2b}/"
+          f"{system.capacity_3b}; one position permute "
+          f"{3 * dec.c_halo * 4} bytes in f32")
+    x = torch.as_tensor(halo.gather_positions(dec, dec.x_own, n),
+                        device=device)
+    nbr2, nbr3 = system.build_lists(x)
+    e_or, f_or, w_or = system.energy_forces_virial(x, nbr2, nbr3)
+    e_fu, f_fu, w_fu = system.energy_forces(x, nbr2, nbr3, with_virial=True)
+    _, _, f_own, energy, virial, stale = halo_chunk(
+        system, mesh, dec, n_steps=0, with_virial=True)
+    f = torch.as_tensor(halo.gather_positions(dec, f_own, n))
+    voigt = lambda w: torch.stack([w[a, b] for a, b in  # noqa: E731
+                                   ((0, 0), (1, 1), (2, 2), (1, 2), (0, 2),
+                                    (0, 1))])
+    errs = {}
+    for tag, (e_r, f_r, w_r) in (("oracle", (e_or, f_or, w_or)),
+                                 ("fused", (e_fu, f_fu, w_fu))):
+        errs[tag] = (abs(float(energy - e_r)) / abs(float(e_r)),
+                     max_err(f, f_r), max_err(virial, voigt(w_r)))
+        print(f"halo f64 n_steps=0 vs single-device {tag}: |dE|/|E| "
+              f"{errs[tag][0]:.3e}, max |dF| {errs[tag][1]:.3e} eV/A, max "
+              f"|dW| {errs[tag][2]:.3e} eV")
+    # NVE and r-RESPA trajectories
+    rng = np.random.RandomState(11)
+    v0 = rng.normal(scale=5e-4, size=(n, 3))
+    m = system.masses[:, None]
+    xs, v = x, torch.as_tensor(v0, device=device)
+    _, fs, _ = system.energy_forces(xs, nbr2, nbr3, with_energy=False)
+    dt = 1.0 * units.fs
+    for _ in range(5):
+        v = v + 0.5 * dt * fs / m
+        xs = xs + dt * v
+        _, fs, _ = system.energy_forces(xs, nbr2, nbr3, with_energy=False)
+        v = v + 0.5 * dt * fs / m
+    out = halo_chunk(system, mesh, dec, v0, n_steps=5)
+    nve = (max_err(torch.as_tensor(halo.gather_positions(dec, out[0], n)),
+                   xs),
+           max_err(torch.as_tensor(halo.gather_positions(dec, out[1], n)),
+                   v), bool(out[-1]))
+    xr, vr = respa_split_loop(system, x, torch.as_tensor(v0, device=device),
+                              nbr2, nbr3, 12)
+    out = halo_chunk(system, mesh, dec, v0, n_steps=12, n_respa=12,
+                     respa_mid=6)
+    respa = (max_err(torch.as_tensor(halo.gather_positions(dec, out[0], n)),
+                     xr),
+             max_err(torch.as_tensor(halo.gather_positions(dec, out[1], n)),
+                     vr), bool(out[-1]))
+    for tag, (dx, dv, st) in (("NVE 5 steps", nve),
+                              ("3-level r-RESPA 12/6, 12 steps", respa)):
+        print(f"halo f64 {tag} vs single device: max |dx| {dx:.3e} A, "
+              f"max |dv| {dv:.3e} A/fs-units, stale {st}")
+    # the replicated-positions path
+    state = system.init_state(temperature=T_TARGET, seed=0)
+    xp, vp, fp = state.positions, state.velocities, state.forces
+    for _ in range(5):
+        vp = vp + 0.5 * dt * fp / m
+        xp = xp + dt * vp
+        _, fp, _ = system.energy_forces(xp, state.nbr2, state.nbr3,
+                                        with_energy=False)
+        vp = vp + 0.5 * dt * fp / m
+    e_p, f_p, _ = system.energy_forces(xp, state.nbr2, state.nbr3)
+    reset_counts()
+    mesh.reset_traffic()
+    chunk, shard_atoms = pmesh.sharded_md_step_factory(system, mesh,
+                                                       n_steps=5)
+    xr, vr, fr, er = chunk(state.positions, state.velocities, state.forces,
+                           shard_atoms(state.nbr2), shard_atoms(state.nbr3),
+                           dt)
+    torch.cuda.synchronize()
+    repl = (max_err(xr, xp), max_err(vr, vp), max_err(fr, f_p),
+            abs(float(er - e_p)))
+    repl_launches = trio.trio_partials.launches
+    print(f"replicated path, {mesh.n_shards} shards, 5 steps vs single "
+          f"device: max |dx| {repl[0]:.3e}, |dv| {repl[1]:.3e}, |dF| "
+          f"{repl[2]:.3e}, |dE| {repl[3]:.3e}; {repl_launches} trio "
+          f"launches (one per force call for all shards), all_gather "
+          f"{len(mesh.traffic['all_gather'])} x "
+          f"{max(mesh.traffic['all_gather'])} elements per shard")
+    gate("halo f64", {
+        f"n_steps=0 |dE|/|E| <= {HALO_E_TOL:g} (oracle, fused)":
+            max(errs["oracle"][0], errs["fused"][0]) <= HALO_E_TOL,
+        f"n_steps=0 forces <= {HALO_F_TOL:g} eV/A (oracle, fused)":
+            max(errs["oracle"][1], errs["fused"][1]) <= HALO_F_TOL,
+        f"n_steps=0 virial <= {HALO_F_TOL:g} (oracle, fused)":
+            max(errs["oracle"][2], errs["fused"][2]) <= HALO_F_TOL,
+        "not stale": not (bool(stale) or nve[2] or respa[2]),
+        f"NVE x <= {HALO_X_TOL:g}, v <= {HALO_V_TOL:g}":
+            nve[0] <= HALO_X_TOL and nve[1] <= HALO_V_TOL,
+        f"r-RESPA x <= {HALO_X_TOL:g}, v <= {HALO_V_TOL:g}":
+            respa[0] <= HALO_X_TOL and respa[1] <= HALO_V_TOL,
+        f"replicated x, v <= {REPLICATED_XV_TOL:g}":
+            max(repl[:2]) <= REPLICATED_XV_TOL,
+        f"replicated f, E <= {REPLICATED_FE_TOL:g}":
+            max(repl[2:]) <= REPLICATED_FE_TOL,
+        "replicated path: one trio launch per force call":
+            repl_launches == 6})
+
+
+def halo_production(device, mesh):
+    """The halo chunk at the bench's split in float32: 3-level r-RESPA
+    (inner 2 fs, trio every 6, tail every 12, switch (2.5, 3.5) A) NVE
+    from 300 K Maxwell-Boltzmann velocities at 9,826 atoms, chunks of
+    36 steps, a new decomposition from the gathered positions whenever a
+    chunk comes back stale; 144 warm-up steps and 3 timed windows of 720.
+    Beside it the single-device 3-level r-RESPA NVE at the same atoms
+    and engine settings.  Returns (launches, the f32 decomposition, the
+    system)."""
+    geom = bench_geometry((17, 17, 17))
+    n = len(geom)
+    system = MDSystem(MODEL, geom, dtype=torch.float32, device=device,
+                      **HALO_RESPA)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(0)
+    sigma = torch.sqrt(units.kB * T_TARGET / system.masses)[:, None]
+    v0 = sigma * torch.randn((n, 3), generator=generator,
+                             dtype=torch.float32, device=device)
+    v0 = (v0 - v0.mean(dim=0)).cpu().numpy()
+    x0 = geom.get_positions()
+    dec = halo_dec(system, x0, mesh)
+    # f32 forces at the start against f64
+    f32 = halo_chunk(system, mesh, dec, n_steps=0, **HALO_RESPA_CHUNK)[2]
+    f32 = torch.as_tensor(halo.gather_positions(dec, f32, n))
+    system64 = MDSystem(MODEL, geom, dtype=torch.float64, device=device,
+                        **HALO_RESPA)
+    x64 = torch.as_tensor(halo.gather_positions(dec, dec.x_own, n),
+                          device=device)
+    _, f64, _ = system64.energy_forces(x64, *system64.build_lists(x64))
+    f_err = max_err(f32, f64)
+    chunk, shard = halo.halo_md_step_factory(system, mesh, n_steps=HALO_CHUNK,
+                                             **HALO_RESPA_CHUNK)
+    state = dict(dec=dec, d=shard(dec), v=shard(halo.scatter_velocities(
+        dec, v0)), decompositions=0, finite=True)
+    state["x"] = state["d"].x_own
+
+    def advance(steps):
+        """``steps`` in chunks; the total energy after each chunk."""
+        energies = []
+        for _ in range(steps // HALO_CHUNK):
+            x, v, _, energy, stale = chunk(state["d"], state["x"],
+                                           state["v"], 2.0 * units.fs)
+            state["x"], state["v"] = x, v
+            # padding slots carry mass 1 and velocity 0
+            kinetic = 0.5 * torch.sum(state["d"].masses.double()
+                                      * v.double() ** 2)
+            energies.append(float(energy) + float(kinetic))
+            state["finite"] = state["finite"] and bool(
+                torch.isfinite(x).all() and torch.isfinite(v).all())
+            if bool(stale):
+                xg = halo.gather_positions(state["dec"], x, n)
+                vg = halo.gather_positions(state["dec"], v, n)
+                state["dec"] = halo_dec(system, xg, mesh)
+                state["d"] = shard(state["dec"])
+                state["x"] = state["d"].x_own
+                state["v"] = shard(halo.scatter_velocities(state["dec"],
+                                                           vg))
+                state["decompositions"] += 1
+        torch.cuda.synchronize()
+        return energies
+
+    t0 = time.perf_counter()
+    e_start = advance(HALO_WARMUP)
+    print(f"halo f32: set-up + {HALO_WARMUP}-step warm-up "
+          f"{time.perf_counter() - t0:.2f} s")
+    reset_counts()
+    mesh.reset_traffic()
+    times, ends, means, windows = [], [e_start[-1]], [], []
+    for _ in range(3):
+        before = state["decompositions"]
+        t0 = time.perf_counter()
+        energies = advance(WINDOW_STEPS)
+        times.append(time.perf_counter() - t0)
+        ends.append(energies[-1])
+        means.append(float(np.mean(energies)))
+        windows.append(state["decompositions"] - before)
+    finite = state["finite"] and bool(np.all(np.isfinite(ends)))
+    # the drift as every phase takes it: the total energy from the start
+    # of the first timed window to the end of the last, per atom; the
+    # windows' mean total energies are printed beside it
+    drift = float(abs(ends[-1] - ends[0]) / n)
+    swings = np.abs(np.diff(ends)) / n
+    launches = trio.trio_partials.launches
+    traffic = {op: list(sizes) for op, sizes in mesh.traffic.items()}
+    sent = dict(mesh.sent_bytes)
+    rate = n * WINDOW_STEPS / sorted(times)[1]
+    n_chunks = 3 * WINDOW_STEPS // HALO_CHUNK
+    mids = HALO_CHUNK // HALO_RESPA["respa_mid"]
+    c_halo = state["dec"].c_halo
+    bytes_step = sum(sent.values()) / (3 * WINDOW_STEPS)
+    # the single-device 3-level r-RESPA NVE at the same atoms
+    _, _, _, rate_single, _, _ = run_path(
+        "single-device 3-level r-RESPA 12/6/36 NVE", device,
+        dict(HALO_RESPA), dict(dt_fs=2.0, launch_chunks=10))
+    card = card_line()
+    print(f"halo f32: windows (s) {[round(t, 4) for t in times]}; total "
+          f"energy, mean per window {[round(e, 6) for e in means]} eV, "
+          f"drift {drift:.3e} eV/atom (start of the first window to end "
+          f"of the last), change "
+          f"from window end to window end {[f'{d:.3e}' for d in swings]} "
+          f"eV/atom; decompositions per window {windows}")
+    print(f"MD halo 3-level r-RESPA 12/6, {mesh.n_shards} shards on 1 "
+          f"card (NCCL, world size 1): {rate:.1f} atom-steps/s beside "
+          f"single-device 3-level r-RESPA 12/6/36 NVE {rate_single:.1f} "
+          f"atom-steps/s; {bytes_step:.1f} bytes put into collectives per "
+          f"step ({sent}); permutes of at most {max(traffic['ppermute'])} "
+          f"elements (C_halo x 3 = {3 * c_halo}); card: {card}")
+    gate("halo f32", {
+        "finite state": finite,
+        f"NVE drift over {2 * WINDOW_STEPS} steps <= {NVE_DRIFT:g} "
+        "eV/atom": drift <= NVE_DRIFT,
+        f"f32 forces within {FORCE_TOL:g} eV/A of f64 at the start":
+            f_err <= FORCE_TOL,
+        "one trio launch per mid step for all shards":
+            launches == n_chunks * (mids + 2),
+        "no permute larger than C_halo x 3": max(traffic["ppermute"])
+            <= 3 * c_halo,
+        "no all_gather on the halo path": not traffic["all_gather"]})
+    print(f"halo f32: max |F_f32 - F_f64| {f_err:.3e} eV/A at the start; "
+          f"{launches} trio launches over {n_chunks} chunks")
+    return launches, dict(rate=rate, rate_single=rate_single,
+                          bytes_per_step=bytes_step, drift=drift,
+                          decompositions=windows), system
+
+
+
+def compare_trio_weighted(device, system32: MDSystem, mesh):
+    """The trio kernel with its center weight on the halo path's own
+    rows (the f32 system's decomposition, all shards' local rows, 0 on
+    halo rows) and with a non-binary weight vector: f64 within 1e-10 and
+    f32 forces within 2e-4 eV/A of the plain version; the weighted launch
+    timed by graph replay beside the unweighted one on the same rows,
+    the bound counted over the rows of nonzero weight."""
+    geom = bench_geometry((17, 17, 17))
+    dec = halo_dec(system32, geom.get_positions(), mesh)
+    pot64 = UF3Potential.from_json(MODEL).to(device)
+    pot32 = system32.potential
+    cell = system32.cell.double()
+    rows = halo.local_rows(dec, cell, torch.float64)
+    x_local = halo.local_positions(mesh, dec, rows, dec.x_own)
+    d64 = x_local[rows.nbr3.idx] + rows.cache3.sd - x_local[:, None]
+    v64 = rows.cache3.valid
+    w_halo = rows.weight
+    rng = np.random.RandomState(5)
+    w_scaled = torch.as_tensor(rng.uniform(0.2, 1.7, len(w_halo)),
+                               device=device) * w_halo
+    d32, v32 = d64.float(), v64.float()
+    errs = {}
+    for tag, w in (("halo 0/1", w_halo), ("non-binary", w_scaled)):
+        twin = trio.trio_partials_torch(d64, v64, pot64.grid, pot64.trio,
+                                        True, center_weight=w)
+        k64 = trio.trio_partials(pot64, d64, v64, True, center_weight=w)
+        k32 = trio.trio_partials(pot32, d32, v32, True,
+                                 center_weight=w.float())
+        f_twin = trio.assemble_forces(*twin, d64, rows.cache3.rev_flat,
+                                      rows.nbr3.mask)[1]
+        f64 = trio.assemble_forces(*k64, d64, rows.cache3.rev_flat,
+                                   rows.nbr3.mask)[1]
+        f32 = trio.assemble_forces(*k32, d32, rows.cache3.rev_flat,
+                                   rows.nbr3.mask)[1]
+        errs[tag] = (max(max(max_err(a, b) for a, b in zip(k64, twin)),
+                         max_err(f64, f_twin)), max_err(f32, f_twin))
+        print(f"trio weighted ({tag}), {d64.shape[0]} rows, K="
+              f"{d64.shape[1]}: f64 max err {errs[tag][0]:.3e} (<= "
+              f"{F64_TOL:g}), f32 max |dF| {errs[tag][1]:.3e} eV/A (<= "
+              f"{FORCE_TOL:g})")
+    w32 = w_halo.float()
+    weighted_ms = graph_ms(lambda: trio.trio_partials(
+        pot32, d32, v32, False, center_weight=w32))
+    unweighted_ms = graph_ms(lambda: trio.trio_partials(pot32, d32, v32,
+                                                        False))
+    plain_ms = cuda_ms(lambda: trio.trio_partials_torch(
+        d32, v32, pot32.grid, pot32.trio, False, center_weight=w32), 5)
+    live = w_halo != 0
+    # the live rows' work, plus the weight read on every row and the
+    # zero part / fc / energy written on every row of weight 0
+    k = d32.shape[1]
+    extra = d32.element_size() * (len(w_halo)
+                                  + int((~live).sum()) * (4 + 5 * k))
+    bound_ms, bound_by, flop, n_bytes = trio_bound(
+        pot32, d32[live], v32[live], False, extra_bytes=extra)
+    occ = trio.trio_occupancy(pot32, d32.shape[1], False)
+    print(f"trio weighted launch (f32, no energy) on the halo rows: "
+          f"{weighted_ms:.4f} ms (graph replay) beside {unweighted_ms:.4f} "
+          f"ms unweighted on the same {d32.shape[0]} rows; plain "
+          f"{plain_ms:.4f} ms; bound over the {int(live.sum())} rows of "
+          f"nonzero weight and the zero rows' writes {bound_ms:.5f} ms ({bound_by}; {flop:.4g} flop, "
+          f"{n_bytes:.4g} bytes); launch plan {occ}; card: {card_line()}")
+    gate("trio weighted", {
+        f"f64 within {F64_TOL:g}": max(e[0] for e in errs.values())
+            <= F64_TOL,
+        f"f32 within {FORCE_TOL:g} eV/A": max(e[1] for e in errs.values())
+            <= FORCE_TOL,
+        "no spills": occ["local_bytes"] == 0})
+    return dict(max_abs_err=max(e[1] for e in errs.values()),
+                ms=weighted_ms, unweighted_ms=unweighted_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, rows=int(d32.shape[0]),
+                live_rows=int(live.sum()), k=int(d32.shape[1]),
+                registers=occ["registers"], local_bytes=occ["local_bytes"])
+
+
+def halo_fit(device, mesh, settings_path, features):
+    """``fit_sharded`` and ``fit_from_file_sharded`` on the mesh against
+    ``model.fit`` on the same rows (the ``.npz`` the fit commands wrote
+    in ``run_fit``): predictions within 1e-10 relative."""
+    with open(settings_path) as f:
+        settings = json.load(f)
+    weight = settings["learning"].get("weight", 0.5)
+    with np.load(features) as data:
+        x_e, y_e, x_f, y_f, keys = (data[k] for k in (
+            "x_e", "y_e", "x_f", "y_f", "keys"))
+
+    def fresh():
+        return user_config.generate_handlers(settings,
+                                             device=device)["learning"]
+
+    host, sharded, streamed = fresh(), fresh(), fresh()
+    host.fit(x_e, y_e, x_f, y_f, weight=weight)
+    pmesh.fit_sharded(sharded, x_e, y_e, x_f, y_f, weight=weight,
+                      mesh=mesh)
+    pmesh.fit_from_file_sharded(streamed, features, subset=list(keys),
+                                weight=weight, mesh=mesh)
+    probe = np.concatenate([x_e, x_f])
+    p_host = probe @ host.coefficients
+    scale = float(np.max(np.abs(p_host)))
+    errs = [float(np.max(np.abs(probe @ m.coefficients - p_host))) / scale
+            for m in (sharded, streamed)]
+    print(f"sharded fit on {mesh.n_shards} shards ({len(y_e)} energy, "
+          f"{len(y_f)} force rows): predictions vs model.fit, relative "
+          f"{errs[0]:.3e} (fit_sharded), {errs[1]:.3e} "
+          f"(fit_from_file_sharded)")
+    gate("sharded fit", {f"predictions within {SHARDED_FIT_TOL:g} relative":
+                         max(errs) <= SHARDED_FIT_TOL})
+
+
+def run_halo(device, fit_files=None):
+    """Multi-shard MD and fitting on ``torch.distributed``: a NCCL group
+    of world size 1 (file store, no TCP port) holding a 4-shard mesh on
+    the card.  f64 parity of the halo and replicated paths at full width;
+    the f32 production run of the halo chunk, one trio launch per mid
+    step for all shards, its collectives halo-sized; the kernel's
+    center weight on the path's rows; the sharded fits on the fit
+    commands' features (``fit_files`` = (settings, features)).  Returns
+    (the halo path's trio launches, its weighted-kernel record, rates)."""
+    tmp = tempfile.mkdtemp()
+    group = init_nccl(device, tmp)
+    try:
+        mesh = pmesh.make_mesh(HALO_SHARDS, group)
+        print(f"halo: {mesh} on {mesh.device}")
+        halo_parity_f64(device, mesh)
+        launches, rates, system32 = halo_production(device, mesh)
+        record = compare_trio_weighted(device, system32, mesh)
+        if fit_files is not None:
+            halo_fit(device, mesh, *fit_files)
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(tmp)
+    return launches, record, rates
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: uf3_tpu_torch's kernels need an NVIDIA GPU",
@@ -2780,8 +3262,17 @@ def main():
         multi_times = run_calculator_multi(device)
     rates["md --traj (2,000 atoms)"] = run_md_traj()
     # the fit on the card (ROADMAP.md item 5), and the multi-species fit
-    launches.update(run_fit(device))
+    fit_keep = tempfile.mkdtemp()
+    launches.update(run_fit(device, keep=fit_keep))
     multi_launches.update(run_fit_multi(device))
+    # multi-shard MD and fitting on torch.distributed
+    launches["halo"], halo_record, halo_rates = run_halo(device, tuple(
+        os.path.join(fit_keep, name) for name in ("settings.json",
+                                                  "features.npz")))
+    shutil.rmtree(fit_keep)
+    rates["halo 3-level r-RESPA 12/6, 4 shards, NVE"] = halo_rates["rate"]
+    rates["single device, 3-level r-RESPA 12/6/36, NVE (beside the "
+          "halo run)"] = halo_rates["rate_single"]
     card = card_line()
     for name, rate in rates.items():
         print(f"MD {name}: {rate:.1f} atom-steps/s"
@@ -2805,6 +3296,14 @@ def main():
               + f", card: {card}")
     print(f"FIRE relaxation, 9,826 atoms, f64: {fire_calls} force calls in "
           f"{fire_s:.3f} s, card: {card}")
+    print(f"halo path: {halo_rates['bytes_per_step']:.1f} bytes put into "
+          f"collectives per step, decompositions per window "
+          f"{halo_rates['decompositions']}; trio weighted launch "
+          f"{halo_record['ms']:.4f} ms beside "
+          f"{halo_record['unweighted_ms']:.4f} ms unweighted "
+          f"({halo_record['rows']} rows, {halo_record['live_rows']} of "
+          "nonzero weight), bound "
+          f"{halo_record['bound_ms']:.5f} ms; card: {card}")
     print(f"trio launches by path: {launches}")
     print(f"multi-species trio launches by path: {multi_launches}")
     print(f"trio_partials K=16, 9,826 atoms: {records['K16']['ms']:.4f} ms "
@@ -2813,13 +3312,15 @@ def main():
           f"call, 1 launch (before: {GATED_MS_BEFORE:.4f} ms, 8 launches); "
           f"card: {card}")
     record = dict(records["K16"], max_abs_err=max(
-        r["max_abs_err"] for r in records.values()))
+        [r["max_abs_err"] for r in records.values()]
+        + [halo_record["max_abs_err"]]))
     print(json.dumps({"kernels": [
         dict(name="trio_partials", route="cuda",
              source="uf3_tpu_torch/csrc/trio.cu",
              replaces="uf3_tpu/ops/pallas_trio.py:1044",
              launches=sum(launches.values()), launches_by_path=launches,
-             **record, by_shape=records, calculator_f64=calc_kernel),
+             **record, by_shape=records, calculator_f64=calc_kernel,
+             center_weight=halo_record),
         dict(name="trio_multi_partials_all", route="cuda",
              source="uf3_tpu_torch/csrc/trio_multi.cu",
              replaces="uf3_tpu/ops/pallas_trio.py:1337",

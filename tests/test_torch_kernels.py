@@ -8,7 +8,11 @@ masks and non-linear knot kinds: 1e-10 in float64 (summation order
 only), 2e-4 eV/A in float32 against the float64 twin.  The 3-body virial
 from the kernel's partials, on the bench lists (16 slots) and the
 melting protocol's (20 slots): 1e-9 relative in float64, 1e-5 eV/A^3
-per stress component in float32.
+per stress component in float32.  The kernel's center-weight operand
+(the halo path's owner weight) with 0/1 and non-binary weights at the
+same tolerances, a null weight bitwise equal to all-ones weights; on
+the CPU, the plain version's weight: 0 clears a row, a weight scales it,
+and the virial of weighted partials is the weighted per-center sum.
 
 The multi-species trio kernel (uf3_tpu_torch/csrc/trio_multi.cu: one
 launch over every ordered trio type) against its plain version
@@ -111,6 +115,67 @@ def test_cpu_tensors_take_the_twin(rows):
         trio.trio_partials(pot, d.to("meta"), valid.to("meta"))
 
 
+def _weights(n_atoms, kind, dtype=torch.float64, device="cpu"):
+    """Center weights: 0/1 (about half the rows, as on a halo mesh's
+    local rows) or non-binary (0 on a third of the rows)."""
+    rng = np.random.RandomState(7)
+    w = rng.randint(0, 2, n_atoms).astype(float) if kind == "binary" \
+        else rng.uniform(0.2, 1.7, n_atoms) * (rng.rand(n_atoms) > 1 / 3)
+    return torch.as_tensor(w, dtype=dtype, device=device)
+
+
+def test_twin_weight_zero_clears_a_row(rows):
+    """The plain version's center weight: w = 0 zeroes a row's energy,
+    center force and partials; w = 1 changes nothing."""
+    pot, d, valid, _, _ = rows
+    ref = trio.trio_partials_torch(d, valid, pot.grid, pot.trio)
+    w = _weights(d.shape[0], "binary")
+    out = trio.trio_partials(pot, d, valid, center_weight=w)
+    off = w == 0
+    assert 0 < int(off.sum()) < d.shape[0]
+    for a, b in zip(out, ref):
+        assert torch.all(a[off] == 0)
+        assert torch.equal(a[~off], b[~off])
+        assert float(torch.abs(b[off]).max()) > 0
+    ones = trio.trio_partials(pot, d, valid,
+                              center_weight=torch.ones(d.shape[0],
+                                                       dtype=d.dtype))
+    for a, b in zip(ones, ref):
+        assert torch.equal(a, b)
+
+
+def test_twin_weight_scales_a_row(rows):
+    """A non-binary weight scales each row's energy, center force and
+    partials, and the 3-body virial of weighted partials is the weighted
+    sum of the per-center virials; weights w and 1 - w partition the
+    unweighted energy, forces and virial (the halo path's psum)."""
+    pot, d, valid, cache, nbr = rows
+    ref = trio.trio_partials_torch(d, valid, pot.grid, pot.trio)
+    w = _weights(d.shape[0], "scaled")
+    out = trio.trio_partials_torch(d, valid, pot.grid, pot.trio,
+                                   center_weight=w)
+    shape = (-1, 1, 1)
+    for a, b in zip(out, ref):
+        assert torch.allclose(a, b * w.reshape(shape[:a.dim()]),
+                              rtol=1e-14, atol=1e-14)
+    v_w = trio.trio_virial6(out[2], d, valid)
+    per_center = torch.stack([trio.trio_virial6(
+        ref[2][i:i + 1], d[i:i + 1], valid[i:i + 1])
+        for i in range(d.shape[0])])
+    assert torch.allclose(v_w, torch.sum(w[:, None] * per_center, 0),
+                          rtol=1e-10, atol=1e-10)
+    rest = trio.trio_partials_torch(d, valid, pot.grid, pot.trio,
+                                    center_weight=1.0 - w)
+    f_all = trio.assemble_forces(*ref, d, cache.rev_flat, nbr.mask)[1]
+    f_sum = sum(trio.assemble_forces(*o, d, cache.rev_flat, nbr.mask)[1]
+                for o in (out, rest))
+    assert torch.allclose(f_sum, f_all, atol=1e-10, rtol=0)
+    assert torch.allclose(v_w + trio.trio_virial6(rest[2], d, valid),
+                          trio.trio_virial6(ref[2], d, valid), atol=1e-10,
+                          rtol=0)
+    assert abs(float(out[0].sum() + rest[0].sum() - ref[0].sum())) < 1e-10
+
+
 @pytest.fixture(scope="module")
 def rows_one_tier():
     """(potential, d, valid) of the 3-body rows of the engine's default
@@ -187,6 +252,42 @@ def test_trio_kernel_matches_twin(rows, cuda_device, grid, dtype, tol):
         assert _err(f_k, f_t) <= tol
         assert float(torch.abs(f_t).max()) > 1e-2
     assert trio.trio_partials.launches == launches + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["binary", "scaled"])
+@pytest.mark.parametrize("dtype, tol", TOLS)
+def test_trio_kernel_center_weight(rows, cuda_device, kind, dtype, tol):
+    """The kernel's center-weight operand against its plain version,
+    with and without energy: 0/1 weights (a warp of weight 0 writes
+    zeros and skips its row) and non-binary ones; a null weight gives
+    bitwise the outputs of all-ones weights."""
+    pot64, d, valid, cache, nbr = rows
+    pot = _grid(pot64, "bench").to(device=cuda_device, dtype=dtype)
+    dk, vk = d.to(cuda_device, dtype), valid.to(cuda_device, dtype)
+    w = _weights(d.shape[0], kind)
+    wk = w.to(cuda_device, dtype)
+    rev, mask = cache.rev_flat.to(cuda_device), nbr.mask.to(cuda_device)
+    for with_energy in (True, False):
+        kernel = trio.trio_partials(pot, dk, vk, with_energy,
+                                    center_weight=wk)
+        twin = trio.trio_partials_torch(d, valid, pot64.grid, pot64.trio,
+                                        with_energy, center_weight=w)
+        for a, b in zip(kernel, twin):
+            assert _err(a, b) <= tol
+        off = (w == 0).to(cuda_device)
+        for a in kernel:
+            assert torch.all(a[off] == 0)
+        f_k = trio.assemble_forces(*kernel, dk, rev, mask)[1]
+        f_t = trio.assemble_forces(*twin, d, cache.rev_flat, nbr.mask)[1]
+        assert _err(f_k, f_t) <= tol
+        null = trio.trio_partials(pot, dk, vk, with_energy)
+        ones = trio.trio_partials(pot, dk, vk, with_energy,
+                                  center_weight=torch.ones_like(wk))
+        for a, b in zip(null, ones):
+            assert torch.equal(a, b)
+    with pytest.raises(TypeError, match="center_weight"):
+        trio.trio_partials(pot, dk, vk, center_weight=wk[:-1])
 
 
 @pytest.mark.cuda

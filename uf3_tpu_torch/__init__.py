@@ -32,7 +32,7 @@ module names.
   ops/trio.py         3-body kernel wrapper, torch twin, assembly,
                       virial, shared-gather and r-RESPA short forces
   ops/_build.py       nvcc build + ctypes loading of csrc/*.cu
-  csrc/trio.cu        the 3-body CUDA kernel
+  csrc/trio.cu        the 3-body CUDA kernel (with a center weight)
   forcefield/md.py    MD: velocity Verlet, 2- and 3-level r-RESPA
                       (NVE / Langevin / Nose-Hoover), SCR and
                       Berendsen NPT, stress, capacity regrowth, the
@@ -43,6 +43,9 @@ module names.
                       relaxation, batch drivers, checkpoints,
                       trajectories, elastic constants, phonons
   forcefield/lammps.py  LAMMPS export and UFLammps (native backend)
+  parallel/           torch.distributed shard mesh (ppermute, psum,
+                      pmax, all_gather), sharded Gram and fits,
+                      replicated-positions MD, halo-exchange slab MD
   __main__.py         python -m uf3_tpu_torch {featurize,fit,predict}
                       settings.json, {md,export} model.json
 """

@@ -37,34 +37,20 @@ from uf3_tpu_torch.data import io as data_io
 from uf3_tpu_torch.data.atoms import bulk
 from uf3_tpu_torch.forcefield import lammps
 from uf3_tpu_torch.forcefield.batch import TrajectoryWriter
-from uf3_tpu_torch.forcefield.md import MDSystem, _not_ported
+from uf3_tpu_torch.forcefield.md import MDSystem
 from uf3_tpu_torch.regression import least_squares as ls
 from uf3_tpu_torch.util import user_config
 
-FEATURIZATION = "Featurization"
-FEATURE_KEYS = ("x_e", "y_e", "x_f", "y_f")
 ROUTES = {"device": "the unary 2+3-body path on the device",
           "device multi": "the multi-species path on the device",
           "host": "the host featurizer: knots with no closed form"}
 
 
-def _npz_path(path: str) -> str:
-    if path.endswith((".h5", ".hdf5")):
-        raise _not_ported(f"the HDF5 features file {path} (this package "
-                          "writes .npz)", FEATURIZATION)
-    return path
-
-
-def load_features(path: str):
-    """(x_e, y_e, x_f, y_f) of a features file ``featurize`` wrote."""
-    with np.load(_npz_path(path)) as data:
-        return tuple(data[k] for k in FEATURE_KEYS)
-
-
 def cmd_featurize(settings_path: str, device=None) -> None:
     settings = user_config.read_config(settings_path)
     handlers = user_config.generate_handlers(settings, device=device)
-    features_path = _npz_path(settings["features"]["features_path"])
+    features_path = data_io.npz_features_path(
+        settings["features"]["features_path"])
     sources = settings["data"]["sources"]
     paths = data_io.identify_paths(experiment_path=sources.get("path", "."),
                                    filename_pattern=sources.get("pattern"))
@@ -85,7 +71,7 @@ def cmd_featurize(settings_path: str, device=None) -> None:
     force_rows = featurizer.force_rows(geometries, forces)
     basis = handlers["basis"]
     with open(features_path, "wb") as f:
-        np.savez(f, **dict(zip(FEATURE_KEYS, arrays)),
+        np.savez(f, **dict(zip(data_io.FEATURE_KEYS, arrays)),
                  keys=np.array(keys), sizes=np.array([len(g) for g in
                                                       geometries]),
                  force_rows=force_rows,
@@ -99,7 +85,7 @@ def cmd_featurize(settings_path: str, device=None) -> None:
 def cmd_fit(settings_path: str, device=None) -> None:
     settings = user_config.read_config(settings_path)
     handlers = user_config.generate_handlers(settings, device=device)
-    x_e, y_e, x_f, y_f = load_features(
+    x_e, y_e, x_f, y_f = data_io.load_features(
         settings["learning"]["features_path"])
     model = handlers["learning"]
     if x_e.shape[1] != model.n_feats:
@@ -115,7 +101,7 @@ def cmd_fit(settings_path: str, device=None) -> None:
 def cmd_predict(settings_path: str, device=None) -> None:
     settings = user_config.read_config(settings_path)
     handlers = user_config.generate_handlers(settings, device=device)
-    x_e, y_e, x_f, y_f = load_features(
+    x_e, y_e, x_f, y_f = data_io.load_features(
         settings["learning"]["features_path"])
     model = handlers.get("model")
     if model is None:

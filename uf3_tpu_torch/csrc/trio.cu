@@ -42,6 +42,10 @@
 //   (n_int, 20) tables of ops/splines.horner_table; the derivative's
 //   coefficients follow from the value's), and every 1/r is one rsqrt
 //   (r = r^2 / r).
+// * An optional (N,) center weight (the halo path's owner weight): a
+//   warp whose center weighs 0 writes zeros and returns before any leg
+//   basis; any other weight scales the row's outputs as they are
+//   written, so a null weight leaves every output's bits as they were.
 // * Sizes at compile time (KMAX = 16 or 32 slots, energy or not),
 //   generality at run time (any K <= KMAX, any window, the four knot
 //   kinds, float32 and float64).
@@ -67,10 +71,11 @@ struct Layout {
 template <typename T, int KMAX, bool ENERGY>
 __global__ void __launch_bounds__(kWarp * kMaxWarps)
 trio_kernel(const T* __restrict__ d, const T* __restrict__ valid,
-            const T* __restrict__ gwin, const T* __restrict__ tables,
-            T* __restrict__ energy, T* __restrict__ fc,
-            T* __restrict__ part, int n_atoms, int K, Leg leg_l, Leg leg_n,
-            int w_lo, int ww, int c_lo, int cw, Layout lay) {
+            const T* __restrict__ cweight, const T* __restrict__ gwin,
+            const T* __restrict__ tables, T* __restrict__ energy,
+            T* __restrict__ fc, T* __restrict__ part, int n_atoms, int K,
+            Leg leg_l, Leg leg_n, int w_lo, int ww, int c_lo, int cw,
+            Layout lay) {
   constexpr int TPR = kWarp / KMAX;  // threads per pair row
   extern __shared__ __align__(16) unsigned char smem[];
   T* s_tab = reinterpret_cast<T*>(smem);
@@ -86,6 +91,15 @@ trio_kernel(const T* __restrict__ d, const T* __restrict__ valid,
   const long long atom =
       static_cast<long long>(blockIdx.x) * (blockDim.x / kWarp) + warp;
   if (atom >= n_atoms) return;  // ragged last block
+  if (cweight != nullptr && cweight[atom] == T(0)) {
+    // a center of weight 0 (a halo row): zeros, no leg basis
+    for (int i = lane; i < 5 * K; i += kWarp) part[atom * 5 * K + i] = T(0);
+    if (lane == 0) {
+      fc[atom * 3] = fc[atom * 3 + 1] = fc[atom * 3 + 2] = T(0);
+      energy[atom] = T(0);
+    }
+    return;
+  }
   unsigned char* ws = smem + lay.warp_off + warp * lay.warp_bytes;
   Quad<T>* s_d = reinterpret_cast<Quad<T>*>(ws);  // (KMAX) x, y, z, -
   Quad<T>* s_a = s_d + KMAX;                      // first-leg values
@@ -219,14 +233,17 @@ trio_kernel(const T* __restrict__ d, const T* __restrict__ valid,
     vz = vz + __shfl_xor_sync(kFull, vz, off);
     if (ENERGY) e = e + __shfl_xor_sync(kFull, e, off);
   }
+  // the center's weight scales its row's outputs (1 without weights:
+  // the same bits)
+  const T w_c = cweight != nullptr ? cweight[atom] : T(1);
   const bool head = lane < KMAX;
   if (head && m < K) {
     T* out = part + (atom * K + m) * 5;
-    out[0] = w;
-    out[1] = s3;
-    out[2] = vx;
-    out[3] = vy;
-    out[4] = vz;
+    out[0] = w * w_c;
+    out[1] = s3 * w_c;
+    out[2] = vx * w_c;
+    out[3] = vy * w_c;
+    out[4] = vz * w_c;
   }
   // center force sum_m w_m / r_m d_m and energy over the warp
   const T wr = head && row_ok ? w * s_ir[m] : T(0);
@@ -240,16 +257,17 @@ trio_kernel(const T* __restrict__ d, const T* __restrict__ valid,
     if (ENERGY) e = e + __shfl_xor_sync(kFull, e, off);
   }
   if (lane == 0) {
-    fc[atom * 3] = fx;
-    fc[atom * 3 + 1] = fy;
-    fc[atom * 3 + 2] = fz;
-    energy[atom] = T(0.5) * e;
+    fc[atom * 3] = fx * w_c;
+    fc[atom * 3 + 1] = fy * w_c;
+    fc[atom * 3 + 2] = fz * w_c;
+    energy[atom] = T(0.5) * e * w_c;
   }
 }
 
 struct Args {
   const void* d;
   const void* valid;
+  const void* cweight;  // (N,) center weights, or null
   const void* gwin;
   const void* tables;
   void* energy;
@@ -307,8 +325,9 @@ int run(const Args& a, int* occ) {
   const int grid = (a.n_atoms + warps - 1) / warps;
   kernel<<<grid, warps * kWarp, smem, static_cast<cudaStream_t>(a.stream)>>>(
       static_cast<const T*>(a.d), static_cast<const T*>(a.valid),
-      static_cast<const T*>(a.gwin), static_cast<const T*>(a.tables),
-      static_cast<T*>(a.energy), static_cast<T*>(a.fc),
+      static_cast<const T*>(a.cweight), static_cast<const T*>(a.gwin),
+      static_cast<const T*>(a.tables), static_cast<T*>(a.energy),
+      static_cast<T*>(a.fc),
       static_cast<T*>(a.part), a.n_atoms, a.K, a.leg_l, a.leg_n, a.w_lo,
       a.ww, a.c_lo, a.cw, lay);
   return int(cudaGetLastError());
@@ -322,13 +341,15 @@ int dispatch(const Args& a, int with_energy, int* occ) {
   return with_energy ? run<T, 32, true>(a, occ) : run<T, 32, false>(a, occ);
 }
 
-Args make_args(const void* d, const void* valid, const void* gwin,
-               const void* tables, void* energy, void* fc, void* part,
-               int n_atoms, int K, const double* legs, const int* ints,
+Args make_args(const void* d, const void* valid, const void* cweight,
+               const void* gwin, const void* tables, void* energy,
+               void* fc, void* part, int n_atoms, int K,
+               const double* legs, const int* ints,
                int w_lo, int ww, int c_lo, int cw, void* stream) {
   Args a;
   a.d = d;
   a.valid = valid;
+  a.cweight = cweight;
   a.gwin = gwin;
   a.tables = tables;
   a.energy = energy;
@@ -348,31 +369,33 @@ Args make_args(const void* d, const void* valid, const void* gwin,
 
 }  // namespace
 
-// legs: (u0, 1/h, t_min, t_max) of the first legs, then of the third
-// leg; ints: (kind, n_int) of the first legs, then of the third leg;
-// tables: the first legs' (n_int, 20) Horner rows, then the third
-// leg's.  Returns cudaGetLastError() after the launch (0 on success),
-// or -1 when one warp's shared memory for this K and window exceeds
-// 227 KB.
+// cweight: the (N,) center weights, or null for none: a center of
+// weight 0 gets zeros and skips its work, any other weight scales its
+// energy, center force and partials.  legs: (u0, 1/h, t_min, t_max) of
+// the first legs, then of the third leg; ints: (kind, n_int) of the
+// first legs, then of the third leg; tables: the first legs' (n_int,
+// 20) Horner rows, then the third leg's.  Returns cudaGetLastError()
+// after the launch (0 on success), or -1 when one warp's shared memory
+// for this K and window exceeds 227 KB.
 extern "C" int uf3_trio_partials_f32(
-    const void* d, const void* valid, const void* gwin, const void* tables,
-    void* energy, void* fc, void* part, int n_atoms, int K,
+    const void* d, const void* valid, const void* cweight, const void* gwin,
+    const void* tables, void* energy, void* fc, void* part, int n_atoms, int K,
     const double* legs, const int* ints, int w_lo, int ww, int c_lo, int cw,
     int with_energy, void* stream) {
-  return dispatch<float>(make_args(d, valid, gwin, tables, energy, fc, part,
-                                   n_atoms, K, legs, ints, w_lo, ww, c_lo,
-                                   cw, stream),
+  return dispatch<float>(make_args(d, valid, cweight, gwin, tables, energy,
+                                   fc, part, n_atoms, K, legs, ints, w_lo,
+                                   ww, c_lo, cw, stream),
                          with_energy, nullptr);
 }
 
 extern "C" int uf3_trio_partials_f64(
-    const void* d, const void* valid, const void* gwin, const void* tables,
-    void* energy, void* fc, void* part, int n_atoms, int K,
+    const void* d, const void* valid, const void* cweight, const void* gwin,
+    const void* tables, void* energy, void* fc, void* part, int n_atoms, int K,
     const double* legs, const int* ints, int w_lo, int ww, int c_lo, int cw,
     int with_energy, void* stream) {
-  return dispatch<double>(make_args(d, valid, gwin, tables, energy, fc,
-                                    part, n_atoms, K, legs, ints, w_lo, ww,
-                                    c_lo, cw, stream),
+  return dispatch<double>(make_args(d, valid, cweight, gwin, tables, energy,
+                                    fc, part, n_atoms, K, legs, ints, w_lo,
+                                    ww, c_lo, cw, stream),
                           with_energy, nullptr);
 }
 
@@ -383,8 +406,8 @@ extern "C" int uf3_trio_occupancy(int is_f64, int K, const int* ints, int ww,
                                   int cw, int with_energy, int* out) {
   const double legs[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   const Args a = make_args(nullptr, nullptr, nullptr, nullptr, nullptr,
-                           nullptr, nullptr, 0, K, legs, ints, 0, ww, 0, cw,
-                           nullptr);
+                           nullptr, nullptr, nullptr, 0, K, legs, ints, 0, ww,
+                           0, cw, nullptr);
   return is_f64 ? dispatch<double>(a, with_energy, out)
                 : dispatch<float>(a, with_energy, out);
 }

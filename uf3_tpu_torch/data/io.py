@@ -10,7 +10,9 @@ module imports pandas at module level, which the GPU hosts do not
 carry): for the same configurations it writes the same text.
 ``read_sources`` is ``parse_with_subsampling`` for extended-xyz files,
 returning named configurations where the reference fills a pandas
-``DataCoordinator``.
+``DataCoordinator``.  The features file that ``featurize`` writes is
+an ``.npz`` (``npz_features_path``, ``load_features``); an HDF5 path
+raises.
 """
 
 import fnmatch
@@ -23,6 +25,7 @@ import numpy as np
 
 from uf3_tpu_torch.data import elements
 from uf3_tpu_torch.data.atoms import Atoms
+from uf3_tpu_torch.forcefield.md import _not_ported
 from uf3_tpu_torch.util import subsample
 
 _KV_RE = re.compile(r'(\S+?)=(?:"([^"]*)"|(\S+))')
@@ -194,3 +197,22 @@ def read_sources(data_paths: List[str], max_samples: int = -1,
             keys.append(f"{prefix}_{i}")
             geometries.append(found[i])
     return keys, geometries
+
+
+FEATURIZATION = "Featurization"
+FEATURE_KEYS = ("x_e", "y_e", "x_f", "y_f")
+
+
+def npz_features_path(path: str) -> str:
+    """``path`` if it names an ``.npz`` features file; an HDF5 path
+    raises (ROADMAP.md, Featurization)."""
+    if path.endswith((".h5", ".hdf5")):
+        raise _not_ported(f"the HDF5 features file {path} (this package "
+                          "writes .npz)", FEATURIZATION)
+    return path
+
+
+def load_features(path: str):
+    """(x_e, y_e, x_f, y_f) of a features file ``featurize`` wrote."""
+    with np.load(npz_features_path(path)) as data:
+        return tuple(data[k] for k in FEATURE_KEYS)

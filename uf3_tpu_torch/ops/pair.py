@@ -43,17 +43,23 @@ def _pair_chain(r, spec: LegSpec, coefficients, n_basis: int):
 def pair_row_forces(coefficients, d, valid, spec: LegSpec,
                     n_basis: int, with_energy: bool = True,
                     side: str = None, r_lo: float = 0.0,
-                    r_hi: float = 0.0, with_virial: bool = False):
+                    r_hi: float = 0.0, with_virial: bool = False,
+                    center_weight=None):
     """Pair energy and forces from displacement rows ``d`` (N, K, 3)
     with float mask ``valid`` (N, K).  ``side`` = "short" or "tail"
     keeps one side of the switch (with its V dS/dr force term); None
-    keeps the whole pair term.  Returns (energy, forces (N, 3)), and
-    with ``with_virial`` also the Voigt virial (6,) 1/2 sum w d_a d_b
-    (each pair sits in both endpoints' rows)."""
+    keeps the whole pair term.  ``center_weight`` (N,) multiplies each
+    row's mask (the halo path's owner weight: a row counts only where
+    its center is owned), so energy, forces and virial are
+    owner-weighted.  Returns (energy, forces (N, 3)), and with
+    ``with_virial`` also the Voigt virial (6,) 1/2 sum w d_a d_b (each
+    pair sits in both endpoints' rows)."""
     r2 = torch.sum(d * d, dim=-1)
     r = torch.sqrt(torch.where(r2 > 0, r2, torch.ones_like(r2)))
     valid2 = (valid * (r > spec.t_min).to(r.dtype)
               * (r < spec.t_max).to(r.dtype))
+    if center_weight is not None:
+        valid2 = valid2 * center_weight.to(r.dtype)[:, None]
     # the value chain is needed either way: the switched force carries
     # the V dS/dr term
     v2, dv2 = _pair_chain(r, spec, coefficients, n_basis)
@@ -78,7 +84,7 @@ def pair_short_forces(pair_coefficients, positions, cell,
                       nbr3: NeighborList, spec_pair: LegSpec = None,
                       n_basis_pair: int = 0, with_energy: bool = True,
                       r_lo: float = 0.0, r_hi: float = 0.0,
-                      cache3: ListCache = None):
+                      cache3: ListCache = None, center_weight=None):
     """Innermost r-RESPA force: S(r) V(r) on the 3-body list's rows.
     Returns (e_short, forces (N, 3), d) with the displacement rows d
     (N, K3, 3), which the trio force at the same positions reuses."""
@@ -86,7 +92,8 @@ def pair_short_forces(pair_coefficients, positions, cell,
         cache3 = list_cache(nbr3, cell, positions.dtype)
     d = cached_displacements(positions, nbr3, cache3)
     e, f = pair_row_forces(pair_coefficients, d, cache3.valid, spec_pair,
-                           n_basis_pair, with_energy, "short", r_lo, r_hi)
+                           n_basis_pair, with_energy, "short", r_lo, r_hi,
+                           center_weight=center_weight)
     return e, f, d
 
 
@@ -94,11 +101,12 @@ def pair_tail_forces(pair_coefficients, positions, cell,
                      nbr2: NeighborList, spec_pair: LegSpec = None,
                      n_basis_pair: int = 0, with_energy: bool = True,
                      r_lo: float = 0.0, r_hi: float = 0.0,
-                     cache2: ListCache = None):
+                     cache2: ListCache = None, center_weight=None):
     """Outer r-RESPA force: (1 - S(r)) V(r) on the full pair rows.
     Returns (e_tail, forces (N, 3))."""
     if cache2 is None:
         cache2 = list_cache(nbr2, cell, positions.dtype)
     d = cached_displacements(positions, nbr2, cache2)
     return pair_row_forces(pair_coefficients, d, cache2.valid, spec_pair,
-                           n_basis_pair, with_energy, "tail", r_lo, r_hi)
+                           n_basis_pair, with_energy, "tail", r_lo, r_hi,
+                           center_weight=center_weight)

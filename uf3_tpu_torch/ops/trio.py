@@ -24,13 +24,15 @@ from uf3_tpu_torch.ops.splines import _dense_basis
 
 
 def trio_partials_torch(d, valid, grid, trio: TrioBundle,
-                        with_energy: bool = True):
+                        with_energy: bool = True, center_weight=None):
     """Plain torch twin of the trio kernel, line for line after
     ``_trio_block_compute``: from displacements ``d`` (N, K, 3) and slot
     mask ``valid`` (N, K) to per-atom energy (N,), center force (N, 3)
     and the slot partials ``part`` (N, K, 5) = (S1 = w_m, S3', V3').
     Pair lane (m, n) takes its third leg d[n] - d[m], H from row m and
-    the first-leg basis from row n."""
+    the first-leg basis from row n.  ``center_weight`` (N,) scales each
+    center row's outputs after the computation, as
+    ``trio_forces_unrolled`` does."""
     n_atoms, k = d.shape[0], d.shape[1]
     dtype = d.dtype
     w_lo, w_hi, c_lo, c_hi = trio.window
@@ -84,7 +86,13 @@ def trio_partials_torch(d, valid, grid, trio: TrioBundle,
     g3p = t3 / r_mn.reshape(n_atoms, k, k)
     s3 = torch.sum(g3p, dim=2)
     v3 = [torch.sum(g3p * dc[:, None, :], dim=2) for dc in comps]
-    return energy, f_center, torch.stack([w_m, s3] + v3, dim=-1)
+    part = torch.stack([w_m, s3] + v3, dim=-1)
+    if center_weight is not None:
+        w = center_weight.to(dtype)
+        energy = energy * w
+        f_center = f_center * w[:, None]
+        part = part * w[:, None, None]
+    return energy, f_center, part
 
 
 MAX_SLOTS = 32  # the trio kernel runs one warp per atom
@@ -103,16 +111,17 @@ def _leg_args(trio: TrioBundle):
 
 
 def trio_partials(potential: UF3Potential, d, valid,
-                  with_energy: bool = True):
+                  with_energy: bool = True, center_weight=None):
     """Energy (N,), center force (N, 3) and slot partials (N, K, 5) of
-    the trio term; ``valid`` is the (N, K) slot mask (0 or 1).  A CUDA
-    tensor runs the hand-written kernel (``csrc/trio.cu``) or raises; a
-    CPU tensor runs the torch twin.  ``trio_partials.launches`` counts
-    kernel launches."""
+    the trio term; ``valid`` is the (N, K) slot mask (0 or 1) and
+    ``center_weight`` (N,), where given, each center row's weight (0
+    skips the row).  A CUDA tensor runs the hand-written kernel
+    (``csrc/trio.cu``) or raises; a CPU tensor runs the torch twin.
+    ``trio_partials.launches`` counts kernel launches."""
     trio = potential.trio
     if d.device.type == "cpu":
         return trio_partials_torch(d, valid, potential.grid, trio,
-                                   with_energy)
+                                   with_energy, center_weight)
     if d.device.type != "cuda":
         raise ValueError(f"no trio kernel for device {d.device}")
     n_atoms, k = d.shape[0], d.shape[1]
@@ -128,7 +137,15 @@ def trio_partials(potential: UF3Potential, d, valid,
         raise TypeError(f"trio kernel takes float32 or float64 matching "
                         f"the potential ({dtype}); got d {d.dtype}, "
                         f"valid {valid.dtype}")
-    for t in (potential.grid_window, potential.leg_tables, valid):
+    if center_weight is not None:
+        if tuple(center_weight.shape) != (n_atoms,) \
+                or center_weight.dtype != dtype:
+            raise TypeError(f"center_weight must be ({n_atoms},) {dtype}; "
+                            f"got {tuple(center_weight.shape)} "
+                            f"{center_weight.dtype}")
+        center_weight = center_weight.contiguous()
+    for t in (potential.grid_window, potential.leg_tables, valid) + (
+            () if center_weight is None else (center_weight,)):
         if t.device != d.device:
             raise ValueError("trio kernel operands on different devices")
     for spec in (trio.spec_l, trio.spec_n):
@@ -148,6 +165,8 @@ def trio_partials(potential: UF3Potential, d, valid,
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream(d.device).cuda_stream
         err = fn(d.data_ptr(), valid.data_ptr(),
+                 None if center_weight is None
+                 else center_weight.data_ptr(),
                  potential.grid_window.data_ptr(),
                  potential.leg_tables.data_ptr(), energy.data_ptr(),
                  f_center.data_ptr(), part.data_ptr(), n_atoms, k,
@@ -233,17 +252,19 @@ def trio_virial6(part, d, valid):
 def trio_forces(potential: UF3Potential, positions, cell,
                 nbr3: NeighborList, with_energy: bool = True,
                 cache3: ListCache = None, d=None,
-                with_virial: bool = False):
+                with_virial: bool = False, center_weight=None):
     """3-body per-atom energy (N,) and forces (N, 3) on the 3-body
     list, and with ``with_virial`` the Voigt virial (6,) from the same
-    partials; ``d`` (N, K3, 3) reuses an existing displacement
-    gather."""
+    partials; ``d`` (N, K3, 3) reuses an existing displacement gather.
+    ``center_weight`` (N,) scales each center row's energy, center force
+    and emitted partials before the assembly (the halo path's owner
+    weight), so the virial from those partials is weighted too."""
     if cache3 is None:
         cache3 = list_cache(nbr3, cell, positions.dtype)
     if d is None:
         d = cached_displacements(positions, nbr3, cache3)
     energy, f_center, part = trio_partials(potential, d, cache3.valid,
-                                           with_energy)
+                                           with_energy, center_weight)
     out = assemble_forces(energy, f_center, part, d, cache3.rev_flat,
                           nbr3.mask)
     if with_virial:

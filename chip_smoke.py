@@ -59,7 +59,16 @@ single device; the halo chunk's float32 3-level r-RESPA NVE run with
 its re-decompositions, one trio launch per mid step for all shards and
 halo-sized collectives, beside the single-device rate; the trio
 kernel's center weight on the path's rows; the sharded fits on the fit
-commands' features.
+commands' features.  The trio kernel's triangle lanes (the
+``trio_triangle`` option; the halo path's layout on a symmetric grid)
+are held to their plain version and to the full lanes on the bench, the
+default, the protocol's and a separately built list (K = 16, 23, 20 and
+32), timed beside the full lanes, and drive the bench path and plain
+Verlet at 9,826 atoms (with 720 NVE steps each); one window of each of
+those two paths runs under ``uf3_tpu_torch.util.tracing.trace``, which
+reads the device's busy share, its busiest operations and its idle
+gaps (the calculator's and the featurizer's busy times come from it
+too); the halo chunk runs the triangle lanes.
 
     python3 chip_smoke.py
 
@@ -111,7 +120,7 @@ from uf3_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from uf3_tpu_torch.representation.basis import BSplineBasis  # noqa: E402
 from uf3_tpu_torch.representation.knots import \
     get_knot_spacer as knot_spacer  # noqa: E402
-from uf3_tpu_torch.util import user_config  # noqa: E402
+from uf3_tpu_torch.util import tracing, user_config  # noqa: E402
 
 MODEL = os.path.join(REPO, "benchmarks_data", "model_2and3.json")
 BENCH = dict(rebuild_every=36, skin=0.5, skin_2b=1.2, capacity_2b=72,
@@ -246,14 +255,17 @@ def max_err(a, b) -> float:
 
 
 def trio_bound(pot: UF3Potential, d, valid, with_energy: bool,
-               peak=PEAK_F32_FLOPS, extra_bytes: int = 0):
+               peak=PEAK_F32_FLOPS, extra_bytes: int = 0,
+               triangle: bool = False):
     """The least time the card needs for one trio_partials call on
     these rows: the flop the kernel's algorithm does for this data (an
     FMA is 2) over the ``peak`` rate (float32 by default), against each
     input read once and
     each output written once, plus ``extra_bytes`` moved beside these
-    rows, over the memory rate.  Returns (ms, "operations" or "bytes",
-    flop, bytes)."""
+    rows, over the memory rate.  ``triangle`` counts the triangle lanes:
+    the live unordered lanes m < n, each with its t2 chain, and the
+    slots' sums over their live partners.  Returns (ms, "operations" or
+    "bytes", flop, bytes)."""
     trio_b = pot.trio
     w_lo, w_hi, c_lo, c_hi = trio_b.window
     ww, cw = w_hi - w_lo, c_hi - c_lo
@@ -274,14 +286,27 @@ def trio_bound(pot: UF3Potential, d, valid, with_energy: bool,
     c_live = (((cidx[..., None] + taps) >= c_lo)
               & ((cidx[..., None] + taps) < c_hi)).sum(-1)  # (N, K, K)
     b_lane = b_live[:, None, :].expand_as(cidx)           # row n's taps
-    term = 6 if with_energy else 4    # 2 or 3 FMAs per (b, c) term
-    # per live lane: 55 for d[n] - d[m], |.|, the interval and 4 values
-    # + 4 derivatives by Horner; 9 (+1) for the sums over n; then the
-    # (b, c) terms and the b-level FMAs
-    per_lane = (55 + 9 + int(with_energy)
-                + term * b_lane * c_live + term * b_lane)
+    energy = int(with_energy)
+    if triangle:
+        # per live lane m < n: 55 for the third leg as below, 1 for g3,
+        # 3 FMAs per (b, c) term (the value chain always feeds t2), 3
+        # (+1) per b; per live ordered pair, 8 for the slot's sums
+        upper = torch.triu(torch.ones_like(eye), diagonal=1)
+        per_lane = (55 + 1 + energy + 6 * b_lane * c_live
+                    + 2 * (3 + energy) * b_lane)
+        pairs = ok[:, :, None] & ok[:, None, :] & ~eye
+        lane_flop = (float(torch.sum(per_lane * (lane & upper)))
+                     + 8.0 * float(pairs.sum()))
+    else:
+        term = 6 if with_energy else 4    # 2 or 3 FMAs per (b, c) term
+        # per live lane: 55 for d[n] - d[m], |.|, the interval and 4
+        # values + 4 derivatives by Horner; 9 (+1) for the sums over n;
+        # then the (b, c) terms and the b-level FMAs
+        per_lane = (55 + 9 + energy
+                    + term * b_lane * c_live + term * b_lane)
+        lane_flop = float(torch.sum(per_lane * lane))
     n_rows = int(ok.sum())
-    flop = (float(torch.sum(per_lane * lane))
+    flop = (lane_flop
             + n_rows * (52 + 4)                    # row bases, fc
             + 4.0 * ww * cw * float(torch.sum(b_live * ok)))  # H, H1
     size = pot.grid_window.element_size()
@@ -406,6 +431,206 @@ def compare_virial(geom, k, twin64, kernel64, kernel32):
     if not ok:
         raise AssertionError("virial from the kernel's partials disagrees "
                              "with the twin's")
+
+
+def compare_triangle(device):
+    """The trio kernel's triangle lanes (``trio_triangle``, the halo
+    path) on the engines' 3-body rows at the bench grid: the bench list
+    (K = 16) and the one-tier default list (K = 23) at 9,826 atoms, the
+    melting protocol's list (K = 20) at 31,104 atoms and the separately
+    built list (K = 32) of ``long_trio_model`` at 9,826 rattled atoms.
+    Against the plain triangle version with and without energy (f64
+    within 1e-10, f32 forces within 2e-4 eV/A) and against the full
+    lanes on the same rows (f64: energy and forces within 1e-10, the
+    virial from the partials within 1e-9 relative); K = 1 falls back to
+    full lanes (finite, zero energy).  Each shape's no-energy launch
+    timed in both layouts by graph replay (full, triangle, triangle,
+    full; the mean of each pair), the plain version eagerly, each
+    layout's bound and launch plan.  Returns the records by slot count."""
+    records = {}
+    for reps, rattle, engine, model in (
+            ((17, 17, 17), None, BENCH, MODEL),
+            ((17, 17, 17), None, {}, MODEL),
+            (PROTOCOL_REPS, None, PROTOCOL, MODEL),
+            ((17, 17, 17), 0.05, dict(skin=0.5, capacity_3b=32),
+             long_trio_model())):
+        geom = bench_geometry(reps, rattle)
+        system = MDSystem(model, geom, dtype=torch.float64, device=device,
+                          **engine)
+        state = system.init_state(temperature=T_TARGET, seed=0)
+        nbr = state.nbr3
+        cache = nb.list_cache(nbr, system.cell, torch.float64)
+        d64 = nb.cached_displacements(state.positions, nbr, cache)
+        v64, k = cache.valid, d64.shape[1]
+        pot64 = system.potential
+        assert pot64.trio.symmetric
+        pot32 = copy.deepcopy(pot64).to(dtype=torch.float32)
+        d32, v32 = d64.float(), v64.float()
+
+        def forces(out, d):
+            return trio.assemble_forces(*out, d, cache.rev_flat,
+                                        nbr.mask)[1]
+
+        errs = dict(plain64=0.0, plain32=0.0, full_e=0.0, full_f=0.0,
+                    virial=0.0)
+        for with_energy in (True, False):
+            twin = trio.trio_partials_torch(d64, v64, pot64.grid, pot64.trio,
+                                            with_energy, triangle=True)
+            k64 = trio.trio_partials(pot64, d64, v64, with_energy,
+                                     triangle=True)
+            k32 = trio.trio_partials(pot32, d32, v32, with_energy,
+                                     triangle=True)
+            full = trio.trio_partials(pot64, d64, v64, with_energy)
+            torch.cuda.synchronize()
+            f_twin = forces(twin, d64)
+            errs["plain64"] = max(errs["plain64"], max_err(
+                forces(k64, d64), f_twin), *(max_err(a, b) for a, b in
+                                             zip(k64, twin)))
+            errs["plain32"] = max(errs["plain32"],
+                                  max_err(forces(k32, d32), f_twin))
+            errs["full_e"] = max(errs["full_e"], max_err(k64[0], full[0]))
+            errs["full_f"] = max(errs["full_f"], max_err(
+                forces(k64, d64), forces(full, d64)))
+            v_tri = trio.trio_virial6(k64[2], d64, v64)
+            v_full = trio.trio_virial6(full[2], d64, v64)
+            errs["virial"] = max(errs["virial"], max_err(v_tri, v_full)
+                                 / float(torch.max(torch.abs(v_full))))
+        full_a = graph_ms(lambda: trio.trio_partials(pot32, d32, v32, False))
+        tri_a = graph_ms(lambda: trio.trio_partials(pot32, d32, v32, False,
+                                                    triangle=True))
+        tri_b = graph_ms(lambda: trio.trio_partials(pot32, d32, v32, False,
+                                                    triangle=True))
+        full_b = graph_ms(lambda: trio.trio_partials(pot32, d32, v32, False))
+        tri_ms, full_ms = 0.5 * (tri_a + tri_b), 0.5 * (full_a + full_b)
+        plain_ms = cuda_ms(lambda: trio.trio_partials_torch(
+            d32, v32, pot32.grid, pot32.trio, False, triangle=True), 3)
+        bound = trio_bound(pot32, d32, v32, False, triangle=True)
+        bound_full = trio_bound(pot32, d32, v32, False)
+        least = min(bound[0], bound_full[0])
+        occ = trio.trio_occupancy(pot32, k, False, triangle=True)
+        occ_full = trio.trio_occupancy(pot32, k, False)
+        occ64 = trio.trio_occupancy(pot64, k, True, triangle=True)
+        print(f"trio triangle N={len(geom)} K={k}: vs plain f64 "
+              f"{errs['plain64']:.3e} (<= {F64_TOL:g}), f32 max |dF| "
+              f"{errs['plain32']:.3e} eV/A (<= {FORCE_TOL:g}); vs full "
+              f"lanes f64 |dE| {errs['full_e']:.3e}, |dF| "
+              f"{errs['full_f']:.3e} (<= {F64_TOL:g}), virial "
+              f"{errs['virial']:.3e} relative (<= {VIRIAL_F64_TOL:g})")
+        print(f"trio triangle N={len(geom)} K={k}, f32 no energy: triangle "
+              f"{tri_ms:.4f} ms ({tri_a:.4f}, {tri_b:.4f}), full lanes "
+              f"{full_ms:.4f} ms ({full_a:.4f}, {full_b:.4f}) (graph "
+              f"replay, full/triangle/triangle/full); plain triangle "
+              f"{plain_ms:.4f} ms (eager); bounds: triangle {bound[0]:.5f} "
+              f"ms ({bound[1]}; {bound[2]:.4g} flop, {bound[3]:.4g} bytes), "
+              f"full {bound_full[0]:.5f} ms ({bound_full[2]:.4g} flop); "
+              f"reached of the smaller: triangle "
+              f"{100 * least / tri_ms:.1f}%, full {100 * least / full_ms:.1f}%"
+              f"; plans: triangle {occ}, full {occ_full}, triangle f64 with "
+              f"energy {occ64}; card: {card_line()}")
+        gate(f"trio triangle K={k}", {
+            f"plain version, f64 within {F64_TOL:g}":
+                errs["plain64"] <= F64_TOL,
+            f"plain version, f32 within {FORCE_TOL:g} eV/A":
+                errs["plain32"] <= FORCE_TOL,
+            f"full lanes, energy and forces within {F64_TOL:g}":
+                max(errs["full_e"], errs["full_f"]) <= F64_TOL,
+            f"full lanes, virial within {VIRIAL_F64_TOL:g} relative":
+                errs["virial"] <= VIRIAL_F64_TOL,
+            "no spills": occ["local_bytes"] == 0
+                and occ64["local_bytes"] == 0})
+        records[f"K{k}"] = dict(
+            max_abs_err=errs["plain32"], max_abs_err_f64=errs["plain64"],
+            full_lanes_err_f64=max(errs["full_e"], errs["full_f"]),
+            virial_err_f64=errs["virial"], ms=tri_ms, full_ms=full_ms,
+            plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+            full_bound_ms=bound_full[0], least_bound_ms=least,
+            library_ms=None, n_atoms=len(geom),
+            registers=occ["registers"], warps_per_sm=occ["warps_per_sm"],
+            local_bytes=occ["local_bytes"],
+            full_registers=occ_full["registers"],
+            full_warps_per_sm=occ_full["warps_per_sm"],
+            f64_registers=occ64["registers"])
+        if k == 16:  # K = 1 on the bench rows
+            e1, fc1, part1 = trio.trio_partials(
+                pot64, d64[:, :1].contiguous(), v64[:, :1].contiguous(),
+                True, triangle=True)
+            gate("trio triangle K=1", {
+                "zero energy": float(torch.abs(e1).max()) == 0.0,
+                "finite": bool(torch.isfinite(fc1).all()
+                               and torch.isfinite(part1).all())})
+    if sorted(records) != ["K16", "K20", "K23", "K32"]:
+        raise AssertionError(f"unexpected 3-body slot counts {records}")
+    return records
+
+
+def run_triangle_paths(device, launches, rates, stale):
+    """The bench path (3-level r-RESPA 12/6/36, launches of 10 cycles)
+    and the engine's default plain Verlet, both under Langevin at 300 K
+    with ``trio_triangle=True`` at 9,826 atoms in f32: a 144-step
+    warm-up, three timed windows of 720 steps and 720 NVE steps, under
+    the gates of the full-lane paths.  Fills ``launches``, ``rates`` and
+    ``stale``."""
+    for label, engine, run_kw, split in (
+            ("3-level r-RESPA 12/6/36", BENCH,
+             dict(LANGEVIN, launch_chunks=10), True),
+            ("plain Verlet (defaults)", {}, LANGEVIN, False)):
+        name = f"{label}, trio_triangle=True"
+        system, state, n, rates[name], temps, stale[name] = run_path(
+            name, device, dict(engine, trio_triangle=True), run_kw)
+        check_path(name, system, state, n, temps, split=split)
+        if not system.triangle:
+            raise AssertionError(f"{name}: the triangle lanes are off")
+        nve, _, rates[f"{name} NVE"] = run_nve(system, state, f"{name} NVE")
+        launches[name] = n + nve
+
+
+def run_tracing(device):
+    """One 720-step window of the bench path and one of plain Verlet at
+    the engine's defaults (9,826 atoms, f32, Langevin 300 K, after a
+    144-step warm-up and one untraced window) under ``tracing.trace``:
+    the device's busy share (the union of its operations' intervals over
+    the window), the 5 device operations that took the most time and
+    the longest idle gaps, beside the untraced window's rate.  Returns
+    (launches, busy shares) by path."""
+    launches, shares = {}, {}
+    for label, engine, run_kw in (
+            ("3-level r-RESPA 12/6/36", BENCH,
+             dict(LANGEVIN, launch_chunks=10)),
+            ("plain Verlet (defaults)", {}, LANGEVIN)):
+        geom = bench_geometry((17, 17, 17))
+        system = MDSystem(MODEL, geom, dtype=torch.float32, device=device,
+                          **engine)
+        state = system.init_state(temperature=T_TARGET, seed=0)
+        state, _ = drive(system, state, 144, **run_kw)
+        state, untraced = drive(system, state, WINDOW_STEPS, **run_kw)
+        reset_counts()
+        with tracing.trace() as rec:
+            state = system.run(state, n_steps=WINDOW_STEPS, **run_kw)
+        launches[f"traced window, {label}"] = trio.trio_partials.launches
+        t0 = time.perf_counter()
+        share, busy = rec.busy_share(), rec.busy_ms()
+        top, gaps = rec.top_ops(5), rec.idle_gaps(5)
+        lo, hi = rec.window()
+        shares[label] = share
+        steps = len(geom) * WINDOW_STEPS
+        print(f"trace {label}, {WINDOW_STEPS} steps: device busy "
+              f"{busy:.3f} ms of the {(hi - lo) / 1e3:.3f} ms window "
+              f"({100 * share:.1f}%; over the untraced window's "
+              f"{1e3 * untraced:.3f} ms: {0.1 * busy / untraced:.1f}%); "
+              f"traced {steps / rec.wall_s:.1f} atom-steps/s beside "
+              f"{steps / untraced:.1f} untraced; the trace read in "
+              f"{time.perf_counter() - t0:.1f} s; card: {card_line()}")
+        for op in top:
+            print(f"trace {label}: top op {op['ms']:.3f} ms in "
+                  f"{op['calls']} calls: {op['name'][:100]}")
+        print(f"trace {label}: longest idle gaps (ms into the window, "
+              f"ms) {[(round(g['at_ms'], 3), round(g['ms'], 3)) for g in gaps]}")
+        gate(f"trace {label}", {
+            "trio kernel launched in the traced window":
+                launches[f"traced window, {label}"] > 0,
+            "busy share in (0, 1]": 0.0 < share <= 1.0,
+            "finite state": bool(torch.isfinite(state.positions).all())})
+    return launches, shares
 
 
 def host_ms(fn, repeats=30):
@@ -1242,6 +1467,10 @@ def run_fused_separate(device):
 # -- the fused multi-species route at full width, and the rebuild schedules
 GATED_MS_BEFORE = 0.2200  # the 8 per-type launches it replaced (PERF.md)
 UNARY_K16_MS_BEFORE = 0.0373  # the unary kernel at K = 16 (PERF.md)
+# the halo chunk's rate beside the single device's before the halo path
+# took the triangle lanes, atom-steps/s (PERF.md section 5, two runs)
+HALO_FULL_LANES = {"run 2": (5764357.7, 6708873.0),
+                        "run 3": (4371446.0, 4525899.8)}
 
 
 def type_flops(pot, t, d, valid, s_slot, species, with_energy: bool):
@@ -1691,21 +1920,13 @@ def shifted(geom, dx=0.01):
 
 def profiled_device_ms(fn, calls=5):
     """Device busy time per call of fn() in ms: the kernels' and copies'
-    time that torch.profiler records over ``calls`` calls; None where it
-    records no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    own times that ``tracing.trace`` records over ``calls`` calls (it
+    raises where the profiler traced no device activity)."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tracing.trace() as rec:
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0.0)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-    return total_us / 1e3 / calls if total_us > 0 else None
+    return rec.device_ms() / calls
 
 
 def calc_call_times(calc, geom, kernel_counter):
@@ -1790,8 +2011,7 @@ def run_calculator(device):
               f"{calc.system.capacity_3b}; first call (set-up, energy, "
               f"forces, stress) {first_s:.2f} s; get_forces "
               f"{host:.4f} ms per call on the host, device busy "
-              + ("not measured" if dev is None else f"{dev:.4f} ms")
-              + f", {per_call:g} trio launches per call; card: "
+              f"{dev:.4f} ms, {per_call:g} trio launches per call; card: "
               f"{card_line()}")
     calc64, e64, f64, s64, calls64 = results["f64"]
     _, e32, f32, s32, calls32 = results["f32"]
@@ -2000,8 +2220,8 @@ def run_calculator_multi(device):
     print(f"calculator, multi-species route: {len(geom)} atoms f64, E = "
           f"{energy:.9f} eV, stress {[round(float(x), 8) for x in stress]}; "
           f"get_forces {host:.4f} ms per call on the host, device busy "
-          + ("not measured" if dev is None else f"{dev:.4f} ms")
-          + f", {per_call:g} multi-species trio launches per call; card vs "
+          f"{dev:.4f} ms, {per_call:g} multi-species trio launches per call; "
+          f"card vs "
           f"CPU f64 on {len(cut)} atoms {cut_err:.3e}; card: {card_line()}")
     gate("calculator, multi-species route", {
         "one multi-species trio launch per force call": per_call == 1,
@@ -2163,21 +2383,12 @@ def label(calc, geoms):
 
 
 def busy_share(fn):
-    """(wall ms, device busy ms) of one call of fn() under torch.profiler;
-    busy is None where it records no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    """(wall ms, device busy ms) of one call of fn() under
+    ``tracing.trace``: busy is the union of the device's operation
+    intervals."""
+    with tracing.trace() as rec:
         fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy_us = sum(getattr(e, "self_device_time_total", 0.0)
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
-    return 1e3 * wall, (busy_us / 1e3 if busy_us > 0 else None)
+    return 1e3 * rec.wall_s, rec.busy_ms()
 
 
 def labeled_frames(geoms, energies, forces):
@@ -2337,10 +2548,8 @@ def run_fit(device, counts=FIT_SET, seed=0, keep=None):
         basis, chunk, [0.0] * len(chunk), [np.zeros((128, 3))] * len(chunk),
         device=device, batch_size=size)))
     print(f"fit: one bucket call, {len(chunk)} configurations of 128 atoms: "
-          f"{wall_ms:.3f} ms wall, device busy "
-          + ("not measured" if busy_ms is None else
-             f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%)")
-          + f"; card: {card}")
+          f"{wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%); card: {card}")
     model = ls.WeightedLinearModel(basis, device=device, **FIT_REG)
     e_var, f_var = ls.VarianceRecorder(), ls.VarianceRecorder()
     rows = [(b.x_e, b.y_e, b.x_f, b.y_f) for b in batches]
@@ -2630,10 +2839,8 @@ def run_fit_multi(device, counts=FIT_MULTI_SET, seed=0):
         basis, chunk, [0.0] * len(chunk), [np.zeros((108, 3))] * len(chunk),
         device=device, batch_size=size)))
     print(f"fit multi: one bucket call, {len(chunk)} configurations of 108 "
-          f"atoms: {wall_ms:.3f} ms wall, device busy "
-          + ("not measured" if busy_ms is None else
-             f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%)")
-          + f"; card: {card}")
+          f"atoms: {wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%); card: {card}")
     fit = ls.WeightedLinearModel(basis, device=device, **FIT_REG)
     e_var, f_var = ls.VarianceRecorder(), ls.VarianceRecorder()
     t0 = time.perf_counter()
@@ -3036,10 +3243,12 @@ def halo_production(device, mesh):
 def compare_trio_weighted(device, system32: MDSystem, mesh):
     """The trio kernel with its center weight on the halo path's own
     rows (the f32 system's decomposition, all shards' local rows, 0 on
-    halo rows) and with a non-binary weight vector: f64 within 1e-10 and
-    f32 forces within 2e-4 eV/A of the plain version; the weighted launch
+    halo rows) and with a non-binary weight vector, in both lane layouts
+    (the halo path runs the triangle lanes): f64 within 1e-10 and f32
+    forces within 2e-4 eV/A of the plain version; the weighted launch
     timed by graph replay beside the unweighted one on the same rows,
-    the bound counted over the rows of nonzero weight."""
+    and the triangle's, the bound counted over the rows of nonzero
+    weight."""
     geom = bench_geometry((17, 17, 17))
     dec = halo_dec(system32, geom.get_positions(), mesh)
     pot64 = UF3Potential.from_json(MODEL).to(device)
@@ -3055,12 +3264,17 @@ def compare_trio_weighted(device, system32: MDSystem, mesh):
                                device=device) * w_halo
     d32, v32 = d64.float(), v64.float()
     errs = {}
-    for tag, w in (("halo 0/1", w_halo), ("non-binary", w_scaled)):
+    for tag, w, tri in (("halo 0/1", w_halo, False),
+                        ("non-binary", w_scaled, False),
+                        ("halo 0/1, triangle", w_halo, True),
+                        ("non-binary, triangle", w_scaled, True)):
         twin = trio.trio_partials_torch(d64, v64, pot64.grid, pot64.trio,
-                                        True, center_weight=w)
-        k64 = trio.trio_partials(pot64, d64, v64, True, center_weight=w)
+                                        True, center_weight=w,
+                                        triangle=tri)
+        k64 = trio.trio_partials(pot64, d64, v64, True, center_weight=w,
+                                 triangle=tri)
         k32 = trio.trio_partials(pot32, d32, v32, True,
-                                 center_weight=w.float())
+                                 center_weight=w.float(), triangle=tri)
         f_twin = trio.assemble_forces(*twin, d64, rows.cache3.rev_flat,
                                       rows.nbr3.mask)[1]
         f64 = trio.assemble_forces(*k64, d64, rows.cache3.rev_flat,
@@ -3076,6 +3290,8 @@ def compare_trio_weighted(device, system32: MDSystem, mesh):
     w32 = w_halo.float()
     weighted_ms = graph_ms(lambda: trio.trio_partials(
         pot32, d32, v32, False, center_weight=w32))
+    triangle_ms = graph_ms(lambda: trio.trio_partials(
+        pot32, d32, v32, False, center_weight=w32, triangle=True))
     unweighted_ms = graph_ms(lambda: trio.trio_partials(pot32, d32, v32,
                                                         False))
     plain_ms = cuda_ms(lambda: trio.trio_partials_torch(
@@ -3088,10 +3304,15 @@ def compare_trio_weighted(device, system32: MDSystem, mesh):
                                   + int((~live).sum()) * (4 + 5 * k))
     bound_ms, bound_by, flop, n_bytes = trio_bound(
         pot32, d32[live], v32[live], False, extra_bytes=extra)
+    bound_tri = trio_bound(pot32, d32[live], v32[live], False,
+                           extra_bytes=extra, triangle=True)
     occ = trio.trio_occupancy(pot32, d32.shape[1], False)
     print(f"trio weighted launch (f32, no energy) on the halo rows: "
           f"{weighted_ms:.4f} ms (graph replay) beside {unweighted_ms:.4f} "
-          f"ms unweighted on the same {d32.shape[0]} rows; plain "
+          f"ms unweighted on the same {d32.shape[0]} rows, triangle lanes "
+          f"(the halo path's) weighted {triangle_ms:.4f} ms, bound "
+          f"{bound_tri[0]:.5f} ms ({bound_tri[1]}; {bound_tri[2]:.4g} "
+          f"flop); plain "
           f"{plain_ms:.4f} ms; bound over the {int(live.sum())} rows of "
           f"nonzero weight and the zero rows' writes {bound_ms:.5f} ms ({bound_by}; {flop:.4g} flop, "
           f"{n_bytes:.4g} bytes); launch plan {occ}; card: {card_line()}")
@@ -3103,6 +3324,7 @@ def compare_trio_weighted(device, system32: MDSystem, mesh):
         "no spills": occ["local_bytes"] == 0})
     return dict(max_abs_err=max(e[1] for e in errs.values()),
                 ms=weighted_ms, unweighted_ms=unweighted_ms,
+                triangle_ms=triangle_ms, triangle_bound_ms=bound_tri[0],
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None, rows=int(d32.shape[0]),
                 live_rows=int(live.sum()), k=int(d32.shape[1]),
@@ -3177,6 +3399,7 @@ def main():
     environment(device)
     build_kernels()
     records = compare_trio(device)
+    tri_records = compare_triangle(device)
     langevin = LANGEVIN
     rates, launches, stale = {}, {}, {}
     # the benchmark configuration: 3-level r-RESPA 12/6/36
@@ -3201,6 +3424,11 @@ def main():
     name = "plain Verlet (defaults), fused=\"separate\""
     launches["fused_separate"], rates[name], stale[name] = \
         run_fused_separate(device)
+    # both paths again on the kernel's triangle lanes, then a window of
+    # each under the profiler
+    run_triangle_paths(device, launches, rates, stale)
+    traced, shares = run_tracing(device)
+    launches.update(traced)
     # 2-level r-RESPA: the bench configuration without a mid level
     name = "2-level r-RESPA 12/36"
     system, state, launches["respa2"], rates[name], temps, stale[name] = \
@@ -3270,7 +3498,8 @@ def main():
         os.path.join(fit_keep, name) for name in ("settings.json",
                                                   "features.npz")))
     shutil.rmtree(fit_keep)
-    rates["halo 3-level r-RESPA 12/6, 4 shards, NVE"] = halo_rates["rate"]
+    rates["halo 3-level r-RESPA 12/6, 4 shards, NVE (triangle lanes)"] = \
+        halo_rates["rate"]
     rates["single device, 3-level r-RESPA 12/6/36, NVE (beside the "
           "halo run)"] = halo_rates["rate_single"]
     card = card_line()
@@ -3291,9 +3520,7 @@ def main():
           f"{branches}")
     for tag, (hst_ms, dev_ms) in dict(calc_times, multi=multi_times).items():
         print(f"calculator {tag}: get_forces {hst_ms:.4f} ms per call on "
-              "the host, device busy "
-              + ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms")
-              + f", card: {card}")
+              f"the host, device busy {dev_ms:.4f} ms, card: {card}")
     print(f"FIRE relaxation, 9,826 atoms, f64: {fire_calls} force calls in "
           f"{fire_s:.3f} s, card: {card}")
     print(f"halo path: {halo_rates['bytes_per_step']:.1f} bytes put into "
@@ -3303,7 +3530,15 @@ def main():
           f"{halo_record['unweighted_ms']:.4f} ms unweighted "
           f"({halo_record['rows']} rows, {halo_record['live_rows']} of "
           "nonzero weight), bound "
-          f"{halo_record['bound_ms']:.5f} ms; card: {card}")
+          f"{halo_record['bound_ms']:.5f} ms; triangle lanes weighted "
+          f"{halo_record['triangle_ms']:.4f} ms; card: {card}")
+    print(f"halo chunk on the triangle lanes: {halo_rates['rate']:.1f} "
+          f"atom-steps/s beside {halo_rates['rate_single']:.1f} single-device"
+          f" in this call; on full lanes (PERF.md section 5): "
+          f"{HALO_FULL_LANES}; card: {card}")
+    for name, share in shares.items():
+        print(f"device busy share, one traced {WINDOW_STEPS}-step window of "
+              f"{name} (9,826 atoms, f32): {100 * share:.1f}%, card: {card}")
     print(f"trio launches by path: {launches}")
     print(f"multi-species trio launches by path: {multi_launches}")
     print(f"trio_partials K=16, 9,826 atoms: {records['K16']['ms']:.4f} ms "
@@ -3313,6 +3548,7 @@ def main():
           f"card: {card}")
     record = dict(records["K16"], max_abs_err=max(
         [r["max_abs_err"] for r in records.values()]
+        + [r["max_abs_err"] for r in tri_records.values()]
         + [halo_record["max_abs_err"]]))
     print(json.dumps({"kernels": [
         dict(name="trio_partials", route="cuda",
@@ -3320,7 +3556,7 @@ def main():
              replaces="uf3_tpu/ops/pallas_trio.py:1044",
              launches=sum(launches.values()), launches_by_path=launches,
              **record, by_shape=records, calculator_f64=calc_kernel,
-             center_weight=halo_record),
+             center_weight=halo_record, triangle=tri_records),
         dict(name="trio_multi_partials_all", route="cuda",
              source="uf3_tpu_torch/csrc/trio_multi.cu",
              replaces="uf3_tpu/ops/pallas_trio.py:1337",

@@ -1,7 +1,8 @@
 """
 The port's MD engine on its own (uf3_tpu_torch/forcefield/md.py): the
 trajectory does not depend on how cycles are grouped into launches,
-the option not ported yet raises NotImplementedError naming its
+the triangle-lane trio layout runs to the full lanes' state, the paths
+the JAX engine has none of raise NotImplementedError naming their
 ROADMAP.md item, the Langevin thermostat and the two barostats hold
 their targets (twins of the JAX engine's statistical tests), and the md
 command runs on the CPU.  Parity with the JAX engine is in
@@ -57,17 +58,29 @@ def test_langevin_launch_chunks_exact():
 
 
 def test_options_off_the_bench_path_raise():
-    """What is still not ported raises NotImplementedError naming its
-    ROADMAP.md item: the triangle-lane trio layout; so do the paths the
-    JAX engine has none of, a barostat on r-RESPA and Nose-Hoover NPT.
-    static_rebuild and eager_refilter=False construct here and run
-    (tests/test_torch_schedules.py); Nose-Hoover, regrowth, npt_run and
-    stress run (tests/test_torch_npt.py); fused="separate" and binary
-    models run (tests/test_torch_models.py, test_torch_multi.py)."""
+    """The engine options off the bench path: the triangle-lane trio
+    layout constructs and runs 3-level r-RESPA on the bench split to
+    the full lanes' state (tests/test_torch_triangle.py holds it to the
+    JAX engine); the paths the JAX engine has none of, a barostat on
+    r-RESPA and Nose-Hoover NPT, raise NotImplementedError naming their
+    ROADMAP.md item.  static_rebuild and eager_refilter=False construct
+    here and run (tests/test_torch_schedules.py); Nose-Hoover,
+    regrowth, npt_run and stress run (tests/test_torch_npt.py);
+    fused="separate" and binary models run (tests/test_torch_models.py,
+    test_torch_multi.py)."""
     geom = _geom()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        MDSystem(MODEL, geom, dtype=torch.float64,
-                 **dict(KW, trio_triangle=True))
+    runs = []
+    for triangle in (True, False):
+        port = MDSystem(MODEL, geom, dtype=torch.float64,
+                        **dict(KW, trio_triangle=triangle))
+        assert port.triangle is triangle
+        st = port.init_state(temperature=300.0, seed=3)
+        runs.append(port.run(st, n_steps=12, dt_fs=2.0))
+    tri, full = runs
+    for name in ("positions", "velocities", "forces"):
+        assert torch.max(torch.abs(getattr(tri, name)
+                                   - getattr(full, name))) < 1e-10
+    assert abs(float(tri.energy) - float(full.energy)) < 1e-9
     for ported in (dict(static_rebuild=True), dict(eager_refilter=False)):
         port = MDSystem(MODEL, geom, dtype=torch.float64,
                         **dict(KW, **ported))

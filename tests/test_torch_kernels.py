@@ -456,6 +456,116 @@ def test_trio_virial_from_kernel_partials(rows, rows_protocol, cuda_device,
         assert _err(v_kernel / volume, v_twin / volume) <= 1e-5
 
 
+# -- the triangle lanes (trio_triangle, the halo path) ----------------------
+def _stretched(d, valid, k):
+    """The rows cut to ``k`` slots, or widened to it with the first
+    slots stretched by 10 % (more live slots)."""
+    if k <= d.shape[1]:
+        return d[:, :k].contiguous(), valid[:, :k].contiguous()
+    extra = k - d.shape[1]
+    return (torch.cat([d, 1.1 * d[:, :extra]], 1),
+            torch.cat([valid, valid[:, :extra]], 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 8, 16, 23, 32])
+@pytest.mark.parametrize("dtype, tol", TOLS)
+def test_trio_kernel_triangle_matches_twin(rows, cuda_device, k, dtype, tol):
+    """The kernel's triangle lanes against the plain triangle version,
+    with and without energy and with center weights (1e-10 in float64,
+    2e-4 eV/A in float32 against the float64 twin); in float64 against
+    the kernel's full lanes on the same rows: energy and forces within
+    1e-10, the virial from the partials within 1e-9."""
+    pot64, d, valid, cache, nbr = rows
+    d, valid = _stretched(d, valid, k)
+    pot = _grid(pot64, "bench").to(device=cuda_device, dtype=dtype)
+    dk, vk = d.to(cuda_device, dtype), valid.to(cuda_device, dtype)
+    w = _weights(d.shape[0], "scaled")
+    launches = trio.trio_partials.launches
+    for with_energy in (True, False):
+        for weight in (None, w):
+            wk = None if weight is None else weight.to(cuda_device, dtype)
+            kernel = trio.trio_partials(pot, dk, vk, with_energy,
+                                        center_weight=wk, triangle=True)
+            twin = trio.trio_partials_torch(d, valid, pot64.grid, pot64.trio,
+                                            with_energy, weight,
+                                            triangle=True)
+            for a, b in zip(kernel, twin):
+                assert a.shape == b.shape
+                assert _err(a, b) <= tol
+            if dtype != torch.float64 or weight is not None:
+                continue
+            full = trio.trio_partials(pot, dk, vk, with_energy)
+            assert _err(kernel[0], full[0]) <= 1e-10
+            if k == d.shape[1] and k == 16:  # the list's own reverse slots
+                f_tri = trio.assemble_forces(*kernel, dk,
+                                             cache.rev_flat.to(cuda_device),
+                                             nbr.mask.to(cuda_device))[1]
+                f_full = trio.assemble_forces(*full, dk,
+                                              cache.rev_flat.to(cuda_device),
+                                              nbr.mask.to(cuda_device))[1]
+                assert _err(f_tri, f_full) <= 1e-10
+            for a, b in zip(kernel[1:], full[1:]):
+                assert _err(a, b) <= 1e-10
+            v_tri = trio.trio_virial6(kernel[2], dk, vk)
+            v_full = trio.trio_virial6(full[2], dk, vk)
+            assert _err(v_tri, v_full) <= 1e-9
+    assert trio.trio_partials.launches >= launches + 4
+    assert float(torch.abs(twin[2]).max()) > 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", TOLS)
+def test_trio_kernel_triangle_sparse_masks_and_ragged(rows, cuda_device,
+                                                      dtype, tol):
+    """Triangle lanes on rows with no, one and two (not a prefix) valid
+    slots, a random sparse mask and a ragged atom count."""
+    pot64, d, valid, _, _ = rows
+    valid = valid.clone()
+    valid[0] = 0
+    valid[1] = 0
+    valid[1, 5] = 1
+    valid[2] = 0
+    valid[2, [3, 11]] = 1
+    rng = np.random.RandomState(5)
+    valid[3:] *= torch.as_tensor(rng.rand(valid.shape[0] - 3,
+                                          valid.shape[1]) > 0.3)
+    n = 1021
+    d, valid = d[:n], valid[:n]
+    pot = _grid(pot64, "bench").to(device=cuda_device, dtype=dtype)
+    dk, vk = d.to(cuda_device, dtype), valid.to(cuda_device, dtype)
+    for with_energy in (True, False):
+        kernel = trio.trio_partials(pot, dk, vk, with_energy, triangle=True)
+        twin = trio.trio_partials_torch(d, valid, pot64.grid, pot64.trio,
+                                        with_energy, triangle=True)
+        for a, b in zip(kernel, twin):
+            assert _err(a, b) <= tol
+        assert float(torch.abs(kernel[2][:2]).max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_trio_kernel_triangle_capacity_one_and_plan(rows, cuda_device):
+    """At K = 1 the triangle falls back to full lanes (zero energy, finite
+    forces); the launch plan of each layout holds no spills, and the
+    triangle's counts its scratch (more shared bytes per block)."""
+    pot64, d, valid, _, _ = rows
+    pot = _grid(pot64, "bench").to(cuda_device)
+    e, fc, part = trio.trio_partials(pot, d[:, :1].contiguous().to(
+        cuda_device), valid[:, :1].contiguous().to(cuda_device), True,
+        triangle=True)
+    assert float(torch.abs(e).max()) == 0.0
+    assert bool(torch.isfinite(fc).all() and torch.isfinite(part).all())
+    for dtype in (torch.float64, torch.float32):
+        p = pot.to(dtype=dtype)
+        for k in (16, 23):
+            for with_energy in (True, False):
+                full = trio.trio_occupancy(p, k, with_energy)
+                tri = trio.trio_occupancy(p, k, with_energy, triangle=True)
+                assert full["local_bytes"] == 0 and tri["local_bytes"] == 0
+                assert tri["smem_bytes"] > full["smem_bytes"]
+                assert tri["blocks_per_sm"] >= 1
+
+
 def long_trio_model():
     """A unary W model whose 3-body cutoff (4 A) passes its 2-body
     cutoff (3 A): the engine builds its 3-body list on its own and runs

@@ -338,10 +338,10 @@ def test_separate_route_matches_shared():
 # -- what raises ----------------------------------------------------------------
 def test_respa_and_unported_options_raise():
     """r-RESPA on a 2-body model, or with the 3-body cutoff beyond the
-    2-body one, raises the reference's ValueError; the engine option
-    not ported yet (the triangle-lane trio layout) raises
-    NotImplementedError naming its ROADMAP.md item by its title, while
-    static_rebuild and eager_refilter=False, ported since, construct."""
+    2-body one, raises the reference's ValueError; the engine options
+    ported since construct and run: the triangle-lane trio layout (to
+    the full lanes' forces and energy, and ignored on the 2-body model,
+    as in the reference), static_rebuild and eager_refilter=False."""
     geom = _w(3)
     with pytest.raises(ValueError, match="requires a 2\\+3-body model"):
         MDSystem(MODEL_2, geom, dtype=torch.float64, device="cpu",
@@ -354,11 +354,20 @@ def test_respa_and_unported_options_raise():
                  geom, dtype=torch.float64, device="cpu", n_respa=2)
     with pytest.raises(ValueError, match="fused"):
         MDSystem(MODEL_23, geom, device="cpu", fused="fused")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, modules still to port: "
-                             "engine options off the benchmark path"):
-        MDSystem(MODEL_23, geom, dtype=torch.float64, device="cpu",
-                 trio_triangle=True)
+    out = []
+    for triangle in (True, False):
+        port = MDSystem(MODEL_23, geom, dtype=torch.float64, device="cpu",
+                        trio_triangle=triangle)
+        state = port.run(port.init_state(temperature=600.0, seed=2),
+                         n_steps=6, dt_fs=2.0)
+        out.append((port.triangle, state))
+    (tri_on, tri), (tri_off, full) = out
+    assert tri_on and not tri_off
+    assert torch.max(torch.abs(tri.forces - full.forces)) < 1e-10
+    assert abs(float(tri.energy) - float(full.energy)) < 1e-10
+    two_body = MDSystem(MODEL_2, geom, dtype=torch.float64, device="cpu",
+                        trio_triangle=True)
+    assert not two_body.triangle
     for ported in (dict(static_rebuild=True),
                    dict(skin_2b=1.2, eager_refilter=False)):
         port = MDSystem(MODEL_23, geom, dtype=torch.float64, device="cpu",

@@ -11,8 +11,9 @@ Trimmed copy of ``Atoms`` and ``bulk`` from ``uf3_tpu/data/atoms.py``:
 the same conventions (cell rows are lattice vectors, cartesian =
 fractional @ cell; ``info`` holds per-configuration scalars, ``arrays``
 per-atom quantities) and, for the same seed, the same rattled
-positions.  The constructor takes atomic numbers, not symbols.
-``MDSystem`` takes any object with these reader methods.
+positions.  The constructor takes atomic numbers, not symbols
+(``molecule_from_arrays`` takes symbols).  ``MDSystem`` takes any
+object with these reader methods.
 """
 
 from typing import Dict, Iterable, List, Optional, Sequence, Union
@@ -49,6 +50,10 @@ class Atoms:
     def __len__(self) -> int:
         return len(self.numbers)
 
+    def __repr__(self) -> str:
+        return (f"Atoms({self.get_chemical_formula()}, "
+                f"pbc={self.pbc.tolist()})")
+
     def copy(self) -> "Atoms":
         new = Atoms(self.numbers.copy(), self.positions.copy(),
                     self.cell.copy(), self.pbc.copy(), info=dict(self.info))
@@ -60,7 +65,13 @@ class Atoms:
         return self.numbers.copy()
 
     def get_chemical_symbols(self) -> List[str]:
-        return [el.chemical_symbols[int(z)] for z in self.numbers]
+        return el.numbers_to_symbols(self.numbers)
+
+    def get_chemical_formula(self) -> str:
+        syms, counts = np.unique(self.get_chemical_symbols(),
+                                 return_counts=True)
+        return "".join(f"{s}{c if c > 1 else ''}" for s, c in
+                       zip(syms, counts))
 
     def get_positions(self) -> np.ndarray:
         return self.positions.copy()
@@ -206,3 +217,8 @@ def bulk(symbol: str, crystalstructure: str = "bcc",
     cell = np.eye(3) * a
     frac = np.array(_CUBIC_BASES[crystalstructure])
     return Atoms([el.atomic_numbers[symbol]] * len(frac), frac @ cell, cell)
+
+
+def molecule_from_arrays(symbols, positions) -> Atoms:
+    """Non-periodic configuration from symbol and position arrays."""
+    return Atoms(el.symbols_to_numbers(list(symbols)), positions, pbc=False)

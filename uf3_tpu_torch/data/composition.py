@@ -4,8 +4,9 @@ trio interactions a B-spline basis is keyed by, and their integer
 (Szudzik) species hashes.
 
 Trimmed copy of ``uf3_tpu/data/composition.py`` (the symbol sorting, the
-Szudzik hashes, and the part of ``ChemicalSystem`` that the basis and
-the host featurizer read).  Orderings follow the reference UF3:
+Szudzik hashes of species arrays and of symbol tuples, and the part of
+``ChemicalSystem`` that the basis, the host featurizer and the fitting
+tools read).  Orderings follow the reference UF3:
   * element_list is the de-duplicated input sorted by the order key;
   * pairs are combinations-with-replacement, each sorted, the list
     ordered by order key;
@@ -82,6 +83,16 @@ def unpack_szudzik_hash(hash_list: np.ndarray, n_iter: int) -> np.ndarray:
     return np.stack(columns, axis=-1)
 
 
+def symbols_to_hash(symbols: Collection[str]) -> int:
+    numbers = np.array([el.symbols_to_numbers(list(symbols))])
+    return int(get_szudzik_hash(numbers)[0])
+
+
+def hash_to_symbols(hash_: int, n: int = 2) -> Tuple[str, ...]:
+    row = unpack_szudzik_hash(np.array([hash_]), n)[0]
+    return tuple(el.chemical_symbols[int(z)] for z in row)
+
+
 class ChemicalSystem:
     """Element list plus enumerated pair/trio interactions and hashes."""
 
@@ -96,12 +107,25 @@ class ChemicalSystem:
         self.interaction_hashes = self._build_interaction_hashes()
 
     @staticmethod
+    def from_config(config: Dict) -> "ChemicalSystem":
+        return ChemicalSystem.from_dict(config)
+
+    @staticmethod
     def from_dict(config: Dict) -> "ChemicalSystem":
         return ChemicalSystem(element_list=config["element_list"],
                               degree=config["degree"])
 
     def as_dict(self) -> Dict:
         return dict(element_list=list(self.element_list), degree=self.degree)
+
+    def __repr__(self) -> str:
+        lines = ["ChemicalSystem:",
+                 f"    Elements: {list(self.element_list)}",
+                 f"    Degree: {self.degree}",
+                 f"    Pairs: {self.interactions_map[2]}"]
+        if self.degree > 2:
+            lines.append(f"    Trios: {self.interactions_map[3]}")
+        return "\n".join(lines)
 
     def _build_interactions_map(self) -> Dict[int, List]:
         imap: Dict[int, Any] = {1: list(self.element_list)}

@@ -69,6 +69,11 @@ def symbols_to_numbers(symbols: Union[str, Iterable]) -> List[int]:
     return numbers
 
 
+def numbers_to_symbols(numbers: Iterable[int]) -> List[str]:
+    """Convert atomic number(s) to symbol(s)."""
+    return [chemical_symbols[int(z)] for z in numbers]
+
+
 def order_value(symbol: str) -> int:
     """Canonical ordering key for an element symbol."""
     return element_order_key[symbol]

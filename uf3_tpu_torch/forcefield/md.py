@@ -45,9 +45,9 @@ the 2-body list; with ``eager_refilter=False`` the refilter only once
 ``static_rebuild`` a full rebuild every cycle, with no decision.  Each
 launch's overflow flag goes to the host without a wait
 (``run(sync=False)``).  The 3-body force of the fused routes runs
-through the trio kernel on the card.  The triangle-lane trio layout
-raises NotImplementedError naming the ROADMAP.md item that will port
-it.
+through the trio kernel on the card; ``trio_triangle`` takes its
+triangle lanes where the model's grid is symmetric in its first two
+legs, as the reference's option does.
 """
 
 import copy
@@ -74,7 +74,6 @@ from uf3_tpu_torch.ops.splines import basis_window_hi
 from uf3_tpu_torch.ops.trio import (pair_trio_forces_shared, trio_forces,
                                     trio_short_forces)
 
-OPTIONS = "engine options off the benchmark path"
 NPT_EXTRA = "barostats on r-RESPA and Nose-Hoover NPT"
 MULTI_RESPA = "r-RESPA on the multi-species route"
 MAX_NPT_REGROWS = 4
@@ -194,7 +193,9 @@ class MDSystem:
     runs the factorized route alone); ``atoms`` any object with the
     reader methods of ``uf3_tpu_torch.data.atoms.Atoms``.  ``fused``
     chooses the route of a model with fused kernels: "shared" (one
-    (N, K2) gather) or "separate".  ``static_rebuild`` rebuilds the
+    (N, K2) gather) or "separate"; ``trio_triangle`` runs the trio
+    kernel's triangle lanes where the grid is symmetric in its first two
+    legs (opt-in, as in the reference).  ``static_rebuild`` rebuilds the
     lists in full every cycle; ``eager_refilter=False`` refilters the
     3-body list of two-tier skins only once 0.4 of its skin is used.
     ``device`` defaults to the CUDA card and raises where there is
@@ -217,8 +218,11 @@ class MDSystem:
         if fused not in ("shared", "separate"):
             raise ValueError("fused must be 'separate' or 'shared'")
         self.fused = fused
-        if trio_triangle:
-            raise _not_ported("the triangle-lane trio layout", OPTIONS)
+        # the triangle-lane trio layout: on a symmetric unary grid only,
+        # as in the reference (the other routes ignore it)
+        self.triangle = (bool(trio_triangle)
+                         and self.potential.trio is not None
+                         and self.potential.trio.symmetric)
         self.static_rebuild = bool(static_rebuild)
         self.eager_refilter = bool(eager_refilter)
         self.rebuild_branches = dict(keep=0, refilter=0, full=0)
@@ -497,7 +501,7 @@ class MDSystem:
                     and self.fused == "shared":
                 e2, e3, forces, v6 = pair_trio_forces_shared(
                     pot, positions, cell, nbr2, nbr3, with_energy, cache2,
-                    cache3, with_virial)
+                    cache3, with_virial, self.triangle)
                 virial = voigt6_to_matrix(v6) if with_virial else None
                 return self._e1() + e2 + torch.sum(e3), forces, virial
             return self._separate_forces(positions, cell, nbr2, nbr3,
@@ -533,7 +537,8 @@ class MDSystem:
                 d=d2)
             e2 = torch.sum(e2)
         out3 = trio_forces(pot, positions, cell, nbr3, with_energy,
-                           cache3=cache3, with_virial=with_virial)
+                           cache3=cache3, with_virial=with_virial,
+                           triangle=self.triangle)
         virial = v2 + voigt6_to_matrix(out3[2]) if with_virial else None
         return self._e1() + e2 + torch.sum(out3[0]), f2 + out3[1], virial
 
@@ -796,7 +801,8 @@ class MDSystem:
         r_lo, r_hi = self.respa_switch
         _, _, f_short = trio_short_forces(
             self.potential, state.positions, state.cell, state.nbr3,
-            self.n_basis_short, with_energy=False, r_lo=r_lo, r_hi=r_hi)
+            self.n_basis_short, with_energy=False, r_lo=r_lo, r_hi=r_hi,
+            triangle=self.triangle)
         spec = self.potential.pair_spec
         _, f_tail = pair_tail_forces(
             self.potential.pair_coefficients, state.positions, state.cell,
@@ -828,7 +834,7 @@ class MDSystem:
         def short_forces(xx, with_energy=False):
             return trio_short_forces(pot, xx, cell, nbr3,
                                      self.n_basis_short, with_energy,
-                                     r_lo, r_hi, cache3)
+                                     r_lo, r_hi, cache3, self.triangle)
 
         def tail_forces(xx, with_energy=False):
             return pair_tail_forces(
@@ -871,7 +877,7 @@ class MDSystem:
             with_energy=False, r_lo=r_lo, r_hi=r_hi, cache3=cache3)
         _, f_mid = trio_forces(pot, state.positions, state.cell,
                                state.nbr3, with_energy=False,
-                               cache3=cache3, d=d3)
+                               cache3=cache3, d=d3, triangle=self.triangle)
         _, f_tail = pair_tail_forces(
             pot.pair_coefficients, state.positions, state.cell, state.nbr2,
             spec_pair=pot.pair_spec, n_basis_pair=pot.pair_spec.n_basis,
@@ -932,7 +938,7 @@ class MDSystem:
                 # the last inner step's rows feed the trio refresh
                 _, f_mid = trio_forces(pot, x, cell, nbr3,
                                        with_energy=False, cache3=cache3,
-                                       d=d3)
+                                       d=d3, triangle=self.triangle)
                 v = v + 0.5 * dt_mid * f_mid / m
             _, f_tail = tail_forces(x)
             v = v + 0.5 * dt_out * f_tail / m
@@ -940,7 +946,8 @@ class MDSystem:
         if compute_energy:
             e_ps, f_ps, d3 = ps_forces(x, with_energy=True)
             e3, f_mid = trio_forces(pot, x, cell, nbr3, with_energy=True,
-                                    cache3=cache3, d=d3)
+                                    cache3=cache3, d=d3,
+                                    triangle=self.triangle)
             e_t, f_tail = tail_forces(x, with_energy=True)
             energy = self._e1() + e_ps + e_t + torch.sum(e3)
         return MDState(positions=x, velocities=v,

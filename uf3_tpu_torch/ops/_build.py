@@ -24,12 +24,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # uf3_trio_partials_{f32,f64}(d, valid, cweight, gwin, tables, energy,
 #   fc, part, n_atoms, K, legs, ints, w_lo, ww, c_lo, cw, with_energy,
-#   stream) (cweight: the center weights, or null);
-# uf3_trio_occupancy(is_f64, K, ints, ww, cw, with_energy, out)
+#   triangle, stream) (cweight: the center weights, or null; triangle:
+#   1 for the triangle lanes);
+# uf3_trio_occupancy(is_f64, K, ints, ww, cw, with_energy, triangle, out)
 _SIGNATURES = {
-    name: [_P] * 8 + [_I, _I, _P, _P, _I, _I, _I, _I, _I, _P]
+    name: [_P] * 8 + [_I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     for name in ("uf3_trio_partials_f32", "uf3_trio_partials_f64")}
-_SIGNATURES["uf3_trio_occupancy"] = [_I, _I, _P, _I, _I, _I, _P]
+_SIGNATURES["uf3_trio_occupancy"] = [_I, _I, _P, _I, _I, _I, _I, _P]
 # uf3_trio_multi_{f32,f64}(d, valid, s_slot, s_center, ints, reals,
 #   tables, grids, energy, fc, part, n_atoms, K, n_species, max_cols,
 #   n_ints, n_reals, n_tables, n_grids, with_energy, stream);

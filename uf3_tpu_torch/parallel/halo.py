@@ -338,7 +338,8 @@ def halo_md_step_factory(system, mesh, n_steps: int = 1,
     (L, K2) rows every ``n_respa`` steps, the 3-body force (the only
     level with the reverse exchange) every ``respa_mid`` steps, the
     switched short pair on the (L, K3) rows every step; the halo
-    positions refresh every step."""
+    positions refresh every step.  The trio kernel takes its triangle
+    lanes on a grid symmetric in its first two legs."""
     n_respa = int(n_respa)
     respa_mid = int(respa_mid)
     if respa_mid > 1 and n_respa <= 1:
@@ -364,6 +365,9 @@ def halo_md_step_factory(system, mesh, n_steps: int = 1,
     spec = pot.pair_spec
     coef = pot.pair_coefficients
     cell = system.cell
+    # the triangle lanes on every symmetric grid, as the reference's
+    # halo path runs them
+    triangle = pot.trio.symmetric
     half_skin2 = (0.5 * float(system.skin)) ** 2
 
     def send_back(f, dec, rows):
@@ -395,7 +399,7 @@ def halo_md_step_factory(system, mesh, n_steps: int = 1,
         d3 = nb.cached_displacements(x_local, rows.nbr3, rows.cache3)
         out3 = trio_forces(pot, x_local, cell, rows.nbr3, with_energy,
                            cache3=rows.cache3, d=d3, with_virial=virial,
-                           center_weight=rows.weight)
+                           center_weight=rows.weight, triangle=triangle)
         f_own = send_back(out2[1] + out3[1], dec, rows)
         if not with_energy:
             return f_own, None, None
@@ -412,7 +416,7 @@ def halo_md_step_factory(system, mesh, n_steps: int = 1,
         halo copies (the one r-RESPA level that sends forces back)."""
         _, f3 = trio_forces(pot, x_local, cell, rows.nbr3, False,
                             cache3=rows.cache3, d=d3,
-                            center_weight=rows.weight)
+                            center_weight=rows.weight, triangle=triangle)
         return send_back(f3, dec, rows)
 
     def chunk(dec: SlabDecomposition, x_own, v, dt):

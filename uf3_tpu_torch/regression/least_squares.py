@@ -8,11 +8,17 @@ is added, the frozen (trimmed) columns are eliminated, and the normal
 equations are solved in float64 on the host.
 
 Counterpart of ``uf3_tpu/regression/least_squares.py`` (which imports
-pandas, absent from the GPU hosts): ``VarianceRecorder``, the
-frozen-column helpers, ``calc_E_F_weights``, ``WeightedLinearModel``
+pandas, absent from the GPU hosts): ``VarianceRecorder``, the Gram
+primitives (``moore_penrose_components``, ``batched_moore_penrose``,
+``linear_least_squares``, ``weighted_least_squares``: the products on a
+device, the solve on the host), the frozen-column helpers,
+``calc_E_F_weights``, ``BasicLinearModel``, ``WeightedLinearModel``
 (``fit_with_gram``, ``fit``, ``combine_weighted_gram``, ``predict``,
-``score``, ``from_dict`` / ``from_json``, ``as_dict`` / ``to_json``,
-``load``) and the metrics.  The HDF5 feature tables of
+``score``, ``from_dict`` / ``from_json``, ``as_dict`` / ``to_json`` /
+``dump``, ``load``, ``fix_repulsion_2b``), the pair-spline
+post-processing (``get_spline_taylor_expansion``,
+``postprocess_coefficients_2b``, ``find_pair_potential_well``),
+``arrange_coefficients`` and the metrics.  The HDF5 feature tables of
 ``fit_from_file`` and ``batched_predict`` are replaced by feature
 batches (``fit_from_batches``, ``gram_from_batches``), as the
 single-device counterpart of ``uf3_tpu/parallel/mesh.py``'s
@@ -26,6 +32,8 @@ import torch
 
 from uf3_tpu_torch import io
 from uf3_tpu_torch.forcefield.md import _resolve_device
+from uf3_tpu_torch.io import arrange_coefficients  # noqa: F401
+from uf3_tpu_torch.representation import splines as sp
 from uf3_tpu_torch.representation.basis import BSplineBasis
 from uf3_tpu_torch.util import json_io
 
@@ -77,8 +85,47 @@ def _host(array) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # gram/ordinate primitives
 # ---------------------------------------------------------------------------
+def _rows64(array, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_host(array), dtype=torch.float64, device=device)
+
+
+def moore_penrose_components(x, y, device=None) -> Tuple[np.ndarray,
+                                                          np.ndarray]:
+    """Gram matrix (X^T X) and ordinate (X^T y) in float64, the products
+    on ``device`` (the CUDA card unless ``device="cpu"``), as numpy
+    arrays."""
+    device = _resolve_device(device)
+    xt, yt = _rows64(x, device), _rows64(y, device)
+    return _host(xt.T @ xt), _host(xt.T @ yt)
+
+
+def batched_moore_penrose(x, y, batch_size: int = 2500, device=None):
+    """(X^T X, X^T y) summed on ``device`` over row batches that cross
+    to it one at a time, as the reference splits them."""
+    n_samples, n_features = np.shape(x)
+    n_batches = int(n_samples / batch_size)
+    if n_batches <= 1:
+        return moore_penrose_components(x, y, device)
+    device = _resolve_device(device)
+    gram = torch.zeros((n_features, n_features), dtype=torch.float64,
+                       device=device)
+    ordinate = torch.zeros(n_features, dtype=torch.float64, device=device)
+    for batch in np.array_split(np.arange(n_samples), n_batches):
+        xb, yb = _rows64(x[batch], device), _rows64(y[batch], device)
+        gram += xb.T @ xb
+        ordinate += xb.T @ yb
+    return _host(gram), _host(ordinate)
+
+
 def lu_factorization(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.linalg.solve(a, b)
+
+
+def linear_least_squares(x, y, device=None):
+    """The least-squares solution of x c = y: the products on
+    ``device``, the solve on the host in float64."""
+    a, b = moore_penrose_components(x, y, device)
+    return lu_factorization(a, b)
 
 
 def apply_weights(x, y, weights):
@@ -90,6 +137,17 @@ def apply_weights(x, y, weights):
         raise ValueError("Negative weights provided.")
     w = np.sqrt(weights)
     return np.multiply(x.T, w).T, np.multiply(y, w)
+
+
+def weighted_least_squares(x, y, weights=None, regularizer=None,
+                           device=None):
+    """``linear_least_squares`` of the rows scaled by sqrt(weights), the
+    ``regularizer``'s rows appended with zero targets."""
+    x_fit, y_fit = apply_weights(x, y, weights)
+    if regularizer is not None:
+        x_fit = np.concatenate([x_fit, regularizer])
+        y_fit = np.concatenate([y_fit, np.zeros(len(regularizer))])
+    return linear_least_squares(x_fit, y_fit, device)
 
 
 # ---------------------------------------------------------------------------
@@ -135,7 +193,39 @@ def calc_E_F_weights(n_e, n_f, std_e, std_f) -> Tuple[float, float]:
 # ---------------------------------------------------------------------------
 # model
 # ---------------------------------------------------------------------------
-class WeightedLinearModel:
+class BasicLinearModel:
+    """Plain regularized linear regression: the Gram matrix on
+    ``device`` (the CUDA card unless ``device="cpu"``; it raises where
+    there is none) in float64, the solve on the host in float64."""
+
+    def __init__(self, regularizer: np.ndarray = None, device=None):
+        self.device = _resolve_device(device)
+        self.coefficients = None
+        self.regularizer = regularizer
+
+    def fit(self, x, y, ridge_penalty: float = 1e-8):
+        gram, ordinate = moore_penrose_components(x, y, self.device)
+        reg = (np.eye(len(gram)) * ridge_penalty
+               if self.regularizer is None else self.regularizer)
+        self.coefficients = lu_factorization(gram + reg.T @ reg, ordinate)
+
+    def predict(self, x):
+        """x @ coefficients: numpy on the host, a tensor on its device."""
+        if isinstance(x, torch.Tensor):
+            return x @ torch.as_tensor(self.coefficients, dtype=x.dtype,
+                                       device=x.device)
+        return np.dot(x, self.coefficients)
+
+    def score(self, x, y, weights=None, normalize=True):
+        if weights is not None:
+            x, y = apply_weights(x, y, weights)
+        score = -rmse_metric(y, self.predict(x))
+        if normalize:
+            score /= np.std(y)
+        return score
+
+
+class WeightedLinearModel(BasicLinearModel):
     """Energy+force weighted regularized least squares over a basis set.
 
     The Gram matrices are accumulated on ``device`` (the CUDA card unless
@@ -148,9 +238,7 @@ class WeightedLinearModel:
                  data_coverage: np.ndarray = None,
                  device=None,
                  **params):
-        self.device = _resolve_device(device)
-        self.coefficients = None
-        self.regularizer = regularizer
+        super().__init__(regularizer, device)
         self.bspline_config = bspline_config
         n_basis = self.n_feats
         if data_coverage is not None:
@@ -317,22 +405,6 @@ class WeightedLinearModel:
                     + (1 - weight) * force_weight ** 2 * ord_f)
         return gram, ordinate
 
-    # -- prediction ---------------------------------------------------------
-    def predict(self, x):
-        """x @ coefficients: numpy on the host, a tensor on its device."""
-        if isinstance(x, torch.Tensor):
-            return x @ torch.as_tensor(self.coefficients, dtype=x.dtype,
-                                       device=x.device)
-        return np.dot(x, self.coefficients)
-
-    def score(self, x, y, weights=None, normalize=True):
-        if weights is not None:
-            x, y = apply_weights(x, y, weights)
-        score = -rmse_metric(y, self.predict(x))
-        if normalize:
-            score /= np.std(y)
-        return score
-
     # -- serialization ------------------------------------------------------
     @staticmethod
     def from_dict(config: Dict, device=None) -> "WeightedLinearModel":
@@ -376,6 +448,85 @@ class WeightedLinearModel:
             raise ValueError("Neither solution nor filename provided.")
         self.coefficients = io.flat_coefficients(solution,
                                                  self.bspline_config)
+
+    def dump(self):
+        return self.as_dict()
+
+    # -- post-processing ----------------------------------------------------
+    def fix_repulsion_2b(self, pair, r_target=None, min_curvature=2.0):
+        """Replace poorly-covered low-r coefficients with a repulsive
+        Taylor extrapolation of the fitted spline."""
+        sizes, offsets = self.bspline_config.get_interaction_partitions()
+        offset, n_basis = offsets[pair], sizes[pair]
+        rows = slice(offset, offset + n_basis)
+        c_subset = self.coefficients[rows]
+        first_covered = int(np.argmax(self.data_coverage[rows]))
+        if first_covered == 0:
+            print(f"Coverage is sufficient; no fix applied to {pair}.")
+        idx_fix = np.arange(self.bspline_config.leading_trim[2],
+                            first_covered)
+        knot_sequence = self.bspline_config.knots_map[pair]
+        r_centers = knot_sequence[2:n_basis + 2]
+        c_new = get_spline_taylor_expansion(
+            r_centers[first_covered] if r_target is None else r_target,
+            r_centers[idx_fix], c_subset, knot_sequence,
+            min_curvature=min_curvature)
+        print(f"{pair} Correction: adjusted {len(idx_fix)} coefficients.")
+        self.coefficients[offset + idx_fix] = c_new
+
+
+def get_spline_taylor_expansion(r_target, r, coefficients, knot_sequence,
+                                min_curvature=0.0):
+    """Second-order Taylor extrapolation of a fitted 1D spline."""
+    pt = np.atleast_1d(np.float64(r_target))
+    y0 = sp.evaluate_spline(pt, knot_sequence, coefficients, nu=0)[0]
+    d1 = sp.evaluate_spline(pt, knot_sequence, coefficients, nu=1)[0]
+    d2 = sp.evaluate_spline(pt, knot_sequence, coefficients, nu=2)[0]
+    if min_curvature is not None:
+        d2 = max(d2, min_curvature)
+    dr = np.asarray(r) - r_target
+    return y0 + d1 * dr + 0.5 * d2 * dr ** 2
+
+
+def postprocess_coefficients_2b(coefficients,
+                                core_hardness: float = 2.0,
+                                min_core: float = 2.0,
+                                min_slope: float = 0.1,
+                                rounding_factor: int = 3,
+                                smooth_cutoff: bool = False,
+                                in_place: bool = False) -> np.ndarray:
+    """Enforce a repulsive core (and optionally smooth cutoff) on fitted
+    pair coefficients."""
+    c = coefficients if in_place else np.array(coefficients)
+    well_idx = find_pair_potential_well(c, rounding_factor)
+    if well_idx > 1:
+        # Tiny monotone tie-breaker so flat plateaus resolve rightward.
+        tilt = np.arange(well_idx) * 10 ** (-2 * rounding_factor)
+        head = np.round(c[:well_idx], rounding_factor) + tilt
+        peak_idx = int(np.argmax(head))
+        monotone = bool(np.all(np.gradient(head)[:peak_idx] >= 0))
+        if monotone:
+            # Geometric core: each knot >= hardness x its right neighbor,
+            # floored at min_slope; sequential because each step reads
+            # the value the previous one just wrote.
+            for i in range(peak_idx - 1, -1, -1):
+                c[i] = max(abs(c[i + 1]) * core_hardness, min_slope)
+    c[0] = max(c[0], min_core)
+    if smooth_cutoff:
+        c[-2:] = 0
+    return c
+
+
+def find_pair_potential_well(coefficients, rounding_factor) -> int:
+    """Index of the attractive minimum; if everything left of the peak is
+    flat to rounding precision, place it just past the peak instead."""
+    peak_idx, well_idx = np.argmax(coefficients), np.argmin(coefficients)
+    flat_tol = 10 ** -(rounding_factor - 1)
+    if (well_idx < peak_idx
+            and np.ptp(np.round(coefficients[:peak_idx],
+                                rounding_factor)) < flat_tol):
+        well_idx = peak_idx + 1
+    return well_idx
 
 
 # ---------------------------------------------------------------------------

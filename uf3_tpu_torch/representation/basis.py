@@ -147,6 +147,10 @@ class BSplineBasis:
         self.update_basis_functions()
 
     @staticmethod
+    def from_config(config: Dict) -> "BSplineBasis":
+        return BSplineBasis.from_dict(config)
+
+    @staticmethod
     def from_dict(config: Dict) -> "BSplineBasis":
         chemical_system = composition.ChemicalSystem.from_dict(config)
         settings: Dict[str, Any] = {}
@@ -165,6 +169,15 @@ class BSplineBasis:
             if isinstance(value, dict):  # JSON stores int keys as strings
                 settings[trim_key] = {int(k): v for k, v in value.items()}
         return BSplineBasis(chemical_system, **settings)
+
+    def __repr__(self) -> str:
+        lines = ["BSplineBasis:", "    Basis functions:"]
+        sizes = self.get_interaction_partitions()[0]
+        for degree in range(2, self.degree + 1):
+            for interaction in self.interactions_map[degree]:
+                lines.append(" " * 8 + f"{interaction}: {sizes[interaction]}")
+        lines.append(repr(self.chemical_system))
+        return "\n".join(lines)
 
     def as_dict(self) -> Dict:
         return dict(

@@ -6,10 +6,12 @@ endpoints repeated (multiplicity 4), as the reference UF3 makes them:
   geometric  uniform in log r
   inverse    uniform in 1/r
 
-Copy of the spacers of ``uf3_tpu/representation/knots.py``.
+Copy of the spacers of ``uf3_tpu/representation/knots.py``, with its
+support windows (``get_knot_subintervals``) and its check of a clamped
+sequence (``validate_knot_sequence``).
 """
 
-from typing import Callable, Collection
+from typing import Callable, Collection, List
 
 import numpy as np
 
@@ -20,6 +22,11 @@ def knot_sequence_from_points(knot_points: Collection) -> np.ndarray:
     return np.concatenate([np.repeat(knot_points[0], 3),
                            knot_points,
                            np.repeat(knot_points[-1], 3)])
+
+
+def get_knot_subintervals(knots: np.ndarray) -> List[np.ndarray]:
+    """5-knot support windows, one per basis function."""
+    return [knots[i:i + 5] for i in range(len(knots) - 4)]
 
 
 def generate_uniform_knots(r_min, r_max, n_intervals,
@@ -77,3 +84,11 @@ def get_knot_spacer(knot_strategy: str) -> Callable:
         return _SPACERS[knot_strategy]
     except KeyError:
         raise ValueError(f"Invalid knot_strategy: {knot_strategy}")
+
+
+def validate_knot_sequence(array: np.ndarray) -> bool:
+    """Clamped ends (4-fold) and monotonically non-decreasing interior."""
+    array = np.asarray(array)
+    return bool(np.ptp(array[:4]) == 0
+                and np.ptp(array[-4:]) == 0
+                and np.all(np.diff(array) >= 0))

@@ -3,8 +3,9 @@ Cubic B-spline basis values on the host (numpy, float64): the 4
 non-zero basis functions at each point by the Cox-de Boor recursion.
 
 Copy of ``find_spline_indices``, ``deboor_values``,
-``evaluate_basis_sums``, ``featurize_force_2b`` and ``evaluate_spline``
-from ``uf3_tpu/representation/splines.py``.
+``evaluate_basis_sums``, ``featurize_force_2b``, ``evaluate_spline`` and
+the 1D fits ``fit_spline_1d`` / ``fit_spline_1d_ridge`` from
+``uf3_tpu/representation/splines.py``.
 """
 
 from typing import Tuple
@@ -138,3 +139,61 @@ def evaluate_spline(points: np.ndarray,
     c = np.asarray(coefficients)
     taps = c[idx[:, None] + np.arange(4)[None, :]]
     return np.sum(values * taps, axis=1)
+
+
+def fit_spline_1d(x: np.ndarray,
+                  y: np.ndarray,
+                  knot_sequence: np.ndarray) -> np.ndarray:
+    """
+    Least-squares cubic-spline fit of sampled 1D data (for building
+    pair potentials from analytic curves), with the endpoint
+    pseudo-point padding that guarantees every knot interval holds at
+    least one sample.
+    """
+    from scipy import interpolate
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    b_min, b_max = knot_sequence[0], knot_sequence[-1]
+    mask = (x > b_min) & (x < b_max)
+    x, y = x[mask], y[mask]
+    lowest, highest = np.argmin(x), np.argmax(x)
+    x_min, y_min = x[lowest], y[lowest]
+    x_max, y_max = x[highest], y[highest]
+    unique_knots = np.unique(knot_sequence)
+    for i in range(len(unique_knots) - 1):
+        midpoint = 0.5 * (unique_knots[i] + unique_knots[i + 1])
+        if x_min > unique_knots[i]:
+            x = np.insert(x, 0, midpoint)
+            y = np.insert(y, 0, y_min)
+        elif x_max < unique_knots[i]:
+            x = np.insert(x, -1, midpoint)
+            y = np.insert(y, -1, y_max)
+    order = np.argsort(x)
+    x, y = x[order], y[order]
+    if knot_sequence[0] == knot_sequence[3]:
+        interior = knot_sequence[4:-4]
+    else:
+        interior = knot_sequence[1:-1]
+    lsq = interpolate.LSQUnivariateSpline(x, y, interior,
+                                          bbox=(b_min, b_max))
+    return lsq.get_coeffs()
+
+
+def fit_spline_1d_ridge(x: np.ndarray,
+                        y: np.ndarray,
+                        knot_sequence: np.ndarray,
+                        ridge: float = 1e-10) -> np.ndarray:
+    """Unpadded ridge-regularized spline fit via the de Boor kernel."""
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    b_min, b_max = knot_sequence[0], knot_sequence[-1]
+    mask = (x > b_min) & (x < b_max)
+    x, y = x[mask], y[mask]
+    values, idx = deboor_values(x, knot_sequence)
+    n_splines = len(knot_sequence) - 4
+    design = np.zeros((len(x), n_splines))
+    rows = np.arange(len(x))
+    for tap in range(4):
+        design[rows, idx + tap] += values[:, tap]
+    gram = design.T @ design + ridge * np.eye(n_splines)
+    return np.linalg.solve(gram, design.T @ y)

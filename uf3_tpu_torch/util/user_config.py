@@ -20,15 +20,24 @@ no HDF5 library either).
 import copy
 import json
 import os
+import re
 from typing import Dict
 
 import numpy as np
 
-from uf3_tpu_torch.data import composition
+from uf3_tpu_torch.data import composition, elements
 from uf3_tpu_torch.ops import featurize
 from uf3_tpu_torch.regression import least_squares
 from uf3_tpu_torch.representation import basis
 from uf3_tpu_torch.util import json_io
+
+def get_element_tuple(string: str):
+    """The element symbols in ``string`` (e.g. "W-W" or "NeXe"), sorted
+    by atomic number."""
+    element_tuple = re.compile("[A-Z][a-z]?").findall(string)
+    return tuple(sorted(element_tuple,
+                        key=lambda el: elements.atomic_numbers[el]))
+
 
 DEFAULT_SETTINGS = {
     "elements": None,

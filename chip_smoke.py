@@ -68,7 +68,16 @@ Verlet at 9,826 atoms (with 720 NVE steps each); one window of each of
 those two paths runs under ``uf3_tpu_torch.util.tracing.trace``, which
 reads the device's busy share, its busiest operations and its idle
 gaps (the calculator's and the featurizer's busy times come from it
-too); the halo chunk runs the triangle lanes.
+too); the halo chunk runs the triangle lanes.  The neighbor-gather
+kernels (``csrc/gather.cu``: ``gather_rows``, ``gather_lanes``,
+``rev_gather``) drive their own path through the two measurement
+scripts' entry points, with their launch counts from 0: the step
+anatomy at 9,826 atoms (``run_anatomy``: the MD inner step's prefixes
+by CUDA graph replay beside their eager host times, its 3-body forces
+against the float64 engine, the row and reverse-slot gathers timed at
+the step's shapes) and the TPU gather probes' cases
+(``run_probe_gather``); then each is held bit for bit to its plain
+version on the anatomy's system (``compare_gather``).
 
     python3 chip_smoke.py
 
@@ -78,6 +87,7 @@ kernels' launch counts, errors, times and bounds; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import contextlib
 import copy
 import inspect
 import itertools
@@ -90,6 +100,7 @@ import sys
 import tempfile
 import time
 import warnings
+from io import StringIO
 
 import numpy as np
 import torch
@@ -98,6 +109,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from uf3_tpu_torch import io  # noqa: E402
+from uf3_tpu_torch.benchmarks import common, probe_gather  # noqa: E402
+from uf3_tpu_torch.benchmarks import step_anatomy  # noqa: E402
 from uf3_tpu_torch.data.atoms import Atoms, bulk  # noqa: E402
 from uf3_tpu_torch.data import io as data_io  # noqa: E402
 from uf3_tpu_torch.data.composition import ChemicalSystem  # noqa: E402
@@ -106,6 +119,7 @@ from uf3_tpu_torch.forcefield.calculator import UFCalculator  # noqa: E402
 from uf3_tpu_torch.forcefield.properties import elastic, phonon  # noqa: E402
 from uf3_tpu_torch.forcefield.md import SCR, MDSystem  # noqa: E402
 from uf3_tpu_torch.ops import _build  # noqa: E402
+from uf3_tpu_torch.ops import gather  # noqa: E402
 from uf3_tpu_torch.ops import multi  # noqa: E402
 from uf3_tpu_torch.ops import neighbors as nb  # noqa: E402
 from uf3_tpu_torch.ops import trio  # noqa: E402
@@ -169,10 +183,20 @@ def environment(device):
         print("triton: not importable")
 
 
+GATHERS = (gather.gather_rows, gather.gather_lanes, gather.rev_gather)
+# the TPU kernel each gather kernel stands for first (csrc/gather.cu
+# names every one it replaces; PERF.md section 6 has the table)
+GATHER_REPLACES = {"gather_rows": "benchmarks/step_anatomy.py:250",
+                   "gather_lanes": "benchmarks/probe_dynamic_gather.py:131",
+                   "rev_gather": "benchmarks/probe_dg2.py:131"}
+
+
 def reset_counts():
     """Every kernel wrapper's launch count to 0."""
     trio.trio_partials.launches = 0
     multi.trio_multi_partials_all.launches = 0
+    for fn in GATHERS:
+        fn.launches = 0
 
 
 def build_kernels():
@@ -224,30 +248,10 @@ def cuda_ms(fn, repeats):
 
 def graph_ms(fn, repeats=20, replays=10):
     """Mean device time of fn() in ms: ``repeats`` calls captured in one
-    CUDA graph, replayed ``replays`` times between CUDA events, so that
-    the host's per-call cost (Python, ctypes, allocation) does not hide
-    a kernel shorter than it."""
-    fn()
-    torch.cuda.synchronize()
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        fn()  # warm the capture stream
-    torch.cuda.current_stream().wait_stream(stream)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(repeats):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / (replays * repeats)
+    CUDA graph, replayed ``replays`` times between CUDA events
+    (``common.graph_ms``), so that the host's per-call cost does not
+    hide a kernel shorter than it."""
+    return common.graph_ms(fn, repeats, replays)
 
 
 def max_err(a, b) -> float:
@@ -631,6 +635,169 @@ def run_tracing(device):
             "busy share in (0, 1]": 0.0 < share <= 1.0,
             "finite state": bool(torch.isfinite(state.positions).all())})
     return launches, shares
+
+
+def compare_gather(device, parts):
+    """Each gather kernel against its plain version, bit for bit, at the
+    step anatomy's shapes, on its system (``parts``, the 9,826-atom
+    system after its warm-up): the positions through the 3-body list's
+    16 slots, (N, 16, 5) slot partials through the list's indices and
+    reverse slots, as the assembly gathers them, and the lane gather at
+    the probes' 9,856 x 16; in float32 and float64 with int64 (the
+    lists' own) and int32 indices.  Each kernel is timed once, at these
+    shapes, on the gather path (``run_anatomy``, ``run_probe_gather``).
+    Returns each kernel's largest difference from its plain version."""
+    x, nbr3 = parts.positions.double(), parts.nbr3
+    n, k3 = nbr3.idx.shape
+    rng = np.random.RandomState(5)
+    part = torch.as_tensor(rng.randn(n, k3, 5), device=device)
+    lanes = torch.as_tensor(rng.randn(9856, 16), device=device)
+    li = torch.as_tensor(rng.randint(0, 16, size=(9856, 16)), device=device)
+    shapes = {
+        "gather_rows": ("positions, 3-body rows", (x, nbr3.idx)),
+        "gather_lanes": ("probe_dynamic_gather.kernel1 lanes", (lanes, li)),
+        "rev_gather": ("slot partials, 3-body rows",
+                       (part, nbr3.idx, nbr3.rev))}
+    errors = {}
+    for name, (label, ops64) in shapes.items():
+        kind = probe_gather.KIND[name]
+        kernel, plain = gather.KERNELS[kind], gather.PLAIN[kind]
+        checks, errs = {}, []
+        for dtype in (torch.float32, torch.float64):
+            for index_dtype in (torch.int64, torch.int32):
+                ops = (ops64[0].to(dtype),) + tuple(
+                    t.to(index_dtype) for t in ops64[1:])
+                out, ref = kernel(*ops), plain(*ops)
+                torch.cuda.synchronize()
+                checks[f"{label} {str(dtype)[6:]} "
+                       f"{str(index_dtype)[6:]}"] = torch.equal(out, ref)
+                errs.append(max_err(out, ref))
+        gate(f"{name} kernel vs plain (bit for bit)", checks)
+        errors[name] = max(errs)
+    print(f"gather kernels vs plain, largest difference: {errors}")
+    return errors
+
+
+def run_anatomy(device):
+    """The step anatomy at 9,826 atoms through its entry point
+    (``step_anatomy.main``, the artifact into a temporary directory):
+    the prefixes by graph replay beside their eager host times.  Gates:
+    P3's 3-body forces within 2e-4 eV/A of the float64 engine's 3-body
+    force call (``trio.trio_forces`` with a float64 MDSystem's
+    potential) on the same positions and lists, P1 + P3 within 2e-4 of
+    the float64 engine's inner-step force call (``trio_short_forces``),
+    both gather kernels correct, every device figure finite and
+    positive.  Returns (trio launches, the artifact, the anatomy's
+    parts)."""
+    trio.trio_partials.launches = 0
+    out_dir = tempfile.mkdtemp()
+    with contextlib.redirect_stdout(StringIO()):
+        artifact, parts = step_anatomy.main(device, step_anatomy.REPS,
+                                            out_dir=out_dir)
+    shutil.rmtree(out_dir)
+    launches = trio.trio_partials.launches
+    geom = bench_geometry(step_anatomy.REPS)
+    system64 = MDSystem(MODEL, geom, dtype=torch.float64, device=device,
+                        **step_anatomy.SYSTEM)
+    nbr3 = parts.nbr3._replace(
+        shift=parts.nbr3.shift.double(),
+        reference_positions=parts.nbr3.reference_positions.double())
+    x64, cell64 = parts.positions.double(), parts.cell.double()
+    f3_64 = trio.trio_forces(system64.potential, x64, cell64, nbr3,
+                             with_energy=False)[1]
+    f_short64 = trio.trio_short_forces(
+        system64.potential, x64, cell64, nbr3, system64.n_basis_short,
+        with_energy=False, r_lo=parts.r_lo, r_hi=parts.r_hi)[2]
+    d, _ = step_anatomy.gather_comps(parts, parts.positions)
+    f3 = step_anatomy.force_eval(parts, d)
+    f1 = step_anatomy.pair_short(parts, d)
+    err3, err_short = max_err(f3, f3_64), max_err(f1 + f3, f_short64)
+    ms, host = artifact["ms"], artifact["host_ms"]
+    card = card_line()
+    for name, value in ms.items():
+        if isinstance(value, float) and name in host:
+            print(f"anatomy {name}: {value:.5f} ms device (graph replay, "
+                  f"{artifact['scan_len']} chained), {host[name]:.5f} ms "
+                  f"host (eager); card: {card}")
+    for label, what in (("gather", "row gather (N, 16, 3)"),
+                        ("rev_gather", "reverse-slot gather (N, 16, 5)")):
+        rec = ms[f"kernel_{label}"]
+        print(f"anatomy {what}: kernel {rec['ms']:.5f} ms, library "
+              f"{ms[f'library_{label}_ms']:.5f} ms, plain "
+              f"{ms[f'plain_{label}_ms']:.5f} ms ({artifact['scan_len']} "
+              f"calls in one graph); bound {rec['bytes']} bytes -> "
+              f"{rec['bound_ms']:.5f} ms, reached "
+              f"{100 * rec['bound_ms'] / rec['ms']:.1f}%; card: {card}")
+    print(f"anatomy FMA chain: {ms['fma_achieved_gflops']:.1f} GFLOP/s; "
+          f"P3 vs f64 {err3:.3e} eV/A, P1 + P3 vs f64 {err_short:.3e} eV/A; "
+          f"{launches} trio launches")
+    device_ms = [v for v in ms.values() if isinstance(v, float)] + [
+        ms[f"kernel_{label}"]["ms"] for label in ("gather", "rev_gather")]
+    gate("step anatomy", {
+        f"P3 within {FORCE_TOL:g} eV/A of the f64 engine": err3 <= FORCE_TOL,
+        f"P1 + P3 within {FORCE_TOL:g} eV/A of the f64 engine":
+            err_short <= FORCE_TOL,
+        "kernel_gather correct": ms["kernel_gather"]["correct"],
+        "kernel_rev_gather correct": ms["kernel_rev_gather"]["correct"],
+        "device figures finite and positive": all(
+            np.isfinite(v) and v > 0 for v in device_ms),
+        "trio kernel launched": launches > 0,
+        "9,826 atoms, 16 slots": (artifact["n_atoms"], artifact["k3"])
+        == (9826, 16)})
+    return launches, artifact, parts
+
+
+def run_probe_gather(device):
+    """The gather probes through their entry point (``probe_gather.main``,
+    the artifact into a temporary directory): every case's kernel and
+    library call bit-equal to the plain version (the script raises
+    otherwise), its device times by graph replay and its bound.  Returns
+    the artifact."""
+    out_dir = tempfile.mkdtemp()
+    with contextlib.redirect_stdout(StringIO()):
+        artifact = probe_gather.main(device, out_dir=out_dir)
+    shutil.rmtree(out_dir)
+    card = card_line()
+    for name, rec in artifact["cases"].items():
+        print(f"probe {name} ({rec['kind']}, {rec['values']} by "
+              f"{rec['index']}): kernel {rec['kernel_ms']:.5f} ms "
+              f"({rec['kernel_ns_per_row']:.3f} ns/row), library "
+              f"{rec['library_ms']:.5f}, plain {rec['plain_ms']:.5f} ms; "
+              f"bound {rec['bound_ms']:.5f} ms, reached "
+              f"{100 * rec['reached']:.1f}%; card: {card}")
+    gate("gather probes", {
+        "every case correct": all(r["correct"]
+                                  for r in artifact["cases"].values()),
+        "every device time finite and positive": all(
+            r[f"{key}_ms"] > 0 for r in artifact["cases"].values()
+            for key in ("kernel", "library", "plain"))})
+    return artifact
+
+
+def gather_records(anatomy, probes):
+    """Each gather kernel's figures for the kernels line, at the one
+    shape where the gather path times it for the MD step: the anatomy's
+    row gather of the positions (``kernel_gather``) and reverse-slot
+    gather of the slot partials (``kernel_rev_gather``), 9,826 atoms by
+    16 slots, and the lane gather at probe_dynamic_gather.kernel1's
+    9,856 x 16."""
+    ms = anatomy["ms"]
+    records = {}
+    for name, label in (("gather_rows", "gather"),
+                        ("rev_gather", "rev_gather")):
+        rec = ms[f"kernel_{label}"]
+        records[name] = dict(
+            ms=rec["ms"], plain_ms=ms[f"plain_{label}_ms"],
+            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+            library_ms=ms[f"library_{label}_ms"],
+            shape=f"step anatomy kernel_{label}", bytes=rec["bytes"])
+    case = "probe_dynamic_gather.kernel1"
+    rec = probes["cases"][case]
+    records["gather_lanes"] = dict(
+        ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
+        bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+        library_ms=rec["library_ms"], shape=case, bytes=rec["bytes"])
+    return {fn.__name__: records[fn.__name__] for fn in GATHERS}
 
 
 def host_ms(fn, repeats=30):
@@ -3400,6 +3567,16 @@ def main():
     build_kernels()
     records = compare_trio(device)
     tri_records = compare_triangle(device)
+    # the gather path: the step anatomy and the gather probes, the
+    # gather kernels' counts from 0 over both; then the kernels against
+    # their plain versions on the anatomy's system
+    reset_counts()
+    launches_anatomy, anatomy, parts = run_anatomy(device)
+    probes = run_probe_gather(device)
+    gather_launches = {fn.__name__: fn.launches for fn in GATHERS}
+    gate("gather path", {f"{name} launched": n > 0
+                         for name, n in gather_launches.items()})
+    gather_errors = compare_gather(device, parts)
     langevin = LANGEVIN
     rates, launches, stale = {}, {}, {}
     # the benchmark configuration: 3-level r-RESPA 12/6/36
@@ -3429,6 +3606,7 @@ def main():
     run_triangle_paths(device, launches, rates, stale)
     traced, shares = run_tracing(device)
     launches.update(traced)
+    launches["step anatomy"] = launches_anatomy
     # 2-level r-RESPA: the bench configuration without a mid level
     name = "2-level r-RESPA 12/36"
     system, state, launches["respa2"], rates[name], temps, stale[name] = \
@@ -3536,6 +3714,11 @@ def main():
           f"atom-steps/s beside {halo_rates['rate_single']:.1f} single-device"
           f" in this call; on full lanes (PERF.md section 5): "
           f"{HALO_FULL_LANES}; card: {card}")
+    print(f"step anatomy, 9,826 atoms: inner step "
+          f"{anatomy['ms']['p4_full_inner_step']:.5f} ms device (graph "
+          f"replay), {anatomy['host_ms']['p4_full_inner_step']:.5f} ms host "
+          f"(eager); gather kernel launches on the gather path "
+          f"{gather_launches}; card: {card}")
     for name, share in shares.items():
         print(f"device busy share, one traced {WINDOW_STEPS}-step window of "
               f"{name} (9,826 atoms, f32): {100 * share:.1f}%, card: {card}")
@@ -3564,7 +3747,17 @@ def main():
              launches_by_path=multi_launches,
              **dict(record_multi, max_abs_err=max(
                  record_multi["max_abs_err"], record_ternary["max_abs_err"])),
-             ternary=record_ternary, calculator_f64=multi_kernel)]}))
+             ternary=record_ternary, calculator_f64=multi_kernel)] + [
+        dict(name=name, route="cuda", source="uf3_tpu_torch/csrc/gather.cu",
+             replaces=GATHER_REPLACES[name],
+             launches=gather_launches[name], max_abs_err=gather_errors[name],
+             **record,
+             probe_cases={case: dict(
+                 ms=rec["kernel_ms"], library_ms=rec["library_ms"],
+                 plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"])
+                 for case, rec in probes["cases"].items()
+                 if rec["kind"] == probe_gather.KIND[name]})
+        for name, record in gather_records(anatomy, probes).items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -191,7 +191,8 @@ def test_port_sources_import_nothing_of_uf3_tpu():
     files = glob.glob(os.path.join(REPO, "uf3_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) > 20
-    # the calculator and what runs on it are scanned too
+    # the calculator and what runs on it are scanned too, and the
+    # gather kernels' wrapper and the measurement scripts
     scanned = {os.path.relpath(path, REPO) for path in files}
     assert {os.path.join("uf3_tpu_torch", *name.split("/")) for name in (
         "data/io.py", "data/symmetry.py", "forcefield/calculator.py",
@@ -204,7 +205,9 @@ def test_port_sources_import_nothing_of_uf3_tpu():
         "representation/process.py", "parallel/__init__.py",
         "parallel/mesh.py", "parallel/halo.py", "data/analyze.py",
         "regression/optimize.py", "forcefield/ase_adapter.py",
-        "util/tracing.py", "util/plotting.py", "util/plotting3d.py")} \
+        "util/tracing.py", "util/plotting.py", "util/plotting3d.py",
+        "ops/gather.py", "benchmarks/__init__.py", "benchmarks/common.py",
+        "benchmarks/step_anatomy.py", "benchmarks/probe_gather.py")} \
         <= scanned
     for path in files:
         for name in _imports(path):

@@ -26,6 +26,13 @@ against each type's own tables, the plain version against the sum of
 the per-type passes, and the build (a changed source or header rebuilds
 the library, with a stand-in nvcc).
 
+The neighbor-gather kernels (uf3_tpu_torch/csrc/gather.cu) against
+their plain versions, bit for bit, in float32 and float64 with int32 and
+int64 indices, with self-padded slots, counts that are no multiple of a
+block, the transposed index and the column form of the reverse-slot
+gather; on the engine's own 3-body list against the engine's gathers;
+bad operands raise and an empty index launches nothing.
+
 The ``cuda`` tests skip without a GPU.  This file imports no jax, so it
 also runs on a GPU host without it:
 
@@ -42,7 +49,7 @@ import torch
 
 from uf3_tpu_torch.data.atoms import bulk
 from uf3_tpu_torch.forcefield.md import MDSystem
-from uf3_tpu_torch.ops import _build, multi
+from uf3_tpu_torch.ops import _build, gather, multi
 from uf3_tpu_torch.ops import neighbors as nb
 from uf3_tpu_torch.ops import trio
 from uf3_tpu_torch.ops.potential import (UF3Potential, grid_sparsity,
@@ -1073,6 +1080,130 @@ def test_multi_route_launches_once_per_force_call(cuda_device):
             device != "cpu")
     for a, b in zip(*out):
         assert _err(a, b) <= 1e-10
+
+
+# -- the neighbor-gather kernels (csrc/gather.cu) ---------------------------
+GATHER_DTYPES = [torch.float32, torch.float64]
+INDEX_DTYPES = [torch.int32, torch.int64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, k, w, n_pad", [
+    (9826, 16, 3, 2),    # positions at the bench's 3-body rows
+    (1001, 23, 5, 7),    # partial-width rows, not a multiple of a block
+    (257, 72, 8, 30),    # proto_pallas_gather's table, 72 slots
+    (5, 3, 1, 1),
+    (8, 1, 128, 0),      # probe_wg.py's P3: one wide row per index
+])
+@pytest.mark.parametrize("dtype", GATHER_DTYPES)
+@pytest.mark.parametrize("index_dtype", INDEX_DTYPES)
+def test_gather_rows_kernel_matches_plain(cuda_device, n, k, w, n_pad, dtype,
+                                          index_dtype):
+    """gather_rows against gather_rows_torch, bit for bit, with
+    self-padded slots (a padded slot points at its own row) and the
+    transposed (K, N) index; one launch per call."""
+    rng = np.random.RandomState(n * 1009 + k * 31 + w)
+    table = torch.as_tensor(rng.randn(n, w), dtype=dtype,
+                            device=cuda_device)
+    idx = rng.randint(0, n, size=(n, k))
+    if n_pad:
+        idx[:, -n_pad:] = np.arange(n)[:, None]
+    idx = torch.as_tensor(idx, dtype=index_dtype, device=cuda_device)
+    for index in (idx, idx.t()):
+        launches = gather.gather_rows.launches
+        out = gather.gather_rows(table, index)
+        torch.cuda.synchronize()
+        assert gather.gather_rows.launches == launches + 1
+        assert torch.equal(out, gather.gather_rows_torch(table, index))
+        assert torch.equal(out, table[index.long()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a, width, b", [(9856, 16, 16), (257, 1280, 16),
+                                         (3, 128, 128), (1001, 23, 7)])
+@pytest.mark.parametrize("dtype", GATHER_DTYPES)
+@pytest.mark.parametrize("index_dtype", INDEX_DTYPES)
+def test_gather_lanes_kernel_matches_plain(cuda_device, a, width, b, dtype,
+                                           index_dtype):
+    rng = np.random.RandomState(a * 1013 + width * 37 + b)
+    t = torch.as_tensor(rng.randn(a, width), dtype=dtype, device=cuda_device)
+    li = torch.as_tensor(rng.randint(0, width, size=(a, b)),
+                         dtype=index_dtype, device=cuda_device)
+    launches = gather.gather_lanes.launches
+    out = gather.gather_lanes(t, li)
+    torch.cuda.synchronize()
+    assert gather.gather_lanes.launches == launches + 1
+    assert torch.equal(out, gather.gather_lanes_torch(t, li))
+    assert torch.equal(out, torch.gather(t, 1, li.long()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, k, w, n_pad, column", [
+    (9826, 16, 5, 2, False),   # the assembly's packed partials
+    (1001, 23, 5, 7, False),
+    (9856, 16, 1, 0, True),    # probe_dg3.py's table column gather
+    (8, 128, 1, 0, True),      # probe_gather2.py's p6
+])
+@pytest.mark.parametrize("dtype", GATHER_DTYPES)
+@pytest.mark.parametrize("index_dtype", INDEX_DTYPES)
+def test_rev_gather_kernel_matches_plain(cuda_device, n, k, w, n_pad, column,
+                                         dtype, index_dtype):
+    rng = np.random.RandomState(n * 1019 + k * 41 + w)
+    part = torch.as_tensor(rng.randn(n, k, w), dtype=dtype,
+                           device=cuda_device)
+    idx = rng.randint(0, n, size=(n, k))
+    rev = np.broadcast_to(np.arange(k), (n, k)).copy() if column \
+        else rng.randint(0, k, size=(n, k))
+    if n_pad:
+        idx[:, -n_pad:] = np.arange(n)[:, None]
+        rev[:, -n_pad:] = 0
+    idx = torch.as_tensor(idx, dtype=index_dtype, device=cuda_device)
+    rev = torch.as_tensor(rev, dtype=index_dtype, device=cuda_device)
+    launches = gather.rev_gather.launches
+    out = gather.rev_gather(part, idx, rev)
+    torch.cuda.synchronize()
+    assert gather.rev_gather.launches == launches + 1
+    assert torch.equal(out, gather.rev_gather_torch(part, idx, rev))
+    assert torch.equal(out, part[idx.long(), rev.long()])
+
+
+@pytest.mark.cuda
+def test_gather_kernels_on_the_engine_lists(rows, cuda_device):
+    """On the rattled 1,024-atom box's 3-body list (padded slots, int64
+    as the lists hold them): the positions' row gather and the
+    assembly's reverse-slot gather of the trio partials equal what the
+    engine gathers (``cached_displacements``' ``positions[idx]``, and
+    ``part.reshape(-1, 5)[rev_flat]``)."""
+    pot, d, valid, cache, nbr = rows
+    assert not bool(nbr.mask.all())
+    nbr = nbr._replace(idx=nbr.idx.to(cuda_device),
+                       rev=nbr.rev.to(cuda_device))
+    x = torch.as_tensor(np.random.RandomState(2).randn(len(nbr.idx), 3),
+                        device=cuda_device)
+    assert torch.equal(gather.gather_rows(x, nbr.idx), x[nbr.idx])
+    _, _, part = trio.trio_partials_torch(d, valid, pot.grid, pot.trio,
+                                          False)
+    part = part.to(cuda_device)
+    rev_flat = cache.rev_flat.to(cuda_device)
+    assert torch.equal(gather.rev_gather(part, nbr.idx, nbr.rev),
+                       part.reshape(-1, 5)[rev_flat])
+
+
+@pytest.mark.cuda
+def test_gather_kernels_reject_bad_operands(cuda_device):
+    """Half-precision values, int16 indices and operands on two devices
+    raise before any launch; an empty index launches nothing."""
+    t = torch.zeros((6, 4), device=cuda_device)
+    idx = torch.zeros((6, 3), dtype=torch.int64, device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        gather.gather_rows(t.half(), idx)
+    with pytest.raises(TypeError, match="int32 or int64"):
+        gather.gather_lanes(t, idx.short())
+    with pytest.raises(ValueError, match="different devices"):
+        gather.gather_rows(t, idx.cpu())
+    launches = gather.gather_rows.launches
+    assert gather.gather_rows(t, idx[:0]).shape == (0, 3, 4)
+    assert gather.gather_rows.launches == launches
 
 
 # -- the build -----------------------------------------------------------------

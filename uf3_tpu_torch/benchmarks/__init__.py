@@ -1,0 +1,12 @@
+"""
+Measurement scripts of the port, run as modules on the card
+(``python -m uf3_tpu_torch.benchmarks.<name>``), each writing a JSON
+artifact under ``benchmarks_data/artifacts_torch/``:
+
+- ``step_anatomy``: the MD inner step's cumulative prefixes, each body
+  chained 30 times in one CUDA graph (device time) and run eagerly
+  (host time), after ``benchmarks/step_anatomy.py``;
+- ``probe_gather``: the neighbor-gather kernels of ``ops/gather.py``
+  at the shapes and index types of the TPU gather probes, beside the
+  library call and the plain version.
+"""

@@ -39,6 +39,14 @@ _SIGNATURES["uf3_trio_occupancy"] = [_I, _I, _P, _I, _I, _I, _I, _P]
 for _name in ("uf3_trio_multi_f32", "uf3_trio_multi_f64"):
     _SIGNATURES[_name] = [_P] * 11 + [_I] * 9 + [_P]
 _SIGNATURES["uf3_trio_multi_occupancy"] = [_I] * 10 + [_P]
+# uf3_gather_rows(table, idx, out, n_entries, w, elem_bytes, index_bytes,
+#   stream); uf3_gather_lanes(t, li, out, n_rows, b, width, elem_bytes,
+#   index_bytes, stream); uf3_rev_gather(part, idx, rev, out, n_entries,
+#   w, kp, elem_bytes, index_bytes, stream)
+_L = ctypes.c_longlong
+_SIGNATURES["uf3_gather_rows"] = [_P] * 3 + [_L] + [_I] * 3 + [_P]
+_SIGNATURES["uf3_gather_lanes"] = [_P] * 3 + [_L] + [_I] * 4 + [_P]
+_SIGNATURES["uf3_rev_gather"] = [_P] * 4 + [_L] + [_I] * 4 + [_P]
 
 _loaded = {}  # the library handle once loaded in this process
 

@@ -77,7 +77,20 @@ by CUDA graph replay beside their eager host times, its 3-body forces
 against the float64 engine, the row and reverse-slot gathers timed at
 the step's shapes) and the TPU gather probes' cases
 (``run_probe_gather``); then each is held bit for bit to its plain
-version on the anatomy's system (``compare_gather``).
+version on the anatomy's system (``compare_gather``).  The fragment
+kernels (``csrc/fragments.cu``: ``relayout``, ``lane_contract``,
+``lane_map``) drive theirs through the fragment probes' entry point with
+their counts from 0 (``run_probe_mosaic``: the 17 cases of the TPU
+probes ``probe_mosaic.py`` and ``probe_gather2.py``'s layout primitives
+at the probe's block and at the full 9,856-row system, each beside its
+plain version, library call and bound); then each is held to its plain
+version at every case's full-system shape in float32 and float64
+(``compare_fragments``).  The fragment probes also run alone
+(``python -m uf3_tpu_torch.benchmarks.probe_mosaic [--device cpu]``);
+``tests/test_torch_fragments.py`` holds their plain versions to the TPU
+probes' Pallas bodies on the CPU (~16 s), and ``python -m pytest
+--noconftest -m cuda tests/test_torch_kernels.py`` the kernels to their
+plain versions on the card.
 
     python3 chip_smoke.py
 
@@ -110,7 +123,7 @@ sys.path.insert(0, REPO)
 
 from uf3_tpu_torch import io  # noqa: E402
 from uf3_tpu_torch.benchmarks import common, probe_gather  # noqa: E402
-from uf3_tpu_torch.benchmarks import step_anatomy  # noqa: E402
+from uf3_tpu_torch.benchmarks import probe_mosaic, step_anatomy  # noqa: E402
 from uf3_tpu_torch.data.atoms import Atoms, bulk  # noqa: E402
 from uf3_tpu_torch.data import io as data_io  # noqa: E402
 from uf3_tpu_torch.data.composition import ChemicalSystem  # noqa: E402
@@ -119,7 +132,7 @@ from uf3_tpu_torch.forcefield.calculator import UFCalculator  # noqa: E402
 from uf3_tpu_torch.forcefield.properties import elastic, phonon  # noqa: E402
 from uf3_tpu_torch.forcefield.md import SCR, MDSystem  # noqa: E402
 from uf3_tpu_torch.ops import _build  # noqa: E402
-from uf3_tpu_torch.ops import gather  # noqa: E402
+from uf3_tpu_torch.ops import fragments, gather  # noqa: E402
 from uf3_tpu_torch.ops import multi  # noqa: E402
 from uf3_tpu_torch.ops import neighbors as nb  # noqa: E402
 from uf3_tpu_torch.ops import trio  # noqa: E402
@@ -191,11 +204,32 @@ GATHER_REPLACES = {"gather_rows": "benchmarks/step_anatomy.py:250",
                    "rev_gather": "benchmarks/probe_dg2.py:131"}
 
 
-def reset_counts():
-    """Every kernel wrapper's launch count to 0."""
-    trio.trio_partials.launches = 0
-    multi.trio_multi_partials_all.launches = 0
-    for fn in GATHERS:
+FRAGMENTS = (fragments.relayout, fragments.lane_contract,
+             fragments.lane_map)
+# the TPU kernels each fragment kernel stands for (csrc/fragments.cu
+# names them; PERF.md section 6 has the table)
+FRAGMENT_REPLACES = {
+    "relayout": "benchmarks/probe_mosaic.py:43 (#1 :70, #2 :78, #3 :86, "
+                "#7 :137), benchmarks/probe_gather2.py:124, :142, :161, "
+                ":186",
+    "lane_contract": "benchmarks/probe_mosaic.py:43 (#6 :126, #8 :146, "
+                     "#9 :155)",
+    "lane_map": "benchmarks/probe_mosaic.py:43 (#4 :98, #5 :110, #10 :164, "
+                "#14 :218, #15 :229), benchmarks/probe_mosaic.py:200"}
+# the full-system case at which the kernels line reports each kernel
+FRAGMENT_SHAPES = {"relayout": "probe_gather2.p5b_jnp_repeat",
+                   "lane_contract": "probe_mosaic.matmul_tiny_k3",
+                   "lane_map": "probe_mosaic.cardinal_interval"}
+
+
+def reset_counts(kernels=None):
+    """The launch count of every kernel wrapper (or of ``kernels``) to
+    0."""
+    if kernels is None:
+        trio.trio_partials.launches = 0
+        multi.trio_multi_partials_all.launches = 0
+        kernels = GATHERS + FRAGMENTS
+    for fn in kernels:
         fn.launches = 0
 
 
@@ -798,6 +832,99 @@ def gather_records(anatomy, probes):
         bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
         library_ms=rec["library_ms"], shape=case, bytes=rec["bytes"])
     return {fn.__name__: records[fn.__name__] for fn in GATHERS}
+
+
+def run_probe_mosaic(device):
+    """The fragment probes through their entry point
+    (``probe_mosaic.main``, the artifact into a temporary directory):
+    every case at the probe's shape and at the full 9,856-row system, its
+    kernel held to the plain version (``relayout`` and ``lane_map`` bit
+    for bit, ``lane_contract`` within 1e-6 of the sum of its terms'
+    magnitudes; the script raises otherwise), the library call where one
+    exists, the device times by graph replay and the bound.  Returns the
+    artifact."""
+    out_dir = tempfile.mkdtemp()
+    with contextlib.redirect_stdout(StringIO()):
+        artifact = probe_mosaic.main(device, out_dir=out_dir)
+    shutil.rmtree(out_dir)
+    card = card_line()
+    for name, sizes in artifact["cases"].items():
+        for size, rec in sizes.items():
+            library = "none" if rec["library_ms"] is None \
+                else f"{rec['library_ms']:.5f}"
+            print(f"probe {name} [{size}] ({rec['kernel']} {rec['mode']}, "
+                  f"{rec['inputs']} -> {rec['outputs']}): kernel "
+                  f"{rec['kernel_ms']:.5f} ms ({rec['copies']} operand "
+                  f"copies; {rec['kernel_warm_ms']:.5f} on one), library "
+                  f"{library}, plain {rec['plain_ms']:.5f} ms; bound "
+                  f"{rec['bytes']} bytes, "
+                  f"{rec['flops']} operations -> {rec['bound_ms']:.5f} ms "
+                  f"({rec['bound_by']}), reached {100 * rec['reached']:.1f}%;"
+                  f" max_abs_err {rec['max_abs_err']:.3e}; card: {card}")
+    records = [rec for sizes in artifact["cases"].values()
+               for rec in sizes.values()]
+    gate("fragment probes", {
+        "17 cases at the probe's and the full system's shape":
+            len(artifact["cases"]) == 17 and len(records) == 34,
+        "every case correct at both shapes": all(r["correct"]
+                                                 for r in records),
+        "the full system at 9,856 rows": artifact["full_rows"] == 9856,
+        "every device time finite and positive": all(
+            np.isfinite(r[f"{key}_ms"]) and r[f"{key}_ms"] > 0
+            for r in records for key in ("kernel", "kernel_warm", "plain",
+                                         "library")
+            if r[f"{key}_ms"] is not None)})
+    return artifact
+
+
+def compare_fragments(device):
+    """Each fragment kernel against its plain version at every case of
+    the fragment probes at the full system's shape, in float32 and
+    float64 (the probes' draws; ``probe_mosaic.operands``): ``relayout``
+    and ``lane_map`` bit for bit, ``lane_contract`` within 1e-6 (float32;
+    2e-15 in float64) of the sum of its terms' magnitudes.  Each kernel is
+    timed on the fragment path (``run_probe_mosaic``), not here.  Returns
+    each kernel's largest difference from its plain version."""
+    rng = np.random.RandomState(7)
+    errors = {fn.__name__: 0.0 for fn in FRAGMENTS}
+    checks = {}
+    for case in probe_mosaic.CASES:
+        args, kwargs = probe_mosaic.operands(case, probe_mosaic.N_PAD, rng,
+                                             device)
+        for dtype in (torch.float32, torch.float64):
+            args = tuple(a.to(dtype) if isinstance(a, torch.Tensor)
+                         and a.is_floating_point() else a for a in args)
+            kwargs = {k: v.to(dtype) if isinstance(v, torch.Tensor)
+                      and v.is_floating_point() else v
+                      for k, v in kwargs.items()}
+            if case.mode == "onehot_count":
+                kwargs["dtype"] = dtype
+            out = fragments.KERNELS[case.kernel](*args, **kwargs)
+            ref = fragments.PLAIN[case.kernel](*args, **kwargs)
+            torch.cuda.synchronize()
+            checks[f"{case.name} {str(dtype)[6:]}"] = probe_mosaic.agrees(
+                case, out, ref, args)
+            errors[case.kernel] = max(errors[case.kernel],
+                                      probe_mosaic.max_abs_err(out, ref))
+    gate("fragment kernels vs plain (full system)", checks)
+    print(f"fragment kernels vs plain, largest difference: {errors}")
+    return errors
+
+
+def fragment_records(mosaic):
+    """Each fragment kernel's figures for the kernels line at its
+    full-system case (``FRAGMENT_SHAPES``)."""
+    records = {}
+    for fn in FRAGMENTS:
+        name = fn.__name__
+        rec = mosaic["cases"][FRAGMENT_SHAPES[name]]["full"]
+        records[name] = dict(
+            ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
+            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+            library_ms=rec["library_ms"],
+            shape=f"{FRAGMENT_SHAPES[name]} at {mosaic['full_rows']} rows",
+            bytes=rec["bytes"], flops=rec["flops"])
+    return records
 
 
 def host_ms(fn, repeats=30):
@@ -3576,7 +3703,15 @@ def main():
     gather_launches = {fn.__name__: fn.launches for fn in GATHERS}
     gate("gather path", {f"{name} launched": n > 0
                          for name, n in gather_launches.items()})
+    # the fragment path: the fragment probes, the fragment kernels'
+    # counts from 0; then the kernels against their plain versions
+    reset_counts(FRAGMENTS)
+    mosaic = run_probe_mosaic(device)
+    fragment_launches = {fn.__name__: fn.launches for fn in FRAGMENTS}
+    gate("fragment path", {f"{name} launched": n > 0
+                           for name, n in fragment_launches.items()})
     gather_errors = compare_gather(device, parts)
+    fragment_errors = compare_fragments(device)
     langevin = LANGEVIN
     rates, launches, stale = {}, {}, {}
     # the benchmark configuration: 3-level r-RESPA 12/6/36
@@ -3719,6 +3854,8 @@ def main():
           f"replay), {anatomy['host_ms']['p4_full_inner_step']:.5f} ms host "
           f"(eager); gather kernel launches on the gather path "
           f"{gather_launches}; card: {card}")
+    print(f"fragment kernel launches on the fragment path "
+          f"{fragment_launches}; card: {card}")
     for name, share in shares.items():
         print(f"device busy share, one traced {WINDOW_STEPS}-step window of "
               f"{name} (9,826 atoms, f32): {100 * share:.1f}%, card: {card}")
@@ -3757,7 +3894,18 @@ def main():
                  plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"])
                  for case, rec in probes["cases"].items()
                  if rec["kind"] == probe_gather.KIND[name]})
-        for name, record in gather_records(anatomy, probes).items()]}))
+        for name, record in gather_records(anatomy, probes).items()] + [
+        dict(name=name, route="cuda",
+             source="uf3_tpu_torch/csrc/fragments.cu",
+             replaces=FRAGMENT_REPLACES[name],
+             launches=fragment_launches[name],
+             max_abs_err=fragment_errors[name], **record,
+             probe_cases={f"{case} [{size}]": dict(
+                 ms=rec["kernel_ms"], library_ms=rec["library_ms"],
+                 plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"])
+                 for case, sizes in mosaic["cases"].items()
+                 for size, rec in sizes.items() if rec["kernel"] == name})
+        for name, record in fragment_records(mosaic).items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,6 +33,17 @@ block, the transposed index and the column form of the reverse-slot
 gather; on the engine's own 3-body list against the engine's gathers;
 bad operands raise and an empty index launches nothing.
 
+The fragment kernels (uf3_tpu_torch/csrc/fragments.cu) against their
+plain versions in float32 and float64, at the TPU probes' shapes and at
+ragged ones (counts that are no multiple of a block): ``relayout`` in
+every mode and ``lane_map`` in every op bit for bit (NaN where the plain
+version gives NaN), on the probes' draws mixed with zeros, infinities,
+NaN, subnormals and one-hot indices outside [0, 9); ``lane_contract``
+in every mode within 1e-6 (float32; 2e-15 in float64) of the sum of its
+terms' magnitudes, and bit for bit where it rounds as its plain version
+does; one launch per call; bad operands raise and an empty output
+launches nothing.
+
 The ``cuda`` tests skip without a GPU.  This file imports no jax, so it
 also runs on a GPU host without it:
 
@@ -47,9 +58,10 @@ import numpy as np
 import pytest
 import torch
 
+from uf3_tpu_torch.benchmarks import probe_mosaic
 from uf3_tpu_torch.data.atoms import bulk
 from uf3_tpu_torch.forcefield.md import MDSystem
-from uf3_tpu_torch.ops import _build, gather, multi
+from uf3_tpu_torch.ops import _build, fragments, gather, multi
 from uf3_tpu_torch.ops import neighbors as nb
 from uf3_tpu_torch.ops import trio
 from uf3_tpu_torch.ops.potential import (UF3Potential, grid_sparsity,
@@ -1206,6 +1218,175 @@ def test_gather_kernels_reject_bad_operands(cuda_device):
     assert gather.gather_rows.launches == launches
 
 
+# -- the fragment kernels (csrc/fragments.cu) --------------------------------
+FRAGMENT_DTYPES = [torch.float32, torch.float64]
+CONTRACT_TOL = {torch.float32: 1e-6, torch.float64: 2e-15}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode, shape, kw", [
+    ("tile", (512, 16), dict(reps=16)),           # probe_mosaic #1, #3
+    ("tile", (1001, 7), dict(reps=5)),
+    ("tile", (256, 16), dict(reps=16, pair=True)),  # probe_gather2 p5
+    ("repeat", (512, 16), dict(reps=16)),         # #2, p5b
+    ("repeat", (1001, 7), dict(reps=3)),
+    ("reshape", (128, 128), dict(shape=(1024, 16))),   # p2
+    ("reshape", (1232, 128), dict(shape=(9856, 16))),
+    ("reshape", (33, 7), dict(shape=(7, 33))),
+    ("transpose", (16, 128), {}),                 # p3
+    ("transpose", (16, 9857), {}),
+    ("select", (8192, 27), dict(k=16, lanes=256)),     # #7, h
+    ("select", (1001 * 8, 27), dict(k=8, lanes=64)),
+    ("select", (37 * 4, 12), dict(k=4, lanes=29)),
+])
+@pytest.mark.parametrize("dtype", FRAGMENT_DTYPES)
+def test_relayout_kernel_matches_plain(cuda_device, mode, shape, kw, dtype):
+    """relayout against relayout_torch, bit for bit, and against the
+    library's copy where one call computes it; one launch per call."""
+    rng = np.random.RandomState(sum(shape) * 7 + len(kw))
+    x = torch.as_tensor(rng.randn(*shape), dtype=dtype, device=cuda_device)
+    launches = fragments.relayout.launches
+    out = fragments.relayout(x, mode, **kw)
+    torch.cuda.synchronize()
+    assert fragments.relayout.launches == launches + 1
+    assert probe_mosaic.same(out, fragments.relayout_torch(x, mode, **kw))
+    library = {"tile": lambda: x.repeat(1, kw.get("reps", 1)),
+               "repeat": lambda: x.repeat_interleave(kw.get("reps", 1), 1),
+               "reshape": lambda: x.reshape(kw.get("shape")),
+               "transpose": lambda: x.t()}.get(mode)
+    if library is not None:
+        for got in (out if isinstance(out, tuple) else (out,)):
+            assert torch.equal(got, library())
+
+
+def _contract_operands(mode, rows, k, dtype, device, seed):
+    rng = np.random.RandomState(seed)
+    if mode == "matmul":
+        x = torch.as_tensor(rng.randn(rows, k), dtype=dtype, device=device)
+        w = torch.as_tensor(rng.randn(k, 27 if k == 3 else 13),
+                            dtype=dtype, device=device)
+        return x, w
+    return torch.as_tensor(rng.randn(rows, k * k), dtype=dtype,
+                           device=device), None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode, rows, k", [
+    ("sum_axis2", 512, 16), ("sum_axis2", 1001, 8),    # #8
+    ("sum_axis1", 512, 16), ("sum_axis1", 1001, 8),    # #9
+    ("matmul", 8192, 3), ("matmul", 1001, 5),          # #6
+])
+@pytest.mark.parametrize("dtype", FRAGMENT_DTYPES)
+def test_lane_contract_kernel_matches_plain(cuda_device, mode, rows, k,
+                                            dtype):
+    """lane_contract against lane_contract_torch within 1e-6 (float32) of
+    the sum of its terms' magnitudes, as the library's sums and product
+    (TF32 off); one launch per call."""
+    x, w = _contract_operands(mode, rows, k, dtype, cuda_device, rows + k)
+    launches = fragments.lane_contract.launches
+    out = fragments.lane_contract(x, mode, w)
+    torch.cuda.synchronize()
+    assert fragments.lane_contract.launches == launches + 1
+    ref = fragments.lane_contract_torch(x, mode, w)
+    scale = fragments.lane_contract_torch(
+        x.abs(), mode, None if w is None else w.abs())
+    assert bool(((out - ref).abs() <= CONTRACT_TOL[dtype] * scale).all())
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        library = x @ w if mode == "matmul" else x.view(
+            rows, k, k).sum(2 if mode == "sum_axis2" else 1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert bool(((library - ref).abs() <= CONTRACT_TOL[dtype] * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode, rows, k", [
+    ("sum_axis2", 1001, 16), ("sum_axis1", 1001, 16), ("matmul", 8192, 3)])
+@pytest.mark.parametrize("dtype", FRAGMENT_DTYPES)
+def test_lane_contract_kernel_rounds_as_plain(cuda_device, mode, rows, k,
+                                              dtype):
+    """The kernel rounds each product and each sum once, in t order, as
+    the plain version's torch operations do: the results are equal bit
+    for bit."""
+    x, w = _contract_operands(mode, rows, k, dtype, cuda_device, 3 * rows)
+    out = fragments.lane_contract(x, mode, w)
+    assert torch.equal(out, fragments.lane_contract_torch(x, mode, w))
+
+
+def _map_operands(op, shape, dtype, device, seed):
+    """The probe's draws (normal values, indices in [0, 9)) with zeros,
+    infinities, NaN, subnormals, huge values and indices outside [0, 9)
+    at random places."""
+    rng = np.random.RandomState(seed)
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    x = rng.randn(*shape).astype(np_dtype)
+    edges = [0.0, -0.0, np.inf, -np.inf, np.nan, 1e30, -1.6, 2.0,
+             np.finfo(np_dtype).max, 1e-20, np.finfo(np_dtype).tiny / 3,
+             -np.finfo(np_dtype).tiny / 7]
+    places = rng.permutation(x.size)[:3 * len(edges)]
+    x.reshape(-1)[places] = np.resize(np.asarray(edges, np_dtype),
+                                      places.size)
+    idx = rng.randint(0, 9, size=shape).astype(np.int32)
+    idx.reshape(-1)[rng.permutation(idx.size)[:24]] = np.resize(
+        [-1, 9, 11, 12, 2 ** 31 - 1, -2 ** 31], 24)
+    kw = {"x": torch.as_tensor(x, device=device),
+          "idx": torch.as_tensor(idx, device=device),
+          "grid": torch.as_tensor(rng.randn(9, 9, 15), dtype=dtype,
+                                  device=device)}
+    if op == "onehot_count":
+        return dict(idx=kw["idx"], dtype=dtype)
+    return {name: kw[name] for name in ("x", "idx", "grid")
+            if name == "x" or (name == "idx" and op == "onehot_sum")
+            or (name == "grid" and op == "grid3")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", list(fragments.LANE_MAP_OPS))
+@pytest.mark.parametrize("shape", [(512, 256), (1001, 37)])
+@pytest.mark.parametrize("dtype", FRAGMENT_DTYPES)
+def test_lane_map_kernel_matches_plain(cuda_device, op, shape, dtype):
+    """lane_map against lane_map_torch bit for bit (NaN where it gives
+    NaN), edge inputs included: every operation rounds once, subnormals
+    are kept, sqrt and division are IEEE; one launch per call."""
+    kw = _map_operands(op, shape, dtype, cuda_device, shape[0] + len(op))
+    launches = fragments.lane_map.launches
+    out = fragments.lane_map(op, **kw)
+    torch.cuda.synchronize()
+    assert fragments.lane_map.launches == launches + 1
+    assert probe_mosaic.same(out, fragments.lane_map_torch(op, **kw))
+
+
+@pytest.mark.cuda
+def test_fragment_kernels_reject_bad_operands(cuda_device):
+    """A wrong dtype, a shape the mode does not take, operands on two
+    devices and too wide a weight raise before any launch; an empty
+    output launches nothing."""
+    x = torch.zeros((8, 16), device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        fragments.relayout(x.half(), "tile", reps=2)
+    with pytest.raises(ValueError, match="select takes"):
+        fragments.relayout(x, "select", k=3, lanes=4)
+    with pytest.raises(ValueError, match="different devices"):
+        fragments.lane_contract(torch.zeros((8, 3), device=cuda_device),
+                                "matmul", torch.zeros((3, 27)))
+    with pytest.raises(ValueError, match="shared memory"):
+        fragments.lane_contract(torch.zeros((8, 3), device=cuda_device),
+                                "matmul", torch.zeros((3, 5000),
+                                                      device=cuda_device))
+    with pytest.raises(ValueError, match="different devices"):
+        fragments.lane_map("onehot_sum", x,
+                           idx=torch.zeros((8, 16), dtype=torch.int32))
+    with pytest.raises(TypeError, match="int32 indices"):
+        fragments.lane_map("onehot_count", idx=x.long())
+    counts = [fn.launches for fn in fragments.KERNELS.values()]
+    assert fragments.relayout(x[:0], "tile", reps=4).shape == (0, 64)
+    assert fragments.lane_contract(x[:0], "sum_axis2").shape == (0, 4)
+    assert fragments.lane_map("rchain", x[:0]).shape == (0, 16)
+    assert counts == [fn.launches for fn in fragments.KERNELS.values()]
+
+
 # -- the build -----------------------------------------------------------------
 FAKE_NVCC = """#!/bin/sh
 echo "$@" >> "{log}"
@@ -1219,8 +1400,9 @@ done
 
 def test_build_tracks_sources_and_headers(tmp_path, monkeypatch):
     """The library is rebuilt when a source or a header is newer than
-    it, by one nvcc call over every source (a stand-in nvcc that logs
-    its arguments and touches its output), and not otherwise."""
+    it, by one nvcc per source, started together, and one link of their
+    objects (a stand-in nvcc that logs its arguments and touches its
+    output), and not otherwise; no object is left behind."""
     csrc, build = tmp_path / "csrc", tmp_path / "build"
     csrc.mkdir()
     for name in ("a.cu", "b.cu", "common.cuh"):
@@ -1234,11 +1416,17 @@ def test_build_tracks_sources_and_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "LIBRARY", str(build / "lib.so"))
     monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
     assert _build.build()["built"]
-    call = log.read_text().split()
-    assert call[-2:] == [str(csrc / "a.cu"), str(csrc / "b.cu")]
+    calls = [line.split() for line in log.read_text().splitlines()]
+    compiles, link = calls[:2], calls[2]
+    assert sorted(c[-1] for c in compiles) == [str(csrc / "a.cu"),
+                                               str(csrc / "b.cu")]
+    assert all("-c" in c and "-shared" not in c for c in compiles)
+    assert "-shared" in link
+    assert sorted(link[-2:]) == sorted(c[c.index("-o") + 1]
+                                       for c in compiles)
     assert os.listdir(build) == ["lib.so"]
     assert not _build.build()["built"]
     later = time.time() + 100
     os.utime(csrc / "common.cuh", (later, later))
     assert _build.build()["built"]
-    assert len(log.read_text().splitlines()) == 2
+    assert len(log.read_text().splitlines()) == 6

@@ -7,11 +7,14 @@ artifact directory.
 Device times come from CUDA graphs: ``SCAN_LEN`` bodies chained (each
 takes the previous one's output, as the JAX scripts' ``lax.scan``
 chains them) are captured in one graph and replayed between CUDA
-events, so that no host cost enters them.  Host times run the same
+events, so that no host cost enters them.  ``graph_cold_ms`` gives each
+call its own copy of the operands, so that they come from device memory
+and not from the L2 cache.  Host times run the same
 chain eagerly, ended by a synchronize.  A time is never divided by a
 chain length it was not measured over.
 """
 
+import itertools
 import json
 import os
 import subprocess
@@ -25,6 +28,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 ARTIFACTS = os.path.join(REPO, "benchmarks_data", "artifacts_torch")
 SCAN_LEN = 30
+L2_BYTES = 50 * 2 ** 20   # the H100's L2 cache (data sheet)
 
 
 def chain(fn, x, length: int):
@@ -75,6 +79,29 @@ def graph_ms(fn, repeats: int = SCAN_LEN, replays: int = 10) -> float:
         return x
 
     return graph_chain_ms(body, None, repeats, replays=replays)
+
+
+def graph_cold_ms(fn, operand_sets, replays: int = 10) -> float:
+    """Mean device ms of one call ``fn(*operands)`` on operands that the
+    L2 cache does not hold: ``max(SCAN_LEN, len(operand_sets))`` calls in
+    one CUDA graph, each on the next of ``operand_sets`` in turn (copies
+    at their own addresses, which together pass the cache:
+    ``cold_copies``), replayed ``replays`` times.  ``graph_ms`` repeats
+    one set of operands, which then stay in the cache."""
+    turn = itertools.count()
+
+    def body(x):
+        fn(*operand_sets[next(turn) % len(operand_sets)])
+        return x
+
+    return graph_chain_ms(body, None, max(SCAN_LEN, len(operand_sets)),
+                          replays=replays)
+
+
+def cold_copies(n_bytes: int, most: int = 128) -> int:
+    """How many copies of operands that move ``n_bytes`` per call pass
+    twice the card's L2 cache together (at least 1, at most ``most``)."""
+    return max(1, min(most, -(-2 * L2_BYTES // max(n_bytes, 1))))
 
 
 def host_chain_ms(fn, x0, length: int = SCAN_LEN, repeats: int = 3) -> float:

@@ -1,6 +1,7 @@
 """
 Build and load the package's CUDA kernels: ``nvcc`` compiles every
-``csrc/*.cu`` for sm_90a into one shared library with a plain C
+``csrc/*.cu`` for sm_90a (one compiler process per source, all started
+together) and links the objects into one shared library with a plain C
 interface under ``build/`` (at first use, not at import), loaded with
 ``ctypes``.  Pointers and the stream pass as ``c_void_p``; each C entry
 returns ``cudaGetLastError()`` after its launch.
@@ -17,8 +18,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 LIBRARY = os.path.join(BUILD, "libuf3_kernels.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas", "-v", "-c"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +49,16 @@ _L = ctypes.c_longlong
 _SIGNATURES["uf3_gather_rows"] = [_P] * 3 + [_L] + [_I] * 3 + [_P]
 _SIGNATURES["uf3_gather_lanes"] = [_P] * 3 + [_L] + [_I] * 4 + [_P]
 _SIGNATURES["uf3_rev_gather"] = [_P] * 4 + [_L] + [_I] * 4 + [_P]
+# uf3_relayout(x, out, out2, n, max_offset, mode, in_cols, out_cols, k, w,
+#   offset, elem_bytes, stream); uf3_lane_contract(x, w, out, n,
+#   max_offset, cols_out, terms, in_cols, sj, st, is_f64, stream);
+#   uf3_lane_map(op, x, idx, grid, out, out2, n, n_classes, g_s0, g_s1,
+#   is_f64, stream)
+_SIGNATURES["uf3_relayout"] = [_P] * 3 + [_L, _L, _I, _L, _L] + [_I] * 4 \
+    + [_P]
+_SIGNATURES["uf3_lane_contract"] = [_P] * 3 + [_L] * 3 + [_I] + [_L] * 3 \
+    + [_I, _P]
+_SIGNATURES["uf3_lane_map"] = [_I] + [_P] * 5 + [_L] + [_I] * 4 + [_P]
 
 _loaded = {}  # the library handle once loaded in this process
 
@@ -75,16 +87,49 @@ def build(force: bool = False) -> dict:
         return {"seconds": 0.0, "log": "", "built": False}
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    cmd = [nvcc_path()] + NVCC_FLAGS + ["-o", tmp] + sources
+    objects = [os.path.join(BUILD, f"{os.path.basename(src)}.{os.getpid()}.o")
+               for src in sources]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    compiles = []
+    try:
+        for src, obj in zip(sources, objects):
+            cmd = [nvcc] + COMPILE_FLAGS + ["-o", obj, src]
+            compiles.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = []
+        for cmd, proc in compiles:
+            out = proc.communicate(timeout=900)[0]
+            log.append(out)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{out}")
+        cmd = [nvcc] + ARCH_FLAGS + ["-shared", "-o", tmp] + objects
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+    finally:
+        for _, running in compiles:
+            if running.poll() is None:
+                running.kill()
+                running.wait()
+        for obj in objects:
+            if os.path.exists(obj):
+                os.remove(obj)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, LIBRARY)
-    return {"seconds": seconds, "log": proc.stdout + proc.stderr,
-            "built": True}
+    return {"seconds": seconds, "log": "".join(log) + proc.stdout
+            + proc.stderr, "built": True}
+
+
+def launch(name: str, fn, *args):
+    """Call the C entry ``fn`` and raise if it returns a CUDA error (or
+    -1 for arguments it does not take)."""
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def library() -> ctypes.CDLL:

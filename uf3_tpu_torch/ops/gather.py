@@ -106,11 +106,6 @@ def _sizes(values, index):
     return values.element_size(), index.element_size()
 
 
-def _launch(name: str, fn, *args):
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-
 
 def gather_rows(table, idx):
     """Rows of the (R, W) ``table`` at the indices ``idx`` (any shape):
@@ -130,9 +125,9 @@ def gather_rows(table, idx):
         return out
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
-        _launch("gather_rows", _build.library().uf3_gather_rows,
-                table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                idx.numel(), w, *_sizes(table, idx), stream)
+        _build.launch("gather_rows", _build.library().uf3_gather_rows,
+                      table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                      idx.numel(), w, *_sizes(table, idx), stream)
     gather_rows.launches += 1
     return out
 
@@ -156,9 +151,9 @@ def gather_lanes(t, li):
         return out
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
-        _launch("gather_lanes", _build.library().uf3_gather_lanes,
-                t.data_ptr(), li.data_ptr(), out.data_ptr(), li.shape[0],
-                li.shape[1], t.shape[1], *_sizes(t, li), stream)
+        _build.launch("gather_lanes", _build.library().uf3_gather_lanes,
+                      t.data_ptr(), li.data_ptr(), out.data_ptr(), li.shape[0],
+                      li.shape[1], t.shape[1], *_sizes(t, li), stream)
     gather_lanes.launches += 1
     return out
 
@@ -190,10 +185,10 @@ def rev_gather(part, idx, rev):
         return out
     with torch.cuda.device(part.device):
         stream = torch.cuda.current_stream(part.device).cuda_stream
-        _launch("rev_gather", _build.library().uf3_rev_gather,
-                part.data_ptr(), idx.data_ptr(), rev.data_ptr(),
-                out.data_ptr(), idx.numel(), w, kp, *_sizes(part, idx),
-                stream)
+        _build.launch("rev_gather", _build.library().uf3_rev_gather,
+                      part.data_ptr(), idx.data_ptr(), rev.data_ptr(),
+                      out.data_ptr(), idx.numel(), w, kp, *_sizes(part, idx),
+                      stream)
     rev_gather.launches += 1
     return out
 
@@ -207,18 +202,23 @@ PLAIN = {"rows": gather_rows_torch, "lanes": gather_lanes_torch,
          "rev": rev_gather_torch}
 
 
+def sector_bytes(values, offsets) -> int:
+    """The bytes of ``values`` in the 32-byte sectors that the flat
+    ``offsets`` reach (the card reads memory in sectors), counted from the
+    tensor's start, which the allocator aligns to a sector; at most all
+    of ``values``."""
+    size = values.element_size()
+    sectors = torch.unique(offsets.reshape(-1) * size // SECTOR).numel()
+    return min(sectors * SECTOR, values.numel() * size)
+
+
 def gather_bytes(kind: str, out, values, *indices) -> int:
     """The bytes one gather of ``kind`` ("rows", "lanes" or "rev") must
     move on these operands: the indices read once, the output written
-    once, and of the table only the 32-byte sectors that these indices
-    reach (the card reads memory in sectors), counted from this data and
-    from the table's start, which the allocator aligns to a sector; at
-    most the whole table."""
-    sectors = torch.unique(OFFSETS[kind](values, *indices)
-                           * values.element_size() // SECTOR).numel()
-    table = min(sectors * SECTOR, values.numel() * values.element_size())
-    return table + sum(t.numel() * t.element_size() for t in (out,)
-                       + indices)
+    once, and of the table only the sectors that these indices reach
+    (``sector_bytes``)."""
+    return sector_bytes(values, OFFSETS[kind](values, *indices)) + sum(
+        t.numel() * t.element_size() for t in (out,) + indices)
 
 
 def gather_bound(kind: str, out, values, *indices):

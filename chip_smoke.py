@@ -149,15 +149,9 @@ from uf3_tpu_torch.representation.knots import \
     get_knot_spacer as knot_spacer  # noqa: E402
 from uf3_tpu_torch.util import tracing, user_config  # noqa: E402
 
-MODEL = os.path.join(REPO, "benchmarks_data", "model_2and3.json")
-BENCH = dict(rebuild_every=36, skin=0.5, skin_2b=1.2, capacity_2b=72,
-             capacity_3b=16, n_respa=12, respa_mid=6,
-             respa_switch=(2.5, 3.5))
-# the melting protocol's cell and engine settings
-# (benchmarks/melting_run.py:101-106, 259)
-PROTOCOL = dict(rebuild_every=16, skin=0.6, skin_2b=1.2, capacity_2b=88,
-                capacity_3b=20)
-PROTOCOL_REPS = (48, 18, 18)
+# the bench engine, and the melting protocol's cell and engine settings
+MODEL, BENCH = common.MODEL, common.BENCH
+PROTOCOL, PROTOCOL_REPS = common.PROTOCOL, common.PROTOCOL_REPS
 STAGE_STEPS = 256  # per stage (the protocol runs 2,000-10,000)
 STAGE_FRICTION = 10.0  # 1/ps, the protocol's stage 2, in every stage
 STAGE_T_BAND = 0.1   # mean mobile T within 10% of the stage's target
@@ -429,24 +423,46 @@ def compare_trio(device):
                                        (k32[2], d32, v32))
                     bound_ms, bound_by, flop, n_bytes = trio_bound(
                         pot32, d32, v32, with_energy)
-                    occ = trio.trio_occupancy(pot32, k, with_energy)
+                    occ = trio.trio_occupancy(pot32, k, with_energy,
+                                              n_atoms=len(geom))
+                    before = TRIO_MS_BEFORE[f"K{k}"]
                     print(f"trio bound at N={len(geom)}, K={k}: "
                           f"{flop:.4g} flop, {n_bytes:.4g} bytes -> "
                           f"{bound_ms:.5f} ms ({bound_by}); kernel reaches "
-                          f"{100 * bound_ms / kernel_ms:.1f}% of it")
-                    print(f"trio launch plan (f32, K={k}): {occ}")
+                          f"{100 * bound_ms / kernel_ms:.1f}% of it; "
+                          f"{kernel_ms:.4f} ms beside {before:.4f} before "
+                          f"(PERF.md); card: {card_line()}")
+                    print(f"trio launch plan (f32, K={k}): {plan_line(occ)}")
                     records[f"K{k}"] = dict(
                         max_abs_err=err32, ms=kernel_ms, plain_ms=twin_ms,
-                        bound_ms=bound_ms, bound_by=bound_by,
-                        library_ms=None, n_atoms=len(geom),
-                        registers=occ["registers"],
-                        warps_per_sm=occ["warps_per_sm"])
-    for k in (16, 32):
-        print(f"trio launch plan (f64, KMAX={k}): "
-              f"{trio.trio_occupancy(grids['bench'], k)}")
+                        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                        n_atoms=len(geom), registers=occ["registers"],
+                        warps_per_sm=occ["warps_per_sm"],
+                        grid=occ["grid"], local_bytes=occ["local_bytes"])
+    plans = {(dtype, k, tri, energy): trio.trio_occupancy(
+        copy.deepcopy(grids["bench"]).to(device=device, dtype=dtype), k,
+        energy, tri, n_atoms=9826)
+        for dtype in (torch.float32, torch.float64) for k in (16, 32)
+        for tri in (False, True) for energy in (False, True)}
+    for (dtype, k, tri, energy), occ in plans.items():
+        print(f"trio launch plan ({str(dtype)[6:]}, KMAX={k}, "
+              f"{'triangle' if tri else 'full'} lanes, "
+              f"{'with' if energy else 'no'} energy, 9,826 atoms): "
+              f"{plan_line(occ)}")
+    gate("trio launch plans", {"no spills in any instance": all(
+        occ["local_bytes"] == 0 for occ in plans.values())})
     if sorted(records) != ["K16", "K20", "K23"]:
         raise AssertionError(f"unexpected 3-body slot counts {records}")
     return records
+
+
+def plan_line(occ) -> str:
+    """A launch plan of ``trio.trio_occupancy`` in one line."""
+    return (f"grid {occ['grid']} blocks of {occ['atoms_per_block']} atoms "
+            f"({occ['blocks_per_sm']} blocks, {occ['warps_per_sm']} warps "
+            f"per SM, {occ['sms']} SMs), {occ['smem_bytes']} B shared, "
+            f"{occ['registers']} registers, {occ['local_bytes']} B local "
+            "(spills)")
 
 
 def compare_virial(geom, k, twin64, kernel64, kernel32):
@@ -486,28 +502,14 @@ def compare_triangle(device):
     full; the mean of each pair), the plain version eagerly, each
     layout's bound and launch plan.  Returns the records by slot count."""
     records = {}
-    for reps, rattle, engine, model in (
-            ((17, 17, 17), None, BENCH, MODEL),
-            ((17, 17, 17), None, {}, MODEL),
-            (PROTOCOL_REPS, None, PROTOCOL, MODEL),
-            ((17, 17, 17), 0.05, dict(skin=0.5, capacity_3b=32),
-             long_trio_model())):
-        geom = bench_geometry(reps, rattle)
-        system = MDSystem(model, geom, dtype=torch.float64, device=device,
-                          **engine)
-        state = system.init_state(temperature=T_TARGET, seed=0)
-        nbr = state.nbr3
-        cache = nb.list_cache(nbr, system.cell, torch.float64)
-        d64 = nb.cached_displacements(state.positions, nbr, cache)
-        v64, k = cache.valid, d64.shape[1]
-        pot64 = system.potential
+    for pot64, d64, v64, rev_flat, mask in common.trio_rows(device).values():
+        k, n = d64.shape[1], d64.shape[0]
         assert pot64.trio.symmetric
         pot32 = copy.deepcopy(pot64).to(dtype=torch.float32)
         d32, v32 = d64.float(), v64.float()
 
         def forces(out, d):
-            return trio.assemble_forces(*out, d, cache.rev_flat,
-                                        nbr.mask)[1]
+            return trio.assemble_forces(*out, d, rev_flat, mask)[1]
 
         errs = dict(plain64=0.0, plain32=0.0, full_e=0.0, full_f=0.0,
                     virial=0.0)
@@ -545,17 +547,20 @@ def compare_triangle(device):
         bound = trio_bound(pot32, d32, v32, False, triangle=True)
         bound_full = trio_bound(pot32, d32, v32, False)
         least = min(bound[0], bound_full[0])
-        occ = trio.trio_occupancy(pot32, k, False, triangle=True)
-        occ_full = trio.trio_occupancy(pot32, k, False)
-        occ64 = trio.trio_occupancy(pot64, k, True, triangle=True)
-        print(f"trio triangle N={len(geom)} K={k}: vs plain f64 "
+        occ = trio.trio_occupancy(pot32, k, False, triangle=True, n_atoms=n)
+        occ_full = trio.trio_occupancy(pot32, k, False, n_atoms=n)
+        occ64 = trio.trio_occupancy(pot64, k, True, triangle=True,
+                                    n_atoms=n)
+        before = TRIO_MS_BEFORE[f"triangle K{k}"]
+        print(f"trio triangle N={n} K={k}: vs plain f64 "
               f"{errs['plain64']:.3e} (<= {F64_TOL:g}), f32 max |dF| "
               f"{errs['plain32']:.3e} eV/A (<= {FORCE_TOL:g}); vs full "
               f"lanes f64 |dE| {errs['full_e']:.3e}, |dF| "
               f"{errs['full_f']:.3e} (<= {F64_TOL:g}), virial "
               f"{errs['virial']:.3e} relative (<= {VIRIAL_F64_TOL:g})")
-        print(f"trio triangle N={len(geom)} K={k}, f32 no energy: triangle "
-              f"{tri_ms:.4f} ms ({tri_a:.4f}, {tri_b:.4f}), full lanes "
+        print(f"trio triangle N={n} K={k}, f32 no energy: triangle "
+              f"{tri_ms:.4f} ms ({tri_a:.4f}, {tri_b:.4f}; {before:.4f} "
+              f"before, PERF.md), full lanes "
               f"{full_ms:.4f} ms ({full_a:.4f}, {full_b:.4f}) (graph "
               f"replay, full/triangle/triangle/full); plain triangle "
               f"{plain_ms:.4f} ms (eager); bounds: triangle {bound[0]:.5f} "
@@ -563,8 +568,9 @@ def compare_triangle(device):
               f"full {bound_full[0]:.5f} ms ({bound_full[2]:.4g} flop); "
               f"reached of the smaller: triangle "
               f"{100 * least / tri_ms:.1f}%, full {100 * least / full_ms:.1f}%"
-              f"; plans: triangle {occ}, full {occ_full}, triangle f64 with "
-              f"energy {occ64}; card: {card_line()}")
+              f"; plans: triangle {plan_line(occ)}; full {plan_line(occ_full)};"
+              f" triangle f64 with energy {plan_line(occ64)}; card: "
+              f"{card_line()}")
         gate(f"trio triangle K={k}", {
             f"plain version, f64 within {F64_TOL:g}":
                 errs["plain64"] <= F64_TOL,
@@ -582,7 +588,7 @@ def compare_triangle(device):
             virial_err_f64=errs["virial"], ms=tri_ms, full_ms=full_ms,
             plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
             full_bound_ms=bound_full[0], least_bound_ms=least,
-            library_ms=None, n_atoms=len(geom),
+            library_ms=None, n_atoms=n,
             registers=occ["registers"], warps_per_sm=occ["warps_per_sm"],
             local_bytes=occ["local_bytes"],
             full_registers=occ_full["registers"],
@@ -1491,18 +1497,6 @@ def species23_model(elements=("Ne", "Xe")):
     return io.FittedModel(basis, coefficients)
 
 
-def long_trio_model():
-    """Unary W whose 3-body cutoff passes its 2-body cutoff: pair r
-    1.5-3.0 A in 8 intervals, trio legs up to (4, 4, 8) A in (6, 6, 12),
-    coefficients from RandomState(0) at scale 0.05."""
-    basis = BSplineBasis(
-        ChemicalSystem(["W"], degree=3), r_min_map={("W", "W"): 1.5},
-        r_max_map={("W", "W"): 3.0, ("W", "W", "W"): [4.0, 4.0, 8.0]},
-        resolution_map={("W", "W"): 8, ("W", "W", "W"): [6, 6, 12]})
-    return io.FittedModel(basis, np.random.RandomState(0).normal(
-        scale=0.05, size=sum(basis.partition_sizes)))
-
-
 def card_vs_cpu(name, model, geom, device, n_steps, dt_fs):
     """The engine on the card against its own CPU run, float64, from the
     same inputs: entry energy, forces and virial, then ``n_steps`` NVE
@@ -1657,7 +1651,7 @@ def run_separate_3body(device):
     at 300 K (3 x 720 steps after 144).  Returns (kernel record,
     launches, atom-steps/s, stale)."""
     name = "3-body cutoff beyond the 2-body cutoff (separate route)"
-    model = long_trio_model()
+    model = common.long_trio_model()
     engine = dict(skin=0.5, capacity_3b=32)
     geom = bench_geometry((17, 17, 17), rattle=0.05)
     system64 = MDSystem(model, geom, dtype=torch.float64, device=device,
@@ -1685,15 +1679,17 @@ def run_separate_3body(device):
     twin_ms = cuda_ms(lambda: trio.trio_partials_torch(
         d32, v32, pot32.grid, pot32.trio, False), 5)
     bound_ms, bound_by, flop, n_bytes = trio_bound(pot32, d32, v32, False)
-    occ = trio.trio_occupancy(pot32, 32, False)
+    occ = trio.trio_occupancy(pot32, 32, False, n_atoms=len(geom))
+    before = TRIO_MS_BEFORE["K32-separate"]
     k = d64.shape[1]
     print(f"trio separate list N={len(geom)} K={k} (valid slots "
           f"{int(v64.sum(1).min())}-{int(v64.sum(1).max())}): f64 max err "
           f"{err64:.3e} (<= {F64_TOL:g}), f32 max |dF| {err32:.3e} eV/A "
           f"(<= {FORCE_TOL:g}); f32 kernel {kernel_ms:.4f} ms (graph "
-          f"replay), twin {twin_ms:.4f} ms (eager); bound {flop:.4g} flop, "
-          f"{n_bytes:.4g} bytes -> {bound_ms:.5f} ms ({bound_by}), "
-          f"{100 * bound_ms / kernel_ms:.1f}% of it; launch plan {occ}")
+          f"replay; {before:.4f} before, PERF.md), twin {twin_ms:.4f} ms "
+          f"(eager); bound {flop:.4g} flop, {n_bytes:.4g} bytes -> "
+          f"{bound_ms:.5f} ms ({bound_by}), {100 * bound_ms / kernel_ms:.1f}%"
+          f" of it; launch plan {plan_line(occ)}; card: {card_line()}")
     record = dict(max_abs_err=err32, ms=kernel_ms, plain_ms=twin_ms,
                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                   n_atoms=len(geom), registers=occ["registers"],
@@ -1760,7 +1756,17 @@ def run_fused_separate(device):
 
 # -- the fused multi-species route at full width, and the rebuild schedules
 GATED_MS_BEFORE = 0.2200  # the 8 per-type launches it replaced (PERF.md)
-UNARY_K16_MS_BEFORE = 0.0373  # the unary kernel at K = 16 (PERF.md)
+MULTI_MS_BEFORE = 0.0817  # the one launch at 8,788 atoms (PERF.md)
+# the unary trio kernel's times before its rows by live rank and its
+# persistent blocks (PERF.md section 6; f32, no energy, graph replay, but
+# the float64 calculator rows with energy): full lanes by list, triangle
+# lanes, the halo rows with their center weight
+TRIO_MS_BEFORE = {"K16": 0.0369, "K23": 0.0600, "K20": 0.1704,
+                  "K32-separate": 0.0850, "triangle K16": 0.0372,
+                  "triangle K23": 0.0513, "triangle K20": 0.1450,
+                  "triangle K32": 0.1391, "halo weighted": 0.0617,
+                  "halo weighted, triangle": 0.0569, "calculator f64": 0.0764}
+UNARY_K16_MS_BEFORE = TRIO_MS_BEFORE["K16"]
 # the halo chunk's rate beside the single device's before the halo path
 # took the triangle lanes, atom-steps/s (PERF.md section 5, two runs)
 HALO_FULL_LANES = {"run 2": (5764357.7, 6708873.0),
@@ -1893,7 +1899,8 @@ def compare_multi(name, system64: MDSystem, state, geom):
           f"{plain_ms:.4f} ms (eager); bound {flop:.4g} flop, {n_bytes:.4g} "
           f"bytes -> {bound_ms:.5f} ms ({bound_by}), {share:.1f}% of it; "
           f"before, 8 gated launches on the 8,788-atom binary "
-          f"cell: {GATED_MS_BEFORE:.4f} ms; card: {card}")
+          f"cell: {GATED_MS_BEFORE:.4f} ms, the one launch there "
+          f"{MULTI_MS_BEFORE:.4f} ms (PERF.md); card: {card}")
     brief = {key: (f"{p['registers']} regs, {p['atoms_per_block']} warps x "
                    f"{p['blocks_per_sm']} blocks/SM, {p['smem_bytes']} B "
                    f"shared, {p['local_bytes']} B local")
@@ -2266,7 +2273,11 @@ def calculator_kernel_f64(calc, geom):
         d, valid, pot.grid, pot.trio, True), 3)
     bound_ms, bound_by, flop, n_bytes = trio_bound(pot, d, valid, True,
                                                    peak=PEAK_F64_FLOPS)
-    occ = trio.trio_occupancy(pot, d.shape[1], True)
+    occ = trio.trio_occupancy(pot, d.shape[1], True, n_atoms=len(geom))
+    print(f"trio f64 with energy, calculator rows (N={len(geom)}, K="
+          f"{d.shape[1]}): {ms:.4f} ms beside "
+          f"{TRIO_MS_BEFORE['calculator f64']:.4f} before (PERF.md); plan "
+          f"{plan_line(occ)}; card: {card_line()}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, flop=flop,
                 bytes=n_bytes, n_atoms=len(geom), k=d.shape[1],
@@ -3600,16 +3611,21 @@ def compare_trio_weighted(device, system32: MDSystem, mesh):
         pot32, d32[live], v32[live], False, extra_bytes=extra)
     bound_tri = trio_bound(pot32, d32[live], v32[live], False,
                            extra_bytes=extra, triangle=True)
-    occ = trio.trio_occupancy(pot32, d32.shape[1], False)
+    occ = trio.trio_occupancy(pot32, d32.shape[1], False,
+                              n_atoms=d32.shape[0])
     print(f"trio weighted launch (f32, no energy) on the halo rows: "
-          f"{weighted_ms:.4f} ms (graph replay) beside {unweighted_ms:.4f} "
+          f"{weighted_ms:.4f} ms (graph replay; "
+          f"{TRIO_MS_BEFORE['halo weighted']:.4f} before, triangle "
+          f"{TRIO_MS_BEFORE['halo weighted, triangle']:.4f}, PERF.md) beside "
+          f"{unweighted_ms:.4f} "
           f"ms unweighted on the same {d32.shape[0]} rows, triangle lanes "
           f"(the halo path's) weighted {triangle_ms:.4f} ms, bound "
           f"{bound_tri[0]:.5f} ms ({bound_tri[1]}; {bound_tri[2]:.4g} "
           f"flop); plain "
           f"{plain_ms:.4f} ms; bound over the {int(live.sum())} rows of "
           f"nonzero weight and the zero rows' writes {bound_ms:.5f} ms ({bound_by}; {flop:.4g} flop, "
-          f"{n_bytes:.4g} bytes); launch plan {occ}; card: {card_line()}")
+          f"{n_bytes:.4g} bytes); launch plan {plan_line(occ)}; card: "
+          f"{card_line()}")
     gate("trio weighted", {
         f"f64 within {F64_TOL:g}": max(e[0] for e in errs.values())
             <= F64_TOL,

@@ -51,14 +51,17 @@ also runs on a GPU host without it:
 """
 
 import copy
+import glob
 import os
+import shutil
 import time
 
 import numpy as np
 import pytest
 import torch
 
-from uf3_tpu_torch.benchmarks import probe_mosaic
+from uf3_tpu_torch.benchmarks import kernel_variants, probe_mosaic
+from uf3_tpu_torch.benchmarks.common import long_trio_model
 from uf3_tpu_torch.data.atoms import bulk
 from uf3_tpu_torch.forcefield.md import MDSystem
 from uf3_tpu_torch.ops import _build, fragments, gather, multi
@@ -585,19 +588,94 @@ def test_trio_kernel_triangle_capacity_one_and_plan(rows, cuda_device):
                 assert tri["blocks_per_sm"] >= 1
 
 
-def long_trio_model():
-    """A unary W model whose 3-body cutoff (4 A) passes its 2-body
-    cutoff (3 A): the engine builds its 3-body list on its own and runs
-    the trio kernel on it (the separate route)."""
-    from uf3_tpu_torch import io
-    from uf3_tpu_torch.data.composition import ChemicalSystem
-    from uf3_tpu_torch.representation.basis import BSplineBasis
-    basis = BSplineBasis(
-        ChemicalSystem(["W"], degree=3), r_min_map={("W", "W"): 1.5},
-        r_max_map={("W", "W"): 3.0, ("W", "W", "W"): [4.0, 4.0, 8.0]},
-        resolution_map={("W", "W"): 8, ("W", "W", "W"): [6, 6, 12]})
-    return io.FittedModel(basis, np.random.RandomState(0).normal(
-        scale=0.05, size=sum(basis.partition_sizes)))
+LIVE_COUNTS = [(16, 0), (16, 1), (16, 2), (16, 16),
+               (32, 0), (32, 1), (32, 2), (32, 16), (32, 17)]
+
+
+def _live_rows(d, valid, k, p, seed):
+    """The rows widened to ``k`` slots (``_stretched``) with exactly ``p``
+    live slots per atom, scattered at random places (holes between
+    them, in any order)."""
+    d, _ = _stretched(d, valid, k)
+    rng = np.random.RandomState(seed)
+    live = np.zeros((d.shape[0], k))
+    for a in range(d.shape[0]):
+        live[a, rng.permutation(k)[:p]] = 1.0
+    return d.contiguous(), torch.as_tensor(live, dtype=d.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, p", LIVE_COUNTS,
+                         ids=[f"K{k}-P{p}" for k, p in LIVE_COUNTS])
+@pytest.mark.parametrize("triangle", [False, True],
+                         ids=["full", "triangle"])
+@pytest.mark.parametrize("dtype, tol", TOLS)
+def test_trio_kernel_live_counts(rows, cuda_device, k, p, triangle, dtype,
+                                 tol):
+    """Rows by live rank: P = 0, 1, 2, 16 and 17 live slots scattered over
+    16 or 32 (where the rows per warp and the threads per row change, and
+    P = 17 takes a second pass of the 16-row H slice at KMAX = 32), with
+    and without energy and center weights, against the plain version;
+    the dead slots' partial rows are zeros."""
+    pot64, d, valid, _, _ = rows
+    n = 257
+    d, live = _live_rows(d[:n], valid[:n], k, p, seed=31 * k + p)
+    pot = _grid(pot64, "bench").to(device=cuda_device, dtype=dtype)
+    dk, vk = d.to(cuda_device, dtype), live.to(cuda_device, dtype)
+    w = _weights(n, "scaled")
+    for with_energy in (True, False):
+        for weight in (None, w):
+            wk = None if weight is None else weight.to(cuda_device, dtype)
+            kernel = trio.trio_partials(pot, dk, vk, with_energy,
+                                        center_weight=wk, triangle=triangle)
+            twin = trio.trio_partials_torch(d, live, pot64.grid, pot64.trio,
+                                            with_energy, weight,
+                                            triangle=triangle)
+            for a, b in zip(kernel, twin):
+                assert a.shape == b.shape
+                assert _err(a, b) <= tol
+            dead = (vk == 0)
+            assert float(torch.abs(kernel[2][dead]).sum()) == 0.0
+    if p >= 2:
+        assert float(torch.abs(twin[2]).max()) > 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("triangle", [False, True],
+                         ids=["full", "triangle"])
+@pytest.mark.parametrize("dtype, tol", TOLS)
+def test_trio_kernel_persistent_atom_counts(rows, cuda_device, triangle,
+                                            dtype, tol):
+    """Atom counts below one block (1, 5) and twice the persistent grid's
+    warps plus 3 (each warp walks two or three atoms with its grid
+    stride; the rows repeat the 1,024-atom box, so the plain version's
+    outputs repeat too); zero atoms give empty outputs."""
+    pot64, d, valid, _, _ = rows
+    pot = _grid(pot64, "bench").to(device=cuda_device, dtype=dtype)
+    plan = trio.trio_occupancy(pot, d.shape[1], False, triangle,
+                               n_atoms=10 ** 6)
+    warps = plan["grid"] * plan["atoms_per_block"]
+    assert plan["grid"] == max(plan["blocks_per_sm"], 1) * plan["sms"]
+    for n, grid in ((0, 0), (1, 1), (plan["atoms_per_block"] + 1, 2)):
+        assert trio.trio_occupancy(pot, d.shape[1], False, triangle,
+                                   n_atoms=n)["grid"] == grid
+    twin = trio.trio_partials_torch(d, valid, pot64.grid, pot64.trio, True,
+                                    triangle=triangle)
+    for n in (1, 5, 2 * warps + 3):
+        reps = -(-n // d.shape[0])
+        dk = d.repeat(reps, 1, 1)[:n].to(cuda_device, dtype)
+        vk = valid.repeat(reps, 1)[:n].to(cuda_device, dtype)
+        kernel = trio.trio_partials(pot, dk, vk, True, triangle=triangle)
+        for a, b in zip(kernel, twin):
+            expect = b.repeat((reps,) + (1,) * (b.dim() - 1))[:n]
+            assert a.shape == expect.shape
+            assert _err(a, expect) <= tol
+    empty = trio.trio_partials(pot, d[:0].to(cuda_device, dtype),
+                               valid[:0].to(cuda_device, dtype), True,
+                               triangle=triangle)
+    torch.cuda.synchronize()
+    assert [tuple(a.shape) for a in empty] == [(0,), (0, 3),
+                                               (0, d.shape[1], 5)]
 
 
 @pytest.fixture(scope="module")
@@ -1315,6 +1393,39 @@ def test_lane_contract_kernel_rounds_as_plain(cuda_device, mode, rows, k,
     assert torch.equal(out, fragments.lane_contract_torch(x, mode, w))
 
 
+CONTRACT_SHAPES = [("matmul", 3), ("matmul", 5), ("sum_axis2", 16),
+                   ("sum_axis2", 3), ("sum_axis1", 16), ("sum_axis1", 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode, k", CONTRACT_SHAPES,
+                         ids=[f"{m}-{k}" for m, k in CONTRACT_SHAPES])
+@pytest.mark.parametrize("rows", [1, 7, 1057, 12347, 83207])
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("dtype", FRAGMENT_DTYPES)
+def test_lane_contract_kernel_tiles_and_vectors(cuda_device, mode, k, rows,
+                                                aligned, dtype):
+    """The product's tiles and the sums' 16-byte groups, bit for bit
+    against the plain version: M = 1 and few rows (one output a thread),
+    12,347 rows (the sums' vectors; the product still one output a
+    thread) and 83,207 (the product's tiles), no multiple of a tile or
+    of a vector, widths with no 16-byte vector (the 3 x 3 sums), and x at
+    an address off 16 bytes (the scalar loads and stores)."""
+    x, w = _contract_operands(mode, rows, k, dtype, cuda_device,
+                              rows * 7 + k)
+    if not aligned:
+        flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda_device)
+        flat[1:] = x.reshape(-1)
+        x = flat[1:].view(x.shape)
+        assert x.data_ptr() % 16 != 0
+    launches = fragments.lane_contract.launches
+    out = fragments.lane_contract(x, mode, w)
+    torch.cuda.synchronize()
+    assert fragments.lane_contract.launches == launches + 1
+    assert torch.equal(out, fragments.lane_contract_torch(x, mode, w))
+
+
 def _map_operands(op, shape, dtype, device, seed):
     """The probe's draws (normal values, indices in [0, 9)) with zeros,
     infinities, NaN, subnormals, huge values and indices outside [0, 9)
@@ -1396,6 +1507,37 @@ for arg in "$@"; do
   prev="$arg"
 done
 """
+
+
+VARIANT_PATCHES = sorted(glob.glob(os.path.join(
+    REPO, "benchmarks_data", "artifacts_torch", "kernel_variants",
+    "*.patch")))
+
+
+@pytest.mark.parametrize("patch", VARIANT_PATCHES,
+                         ids=[os.path.basename(p)[:-6]
+                              for p in VARIANT_PATCHES])
+def test_kernel_variant_patch_applies(tmp_path, patch):
+    """Each committed variant of the kernels' sources (a unified diff
+    against csrc/, built and timed by benchmarks/kernel_variants.py)
+    applies to a copy of csrc/ as it stands and changes the one source
+    its name gives; a hunk that does not match raises."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    with open(patch) as f:
+        text = f.read()
+    kernel_variants.apply_patch(text, str(csrc))
+    changed = [name for name in sorted(os.listdir(csrc))
+               if (csrc / name).read_text()
+               != open(os.path.join(_build.CSRC, name)).read()]
+    assert changed == [os.path.basename(patch).split("_")[0] + ".cu"]
+    with pytest.raises(ValueError, match="does not apply"):
+        kernel_variants.apply_patch(text, str(csrc))
+
+
+def test_kernel_variants_need_the_card():
+    with pytest.raises(RuntimeError, match="on the card"):
+        kernel_variants.main("trio", [("as_is", None)], device="cpu")
 
 
 def test_build_tracks_sources_and_headers(tmp_path, monkeypatch):

@@ -1,8 +1,9 @@
 """
 What the measurement scripts share: the device (the card unless asked
 for the CPU, as ``MDSystem``), the chain length, CUDA-graph and eager
-timing of a chained body, the card's description, the commit and the
-artifact directory.
+timing of a chained body, the card's description, the commit, the
+artifact directory, and the engine settings and 3-body rows that the
+trio kernel is timed on.
 
 Device times come from CUDA graphs: ``SCAN_LEN`` bodies chained (each
 takes the previous one's output, as the JAX scripts' ``lax.scan``
@@ -20,6 +21,7 @@ import os
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from uf3_tpu_torch.forcefield.md import _resolve_device as resolve_device
@@ -27,8 +29,63 @@ from uf3_tpu_torch.forcefield.md import _resolve_device as resolve_device
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 ARTIFACTS = os.path.join(REPO, "benchmarks_data", "artifacts_torch")
+MODEL = os.path.join(REPO, "benchmarks_data", "model_2and3.json")
+# the bench engine (bench.py) and the melting protocol's cell and engine
+# settings (benchmarks/melting_run.py:101-106, 259)
+BENCH = dict(rebuild_every=36, skin=0.5, skin_2b=1.2, capacity_2b=72,
+             capacity_3b=16, n_respa=12, respa_mid=6,
+             respa_switch=(2.5, 3.5))
+PROTOCOL = dict(rebuild_every=16, skin=0.6, skin_2b=1.2, capacity_2b=88,
+                capacity_3b=20)
+PROTOCOL_REPS = (48, 18, 18)
 SCAN_LEN = 30
 L2_BYTES = 50 * 2 ** 20   # the H100's L2 cache (data sheet)
+
+
+def long_trio_model():
+    """Unary W whose 3-body cutoff (4 A) passes its 2-body cutoff (3 A),
+    so that the engine builds its 3-body list on its own: pair r 1.5-3.0
+    A in 8 intervals, trio legs up to (4, 4, 8) A in (6, 6, 12),
+    coefficients from RandomState(0) at scale 0.05."""
+    from uf3_tpu_torch import io
+    from uf3_tpu_torch.data.composition import ChemicalSystem
+    from uf3_tpu_torch.representation.basis import BSplineBasis
+    basis = BSplineBasis(
+        ChemicalSystem(["W"], degree=3), r_min_map={("W", "W"): 1.5},
+        r_max_map={("W", "W"): 3.0, ("W", "W", "W"): [4.0, 4.0, 8.0]},
+        resolution_map={("W", "W"): 8, ("W", "W", "W"): [6, 6, 12]})
+    return io.FittedModel(basis, np.random.RandomState(0).normal(
+        scale=0.05, size=sum(basis.partition_sizes)))
+
+
+def trio_rows(device) -> dict:
+    """The engines' float64 3-body rows at bcc W (a = 3.1652 A, 300 K
+    velocities from seed 0): the bench list (K = 16) and the one-tier
+    default list (K = 23) at 17^3 = 9,826 atoms, the melting protocol's
+    list (K = 20) at 31,104 atoms, and the separately built list (K =
+    32) of ``long_trio_model`` at 9,826 atoms rattled by 0.05 A (seed
+    11).  name -> (potential, d, valid, rev_flat, mask)."""
+    from uf3_tpu_torch.data.atoms import bulk
+    from uf3_tpu_torch.forcefield.md import MDSystem
+    from uf3_tpu_torch.ops import neighbors as nb
+    out = {}
+    for name, reps, rattle, engine, model in (
+            ("K16", (17, 17, 17), None, BENCH, MODEL),
+            ("K23", (17, 17, 17), None, {}, MODEL),
+            ("K20", PROTOCOL_REPS, None, PROTOCOL, MODEL),
+            ("K32", (17, 17, 17), 0.05, dict(skin=0.5, capacity_3b=32),
+             long_trio_model())):
+        geom = bulk("W", "bcc", a=3.1652) * reps
+        if rattle is not None:
+            geom.rattle(rattle, seed=11)
+        system = MDSystem(model, geom, dtype=torch.float64, device=device,
+                          **engine)
+        state = system.init_state(temperature=300.0, seed=0)
+        cache = nb.list_cache(state.nbr3, system.cell, torch.float64)
+        d = nb.cached_displacements(state.positions, state.nbr3, cache)
+        out[name] = (system.potential, d, cache.valid, cache.rev_flat,
+                     state.nbr3.mask)
+    return out
 
 
 def chain(fn, x, length: int):

@@ -28,11 +28,12 @@ _I = ctypes.c_int
 #   fc, part, n_atoms, K, legs, ints, w_lo, ww, c_lo, cw, with_energy,
 #   triangle, stream) (cweight: the center weights, or null; triangle:
 #   1 for the triangle lanes);
-# uf3_trio_occupancy(is_f64, K, ints, ww, cw, with_energy, triangle, out)
+# uf3_trio_occupancy(is_f64, n_atoms, K, ints, ww, cw, with_energy,
+#   triangle, out)
 _SIGNATURES = {
     name: [_P] * 8 + [_I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     for name in ("uf3_trio_partials_f32", "uf3_trio_partials_f64")}
-_SIGNATURES["uf3_trio_occupancy"] = [_I, _I, _P, _I, _I, _I, _I, _P]
+_SIGNATURES["uf3_trio_occupancy"] = [_I, _I, _I, _P, _I, _I, _I, _I, _P]
 # uf3_trio_multi_{f32,f64}(d, valid, s_slot, s_center, ints, reals,
 #   tables, grids, energy, fc, part, n_atoms, K, n_species, max_cols,
 #   n_ints, n_reals, n_tables, n_grids, with_energy, stream);
@@ -75,19 +76,24 @@ def nvcc_path() -> str:
     return found
 
 
-def build(force: bool = False) -> dict:
-    """Compile the kernels unless the library is newer than every
+def build(force: bool = False, csrc: str = None,
+          library: str = None) -> dict:
+    """Compile the kernels of ``csrc`` (the package's by default) into
+    ``library`` (``LIBRARY``) unless the library is newer than every
     source and header.  Returns {"seconds", "log", "built"}; raises with
     the compiler's output on failure."""
-    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
-    inputs = sources + glob.glob(os.path.join(CSRC, "*.cuh"))
-    if (not force and os.path.isfile(LIBRARY)
-            and os.path.getmtime(LIBRARY)
+    csrc, library = csrc or CSRC, library or LIBRARY
+    sources = sorted(glob.glob(os.path.join(csrc, "*.cu")))
+    inputs = sources + glob.glob(os.path.join(csrc, "*.cuh"))
+    if (not force and os.path.isfile(library)
+            and os.path.getmtime(library)
             >= max(os.path.getmtime(s) for s in inputs)):
         return {"seconds": 0.0, "log": "", "built": False}
-    os.makedirs(BUILD, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    objects = [os.path.join(BUILD, f"{os.path.basename(src)}.{os.getpid()}.o")
+    out_dir = os.path.dirname(library)
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{library}.{os.getpid()}.tmp"
+    objects = [os.path.join(out_dir,
+                            f"{os.path.basename(src)}.{os.getpid()}.o")
                for src in sources]
     nvcc = nvcc_path()
     t0 = time.perf_counter()
@@ -119,7 +125,7 @@ def build(force: bool = False) -> dict:
             if os.path.exists(obj):
                 os.remove(obj)
     seconds = time.perf_counter() - t0
-    os.replace(tmp, LIBRARY)
+    os.replace(tmp, library)
     return {"seconds": seconds, "log": "".join(log) + proc.stdout
             + proc.stderr, "built": True}
 
@@ -132,14 +138,21 @@ def launch(name: str, fn, *args):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+def load(path: str) -> ctypes.CDLL:
+    """The library at ``path`` (this package's or a build of a copy of
+    its sources) with the argument types of every C entry it has."""
+    lib = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     if "lib" not in _loaded:
         build()
-        lib = ctypes.CDLL(LIBRARY)
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _loaded["lib"] = lib
+        _loaded["lib"] = load(LIBRARY)
     return _loaded["lib"]

@@ -291,23 +291,27 @@ def _check_window(err: int, k: int, shape: str):
 
 
 def trio_occupancy(potential: UF3Potential, k: int,
-                   with_energy: bool = False, triangle: bool = False) -> dict:
+                   with_energy: bool = False, triangle: bool = False,
+                   n_atoms: int = 0) -> dict:
     """The launch plan of the trio kernel for this potential, its dtype,
     K slots and lane layout, from the CUDA runtime: atoms (warps) per
     block, shared bytes per block, resident blocks and warps per SM,
-    registers and local (spill) bytes per thread."""
+    registers and local (spill) bytes per thread, the card's SMs, and
+    the persistent grid the kernel launches for ``n_atoms`` atoms (at
+    most the resident blocks of every SM; 0 for no atoms)."""
     trio = potential.trio
     w_lo, w_hi, c_lo, c_hi = trio.window
     _, ints = _leg_args(trio)
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 7)()
     err = _build.library().uf3_trio_occupancy(
-        int(potential.grid_window.dtype == torch.float64), k, ints,
+        int(potential.grid_window.dtype == torch.float64), n_atoms, k, ints,
         w_hi - w_lo, c_hi - c_lo, int(bool(with_energy)), int(triangle),
         out)
     _check(err, k, trio)
     return dict(atoms_per_block=out[0], smem_bytes=out[1],
                 blocks_per_sm=out[2], warps_per_sm=out[2] * out[0],
-                registers=out[3], local_bytes=out[4])
+                registers=out[3], local_bytes=out[4], sms=out[5],
+                grid=out[6])
 
 
 def assemble_forces(energy, f_center, part, d, rev_flat, mask):

@@ -123,10 +123,11 @@ sys.path.insert(0, REPO)
 
 from uf3_tpu_torch import io  # noqa: E402
 from uf3_tpu_torch.benchmarks import common, probe_gather  # noqa: E402
+from uf3_tpu_torch.benchmarks.common import (ne_xe,  # noqa: E402
+                                             species23_model)
 from uf3_tpu_torch.benchmarks import probe_mosaic, step_anatomy  # noqa: E402
 from uf3_tpu_torch.data.atoms import Atoms, bulk  # noqa: E402
 from uf3_tpu_torch.data import io as data_io  # noqa: E402
-from uf3_tpu_torch.data.composition import ChemicalSystem  # noqa: E402
 from uf3_tpu_torch.forcefield import batch, lammps, md, units  # noqa: E402
 from uf3_tpu_torch.forcefield.calculator import UFCalculator  # noqa: E402
 from uf3_tpu_torch.forcefield.properties import elastic, phonon  # noqa: E402
@@ -144,7 +145,6 @@ from uf3_tpu_torch.ops.potential import (UF3Potential,  # noqa: E402
 from uf3_tpu_torch.ops.splines import _leg_interval  # noqa: E402
 from uf3_tpu_torch.parallel import halo  # noqa: E402
 from uf3_tpu_torch.parallel import mesh as pmesh  # noqa: E402
-from uf3_tpu_torch.representation.basis import BSplineBasis  # noqa: E402
 from uf3_tpu_torch.representation.knots import \
     get_knot_spacer as knot_spacer  # noqa: E402
 from uf3_tpu_torch.util import tracing, user_config  # noqa: E402
@@ -425,13 +425,11 @@ def compare_trio(device):
                         pot32, d32, v32, with_energy)
                     occ = trio.trio_occupancy(pot32, k, with_energy,
                                               n_atoms=len(geom))
-                    before = TRIO_MS_BEFORE[f"K{k}"]
                     print(f"trio bound at N={len(geom)}, K={k}: "
                           f"{flop:.4g} flop, {n_bytes:.4g} bytes -> "
                           f"{bound_ms:.5f} ms ({bound_by}); kernel reaches "
                           f"{100 * bound_ms / kernel_ms:.1f}% of it; "
-                          f"{kernel_ms:.4f} ms beside {before:.4f} before "
-                          f"(PERF.md); card: {card_line()}")
+                          f"{kernel_ms:.4f} ms; card: {card_line()}")
                     print(f"trio launch plan (f32, K={k}): {plan_line(occ)}")
                     records[f"K{k}"] = dict(
                         max_abs_err=err32, ms=kernel_ms, plain_ms=twin_ms,
@@ -551,7 +549,6 @@ def compare_triangle(device):
         occ_full = trio.trio_occupancy(pot32, k, False, n_atoms=n)
         occ64 = trio.trio_occupancy(pot64, k, True, triangle=True,
                                     n_atoms=n)
-        before = TRIO_MS_BEFORE[f"triangle K{k}"]
         print(f"trio triangle N={n} K={k}: vs plain f64 "
               f"{errs['plain64']:.3e} (<= {F64_TOL:g}), f32 max |dF| "
               f"{errs['plain32']:.3e} eV/A (<= {FORCE_TOL:g}); vs full "
@@ -559,8 +556,7 @@ def compare_triangle(device):
               f"{errs['full_f']:.3e} (<= {F64_TOL:g}), virial "
               f"{errs['virial']:.3e} relative (<= {VIRIAL_F64_TOL:g})")
         print(f"trio triangle N={n} K={k}, f32 no energy: triangle "
-              f"{tri_ms:.4f} ms ({tri_a:.4f}, {tri_b:.4f}; {before:.4f} "
-              f"before, PERF.md), full lanes "
+              f"{tri_ms:.4f} ms ({tri_a:.4f}, {tri_b:.4f}), full lanes "
               f"{full_ms:.4f} ms ({full_a:.4f}, {full_b:.4f}) (graph "
               f"replay, full/triangle/triangle/full); plain triangle "
               f"{plain_ms:.4f} ms (eager); bounds: triangle {bound[0]:.5f} "
@@ -912,14 +908,25 @@ def compare_fragments(device):
                 case, out, ref, args)
             errors[case.kernel] = max(errors[case.kernel],
                                       probe_mosaic.max_abs_err(out, ref))
+    # relayout's copy from a source one word past a 16-byte boundary, on
+    # counts of 4k + 1 .. 4k + 3
+    base = torch.randn(probe_mosaic.N_PAD * 16 + 8, device=device)
+    for dtype in (torch.float32, torch.float64):
+        for n in (probe_mosaic.N_PAD * 16 + t for t in (1, 2, 3)):
+            x = base.to(dtype)[1:1 + n]
+            out = fragments.relayout(x, "reshape", shape=(n, 1))
+            ref = fragments.relayout_torch(x, "reshape", shape=(n, 1))
+            checks[f"relayout copy, offset source, {n} words, "
+                   f"{str(dtype)[6:]}"] = probe_mosaic.same(out, ref)
     gate("fragment kernels vs plain (full system)", checks)
     print(f"fragment kernels vs plain, largest difference: {errors}")
     return errors
 
 
-def fragment_records(mosaic):
+def fragment_records(mosaic, device):
     """Each fragment kernel's figures for the kernels line at its
-    full-system case (``FRAGMENT_SHAPES``)."""
+    full-system case (``FRAGMENT_SHAPES``), with the launch plans of
+    ``relayout`` and ``lane_contract`` there."""
     records = {}
     for fn in FRAGMENTS:
         name = fn.__name__
@@ -930,6 +937,40 @@ def fragment_records(mosaic):
             library_ms=rec["library_ms"],
             shape=f"{FRAGMENT_SHAPES[name]} at {mosaic['full_rows']} rows",
             bytes=rec["bytes"], flops=rec["flops"])
+    # relayout's copy (the reshape) at both sizes, and the launch plans of
+    # the record's mode and of the copy
+    reshape = "probe_gather2.p2_reshape_128x128_to_1024x16"
+    mode = mosaic["cases"][FRAGMENT_SHAPES["relayout"]]["full"]["mode"]
+    plans = {m: fragments.relayout_occupancy(m) for m in (mode, "reshape")}
+    records["relayout"].update(
+        registers=plans[mode]["registers"],
+        warps_per_sm=plans[mode]["warps_per_sm"],
+        copy={size: dict(ms=rec["kernel_ms"], library_ms=rec["library_ms"],
+                         plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+                         warm_ms=rec["kernel_warm_ms"],
+                         registers=plans["reshape"]["registers"],
+                         warps_per_sm=plans["reshape"]["warps_per_sm"])
+              for size, rec in mosaic["cases"][reshape].items()})
+    for size, rec in records["relayout"]["copy"].items():
+        print(f"relayout copy (reshape) [{size}]: {rec['ms']:.5f} ms beside "
+              f".reshape().clone() {rec['library_ms']:.5f} ms; "
+              f"{rec['registers']} registers, {rec['warps_per_sm']} warps "
+              f"per SM; card: {card_line()}")
+    case = next(c for c in probe_mosaic.CASES
+                if c.name == FRAGMENT_SHAPES["lane_contract"])
+    args, kwargs = probe_mosaic.operands(case, mosaic["full_rows"],
+                                         np.random.RandomState(0), device)
+    plan = fragments.lane_contract_occupancy(*args, **kwargs)
+    records["lane_contract"].update(
+        registers=plan["registers"], warps_per_sm=plan["warps_per_sm"],
+        kernel=plan["kernel"])
+    print(f"lane_contract launch plan ({case.name}, {mosaic['full_rows']} "
+          f"rows): the {plan['kernel']} kernel, {plan['registers']} "
+          f"registers, {plan['local_bytes']} B local, "
+          f"{plan['warps_per_sm']} warps per SM, {plan['blocks']} blocks; "
+          f"card: {card_line()}")
+    gate("lane_contract's plan spills nothing",
+         {"local bytes 0": plan["local_bytes"] == 0})
     return records
 
 
@@ -1470,33 +1511,6 @@ FUSED_ROUTE_TOL = 5e-11
 BINARY_NVE_DRIFT = 1e-3  # eV/atom, as tests/test_device_potential.py:787
 
 
-def ne_xe(reps, seed=3, a=5.4):
-    """fcc at ``a`` with half the sites Xe by a seeded draw (the JAX
-    engine's test_binary_md_runs)."""
-    base = bulk("Ne", "fcc", a=a) * reps
-    numbers = base.get_atomic_numbers()
-    numbers[np.random.RandomState(seed).rand(len(numbers)) > 0.5] = 54
-    return Atoms(numbers, base.get_positions(), base.get_cell(), pbc=True)
-
-
-def species23_model(elements=("Ne", "Xe")):
-    """A random 2+3-body model over ``elements``: the port's BSplineBasis, r
-    1.0-5.0 A, resolution 8, coefficients from RandomState(11) at scale
-    0.05 (for Ne/Xe the model of the JAX engine's
-    test_multi_fused_matches_factorized), with each pair's last three
-    coefficients at zero, as a fit with the basis's trailing trim holds
-    them: random ones make the pair term jump at 5 A."""
-    basis = BSplineBasis(ChemicalSystem(list(elements), degree=3),
-                         r_min_map=1.0, r_max_map=5.0, resolution_map=8)
-    coefficients = np.random.RandomState(11).normal(
-        scale=0.05, size=sum(basis.partition_sizes))
-    sizes, offsets = basis.get_interaction_partitions()
-    for pair in basis.interactions_map[2]:
-        end = offsets[pair] + sizes[pair]
-        coefficients[end - 3:end] = 0.0
-    return io.FittedModel(basis, coefficients)
-
-
 def card_vs_cpu(name, model, geom, device, n_steps, dt_fs):
     """The engine on the card against its own CPU run, float64, from the
     same inputs: entry energy, forces and virial, then ``n_steps`` NVE
@@ -1680,13 +1694,12 @@ def run_separate_3body(device):
         d32, v32, pot32.grid, pot32.trio, False), 5)
     bound_ms, bound_by, flop, n_bytes = trio_bound(pot32, d32, v32, False)
     occ = trio.trio_occupancy(pot32, 32, False, n_atoms=len(geom))
-    before = TRIO_MS_BEFORE["K32-separate"]
     k = d64.shape[1]
     print(f"trio separate list N={len(geom)} K={k} (valid slots "
           f"{int(v64.sum(1).min())}-{int(v64.sum(1).max())}): f64 max err "
           f"{err64:.3e} (<= {F64_TOL:g}), f32 max |dF| {err32:.3e} eV/A "
           f"(<= {FORCE_TOL:g}); f32 kernel {kernel_ms:.4f} ms (graph "
-          f"replay; {before:.4f} before, PERF.md), twin {twin_ms:.4f} ms "
+          f"replay), twin {twin_ms:.4f} ms "
           f"(eager); bound {flop:.4g} flop, {n_bytes:.4g} bytes -> "
           f"{bound_ms:.5f} ms ({bound_by}), {100 * bound_ms / kernel_ms:.1f}%"
           f" of it; launch plan {plan_line(occ)}; card: {card_line()}")
@@ -1755,22 +1768,6 @@ def run_fused_separate(device):
     return launches, rate, stale
 
 # -- the fused multi-species route at full width, and the rebuild schedules
-GATED_MS_BEFORE = 0.2200  # the 8 per-type launches it replaced (PERF.md)
-MULTI_MS_BEFORE = 0.0817  # the one launch at 8,788 atoms (PERF.md)
-# the unary trio kernel's times before its rows by live rank and its
-# persistent blocks (PERF.md section 6; f32, no energy, graph replay, but
-# the float64 calculator rows with energy): full lanes by list, triangle
-# lanes, the halo rows with their center weight
-TRIO_MS_BEFORE = {"K16": 0.0369, "K23": 0.0600, "K20": 0.1704,
-                  "K32-separate": 0.0850, "triangle K16": 0.0372,
-                  "triangle K23": 0.0513, "triangle K20": 0.1450,
-                  "triangle K32": 0.1391, "halo weighted": 0.0617,
-                  "halo weighted, triangle": 0.0569, "calculator f64": 0.0764}
-UNARY_K16_MS_BEFORE = TRIO_MS_BEFORE["K16"]
-# the halo chunk's rate beside the single device's before the halo path
-# took the triangle lanes, atom-steps/s (PERF.md section 5, two runs)
-HALO_FULL_LANES = {"run 2": (5764357.7, 6708873.0),
-                        "run 3": (4371446.0, 4525899.8)}
 
 
 def type_flops(pot, t, d, valid, s_slot, species, with_energy: bool):
@@ -1898,9 +1895,7 @@ def compare_multi(name, system64: MDSystem, state, geom):
           f"wrapper {wrapper_ms:.4f} ms per call on the host; plain version "
           f"{plain_ms:.4f} ms (eager); bound {flop:.4g} flop, {n_bytes:.4g} "
           f"bytes -> {bound_ms:.5f} ms ({bound_by}), {share:.1f}% of it; "
-          f"before, 8 gated launches on the 8,788-atom binary "
-          f"cell: {GATED_MS_BEFORE:.4f} ms, the one launch there "
-          f"{MULTI_MS_BEFORE:.4f} ms (PERF.md); card: {card}")
+          f"card: {card}")
     brief = {key: (f"{p['registers']} regs, {p['atoms_per_block']} warps x "
                    f"{p['blocks_per_sm']} blocks/SM, {p['smem_bytes']} B "
                    f"shared, {p['local_bytes']} B local")
@@ -1925,11 +1920,7 @@ def compare_ternary(device):
     over Ne/Ar/Xe (27 ordered trio types) on fcc at a = 5.4 A, 10^3 x 4
     = 4,000 atoms, species by a seeded draw, rattled 0.08 A, float64
     lists (``compare_multi``).  Returns the kernel record."""
-    base = bulk("Ne", "fcc", a=5.4) * (10, 10, 10)
-    numbers = np.array([10, 18, 54])[np.random.RandomState(7).randint(
-        3, size=len(base))]
-    geom = Atoms(numbers, base.get_positions(), base.get_cell(), pbc=True)
-    geom.rattle(0.08, seed=1)
+    geom = common.ne_ar_xe()
     system64 = MDSystem(species23_model(("Ne", "Ar", "Xe")), geom,
                         dtype=torch.float64, device=device)
     assert system64._multi_route()
@@ -2275,8 +2266,7 @@ def calculator_kernel_f64(calc, geom):
                                                    peak=PEAK_F64_FLOPS)
     occ = trio.trio_occupancy(pot, d.shape[1], True, n_atoms=len(geom))
     print(f"trio f64 with energy, calculator rows (N={len(geom)}, K="
-          f"{d.shape[1]}): {ms:.4f} ms beside "
-          f"{TRIO_MS_BEFORE['calculator f64']:.4f} before (PERF.md); plan "
+          f"{d.shape[1]}): {ms:.4f} ms; plan "
           f"{plan_line(occ)}; card: {card_line()}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, flop=flop,
@@ -2473,16 +2463,9 @@ def calculator_multi_f64(calc, geom):
     """The multi-species kernel's float64 instance on the calculator's
     3-body rows of ``geom`` (with energy): error against its plain
     version, time by graph replay, the float64 bound."""
-    system, pot = calc.system, calc.potential
-    cell = torch.as_tensor(geom.get_cell(), dtype=torch.float64,
-                           device=calc.device)
-    x = system._wrap(torch.as_tensor(geom.get_positions(),
-                                     dtype=torch.float64,
-                                     device=calc.device), cell)
-    nbr2, nbr3 = system.build_lists(x, cell)
-    _, cache = system.list_caches(nbr2, nbr3, cell)
-    d = nb.cached_displacements(x, nbr3, cache)
-    args = (pot, d, cache.valid, cache.s_slot, system.species, True)
+    pot = calc.potential
+    d, valid, s_slot, species = common.calculator_rows(calc, geom)[:4]
+    args = (pot, d, valid, s_slot, species, True)
     kernel = multi.trio_multi_partials_all(*args)
     plain = multi.trio_multi_partials_all_torch(*args)
     torch.cuda.synchronize()
@@ -2490,12 +2473,14 @@ def calculator_multi_f64(calc, geom):
     ms = graph_ms(lambda: multi.trio_multi_partials_all(*args))
     plain_ms = cuda_ms(lambda: multi.trio_multi_partials_all_torch(*args), 3)
     bound_ms, bound_by, flop, n_bytes = multi_bound(
-        pot, d, cache.valid, cache.s_slot, system.species, True,
-        peak=PEAK_F64_FLOPS)
+        pot, d, valid, s_slot, species, True, peak=PEAK_F64_FLOPS)
+    plan = multi.trio_multi_occupancy(pot, d.shape[1], True, True,
+                                      n_atoms=len(geom))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, flop=flop,
                 bytes=n_bytes, n_atoms=len(geom), k=d.shape[1],
-                with_energy=True)
+                with_energy=True, registers=plan["registers"],
+                warps_per_sm=plan["warps_per_sm"])
 
 
 def run_calculator_multi(device):
@@ -3614,9 +3599,7 @@ def compare_trio_weighted(device, system32: MDSystem, mesh):
     occ = trio.trio_occupancy(pot32, d32.shape[1], False,
                               n_atoms=d32.shape[0])
     print(f"trio weighted launch (f32, no energy) on the halo rows: "
-          f"{weighted_ms:.4f} ms (graph replay; "
-          f"{TRIO_MS_BEFORE['halo weighted']:.4f} before, triangle "
-          f"{TRIO_MS_BEFORE['halo weighted, triangle']:.4f}, PERF.md) beside "
+          f"{weighted_ms:.4f} ms (graph replay) beside "
           f"{unweighted_ms:.4f} "
           f"ms unweighted on the same {d32.shape[0]} rows, triangle lanes "
           f"(the halo path's) weighted {triangle_ms:.4f} ms, bound "
@@ -3863,8 +3846,7 @@ def main():
           f"{halo_record['triangle_ms']:.4f} ms; card: {card}")
     print(f"halo chunk on the triangle lanes: {halo_rates['rate']:.1f} "
           f"atom-steps/s beside {halo_rates['rate_single']:.1f} single-device"
-          f" in this call; on full lanes (PERF.md section 5): "
-          f"{HALO_FULL_LANES}; card: {card}")
+          f" in this call; card: {card}")
     print(f"step anatomy, 9,826 atoms: inner step "
           f"{anatomy['ms']['p4_full_inner_step']:.5f} ms device (graph "
           f"replay), {anatomy['host_ms']['p4_full_inner_step']:.5f} ms host "
@@ -3877,11 +3859,10 @@ def main():
               f"{name} (9,826 atoms, f32): {100 * share:.1f}%, card: {card}")
     print(f"trio launches by path: {launches}")
     print(f"multi-species trio launches by path: {multi_launches}")
-    print(f"trio_partials K=16, 9,826 atoms: {records['K16']['ms']:.4f} ms "
-          f"(before: {UNARY_K16_MS_BEFORE:.4f} ms); trio_multi_partials_all, "
-          f"8,788-atom binary cell: {record_multi['ms']:.4f} ms per force "
-          f"call, 1 launch (before: {GATED_MS_BEFORE:.4f} ms, 8 launches); "
-          f"card: {card}")
+    print(f"trio_partials K=16, 9,826 atoms: {records['K16']['ms']:.4f} ms; "
+          f"trio_multi_partials_all, 8,788-atom binary cell: "
+          f"{record_multi['ms']:.4f} ms per force call, 1 launch; ternary "
+          f"cut: {record_ternary['ms']:.4f} ms; card: {card}")
     record = dict(records["K16"], max_abs_err=max(
         [r["max_abs_err"] for r in records.values()]
         + [r["max_abs_err"] for r in tri_records.values()]
@@ -3921,7 +3902,7 @@ def main():
                  plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"])
                  for case, sizes in mosaic["cases"].items()
                  for size, rec in sizes.items() if rec["kernel"] == name})
-        for name, record in fragment_records(mosaic).items()]}))
+        for name, record in fragment_records(mosaic, device).items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,9 +19,12 @@ launch over every ordered trio type) against its plain version
 ``trio_multi_partials_all_torch`` on random Ne/Xe (8 ordered types) and
 Ne/Ar/Xe (27) 2+3-body models at K = 16 and 32 slots, a ragged atom
 count, a sparse mask and centers with
-no live type: the same tolerances; one launch per call and per force
-call of the route; no spills; bad operands and a type window too wide
-for shared memory raise.  On the CPU: the packed per-type metadata
+no live type, and its rows by live rank (16, 17 and 18 live slots
+scattered over 24 and 32, one, none, every count in one launch; centers
+whose slots are all of one species): the same tolerances; one launch per
+call and per force call of the route; no spills, float32 within 64
+registers; bad operands and a type window too wide for shared memory
+raise.  On the CPU: the packed per-type metadata
 against each type's own tables, the plain version against the sum of
 the per-type passes, and the build (a changed source or header rebuilds
 the library, with a stand-in nvcc).
@@ -37,7 +40,8 @@ The fragment kernels (uf3_tpu_torch/csrc/fragments.cu) against their
 plain versions in float32 and float64, at the TPU probes' shapes and at
 ragged ones (counts that are no multiple of a block): ``relayout`` in
 every mode and ``lane_map`` in every op bit for bit (NaN where the plain
-version gives NaN), on the probes' draws mixed with zeros, infinities,
+version gives NaN; the copy from sources off a 16-byte boundary, on
+counts of 4k + 1 .. 4k + 3), on the probes' draws mixed with zeros, infinities,
 NaN, subnormals and one-hot indices outside [0, 9); ``lane_contract``
 in every mode within 1e-6 (float32; 2e-15 in float64) of the sum of its
 terms' magnitudes, and bit for bit where it rounds as its plain version
@@ -55,6 +59,7 @@ import glob
 import os
 import shutil
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -797,14 +802,17 @@ def _species_rows(elements, numbers_of, k):
             cache, state.nbr3)
 
 
+def _half_xe(n):
+    """Ne with half the sites Xe by a seeded draw."""
+    numbers = np.full(n, 10)
+    numbers[np.random.RandomState(3).rand(n) > 0.5] = 54
+    return numbers
+
+
 @pytest.fixture(scope="module", params=[16, 32], ids=["K16", "K32"])
 def rows_multi(request):
     """Ne/Xe rows (half Xe by a seeded draw), as ``_species_rows``."""
-    def numbers_of(n):
-        numbers = np.full(n, 10)
-        numbers[np.random.RandomState(3).rand(n) > 0.5] = 54
-        return numbers
-    return _species_rows(["Ne", "Xe"], numbers_of, request.param)
+    return _species_rows(["Ne", "Xe"], _half_xe, request.param)
 
 
 @pytest.fixture(scope="module", params=[16, 32], ids=["K16", "K32"])
@@ -1147,6 +1155,119 @@ def test_multi_kernel_plans_have_no_spills(rows_multi, rows_ternary,
                     assert plan["tables_staged"] and plan["grids_staged"]
 
 
+# rows of exactly P live slots on K (one rank sub-pass of the 16-row H up
+# to P = 16, two past it; the route's lists hold 18), one and none, and a
+# count per atom from 0 to 18 in turn ("mixed")
+MULTI_LIVE = [(24, 16), (24, 17), (24, 18), (32, 16), (32, 17), (32, 18),
+              (24, 1), (32, 0), (32, "mixed")]
+
+
+@pytest.fixture(scope="module")
+def rows_multi_wide():
+    """Ne/Xe rows with 18 live slots in 32 (``_species_rows``)."""
+    return _species_rows(["Ne", "Xe"], _half_xe, 32)
+
+
+def _multi_live_rows(rows, k, p, seed, n=257):
+    """The first ``n`` atoms' rows on ``k`` slots with ``p`` live slots an
+    atom (atom a: a mod 19 for "mixed"), each drawn at random from the
+    atom's live slots and their copies stretched by 10 %, put at a
+    random place (in any order); the other slots hold rows of other
+    slots, species at random, masked.
+    Returns (d, valid, s_slot, species, reverse slots of the partials,
+    mask): the reverse slots are drawn at random, which the assembly
+    takes as it takes any."""
+    _, d, valid, s_slot, species = rows[:5]
+    rng = np.random.RandomState(seed)
+    d0, v0, s0 = d[:n].numpy(), valid[:n].numpy(), s_slot[:n].numpy()
+    nd = np.zeros((n, k, 3))
+    nv = np.zeros((n, k))
+    ns = rng.randint(0, 2, size=(n, k))
+    for a in range(n):
+        count = a % 19 if p == "mixed" else p
+        live = np.flatnonzero(v0[a])
+        pool = np.concatenate([d0[a, live], 1.1 * d0[a, live]])
+        pool_s = np.concatenate([s0[a, live], s0[a, live]])
+        assert len(pool) >= count
+        take = rng.permutation(len(pool))[:count]
+        at = rng.permutation(k)[:count]
+        nd[a] = d0[a][rng.randint(0, d0.shape[1], size=k)]
+        nd[a, at] = pool[take]
+        nv[a, at] = 1.0
+        ns[a, at] = pool_s[take]
+    rev = torch.as_tensor(rng.randint(0, n * k, size=(n, k)))
+    return (torch.as_tensor(nd), torch.as_tensor(nv), torch.as_tensor(ns),
+            species[:n], rev, torch.as_tensor(nv > 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, p", MULTI_LIVE,
+                         ids=[f"K{k}-P{p}" for k, p in MULTI_LIVE])
+@pytest.mark.parametrize("dtype, tol", TOLS)
+def test_multi_kernel_live_counts(rows_multi_wide, cuda_device, k, p, dtype,
+                                  tol):
+    """The multi-species kernel's rows by live rank: P = 16, 17 and 18
+    live slots scattered over 24 or 32 (one and two rank sub-passes), one
+    live slot, none, and every count from 0 to 18 in one launch, on 257
+    atoms (a ragged last block), with and without energy: every output
+    and the assembled forces against the plain version; dead slots'
+    partial rows are zeros."""
+    pot64 = rows_multi_wide[0]
+    d, live, s_slot, species, rev, mask = _multi_live_rows(
+        rows_multi_wide, k, p, seed=k + (19 if p == "mixed" else p))
+    nbr = cache = None
+    if p not in (0, 1):
+        cache, nbr = SimpleNamespace(rev_flat=rev), SimpleNamespace(mask=mask)
+    _multi_matches_plain(pot64, (d, live, s_slot, species), cuda_device,
+                         dtype, tol, cache, nbr)
+    pot = copy.deepcopy(pot64).to(device=cuda_device, dtype=dtype)
+    part = multi.trio_multi_partials_all(
+        pot, d.to(cuda_device, dtype), live.to(cuda_device, dtype),
+        s_slot.to(cuda_device), species.to(cuda_device))[2]
+    assert float(torch.abs(part[(live == 0).to(cuda_device)]).sum()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", TOLS)
+def test_multi_kernel_single_species_rows(rows_multi_wide, cuda_device,
+                                          dtype, tol):
+    """Centers whose slots are all of one species (every other atom's all
+    Ne, every fourth one's all Xe), so that one species pass of theirs
+    has no partner, beside the others' mixed rows: against the plain
+    version, with the assembled forces."""
+    pot64, d, valid, s_slot, species, cache, nbr = rows_multi_wide
+    one = s_slot.clone()
+    one[::2] = 0
+    one[1::4] = 1
+    _multi_matches_plain(pot64, (d, valid, one, species), cuda_device,
+                         dtype, tol, cache, nbr)
+
+
+@pytest.mark.cuda
+def test_multi_kernel_plans_hold_the_register_bounds(rows_multi_wide,
+                                                     rows_ternary,
+                                                     cuda_device):
+    """Every instance on the binary and ternary packs: no local (spill)
+    memory; float32 at most 64 registers and 32 warps per SM; the plans
+    are printed (pytest -s)."""
+    for pot in (rows_multi_wide[0], rows_ternary[0]):
+        for is_f64 in (False, True):
+            for k in (16, 32):
+                for with_energy in (False, True):
+                    plan = multi.trio_multi_occupancy(pot, k, is_f64,
+                                                      with_energy,
+                                                      n_atoms=8788)
+                    print(f"trio_multi plan S={pot.trio_multi_plan[0]} "
+                          f"{'f64' if is_f64 else 'f32'} KMAX={k} energy="
+                          f"{with_energy}: {plan['registers']} registers, "
+                          f"{plan['warps_per_sm']} warps/SM, "
+                          f"{plan['local_bytes']} B local")
+                    assert plan["local_bytes"] == 0, plan
+                    if not is_f64:
+                        assert plan["registers"] <= 64, plan
+                        assert plan["warps_per_sm"] >= 32, plan
+
+
 @pytest.mark.cuda
 def test_multi_route_launches_once_per_force_call(cuda_device):
     """MDSystem on the fused multi-species route: one kernel launch per
@@ -1337,6 +1458,32 @@ def test_relayout_kernel_matches_plain(cuda_device, mode, shape, kw, dtype):
             assert torch.equal(got, library())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [4 * 4929 + 1, 4 * 4929 + 2, 4 * 4929 + 3,
+                                   3, 1])
+@pytest.mark.parametrize("dtype", FRAGMENT_DTYPES)
+def test_relayout_copy_offset_sources(cuda_device, count, dtype):
+    """relayout's copy (the reshape) from a source at a 16-byte boundary
+    and one and two elements past it, on counts of 4k + 1 .. 4k + 3 and
+    below 16 bytes: bit for bit against relayout_torch and the source;
+    its launch plan spills nothing."""
+    rng = np.random.RandomState(count)
+    base = torch.as_tensor(rng.randn(count + 2), dtype=dtype,
+                           device=cuda_device)
+    assert base.data_ptr() % 16 == 0
+    for offset in (0, 1, 2):
+        x = base[offset:offset + count]
+        launches = fragments.relayout.launches
+        out = fragments.relayout(x, "reshape", shape=(count, 1))
+        torch.cuda.synchronize()
+        assert fragments.relayout.launches == launches + 1
+        assert probe_mosaic.same(out, fragments.relayout_torch(
+            x, "reshape", shape=(count, 1)))
+        assert torch.equal(out.view(-1), x)
+    plan = fragments.relayout_occupancy("reshape", dtype)
+    assert plan["local_bytes"] == 0 and plan["warps_per_sm"] > 0
+
+
 def _contract_operands(mode, rows, k, dtype, device, seed):
     rng = np.random.RandomState(seed)
     if mode == "matmul":
@@ -1424,6 +1571,29 @@ def test_lane_contract_kernel_tiles_and_vectors(cuda_device, mode, k, rows,
     torch.cuda.synchronize()
     assert fragments.lane_contract.launches == launches + 1
     assert torch.equal(out, fragments.lane_contract_torch(x, mode, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode, k, rows, kernel", [
+    ("matmul", 3, 83207, "tile"), ("matmul", 3, 1057, "rows"),
+    ("sum_axis2", 16, 12347, "rows_along_terms"),
+    ("sum_axis1", 16, 12347, "rows_along_outputs"),
+    ("sum_axis2", 3, 12347, "rows"), ("sum_axis1", 16, 7, "rows")])
+@pytest.mark.parametrize("dtype", FRAGMENT_DTYPES)
+def test_lane_contract_occupancy_names_its_kernel(cuda_device, mode, k,
+                                                  rows, kernel, dtype):
+    """lane_contract_occupancy gives the plan of the kernel the wrapper
+    launches for the shape (the product's tile, one output a thread, or
+    the sums' vectors along the terms or the outputs), launches nothing,
+    and every such kernel keeps its registers (0 local bytes) with
+    resident warps on each SM."""
+    x, w = _contract_operands(mode, rows, k, dtype, cuda_device, rows + k)
+    launches = fragments.lane_contract.launches
+    plan = fragments.lane_contract_occupancy(x, mode, w)
+    assert fragments.lane_contract.launches == launches
+    assert plan["kernel"] == kernel
+    assert plan["local_bytes"] == 0 and plan["registers"] > 0
+    assert 0 < plan["warps_per_sm"] <= 64 and plan["blocks"] > 0
 
 
 def _map_operands(op, shape, dtype, device, seed):
@@ -1521,7 +1691,8 @@ def test_kernel_variant_patch_applies(tmp_path, patch):
     """Each committed variant of the kernels' sources (a unified diff
     against csrc/, built and timed by benchmarks/kernel_variants.py)
     applies to a copy of csrc/ as it stands and changes the one source
-    its name gives; a hunk that does not match raises."""
+    its name gives (the longest source name that, with "_", begins it);
+    a hunk that does not match raises."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     with open(patch) as f:
@@ -1530,7 +1701,11 @@ def test_kernel_variant_patch_applies(tmp_path, patch):
     changed = [name for name in sorted(os.listdir(csrc))
                if (csrc / name).read_text()
                != open(os.path.join(_build.CSRC, name)).read()]
-    assert changed == [os.path.basename(patch).split("_")[0] + ".cu"]
+    source = max((name for name in os.listdir(_build.CSRC)
+                  if name.endswith(".cu")
+                  and os.path.basename(patch).startswith(name[:-3] + "_")),
+                 key=len)
+    assert changed == [source]
     with pytest.raises(ValueError, match="does not apply"):
         kernel_variants.apply_patch(text, str(csrc))
 

@@ -2,8 +2,8 @@
 What the measurement scripts share: the device (the card unless asked
 for the CPU, as ``MDSystem``), the chain length, CUDA-graph and eager
 timing of a chained body, the card's description, the commit, the
-artifact directory, and the engine settings and 3-body rows that the
-trio kernel is timed on.
+artifact directory, and the engine settings, models and 3-body rows
+that the trio kernels are timed on.
 
 Device times come from CUDA graphs: ``SCAN_LEN`` bodies chained (each
 takes the previous one's output, as the JAX scripts' ``lax.scan``
@@ -88,6 +88,96 @@ def trio_rows(device) -> dict:
     return out
 
 
+def species23_model(elements=("Ne", "Xe")):
+    """A random 2+3-body model over ``elements``: the port's BSplineBasis, r
+    1.0-5.0 A, resolution 8, coefficients from RandomState(11) at scale
+    0.05 (for Ne/Xe the model of the JAX engine's
+    test_multi_fused_matches_factorized), with each pair's last three
+    coefficients at zero, as a fit with the basis's trailing trim holds
+    them: random ones make the pair term jump at 5 A."""
+    from uf3_tpu_torch import io
+    from uf3_tpu_torch.data.composition import ChemicalSystem
+    from uf3_tpu_torch.representation.basis import BSplineBasis
+    basis = BSplineBasis(ChemicalSystem(list(elements), degree=3),
+                         r_min_map=1.0, r_max_map=5.0, resolution_map=8)
+    coefficients = np.random.RandomState(11).normal(
+        scale=0.05, size=sum(basis.partition_sizes))
+    sizes, offsets = basis.get_interaction_partitions()
+    for pair in basis.interactions_map[2]:
+        end = offsets[pair] + sizes[pair]
+        coefficients[end - 3:end] = 0.0
+    return io.FittedModel(basis, coefficients)
+
+
+def ne_xe(reps, seed=3, a=5.4):
+    """fcc at ``a`` with half the sites Xe by a seeded draw (the JAX
+    engine's test_binary_md_runs)."""
+    from uf3_tpu_torch.data.atoms import Atoms, bulk
+    base = bulk("Ne", "fcc", a=a) * reps
+    numbers = base.get_atomic_numbers()
+    numbers[np.random.RandomState(seed).rand(len(numbers)) > 0.5] = 54
+    return Atoms(numbers, base.get_positions(), base.get_cell(), pbc=True)
+
+
+def ne_ar_xe(reps=(10, 10, 10)):
+    """The ternary cut: fcc at a = 5.4 A, species Ne/Ar/Xe by a seeded
+    draw, rattled by 0.08 A (10^3 x 4 = 4,000 atoms by default)."""
+    from uf3_tpu_torch.data.atoms import Atoms, bulk
+    base = bulk("Ne", "fcc", a=5.4) * reps
+    numbers = np.array([10, 18, 54])[np.random.RandomState(7).randint(
+        3, size=len(base))]
+    geom = Atoms(numbers, base.get_positions(), base.get_cell(), pbc=True)
+    geom.rattle(0.08, seed=1)
+    return geom
+
+
+def calculator_rows(calc, geom):
+    """The multi-species 3-body rows that ``calc`` (a ``UFCalculator``)
+    evaluates ``geom`` on: a full list build at its positions and cell.
+    Returns (d, valid, s_slot, species, rev_flat, mask)."""
+    from uf3_tpu_torch.ops import neighbors as nb
+    system = calc.system
+    cell = torch.as_tensor(geom.get_cell(), dtype=torch.float64,
+                           device=calc.device)
+    x = system._wrap(torch.as_tensor(geom.get_positions(),
+                                     dtype=torch.float64,
+                                     device=calc.device), cell)
+    nbr2, nbr3 = system.build_lists(x, cell)
+    _, cache = system.list_caches(nbr2, nbr3, cell)
+    d = nb.cached_displacements(x, nbr3, cache)
+    return (d, cache.valid, cache.s_slot, system.species, cache.rev_flat,
+            nbr3.mask)
+
+
+def multi_rows(device) -> dict:
+    """The multi-species 3-body rows the multi-species trio kernel is
+    timed on, float64: the random Ne/Xe model (``species23_model``) on
+    ``ne_xe((13, 13, 13))`` (8,788 atoms, the route's K = 24 list, 18
+    live slots a row), the Ne/Ar/Xe model on ``ne_ar_xe()`` (4,000
+    atoms, 27 ordered types), and the calculator's rows of the Ne/Xe
+    cell rattled by 0.05 A (seed 5).  name -> (potential, d, valid,
+    s_slot, species, rev_flat, mask)."""
+    from uf3_tpu_torch.forcefield.calculator import UFCalculator
+    from uf3_tpu_torch.forcefield.md import MDSystem
+    from uf3_tpu_torch.ops import neighbors as nb
+    out = {}
+    for name, model, geom in (
+            ("binary", species23_model(), ne_xe((13, 13, 13))),
+            ("ternary", species23_model(("Ne", "Ar", "Xe")), ne_ar_xe())):
+        system = MDSystem(model, geom, dtype=torch.float64, device=device)
+        state = system.init_state()
+        _, cache = system.list_caches(state.nbr2, state.nbr3, state.cell)
+        d = nb.cached_displacements(state.positions, state.nbr3, cache)
+        out[name] = (system.potential, d, cache.valid, cache.s_slot,
+                     system.species, cache.rev_flat, state.nbr3.mask)
+    geom = ne_xe((13, 13, 13))
+    geom.rattle(0.05, seed=5)
+    calc = UFCalculator(species23_model(), device=device)
+    calc.get_potential_energy(geom)
+    out["calculator"] = (calc.potential,) + calculator_rows(calc, geom)
+    return out
+
+
 def chain(fn, x, length: int):
     """fn applied ``length`` times, each to the previous output."""
     for _ in range(length):
@@ -138,21 +228,36 @@ def graph_ms(fn, repeats: int = SCAN_LEN, replays: int = 10) -> float:
     return graph_chain_ms(body, None, repeats, replays=replays)
 
 
-def graph_cold_ms(fn, operand_sets, replays: int = 10) -> float:
+def graph_cold_ms(fn, operand_sets, replays: int = 10,
+                  before=None) -> float:
     """Mean device ms of one call ``fn(*operands)`` on operands that the
     L2 cache does not hold: ``max(SCAN_LEN, len(operand_sets))`` calls in
     one CUDA graph, each on the next of ``operand_sets`` in turn (copies
     at their own addresses, which together pass the cache:
     ``cold_copies``), replayed ``replays`` times.  ``graph_ms`` repeats
-    one set of operands, which then stay in the cache."""
+    one set of operands, which then stay in the cache.  ``before()``,
+    where given, runs ahead of every call, so that each call follows the
+    graph node it makes; its time is in the result."""
     turn = itertools.count()
 
     def body(x):
+        if before is not None:
+            before()
         fn(*operand_sets[next(turn) % len(operand_sets)])
         return x
 
     return graph_chain_ms(body, None, max(SCAN_LEN, len(operand_sets)),
                           replays=replays)
+
+
+def node_floor_ms(device) -> dict:
+    """Device ms of a graph node that does next to nothing, chained as
+    ``graph_ms`` chains calls: an empty kernel (``torch.cuda._sleep(0)``)
+    and a 16-byte device-to-device memcpy."""
+    src = torch.zeros(4, device=device)
+    dst = torch.empty_like(src)
+    return {"empty kernel": graph_ms(lambda: torch.cuda._sleep(0)),
+            "16-byte memcpy": graph_ms(lambda: dst.copy_(src))}
 
 
 def cold_copies(n_bytes: int, most: int = 128) -> int:

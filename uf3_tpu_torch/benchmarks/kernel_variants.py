@@ -7,8 +7,9 @@ sources as they stand.  Each is applied to its own copy of ``csrc/``,
 all copies are built at once (``_build.build``), and each library is
 loaded in turn under the package's wrappers.
 
-    python -m uf3_tpu_torch.benchmarks.kernel_variants trio \\
-        --variant pr16 --variant pr15=PATCH ...
+    python -m uf3_tpu_torch.benchmarks.kernel_variants \\
+        trio|lane_contract|trio_multi|relayout \\
+        --variant as_is --variant before=PATCH ...
 
 ``trio``: every variant is first held to the plain version on the four
 lists of ``common.trio_rows`` (float64 within 1e-10, float32 forces
@@ -17,9 +18,20 @@ with and without energy), then timed by CUDA graph replay
 (``common.graph_ms``): float32 without energy on full and triangle
 lanes of each list, float64 with and without energy on full lanes of
 the K = 16 and K = 23 lists; launch plans from ``trio.trio_occupancy``.
-``lane_contract``: ``probe_mosaic``'s ``lane_contract`` cases at the
-probe's block and at the full system (``probe_mosaic.run_case``: each
-call on its own operand copy, bit for bit against the plain version).
+``trio_multi``: every variant is first held to the plain version on the
+rows of ``common.multi_rows`` (the binary 8,788-atom K = 24 rows, the
+ternary 4,000-atom rows, the calculator's float64 rows; float64 within
+1e-10, float32 forces within 2e-4 eV/A of the float64 plain version,
+with and without energy), then timed by graph replay: float32 without
+energy on the binary and ternary rows, float64 with energy on the
+calculator's; launch plans from ``multi.trio_multi_occupancy``.
+``lane_contract`` and ``relayout``: ``probe_mosaic``'s cases of the
+kernel (``relayout``: its reshape, the copy) at the probe's block and at
+the full system (``probe_mosaic.run_case``: each call on its own operand
+copy, bit for bit against the plain version, beside the library call;
+``relayout`` also with each call after a memcpy node and after a small
+kernel, less that node's own time, as no other copy precedes it; and
+the floor of a graph node, ``common.node_floor_ms``).
 Each case is timed in two rounds, the variants in order and then in
 reverse, and a variant's time is the mean of its two.  A variant that
 fails to build or disagrees is reported and left out.  Writes
@@ -41,7 +53,7 @@ import numpy as np
 import torch
 
 from uf3_tpu_torch.benchmarks import common, probe_mosaic
-from uf3_tpu_torch.ops import _build, trio
+from uf3_tpu_torch.ops import _build, fragments, multi, trio
 
 F64_TOL, FORCE_TOL = 1e-10, 2e-4
 
@@ -185,27 +197,104 @@ def trio_cases(device):
     return checks, cases
 
 
-def lane_contract_cases(device):
-    """(no separate checks, cases: name -> (time(), None)); each time
-    raises if the kernel disagrees with its plain version, and gives the
-    library call's time and the bound of the same run beside its own."""
-    cases = {}
-    for case in probe_mosaic.CASES:
-        if case.kernel != "lane_contract":
-            continue
-        for size in ("probe", "full"):
-            def timed(case=case, size=size):
-                r = probe_mosaic.run_case(case, size,
-                                          np.random.RandomState(1), device)
-                if not r["correct"]:
-                    raise AssertionError(f"{case.name} {size} disagrees")
-                return r["kernel_ms"], dict(library_ms=r["library_ms"],
-                                            bound_ms=r["bound_ms"])
-            cases[f"{case.name} {size}"] = (timed, None)
-    return {}, cases
+def multi_check(rows, plains):
+    """The loaded multi-species kernel's largest differences from the
+    plain version (``plains``: with_energy -> its float64 outputs):
+    float64 outputs and forces, float32 forces against the float64 plain
+    version's."""
+    pot64, d64, v64, s_slot, species, rev, mask = rows
+    pot32 = copy.deepcopy(pot64).to(dtype=torch.float32)
+    d32, v32 = d64.float(), v64.float()
+    err64 = err32 = 0.0
+    for with_energy, plain in plains.items():
+        k64 = multi.trio_multi_partials_all(pot64, d64, v64, s_slot,
+                                            species, with_energy)
+        k32 = multi.trio_multi_partials_all(pot32, d32, v32, s_slot,
+                                            species, with_energy)
+        f_plain = trio.assemble_forces(*plain, d64, rev, mask)[1]
+        f64 = trio.assemble_forces(*k64, d64, rev, mask)[1]
+        f32 = trio.assemble_forces(*k32, d32, rev, mask)[1]
+        err64 = max([err64, _err(f64, f_plain)]
+                    + [_err(a, b) for a, b in zip(k64, plain)])
+        err32 = max(err32, _err(f32, f_plain))
+    return dict(f64=err64, f32_forces=err32,
+                ok=err64 <= F64_TOL and err32 <= FORCE_TOL)
 
 
-CASES = {"trio": trio_cases, "lane_contract": lane_contract_cases}
+def trio_multi_cases(device):
+    """(checks: rows -> check(), cases: name -> (time(), plan()))."""
+    checks, cases = {}, {}
+    for name, rows in common.multi_rows(device).items():
+        pot64, d64, v64, s_slot, species = rows[:5]
+        plains = {e: multi.trio_multi_partials_all_torch(
+            pot64, d64, v64, s_slot, species, e) for e in (True, False)}
+        checks[name] = lambda a=(rows, plains): multi_check(*a)
+        k = int(d64.shape[1])
+        if name == "calculator":  # float64 with energy, as it runs there
+            tag, args = (f"calculator f64 energy, K = {k}",
+                         (pot64, d64, v64, s_slot, species, True))
+        else:
+            tag, args = (f"{name} f32, K = {k}",
+                         (copy.deepcopy(pot64).to(dtype=torch.float32),
+                          d64.float(), v64.float(), s_slot, species, False))
+        cases[tag] = (
+            lambda a=args: (common.graph_ms(
+                lambda: multi.trio_multi_partials_all(*a)), None),
+            lambda a=args: multi.trio_multi_occupancy(
+                a[0], int(a[1].shape[1]), a[1].dtype == torch.float64,
+                a[5], n_atoms=int(a[1].shape[0])))
+    return checks, cases
+
+
+def fragment_cases(kernel, mode=None, after=False):
+    """The cases of ``probe_mosaic`` of ``kernel`` (and ``mode``) at both
+    sizes: (no separate checks, cases: name -> (time(), plan())); each
+    time raises if the kernel disagrees with its plain version, and gives
+    the library call's time, the kernel's on one set of operands and the
+    bound of the same run beside its own; ``relayout``'s plan is its
+    launch plan for ``mode`` (``fragments.relayout_occupancy``), the
+    others have none.  With ``after``, each case is also timed with every
+    call after a node of another kind (``probe_mosaic.run_case``'s
+    ``before``): a 16-byte device-to-device memcpy, and a 4-element
+    ``add_`` kernel."""
+    plan = None
+    if kernel == "relayout":
+        def plan():
+            return fragments.relayout_occupancy(mode)
+
+    def build(device):
+        befores = {"": None}
+        if after:
+            src = torch.zeros(4, device=device)
+            dst, tick = torch.empty_like(src), torch.zeros_like(src)
+            befores[", after a memcpy"] = lambda: dst.copy_(src)
+            befores[", after a kernel"] = lambda: tick.add_(1.0)
+        cases = {}
+        for case in probe_mosaic.CASES:
+            if case.kernel != kernel or mode not in (None, case.mode):
+                continue
+            for size in ("probe", "full"):
+                for where, before in befores.items():
+                    def timed(case=case, size=size, before=before):
+                        r = probe_mosaic.run_case(
+                            case, size, np.random.RandomState(1), device,
+                            before=before)
+                        if not r["correct"]:
+                            raise AssertionError(
+                                f"{case.name} {size} disagrees")
+                        return r["kernel_ms"], dict(
+                            library_ms=r["library_ms"],
+                            bound_ms=r["bound_ms"],
+                            warm_ms=r["kernel_warm_ms"],
+                            before_ms=r.get("before_ms"))
+                    cases[f"{case.name} {size}{where}"] = (timed, plan)
+        return {}, cases
+    return build
+
+
+CASES = {"trio": trio_cases, "trio_multi": trio_multi_cases,
+         "lane_contract": fragment_cases("lane_contract"),
+         "relayout": fragment_cases("relayout", "reshape", after=True)}
 
 
 def main(kernel, variants, out_dir=None, device=None):
@@ -260,6 +349,10 @@ def main(kernel, variants, out_dir=None, device=None):
                    f"{result['plans'][case][n]['local_bytes']} B local"
                    if plan is not None else "") + ")" for n in names)
                 + f"; card: {result['card']}")
+        if kernel == "relayout":
+            result["node_floor_ms"] = common.node_floor_ms(device)
+            print(f"graph node floor, ms: {result['node_floor_ms']}; card: "
+                  f"{result['card']}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     path = common.write_artifact(result, out_dir,

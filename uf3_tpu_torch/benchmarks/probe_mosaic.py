@@ -230,14 +230,18 @@ def bound(case: Case, args, kwargs, out):
     return ms, bound_by, n_bytes, flops
 
 
-def run_case(case: Case, size: str, rng, device, max_rows: int = None) -> dict:
+def run_case(case: Case, size: str, rng, device, max_rows: int = None,
+             before=None) -> dict:
     """One case at one size: the kernel and the library call held to the
     plain version (a mismatch raises), the bound and, on a card, the
     device ms of each on operands the L2 cache does not hold
     (``common.graph_cold_ms`` over ``copies`` copies of the operands,
     which together pass twice the cache, at most 128), and the kernel's
     ms on the same operands every call (``kernel_warm_ms``; they then
-    stay in the cache)."""
+    stay in the cache).  With ``before`` (a call that makes one graph
+    node), each timed call follows that node instead of the call before
+    it: its ms are the pair's less ``before_ms``, the node's own, chained
+    alone in the same way."""
     n = case.rows if size == "probe" else N_PAD
     if max_rows:
         n = min(n, max_rows)
@@ -271,13 +275,18 @@ def run_case(case: Case, size: str, rng, device, max_rows: int = None) -> dict:
              "plain": lambda a, k: plain(*a, **k),
              "library": None if library is None
              else lambda a, k: library_call(case, a, k)()}
+    before_ms = common.graph_ms(before) \
+        if on_card and before is not None else 0.0
     for name, fn in timed.items():
         if fn is None or not on_card:
             record[f"{name}_ms"] = None
             continue
         with _no_tf32():
-            record[f"{name}_ms"] = common.graph_cold_ms(fn, sets)
+            record[f"{name}_ms"] = common.graph_cold_ms(
+                fn, sets, before=before) - before_ms
     record["copies"] = copies
+    if before is not None:
+        record["before_ms"] = before_ms if on_card else None
     record["kernel_warm_ms"] = common.graph_ms(
         lambda: kernel(*args, **kwargs)) if on_card else None
     record["reached"] = None if record["kernel_ms"] is None \

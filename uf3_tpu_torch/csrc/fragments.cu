@@ -68,6 +68,16 @@
 // loads, was slower than one; tiles and vectors at every size, with no
 // floor, were slower at the probes' blocks.
 //
+// relayout's copy (the reshape) stays one word a thread, as first
+// written.  At the probes' sizes (64 KB and 631 KB) a copy is one wave of
+// loads, and its time is a graph node's launch and drain.  Tried and left
+// out (PERF.md section 6: kernel_variants relayout): 16-byte vectors, two
+// or four a thread, 128- or 1024-thread blocks and an L2 prefetch hint
+// were no faster; a programmatic dependent launch (griddepcontrol)
+// overlaps only a copy that follows another such launch, which no path
+// runs, gained nothing after a memcpy and was 10-15% slower after a plain
+// kernel.  The copy stays 3-6% over the library's, a memcpy node.
+//
 // Every floating operation of lane_contract and lane_map is written with
 // an explicit rounding intrinsic (__fmul_rn, __dadd_rn, __fsqrt_rn, ...),
 // so that nvcc contracts nothing into an FMA and each operation rounds
@@ -427,6 +437,25 @@ __global__ void lane_map_kernel(const T* __restrict__ x,
 
 bool fits_32(long long n) { return n < (1LL << 31); }
 
+// The launch plan of kernel k at kThreads threads a block and smem bytes
+// of dynamic shared memory: out = {registers per thread, local (spill)
+// bytes per thread, resident blocks per SM, warps per SM}.
+template <typename K>
+int plan_of(K k, size_t smem, int* out) {
+  cudaFuncAttributes attr;
+  int blocks = 0;
+  cudaError_t err = cudaFuncGetAttributes(&attr, k);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kThreads,
+                                                        smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = blocks;
+  out[3] = blocks * kThreads / 32;
+  return 0;
+}
+
 template <typename E, typename I>
 int launch_relayout(const void* x, void* out, void* out2, long long n,
                     int mode, long long in_cols, long long out_cols, int k,
@@ -464,11 +493,15 @@ long long product_tile_rows(long long rows, int terms, int w_pad) {
   return tr < V ? 0 : tr;
 }
 
+// Launches lane_contract's kernel for the shape, or, with plan, launches
+// nothing and gives its launch plan: plan_of's four numbers, the kernel
+// (0 the product's tile, 1 one output a thread, 2 vectors along the
+// outputs, 3 along the terms) and the blocks it would launch.
 template <typename T, typename I>
 int launch_lane_contract(const void* x, const void* w, void* out,
                          long long n, long long cols_out, int terms,
                          long long in_cols, long long sj, long long st,
-                         cudaStream_t s) {
+                         cudaStream_t s, int* plan) {
   constexpr int V = Vec16<T>::n;
   const long long rows = n / cols_out;
   const bool aligned = aligned16(x) && aligned16(out);
@@ -483,16 +516,17 @@ int launch_lane_contract(const void* x, const void* w, void* out,
           sizeof(T) * ((size_t)w_pad + (size_t)tile_rows * terms);
       const unsigned int blocks =
           (unsigned int)(tiles < kResident ? tiles : kResident);
-#define UF3_TILE(A)                                                        \
-  contract_tile_kernel<T, I, A><<<blocks, kThreads, smem, s>>>(            \
-      (const T*)x, (const T*)w, (T*)out, (I)rows, terms, (int)cols_out,    \
-      (int)tile_rows, (int)tiles, w_pad, (int)(step / cols_out),           \
-      (int)(step % cols_out))
-      if (aligned)
-        UF3_TILE(true);
-      else
-        UF3_TILE(false);
-#undef UF3_TILE
+      const auto kernel = aligned ? contract_tile_kernel<T, I, true>
+                                  : contract_tile_kernel<T, I, false>;
+      if (plan != nullptr) {
+        plan[4] = 0;
+        plan[5] = (int)blocks;
+        return plan_of(kernel, smem, plan);
+      }
+      kernel<<<blocks, kThreads, smem, s>>>(
+          (const T*)x, (const T*)w, (T*)out, (I)rows, terms, (int)cols_out,
+          (int)tile_rows, (int)tiles, w_pad, (int)(step / cols_out),
+          (int)(step % cols_out));
       return (int)cudaGetLastError();
     }
   }
@@ -511,18 +545,18 @@ int launch_lane_contract(const void* x, const void* w, void* out,
   const unsigned int blocks = blocks_for(groups);
   const long long step = (long long)blocks * kThreads;
   const size_t smem = w != nullptr ? sizeof(T) * terms * cols_out : 0;
-#define UF3_ROWS(W, ALONG)                                                 \
-  contract_rows_kernel<T, I, W, ALONG><<<blocks, kThreads, smem, s>>>(     \
-      (const T*)x, (const T*)w, (T*)out, (I)groups, (int)per_row,          \
-      (int)cols_out, terms, (I)in_cols, (I)sj, (I)st,                      \
-      (int)(step / per_row), (int)(step % per_row))
-  if (vec == 1)
-    UF3_ROWS(V, false);
-  else if (vec == 2)
-    UF3_ROWS(V, true);
-  else
-    UF3_ROWS(1, false);
-#undef UF3_ROWS
+  const auto kernel = vec == 1   ? contract_rows_kernel<T, I, V, false>
+                      : vec == 2 ? contract_rows_kernel<T, I, V, true>
+                                 : contract_rows_kernel<T, I, 1, false>;
+  if (plan != nullptr) {
+    plan[4] = vec == 0 ? 1 : vec + 1;
+    plan[5] = (int)blocks;
+    return plan_of(kernel, smem, plan);
+  }
+  kernel<<<blocks, kThreads, smem, s>>>(
+      (const T*)x, (const T*)w, (T*)out, (I)groups, (int)per_row,
+      (int)cols_out, terms, (I)in_cols, (I)sj, (I)st, (int)(step / per_row),
+      (int)(step % per_row));
   return (int)cudaGetLastError();
 }
 
@@ -574,6 +608,47 @@ extern "C" int uf3_relayout(const void* x, void* out, void* out2,
   return -1;
 }
 
+// The launch plan (plan_of) of relayout's kernel for `mode` on words of
+// E with 32-bit offsets.
+template <typename E>
+int relayout_occupancy(int mode, int* out) {
+  switch (mode) {
+    case kCopy: return plan_of(relayout_kernel<E, unsigned int, kCopy>, 0, out);
+    case kTranspose:
+      return plan_of(relayout_kernel<E, unsigned int, kTranspose>, 0, out);
+    case kTile: return plan_of(relayout_kernel<E, unsigned int, kTile>, 0, out);
+    case kRepeat:
+      return plan_of(relayout_kernel<E, unsigned int, kRepeat>, 0, out);
+    case kSelect:
+      return plan_of(relayout_kernel<E, unsigned int, kSelect>, 0, out);
+    default: return -1;
+  }
+}
+
+extern "C" int uf3_relayout_occupancy(int mode, int elem_bytes, int* out) {
+  if (elem_bytes == 4) return relayout_occupancy<unsigned int>(mode, out);
+  if (elem_bytes == 8)
+    return relayout_occupancy<unsigned long long>(mode, out);
+  return -1;
+}
+
+static int lane_contract_entry(const void* x, const void* w, void* out,
+                               long long n, long long max_offset,
+                               long long cols_out, int terms,
+                               long long in_cols, long long sj,
+                               long long st, int is_f64, cudaStream_t s,
+                               int* plan) {
+  if (n <= 0) return plan != nullptr ? -1 : 0;
+  const bool small = fits_32(max_offset);
+#define UF3_ARGS x, w, out, n, cols_out, terms, in_cols, sj, st, s, plan
+  if (is_f64)
+    return small ? launch_lane_contract<double, unsigned int>(UF3_ARGS)
+                 : launch_lane_contract<double, long long>(UF3_ARGS);
+  return small ? launch_lane_contract<float, unsigned int>(UF3_ARGS)
+               : launch_lane_contract<float, long long>(UF3_ARGS);
+#undef UF3_ARGS
+}
+
 // out (n = rows x cols_out) in float32 (is_f64 0) or float64; w null for
 // the plain sums, else (terms, cols_out) in shared memory.
 extern "C" int uf3_lane_contract(const void* x, const void* w, void* out,
@@ -581,16 +656,21 @@ extern "C" int uf3_lane_contract(const void* x, const void* w, void* out,
                                  long long cols_out, int terms,
                                  long long in_cols, long long sj,
                                  long long st, int is_f64, void* stream) {
-  if (n <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const bool small = fits_32(max_offset);
-#define UF3_ARGS x, w, out, n, cols_out, terms, in_cols, sj, st, s
-  if (is_f64)
-    return small ? launch_lane_contract<double, unsigned int>(UF3_ARGS)
-                 : launch_lane_contract<double, long long>(UF3_ARGS);
-  return small ? launch_lane_contract<float, unsigned int>(UF3_ARGS)
-               : launch_lane_contract<float, long long>(UF3_ARGS);
-#undef UF3_ARGS
+  return lane_contract_entry(x, w, out, n, max_offset, cols_out, terms,
+                             in_cols, sj, st, is_f64, (cudaStream_t)stream,
+                             nullptr);
+}
+
+// The launch plan of uf3_lane_contract on the same arguments, launching
+// nothing: plan = {registers per thread, local bytes per thread, resident
+// blocks per SM, warps per SM, kernel (0 the product's tile, 1 one output
+// a thread, 2 vectors along the outputs, 3 along the terms), blocks}.
+extern "C" int uf3_lane_contract_occupancy(
+    const void* x, const void* w, void* out, long long n,
+    long long max_offset, long long cols_out, int terms, long long in_cols,
+    long long sj, long long st, int is_f64, int* plan) {
+  return lane_contract_entry(x, w, out, n, max_offset, cols_out, terms,
+                             in_cols, sj, st, is_f64, nullptr, plan);
 }
 
 // x, idx (int32), grid as the op reads them (null where it reads none);

@@ -10,43 +10,61 @@
 // trio.cu: pair lane (m, n) takes its third leg d[n] - d[m], H from row
 // m and the second-leg basis from row n.
 //
-// What bounds it on the card: operations.  On the 8,788-atom Ne/Xe
-// cell (24 slots, 8 ordered types) the pass needs 2.349e8 flop over the
-// types' live lanes against 9.505e6 bytes (rows, masks and species read
-// once, outputs written once): 3.5 us at the float32 rate against 2.8
-// us at the memory rate.  The design therefore keeps every live lane of
-// an atom in one launch and reads each row once:
-// * One warp per center atom, its species s_c read once.  A pair lane
-//   takes its ordered type from type_of[s_c][s_m][s_n] in shared memory;
-//   -1 (the model has no such type) adds nothing, as the reference's
-//   loop over descs adds nothing.  Every type runs the same code on
-//   other table addresses: no warp exits for its center's species and
-//   no lane idles for its neighbors'.
-// * One pass per species s of row n.  Each ordered type has its own leg
-//   knots, so a slot's bases depend on the other leg's species: as row
-//   n, a slot stages the second-leg basis of (s_c, s, s_n) for every
-//   species s of row m, once per atom; in pass s, each row m stages the
-//   first-leg basis of (s_c, s_m, s) and H = A.G over that type's grid
-//   window, then the lanes (m, n) whose n is of species s run.  H and
-//   the first-leg bases take one pass's room, so a warp's slice grows
-//   with S by the second-leg bases alone.  A pass with no slot of its
-//   species is skipped whole.
+// What bounds it on the card: issued instructions and their latency.  On
+// the 8,788-atom Ne/Xe cell (24 slots, 18 of them live, 8 ordered types)
+// the pass needs 2.349e8 flop over the types' live lanes against 9.5e6
+// bytes: 3.5 us at the float32 rate against 2.8 us at the memory rate,
+// and each live pair lane is one dependent chain (rsqrt, interval,
+// Horner for 4 values and 4 derivatives, then up to 4 x 4 (b, c) terms
+// read from H in shared memory).  So the design keeps every live lane of
+// an atom in one launch, all 32 threads of a warp on live lanes, and
+// enough warps on an SM to hide the chains:
+// * One warp per center atom, up to eight atoms per block, its species
+//   s_c read once.  A pair lane takes its ordered type from
+//   type_of[s_c][s_m][s_n] in shared memory; -1 (the model has no such
+//   type) adds nothing, as the reference's loop over descs adds nothing.
+//   Every type runs the same code on other table addresses.
+// * Rows by live rank, not by slot: a warp ballot over `valid` gives the
+//   live slots (any mask) and their ranks; row r of a sub-pass is the
+//   (base + r)-th live slot.  A sub-pass takes at most 16 live rows, R of
+//   them rounded up to a power of two, each served by 32 / R threads
+//   (lane = h * R + r) that split the row's live partners of each
+//   species in rank order and combine with __shfl_xor_sync over offsets
+//   R .. 16.  The route's 18-live K = 24 lists run 16 rows x 2 threads,
+//   then 2 rows x 16 threads (by slot, 18 of 32 threads had work and
+//   each walked its partners alone).
+// * The species passes inside the sub-pass.  Each ordered type has its
+//   own leg knots, so a slot's bases depend on the other leg's species:
+//   as row n, a slot stages the second-leg basis of (s_c, s, s_n) for
+//   every species s of row m, once per atom; in pass s of a sub-pass,
+//   each of its rows stages the first-leg basis of (s_c, s_m, s) and H
+//   = A.G over that type's grid window, then its lanes (m, n) with n of
+//   species s run.  A thread's row stays the same over the passes, so
+//   its sums w, s3, v stay in registers and its partial row is written
+//   once, after the last pass; a pass with no slot of its species, or
+//   no row with a type in it, is skipped whole.
+// * H holds 16 rows (hh[col * 16 + r]) and is staged for the sub-pass's
+//   rows only, so a KMAX = 32 warp's slice holds half the H it did by
+//   slot.  Dead slots' partial rows are written as zeros.
 // * The per-type metadata is packed once, at construction (ops/multi.py
 //   pack_trio_multi): type_of, and per type the three legs (kind,
 //   n_int, table offset; u0, 1/h, t_min, t_max), the window and the
 //   grid offset; each distinct leg table once, the grid windows end to
 //   end.  A block stages them into shared memory with cp.async.bulk on
-//   one mbarrier, while its warps load their first atom's rows.  Tables
-//   or grids too large to sit beside eight warps' slices stay in device
-//   memory (read through L1); a window too wide for one warp's slice
-//   returns -1, as in trio.cu.
-// * One warp per atom, up to eight atoms per block.  A persistent grid
-//   (resident blocks x SMs, each warp walking atoms with a stride and
-//   prefetching the next atom's rows) staged the metadata once per
-//   resident block instead of once per 8 atoms, but its last atoms left
-//   warps idle (8,788 atoms over 3,168 resident warps) and on the H100 it
-//   was no faster on the binary cell and 11% slower on the ternary one
-//   (PERF.md), so it was taken out.
+//   one mbarrier, while its warps load their first atom's rows; a copy
+//   that never lands traps.  Tables or grids too large to sit beside
+//   eight warps' slices stay in device memory (read through L1); a
+//   window too wide for one warp's slice returns -1, as in trio.cu.
+// * Registers: the float32 instances are held to 64 registers (32 warps
+//   per SM) by their launch bounds; float64 keeps ptxas's own count; no
+//   instance spills.  What that took: the atom index in 32 bits, and
+//   with energy each lane's (b, c) terms summed one by one; the tables
+//   and grids addressed as shared memory by an instance of their own
+//   spilled more, not less (8-16 bytes).
+// * Fixed sums: a row's threads add their lanes in rank order and
+//   combine in a fixed shuffle order, the center force sums the slots'
+//   w in a fixed tree, with no atomics, so the bits do not vary between
+//   runs.
 // * No tensor cores: a lane contracts at most 4 x 4 (b, c) terms of H,
 //   and H per row is (<= 4 taps) x (Bw Cw) columns, far below a wgmma
 //   tile; in float32 a tensor core would mean TF32, which the port keeps
@@ -56,10 +74,32 @@
 //   generality at run time (any K <= KMAX, any number of species and
 //   types, any windows, the four knot kinds, float32 and float64).
 //   Every output is written once; the caller zeroes nothing.
+//
+// Measured (PERF.md section 6: benchmarks/kernel_variants.py on the
+// patches in benchmarks_data/artifacts_torch/kernel_variants/; float32
+// without energy on the 8,788-atom binary K = 24 rows and the 4,000-atom
+// ternary rows, float64 with energy on the calculator's K = 18 rows; on
+// the H100): live-rank rows with H for 32 rows gained 1-2% in float32
+// (18 live rows, one thread each) and 31% in float64 (at most 16 live
+// rows there); the 16-row H took float32 from 0.0855 to 0.0678 ms
+// (binary) and 0.0533 to 0.0447 (ternary); the 64-register bound from
+// 24 to 32 warps per SM, 0.0655 and 0.0423 (the kernel by slot:
+// 0.0868, 0.0544, 0.1063 float64; now 0.0736).  Left out: a persistent grid
+// (resident blocks x SMs, each warp walking atoms with a grid stride,
+// the metadata staged once per resident block) was slower everywhere:
+// at 64 registers it spills (0.0693, 0.0447), at 80 registers 24 warps
+// per SM (0.0688, 0.0499), and in float64 it needs 144 registers, 8
+// warps per SM (0.0952).
+//
+// The unary pass is its own kernel (trio.cu); the helpers both use are in
+// trio_common.cuh.
 
 #include "trio_common.cuh"
 
 namespace {
+
+// Rows of H a sub-pass stages: the live rows by rank it takes at most.
+constexpr int kCap = 16;
 
 // One type's record in the int metadata, after the (S, S, S) type_of
 // table: per leg (first, second, third) kind, n_int and the entry
@@ -93,6 +133,11 @@ __device__ __forceinline__ int type_at(const int* type_of, int S, int c,
           && unsigned(n) < unsigned(S))
              ? type_of[(c * S + m) * S + n]
              : -1;
+}
+
+// The least power of two >= p (1 for p <= 1).
+__device__ __forceinline__ int pow2_ceil(int p) {
+  return p <= 1 ? 1 : 1 << (32 - __clz(p - 1));
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* ptr) {
@@ -175,20 +220,339 @@ __device__ __forceinline__ void load_rows(const MultiParams<T>& p,
   rows.s_center = int(p.s_center[atom]);
 }
 
-// One warp per atom (see the design above).  The minimum of
-// resident blocks per SM asked of ptxas: 3 in float32 (at most 80
-// registers, 24 warps per SM, no spills), 1 in float64 (with 3 it
-// spilled).
+// The metadata as the block staged it.
+template <typename T>
+struct Meta {
+  const int* type_of;  // (S, S, S)
+  const int* recs;     // kRec ints per type
+  const T* reals;      // kReal reals per type
+  const T* tables;     // shared memory or device memory
+  const T* grids;
+};
+
+// The pointers of one warp's slice: first the arrays of fixed size (at
+// offsets known at compile time), then the S species' second-leg bases,
+// then H.
+template <typename T, int KMAX, int CAP>
+struct Slice {
+  // bytes of the fixed arrays (a multiple of 16, as the Quads need)
+  static constexpr int kFixed =
+      ((KMAX + 2 * CAP) * int(sizeof(Quad<T>)) + 2 * KMAX * int(sizeof(T))
+       + (2 * KMAX + 2 * CAP) * int(sizeof(int)) + 15) / 16 * 16;
+  Quad<T>* d;      // (KMAX) x, y, z, -
+  Quad<T>* a;      // (CAP) this pass's first-leg values by rank
+  Quad<T>* da;     // and d/dr, 4 taps
+  T* ir;           // (KMAX) 1 / |d|
+  T* w;            // (KMAX) each live slot's w
+  int* sp;         // (KMAX) species of each slot
+  int* live;       // (KMAX) the live slots by rank
+  int* idx;        // (CAP) first-leg tap by rank
+  int* t;          // (CAP) this pass's type by rank, or -1
+  Quad<T>* b;      // (S, KMAX) second-leg values, per species of row m
+  int* bidx;       // (S, KMAX) second-leg first tap
+  Pair<T>* hh;     // hh[col * CAP + r], col = (b - b_lo) * Cw + (c - c_lo)
+  __device__ Slice(unsigned char* ws, int S, int hh_off) {
+    d = reinterpret_cast<Quad<T>*>(ws);
+    a = d + KMAX;
+    da = a + CAP;
+    ir = reinterpret_cast<T*>(da + CAP);
+    w = ir + KMAX;
+    sp = reinterpret_cast<int*>(w + KMAX);
+    live = sp + KMAX;
+    idx = live + KMAX;
+    t = idx + CAP;
+    b = reinterpret_cast<Quad<T>*>(ws + kFixed);
+    bidx = reinterpret_cast<int*>(b + S * KMAX);
+    hh = reinterpret_cast<Pair<T>*>(ws + hh_off);
+  }
+  // bytes before H
+  static size_t head_bytes(int S) {
+    return round32(size_t(kFixed)
+                   + size_t(S) * KMAX * (sizeof(Quad<T>) + sizeof(int)));
+  }
+};
+
+// The sums of row r's lanes (m, n) in one species pass: this thread's
+// share (every tpr-th partner in rank order, from h) of row m's valid
+// partners n != m in `nmask`, all of type t.
+template <typename T, int KMAX, int CAP, bool ENERGY>
+__device__ __forceinline__ void row_lanes(
+    const Slice<T, KMAX, CAP>& s, const Meta<T>& meta, int t, int r, int m,
+    int s_row, unsigned nmask, int h, int tpr, T& w, T& s3, T& vx, T& vy,
+    T& vz, T& e) {
+  const int* rec = meta.recs + t * kRec;
+  const LegT<T> leg_n = type_leg<T>(rec, meta.reals + t * kReal, 2);
+  const T* tab_n = meta.tables + rec[kLeg3 + 2];
+  const int b_lo = rec[kBLo], bw = rec[kBW];
+  const int c_lo = rec[kCLo], cw = rec[kCW];
+  const int cwk = cw * CAP;
+  const Quad<T>* s_bm = s.b + s_row * KMAX;  // under row m's species
+  const int* s_bidxm = s.bidx + s_row * KMAX;
+  unsigned mine = 0;
+  unsigned bits = nmask & ~(1u << m);
+  for (int j = 0; bits; bits &= bits - 1, ++j)
+    if ((j & (tpr - 1)) == h) mine |= bits & (0u - bits);
+  const Quad<T> dm = s.d[m];
+  while (mine) {
+    const int n = __ffs(mine) - 1;
+    mine &= mine - 1;
+    const Quad<T> dn = s.d[n];
+    const T dx = dn.v[0] - dm.v[0];
+    const T dy = dn.v[1] - dm.v[1];
+    const T dz = dn.v[2] - dm.v[2];
+    const T rmn2 = dx * dx + dy * dy + dz * dz;
+    if (!(rmn2 > T(1e-10))) continue;
+    const T inv_rmn = rsqrt_t(rmn2);
+    const T rmn = rmn2 * inv_rmn;
+    if (!(rmn >= leg_n.t_min && rmn <= leg_n.t_max)) continue;
+    const int cidx = leg_interval<T>(leg_n, rmn, rmn2, inv_rmn);
+    T cv[4], cdv[4];
+    leg_basis<T>(tab_n, cidx, rmn, T(1), cv, cdv);
+    int coff[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = cidx + q - c_lo;
+      const bool in = c >= 0 && c < cw;
+      cv[q] = in ? cv[q] : T(0);
+      cdv[q] = in ? cdv[q] : T(0);
+      coff[q] = (in ? c : 0) * CAP + r;
+    }
+    const Quad<T> an = s_bm[n];
+    const int b0 = s_bidxm[n] - b_lo;
+    T t1 = T(0), t3 = T(0), value = T(0);
+#pragma unroll
+    for (int pp = 0; pp < 4; ++pp) {
+      const int b = b0 + pp;
+      if (b < 0 || b >= bw) continue;
+      const Pair<T>* hb = s.hh + b * cwk;
+      if (ENERGY) {
+        // term by term, without the per-b sums: at 64 registers the
+        // per-b sums spilled in this instance
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const Pair<T> hh = hb[coff[q]];
+          const T ac = an.v[pp] * cv[q];
+          value = value + ac * hh.h;
+          t1 = t1 + ac * hh.h1;
+          t3 = t3 + (an.v[pp] * cdv[q]) * hh.h;
+        }
+      } else {
+        T d1b = T(0), d3b = T(0);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const Pair<T> hh = hb[coff[q]];
+          d1b = d1b + cv[q] * hh.h1;
+          d3b = d3b + cdv[q] * hh.h;
+        }
+        t1 = t1 + an.v[pp] * d1b;
+        t3 = t3 + an.v[pp] * d3b;
+      }
+    }
+    const T g3 = t3 * inv_rmn;
+    w = w + t1;
+    s3 = s3 + g3;
+    vx = vx + g3 * dn.v[0];
+    vy = vy + g3 * dn.v[1];
+    vz = vz + g3 * dn.v[2];
+    if (ENERGY) e = e + value;
+  }
+}
+
+// One atom on one warp (see the design above).
+template <typename T, int KMAX, int CAP, bool ENERGY>
+__device__ __forceinline__ void multi_atom(const MultiParams<T>& p,
+                                           const Meta<T>& meta,
+                                           const Slice<T, KMAX, CAP>& s,
+                                           int atom, int lane,
+                                           const Rows<T, KMAX>& cur) {
+  const int K = p.K, S = p.S;
+  // this atom's rows into shared memory
+#pragma unroll
+  for (int j = 0; j < (3 * KMAX + kWarp - 1) / kWarp; ++j) {
+    const int i = lane + j * kWarp;
+    if (i < 3 * K) {
+      const int slot = i / 3;
+      s.d[slot].v[i - 3 * slot] = cur.d[j];
+    }
+  }
+  const bool v_lane = lane < K && cur.valid != T(0);
+  const int s_lane = cur.s_slot;
+  const int s_c = cur.s_center;
+  const unsigned vmask = __ballot_sync(kFull, v_lane);
+  const int P = __popc(vmask);
+  if (v_lane) s.live[__popc(vmask & ((1u << lane) - 1u))] = lane;
+  __syncwarp();
+
+  // per slot: 1/|d|, its species, and as row n the second-leg basis of
+  // (s_c, s, s_n) for every species s of row m; a dead slot's partial
+  // row: zeros
+  if (lane < K) {
+    const Quad<T> q = s.d[lane];
+    T r2 = q.v[0] * q.v[0] + q.v[1] * q.v[1] + q.v[2] * q.v[2];
+    r2 = r2 > T(0) ? r2 : T(1);
+    const T inv_r = rsqrt_t(r2);
+    const T r = r2 * inv_r;
+    s.ir[lane] = inv_r;
+    s.sp[lane] = s_lane;
+    for (int sm = 0; sm < S; ++sm) {
+      const int t = v_lane ? type_at(meta.type_of, S, s_c, sm, s_lane) : -1;
+      Quad<T> b;
+      b.v[0] = b.v[1] = b.v[2] = b.v[3] = T(0);
+      int bidx = 0;
+      if (t >= 0) {
+        const int* rec = meta.recs + t * kRec;
+        const LegT<T> leg = type_leg<T>(rec, meta.reals + t * kReal, 1);
+        const T gate = (r >= leg.t_min && r <= leg.t_max) ? T(1) : T(0);
+        bidx = leg_interval<T>(leg, r, r2, inv_r);
+        leg_values<T>(meta.tables + rec[kLeg2 + 2], bidx, r, gate, b.v);
+      }
+      s.b[sm * KMAX + lane] = b;
+      s.bidx[sm * KMAX + lane] = bidx;
+    }
+    if (!v_lane) {
+      T* out = p.part + (static_cast<long long>(atom) * K + lane) * 5;
+#pragma unroll
+      for (int c = 0; c < 5; ++c) out[c] = T(0);
+    }
+  }
+  __syncwarp();
+
+  T e = T(0);
+  // sub-passes of at most CAP live rows (one when P <= CAP)
+  for (int base = 0; base < P; base += CAP) {
+    const int np = min(P - base, CAP);
+    const int R = pow2_ceil(np);
+    const int lg = __ffs(R) - 1;
+    // row r of the sub-pass: slot m = live[base + r], served by the
+    // threads lane = h * R + r; lane j < np also stages row j
+    const int r = lane & (R - 1);
+    const int h = lane >> lg;
+    const int tpr = kWarp >> lg;
+    const bool row_ok = r < np;
+    const int m = row_ok ? s.live[base + r] : 0;
+    const int s_row = s.sp[m];
+    T w = T(0), s3 = T(0), vx = T(0), vy = T(0), vz = T(0);
+    for (int sn = 0; sn < S; ++sn) {
+      const unsigned nmask = __ballot_sync(kFull, v_lane && s_lane == sn);
+      if (nmask == 0u) continue;  // no row n of this species
+      // row j = lane: the first-leg basis of (s_c, s_m, sn)
+      int t_j = -1;
+      if (lane < np) {
+        const int mj = s.live[base + lane];
+        t_j = type_at(meta.type_of, S, s_c, s.sp[mj], sn);
+        Quad<T> a, da;
+        a.v[0] = a.v[1] = a.v[2] = a.v[3] = T(0);
+        da = a;
+        int idx = 0;
+        if (t_j >= 0) {
+          const Quad<T> q = s.d[mj];
+          T r2 = q.v[0] * q.v[0] + q.v[1] * q.v[1] + q.v[2] * q.v[2];
+          r2 = r2 > T(0) ? r2 : T(1);
+          const T inv_r = s.ir[mj];
+          const T rj = r2 * inv_r;
+          const int* rec = meta.recs + t_j * kRec;
+          const LegT<T> leg = type_leg<T>(rec, meta.reals + t_j * kReal, 0);
+          const T gate = (rj >= leg.t_min && rj <= leg.t_max) ? T(1) : T(0);
+          idx = leg_interval<T>(leg, rj, r2, inv_r);
+          leg_basis<T>(meta.tables + rec[kLeg1 + 2], idx, rj, gate, a.v,
+                       da.v);
+        }
+        s.a[lane] = a;
+        s.da[lane] = da;
+        s.idx[lane] = idx;
+        s.t[lane] = t_j;
+      }
+      const unsigned tmask = __ballot_sync(kFull, t_j >= 0);  // rows
+      if (tmask == 0u) continue;
+      __syncwarp();
+
+      // H[r, col] = sum_l A[r, l] G[l, col] over the <= 4 taps of row
+      // r, on row r's type's window
+      for (int i = lane; i < R * p.max_cols; i += kWarp) {
+        const int rr = i & (R - 1);
+        if (!((tmask >> rr) & 1u)) continue;
+        const int* rec = meta.recs + s.t[rr] * kRec;
+        const int cols = rec[kBW] * rec[kCW];
+        const int col = i >> lg;
+        if (col >= cols) continue;
+        const T* g = meta.grids + rec[kGOff];
+        const int lw = rec[kLW];
+        const int l0 = s.idx[rr] - rec[kLLo];
+        const Quad<T> a = s.a[rr], da = s.da[rr];
+        T hv = T(0), h1 = T(0);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int l = l0 + q;
+          if (l >= 0 && l < lw) {
+            const T gv = g[l * cols + col];
+            hv = hv + a.v[q] * gv;
+            h1 = h1 + da.v[q] * gv;
+          }
+        }
+        s.hh[col * CAP + rr] = Pair<T>{hv, h1};
+      }
+      __syncwarp();
+
+      if (row_ok && ((tmask >> r) & 1u))
+        row_lanes<T, KMAX, CAP, ENERGY>(s, meta, s.t[r], r, m, s_row, nmask,
+                                        h, tpr, w, s3, vx, vy, vz, e);
+      __syncwarp();  // before the next pass restages A and H
+    }
+    for (int off = R; off < kWarp; off <<= 1) {
+      w = w + __shfl_xor_sync(kFull, w, off);
+      s3 = s3 + __shfl_xor_sync(kFull, s3, off);
+      vx = vx + __shfl_xor_sync(kFull, vx, off);
+      vy = vy + __shfl_xor_sync(kFull, vy, off);
+      vz = vz + __shfl_xor_sync(kFull, vz, off);
+    }
+    if (row_ok && h == 0) {
+      T* out = p.part + (static_cast<long long>(atom) * K + m) * 5;
+      out[0] = w;
+      out[1] = s3;
+      out[2] = vx;
+      out[3] = vy;
+      out[4] = vz;
+      s.w[m] = w;
+    }
+  }
+  __syncwarp();
+
+  // center force sum_m w_m / r_m d_m over the live slots, and energy
+  T fx = T(0), fy = T(0), fz = T(0);
+  if (v_lane) {
+    const T wr = s.w[lane] * s.ir[lane];
+    const Quad<T> dm = s.d[lane];
+    fx = wr * dm.v[0];
+    fy = wr * dm.v[1];
+    fz = wr * dm.v[2];
+  }
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1) {
+    fx = fx + __shfl_xor_sync(kFull, fx, off);
+    fy = fy + __shfl_xor_sync(kFull, fy, off);
+    fz = fz + __shfl_xor_sync(kFull, fz, off);
+    if (ENERGY) e = e + __shfl_xor_sync(kFull, e, off);
+  }
+  if (lane == 0) {
+    p.fc[atom * 3] = fx;
+    p.fc[atom * 3 + 1] = fy;
+    p.fc[atom * 3 + 2] = fz;
+    p.energy[atom] = T(0.5) * e;
+  }
+}
+
+// One warp per atom, up to eight atoms a block (see the design above).
+// The minimum of resident blocks per SM asked of ptxas: 4 in float32
+// (at most 64 registers, 32 warps per SM), 1 in float64 (ptxas's own
+// count).
 template <typename T, int KMAX, bool ENERGY>
-__global__ void __launch_bounds__(kWarp * kMaxWarps, sizeof(T) == 4 ? 3 : 1)
+__global__ void __launch_bounds__(kWarp * kMaxWarps, sizeof(T) == 4 ? 4 : 1)
 trio_multi_kernel(const MultiParams<T> p) {
-  constexpr int TPR = kWarp / KMAX;  // threads per pair row
+  constexpr int CAP = KMAX > kCap ? kCap : KMAX;
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  const int K = p.K, S = p.S;
-  const long long atom =
-      static_cast<long long>(blockIdx.x) * (blockDim.x / kWarp) + warp;
+  const int atom = int(blockIdx.x) * (blockDim.x / kWarp) + warp;
 
   // the metadata, tables and grids, once per block, by bulk copy
   const unsigned bar = smem_u32(smem);
@@ -217,239 +581,19 @@ trio_multi_kernel(const MultiParams<T> p) {
   mbar_wait(bar, 0);
   if (atom >= p.n_atoms) return;
 
-  const int* type_of = reinterpret_cast<const int*>(smem + p.ints_off);
-  const int* recs = type_of + S * S * S;
-  const T* reals = reinterpret_cast<const T*>(smem + p.reals_off);
-  const T* tables = p.stage_tables
-                        ? reinterpret_cast<const T*>(smem + p.tab_off)
-                        : p.tables;
-  const T* grids = p.stage_grids
-                       ? reinterpret_cast<const T*>(smem + p.grid_off)
-                       : p.grids;
-  unsigned char* ws = smem + p.warp_off + warp * p.warp_bytes;
-  Quad<T>* s_d = reinterpret_cast<Quad<T>*>(ws);  // (KMAX) x, y, z, -
-  Quad<T>* s_a = s_d + KMAX;    // this pass's first-leg values
-  Quad<T>* s_da = s_a + KMAX;   // and d/dr, 4 taps
-  Quad<T>* s_b = s_da + KMAX;   // (S, KMAX) second-leg values
-  T* s_ir = reinterpret_cast<T*>(s_b + S * KMAX);    // (KMAX) 1 / |d|
-  int* s_idx = reinterpret_cast<int*>(s_ir + KMAX);  // first-leg tap
-  int* s_t = s_idx + KMAX;      // this pass's type of row m, or -1
-  int* s_bidx = s_t + KMAX;     // (S, KMAX) second-leg first tap
-  Pair<T>* s_hh = reinterpret_cast<Pair<T>*>(ws + p.hh_off);
-  // s_hh[col * KMAX + m], col = (b - b_lo) * Cw + (c - c_lo) of row m's
-  // type in this pass
-
-  const int m = lane % KMAX;  // this thread's pair row
-  // this atom's rows into shared memory
-#pragma unroll
-  for (int j = 0; j < (3 * KMAX + kWarp - 1) / kWarp; ++j) {
-    const int i = lane + j * kWarp;
-    if (i < 3 * K) {
-      const int slot = i / 3;
-      s_d[slot].v[i - 3 * slot] = cur.d[j];
-    }
-  }
-  const bool v_lane = lane < K && cur.valid != T(0);
-  const int s_lane = cur.s_slot;
-  const int s_c = cur.s_center;
-  const unsigned vmask = __ballot_sync(kFull, v_lane);
-  const int s_row = __shfl_sync(kFull, s_lane, m);  // species of row m
-  __syncwarp();
-
-  // per slot: 1/|d|, and as row n the second-leg basis of (s_c, s, s_n)
-  // for every species s of row m
-  T r = T(1), r2 = T(1), inv_r = T(1);
-  if (lane < K) {
-    const Quad<T> q = s_d[lane];
-    r2 = q.v[0] * q.v[0] + q.v[1] * q.v[1] + q.v[2] * q.v[2];
-    r2 = r2 > T(0) ? r2 : T(1);
-    inv_r = rsqrt_t(r2);
-    r = r2 * inv_r;
-    s_ir[lane] = inv_r;
-    for (int s = 0; s < S; ++s) {
-      const int t = v_lane ? type_at(type_of, S, s_c, s, s_lane) : -1;
-      Quad<T> b;
-      b.v[0] = b.v[1] = b.v[2] = b.v[3] = T(0);
-      int bidx = 0;
-      if (t >= 0) {
-        const int* rec = recs + t * kRec;
-        const LegT<T> leg = type_leg<T>(rec, reals + t * kReal, 1);
-        const T gate = (r >= leg.t_min && r <= leg.t_max) ? T(1) : T(0);
-        bidx = leg_interval<T>(leg, r, r2, inv_r);
-        leg_values<T>(tables + rec[kLeg2 + 2], bidx, r, gate, b.v);
-      }
-      s_b[s * KMAX + lane] = b;
-      s_bidx[s * KMAX + lane] = bidx;
-    }
-  }
-
-  T w = T(0), s3 = T(0), vx = T(0), vy = T(0), vz = T(0), e = T(0);
-  for (int sn = 0; sn < S; ++sn) {
-    const unsigned nmask = __ballot_sync(kFull, v_lane && s_lane == sn);
-    if (nmask == 0u) continue;  // no row n of this species
-    // as row m: the first-leg basis of (s_c, s_m, sn)
-    int t_lane = -1;
-    if (lane < K) {
-      t_lane = v_lane ? type_at(type_of, S, s_c, s_lane, sn) : -1;
-      Quad<T> a, da;
-      a.v[0] = a.v[1] = a.v[2] = a.v[3] = T(0);
-      da = a;
-      int idx = 0;
-      if (t_lane >= 0) {
-        const int* rec = recs + t_lane * kRec;
-        const LegT<T> leg = type_leg<T>(rec, reals + t_lane * kReal, 0);
-        const T gate = (r >= leg.t_min && r <= leg.t_max) ? T(1) : T(0);
-        idx = leg_interval<T>(leg, r, r2, inv_r);
-        leg_basis<T>(tables + rec[kLeg1 + 2], idx, r, gate, a.v, da.v);
-      }
-      s_a[lane] = a;
-      s_da[lane] = da;
-      s_idx[lane] = idx;
-      s_t[lane] = t_lane;
-    }
-    const unsigned mmask = __ballot_sync(kFull, t_lane >= 0);  // rows m
-    if (mmask == 0u) continue;
-    __syncwarp();
-
-    // H[m, col] = sum_l A[m, l] G[l, col] over the <= 4 taps of row m,
-    // on row m's type's window
-    for (int i = lane; i < KMAX * p.max_cols; i += kWarp) {
-      const int mm = i % KMAX;
-      if (!((mmask >> mm) & 1u)) continue;
-      const int* rec = recs + s_t[mm] * kRec;
-      const int cols = rec[kBW] * rec[kCW];
-      const int col = i / KMAX;
-      if (col >= cols) continue;
-      const T* g = grids + rec[kGOff];
-      const int lw = rec[kLW];
-      const int l0 = s_idx[mm] - rec[kLLo];
-      const Quad<T> a = s_a[mm], da = s_da[mm];
-      T h = T(0), h1 = T(0);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int l = l0 + q;
-        if (l >= 0 && l < lw) {
-          const T gv = g[l * cols + col];
-          h = h + a.v[q] * gv;
-          h1 = h1 + da.v[q] * gv;
-        }
-      }
-      s_hh[i] = Pair<T>{h, h1};
-    }
-    __syncwarp();
-
-    // pair lanes of row m: this thread's share of the valid n != m of
-    // species sn, all of one type
-    if ((mmask >> m) & 1u) {
-      const int t = s_t[m];
-      const int* rec = recs + t * kRec;
-      const LegT<T> leg_n = type_leg<T>(rec, reals + t * kReal, 2);
-      const T* tab_n = tables + rec[kLeg3 + 2];
-      const int b_lo = rec[kBLo], bw = rec[kBW];
-      const int c_lo = rec[kCLo], cw = rec[kCW];
-      const int cwk = cw * KMAX;
-      const Quad<T>* s_bm = s_b + s_row * KMAX;  // under row m's species
-      const int* s_bidxm = s_bidx + s_row * KMAX;
-      unsigned mine = 0;
-      unsigned bits = nmask & ~(1u << m);
-      for (int j = 0; bits; bits &= bits - 1, ++j)
-        if (j % TPR == lane / KMAX) mine |= bits & (0u - bits);
-      const Quad<T> dm = s_d[m];
-      while (mine) {
-        const int n = __ffs(mine) - 1;
-        mine &= mine - 1;
-        const Quad<T> dn = s_d[n];
-        const T dx = dn.v[0] - dm.v[0];
-        const T dy = dn.v[1] - dm.v[1];
-        const T dz = dn.v[2] - dm.v[2];
-        const T rmn2 = dx * dx + dy * dy + dz * dz;
-        if (!(rmn2 > T(1e-10))) continue;
-        const T inv_rmn = rsqrt_t(rmn2);
-        const T rmn = rmn2 * inv_rmn;
-        if (!(rmn >= leg_n.t_min && rmn <= leg_n.t_max)) continue;
-        const int cidx = leg_interval<T>(leg_n, rmn, rmn2, inv_rmn);
-        T cv[4], cdv[4];
-        leg_basis<T>(tab_n, cidx, rmn, T(1), cv, cdv);
-        int coff[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int c = cidx + q - c_lo;
-          const bool in = c >= 0 && c < cw;
-          cv[q] = in ? cv[q] : T(0);
-          cdv[q] = in ? cdv[q] : T(0);
-          coff[q] = (in ? c : 0) * KMAX + m;
-        }
-        const Quad<T> an = s_bm[n];
-        const int b0 = s_bidxm[n] - b_lo;
-        T t1 = T(0), t3 = T(0), value = T(0);
-#pragma unroll
-        for (int pp = 0; pp < 4; ++pp) {
-          const int b = b0 + pp;
-          if (b < 0 || b >= bw) continue;
-          const Pair<T>* hb = s_hh + b * cwk;
-          T db = T(0), d1b = T(0), d3b = T(0);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const Pair<T> hh = hb[coff[q]];
-            if (ENERGY) db = db + cv[q] * hh.h;
-            d1b = d1b + cv[q] * hh.h1;
-            d3b = d3b + cdv[q] * hh.h;
-          }
-          if (ENERGY) value = value + an.v[pp] * db;
-          t1 = t1 + an.v[pp] * d1b;
-          t3 = t3 + an.v[pp] * d3b;
-        }
-        const T g3 = t3 * inv_rmn;
-        w = w + t1;
-        s3 = s3 + g3;
-        vx = vx + g3 * dn.v[0];
-        vy = vy + g3 * dn.v[1];
-        vz = vz + g3 * dn.v[2];
-        if (ENERGY) e = e + value;
-      }
-    }
-    __syncwarp();  // before the next pass restages A and H
-  }
-
-#pragma unroll
-  for (int off = KMAX; off < kWarp; off <<= 1) {
-    w = w + __shfl_xor_sync(kFull, w, off);
-    s3 = s3 + __shfl_xor_sync(kFull, s3, off);
-    vx = vx + __shfl_xor_sync(kFull, vx, off);
-    vy = vy + __shfl_xor_sync(kFull, vy, off);
-    vz = vz + __shfl_xor_sync(kFull, vz, off);
-    if (ENERGY) e = e + __shfl_xor_sync(kFull, e, off);
-  }
-  const bool head = lane < KMAX;
-  if (head && m < K) {
-    T* out = p.part + (atom * K + m) * 5;
-    out[0] = w;
-    out[1] = s3;
-    out[2] = vx;
-    out[3] = vy;
-    out[4] = vz;
-  }
-  // center force sum_m w_m / r_m d_m and energy over the warp
-  const bool row_ok = m < K && ((vmask >> m) & 1u);
-  Quad<T> dm;
-  dm.v[0] = dm.v[1] = dm.v[2] = dm.v[3] = T(0);
-  if (row_ok) dm = s_d[m];
-  const T wr = head && row_ok ? w * s_ir[m] : T(0);
-  T fx = wr * dm.v[0], fy = wr * dm.v[1], fz = wr * dm.v[2];
-  e = head ? e : T(0);
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1) {
-    fx = fx + __shfl_xor_sync(kFull, fx, off);
-    fy = fy + __shfl_xor_sync(kFull, fy, off);
-    fz = fz + __shfl_xor_sync(kFull, fz, off);
-    if (ENERGY) e = e + __shfl_xor_sync(kFull, e, off);
-  }
-  if (lane == 0) {
-    p.fc[atom * 3] = fx;
-    p.fc[atom * 3 + 1] = fy;
-    p.fc[atom * 3 + 2] = fz;
-    p.energy[atom] = T(0.5) * e;
-  }
+  Meta<T> meta;
+  meta.type_of = reinterpret_cast<const int*>(smem + p.ints_off);
+  meta.recs = meta.type_of + p.S * p.S * p.S;
+  meta.reals = reinterpret_cast<const T*>(smem + p.reals_off);
+  meta.tables = p.stage_tables
+                    ? reinterpret_cast<const T*>(smem + p.tab_off)
+                    : p.tables;
+  meta.grids = p.stage_grids
+                   ? reinterpret_cast<const T*>(smem + p.grid_off)
+                   : p.grids;
+  const Slice<T, KMAX, CAP> s(smem + p.warp_off + warp * p.warp_bytes, p.S,
+                              p.hh_off);
+  multi_atom<T, KMAX, CAP, ENERGY>(p, meta, s, atom, lane, cur);
 }
 
 struct MultiArgs {
@@ -475,17 +619,15 @@ struct MultiArgs {
 template <typename T, int KMAX>
 int multi_plan(const MultiArgs& a, MultiParams<T>& p, int* warps_out,
                size_t* smem_out) {
+  constexpr int CAP = KMAX > kCap ? kCap : KMAX;
   p.ints_off = 16;
   p.reals_off = p.ints_off + int(round32(size_t(a.n_ints) * sizeof(int)));
   const size_t fixed = p.reals_off + round32(size_t(a.n_reals) * sizeof(T));
   const size_t tab_b = round32(size_t(a.n_tables) * sizeof(T));
   const size_t grid_b = round32(size_t(a.n_grids) * sizeof(T));
-  // per slot: d, this pass's A and dA, the S second-leg bases (Quads),
-  // 1 / |d|, the first-leg tap, the row's type, the S second-leg taps
-  p.hh_off = int(round32(size_t(KMAX) * ((3 + a.S) * sizeof(Quad<T>)
-                                         + sizeof(T)
-                                         + (2 + a.S) * sizeof(int))));
-  p.warp_bytes = p.hh_off + int(round32(size_t(KMAX) * a.max_cols * 2
+  // the slice's arrays (Slice), then H for CAP rows
+  p.hh_off = int(Slice<T, KMAX, CAP>::head_bytes(a.S));
+  p.warp_bytes = p.hh_off + int(round32(size_t(CAP) * a.max_cols * 2
                                         * sizeof(T)));
   const size_t staged[3][2] = {{tab_b, grid_b}, {tab_b, 0}, {0, 0}};
   int choice = 2, warps = 0;

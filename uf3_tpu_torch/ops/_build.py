@@ -60,6 +60,11 @@ _SIGNATURES["uf3_relayout"] = [_P] * 3 + [_L, _L, _I, _L, _L] + [_I] * 4 \
 _SIGNATURES["uf3_lane_contract"] = [_P] * 3 + [_L] * 3 + [_I] + [_L] * 3 \
     + [_I, _P]
 _SIGNATURES["uf3_lane_map"] = [_I] + [_P] * 5 + [_L] + [_I] * 4 + [_P]
+# uf3_relayout_occupancy(mode, elem_bytes, out)
+_SIGNATURES["uf3_relayout_occupancy"] = [_I, _I, _P]
+# uf3_lane_contract_occupancy: uf3_lane_contract's arguments, the plan last
+_SIGNATURES["uf3_lane_contract_occupancy"] = \
+    _SIGNATURES["uf3_lane_contract"][:-1] + [_P]
 
 _loaded = {}  # the library handle once loaded in this process
 

@@ -39,6 +39,7 @@ to 1e-6 (float32) of the sum of its terms' magnitudes.  Each wrapper's
 ``launches`` counts its kernel launches.
 """
 
+import ctypes
 import math
 
 import torch
@@ -172,6 +173,24 @@ def relayout(x, mode: str, reps: int = None, shape=None, k: int = None,
 relayout.launches = 0
 
 
+def relayout_occupancy(mode: str, dtype=torch.float32) -> dict:
+    """The launch plan of ``relayout``'s kernel for ``mode`` on ``dtype``
+    words with 32-bit offsets, from the CUDA runtime: registers and local
+    (spill) bytes per thread, resident blocks of 256 threads and warps
+    per SM."""
+    if mode not in RELAYOUT_MODES:
+        raise ValueError(f"relayout: no mode {mode!r}; modes "
+                         f"{sorted(RELAYOUT_MODES)}")
+    out = (ctypes.c_int * 4)()
+    err = _build.library().uf3_relayout_occupancy(
+        RELAYOUT_MODES[mode], torch.empty((), dtype=dtype).element_size(),
+        out)
+    if err != 0:
+        raise RuntimeError(f"uf3_relayout_occupancy failed ({err})")
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2],
+                warps_per_sm=out[3])
+
+
 # -- lane_contract ----------------------------------------------------------
 def contract_plan(x, mode: str, w=None):
     """(rows, cols_out, terms, sj, st): ``out[a, j] = sum over t < terms
@@ -240,6 +259,36 @@ def lane_contract(x, mode: str, w=None):
 
 
 lane_contract.launches = 0
+
+CONTRACT_KERNELS = ("tile", "rows", "rows_along_outputs", "rows_along_terms")
+
+
+def lane_contract_occupancy(x, mode: str, w=None) -> dict:
+    """The launch plan of the kernel that ``lane_contract(x, mode, w)``
+    launches (on a CUDA ``x``; nothing is launched), from the CUDA
+    runtime: registers and local (spill) bytes per thread, resident
+    blocks of 256 threads and warps per SM at its shared memory, the
+    kernel (``CONTRACT_KERNELS``: the product's tile, one output a
+    thread, 16-byte vectors along the outputs or along the terms) and
+    the blocks it launches."""
+    rows, cols_out, terms, sj, st = contract_plan(x, mode, w)
+    n = rows * cols_out
+    if not n:
+        raise ValueError("lane_contract_occupancy: an empty output")
+    x = x.contiguous()
+    w = None if w is None else w.contiguous()
+    out = (ctypes.c_int * 6)()
+    # the output the wrapper allocates starts on a 16-byte boundary, as
+    # the null pointer given in its place does
+    err = _build.library().uf3_lane_contract_occupancy(
+        x.data_ptr(), None if w is None else w.data_ptr(), None, n,
+        max(n, x.numel()), cols_out, terms, x.shape[1], sj, st,
+        int(x.dtype == torch.float64), out)
+    if err != 0:
+        raise RuntimeError(f"uf3_lane_contract_occupancy failed ({err})")
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2],
+                warps_per_sm=out[3], kernel=CONTRACT_KERNELS[out[4]],
+                blocks=out[5])
 
 
 # -- lane_map ---------------------------------------------------------------

@@ -75,9 +75,16 @@ scripts' entry points, with their launch counts from 0: the step
 anatomy at 9,826 atoms (``run_anatomy``: the MD inner step's prefixes
 by CUDA graph replay beside their eager host times, its 3-body forces
 against the float64 engine, the row and reverse-slot gathers timed at
-the step's shapes) and the TPU gather probes' cases
-(``run_probe_gather``); then each is held bit for bit to its plain
-version on the anatomy's system (``compare_gather``).  The fragment
+the step's shapes) and the TPU gather probes' cases with the engine's
+own position gathers through the port's lists (9,826 x 16, 72, 78 and
+31,104 x 88; ``run_probe_gather``: beside each the library call, the
+bound, the time on operand copies past the L2 that the bound is
+reached against, the instance the plan chose and the time past a graph
+node's floor measured in the same run, and the wrappers' host cost per
+call); then each is held bit for bit to its plain version on the
+anatomy's system, the bench's pair list, a table that is not contiguous
+and a misaligned one, and both lane-gather instances
+(``compare_gather``).  The fragment
 kernels (``csrc/fragments.cu``: ``relayout``, ``lane_contract``,
 ``lane_map``) drive theirs through the fragment probes' entry point with
 their counts from 0 (``run_probe_mosaic``: the 17 cases of the TPU
@@ -225,6 +232,8 @@ def reset_counts(kernels=None):
         kernels = GATHERS + FRAGMENTS
     for fn in kernels:
         fn.launches = 0
+        if hasattr(fn, "launches_by_mode"):
+            fn.launches_by_mode.clear()
 
 
 def build_kernels():
@@ -679,9 +688,14 @@ def compare_gather(device, parts):
     system after its warm-up): the positions through the 3-body list's
     16 slots, (N, 16, 5) slot partials through the list's indices and
     reverse slots, as the assembly gathers them, and the lane gather at
-    the probes' 9,856 x 16; in float32 and float64 with int64 (the
-    lists' own) and int32 indices.  Each kernel is timed once, at these
-    shapes, on the gather path (``run_anatomy``, ``run_probe_gather``).
+    the probes' 9,856 x 16; the row gather also through the bench's
+    (N, 72) pair list (``probe_gather.engine_state``), from a view of
+    an (N, 4) table that is not contiguous (the wrapper copies it) and
+    from a table one element past a 16-byte boundary, the lane gather
+    also at T = 32 (its other shuffle instance's edge) and T = 128 (one
+    thread per output); in float32 and
+    float64 with int64 (the lists' own) and int32 indices.  Each kernel
+    is timed on the gather path (``run_anatomy``, ``run_probe_gather``).
     Returns each kernel's largest difference from its plain version."""
     x, nbr3 = parts.positions.double(), parts.nbr3
     n, k3 = nbr3.idx.shape
@@ -689,25 +703,38 @@ def compare_gather(device, parts):
     part = torch.as_tensor(rng.randn(n, k3, 5), device=device)
     lanes = torch.as_tensor(rng.randn(9856, 16), device=device)
     li = torch.as_tensor(rng.randint(0, 16, size=(9856, 16)), device=device)
+    x72, nbr72 = probe_gather.engine_state("engine.positions_k72", device)
+    wider = torch.as_tensor(rng.randn(n, 4), device=device)
+    flat = torch.as_tensor(rng.randn(3 * n + 1), device=device)
     shapes = {
-        "gather_rows": ("positions, 3-body rows", (x, nbr3.idx)),
-        "gather_lanes": ("probe_dynamic_gather.kernel1 lanes", (lanes, li)),
-        "rev_gather": ("slot partials, 3-body rows",
-                       (part, nbr3.idx, nbr3.rev))}
+        "gather_rows": [("positions, 3-body rows", (x, nbr3.idx)),
+                        ("positions, bench pair list",
+                         (x72.double(), nbr72.idx)),
+                        ("non-contiguous table", (wider[:, :3], nbr3.idx)),
+                        ("misaligned table",
+                         (flat[1:].view(n, 3), nbr3.idx))],
+        "gather_lanes": [("probe_dynamic_gather.kernel1 lanes", (lanes, li))]
+        + [(f"{width}-lane table", (
+            torch.as_tensor(rng.randn(4099, width), device=device),
+            torch.as_tensor(rng.randint(0, width, size=(4099, 24)),
+                            device=device))) for width in (32, 128)],
+        "rev_gather": [("slot partials, 3-body rows",
+                        (part, nbr3.idx, nbr3.rev))]}
     errors = {}
-    for name, (label, ops64) in shapes.items():
+    for name, cases in shapes.items():
         kind = probe_gather.KIND[name]
         kernel, plain = gather.KERNELS[kind], gather.PLAIN[kind]
         checks, errs = {}, []
-        for dtype in (torch.float32, torch.float64):
-            for index_dtype in (torch.int64, torch.int32):
-                ops = (ops64[0].to(dtype),) + tuple(
-                    t.to(index_dtype) for t in ops64[1:])
-                out, ref = kernel(*ops), plain(*ops)
-                torch.cuda.synchronize()
-                checks[f"{label} {str(dtype)[6:]} "
-                       f"{str(index_dtype)[6:]}"] = torch.equal(out, ref)
-                errs.append(max_err(out, ref))
+        for label, ops64 in cases:
+            for dtype in (torch.float32, torch.float64):
+                for index_dtype in (torch.int64, torch.int32):
+                    ops = (ops64[0].to(dtype),) + tuple(
+                        t.to(index_dtype) for t in ops64[1:])
+                    out, ref = kernel(*ops), plain(*ops)
+                    torch.cuda.synchronize()
+                    checks[f"{label} {str(dtype)[6:]} "
+                           f"{str(index_dtype)[6:]}"] = torch.equal(out, ref)
+                    errs.append(max_err(out, ref))
         gate(f"{name} kernel vs plain (bit for bit)", checks)
         errors[name] = max(errs)
     print(f"gather kernels vs plain, largest difference: {errors}")
@@ -790,23 +817,48 @@ def run_probe_gather(device):
     otherwise), its device times by graph replay and its bound.  Returns
     the artifact."""
     out_dir = tempfile.mkdtemp()
+    t0 = time.perf_counter()
     with contextlib.redirect_stdout(StringIO()):
         artifact = probe_gather.main(device, out_dir=out_dir)
+    seconds = time.perf_counter() - t0
     shutil.rmtree(out_dir)
     card = card_line()
+    floor = artifact["node_floor_ms"]
+    print(f"gather probes: {len(artifact['cases'])} cases and the host "
+          f"costs in {seconds:.1f} s; graph node floor: {floor} ms; card: "
+          f"{card}")
     for name, rec in artifact["cases"].items():
+        plan = rec["instance"]
         print(f"probe {name} ({rec['kind']}, {rec['values']} by "
-              f"{rec['index']}): kernel {rec['kernel_ms']:.5f} ms "
-              f"({rec['kernel_ns_per_row']:.3f} ns/row), library "
+              f"{rec['index']}, {rec['dtype']} / {rec['index_dtype']}"
+              + (f", {plan['kernel']}" if plan else "")
+              + f"): kernel {rec['kernel_ms']:.5f} ms "
+              f"({rec['kernel_ns_per_row']:.3f} ns/row; past the empty "
+              f"node's floor {rec['past_floor_ms']:.5f}), library "
               f"{rec['library_ms']:.5f}, plain {rec['plain_ms']:.5f} ms; "
-              f"bound {rec['bound_ms']:.5f} ms, reached "
-              f"{100 * rec['reached']:.1f}%; card: {card}")
+              f"past the L2 ({rec['cold_copies']} operand copies): kernel "
+              f"{rec['kernel_cold_ms']:.5f}, library "
+              f"{rec['library_cold_ms']:.5f} ms; bound "
+              f"{rec['bound_ms']:.5f} ms, reached {100 * rec['reached']:.1f}%"
+              f" (past the L2); card: {card}")
+    for shape, costs in artifact["host_us"].items():
+        print(f"host us per eager call, {shape}: " + ", ".join(
+            f"{who} {us:.2f}" for who, us in costs.items())
+            + f"; card: {card}")
+    engine = {name: rec for name, rec in artifact["cases"].items()
+              if name.startswith("engine.")}
     gate("gather probes", {
         "every case correct": all(r["correct"]
                                   for r in artifact["cases"].values()),
         "every device time finite and positive": all(
-            r[f"{key}_ms"] > 0 for r in artifact["cases"].values()
-            for key in ("kernel", "library", "plain"))})
+            r[f"{key}{cold}_ms"] > 0 for r in artifact["cases"].values()
+            for key in ("kernel", "library", "plain")
+            for cold in ("", "_cold")),
+        "the engine's four position gathers": len(engine) == 4,
+        "graph node floor measured": floor["empty kernel"] > 0,
+        "host costs finite and positive": all(
+            0 < us < float("inf") for costs in artifact["host_us"].values()
+            for us in costs.values())})
     return artifact
 
 
@@ -816,8 +868,11 @@ def gather_records(anatomy, probes):
     row gather of the positions (``kernel_gather``) and reverse-slot
     gather of the slot partials (``kernel_rev_gather``), 9,826 atoms by
     16 slots, and the lane gather at probe_dynamic_gather.kernel1's
-    9,856 x 16."""
+    9,856 x 16; beside them the graph node's floor of the same run, each
+    wrapper's host cost per call and the library call's, and for the
+    row gather the engine's four position gathers."""
     ms = anatomy["ms"]
+    floor = probes["node_floor_ms"]
     records = {}
     for name, label in (("gather_rows", "gather"),
                         ("rev_gather", "rev_gather")):
@@ -826,13 +881,32 @@ def gather_records(anatomy, probes):
             ms=rec["ms"], plain_ms=ms[f"plain_{label}_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
             library_ms=ms[f"library_{label}_ms"],
-            shape=f"step anatomy kernel_{label}", bytes=rec["bytes"])
+            shape=f"step anatomy kernel_{label}", bytes=rec["bytes"],
+            node_floor_ms=floor["empty kernel"])
     case = "probe_dynamic_gather.kernel1"
     rec = probes["cases"][case]
     records["gather_lanes"] = dict(
         ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
         bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-        library_ms=rec["library_ms"], shape=case, bytes=rec["bytes"])
+        library_ms=rec["library_ms"], shape=case, bytes=rec["bytes"],
+        node_floor_ms=floor["empty kernel"], cold_ms=rec["kernel_cold_ms"],
+        library_cold_ms=rec["library_cold_ms"])
+    records["gather_rows"]["engine_cases"] = {
+        name: dict(ms=rec["kernel_ms"], library_ms=rec["library_ms"],
+                   plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+                   cold_ms=rec["kernel_cold_ms"],
+                   library_cold_ms=rec["library_cold_ms"],
+                   reached=rec["reached"],
+                   past_floor_ms=rec["past_floor_ms"],
+                   instance=rec["instance"])
+        for name, rec in probes["cases"].items()
+        if name.startswith("engine.")}
+    for name, record in records.items():
+        kind = probe_gather.KIND[name]
+        record["host_us"] = {
+            shape: {who: us for who, us in costs.items()
+                    if who.startswith(kind + " ")}
+            for shape, costs in probes["host_us"].items()}
     return {fn.__name__: records[fn.__name__] for fn in GATHERS}
 
 
@@ -3707,6 +3781,7 @@ def main():
     reset_counts(FRAGMENTS)
     mosaic = run_probe_mosaic(device)
     fragment_launches = {fn.__name__: fn.launches for fn in FRAGMENTS}
+    relayout_modes = dict(fragments.relayout.launches_by_mode)
     gate("fragment path", {f"{name} launched": n > 0
                            for name, n in fragment_launches.items()})
     gather_errors = compare_gather(device, parts)
@@ -3853,7 +3928,8 @@ def main():
           f"(eager); gather kernel launches on the gather path "
           f"{gather_launches}; card: {card}")
     print(f"fragment kernel launches on the fragment path "
-          f"{fragment_launches}; card: {card}")
+          f"{fragment_launches}; relayout's by mode {relayout_modes}; "
+          f"card: {card}")
     for name, share in shares.items():
         print(f"device busy share, one traced {WINDOW_STEPS}-step window of "
               f"{name} (9,826 atoms, f32): {100 * share:.1f}%, card: {card}")
@@ -3897,6 +3973,8 @@ def main():
              replaces=FRAGMENT_REPLACES[name],
              launches=fragment_launches[name],
              max_abs_err=fragment_errors[name], **record,
+             **({"launches_by_mode": relayout_modes}
+                if name == "relayout" else {}),
              probe_cases={f"{case} [{size}]": dict(
                  ms=rec["kernel_ms"], library_ms=rec["library_ms"],
                  plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"])

@@ -22,7 +22,7 @@ from uf3_tpu.ops import neighbors as jnb
 from uf3_tpu.ops import pallas_trio as pt
 from uf3_tpu.ops import potential as jpot
 from uf3_tpu.regression import least_squares as ls
-from uf3_tpu_torch.benchmarks import probe_gather, step_anatomy
+from uf3_tpu_torch.benchmarks import gather_host, probe_gather, step_anatomy
 from uf3_tpu_torch.data.atoms import bulk
 from uf3_tpu_torch.forcefield.md import MDSystem
 from uf3_tpu_torch.ops.potential import UF3Potential
@@ -165,13 +165,31 @@ def test_probe_gather_main_writes_its_artifact(tmp_path):
     assert {name.split(".")[0] for name in cases} == {
         "probe_dynamic_gather", "probe_dg2", "probe_dg3",
         "probe_gather2", "probe_wg", "proto_dyngather",
-        "proto_pallas_gather", "probe_mosaic"}
+        "proto_pallas_gather", "probe_mosaic", "engine"}
+    engine = {f"engine.positions_k{k}" for k in (16, 72, 78, 88)}
+    assert engine <= set(cases)
     for name, record in cases.items():
         assert record["correct"] and record["bound_by"] == "bytes", name
-        assert max(record["values"] + record["index"]) <= 24, name
         assert record["kernel_ms"] is None and record["reached"] is None
-        assert record["index_dtype"] == "int32"
+        assert record["past_floor_ms"] is None
+        assert record["kernel_cold_ms"] is None
+        assert record["cold_copies"] is None
+        if name in engine:
+            # the small bcc W cell's float32 positions through its own
+            # int64 list, its index capped
+            assert record["values"] == [128, 3], name
+            assert max(record["index"]) <= 24, name
+            assert (record["dtype"], record["index_dtype"]) == (
+                "float32", "int64")
+            assert record["instance"]["kernel"] == "rows_w3"
+        else:
+            assert max(record["values"] + record["index"]) <= 24, name
+            assert record["index_dtype"] == "int32"
     assert {r["kind"] for r in cases.values()} == {"rows", "lanes", "rev"}
+    assert artifact["node_floor_ms"] is None
+    assert set(artifact["host_us"]) == {"128 x 16", "128 x 78"}
+    assert all(us > 0 for costs in artifact["host_us"].values()
+               for us in costs.values())
     # a case's bytes: the indices read once, the output written once, and
     # the table's sectors the indices reach (here every row, one sector)
     rec = cases["proto_pallas_gather.kernel"]
@@ -185,3 +203,31 @@ def test_scripts_require_the_card_unless_asked_for_the_cpu(monkeypatch):
     for main in (step_anatomy.main, probe_gather.main):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             main()
+
+
+def test_gather_host_pairs_the_wrappers(tmp_path):
+    """``gather_host`` loads another checkout's ``ops/gather.py`` under a
+    name of its own, on that checkout's own ``_build.py`` (here this
+    checkout's, whose plain versions on CPU tensors then agree with the
+    package's), and summarizes the rounds: each call's median, and the
+    quartiles of this wrapper less the other's, round by round; timing
+    needs a card."""
+    from uf3_tpu_torch.ops import _build, gather
+    other = gather_host.load_gather(gather_host.ROOT)
+    assert other is not gather and other._build is not _build
+    assert other._build.LIBRARY == _build.LIBRARY
+    rng = np.random.RandomState(5)
+    x = torch.as_tensor(rng.randn(40, 3))
+    idx = torch.as_tensor(rng.randint(0, 40, size=(40, 7)))
+    assert torch.equal(other.gather_rows(x, idx), gather.gather_rows(x, idx))
+    times = {"rows this": [3.0, 5.0, 4.0, 10.0],
+             "rows other": [2.0, 2.0, 3.0, 4.0],
+             "rows library": [1.0, 1.0, 2.0, 1.0]}
+    summary = gather_host.summarize(times)
+    assert summary["median_us"] == {"rows this": 4.5, "rows other": 2.5,
+                                    "rows library": 1.0}
+    assert summary["this_less_other_us"]["rows"] == dict(
+        q1=1.0, median=2.0, q3=3.75)
+    if not torch.cuda.is_available():
+        with pytest.raises(Exception):
+            gather_host.measure(gather_host.ROOT, rounds=1)

@@ -16,6 +16,13 @@ row, as the neighbor lists pad) and the transposed (K, N) index of
 ``probe_dg2.py``.  The reverse-slot gather is held to the rows that the
 port's assembly gathers (``ops/trio.py``'s ``part.reshape(-1, 5)
 [rev_flat]``) on a real 3-body list with padded slots.
+
+The wrappers' choice of kernel instance, ``gather.gather_plan``, is a
+plain function of shapes, element sizes and alignments, tested here for
+each branch; the position gather through a list of the port's builder
+is held to ``positions[nbr.idx]`` bit for bit, and the port's
+``cached_displacements`` on it to the JAX engine's ``displacements``
+within 1e-12 in float64.
 """
 
 import jax.numpy as jnp
@@ -23,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from uf3_tpu.ops import neighbors as jnb
 from uf3_tpu.ops import pallas_trio as pt
 from uf3_tpu_torch.data.atoms import bulk
 from uf3_tpu_torch.ops import gather
@@ -232,3 +240,155 @@ def test_wrappers_check_shapes_and_count_bytes():
     one, rev = torch.tensor([[3]]), torch.tensor([[1]])
     assert gather.gather_bytes("rev", gather.rev_gather(part, one, rev),
                                part, one, rev) == 2 * 32 + 8 + 8 + 5 * 8
+
+
+@pytest.mark.parametrize("w, elem, kernel", [
+    (1, 4, "rows_w1"), (3, 4, "rows_w3"), (4, 4, "rows_w4"),
+    (8, 4, "rows_w8"), (1, 8, "rows_w2"), (3, 8, "rows_w6"),
+    (4, 8, "rows_w8"), (8, 8, "rows_w16"), (5, 4, "rows_any"),
+    (128, 4, "rows_wide"), (5, 8, "rows_any")])
+@pytest.mark.parametrize("index_bytes", [4, 8])
+def test_gather_plan_rows_by_width(w, elem, kernel, index_bytes):
+    """The row gather's instance by the row's width in 32-bit words (an
+    instance for 1, 2, 3, 4, 6, 8 and 16 words, rows_any for the others
+    below 32, rows_wide from 32 on), 32-bit offsets at MD sizes, the
+    table's alignment passed through."""
+    plan = gather.gather_plan("rows", (9826, w), (9826, 72), elem,
+                              index_bytes, 8)
+    assert plan.kernel == kernel and not plan.wide
+    assert plan.code == {"rows_any": 0, "rows_wide": gather.WIDE_WORDS}.get(
+        kernel, w * elem // 4)
+    assert plan.values_align == 8
+
+
+def test_gather_plan_rows_one_instance_at_every_size():
+    """The row instance depends on the width and offsets only, not on the
+    count of entries: the step's 3-body list, the bench's pair list, the
+    melting protocol's 31,104 x 88 list and 2^20 + 1 entries take the
+    same W = 3 instance (a warp copies two groups of 32 entries at every
+    size); rows_wide starts at 32 words, float32 or float64; and the plan
+    is cached (one lookup a call)."""
+    plan = gather.gather_plan
+    plans = {plan("rows", (n, 3), shape, 4, 8) for n, shape in (
+        (9826, (9826, 16)), (9826, (9826, 72)), (31104, (31104, 88)),
+        (10, (2 ** 20 + 1,)))}
+    assert plans == {gather.GatherPlan("rows_w3", 3, False, 16)}
+    assert plan("rows", (10, 31), (7,), 4, 4).kernel == "rows_any"
+    assert plan("rows", (10, 32), (7,), 4, 4).kernel == "rows_wide"
+    assert plan("rows", (10, 16), (7,), 8, 4).kernel == "rows_wide"
+    assert plan("rows", (10, 15), (7,), 8, 4).kernel == "rows_any"
+    hits = gather._plan.cache_info().hits
+    assert plan("rows", (9826, 3), (9826, 72), 4, 8) is plan(
+        "rows", (9826, 3), (9826, 72), 4, 8)
+    assert gather._plan.cache_info().hits >= hits + 2
+
+
+@pytest.mark.parametrize("width, kernel", [
+    (1, "lanes_shuffle"), (16, "lanes_shuffle"), (32, "lanes_shuffle"),
+    (33, "lanes_direct"), (128, "lanes_direct"), (1280, "lanes_direct")])
+@pytest.mark.parametrize("elem", [4, 8])
+def test_gather_plan_lanes_by_table_width(width, kernel, elem):
+    """The lane gather takes the warp-shuffle instance up to 32 lanes and
+    one thread per output above; the shuffle's code is log2 of its lane
+    group (T rounded up to a power of two), one thread per output's -1."""
+    plan = gather.gather_plan("lanes", (9856, width), (9856, 16), elem, 4)
+    assert plan.kernel == kernel and not plan.wide
+    assert plan.code == {1: 0, 16: 4, 32: 5}.get(width, -1)
+    assert gather.gather_plan("lanes", (10, 5), (10, 7), elem,
+                              8).code == 3
+
+
+def test_gather_plan_wide_offsets():
+    """64-bit offsets only where an operand passes 2^31 - 1 words: the
+    table (float64 counting twice), the output or the index; the lane
+    gather then leaves the shuffle instance."""
+    rows = gather.gather_plan
+    assert not rows("rows", (2 ** 27, 8), (10,), 4, 8).wide
+    assert rows("rows", (2 ** 28, 8), (10,), 4, 8).wide
+    assert rows("rows", (2 ** 27, 8), (10,), 8, 8).wide
+    assert rows("rows", (2 ** 27, 15), (10,), 4, 8).wide is False
+    assert rows("rows", (2 ** 27, 16), (10,), 4, 8, 16).wide
+    assert rows("rows", (100, 3), (2 ** 30,), 4, 8).wide
+    assert rows("rows", (100, 1), (2 ** 31 - 1,), 4, 8).wide is False
+    lanes = rows("lanes", (2 ** 26, 32), (2 ** 26, 32), 4, 4)
+    assert lanes.wide and lanes.kernel == "lanes_direct"
+    assert rows("lanes", (2 ** 25, 32), (2 ** 25, 32), 8, 4).wide
+    with pytest.raises(ValueError, match="no instances"):
+        rows("rev", (10, 3), (10,), 4, 4)
+    with pytest.raises(ValueError, match="sizes 4 or 8"):
+        rows("rows", (10, 3), (10,), 2, 4)
+
+
+def test_gather_plan_reads_alignment_and_row_stride():
+    """``rows_plan`` reads the alignment off the table's pointer and row
+    width in bytes: a view one element past an aligned start, rows of 3
+    float32 words (12 bytes: word loads), and a view that is not
+    contiguous (the wrapper copies it to a new allocation, so only the
+    row width counts)."""
+    assert [gather.alignment(b) for b in (0, 48, 24, 12, 6)] == [
+        16, 16, 8, 4, 1]
+    assert gather.alignment(32, 12) == 4
+    for dtype, elem in ((torch.float32, 4), (torch.float64, 8)):
+        base = torch.zeros(4 * 100 + 1, dtype=dtype)
+        assert base.data_ptr() % 16 == 0
+        idx = torch.zeros(65, dtype=torch.int64)
+        plan = gather.rows_plan(base[:400].view(100, 4), idx)
+        assert (plan.kernel, plan.values_align) == (
+            f"rows_w{4 * elem // 4}", 16)
+        plan = gather.rows_plan(base[1:].view(100, 4), idx[1:])
+        assert plan.values_align == elem
+        plan = gather.rows_plan(base[:300].view(100, 3), idx)
+        assert plan.values_align == gather.alignment(3 * elem)
+        wide = base[:400].view(100, 4)
+        assert not wide[:, :3].is_contiguous()
+        plan = gather.rows_plan(wide[:, :3], idx)
+        assert plan.code == 3 * elem // 4
+        assert plan.values_align == gather.alignment(3 * elem)
+        plan = gather.rows_plan(wide[:, 1:].t(), idx)
+        assert plan.kernel == "rows_wide"
+        assert plan.values_align == gather.alignment(100 * elem)
+
+
+def test_position_gather_on_the_port_lists():
+    """The engine's position gather through the lists the port's builder
+    makes on bcc W (the bench's two-tier lists, the defaults' one-tier
+    list): ``gather_rows_torch(positions, nbr.idx)`` equals
+    ``positions[nbr.idx]`` bit for bit, as does the wrapper (the plain
+    version on the CPU), in float32 and float64; the plan is the W = 3
+    row instance with 32-bit offsets."""
+    from uf3_tpu_torch.benchmarks import probe_gather
+    for name in ("engine.positions_k16", "engine.positions_k72",
+                 "engine.positions_k78"):
+        x, nbr = probe_gather.engine_state(name, "cpu", small=True)
+        assert not bool(nbr.mask.all())     # padded slots gather too
+        for dtype in (torch.float32, torch.float64):
+            xd = x.to(dtype)
+            ref = xd[nbr.idx]
+            _same(ref, gather.gather_rows_torch(xd, nbr.idx))
+            _same(ref, gather.gather_rows(xd, nbr.idx))
+            plan = gather.rows_plan(xd, nbr.idx)
+            assert plan.kernel == f"rows_w{3 * xd.element_size() // 4}"
+            assert not plan.wide
+
+
+def test_cached_displacements_match_jax_displacements():
+    """The port's ``cached_displacements`` (``positions[nbr.idx]`` plus
+    the list's shift product, ``ops/neighbors.py:72-74``) against the
+    JAX engine's ``displacements`` (``uf3_tpu/ops/neighbors.py:42``) on
+    the same numpy positions, cell, list and shifts, float64, within
+    1e-12 A: the list from the port's builder on a rattled bcc W cell
+    whose images cross the periodic boundary."""
+    geom = bulk("W", "bcc", a=3.1652) * (4, 4, 4)
+    geom.rattle(0.05, seed=7)
+    pos = torch.as_tensor(geom.get_positions())
+    cell = torch.as_tensor(np.asarray(geom.get_cell()))
+    nbr = nb.build_neighbor_list_images(pos, cell, (True,) * 3, 5.5, 72)
+    assert not bool(nbr.overflow) and bool((nbr.shift != 0).any())
+    cache = nb.list_cache(nbr, cell, torch.float64)
+    ours = nb.cached_displacements(pos, nbr, cache)
+    _same(pos[nbr.idx], gather.gather_rows_torch(pos, nbr.idx))
+    ref = np.asarray(jnb.displacements(
+        jnp.asarray(pos.numpy()), jnp.asarray(cell.numpy()),
+        jnp.asarray(nbr.idx.numpy()), jnp.asarray(nbr.shift.numpy())))
+    assert ref.dtype == np.float64
+    assert np.max(np.abs(ref - ours.numpy())) <= 1e-12

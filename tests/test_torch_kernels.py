@@ -1417,6 +1417,269 @@ def test_gather_kernels_reject_bad_operands(cuda_device):
     assert gather.gather_rows.launches == launches
 
 
+def _rows_case(rng, n_table, n, w, dtype, index_dtype, device):
+    """A float (n_table, w) table and n indices into it, on ``device``."""
+    table = torch.as_tensor(rng.randn(n_table, w), dtype=dtype,
+                            device=device)
+    idx = torch.as_tensor(rng.randint(0, n_table, size=n),
+                          dtype=index_dtype, device=device)
+    return table, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 3, 4, 8])
+@pytest.mark.parametrize("n", [1, 6, 33, 63, 65, 127, 129, 511, 513, 4099])
+@pytest.mark.parametrize("dtype", GATHER_DTYPES)
+@pytest.mark.parametrize("index_dtype", INDEX_DTYPES)
+def test_gather_rows_instances(cuda_device, w, n, dtype, index_dtype):
+    """Each row-width instance (W = 1, 3, 4, 8 in float32 and float64:
+    1 to 16 words a row) bit for bit against the plain version, at entry
+    counts that leave a tail in a warp's first or second group of 32
+    entries, in the last warp (64 entries) and in the last block (512);
+    one launch a call, and the plan names the instance."""
+    rng = np.random.RandomState(n * 7 + w)
+    table, idx = _rows_case(rng, 997, n, w, dtype, index_dtype, cuda_device)
+    plan = gather.rows_plan(table, idx)
+    assert plan.kernel == f"rows_w{w * table.element_size() // 4}"
+    launches = gather.gather_rows.launches
+    out = gather.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert gather.gather_rows.launches == launches + 1
+    assert torch.equal(out, gather.gather_rows_torch(table, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 3, 4, 8])
+@pytest.mark.parametrize("dtype", GATHER_DTYPES)
+@pytest.mark.parametrize("index_dtype", INDEX_DTYPES)
+def test_gather_rows_misaligned_and_strided_views(cuda_device, w, dtype,
+                                                  index_dtype):
+    """A table view one element past a 16-byte boundary (its data_ptr()
+    not 16-byte aligned: the instance's word loads), an index view
+    likewise, and a view of a wider table that is not contiguous (the
+    wrapper copies it), each bit for bit against the plain version and
+    ``table[idx]``."""
+    rng = np.random.RandomState(w * 13 + 5)
+    n_table, n = 1001, 3001
+    flat = torch.as_tensor(rng.randn(n_table * w + 1), dtype=dtype,
+                           device=cuda_device)
+    table = flat[1:].view(n_table, w)
+    assert table.data_ptr() % 16 != 0
+    raw = torch.as_tensor(rng.randint(0, n_table, size=n + 1),
+                          dtype=index_dtype, device=cuda_device)
+    wider = torch.as_tensor(rng.randn(n_table, w + 3), dtype=dtype,
+                            device=cuda_device)
+    for tab, idx in ((table, raw[:n]), (table, raw[1:]),
+                     (flat[:n_table * w].view(n_table, w), raw[1:]),
+                     (wider[:, 1:w + 1], raw[:n])):
+        plan = gather.rows_plan(tab, idx)
+        assert plan.values_align == gather.alignment(
+            tab.data_ptr() if tab.is_contiguous() else 0,
+            w * tab.element_size())
+        out = gather.gather_rows(tab, idx)
+        torch.cuda.synchronize()
+        assert torch.equal(out, gather.gather_rows_torch(tab, idx))
+        assert torch.equal(out, tab[idx.long()])
+    assert gather.rows_plan(table, raw[1:]).values_align < 16
+    assert raw[1:].data_ptr() % 16 != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 3, 4, 5, 8, 33])
+@pytest.mark.parametrize("wide", [0, 1])
+@pytest.mark.parametrize("dtype", GATHER_DTYPES)
+@pytest.mark.parametrize("index_dtype", INDEX_DTYPES)
+def test_gather_rows_instances_through_the_c_entry(cuda_device, w, wide,
+                                                   dtype, index_dtype):
+    """Each row instance with 32-bit offsets and with the 64-bit offsets
+    the plan picks only at sizes too large for a test (past 2^31 words),
+    launched through the C entry on a small table with tails in the last
+    group and warp, bit for bit against the plain version; the C entry
+    refuses a code that does not fit the row width."""
+    rng = np.random.RandomState(w * 17 + wide)
+    table, idx = _rows_case(rng, 513, 2050, w, dtype, index_dtype,
+                            cuda_device)
+    plan = gather.rows_plan(table, idx)
+    out = torch.empty((2050, w), dtype=dtype, device=cuda_device)
+
+    def launch(code):
+        return _build.library().uf3_gather_rows(
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), 2050, w,
+            table.element_size(), idx.element_size(), code, wide,
+            plan.values_align, torch.cuda.current_stream().cuda_stream)
+    assert launch(plan.code) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, gather.gather_rows_torch(table, idx))
+    words = w * table.element_size() // 4
+    for code in (words + 1, 0 if words >= 32 else 32):
+        assert launch(code) == -1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [5, 33, 128])
+@pytest.mark.parametrize("n", [1, 3, 257])
+@pytest.mark.parametrize("dtype", GATHER_DTYPES)
+@pytest.mark.parametrize("index_dtype", INDEX_DTYPES)
+def test_gather_rows_any_instances(cuda_device, w, n, dtype, index_dtype):
+    """rows_any and rows_wide, the row widths with no instance of their
+    own: below 32 words a warp's span of 32 entries, at 32 or more a warp
+    per entry in blocks of two warps (an odd count of entries leaves the
+    last block half full); bit for bit against the plain version."""
+    rng = np.random.RandomState(w * 11 + n)
+    table, idx = _rows_case(rng, 61, n, w, dtype, index_dtype, cuda_device)
+    words = w * table.element_size() // 4
+    assert gather.rows_plan(table, idx).kernel == (
+        "rows_any" if words < 32 else "rows_wide")
+    out = gather.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, gather.gather_rows_torch(table, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", GATHER_DTYPES)
+def test_gather_rows_two_groups_past_two_to_the_twenty(cuda_device, dtype):
+    """Past 2^20 entries (the melting protocol's lists) a warp still
+    copies two groups of 32 entries, in the plan's W = 3 instance: the
+    positions at 2^20 + 77 random entries, bit for bit."""
+    rng = np.random.RandomState(20)
+    table, idx = _rows_case(rng, 31104, 2 ** 20 + 77, 3, dtype, torch.int64,
+                            cuda_device)
+    assert gather.rows_plan(table, idx).kernel == (
+        f"rows_w{3 * table.element_size() // 4}")
+    out = gather.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, gather.gather_rows_torch(table, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 5, 16, 32, 33, 128, 1280])
+@pytest.mark.parametrize("a, b", [(1001, 16), (37, 7), (9, 45)])
+@pytest.mark.parametrize("dtype", GATHER_DTYPES)
+@pytest.mark.parametrize("index_dtype", INDEX_DTYPES)
+def test_gather_lanes_instances(cuda_device, width, a, b, dtype,
+                                index_dtype):
+    """The lane gather's warp-shuffle instance (T <= 32) and its
+    one-thread-a-output instance (T > 32) bit for bit against the plain
+    version, with row counts that leave the last warp and block part
+    full and outputs a row that do (not) fill a warp; one launch a
+    call."""
+    rng = np.random.RandomState(width * 31 + a + b)
+    t = torch.as_tensor(rng.randn(a, width), dtype=dtype, device=cuda_device)
+    li = torch.as_tensor(rng.randint(0, width, size=(a, b)),
+                         dtype=index_dtype, device=cuda_device)
+    assert gather.lanes_plan(t, li).kernel == (
+        "lanes_shuffle" if width <= 32 else "lanes_direct")
+    launches = gather.gather_lanes.launches
+    out = gather.gather_lanes(t, li)
+    torch.cuda.synchronize()
+    assert gather.gather_lanes.launches == launches + 1
+    assert torch.equal(out, gather.gather_lanes_torch(t, li))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, width", [("rows", 1), ("rows", 3),
+                                         ("rows", 4), ("rows", 8),
+                                         ("rows", 5), ("rows", 33),
+                                         ("lanes", 16), ("lanes", 128)])
+@pytest.mark.parametrize("dtype", GATHER_DTYPES)
+def test_gather_occupancy_names_the_instance(cuda_device, kind, width,
+                                             dtype):
+    """Each plan's instance exists in the library, spills nothing and
+    has resident warps at its own block size (two warps for rows_wide,
+    eight for the others); the row instances stay within 32 KB of
+    shared memory a block."""
+    for index_dtype in INDEX_DTYPES:
+        size = torch.empty((), dtype=dtype).element_size()
+        index = torch.empty((), dtype=index_dtype).element_size()
+        plan = gather.gather_plan(kind, (1000, width), (1000, 16), size,
+                                  index)
+        for wide in (False, True):
+            if wide and plan.kernel == "lanes_shuffle":
+                continue
+            occ = gather.gather_occupancy(plan._replace(wide=wide), size,
+                                          index)
+            assert occ["kernel"] == plan.kernel
+            assert occ["threads"] == (64 if plan.kernel == "rows_wide"
+                                      else 256)
+            assert occ["local_bytes"] == 0 and occ["registers"] > 0
+            assert occ["warps_per_sm"] >= 8
+            assert occ["shared_bytes"] <= 32768
+
+
+@pytest.mark.cuda
+def test_gather_wrappers_launch_on_the_current_stream(cuda_device):
+    """Each gather wrapper launches on the current stream: on a side
+    stream behind a long kernel (its result read after that stream alone
+    is synchronized), and inside a CUDA graph's capture (the replay
+    writes the result); bit for bit against the plain versions."""
+    rng = np.random.RandomState(41)
+    table, idx = _rows_case(rng, 997, 4099, 3, torch.float32, torch.int64,
+                            cuda_device)
+    t = torch.as_tensor(rng.randn(999, 16), dtype=torch.float32,
+                        device=cuda_device)
+    li = torch.as_tensor(rng.randint(0, 16, size=(999, 16)),
+                         device=cuda_device)
+    part = torch.as_tensor(rng.randn(997, 16, 5), device=cuda_device)
+    rev = torch.as_tensor(rng.randint(0, 16, size=4099), device=cuda_device)
+    calls = {"rows": lambda: gather.gather_rows(table, idx),
+             "lanes": lambda: gather.gather_lanes(t, li),
+             "rev": lambda: gather.rev_gather(part, idx % 997, rev)}
+    refs = {"rows": gather.gather_rows_torch(table, idx),
+            "lanes": gather.gather_lanes_torch(t, li),
+            "rev": gather.rev_gather_torch(part, idx % 997, rev)}
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(2_000_000)
+        outs = {kind: call() for kind, call in calls.items()}
+    side.synchronize()
+    for kind, out in outs.items():
+        assert torch.equal(out, refs[kind]), kind
+    graph = torch.cuda.CUDAGraph()
+    warm = torch.cuda.Stream()
+    warm.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(warm):
+        for call in calls.values():
+            call()
+    torch.cuda.current_stream().wait_stream(warm)
+    with torch.cuda.graph(graph):
+        outs = {kind: call() for kind, call in calls.items()}
+    for out in outs.values():
+        out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for kind, out in outs.items():
+        assert torch.equal(out, refs[kind]), kind
+
+
+@pytest.mark.cuda
+def test_gather_plan_codes_have_instances(cuda_device):
+    """Python owns the choice of instance and C only dispatches on it:
+    every code ``gather_plan`` can give (the row widths of ROW_WORDS, 0
+    for rows_any, WIDE_WORDS for rows_wide; the lane groups 2^0..2^5 and
+    -1 for one thread per output) has an instance in the library for
+    each element and index size and offset width, and no other code
+    has."""
+    rows = gather.ROW_WORDS + (0, gather.WIDE_WORDS)
+    for elem in (4, 8):
+        for index in (4, 8):
+            for wide in (False, True):
+                for kind, codes in (("rows", rows),
+                                    ("lanes", (-1, 0, 1, 2, 3, 4, 5))):
+                    for code in codes:
+                        if kind == "lanes" and code >= 0 and wide:
+                            continue
+                        plan = gather.GatherPlan(f"{kind}_{code}", code,
+                                                 wide, 16)
+                        gather.gather_occupancy(plan, elem, index)
+                for plan in (gather.GatherPlan("rows_5", 5, wide, 16),
+                             gather.GatherPlan("rows_33", 33, wide, 16),
+                             gather.GatherPlan("lanes_6", 6, False, 16),
+                             gather.GatherPlan("lanes_0", 0, True, 16)):
+                    with pytest.raises(RuntimeError, match="-1"):
+                        gather.gather_occupancy(plan, elem, index)
+
+
 # -- the fragment kernels (csrc/fragments.cu) --------------------------------
 FRAGMENT_DTYPES = [torch.float32, torch.float64]
 CONTRACT_TOL = {torch.float32: 1e-6, torch.float64: 2e-15}
@@ -1441,13 +1704,16 @@ CONTRACT_TOL = {torch.float32: 1e-6, torch.float64: 2e-15}
 @pytest.mark.parametrize("dtype", FRAGMENT_DTYPES)
 def test_relayout_kernel_matches_plain(cuda_device, mode, shape, kw, dtype):
     """relayout against relayout_torch, bit for bit, and against the
-    library's copy where one call computes it; one launch per call."""
+    library's copy where one call computes it; one launch per call,
+    counted under its mode too."""
     rng = np.random.RandomState(sum(shape) * 7 + len(kw))
     x = torch.as_tensor(rng.randn(*shape), dtype=dtype, device=cuda_device)
     launches = fragments.relayout.launches
+    by_mode = fragments.relayout.launches_by_mode.get(mode, 0)
     out = fragments.relayout(x, mode, **kw)
     torch.cuda.synchronize()
     assert fragments.relayout.launches == launches + 1
+    assert fragments.relayout.launches_by_mode[mode] == by_mode + 1
     assert probe_mosaic.same(out, fragments.relayout_torch(x, mode, **kw))
     library = {"tile": lambda: x.repeat(1, kw.get("reps", 1)),
                "repeat": lambda: x.repeat_interleave(kw.get("reps", 1), 1),

@@ -8,7 +8,7 @@ all copies are built at once (``_build.build``), and each library is
 loaded in turn under the package's wrappers.
 
     python -m uf3_tpu_torch.benchmarks.kernel_variants \\
-        trio|lane_contract|trio_multi|relayout \\
+        trio|lane_contract|trio_multi|relayout|gather \\
         --variant as_is --variant before=PATCH ...
 
 ``trio``: every variant is first held to the plain version on the four
@@ -32,6 +32,18 @@ copy, bit for bit against the plain version, beside the library call;
 ``relayout`` also with each call after a memcpy node and after a small
 kernel, less that node's own time, as no other copy precedes it; and
 the floor of a graph node, ``common.node_floor_ms``).
+``gather``: every variant is first held to the plain versions bit for
+bit on each row-gather instance (W = 1, 3, 4, 5, 8, 33, float32 and
+float64, int32 and int64, entry counts with tails, tables and indices
+off a 16-byte boundary, a table that is not contiguous) and each
+lane-gather instance (T = 16, 32, 33, 128, 1280); then
+``probe_gather``'s row and lane cases, the engine's own position
+gathers among them, are timed on operand copies that together pass the
+L2 (``probe_gather.cold_ms``: what the bound counts), each call held to
+the plain version bit for bit first, with the time on the same operands,
+the library call's times and the bound beside, each case's instance
+plan (``gather.gather_occupancy``) and the floor of a graph node; the
+ptxas lines kept are the gather kernels'.
 Each case is timed in two rounds, the variants in order and then in
 reverse, and a variant's time is the mean of its two.  A variant that
 fails to build or disagrees is reported and left out.  Writes
@@ -52,8 +64,8 @@ import time
 import numpy as np
 import torch
 
-from uf3_tpu_torch.benchmarks import common, probe_mosaic
-from uf3_tpu_torch.ops import _build, fragments, multi, trio
+from uf3_tpu_torch.benchmarks import common, probe_gather, probe_mosaic
+from uf3_tpu_torch.ops import _build, fragments, gather, multi, trio
 
 F64_TOL, FORCE_TOL = 1e-10, 2e-4
 
@@ -292,9 +304,111 @@ def fragment_cases(kernel, mode=None, after=False):
     return build
 
 
+def gather_check(device) -> dict:
+    """The loaded gather kernels against their plain versions, bit for
+    bit, on every instance: rows of W = 1, 3, 4, 5, 8, 33 (1 to 16 words,
+    rows_any and rows_wide) at 1, 127, 1025 and 4099 entries, on a
+    contiguous table, a table and an index one element past a 16-byte
+    boundary, and a view that is not contiguous (copied first); lanes at
+    T = 16, 32, 33, 128, 1280 with 16 and 7 outputs a row; float32 and
+    float64, int32 and int64.  Returns the count of calls, the cases that
+    differ, and ok."""
+    rng = np.random.RandomState(3)
+    calls, bad = 0, []
+    for dtype in (torch.float32, torch.float64):
+        for index_dtype in (torch.int32, torch.int64):
+            for w in (1, 3, 4, 5, 8, 33):
+                flat = torch.as_tensor(rng.randn(1001 * (w + 1) + 1),
+                                       dtype=dtype, device=device)
+                wider = flat[:1001 * (w + 1)].view(1001, w + 1)
+                raw = torch.as_tensor(rng.randint(0, 1001, size=4100),
+                                      dtype=index_dtype, device=device)
+                tables = {"contiguous": wider[:, :w].contiguous(),
+                          "offset": flat[1:1001 * w + 1].view(1001, w),
+                          "strided": wider[:, 1:]}
+                for n in (1, 127, 1025, 4099):
+                    for view, table in tables.items():
+                        for at in (0, 1):
+                            idx = raw[at:at + n]
+                            got = gather.gather_rows(table, idx)
+                            calls += 1
+                            if not torch.equal(got, gather.gather_rows_torch(
+                                    table, idx)):
+                                bad.append(f"rows W={w} n={n} {view} "
+                                           f"index+{at} {dtype} "
+                                           f"{index_dtype}")
+            for width in (16, 32, 33, 128, 1280):
+                for b in (16, 7):
+                    t = torch.as_tensor(rng.randn(1001, width), dtype=dtype,
+                                        device=device)
+                    li = torch.as_tensor(rng.randint(0, width,
+                                                     size=(1001, b)),
+                                         dtype=index_dtype, device=device)
+                    calls += 1
+                    if not torch.equal(gather.gather_lanes(t, li),
+                                       gather.gather_lanes_torch(t, li)):
+                        bad.append(f"lanes T={width} B={b} {dtype} "
+                                   f"{index_dtype}")
+    torch.cuda.synchronize()
+    return dict(calls=calls, differ=bad, ok=not bad)
+
+
+def gather_case(case, device):
+    """(time(), plan()) of one ``probe_gather`` case: a time raises if the
+    loaded kernel disagrees with the plain version, and gives its device
+    ms on operand copies past the L2 (``probe_gather.cold_ms``) with
+    beside it its ms on the same operands (``warm_ms``), the library
+    call's two times and the bound (the last three measured once)."""
+    ops = probe_gather.operands(case, np.random.RandomState(1), device)
+    kernel = gather.KERNELS[case.kind]
+    ref = gather.PLAIN[case.kind](*ops)
+    n_bytes = gather.gather_bytes(case.kind, ref, *ops)
+    sets = probe_gather.cold_sets(ops, n_bytes)
+    library = [probe_gather.library_call(case.kind, o) for o in sets]
+    beside = dict(bound_ms=1e3 * n_bytes / gather.PEAK_BYTES,
+                  library_ms=common.graph_ms(library[0]),
+                  library_cold_ms=probe_gather.cold_ms(library))
+
+    def timed():
+        if not torch.equal(kernel(*ops), ref):
+            raise AssertionError(f"{case.name}: the kernel differs from "
+                                 "the plain version")
+        ms = probe_gather.cold_ms([lambda o=o: kernel(*o) for o in sets])
+        return ms, dict(beside,
+                        warm_ms=common.graph_ms(lambda: kernel(*ops)))
+
+    def plan():
+        return gather.gather_occupancy(
+            probe_gather.plan_of(case.kind, ops), ops[0].element_size(),
+            ops[1].element_size())
+    return timed, plan
+
+
+def gather_cases(device):
+    """(checks: "instances" -> ``gather_check``, cases: name -> (time(),
+    plan())) for ``probe_gather``'s row and lane cases
+    (``gather_case``)."""
+    cases = {case.name: gather_case(case, device)
+             for case in probe_gather.CASES if case.kind in ("rows", "lanes")}
+    return {"instances": lambda: gather_check(device)}, cases
+
+
+def kernel_lines(lines, word: str):
+    """The ptxas lines of the entry functions whose names hold ``word``
+    (each entry's line and the spill and register lines after it)."""
+    kept, keep = [], False
+    for line in lines:
+        if "entry function" in line:
+            keep = word in line
+        if keep:
+            kept.append(line)
+    return kept
+
+
 CASES = {"trio": trio_cases, "trio_multi": trio_multi_cases,
          "lane_contract": fragment_cases("lane_contract"),
-         "relayout": fragment_cases("relayout", "reshape", after=True)}
+         "relayout": fragment_cases("relayout", "reshape", after=True),
+         "gather": gather_cases}
 
 
 def main(kernel, variants, out_dir=None, device=None):
@@ -312,7 +426,9 @@ def main(kernel, variants, out_dir=None, device=None):
         result = dict(card=common.card(device), kernel=kernel,
                       variants={n: os.path.relpath(p, common.REPO) if p
                                 else None for n, p in variants},
-                      ptxas={n: b[1] for n, b in built.items()},
+                      ptxas={n: kernel_lines(b[1], "gather")
+                             if kernel == "gather" else b[1]
+                             for n, b in built.items()},
                       checks={}, ms={}, plans={})
         checks, cases = CASES[kernel](device)
         for shape, check in checks.items():
@@ -349,7 +465,7 @@ def main(kernel, variants, out_dir=None, device=None):
                    f"{result['plans'][case][n]['local_bytes']} B local"
                    if plan is not None else "") + ")" for n in names)
                 + f"; card: {result['card']}")
-        if kernel == "relayout":
+        if kernel in ("relayout", "gather"):
             result["node_floor_ms"] = common.node_floor_ms(device)
             print(f"graph node floor, ms: {result['node_floor_ms']}; card: "
                   f"{result['card']}")

@@ -28,12 +28,33 @@ Three functions cover them (``csrc/gather.cu``):
          ``probe_gather2.py``'s p6, ``probe_wg.py``'s P2) is it with the
          column as the slot: out[i, c] = t[idx[i, c], c].
 
+Beside them, the engine's own row gathers (``engine.*``): the float32
+positions through the int64 neighbor lists that the port's builder
+makes on bcc W, as ``ops/neighbors.py``'s ``cached_displacements``
+gathers them (``positions[nbr.idx]``): the bench's 3-body list (9,826 x
+16) and pair list (9,826 x 72), the plain Verlet defaults' pair list
+(9,826 x 78) and the melting protocol's (31,104 x 88).  A real list's
+locality is what the table reads see, so these are not drawn at random.
+
 Each case reports the kernel and the library call (``table[idx]``,
 ``torch.gather(t, 1, li)``, ``part[idx, rev]``), each checked equal to
 the plain version bit for bit, the time of each and of the plain
-version from a CUDA graph replay of 30 calls, ns per gathered row, and
-the bound (``gather.gather_bytes``: the indices and output, and the
-table's sectors that the indices reach, over the card's memory rate).
+version from a CUDA graph replay of 30 calls on the same operands
+(``*_ms``: they stay in the 50 MB L2 across the calls, as in a step
+that gathers what it has just written) and on operand copies that
+together pass the L2 (``*_cold_ms``, ``common.graph_cold_ms`` over
+``common.cold_copies``: what the bound counts, each byte from device
+memory), ns per gathered row, the bound (``gather.gather_bytes``: the
+indices and output, and the table's sectors that the indices reach,
+over the card's memory rate), ``reached`` (the bound over the cold
+time), the instance ``gather.gather_plan`` chose, and the kernel's warm
+time past a graph node's floor (less ``common.node_floor_ms``'s empty
+kernel, measured in the same run: at the step's shapes the bound lies
+under that floor).  ``host_us`` holds the host microseconds per eager
+call of each wrapper beside its library call (``common.host_chain_ms``,
+30 calls ended by a synchronize) at the step's 9,826 x 16 rows and the
+defaults' 9,826 x 78: what a caller in the engine would pay on the
+host.
 Float32 values and int32 indices drawn from seed 0, as the JAX probes.  The JAX
 probes' per-case ``try``/``except`` existed because Mosaic might not
 compile a kernel; here a case that fails to build, launch or match
@@ -42,8 +63,10 @@ fails the run, and the key ``compiles`` is gone.
     python -m uf3_tpu_torch.benchmarks.probe_gather [--device cpu]
 
 writes ``benchmarks_data/artifacts_torch/probe_gather.json``.  With
-``--device cpu`` (and ``--max-rows``, which caps every dimension) it
-runs the plain versions and the library calls only: the times are null.
+``--device cpu`` (and ``--max-rows``, which caps every dimension of the
+probes' cases, and of the engine cases' index, whose lists then come
+from a 128-atom cell) it runs the plain versions and the library calls
+only: the device times are null.
 """
 
 import argparse
@@ -73,6 +96,7 @@ class Case(NamedTuple):
 
 N_PAD = 9856   # 9,826 atoms padded to a sublane multiple (the probes)
 N_MD = 9826
+N_PROTOCOL = 31104
 
 CASES = (
     Case("probe_dynamic_gather.kernel0", "rows", (N_PAD, 1), (N_PAD, 16)),
@@ -118,7 +142,23 @@ CASES = (
     Case("proto_pallas_gather.kernel", "rows", (N_MD, 8), (N_MD, 72)),
     Case("probe_mosaic.lane_taa_k16", "lanes", (512, 16), (512, 16)),
     Case("probe_mosaic.lane_taa_256", "lanes", (512, 256), (512, 256)),
+) + tuple(
+    Case(f"engine.positions_k{k}", "rows", (n, 3), (n, k), "engine")
+    for n, k in ((N_MD, 16), (N_MD, 72), (N_MD, 78), (N_PROTOCOL, 88))
 )
+
+# each engine case's list: bcc W repeats, the engine's settings, and the
+# list (nbr3: the 3-body list; nbr2: the pair list)
+ENGINE = {"engine.positions_k16": ((17, 17, 17), common.BENCH, "nbr3"),
+          "engine.positions_k72": ((17, 17, 17), common.BENCH, "nbr2"),
+          "engine.positions_k78": ((17, 17, 17), {}, "nbr2"),
+          "engine.positions_k88": (common.PROTOCOL_REPS, common.PROTOCOL,
+                                   "nbr2")}
+# the bcc W cell of the engine cases where every dimension is capped (a
+# CPU smoke run)
+SMALL_REPS = (4, 4, 4)
+# the cases whose wrappers' host cost per call is recorded
+HOST_CASES = ("engine.positions_k16", "engine.positions_k78")
 
 SEED = 0
 # the kind each kernel computes, by the kernel's name
@@ -140,13 +180,42 @@ def library_call(kind: str, operands):
     return lambda: part[idx, rev]
 
 
+_lists = {}  # the engine cases' (positions, list), built once a process
+
+
+def engine_state(name: str, device, small: bool = False):
+    """(float32 positions, the neighbor list) of the engine case
+    ``name``: ``MDSystem`` on bcc W (a = 3.1652 A) at the case's repeats
+    (``SMALL_REPS`` where ``small``) and settings, 300 K velocities from
+    seed 0, its list from the port's builder at the initial
+    positions."""
+    from uf3_tpu_torch.data.atoms import bulk
+    from uf3_tpu_torch.forcefield.md import MDSystem
+    key = (name, str(device), small)
+    if key not in _lists:
+        reps, engine, which = ENGINE[name]
+        geom = bulk("W", "bcc", a=3.1652) * (SMALL_REPS if small else reps)
+        system = MDSystem(common.MODEL, geom, dtype=torch.float32,
+                          device=device, **engine)
+        state = system.init_state(temperature=300.0, seed=0)
+        _lists[key] = (state.positions, getattr(state, which))
+    return _lists[key]
+
+
 def operands(case: Case, rng, device, max_rows: int = None):
     """The case's float32 table and int32 indices, drawn from ``rng``
     (values normal, indices uniform over the table's rows or lanes),
-    every dimension capped at ``max_rows`` where given."""
+    every dimension capped at ``max_rows`` where given; an engine case's
+    positions and int64 list (``engine_state``)."""
     def cap(shape):
         return tuple(min(s, max_rows) if max_rows else s for s in shape)
 
+    if case.fill == "engine":
+        x, nbr = engine_state(case.name, device, small=bool(max_rows))
+        idx = nbr.idx
+        if max_rows:
+            idx = idx[:max_rows, :max_rows].contiguous()
+        return x, idx
     values, index = cap(case.values), cap(case.index)
     if case.fill == "broadcast":
         table = np.broadcast_to(rng.randn(1, values[1]), values).copy()
@@ -174,11 +243,26 @@ def operands(case: Case, rng, device, max_rows: int = None):
     return t, idx, rev
 
 
+def cold_sets(ops, n_bytes: int):
+    """``ops`` and copies of them at their own addresses, as many as
+    together pass the L2 twice where each call moves ``n_bytes``
+    (``common.cold_copies``)."""
+    return [ops] + [tuple(t.clone() for t in ops)
+                    for _ in range(common.cold_copies(n_bytes) - 1)]
+
+
+def cold_ms(calls) -> float:
+    """Device ms of one of ``calls`` (each a call on its own operand
+    copy), the copies taken in turn in one CUDA graph
+    (``common.graph_cold_ms``)."""
+    return common.graph_cold_ms(lambda call: call(), [(c,) for c in calls])
+
+
 def run_case(case: Case, rng, device, max_rows: int = None) -> dict:
     """One case: the kernel and the library call held to the plain
     version bit for bit (a mismatch raises), and on a card the device
-    ms of each (``SCAN_LEN`` calls in one CUDA graph), ns per row and
-    the bound."""
+    ms of each (``SCAN_LEN`` calls in one CUDA graph) on the same
+    operands and on copies past the L2, ns per row and the bound."""
     ops = operands(case, rng, device, max_rows)
     kernel, plain = gather.KERNELS[case.kind], gather.PLAIN[case.kind]
     library = library_call(case.kind, ops)
@@ -192,19 +276,66 @@ def run_case(case: Case, rng, device, max_rows: int = None) -> dict:
     bound_ms, bound_by, n_bytes = gather.gather_bound(case.kind, out, *ops)
     record = dict(kind=case.kind,
                   values=list(ops[0].shape), index=list(ops[1].shape),
-                  dtype="float32", index_dtype="int32",
+                  dtype=str(ops[0].dtype)[6:],
+                  index_dtype=str(ops[1].dtype)[6:],
                   rows=rows, bytes=n_bytes, bound_ms=bound_ms,
-                  bound_by=bound_by, correct=True)
+                  bound_by=bound_by, correct=True,
+                  instance=plan_of(case.kind, ops)._asdict()
+                  if case.kind != "rev" else None)
     on_card = device.type == "cuda"
-    for name, fn in (("kernel", lambda: kernel(*ops)), ("library", library),
-                     ("plain", lambda: plain(*ops))):
-        ms = common.graph_ms(fn) if on_card else None
+    sets = cold_sets(ops, n_bytes) if on_card else None
+    record["cold_copies"] = None if sets is None else len(sets)
+    for name, fn in (("kernel", kernel), ("plain", plain),
+                     ("library", None)):
+        def call(o, fn=fn):
+            return (lambda: fn(*o)) if fn else library_call(case.kind, o)
+        ms = common.graph_ms(call(ops)) if on_card else None
         record[f"{name}_ms"] = ms
+        record[f"{name}_cold_ms"] = cold_ms([call(o) for o in sets]) \
+            if on_card else None
         record[f"{name}_ns_per_row"] = None if ms is None \
             else ms * 1e6 / rows
-    record["reached"] = None if record["kernel_ms"] is None \
-        else bound_ms / record["kernel_ms"]
+    record["reached"] = None if record["kernel_cold_ms"] is None \
+        else bound_ms / record["kernel_cold_ms"]
     return record
+
+
+def plan_of(kind: str, ops):
+    """The instance the row or lane wrapper runs on ``ops`` (its
+    ``gather.GatherPlan``)."""
+    return (gather.rows_plan if kind == "rows" else gather.lanes_plan)(*ops)
+
+
+def host_costs(device, max_rows: int = None) -> dict:
+    """Host microseconds per eager call (``common.host_chain_ms``: 30
+    calls, then a synchronize on a card; best of 3) of each gather's
+    wrapper and its library call, at the step's 9,826 x 16 rows and the
+    defaults' 9,826 x 78: the row gather of the positions through the
+    list, the lane gather of an (N, K) table at random lanes (int64),
+    and, on the 3-body list, the reverse-slot gather of (N, 16, 5)
+    partials through its reverse slots (a pair list holds none)."""
+    rng = np.random.RandomState(SEED)
+    out = {}
+    for name in HOST_CASES:
+        x, nbr = engine_state(name, device, small=bool(max_rows))
+        idx = nbr.idx
+        n, k = idx.shape
+        t = torch.as_tensor(rng.randn(n, k), dtype=torch.float32,
+                            device=device)
+        li = torch.as_tensor(rng.randint(0, k, size=(n, k)), device=device)
+        calls = {"rows": (x, idx), "lanes": (t, li)}
+        if name == "engine.positions_k16":
+            calls["rev"] = (torch.as_tensor(rng.randn(n, k, 5),
+                                            dtype=torch.float32,
+                                            device=device), idx, nbr.rev)
+        record = {}
+        for kind, ops in calls.items():
+            for who, fn in (("kernel", lambda: gather.KERNELS[kind](*ops)),
+                            ("library", library_call(kind, ops))):
+                record[f"{kind} {who}"] = 1e3 * common.host_chain_ms(
+                    lambda y, fn=fn: (fn(), y)[1], x)
+        out[f"{n} x {k}"] = record
+    return out
 
 
 def main(device=None, max_rows: int = None, out_dir: str = common.ARTIFACTS,
@@ -214,9 +345,15 @@ def main(device=None, max_rows: int = None, out_dir: str = common.ARTIFACTS,
     device = common.resolve_device(device)
     rng = np.random.RandomState(SEED)
     artifact = common.header(device, commit)
-    artifact.update(scan_len=common.SCAN_LEN, max_rows=max_rows, cases={})
+    floor = common.node_floor_ms(device) if device.type == "cuda" else None
+    artifact.update(scan_len=common.SCAN_LEN, max_rows=max_rows,
+                    node_floor_ms=floor, cases={})
     for case in CASES:
-        artifact["cases"][case.name] = run_case(case, rng, device, max_rows)
+        record = run_case(case, rng, device, max_rows)
+        record["past_floor_ms"] = None if floor is None \
+            else record["kernel_ms"] - floor["empty kernel"]
+        artifact["cases"][case.name] = record
+    artifact["host_us"] = host_costs(device, max_rows)
     path = common.write_artifact(artifact, out_dir, "probe_gather.json")
     print(json.dumps(artifact, indent=1))
     print(f"wrote {path}")

@@ -167,10 +167,13 @@ def relayout(x, mode: str, reps: int = None, shape=None, k: int = None,
                           in_cols, out_cols, kk, w, offset, x.element_size(),
                           stream)
         relayout.launches += 1
+        relayout.launches_by_mode[mode] = \
+            relayout.launches_by_mode.get(mode, 0) + 1
     return (out, out2) if pair else out
 
 
 relayout.launches = 0
+relayout.launches_by_mode = {}  # mode -> its launches
 
 
 def relayout_occupancy(mode: str, dtype=torch.float32) -> dict:

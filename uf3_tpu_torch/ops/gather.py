@@ -25,7 +25,21 @@ them.  Float32 and float64, int32 and int64 indices;
 the results are equal bit for bit.  Indices must lie in range: the
 kernels do not check them (that would cost a host sync).  Each
 wrapper's ``launches`` counts its kernel launches.
+
+``gather_plan`` is the choice of instance that the row and lane
+wrappers make, as a plain function of the shapes, element sizes and
+alignment; the C entries only dispatch on it.  The row gather goes by
+the row's width in 32-bit words (an instance for 1, 2, 3, 4, 6, 8 and
+16 words, ``rows_any`` for the others below 32, ``rows_wide`` from 32
+on), the lane gather by the table's width (the warp-shuffle instance of
+T rounded up to a power of two, up to 32 lanes); 64-bit offsets only
+where an operand passes 2^31 words.  ``gather_occupancy`` gives the
+registers and warps per SM of a plan's instance.
 """
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -37,6 +51,100 @@ PEAK_BYTES = 3.35e12
 SECTOR = 32
 _FLOATS = (torch.float32, torch.float64)
 _INDICES = (torch.int32, torch.int64)
+# row widths in 32-bit words with a row-gather instance of their own
+# (csrc/gather.cu's rows_of); narrower others take rows_any
+ROW_WORDS = (1, 2, 3, 4, 6, 8, 16)
+# rows of this many 32-bit words or more take rows_wide (a warp a row)
+WIDE_WORDS = 32
+# the widest table the lane gather's warp-shuffle instance takes
+SHUFFLE_LANES = 32
+# the largest offset, in 32-bit words, of the 32-bit instances
+MAX_OFFSET = 2 ** 31 - 1
+
+
+class GatherPlan(NamedTuple):
+    """The instance a row or lane gather runs, and what its C entry is
+    told: ``kernel`` "rows_w<words>", "rows_any", "rows_wide",
+    "lanes_shuffle" or "lanes_direct"; ``code`` the row width in words
+    (0: rows_any, ``WIDE_WORDS``: rows_wide) or log2 of the shuffle's lane
+    group T' (T rounded up to a power of two; -1: one thread per
+    output); ``wide`` 64-bit offsets; ``values_align`` the bytes that the
+    table's rows start at multiples of (16, 8 or 4), which decide whether
+    the row instances copy 16- or 8-byte chunks or words (the lane
+    gather reads whole elements: their size)."""
+    kernel: str
+    code: int
+    wide: bool
+    values_align: int
+
+
+def alignment(*byte_counts) -> int:
+    """The largest of 16, 8 and 4 bytes that divides each of
+    ``byte_counts`` (addresses, strides); 1 where 4 does not."""
+    bits = 16
+    for count in byte_counts:
+        bits |= count
+    low = bits & -bits
+    return low if low >= 4 else 1
+
+
+def gather_plan(kind: str, values_shape, index_shape, elem_bytes: int,
+                index_bytes: int, values_align: int = 16) -> GatherPlan:
+    """The instance a gather of ``kind`` ("rows" or "lanes") runs for a
+    contiguous table of ``values_shape`` ((R, W) or (A, T)) and indices
+    of ``index_shape``, ``elem_bytes`` 4 or 8 and ``index_bytes`` 4 or
+    8, with the table's rows aligned to ``values_align`` bytes."""
+    entries = 1
+    for size in index_shape:
+        entries *= size
+    return _plan(kind, *values_shape, entries, elem_bytes, index_bytes,
+                 values_align)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(kind: str, rows: int, width: int, entries: int, elem_bytes: int,
+          index_bytes: int, values_align: int) -> GatherPlan:
+    """``gather_plan`` of an (R, W) or (A, T) table of ``rows`` x
+    ``width`` and ``entries`` indices; cached on these integers, so that
+    a wrapper's call pays a lookup."""
+    if elem_bytes not in (4, 8) or index_bytes not in (4, 8):
+        raise ValueError(f"gather_plan: element and index sizes 4 or 8; "
+                         f"got {elem_bytes}, {index_bytes}")
+    per_word = elem_bytes // 4
+    if kind == "rows":
+        words = width * per_word
+        wide = max(rows * words, entries * words, entries) > MAX_OFFSET
+        if words in ROW_WORDS:
+            return GatherPlan(f"rows_w{words}", words, wide, values_align)
+        if words >= WIDE_WORDS:
+            return GatherPlan("rows_wide", WIDE_WORDS, wide, values_align)
+        return GatherPlan("rows_any", 0, wide, values_align)
+    if kind == "lanes":
+        wide = max(rows * width, entries) * per_word > MAX_OFFSET
+        if width <= SHUFFLE_LANES and not wide:
+            return GatherPlan("lanes_shuffle",
+                              max(width - 1, 0).bit_length(), False,
+                              values_align)
+        return GatherPlan("lanes_direct", -1, wide, values_align)
+    raise ValueError(f"gather_plan: no instances of kind {kind!r} (rows, "
+                     "lanes)")
+
+
+def gather_occupancy(plan: GatherPlan, elem_bytes: int,
+                     index_bytes: int) -> dict:
+    """The launch plan of ``plan``'s instance from the CUDA runtime,
+    nothing launched: registers, local (spill) bytes a thread, static
+    shared bytes and threads a block, resident blocks and warps an
+    SM."""
+    out = (ctypes.c_int * 6)()
+    kind = 0 if plan.kernel.startswith("rows") else 1
+    err = _build.library().uf3_gather_occupancy(
+        kind, plan.code, int(plan.wide), elem_bytes, index_bytes, out)
+    if err != 0:
+        raise RuntimeError(f"uf3_gather_occupancy failed ({err})")
+    return dict(kernel=plan.kernel, registers=out[0], local_bytes=out[1],
+                shared_bytes=out[2], threads=out[3], blocks_per_sm=out[4],
+                warps_per_sm=out[5])
 
 
 def row_offsets(table, idx):
@@ -106,11 +214,44 @@ def _sizes(values, index):
     return values.element_size(), index.element_size()
 
 
+def _launch(name: str, entry: str, device, *args):
+    """Call C entry ``entry`` with ``args`` and the handle of ``device``'s
+    current stream (a CUDA device; the capture stream inside a CUDA
+    graph's capture), raising on failure; ``device`` is made the current
+    device for the call only where it is not already.  The handle comes
+    from ``torch._C._cuda_getCurrentRawStream``: a
+    ``torch.cuda.current_stream()`` object inside a device context cost
+    ``rev_gather``'s wrapper ~10 of its ~39 host us a call
+    (``benchmarks/gather_host.py``; PERF.md section 6)."""
+    fn = getattr(_build.library(), entry)
+    index = device.index
+    if index == torch.cuda.current_device():
+        _build.launch(name, fn, *args,
+                      torch._C._cuda_getCurrentRawStream(index))
+        return
+    with torch.cuda.device(device):
+        _build.launch(name, fn, *args,
+                      torch._C._cuda_getCurrentRawStream(index))
+
+
+def rows_plan(table, idx) -> GatherPlan:
+    """``gather_plan`` for ``gather_rows(table, idx)`` as the wrapper
+    launches it: the alignment read off the table's pointer and row
+    width in bytes (a table that is not contiguous is copied first, to a
+    new allocation, which is aligned)."""
+    elem = table.element_size()
+    rows, width = table.shape
+    start = table.data_ptr() if table.is_contiguous() else 0
+    return _plan("rows", rows, width, idx.numel(), elem, idx.element_size(),
+                 alignment(start, width * elem))
+
 
 def gather_rows(table, idx):
     """Rows of the (R, W) ``table`` at the indices ``idx`` (any shape):
     an (idx.shape + (W,)) tensor.  A CUDA tensor runs the kernel of
-    ``csrc/gather.cu`` or raises; a CPU tensor runs the plain version."""
+    ``csrc/gather.cu`` that ``rows_plan`` picks (a table that is not
+    contiguous is copied first) or raises; a CPU tensor runs the plain
+    version."""
     if table.dim() != 2:
         raise ValueError(f"gather_rows takes an (R, W) table; got shape "
                          f"{tuple(table.shape)}")
@@ -123,11 +264,10 @@ def gather_rows(table, idx):
                       device=table.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        _build.launch("gather_rows", _build.library().uf3_gather_rows,
-                      table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                      idx.numel(), w, *_sizes(table, idx), stream)
+    plan = rows_plan(table, idx)
+    _launch("gather_rows", "uf3_gather_rows", table.device,
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(), w,
+            *_sizes(table, idx), plan.code, int(plan.wide), plan.values_align)
     gather_rows.launches += 1
     return out
 
@@ -135,10 +275,20 @@ def gather_rows(table, idx):
 gather_rows.launches = 0
 
 
+def lanes_plan(t, li) -> GatherPlan:
+    """``gather_plan`` for ``gather_lanes(t, li)`` on contiguous
+    operands."""
+    elem = t.element_size()
+    rows, width = t.shape
+    return _plan("lanes", rows, width, li.numel(), elem, li.element_size(),
+                 elem)
+
+
 def gather_lanes(t, li):
     """Entries of each row of the (A, T) ``t`` at that row's lanes ``li``
     (A, B): an (A, B) tensor.  A CUDA tensor runs the kernel of
-    ``csrc/gather.cu`` or raises; a CPU tensor runs the plain version."""
+    ``csrc/gather.cu`` that ``lanes_plan`` picks (the warp shuffle up to
+    32 lanes) or raises; a CPU tensor runs the plain version."""
     if t.dim() != 2 or li.dim() != 2 or li.shape[0] != t.shape[0]:
         raise ValueError(f"gather_lanes takes (A, T) and (A, B); got "
                          f"{tuple(t.shape)} and {tuple(li.shape)}")
@@ -149,11 +299,10 @@ def gather_lanes(t, li):
     out = torch.empty(tuple(li.shape), dtype=t.dtype, device=t.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(t.device):
-        stream = torch.cuda.current_stream(t.device).cuda_stream
-        _build.launch("gather_lanes", _build.library().uf3_gather_lanes,
-                      t.data_ptr(), li.data_ptr(), out.data_ptr(), li.shape[0],
-                      li.shape[1], t.shape[1], *_sizes(t, li), stream)
+    plan = lanes_plan(t, li)
+    _launch("gather_lanes", "uf3_gather_lanes", t.device, t.data_ptr(),
+            li.data_ptr(), out.data_ptr(), li.shape[0], li.shape[1],
+            t.shape[1], *_sizes(t, li), plan.code, int(plan.wide))
     gather_lanes.launches += 1
     return out
 
@@ -183,12 +332,9 @@ def rev_gather(part, idx, rev):
                       device=part.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(part.device):
-        stream = torch.cuda.current_stream(part.device).cuda_stream
-        _build.launch("rev_gather", _build.library().uf3_rev_gather,
-                      part.data_ptr(), idx.data_ptr(), rev.data_ptr(),
-                      out.data_ptr(), idx.numel(), w, kp, *_sizes(part, idx),
-                      stream)
+    _launch("rev_gather", "uf3_rev_gather", part.device, part.data_ptr(),
+            idx.data_ptr(), rev.data_ptr(), out.data_ptr(), idx.numel(), w, kp,
+            *_sizes(part, idx))
     rev_gather.launches += 1
     return out
 

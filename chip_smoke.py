@@ -77,22 +77,25 @@ by CUDA graph replay beside their eager host times, its 3-body forces
 against the float64 engine, the row and reverse-slot gathers timed at
 the step's shapes) and the TPU gather probes' cases with the engine's
 own position gathers through the port's lists (9,826 x 16, 72, 78 and
-31,104 x 88; ``run_probe_gather``: beside each the library call, the
-bound, the time on operand copies past the L2 that the bound is
-reached against, the instance the plan chose and the time past a graph
-node's floor measured in the same run, and the wrappers' host cost per
-call); then each is held bit for bit to its plain version on the
+31,104 x 88) and slot partials (9,826 x 16 x 5; ``run_probe_gather``:
+beside each the library call, the bound, the time on operand copies
+past the L2 that the bound is reached against, the instance the plan
+chose and the time past a graph node's floor measured in the same run,
+and the wrappers' host cost per call; ``rev_gather``'s launches counted
+by phase); then each is held bit for bit to its plain version on the
 anatomy's system, the bench's pair list, a table that is not contiguous
-and a misaligned one, and both lane-gather instances
-(``compare_gather``).  The fragment
+and a misaligned one, both lane-gather instances, and every
+reverse-slot instance, its column form, misaligned and non-contiguous
+partials and 2^20 + 16 entries (``compare_gather``).  The fragment
 kernels (``csrc/fragments.cu``: ``relayout``, ``lane_contract``,
 ``lane_map``) drive theirs through the fragment probes' entry point with
 their counts from 0 (``run_probe_mosaic``: the 17 cases of the TPU
 probes ``probe_mosaic.py`` and ``probe_gather2.py``'s layout primitives
 at the probe's block and at the full 9,856-row system, each beside its
 plain version, library call and bound); then each is held to its plain
-version at every case's full-system shape in float32 and float64
-(``compare_fragments``).  The fragment probes also run alone
+version at every case's full-system shape in float32 and float64, and
+the tiled transpose at (16, 128), (16, 9,856), (37, 1,001), (1, 4,099)
+and (4,099, 1) (``compare_fragments``).  The fragment probes also run alone
 (``python -m uf3_tpu_torch.benchmarks.probe_mosaic [--device cpu]``);
 ``tests/test_torch_fragments.py`` holds their plain versions to the TPU
 probes' Pallas bodies on the CPU (~16 s), and ``python -m pytest
@@ -693,10 +696,15 @@ def compare_gather(device, parts):
     an (N, 4) table that is not contiguous (the wrapper copies it) and
     from a table one element past a 16-byte boundary, the lane gather
     also at T = 32 (its other shuffle instance's edge) and T = 128 (one
-    thread per output); in float32 and
-    float64 with int64 (the lists' own) and int32 indices.  Each kernel
-    is timed on the gather path (``run_anatomy``, ``run_probe_gather``).
-    Returns each kernel's largest difference from its plain version."""
+    thread per output); the reverse-slot gather also at rows of 1, 2, 3,
+    8, 16 and 33 elements through the same list (1 to 66 words: every
+    rev instance, rev_wide among them), in the column form (rev = the
+    column, as the probes' table gathers), from partials one element past
+    a 16-byte boundary and from partials that are not contiguous, and at
+    2^20 + 16 entries; in float32 and float64 with int64 (the lists' own)
+    and int32 indices.  Each kernel is timed on the gather path
+    (``run_anatomy``, ``run_probe_gather``).  Returns each kernel's
+    largest difference from its plain version."""
     x, nbr3 = parts.positions.double(), parts.nbr3
     n, k3 = nbr3.idx.shape
     rng = np.random.RandomState(5)
@@ -706,6 +714,14 @@ def compare_gather(device, parts):
     x72, nbr72 = probe_gather.engine_state("engine.positions_k72", device)
     wider = torch.as_tensor(rng.randn(n, 4), device=device)
     flat = torch.as_tensor(rng.randn(3 * n + 1), device=device)
+    flat5 = torch.as_tensor(rng.randn(n * k3 * 5 + 1), device=device)
+    part7 = torch.as_tensor(rng.randn(n, k3, 7), device=device)
+    columns = torch.arange(16, device=device)
+    table = torch.as_tensor(rng.randn(9856, 16, 1), device=device)
+    t_idx = torch.as_tensor(rng.randint(0, 9856, size=(9856, 16)),
+                            device=device)
+    long_idx = torch.as_tensor(rng.randint(0, 9856, size=(2 ** 16 + 1, 16)),
+                               device=device)
     shapes = {
         "gather_rows": [("positions, 3-body rows", (x, nbr3.idx)),
                         ("positions, bench pair list",
@@ -719,7 +735,20 @@ def compare_gather(device, parts):
             torch.as_tensor(rng.randint(0, width, size=(4099, 24)),
                             device=device))) for width in (32, 128)],
         "rev_gather": [("slot partials, 3-body rows",
-                        (part, nbr3.idx, nbr3.rev))]}
+                        (part, nbr3.idx, nbr3.rev))]
+        + [(f"W = {w}, 3-body rows", (
+            torch.as_tensor(rng.randn(n, k3, w), device=device), nbr3.idx,
+            nbr3.rev)) for w in (1, 2, 3, 8, 16, 33)]
+        + [("column form, probe_dg3 table", (
+            table, t_idx, columns.expand(9856, 16))),
+           # built in each dtype, so that the view stays off a boundary
+           ("partials off a 16-byte boundary", (
+               lambda dtype: flat5.to(dtype)[1:].view(n, k3, 5), nbr3.idx,
+               nbr3.rev)),
+           ("non-contiguous partials", (part7[..., 1:6], nbr3.idx,
+                                        nbr3.rev)),
+           ("2^20 + 16 entries, column form", (
+               table, long_idx, columns.expand(2 ** 16 + 1, 16)))]}
     errors = {}
     for name, cases in shapes.items():
         kind = probe_gather.KIND[name]
@@ -728,8 +757,10 @@ def compare_gather(device, parts):
         for label, ops64 in cases:
             for dtype in (torch.float32, torch.float64):
                 for index_dtype in (torch.int64, torch.int32):
-                    ops = (ops64[0].to(dtype),) + tuple(
-                        t.to(index_dtype) for t in ops64[1:])
+                    values = ops64[0](dtype) if callable(ops64[0]) \
+                        else ops64[0].to(dtype)
+                    ops = (values,) + tuple(t.to(index_dtype)
+                                            for t in ops64[1:])
                     out, ref = kernel(*ops), plain(*ops)
                     torch.cuda.synchronize()
                     checks[f"{label} {str(dtype)[6:]} "
@@ -846,7 +877,7 @@ def run_probe_gather(device):
             f"{who} {us:.2f}" for who, us in costs.items())
             + f"; card: {card}")
     engine = {name: rec for name, rec in artifact["cases"].items()
-              if name.startswith("engine.")}
+              if name.startswith("engine.") and rec["kind"] == "rows"}
     gate("gather probes", {
         "every case correct": all(r["correct"]
                                   for r in artifact["cases"].values()),
@@ -855,6 +886,8 @@ def run_probe_gather(device):
             for key in ("kernel", "library", "plain")
             for cold in ("", "_cold")),
         "the engine's four position gathers": len(engine) == 4,
+        "the step's slot partials (rev)": artifact["cases"][
+            "engine.partials_k16"]["kind"] == "rev",
         "graph node floor measured": floor["empty kernel"] > 0,
         "host costs finite and positive": all(
             0 < us < float("inf") for costs in artifact["host_us"].values()
@@ -870,7 +903,10 @@ def gather_records(anatomy, probes):
     16 slots, and the lane gather at probe_dynamic_gather.kernel1's
     9,856 x 16; beside them the graph node's floor of the same run, each
     wrapper's host cost per call and the library call's, and for the
-    row gather the engine's four position gathers."""
+    row gather the engine's four position gathers; for the reverse-slot
+    gather the step's slot partials (``engine.partials_k16``) on operand
+    copies past the L2 beside ``part[idx, rev]``'s, and each kernel's
+    instance at its shape (registers and warps per SM)."""
     ms = anatomy["ms"]
     floor = probes["node_floor_ms"]
     records = {}
@@ -900,7 +936,32 @@ def gather_records(anatomy, probes):
                    past_floor_ms=rec["past_floor_ms"],
                    instance=rec["instance"])
         for name, rec in probes["cases"].items()
-        if name.startswith("engine.")}
+        if name.startswith("engine.") and rec["kind"] == "rows"}
+    rec = probes["cases"]["engine.partials_k16"]
+    records["rev_gather"].update(
+        cold_ms=rec["kernel_cold_ms"], library_cold_ms=rec["library_cold_ms"],
+        warm_ms=rec["kernel_ms"], past_floor_ms=rec["past_floor_ms"],
+        reached=rec["reached"], cold_shape="engine.partials_k16")
+    for name, shape in (("gather_rows", "engine.positions_k16"),
+                        ("gather_lanes", case),
+                        ("rev_gather", "engine.partials_k16")):
+        rec = probes["cases"][shape]
+        plan = gather.gather_occupancy(
+            gather.GatherPlan(**rec["instance"]), 4,
+            4 if rec["index_dtype"] == "int32" else 8)
+        records[name].update(instance=plan["kernel"],
+                             registers=plan["registers"],
+                             warps_per_sm=plan["warps_per_sm"])
+        print(f"{name} at {shape}: {plan['kernel']}, {plan['registers']} "
+              f"registers, {plan['local_bytes']} B local, "
+              f"{plan['warps_per_sm']} warps per SM; card: {card_line()}")
+    rec = records["rev_gather"]
+    print(f"rev_gather, the step's slot partials (9,826 x 16, W = 5, "
+          f"int64): cold {rec['cold_ms']:.5f} ms beside part[idx, rev] "
+          f"{rec['library_cold_ms']:.5f}; warm {rec['warm_ms']:.5f}, past "
+          f"the empty node's floor {rec['past_floor_ms']:.5f}; bound "
+          f"{rec['bound_ms']:.5f} ms, reached {100 * rec['reached']:.1f}% "
+          f"cold; card: {card_line()}")
     for name, record in records.items():
         kind = probe_gather.KIND[name]
         record["host_us"] = {
@@ -992,6 +1053,19 @@ def compare_fragments(device):
             ref = fragments.relayout_torch(x, "reshape", shape=(n, 1))
             checks[f"relayout copy, offset source, {n} words, "
                    f"{str(dtype)[6:]}"] = probe_mosaic.same(out, ref)
+    # the tiled transpose at the probe's shapes and at shapes ragged in
+    # both dimensions
+    for shape in ((16, 128), (16, 9856), (37, 1001), (1, 4099), (4099, 1)):
+        x64 = torch.as_tensor(rng.randn(*shape), device=device)
+        for dtype in (torch.float32, torch.float64):
+            x = x64.to(dtype)
+            out = fragments.relayout(x, "transpose")
+            ref = fragments.relayout_torch(x, "transpose")
+            torch.cuda.synchronize()
+            checks[f"relayout transpose {shape} {str(dtype)[6:]}"] = \
+                probe_mosaic.same(out, ref)
+            errors["relayout"] = max(errors["relayout"],
+                                     probe_mosaic.max_abs_err(out, ref))
     gate("fragment kernels vs plain (full system)", checks)
     print(f"fragment kernels vs plain, largest difference: {errors}")
     return errors
@@ -1030,6 +1104,21 @@ def fragment_records(mosaic, device):
               f".reshape().clone() {rec['library_ms']:.5f} ms; "
               f"{rec['registers']} registers, {rec['warps_per_sm']} warps "
               f"per SM; card: {card_line()}")
+    # the transpose kernel at both sizes, past a graph node's floor
+    transpose = "probe_gather2.p3_transpose_16x128"
+    plan = fragments.relayout_occupancy("transpose")
+    records["relayout"]["transpose"] = {
+        size: dict(ms=rec["kernel_ms"], warm_ms=rec["kernel_warm_ms"],
+                   library_ms=rec["library_ms"], plain_ms=rec["plain_ms"],
+                   bound_ms=rec["bound_ms"], registers=plan["registers"],
+                   warps_per_sm=plan["warps_per_sm"])
+        for size, rec in mosaic["cases"][transpose].items()}
+    for size, rec in records["relayout"]["transpose"].items():
+        print(f"relayout transpose [{size}]: {rec['ms']:.5f} ms on operand "
+              f"copies ({rec['warm_ms']:.5f} on one) beside "
+              f"x.t().contiguous() {rec['library_ms']:.5f} ms, bound "
+              f"{rec['bound_ms']:.5f}; {rec['registers']} registers, "
+              f"{rec['warps_per_sm']} warps per SM; card: {card_line()}")
     case = next(c for c in probe_mosaic.CASES
                 if c.name == FRAGMENT_SHAPES["lane_contract"])
     args, kwargs = probe_mosaic.operands(case, mosaic["full_rows"],
@@ -3772,8 +3861,11 @@ def main():
     # their plain versions on the anatomy's system
     reset_counts()
     launches_anatomy, anatomy, parts = run_anatomy(device)
+    rev_by_phase = {"step anatomy": gather.rev_gather.launches}
     probes = run_probe_gather(device)
     gather_launches = {fn.__name__: fn.launches for fn in GATHERS}
+    rev_by_phase["gather probes"] = \
+        gather_launches["rev_gather"] - rev_by_phase["step anatomy"]
     gate("gather path", {f"{name} launched": n > 0
                          for name, n in gather_launches.items()})
     # the fragment path: the fragment probes, the fragment kernels'
@@ -3926,7 +4018,8 @@ def main():
           f"{anatomy['ms']['p4_full_inner_step']:.5f} ms device (graph "
           f"replay), {anatomy['host_ms']['p4_full_inner_step']:.5f} ms host "
           f"(eager); gather kernel launches on the gather path "
-          f"{gather_launches}; card: {card}")
+          f"{gather_launches}; rev_gather's by phase {rev_by_phase}; "
+          f"card: {card}")
     print(f"fragment kernel launches on the fragment path "
           f"{fragment_launches}; relayout's by mode {relayout_modes}; "
           f"card: {card}")
@@ -3962,6 +4055,8 @@ def main():
              replaces=GATHER_REPLACES[name],
              launches=gather_launches[name], max_abs_err=gather_errors[name],
              **record,
+             **({"launches_by_phase": rev_by_phase}
+                if name == "rev_gather" else {}),
              probe_cases={case: dict(
                  ms=rec["kernel_ms"], library_ms=rec["library_ms"],
                  plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"])

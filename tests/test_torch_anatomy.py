@@ -167,7 +167,7 @@ def test_probe_gather_main_writes_its_artifact(tmp_path):
         "probe_gather2", "probe_wg", "proto_dyngather",
         "proto_pallas_gather", "probe_mosaic", "engine"}
     engine = {f"engine.positions_k{k}" for k in (16, 72, 78, 88)}
-    assert engine <= set(cases)
+    assert engine | {"engine.partials_k16"} <= set(cases)
     for name, record in cases.items():
         assert record["correct"] and record["bound_by"] == "bytes", name
         assert record["kernel_ms"] is None and record["reached"] is None
@@ -182,6 +182,15 @@ def test_probe_gather_main_writes_its_artifact(tmp_path):
             assert (record["dtype"], record["index_dtype"]) == (
                 "float32", "int64")
             assert record["instance"]["kernel"] == "rows_w3"
+        elif name == "engine.partials_k16":
+            # (N, K, 5) float32 slot partials back through the small
+            # cell's 3-body list and its reverse slots (int64), capped
+            assert record["kind"] == "rev"
+            assert record["values"] == [128, 16, 5]
+            assert record["index"] == [24, 16]
+            assert (record["dtype"], record["index_dtype"]) == (
+                "float32", "int64")
+            assert record["instance"]["kernel"] == "rev_any"
         else:
             assert max(record["values"] + record["index"]) <= 24, name
             assert record["index_dtype"] == "int32"

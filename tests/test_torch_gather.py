@@ -313,10 +313,81 @@ def test_gather_plan_wide_offsets():
     lanes = rows("lanes", (2 ** 26, 32), (2 ** 26, 32), 4, 4)
     assert lanes.wide and lanes.kernel == "lanes_direct"
     assert rows("lanes", (2 ** 25, 32), (2 ** 25, 32), 8, 4).wide
+    assert rows("rev", (10, 3), (10,), 4, 4) == gather.GatherPlan(
+        "rev_w3", 3, False, 16)
     with pytest.raises(ValueError, match="no instances"):
-        rows("rev", (10, 3), (10,), 4, 4)
+        rows("cols", (10, 3), (10,), 4, 4)
     with pytest.raises(ValueError, match="sizes 4 or 8"):
         rows("rows", (10, 3), (10,), 2, 4)
+
+
+@pytest.mark.parametrize("w, elem, kernel", [
+    (1, 4, "rev_w1"), (2, 4, "rev_w2"), (3, 4, "rev_w3"), (4, 4, "rev_w4"),
+    (5, 4, "rev_any"), (8, 4, "rev_w8"), (16, 4, "rev_w16"),
+    (31, 4, "rev_any"), (32, 4, "rev_wide"), (1, 8, "rev_w2"),
+    (5, 8, "rev_any"), (8, 8, "rev_w16"), (16, 8, "rev_wide")])
+@pytest.mark.parametrize("index_bytes", [4, 8])
+def test_gather_plan_rev_by_width(w, elem, kernel, index_bytes):
+    """The reverse-slot gather is the row gather of the (R, Kp, W)
+    partials viewed as the (R Kp, W) table: its instance goes by the
+    row's width in words as the row gather's does (rev_w<words> for 1,
+    2, 3, 4, 6, 8 and 16 words, rev_any for the others below 32,
+    rev_wide from 32 on), with 32-bit offsets at the step's (9,826, 16)
+    list, and the same code as the row gather's instance."""
+    plan = gather.gather_plan("rev", (9826 * 16, w), (9826, 16), elem,
+                              index_bytes, 16)
+    assert plan.kernel == kernel and not plan.wide
+    twin = gather.gather_plan("rows", (9826 * 16, w), (9826, 16), elem,
+                              index_bytes, 16)
+    assert plan.code == twin.code
+    assert plan.kernel == "rev" + twin.kernel[len("rows"):]
+
+
+@pytest.mark.parametrize("values, index, elem, wide", [
+    ((2 ** 26, 31), (10,), 4, False),        # R Kp W: 2^31 - 2^26 words
+    ((2 ** 26, 32), (10,), 4, True),         # R Kp W: 2^31 words
+    ((2 ** 26, 16), (10,), 8, True),         # float64 counts twice
+    ((2 ** 26 - 1, 16), (10,), 8, False),
+    ((100, 1), (2 ** 31 - 1,), 4, False),    # entries and output words
+    ((100, 1), (2 ** 31,), 4, True),
+    ((100, 16), (2 ** 27 - 1,), 4, False),   # output: entries x W words
+    ((100, 16), (2 ** 27,), 4, True),
+    ((100, 5), (2 ** 20 + 1,), 4, False),    # past 2^20 entries
+])
+def test_gather_plan_rev_wide_offsets(values, index, elem, wide):
+    """64-bit offsets for the reverse-slot gather only where the
+    partials (R Kp W words), the output (entries x W words) or the count
+    of entries passes 2^31 - 1."""
+    assert gather.gather_plan("rev", values, index, elem, 8).wide is wide
+
+
+def test_rev_plan_reads_the_partials():
+    """``rev_plan`` views (R, Kp, W) partials as the (R Kp, W) table and
+    reads the alignment off their pointer and row width in bytes, as
+    ``rows_plan`` does: the step's float32 W = 5 (20-byte rows), W = 4
+    at and one element past a 16-byte boundary, and the contiguous copy
+    that the wrapper makes of partials that are not contiguous (a new
+    allocation: only the row width counts); the index size comes from
+    ``idx``."""
+    idx = torch.zeros((54, 16), dtype=torch.int64)
+    for dtype, elem in ((torch.float32, 4), (torch.float64, 8)):
+        base = torch.zeros(54 * 16 * 5 + 1, dtype=dtype)
+        assert base.data_ptr() % 16 == 0
+        part = base[:54 * 16 * 5].view(54, 16, 5)
+        assert gather.rev_plan(part, idx) == gather.gather_plan(
+            "rev", (54 * 16, 5), (54, 16), elem, 8,
+            gather.alignment(5 * elem))
+        four = base[:54 * 16 * 4].view(54, 16, 4)
+        assert gather.rev_plan(four, idx.int()).values_align == 16
+        assert gather.rev_plan(four, idx.int()) == gather.gather_plan(
+            "rev", (54 * 16, 4), (54, 16), elem, 4, 16)
+        off = base[1:54 * 16 * 4 + 1].view(54, 16, 4)
+        assert gather.rev_plan(off, idx).values_align == elem
+        strided = part[..., 1:]
+        assert not strided.is_contiguous()
+        plan = gather.rev_plan(strided.contiguous(), idx)
+        assert plan.code == 4 * elem // 4
+        assert plan.values_align == gather.alignment(4 * elem)
 
 
 def test_gather_plan_reads_alignment_and_row_stride():

@@ -1378,6 +1378,90 @@ def test_rev_gather_kernel_matches_plain(cuda_device, n, k, w, n_pad, column,
     assert torch.equal(out, part[idx.long(), rev.long()])
 
 
+def _rev_instance(part):
+    """The instance gather_plan gives partials of this width."""
+    words = part.shape[-1] * part.element_size() // 4
+    if words in gather.ROW_WORDS:
+        return f"rev_w{words}"
+    return "rev_wide" if words >= gather.WIDE_WORDS else "rev_any"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 2, 3, 5, 8, 16, 33])
+@pytest.mark.parametrize("n", [1, 33, 65, 4099])
+@pytest.mark.parametrize("dtype", GATHER_DTYPES)
+@pytest.mark.parametrize("index_dtype", INDEX_DTYPES)
+def test_rev_gather_instances(cuda_device, w, n, dtype, index_dtype):
+    """Each reverse-slot instance (W = 1, 2, 3, 5, 8, 16, 33 elements: 1
+    to 66 words a row in float32 and float64, so rev_w*, rev_any and
+    rev_wide) bit for bit against the plain version and part[idx, rev],
+    on random slots and on the column form (rev = the column), at entry
+    counts that leave a tail in a warp's groups and in the last block;
+    one launch a call, and the plan names the instance."""
+    rng = np.random.RandomState(n * 11 + w)
+    r, kp = 97, 11
+    part = torch.as_tensor(rng.randn(r, kp, w), dtype=dtype,
+                           device=cuda_device)
+    idx = torch.as_tensor(rng.randint(0, r, size=n), dtype=index_dtype,
+                          device=cuda_device)
+    forms = {"random": torch.as_tensor(rng.randint(0, kp, size=n),
+                                       dtype=index_dtype, device=cuda_device),
+             "column": (torch.arange(n, device=cuda_device) % kp).to(
+                 index_dtype)}
+    assert gather.rev_plan(part, idx).kernel == _rev_instance(part)
+    for form, rev in forms.items():
+        launches = gather.rev_gather.launches
+        out = gather.rev_gather(part, idx, rev)
+        torch.cuda.synchronize()
+        assert gather.rev_gather.launches == launches + 1
+        assert torch.equal(out, gather.rev_gather_torch(part, idx, rev)), form
+        assert torch.equal(out, part[idx.long(), rev.long()]), form
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 4, 5])
+@pytest.mark.parametrize("dtype", GATHER_DTYPES)
+@pytest.mark.parametrize("index_dtype", INDEX_DTYPES)
+def test_rev_gather_misaligned_strided_and_long(cuda_device, w, dtype,
+                                                index_dtype):
+    """Partials one element past a 16-byte boundary (their data_ptr() not
+    16-byte aligned: word loads), index views likewise, partials that
+    are not contiguous (the wrapper copies them), and 2^20 + 3 entries
+    in the column form (more spans than one wave of warps), each bit for
+    bit against the plain version."""
+    rng = np.random.RandomState(w * 17 + 3)
+    r, kp, n = 211, 16, 3001
+    flat = torch.as_tensor(rng.randn(r * kp * w + 1), dtype=dtype,
+                           device=cuda_device)
+    offset = flat[1:].view(r, kp, w)
+    assert offset.data_ptr() % 16 != 0
+    strided = torch.as_tensor(rng.randn(r, kp, w + 2), dtype=dtype,
+                              device=cuda_device)[..., 1:w + 1]
+    assert not strided.is_contiguous()
+    raw = torch.as_tensor(rng.randint(0, r, size=n + 1), dtype=index_dtype,
+                          device=cuda_device)
+    slots = torch.as_tensor(rng.randint(0, kp, size=n + 1),
+                            dtype=index_dtype, device=cuda_device)
+    for part in (offset, strided):
+        for at in (0, 1):
+            idx, rev = raw[at:at + n], slots[at:at + n]
+            out = gather.rev_gather(part, idx, rev)
+            torch.cuda.synchronize()
+            assert torch.equal(out, gather.rev_gather_torch(part, idx, rev))
+    assert gather.rev_plan(offset, raw).values_align < 16
+    m = 2 ** 20 + 3
+    long_idx = torch.as_tensor(rng.randint(0, r, size=(m // kp + 1, kp)),
+                               dtype=index_dtype, device=cuda_device)
+    column = torch.arange(kp, dtype=index_dtype,
+                          device=cuda_device).expand_as(long_idx)
+    part = offset.contiguous()
+    out = gather.rev_gather(part, long_idx.reshape(-1)[:m],
+                            column.reshape(-1)[:m])
+    torch.cuda.synchronize()
+    assert torch.equal(out, gather.rev_gather_torch(
+        part, long_idx.reshape(-1)[:m], column.reshape(-1)[:m]))
+
+
 @pytest.mark.cuda
 def test_gather_kernels_on_the_engine_lists(rows, cuda_device):
     """On the rattled 1,024-atom box's 3-body list (padded slots, int64
@@ -1580,14 +1664,16 @@ def test_gather_lanes_instances(cuda_device, width, a, b, dtype,
 @pytest.mark.parametrize("kind, width", [("rows", 1), ("rows", 3),
                                          ("rows", 4), ("rows", 8),
                                          ("rows", 5), ("rows", 33),
+                                         ("rev", 1), ("rev", 5),
+                                         ("rev", 33),
                                          ("lanes", 16), ("lanes", 128)])
 @pytest.mark.parametrize("dtype", GATHER_DTYPES)
 def test_gather_occupancy_names_the_instance(cuda_device, kind, width,
                                              dtype):
     """Each plan's instance exists in the library, spills nothing and
-    has resident warps at its own block size (two warps for rows_wide,
-    eight for the others); the row instances stay within 32 KB of
-    shared memory a block."""
+    has resident warps at its own block size (two warps for rows_wide
+    and rev_wide, eight for the others); the row and reverse-slot
+    instances stay within 32 KB of shared memory a block."""
     for index_dtype in INDEX_DTYPES:
         size = torch.empty((), dtype=dtype).element_size()
         index = torch.empty((), dtype=index_dtype).element_size()
@@ -1599,7 +1685,7 @@ def test_gather_occupancy_names_the_instance(cuda_device, kind, width,
             occ = gather.gather_occupancy(plan._replace(wide=wide), size,
                                           index)
             assert occ["kernel"] == plan.kernel
-            assert occ["threads"] == (64 if plan.kernel == "rows_wide"
+            assert occ["threads"] == (64 if plan.kernel.endswith("_wide")
                                       else 256)
             assert occ["local_bytes"] == 0 and occ["registers"] > 0
             assert occ["warps_per_sm"] >= 8
@@ -1656,15 +1742,15 @@ def test_gather_wrappers_launch_on_the_current_stream(cuda_device):
 def test_gather_plan_codes_have_instances(cuda_device):
     """Python owns the choice of instance and C only dispatches on it:
     every code ``gather_plan`` can give (the row widths of ROW_WORDS, 0
-    for rows_any, WIDE_WORDS for rows_wide; the lane groups 2^0..2^5 and
-    -1 for one thread per output) has an instance in the library for
-    each element and index size and offset width, and no other code
-    has."""
+    for rows_any, WIDE_WORDS for rows_wide, and the same for the
+    reverse-slot gather's rev_*; the lane groups 2^0..2^5 and -1 for one
+    thread per output) has an instance in the library for each element
+    and index size and offset width, and no other code has."""
     rows = gather.ROW_WORDS + (0, gather.WIDE_WORDS)
     for elem in (4, 8):
         for index in (4, 8):
             for wide in (False, True):
-                for kind, codes in (("rows", rows),
+                for kind, codes in (("rows", rows), ("rev", rows),
                                     ("lanes", (-1, 0, 1, 2, 3, 4, 5))):
                     for code in codes:
                         if kind == "lanes" and code >= 0 and wide:
@@ -1674,6 +1760,8 @@ def test_gather_plan_codes_have_instances(cuda_device):
                         gather.gather_occupancy(plan, elem, index)
                 for plan in (gather.GatherPlan("rows_5", 5, wide, 16),
                              gather.GatherPlan("rows_33", 33, wide, 16),
+                             gather.GatherPlan("rev_5", 5, wide, 16),
+                             gather.GatherPlan("rev_33", 33, wide, 16),
                              gather.GatherPlan("lanes_6", 6, False, 16),
                              gather.GatherPlan("lanes_0", 0, True, 16)):
                     with pytest.raises(RuntimeError, match="-1"):
@@ -1697,6 +1785,11 @@ CONTRACT_TOL = {torch.float32: 1e-6, torch.float64: 2e-15}
     ("reshape", (33, 7), dict(shape=(7, 33))),
     ("transpose", (16, 128), {}),                 # p3
     ("transpose", (16, 9857), {}),
+    ("transpose", (16, 9856), {}),                # p3 at the full system
+    ("transpose", (37, 1001), {}),                # tiles ragged both ways
+    ("transpose", (1, 4099), {}),
+    ("transpose", (4099, 1), {}),
+    ("transpose", (64, 96), {}),                  # rows past one tile
     ("select", (8192, 27), dict(k=16, lanes=256)),     # #7, h
     ("select", (1001 * 8, 27), dict(k=8, lanes=64)),
     ("select", (37 * 4, 12), dict(k=4, lanes=29)),
@@ -1747,6 +1840,38 @@ def test_relayout_copy_offset_sources(cuda_device, count, dtype):
             x, "reshape", shape=(count, 1)))
         assert torch.equal(out.view(-1), x)
     plan = fragments.relayout_occupancy("reshape", dtype)
+    assert plan["local_bytes"] == 0 and plan["warps_per_sm"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 128), (16, 9856), (37, 1001),
+                                   (1, 4099), (4099, 1), (33, 64),
+                                   (5, 1003)])
+@pytest.mark.parametrize("dtype", FRAGMENT_DTYPES)
+def test_relayout_transpose_views(cuda_device, shape, dtype):
+    """The tiled transpose from x one element past a 16-byte boundary
+    (its 16-byte loads off: word loads) and from a view that is not
+    contiguous (the wrapper copies it), bit for bit against
+    relayout_torch and x.t(); one launch a call, counted under
+    "transpose"; the transpose kernel's launch plan spills nothing."""
+    rows, cols = shape
+    rng = np.random.RandomState(rows * 31 + cols)
+    flat = torch.as_tensor(rng.randn(rows * cols + 1), dtype=dtype,
+                           device=cuda_device)
+    offset = flat[1:].view(rows, cols)
+    assert offset.data_ptr() % 16 != 0
+    wider = torch.as_tensor(rng.randn(rows, cols + 3), dtype=dtype,
+                            device=cuda_device)
+    for x in (offset, wider[:, 2:cols + 2]):
+        launches = fragments.relayout.launches_by_mode.get("transpose", 0)
+        out = fragments.relayout(x, "transpose")
+        torch.cuda.synchronize()
+        assert fragments.relayout.launches_by_mode["transpose"] \
+            == launches + 1
+        assert probe_mosaic.same(out, fragments.relayout_torch(
+            x, "transpose"))
+        assert torch.equal(out, x.t())
+    plan = fragments.relayout_occupancy("transpose", dtype)
     assert plan["local_bytes"] == 0 and plan["warps_per_sm"] > 0
 
 

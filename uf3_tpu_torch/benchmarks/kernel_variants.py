@@ -9,7 +9,7 @@ loaded in turn under the package's wrappers.
 
     python -m uf3_tpu_torch.benchmarks.kernel_variants \\
         trio|lane_contract|trio_multi|relayout|gather \\
-        --variant as_is --variant before=PATCH ...
+        --variant as_is --variant before=PATCH ... [--cases REGEX]
 
 ``trio``: every variant is first held to the plain version on the four
 lists of ``common.trio_rows`` (float64 within 1e-10, float32 forces
@@ -26,24 +26,29 @@ with and without energy), then timed by graph replay: float32 without
 energy on the binary and ternary rows, float64 with energy on the
 calculator's; launch plans from ``multi.trio_multi_occupancy``.
 ``lane_contract`` and ``relayout``: ``probe_mosaic``'s cases of the
-kernel (``relayout``: its reshape, the copy) at the probe's block and at
-the full system (``probe_mosaic.run_case``: each call on its own operand
-copy, bit for bit against the plain version, beside the library call;
+kernel (``relayout``: its reshape, the copy, and its transpose) at the
+probe's block and at the full system (``probe_mosaic.run_case``: each
+call on its own operand copy, bit for bit against the plain version,
+beside the library call and the time on one set of operands;
 ``relayout`` also with each call after a memcpy node and after a small
 kernel, less that node's own time, as no other copy precedes it; and
 the floor of a graph node, ``common.node_floor_ms``).
 ``gather``: every variant is first held to the plain versions bit for
 bit on each row-gather instance (W = 1, 3, 4, 5, 8, 33, float32 and
 float64, int32 and int64, entry counts with tails, tables and indices
-off a 16-byte boundary, a table that is not contiguous) and each
+off a 16-byte boundary, a table that is not contiguous), each
+reverse-slot instance (W = 1, 2, 3, 5, 8, 33 on (97, 11, W) partials,
+the same counts, views and types, and the column form) and each
 lane-gather instance (T = 16, 32, 33, 128, 1280); then
-``probe_gather``'s row and lane cases, the engine's own position
-gathers among them, are timed on operand copies that together pass the
+``probe_gather``'s cases, the engine's own position gathers and slot
+partials among them, are timed on operand copies that together pass the
 L2 (``probe_gather.cold_ms``: what the bound counts), each call held to
 the plain version bit for bit first, with the time on the same operands,
 the library call's times and the bound beside, each case's instance
 plan (``gather.gather_occupancy``) and the floor of a graph node; the
 ptxas lines kept are the gather kernels'.
+``--cases REGEX`` times only the cases whose names it matches
+(``re.search``); the checks run in full.
 Each case is timed in two rounds, the variants in order and then in
 reverse, and a variant's time is the mean of its two.  A variant that
 fails to build or disagrees is reported and left out.  Writes
@@ -258,21 +263,21 @@ def trio_multi_cases(device):
     return checks, cases
 
 
-def fragment_cases(kernel, mode=None, after=False):
-    """The cases of ``probe_mosaic`` of ``kernel`` (and ``mode``) at both
-    sizes: (no separate checks, cases: name -> (time(), plan())); each
-    time raises if the kernel disagrees with its plain version, and gives
-    the library call's time, the kernel's on one set of operands and the
-    bound of the same run beside its own; ``relayout``'s plan is its
-    launch plan for ``mode`` (``fragments.relayout_occupancy``), the
-    others have none.  With ``after``, each case is also timed with every
-    call after a node of another kind (``probe_mosaic.run_case``'s
+def fragment_cases(kernel, modes=None, after=False):
+    """The cases of ``probe_mosaic`` of ``kernel`` (and of ``modes``) at
+    both sizes: (no separate checks, cases: name -> (time(), plan()));
+    each time raises if the kernel disagrees with its plain version, and
+    gives the library call's time, the kernel's on one set of operands
+    and the bound of the same run beside its own; ``relayout``'s plan is
+    its launch plan for the case's mode (``fragments.relayout_occupancy``),
+    the others have none.  With ``after``, each case is also timed with
+    every call after a node of another kind (``probe_mosaic.run_case``'s
     ``before``): a 16-byte device-to-device memcpy, and a 4-element
     ``add_`` kernel."""
-    plan = None
-    if kernel == "relayout":
-        def plan():
-            return fragments.relayout_occupancy(mode)
+    def plan_of(case):
+        if kernel != "relayout":
+            return None
+        return lambda: fragments.relayout_occupancy(case.mode)
 
     def build(device):
         befores = {"": None}
@@ -283,7 +288,8 @@ def fragment_cases(kernel, mode=None, after=False):
             befores[", after a kernel"] = lambda: tick.add_(1.0)
         cases = {}
         for case in probe_mosaic.CASES:
-            if case.kernel != kernel or mode not in (None, case.mode):
+            if case.kernel != kernel or (modes is not None
+                                         and case.mode not in modes):
                 continue
             for size in ("probe", "full"):
                 for where, before in befores.items():
@@ -299,7 +305,8 @@ def fragment_cases(kernel, mode=None, after=False):
                             bound_ms=r["bound_ms"],
                             warm_ms=r["kernel_warm_ms"],
                             before_ms=r.get("before_ms"))
-                    cases[f"{case.name} {size}{where}"] = (timed, plan)
+                    cases[f"{case.name} {size}{where}"] = (timed,
+                                                           plan_of(case))
         return {}, cases
     return build
 
@@ -309,14 +316,17 @@ def gather_check(device) -> dict:
     bit, on every instance: rows of W = 1, 3, 4, 5, 8, 33 (1 to 16 words,
     rows_any and rows_wide) at 1, 127, 1025 and 4099 entries, on a
     contiguous table, a table and an index one element past a 16-byte
-    boundary, and a view that is not contiguous (copied first); lanes at
-    T = 16, 32, 33, 128, 1280 with 16 and 7 outputs a row; float32 and
-    float64, int32 and int64.  Returns the count of calls, the cases that
-    differ, and ok."""
+    boundary, and a view that is not contiguous (copied first); the
+    reverse-slot gather on (97, 11, W) partials, W = 1, 2, 3, 5, 8, 33,
+    at the same counts and views (``rev_check``); lanes at T = 16, 32,
+    33, 128, 1280 with 16 and 7 outputs a row; float32 and float64, int32
+    and int64.  Returns the count of calls, the cases that differ, and
+    ok."""
     rng = np.random.RandomState(3)
     calls, bad = 0, []
     for dtype in (torch.float32, torch.float64):
         for index_dtype in (torch.int32, torch.int64):
+            calls += rev_check(rng, dtype, index_dtype, device, bad)
             for w in (1, 3, 4, 5, 8, 33):
                 flat = torch.as_tensor(rng.randn(1001 * (w + 1) + 1),
                                        dtype=dtype, device=device)
@@ -353,6 +363,44 @@ def gather_check(device) -> dict:
     return dict(calls=calls, differ=bad, ok=not bad)
 
 
+def rev_check(rng, dtype, index_dtype, device, bad) -> int:
+    """``rev_gather`` against ``rev_gather_torch`` bit for bit on (97,
+    11, W) partials, W = 1, 2, 3, 5, 8, 33: contiguous, one element past
+    a 16-byte boundary, and a view that is not contiguous (copied first);
+    random slots and the column form (rev = the column of an (n, 11)
+    index); 1, 127, 1025 and 4099 entries, the indices at and one past a
+    16-byte boundary.  Appends the cases that differ to ``bad``; returns
+    the count of calls."""
+    calls = 0
+    r, kp = 97, 11
+    for w in (1, 2, 3, 5, 8, 33):
+        size = r * kp * w
+        flat = torch.as_tensor(rng.randn(r * kp * (w + 1) + 1), dtype=dtype,
+                               device=device)
+        wider = flat[:r * kp * (w + 1)].view(r, kp, w + 1)
+        parts = {"contiguous": wider[..., :w].contiguous(),
+                 "offset": flat[1:size + 1].view(r, kp, w),
+                 "strided": wider[..., 1:]}
+        idx = torch.as_tensor(rng.randint(0, r, size=4100),
+                              dtype=index_dtype, device=device)
+        slots = {"random": torch.as_tensor(rng.randint(0, kp, size=4100),
+                                           dtype=index_dtype, device=device),
+                 "column": torch.arange(kp, dtype=index_dtype,
+                                        device=device).repeat(373)[:4100]}
+        for n in (1, 127, 1025, 4099):
+            for view, part in parts.items():
+                for form, rev in slots.items():
+                    for at in (0, 1):
+                        i, s = idx[at:at + n], rev[at:at + n]
+                        got = gather.rev_gather(part, i, s)
+                        calls += 1
+                        if not torch.equal(got, gather.rev_gather_torch(
+                                part, i, s)):
+                            bad.append(f"rev W={w} n={n} {view} {form} "
+                                       f"index+{at} {dtype} {index_dtype}")
+    return calls
+
+
 def gather_case(case, device):
     """(time(), plan()) of one ``probe_gather`` case: a time raises if the
     loaded kernel disagrees with the plain version, and gives its device
@@ -386,10 +434,9 @@ def gather_case(case, device):
 
 def gather_cases(device):
     """(checks: "instances" -> ``gather_check``, cases: name -> (time(),
-    plan())) for ``probe_gather``'s row and lane cases
-    (``gather_case``)."""
+    plan())) for ``probe_gather``'s cases (``gather_case``)."""
     cases = {case.name: gather_case(case, device)
-             for case in probe_gather.CASES if case.kind in ("rows", "lanes")}
+             for case in probe_gather.CASES}
     return {"instances": lambda: gather_check(device)}, cases
 
 
@@ -407,11 +454,16 @@ def kernel_lines(lines, word: str):
 
 CASES = {"trio": trio_cases, "trio_multi": trio_multi_cases,
          "lane_contract": fragment_cases("lane_contract"),
-         "relayout": fragment_cases("relayout", "reshape", after=True),
+         "relayout": fragment_cases("relayout", ("reshape", "transpose"),
+                                    after=True),
          "gather": gather_cases}
 
 
-def main(kernel, variants, out_dir=None, device=None):
+def main(kernel, variants, out_dir=None, device=None, only=None):
+    """Build ``variants`` ((name, patch or None) pairs), check each, and
+    time the cases of ``kernel`` (those whose names match the regular
+    expression ``only``, where given); writes and returns the
+    artifact."""
     device = common.resolve_device(device)
     if device.type != "cuda":
         raise RuntimeError("kernel_variants times kernels on the card")
@@ -431,6 +483,10 @@ def main(kernel, variants, out_dir=None, device=None):
                              for n, b in built.items()},
                       checks={}, ms={}, plans={})
         checks, cases = CASES[kernel](device)
+        if only is not None:
+            cases = {name: case for name, case in cases.items()
+                     if re.search(only, name)}
+        result["cases_matching"] = only
         for shape, check in checks.items():
             for name in list(libs):
                 with using(libs[name]):
@@ -490,6 +546,9 @@ if __name__ == "__main__":
                         help="NAME (the sources as they stand) or "
                              "NAME=PATCH")
     parser.add_argument("--out-dir", default=None)
+    parser.add_argument("--cases", default=None,
+                        help="time only the cases this regular expression "
+                             "finds in their names")
     args = parser.parse_args()
     main(args.kernel, [parse_variant(v) for v in args.variant],
-         args.out_dir)
+         args.out_dir, only=args.cases)

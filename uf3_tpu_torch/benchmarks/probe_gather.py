@@ -28,13 +28,17 @@ Three functions cover them (``csrc/gather.cu``):
          ``probe_gather2.py``'s p6, ``probe_wg.py``'s P2) is it with the
          column as the slot: out[i, c] = t[idx[i, c], c].
 
-Beside them, the engine's own row gathers (``engine.*``): the float32
-positions through the int64 neighbor lists that the port's builder
-makes on bcc W, as ``ops/neighbors.py``'s ``cached_displacements``
-gathers them (``positions[nbr.idx]``): the bench's 3-body list (9,826 x
+Beside them, the engine's own gathers (``engine.*``) through the int64
+neighbor lists that the port's builder makes on bcc W: the float32
+positions, as ``ops/neighbors.py``'s ``cached_displacements`` gathers
+them (``positions[nbr.idx]``), through the bench's 3-body list (9,826 x
 16) and pair list (9,826 x 72), the plain Verlet defaults' pair list
-(9,826 x 78) and the melting protocol's (31,104 x 88).  A real list's
-locality is what the table reads see, so these are not drawn at random.
+(9,826 x 78) and the melting protocol's (31,104 x 88); and the step's
+(9,826, 16, 5) float32 slot partials back through the bench's 3-body
+list and its reverse slots, as ``ops/trio.py``'s assembly gathers them
+(``engine.partials_k16``; the partials drawn from the seed).  A real
+list's locality is what the table reads see, so these indices are not
+drawn at random.
 
 Each case reports the kernel and the library call (``table[idx]``,
 ``torch.gather(t, 1, li)``, ``part[idx, rev]``), each checked equal to
@@ -145,6 +149,8 @@ CASES = (
 ) + tuple(
     Case(f"engine.positions_k{k}", "rows", (n, 3), (n, k), "engine")
     for n, k in ((N_MD, 16), (N_MD, 72), (N_MD, 78), (N_PROTOCOL, 88))
+) + (
+    Case("engine.partials_k16", "rev", (N_MD, 16, 5), (N_MD, 16), "engine"),
 )
 
 # each engine case's list: bcc W repeats, the engine's settings, and the
@@ -153,7 +159,8 @@ ENGINE = {"engine.positions_k16": ((17, 17, 17), common.BENCH, "nbr3"),
           "engine.positions_k72": ((17, 17, 17), common.BENCH, "nbr2"),
           "engine.positions_k78": ((17, 17, 17), {}, "nbr2"),
           "engine.positions_k88": (common.PROTOCOL_REPS, common.PROTOCOL,
-                                   "nbr2")}
+                                   "nbr2"),
+          "engine.partials_k16": ((17, 17, 17), common.BENCH, "nbr3")}
 # the bcc W cell of the engine cases where every dimension is capped (a
 # CPU smoke run)
 SMALL_REPS = (4, 4, 4)
@@ -206,15 +213,24 @@ def operands(case: Case, rng, device, max_rows: int = None):
     """The case's float32 table and int32 indices, drawn from ``rng``
     (values normal, indices uniform over the table's rows or lanes),
     every dimension capped at ``max_rows`` where given; an engine case's
-    positions and int64 list (``engine_state``)."""
+    positions and int64 list (``engine_state``), or for the slot
+    partials (N, K, W) partials drawn from ``rng`` and the list's int64
+    indices and reverse slots (the list's rows and slots capped at
+    ``max_rows``)."""
     def cap(shape):
         return tuple(min(s, max_rows) if max_rows else s for s in shape)
 
     if case.fill == "engine":
         x, nbr = engine_state(case.name, device, small=bool(max_rows))
-        idx = nbr.idx
+        idx, rev = nbr.idx, nbr.rev
         if max_rows:
             idx = idx[:max_rows, :max_rows].contiguous()
+            rev = rev[:max_rows, :max_rows].contiguous()
+        if case.kind == "rev":
+            n, k = nbr.idx.shape
+            part = torch.as_tensor(rng.randn(n, k, case.values[2]),
+                                   dtype=torch.float32, device=device)
+            return part, idx, rev
         return x, idx
     values, index = cap(case.values), cap(case.index)
     if case.fill == "broadcast":
@@ -280,8 +296,7 @@ def run_case(case: Case, rng, device, max_rows: int = None) -> dict:
                   index_dtype=str(ops[1].dtype)[6:],
                   rows=rows, bytes=n_bytes, bound_ms=bound_ms,
                   bound_by=bound_by, correct=True,
-                  instance=plan_of(case.kind, ops)._asdict()
-                  if case.kind != "rev" else None)
+                  instance=plan_of(case.kind, ops)._asdict())
     on_card = device.type == "cuda"
     sets = cold_sets(ops, n_bytes) if on_card else None
     record["cold_copies"] = None if sets is None else len(sets)
@@ -301,9 +316,10 @@ def run_case(case: Case, rng, device, max_rows: int = None) -> dict:
 
 
 def plan_of(kind: str, ops):
-    """The instance the row or lane wrapper runs on ``ops`` (its
+    """The instance the wrapper of ``kind`` runs on ``ops`` (its
     ``gather.GatherPlan``)."""
-    return (gather.rows_plan if kind == "rows" else gather.lanes_plan)(*ops)
+    return {"rows": gather.rows_plan, "lanes": gather.lanes_plan,
+            "rev": gather.rev_plan}[kind](*ops[:2])
 
 
 def host_costs(device, max_rows: int = None) -> dict:

@@ -42,6 +42,38 @@
 // Offsets are 32-bit where the arrays allow it (the index maps divide by
 // run-time widths, which costs 64-bit arithmetic several times more).
 //
+// relayout's transpose has a kernel of its own, transpose_kernel: one
+// output a thread put a warp's 32 loads on rows in_cols words apart (at
+// (16, 9,856): 16 rows, two words each) behind a division per output.
+// A block stages a tile of 16 rows x 128 bytes of x (32 float32 or 16
+// float64 columns) in shared memory: each of its 128 threads loads one
+// 16-byte chunk of a row (words where x or its rows are not aligned to
+// 16 bytes), a warp two whole 128-byte lines, and the chunks of a row
+// are placed by an XOR with the row so that the column reads hit 32
+// banks; after one barrier the block writes the tile transposed.  Where
+// x has at most 16 rows (every probe's) the tile is the only one of its
+// column, found with no division, and its output is one contiguous run:
+// each thread stores one 16-byte vector of it.  x of exactly 16 rows
+// runs an instance with its rows known at compile time (the store's
+// word map by shifts).  Taller x writes each output row's 16 words of a
+// tile.  At the probes' sizes the kernel is a graph node's floor, one
+// memory trip and the stores' drain, so the instructions ahead of the
+// load and between the barrier and the store count: the block index's
+// division and the store map's division by the run-time rows cost 6% at
+// (16, 9,856).  Tried and left out (PERF.md section 6, kernel_variants
+// relayout on the patches fragments_transpose_*.patch): tiles of 32 rows
+// (half the load slots idle at 16 rows), 16-row tiles of 64, 256 or 512
+// bytes, loads by cp.async, loads by the bulk copy engine (TMA, a copy a
+// row on an mbarrier: 17-40% slower than the same tile's 16-byte loads),
+// a carveout preference that left one block an SM, scalar stores, and a
+// tile a warp.  Gathering each 16-byte output vector straight from V
+// rows with no shared memory (fragments_transpose_vectors.patch) was 1-2%
+// faster at (16, 9,856) and as fast at (16, 128), but ran 1-4% over the
+// earlier one-output-a-thread kernel at (16, 128) after a memcpy node,
+// where this tile does not; its warp loads 4 rows x 32 bytes an
+// instruction at 16 rows, and fewer bytes of each sector as x grows
+// taller, where the tile's loads stay whole lines.
+//
 // lane_contract is bound by bytes only once its instructions are few: one
 // thread per output, as first written, divided every output index by the
 // run-time width and read each x value once for each of the 27 outputs
@@ -102,6 +134,13 @@ constexpr int kChunk = 8;             // vector loads issued before their sums
 constexpr long long kVectorFloor = 132LL * kThreads;
 constexpr long long kTileFloor = (long long)kResident * kThreads;
 
+// relayout's transpose: the rows of x a tile holds, the bytes of each of
+// its rows (64 float32 or 32 float64 columns), and a block's threads, one
+// 16-byte chunk of the tile each
+constexpr int kTileRows = 16;
+constexpr int kTileBytes = 128;
+constexpr int kTileThreads = kTileRows * kTileBytes / 16;
+
 // relayout modes (ops/fragments.py's RELAYOUT_MODES)
 enum { kCopy = 0, kTranspose = 1, kTile = 2, kRepeat = 3, kSelect = 4 };
 // lane_map ops (ops/fragments.py's LANE_MAP_OPS)
@@ -161,9 +200,7 @@ __global__ void relayout_kernel(const E* __restrict__ x, E* __restrict__ out,
     } else {
       const I a = o / out_cols;
       const I j = o - a * out_cols;
-      if (MODE == kTranspose) {
-        src = j * in_cols + a;
-      } else if (MODE == kTile) {
+      if (MODE == kTile) {
         src = a * in_cols + j % in_cols;
       } else if (MODE == kRepeat) {
         src = a * in_cols + j / k;
@@ -176,6 +213,108 @@ __global__ void relayout_kernel(const E* __restrict__ x, E* __restrict__ out,
     const E v = __ldg(x + src);
     out[o] = v;
     if (out2 != nullptr) out2[o] = v;
+  }
+}
+
+// 16 bytes as words of E.
+template <typename E>
+union Words16 {
+  uint4 v;
+  E e[16 / sizeof(E)];
+};
+
+// The place of word (r, c) of a transpose tile in shared memory: row r's
+// 16-byte chunk k stands at chunk k ^ ((r / V) (V / 2)) (within the row's
+// chunks), so that a warp's column reads (V consecutive rows of 32 / V
+// columns, at 16 rows) hit 32 banks.
+template <typename E>
+__device__ __forceinline__ int transpose_at(int r, int c) {
+  constexpr int V = 16 / sizeof(E);
+  constexpr int TC = kTileBytes / sizeof(E);
+  return r * TC + (((c / V) ^ ((r / V * (V / 2)) & (TC / V - 1))) * V) +
+         c % V;
+}
+
+// relayout's transpose, out (cols, rows) = x (rows, cols)^T, a tile of
+// kTileRows rows x TC = kTileBytes / sizeof(E) columns a block: tile
+// (b / tiles_c, b mod tiles_c) for block b, tile (0, b) where rows <=
+// kTileRows (no division).  R > 0: x has R rows, known at compile time.
+// Thread t loads 16 bytes of the tile's row t / (TC / V) (one 16-byte
+// load where vec_in: x aligned to 16 bytes and cols a multiple of V;
+// else words) into shared memory, where chunk k of row r stands at chunk
+// k ^ swizzle(r).  Where rows <= kTileRows the tile's output is one run
+// of nc rows words from out + c0 rows (word o = tile[o mod rows, o /
+// rows]), and thread t stores words t V .. t V + V - 1 of it (one
+// 16-byte store where vec_out: out aligned to 16 bytes); taller x writes
+// each output row's nr words of the tile.
+template <typename E, typename I, int R>
+__global__ void __launch_bounds__(kTileThreads)
+transpose_kernel(const E* __restrict__ x, E* __restrict__ out, I rows,
+                 I cols, int tiles_c, int vec_in, int vec_out) {
+  constexpr int V = 16 / sizeof(E);
+  constexpr int TC = kTileBytes / sizeof(E);
+  __shared__ __align__(16) E tile[kTileRows * TC];
+  if (R > 0) rows = R;
+  const bool short_x = rows <= (I)kTileRows;
+  const int t = threadIdx.x;
+  const int tr = short_x ? 0 : (int)blockIdx.x / tiles_c;
+  const I r0 = (I)tr * kTileRows;
+  const I c0 = (I)((int)blockIdx.x - tr * tiles_c) * TC;
+  const int nr = (int)(rows - r0 < (I)kTileRows ? rows - r0 : (I)kTileRows);
+  const int nc = (int)(cols - c0 < (I)TC ? cols - c0 : (I)TC);
+  // the load: row lr's 16-byte chunk lk, columns lc .. lc + V - 1
+  const int lr = t / (TC / V), lk = t - lr * (TC / V), lc = lk * V;
+  if (lr < nr && lc < nc) {
+    const E* src = x + (r0 + (I)lr) * cols + c0 + lc;
+    E* dst = tile + transpose_at<E>(lr, lc);
+    if (vec_in) {
+      *reinterpret_cast<uint4*>(dst) =
+          __ldg(reinterpret_cast<const uint4*>(src));
+    } else {
+      E v[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (lc + j < nc) v[j] = __ldg(src + j);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (lc + j < nc) dst[j] = v[j];
+    }
+  }
+  // the store's first word, found while the loads are out
+  const int nrows = rows < (I)kTileRows ? (int)rows : kTileRows;
+  const int n_out = nc * nrows, o0 = t * V;
+  int c = o0 / nrows, r = o0 - c * nrows;
+  __syncthreads();
+  if (short_x) {
+    if (o0 >= n_out) return;
+    E* dst = out + c0 * rows;
+    if (vec_out && o0 + V <= n_out) {
+      Words16<E> w;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        w.e[j] = tile[transpose_at<E>(r, c)];
+        if (++r == nrows) {
+          r = 0;
+          ++c;
+        }
+      }
+      reinterpret_cast<uint4*>(dst)[t] = w.v;
+      return;
+    }
+    for (int o = o0; o < n_out && o < o0 + V; ++o) {
+      dst[o] = tile[transpose_at<E>(r, c)];
+      if (++r == nrows) {
+        r = 0;
+        ++c;
+      }
+    }
+    return;
+  }
+  // out[c0 + c, r0 + r] = tile[r, c]
+  for (int q = t; q < nc * kTileRows; q += kTileThreads) {
+    const int qc = q / kTileRows, qr = q - qc * kTileRows;
+    if (qr < nr)
+      out[(c0 + (I)qc) * rows + r0 + qr] = tile[transpose_at<E>(qr, qc)];
   }
 }
 
@@ -437,29 +576,47 @@ __global__ void lane_map_kernel(const T* __restrict__ x,
 
 bool fits_32(long long n) { return n < (1LL << 31); }
 
-// The launch plan of kernel k at kThreads threads a block and smem bytes
-// of dynamic shared memory: out = {registers per thread, local (spill)
-// bytes per thread, resident blocks per SM, warps per SM}.
+// The launch plan of kernel k at `threads` threads a block and smem
+// bytes of dynamic shared memory: out = {registers per thread, local
+// (spill) bytes per thread, resident blocks per SM, warps per SM}.
 template <typename K>
-int plan_of(K k, size_t smem, int* out) {
+int plan_of(K k, size_t smem, int* out, int threads = kThreads) {
   cudaFuncAttributes attr;
   int blocks = 0;
   cudaError_t err = cudaFuncGetAttributes(&attr, k);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kThreads,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads,
                                                         smem);
   if (err != cudaSuccess) return (int)err;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
   out[2] = blocks;
-  out[3] = blocks * kThreads / 32;
+  out[3] = blocks * threads / 32;
   return 0;
 }
+
+bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
 
 template <typename E, typename I>
 int launch_relayout(const void* x, void* out, void* out2, long long n,
                     int mode, long long in_cols, long long out_cols, int k,
                     int w, int offset, cudaStream_t s) {
+  if (mode == kTranspose) {
+    // x (out_cols, in_cols) -> out (in_cols, out_cols)
+    constexpr long long V = 16 / sizeof(E), TC = kTileBytes / sizeof(E);
+    const long long tiles_c = (in_cols + TC - 1) / TC;
+    const long long tiles = (out_cols + kTileRows - 1) / kTileRows * tiles_c;
+#define UF3_TRANSPOSE(R)                                                  \
+  transpose_kernel<E, I, R><<<(unsigned)tiles, kTileThreads, 0, s>>>(     \
+      (const E*)x, (E*)out, (I)out_cols, (I)in_cols, (int)tiles_c,        \
+      aligned16(x) && in_cols % V == 0, aligned16(out))
+    if (out_cols == kTileRows)  // every probe's x: the store's map compiled
+      UF3_TRANSPOSE(kTileRows);
+    else
+      UF3_TRANSPOSE(0);
+#undef UF3_TRANSPOSE
+    return (int)cudaGetLastError();
+  }
   const unsigned int blocks = blocks_for(n);
 #define UF3_RELAYOUT(M)                                                   \
   relayout_kernel<E, I, M><<<blocks, kThreads, 0, s>>>(                   \
@@ -467,7 +624,6 @@ int launch_relayout(const void* x, void* out, void* out2, long long n,
       (I)k, (I)w, (I)offset)
   switch (mode) {
     case kCopy: UF3_RELAYOUT(kCopy); break;
-    case kTranspose: UF3_RELAYOUT(kTranspose); break;
     case kTile: UF3_RELAYOUT(kTile); break;
     case kRepeat: UF3_RELAYOUT(kRepeat); break;
     case kSelect: UF3_RELAYOUT(kSelect); break;
@@ -476,8 +632,6 @@ int launch_relayout(const void* x, void* out, void* out2, long long n,
 #undef UF3_RELAYOUT
   return (int)cudaGetLastError();
 }
-
-bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
 
 // The product's tile: the rows spread over one wave of resident blocks
 // (kResident), a multiple of V rows, with x and w within 48 KB of shared
@@ -615,7 +769,8 @@ int relayout_occupancy(int mode, int* out) {
   switch (mode) {
     case kCopy: return plan_of(relayout_kernel<E, unsigned int, kCopy>, 0, out);
     case kTranspose:
-      return plan_of(relayout_kernel<E, unsigned int, kTranspose>, 0, out);
+      return plan_of(transpose_kernel<E, unsigned int, kTileRows>, 0, out,
+                     kTileThreads);
     case kTile: return plan_of(relayout_kernel<E, unsigned int, kTile>, 0, out);
     case kRepeat:
       return plan_of(relayout_kernel<E, unsigned int, kRepeat>, 0, out);

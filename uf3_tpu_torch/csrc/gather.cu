@@ -77,10 +77,29 @@
 // of li, then of t[a, li]): proto_dyngather.py's 128-lane case already
 // reaches its bound that way.
 //
-// rev_gather: one thread per output element, W consecutive threads on
-// one row (67% of its bound at the step's shape).  No shared memory: the
-// tables the MD step gathers from (0.1-0.4 MB) stay in the 50 MB L2
-// across the gather.
+// rev_gather is a row gather: of part viewed as the (R Kp, W) table, at
+// row idx[s] Kp + rev[s] (the rows ops/trio.py's assembly gathers through
+// rev_flat).  It runs the row gather's span kernels above, which take the
+// entry's row from an index policy (EntryRow, a template argument): the
+// row policy reads idx[s]; the reverse-slot policy reads idx[s] and
+// rev[s] once each, in the lane that owns the entry (coalesced, both
+// loads issued together), forms the row in the offset type (32-bit where
+// the operands fit), and the shuffle hands it to the word lanes as
+// before.  gather_plan("rev", (R Kp, W), ...) picks the instance by the
+// row's width in words, as for rows.  It replaces one thread per output
+// word, which divided by the run-time W in 64 bits, read each index W
+// times and stored a 20-byte row as 4-byte pieces: at the step's (9,826,
+// 16, 5) partials 20% faster on operands past the L2.  At W = 1 word (the
+// probes' cases) a gather is two dependent memory trips behind a graph
+// node's floor, and no design moved it more than 7%.  Tried and left out
+// (PERF.md section 6: kernel_variants gather on the patches
+// gather_rev_*.patch): four entries a thread at W = 1 (two 16-byte index
+// loads, one 16-byte store) was 2-15% slower than the span; an instance
+// of its own for rows of 5 words gained nothing over gather_rows_any;
+// one group of 32 entries a warp moved no rev case beyond the swing.
+//
+// No shared memory in any of them: the tables the MD step gathers from
+// (0.1-0.4 MB) stay in the 50 MB L2 across the gather.
 
 #include <cuda_runtime.h>
 
@@ -186,17 +205,34 @@ __device__ __forceinline__ void copy_span(const unsigned* table,
     store_group<WW, V>(dst + 32 * e * WW, lane, here[e], v + e * WW);
 }
 
+// The table row that entry j copies, in the offset type O: idx[j] (the
+// row gather; REV false) or idx[j] kp + rev[j] (the reverse-slot gather
+// of an (R, Kp, W) part viewed as the (R Kp, W) table), both index loads
+// issued before the product.
+template <typename I, typename O, bool REV>
+struct EntryRow {
+  const I* idx;
+  const I* rev;
+  O kp;
+  __device__ __forceinline__ O operator()(O j) const {
+    if constexpr (REV) {
+      const I a = __ldg(idx + j), b = __ldg(rev + j);
+      return (O)a * kp + (O)b;
+    } else {
+      return (O)__ldg(idx + j);
+    }
+  }
+};
+
 // gather_rows for rows of WW words: a warp copies a span of 32 kGroups
-// consecutive entries (see the top of the file).  table_align is the
-// bytes the table's rows are aligned to.  The launch gives one span a
-// warp.
-template <int WW, typename I, typename O>
+// consecutive entries (see the top of the file), entry j from table row
+// at(j) (an EntryRow).  table_align is the bytes the table's rows are
+// aligned to.  The launch gives one span a warp.
+template <int WW, typename A, typename O>
 __global__ void __launch_bounds__(kThreads)
-gather_rows_kernel(const unsigned* __restrict__ table,
-                   const void* __restrict__ index,
+gather_rows_kernel(const unsigned* __restrict__ table, A at,
                    unsigned* __restrict__ out, long long n_entries, int ww,
                    int table_align) {
-  const I* __restrict__ idx = static_cast<const I*>(index);
   const int lane = threadIdx.x & 31;
   const O n = (O)n_entries;
   const O first = ((O)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) *
@@ -206,7 +242,7 @@ gather_rows_kernel(const unsigned* __restrict__ table,
 #pragma unroll
   for (int e = 0; e < kGroups; ++e) {
     const O j = first + 32 * e + lane;
-    rows[e] = j < n ? (O)__ldg(idx + j) : (O)0;
+    rows[e] = j < n ? at(j) : (O)0;
   }
   unsigned* dst = out + first * WW;
   if constexpr (WW % 4 == 0) {
@@ -225,20 +261,19 @@ gather_rows_kernel(const unsigned* __restrict__ table,
 }
 
 // gather_rows for a row width ww (in words) below kWideWords with no
-// instance of its own: a warp copies a span of 32 entries, lane j loads
-// entry j's index, and word q of the span's output (entry q / ww,
+// instance of its own: a warp copies a span of 32 entries, lane j reads
+// entry j's row at(j), and word q of the span's output (entry q / ww,
 // column q mod ww) takes it from lane q / ww by a shuffle.
-template <typename I, typename O>
+template <typename A, typename O>
 __global__ void __launch_bounds__(kThreads)
-gather_rows_any(const unsigned* __restrict__ table,
-                const void* __restrict__ index, unsigned* __restrict__ out,
-                long long n_entries, int ww, int table_align) {
-  const I* __restrict__ idx = static_cast<const I*>(index);
+gather_rows_any(const unsigned* __restrict__ table, A at,
+                unsigned* __restrict__ out, long long n_entries, int ww,
+                int table_align) {
   const O n = (O)n_entries, w = (O)ww;
   const int lane = threadIdx.x & 31;
   const O first = ((O)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * 32;
   if (first >= n) return;
-  const O row = first + lane < n ? (O)__ldg(idx + first + lane) : (O)0;
+  const O row = first + lane < n ? at(first + lane) : (O)0;
   const O left = n - first;
   const unsigned words = (unsigned)(left < 32 ? left : 32) * ww;
   unsigned* dst = out + first * w;
@@ -252,18 +287,18 @@ gather_rows_any(const unsigned* __restrict__ table,
 }
 
 // gather_rows for rows of kWideWords words or more: a warp copies one
-// entry (blocks of kWideWarps warps), its lanes load the entry's index
-// (one request), then words lane, lane + 32, ... of its row.
-template <typename I, typename O>
+// entry (blocks of kWideWarps warps), its lanes read the entry's row
+// at(j) (one request an index array), then words lane, lane + 32, ... of
+// the row.
+template <typename A, typename O>
 __global__ void __launch_bounds__(32 * kWideWarps)
-gather_rows_wide(const unsigned* __restrict__ table,
-                 const void* __restrict__ index, unsigned* __restrict__ out,
-                 long long n_entries, int ww, int table_align) {
-  const I* __restrict__ idx = static_cast<const I*>(index);
+gather_rows_wide(const unsigned* __restrict__ table, A at,
+                 unsigned* __restrict__ out, long long n_entries, int ww,
+                 int table_align) {
   const O n = (O)n_entries, w = (O)ww;
   const O j = (O)blockIdx.x * kWideWarps + (threadIdx.x >> 5);
   if (j >= n) return;
-  const unsigned* src = table + (O)__ldg(idx + j) * w;
+  const unsigned* src = table + at(j) * w;
   unsigned* dst = out + j * w;
 #pragma unroll 4
   for (int c = threadIdx.x & 31; c < ww; c += 32) dst[c] = __ldg(src + c);
@@ -320,62 +355,78 @@ gather_lanes_direct(const unsigned* __restrict__ t,
   for (int k = 0; k < WPE; ++k) out[e * WPE + k] = __ldg(t + src + k);
 }
 
-template <typename E, typename I>
-__global__ void rev_gather_kernel(const E* __restrict__ part,
-                                  const I* __restrict__ idx,
-                                  const I* __restrict__ rev,
-                                  E* __restrict__ out, long long total,
-                                  int w, int kp) {
-  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= total) return;
-  const long long s = e / w;
-  const long long c = e - s * w;
-  const long long row =
-      (long long)__ldg(idx + s) * kp + (long long)__ldg(rev + s);
-  out[e] = __ldg(part + row * w + c);
-}
-
 long long blocks_for(long long total) {
   return (total + kThreads - 1) / kThreads;
 }
 
-// f(kernel, entries a block, threads a block) for the gather_rows_kernel
-// of WW words.
-template <int WW, typename I, typename O, typename F>
-int rows_fixed(F&& f) {
-  return f(gather_rows_kernel<WW, I, O>, kThreads * kGroups, kThreads);
+// f(kernel, at, entries a block, threads a block) for the
+// gather_rows_kernel of WW words and the index policy A.
+template <int WW, typename A, typename O, typename F>
+int rows_fixed(A at, F&& f) {
+  return f(gather_rows_kernel<WW, A, O>, at, kThreads * kGroups, kThreads);
 }
 
 // The same for the row-gather instance ``code`` (the row width in words
 // for gather_rows_kernel, 0 for gather_rows_any, kWideWords for
-// gather_rows_wide) with indices I and offsets O; -1 where none exists.
-template <typename I, typename O, typename F>
-int rows_of(int code, F&& f) {
+// gather_rows_wide) with the index policy EntryRow<I, O, REV> on idx,
+// rev and kp; -1 where none exists.
+template <typename I, typename O, bool REV, typename F>
+int rows_of(int code, const void* idx, const void* rev, long long kp,
+            F&& f) {
+  using A = EntryRow<I, O, REV>;
+  const A at{static_cast<const I*>(idx), static_cast<const I*>(rev), (O)kp};
   switch (code) {
-    case 0: return f(gather_rows_any<I, O>, kThreads, kThreads);
+    case 0: return f(gather_rows_any<A, O>, at, kThreads, kThreads);
     case kWideWords:
-      return f(gather_rows_wide<I, O>, kWideWarps, 32 * kWideWarps);
-    case 1: return rows_fixed<1, I, O>(f);
-    case 2: return rows_fixed<2, I, O>(f);
-    case 3: return rows_fixed<3, I, O>(f);
-    case 4: return rows_fixed<4, I, O>(f);
-    case 6: return rows_fixed<6, I, O>(f);
-    case 8: return rows_fixed<8, I, O>(f);
-    case 16: return rows_fixed<16, I, O>(f);
+      return f(gather_rows_wide<A, O>, at, kWideWarps, 32 * kWideWarps);
+    case 1: return rows_fixed<1, A, O>(at, f);
+    case 2: return rows_fixed<2, A, O>(at, f);
+    case 3: return rows_fixed<3, A, O>(at, f);
+    case 4: return rows_fixed<4, A, O>(at, f);
+    case 6: return rows_fixed<6, A, O>(at, f);
+    case 8: return rows_fixed<8, A, O>(at, f);
+    case 16: return rows_fixed<16, A, O>(at, f);
     default: return -1;
   }
 }
 
 // rows_of for index_bytes 4 or 8 and 64-bit offsets (wide) or not.
-template <typename F>
-int rows_instance(int code, int wide, int index_bytes, F&& f) {
+template <bool REV, typename F>
+int rows_instance(int code, int wide, int index_bytes, const void* idx,
+                  const void* rev, long long kp, F&& f) {
   if (index_bytes == 4)
-    return wide ? rows_of<int, unsigned long long>(code, f)
-                : rows_of<int, unsigned>(code, f);
+    return wide ? rows_of<int, unsigned long long, REV>(code, idx, rev, kp, f)
+                : rows_of<int, unsigned, REV>(code, idx, rev, kp, f);
   if (index_bytes == 8)
-    return wide ? rows_of<long long, unsigned long long>(code, f)
-                : rows_of<long long, unsigned>(code, f);
+    return wide ? rows_of<long long, unsigned long long, REV>(code, idx, rev,
+                                                              kp, f)
+                : rows_of<long long, unsigned, REV>(code, idx, rev, kp, f);
   return -1;
+}
+
+// Launches the row-gather instance ``code`` (the rows of table at(j)
+// for EntryRow<I, O, REV> on idx, rev, kp) on stream s: gather_rows'
+// and rev_gather's launch.
+template <bool REV>
+int launch_rows(const void* table, const void* idx, const void* rev,
+                long long kp, void* out, long long n_entries, int w,
+                int elem_bytes, int index_bytes, int code, int wide,
+                int table_align, cudaStream_t s) {
+  if (n_entries <= 0 || w <= 0) return 0;
+  if (elem_bytes != 4 && elem_bytes != 8) return -1;
+  const int ww = w * elem_bytes / 4;
+  if (code == 0 ? ww >= kWideWords
+                : (code == kWideWords ? ww < kWideWords : code != ww))
+    return -1;
+  return rows_instance<REV>(code, wide, index_bytes, idx, rev, kp,
+                            [&](auto kernel, auto at, int per_block,
+                                int threads) {
+    const long long blocks = (n_entries + per_block - 1) / per_block;
+    kernel<<<(unsigned)blocks, threads, 0, s>>>(
+        (const unsigned*)table, at, (unsigned*)out, n_entries, ww,
+        table_align);
+    return (int)cudaGetLastError();
+  });
 }
 
 // f(kernel, rows a warp, threads a block) for the lane-gather instance
@@ -414,21 +465,6 @@ int lanes_instance(int lanes, int wide, int elem_bytes, int index_bytes,
   return -1;
 }
 
-// elem_bytes 4 or 8 (float32 or float64 as words), index_bytes 4 or 8
-// (int32 or int64); any other size is -1.
-#define UF3_GATHER_DISPATCH(LAUNCH)                                       \
-  if (elem_bytes == 4 && index_bytes == 4) {                              \
-    LAUNCH(unsigned int, int);                                            \
-  } else if (elem_bytes == 4 && index_bytes == 8) {                       \
-    LAUNCH(unsigned int, long long);                                      \
-  } else if (elem_bytes == 8 && index_bytes == 4) {                       \
-    LAUNCH(unsigned long long, int);                                      \
-  } else if (elem_bytes == 8 && index_bytes == 8) {                       \
-    LAUNCH(unsigned long long, long long);                                \
-  } else {                                                                \
-    return -1;                                                            \
-  }
-
 }  // namespace
 
 // Each entry launches on ``stream`` and returns cudaGetLastError(), or
@@ -442,21 +478,22 @@ extern "C" int uf3_gather_rows(const void* table, const void* idx,
                                void* out, long long n_entries, int w,
                                int elem_bytes, int index_bytes, int code,
                                int wide, int table_align, void* stream) {
-  if (n_entries <= 0 || w <= 0) return 0;
-  if (elem_bytes != 4 && elem_bytes != 8) return -1;
-  const int ww = w * elem_bytes / 4;
-  if (code == 0 ? ww >= kWideWords
-                : (code == kWideWords ? ww < kWideWords : code != ww))
-    return -1;
-  cudaStream_t s = (cudaStream_t)stream;
-  return rows_instance(code, wide, index_bytes,
-                       [&](auto kernel, int per_block, int threads) {
-    const long long blocks = (n_entries + per_block - 1) / per_block;
-    kernel<<<(unsigned)blocks, threads, 0, s>>>(
-        (const unsigned*)table, idx, (unsigned*)out, n_entries, ww,
-        table_align);
-    return (int)cudaGetLastError();
-  });
+  return launch_rows<false>(table, idx, nullptr, 0, out, n_entries, w,
+                            elem_bytes, index_bytes, code, wide, table_align,
+                            (cudaStream_t)stream);
+}
+
+// rev_gather: the row gather of part (R, Kp, W) viewed as the (R Kp, W)
+// table at rows idx kp + rev; ``code``, ``wide`` and ``part_align`` as
+// uf3_gather_rows takes them (gather_plan("rev", ...)).
+extern "C" int uf3_rev_gather(const void* part, const void* idx,
+                              const void* rev, void* out, long long n_entries,
+                              int w, int kp, int elem_bytes, int index_bytes,
+                              int code, int wide, int part_align,
+                              void* stream) {
+  return launch_rows<true>(part, idx, rev, kp, out, n_entries, w, elem_bytes,
+                           index_bytes, code, wide, part_align,
+                           (cudaStream_t)stream);
 }
 
 // gather_lanes: ``lanes`` is the instance gather_plan chose (log2 of
@@ -483,14 +520,14 @@ extern "C" int uf3_gather_lanes(const void* t, const void* li, void* out,
 }
 
 // The plan of the instance a gather call would run, nothing launched:
-// kind 0 rows, 1 lanes, ``code`` as uf3_gather_rows or uf3_gather_lanes
-// takes it; out[0..5] = registers, local bytes a thread, static shared
-// bytes a block, threads a block, resident blocks an SM, resident warps
-// an SM.
+// kind 0 rows, 1 lanes, 2 rev, ``code`` as uf3_gather_rows,
+// uf3_gather_lanes or uf3_rev_gather takes it; out[0..5] = registers,
+// local bytes a thread, static shared bytes a block, threads a block,
+// resident blocks an SM, resident warps an SM.
 extern "C" int uf3_gather_occupancy(int kind, int code, int wide,
                                     int elem_bytes, int index_bytes,
                                     int* out) {
-  auto plan = [&](auto kernel, int, int threads) {
+  auto plan = [&](auto kernel, int threads) {
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
     if (err != cudaSuccess) return (int)err;
@@ -506,23 +543,19 @@ extern "C" int uf3_gather_occupancy(int kind, int code, int wide,
     out[5] = blocks * threads / 32;
     return 0;
   };
-  if (kind == 0) return rows_instance(code, wide, index_bytes, plan);
+  auto rows = [&](auto kernel, auto, int, int threads) {
+    return plan(kernel, threads);
+  };
+  if (kind == 0)
+    return rows_instance<false>(code, wide, index_bytes, nullptr, nullptr, 0,
+                                rows);
+  if (kind == 2)
+    return rows_instance<true>(code, wide, index_bytes, nullptr, nullptr, 0,
+                               rows);
   if (kind == 1)
-    return lanes_instance(code, wide, elem_bytes, index_bytes, plan);
+    return lanes_instance(code, wide, elem_bytes, index_bytes,
+                          [&](auto kernel, int, int threads) {
+                            return plan(kernel, threads);
+                          });
   return -1;
-}
-
-extern "C" int uf3_rev_gather(const void* part, const void* idx,
-                              const void* rev, void* out, long long n_entries,
-                              int w, int kp, int elem_bytes, int index_bytes,
-                              void* stream) {
-  const long long total = n_entries * w;
-  if (total <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-#define LAUNCH(E, I)                                                      \
-  rev_gather_kernel<E, I><<<(unsigned)blocks_for(total), kThreads, 0, s>>>( \
-      (const E*)part, (const I*)idx, (const I*)rev, (E*)out, total, w, kp)
-  UF3_GATHER_DISPATCH(LAUNCH)
-#undef LAUNCH
-  return (int)cudaGetLastError();
 }

@@ -46,13 +46,14 @@ _SIGNATURES["uf3_trio_multi_occupancy"] = [_I] * 10 + [_P]
 #   code, wide, table_align, stream); uf3_gather_lanes(t, li, out,
 #   n_rows, b, width, elem_bytes, index_bytes, lanes, wide, stream);
 #   uf3_rev_gather(part, idx, rev, out, n_entries, w, kp, elem_bytes,
-#   index_bytes, stream); uf3_gather_occupancy(kind, code, wide,
+#   index_bytes, code, wide, part_align, stream);
+#   uf3_gather_occupancy(kind, code, wide,
 #   elem_bytes, index_bytes, out)
 _L = ctypes.c_longlong
 _SIGNATURES["uf3_gather_rows"] = [_P] * 3 + [_L] + [_I] * 6 + [_P]
 _SIGNATURES["uf3_gather_lanes"] = [_P] * 3 + [_L, _I, _L] + [_I] * 4 + [_P]
 _SIGNATURES["uf3_gather_occupancy"] = [_I] * 5 + [_P]
-_SIGNATURES["uf3_rev_gather"] = [_P] * 4 + [_L] + [_I] * 4 + [_P]
+_SIGNATURES["uf3_rev_gather"] = [_P] * 4 + [_L] + [_I] * 7 + [_P]
 # uf3_relayout(x, out, out2, n, max_offset, mode, in_cols, out_cols, k, w,
 #   offset, elem_bytes, stream); uf3_lane_contract(x, w, out, n,
 #   max_offset, cols_out, terms, in_cols, sj, st, is_f64, stream);

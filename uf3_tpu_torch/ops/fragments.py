@@ -179,8 +179,8 @@ relayout.launches_by_mode = {}  # mode -> its launches
 def relayout_occupancy(mode: str, dtype=torch.float32) -> dict:
     """The launch plan of ``relayout``'s kernel for ``mode`` on ``dtype``
     words with 32-bit offsets, from the CUDA runtime: registers and local
-    (spill) bytes per thread, resident blocks of 256 threads and warps
-    per SM."""
+    (spill) bytes per thread, resident blocks of 256 threads (the
+    transpose's tiles among them) and warps per SM."""
     if mode not in RELAYOUT_MODES:
         raise ValueError(f"relayout: no mode {mode!r}; modes "
                          f"{sorted(RELAYOUT_MODES)}")

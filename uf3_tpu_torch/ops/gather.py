@@ -26,15 +26,18 @@ the results are equal bit for bit.  Indices must lie in range: the
 kernels do not check them (that would cost a host sync).  Each
 wrapper's ``launches`` counts its kernel launches.
 
-``gather_plan`` is the choice of instance that the row and lane
-wrappers make, as a plain function of the shapes, element sizes and
-alignment; the C entries only dispatch on it.  The row gather goes by
-the row's width in 32-bit words (an instance for 1, 2, 3, 4, 6, 8 and
-16 words, ``rows_any`` for the others below 32, ``rows_wide`` from 32
-on), the lane gather by the table's width (the warp-shuffle instance of
-T rounded up to a power of two, up to 32 lanes); 64-bit offsets only
-where an operand passes 2^31 words.  ``gather_occupancy`` gives the
-registers and warps per SM of a plan's instance.
+``gather_plan`` is the choice of instance that the wrappers make, as a
+plain function of the shapes, element sizes and alignment; the C entries
+only dispatch on it.  The row gather goes by the row's width in 32-bit
+words (an instance for 1, 2, 3, 4, 6, 8 and 16 words, ``rows_any`` for
+the others below 32, ``rows_wide`` from 32 on), and so does the
+reverse-slot gather, which is the row gather of ``part`` viewed as the
+(R Kp, W) table at rows ``idx Kp + rev`` (``rev_w<words>``, ``rev_any``,
+``rev_wide``: the same kernels reading both indices); the lane gather
+goes by the table's width (the warp-shuffle instance of T rounded up to
+a power of two, up to 32 lanes); 64-bit offsets only where an operand
+passes 2^31 words.  ``gather_occupancy`` gives the registers and warps
+per SM of a plan's instance.
 """
 
 import ctypes
@@ -63,8 +66,9 @@ MAX_OFFSET = 2 ** 31 - 1
 
 
 class GatherPlan(NamedTuple):
-    """The instance a row or lane gather runs, and what its C entry is
-    told: ``kernel`` "rows_w<words>", "rows_any", "rows_wide",
+    """The instance a gather runs, and what its C entry is told:
+    ``kernel`` "rows_w<words>", "rows_any", "rows_wide" (and "rev_..."
+    for the reverse-slot gather, the same kernels reading idx and rev),
     "lanes_shuffle" or "lanes_direct"; ``code`` the row width in words
     (0: rows_any, ``WIDE_WORDS``: rows_wide) or log2 of the shuffle's lane
     group T' (T rounded up to a power of two; -1: one thread per
@@ -84,16 +88,22 @@ def alignment(*byte_counts) -> int:
     bits = 16
     for count in byte_counts:
         bits |= count
+    return _low_align(bits)
+
+
+def _low_align(bits: int) -> int:
+    """``alignment`` of the byte counts OR-ed into ``bits`` with 16."""
     low = bits & -bits
     return low if low >= 4 else 1
 
 
 def gather_plan(kind: str, values_shape, index_shape, elem_bytes: int,
                 index_bytes: int, values_align: int = 16) -> GatherPlan:
-    """The instance a gather of ``kind`` ("rows" or "lanes") runs for a
-    contiguous table of ``values_shape`` ((R, W) or (A, T)) and indices
-    of ``index_shape``, ``elem_bytes`` 4 or 8 and ``index_bytes`` 4 or
-    8, with the table's rows aligned to ``values_align`` bytes."""
+    """The instance a gather of ``kind`` ("rows", "rev" or "lanes") runs
+    for a contiguous table of ``values_shape`` ((R, W); for "rev" the
+    partials (R, Kp, W) viewed as (R Kp, W); (A, T)) and indices of
+    ``index_shape``, ``elem_bytes`` 4 or 8 and ``index_bytes`` 4 or 8,
+    with the table's rows aligned to ``values_align`` bytes."""
     entries = 1
     for size in index_shape:
         entries *= size
@@ -106,19 +116,20 @@ def _plan(kind: str, rows: int, width: int, entries: int, elem_bytes: int,
           index_bytes: int, values_align: int) -> GatherPlan:
     """``gather_plan`` of an (R, W) or (A, T) table of ``rows`` x
     ``width`` and ``entries`` indices; cached on these integers, so that
-    a wrapper's call pays a lookup."""
+    a wrapper's call pays a lookup.  "rev" offsets reach row R Kp - 1 of
+    the (R Kp, W) view, as "rows" offsets reach row R - 1."""
     if elem_bytes not in (4, 8) or index_bytes not in (4, 8):
         raise ValueError(f"gather_plan: element and index sizes 4 or 8; "
                          f"got {elem_bytes}, {index_bytes}")
     per_word = elem_bytes // 4
-    if kind == "rows":
+    if kind in ("rows", "rev"):
         words = width * per_word
         wide = max(rows * words, entries * words, entries) > MAX_OFFSET
         if words in ROW_WORDS:
-            return GatherPlan(f"rows_w{words}", words, wide, values_align)
+            return GatherPlan(f"{kind}_w{words}", words, wide, values_align)
         if words >= WIDE_WORDS:
-            return GatherPlan("rows_wide", WIDE_WORDS, wide, values_align)
-        return GatherPlan("rows_any", 0, wide, values_align)
+            return GatherPlan(f"{kind}_wide", WIDE_WORDS, wide, values_align)
+        return GatherPlan(f"{kind}_any", 0, wide, values_align)
     if kind == "lanes":
         wide = max(rows * width, entries) * per_word > MAX_OFFSET
         if width <= SHUFFLE_LANES and not wide:
@@ -127,7 +138,11 @@ def _plan(kind: str, rows: int, width: int, entries: int, elem_bytes: int,
                               values_align)
         return GatherPlan("lanes_direct", -1, wide, values_align)
     raise ValueError(f"gather_plan: no instances of kind {kind!r} (rows, "
-                     "lanes)")
+                     "rev, lanes)")
+
+
+# uf3_gather_occupancy's kind of a plan, by its kernel's first word
+PLAN_KINDS = {"rows": 0, "lanes": 1, "rev": 2}
 
 
 def gather_occupancy(plan: GatherPlan, elem_bytes: int,
@@ -137,7 +152,7 @@ def gather_occupancy(plan: GatherPlan, elem_bytes: int,
     shared bytes and threads a block, resident blocks and warps an
     SM."""
     out = (ctypes.c_int * 6)()
-    kind = 0 if plan.kernel.startswith("rows") else 1
+    kind = PLAN_KINDS[plan.kernel.split("_")[0]]
     err = _build.library().uf3_gather_occupancy(
         kind, plan.code, int(plan.wide), elem_bytes, index_bytes, out)
     if err != 0:
@@ -246,6 +261,27 @@ def rows_plan(table, idx) -> GatherPlan:
                  alignment(start, width * elem))
 
 
+def rev_plan(part, idx) -> GatherPlan:
+    """``gather_plan`` for ``rev_gather(part, idx, rev)`` on contiguous
+    operands, as the wrapper launches them: ``part`` (R, Kp, W) as the
+    (R Kp, W) table, its rows' alignment read off its pointer and row
+    width in bytes (for partials that are not contiguous, plan the
+    ``.contiguous()`` copy the wrapper makes)."""
+    rows, kp, width = part.shape
+    return _rev_plan(rows * kp, width, idx.numel(), *_sizes(part, idx),
+                     part.data_ptr())
+
+
+def _rev_plan(rows: int, width: int, entries: int, elem: int, index: int,
+              start: int) -> GatherPlan:
+    """``rev_plan`` from the numbers read off the operands (the (R Kp, W)
+    table's rows and width, the entries, the element and index sizes and
+    the table's address), which the wrapper reads once for the plan and
+    the launch both."""
+    return _plan("rev", rows, width, entries, elem, index,
+                 _low_align(16 | start | width * elem))
+
+
 def gather_rows(table, idx):
     """Rows of the (R, W) ``table`` at the indices ``idx`` (any shape):
     an (idx.shape + (W,)) tensor.  A CUDA tensor runs the kernel of
@@ -314,7 +350,8 @@ def rev_gather(part, idx, rev):
     """Rows ``part[idx, rev]`` of the (R, Kp, W) partials ``part`` at the
     slot indices ``idx`` and reverse slots ``rev`` (one shape, one
     dtype): an (idx.shape + (W,)) tensor.  A CUDA tensor runs the kernel
-    of ``csrc/gather.cu`` or raises; a CPU tensor runs the plain
+    of ``csrc/gather.cu`` that ``rev_plan`` picks (partials that are not
+    contiguous are copied first) or raises; a CPU tensor runs the plain
     version."""
     if part.dim() != 3 or idx.shape != rev.shape:
         raise ValueError(f"rev_gather takes (R, Kp, W) partials and "
@@ -327,14 +364,16 @@ def rev_gather(part, idx, rev):
         return rev_gather_torch(part, idx, rev)
     _check_operands("rev_gather", part, idx, rev)
     part, idx, rev = part.contiguous(), idx.contiguous(), rev.contiguous()
-    _, kp, w = part.shape
+    r, kp, w = part.shape
     out = torch.empty(tuple(idx.shape) + (w,), dtype=part.dtype,
                       device=part.device)
     if out.numel() == 0:
         return out
-    _launch("rev_gather", "uf3_rev_gather", part.device, part.data_ptr(),
-            idx.data_ptr(), rev.data_ptr(), out.data_ptr(), idx.numel(), w, kp,
-            *_sizes(part, idx))
+    n, (elem, index), start = idx.numel(), _sizes(part, idx), part.data_ptr()
+    plan = _rev_plan(r * kp, w, n, elem, index, start)
+    _launch("rev_gather", "uf3_rev_gather", part.device, start,
+            idx.data_ptr(), rev.data_ptr(), out.data_ptr(), n, w, kp, elem,
+            index, plan.code, int(plan.wide), plan.values_align)
     rev_gather.launches += 1
     return out
 

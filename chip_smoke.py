@@ -13,7 +13,12 @@ against the CPU; then the two-phase melting protocol's path
 (``benchmarks/melting_run.py``) at its full width, 31,104 atoms, with
 each of its stages shortened to 256 steps: Langevin with capacity
 regrowth, SCR NPT, SCR NPT with half the box pinned, SCR NPT released;
-and the ``md`` command as a user runs it.  Then the reference's general
+then a melting-point trial of the example
+``uf3_tpu_torch/examples/melting_point.py`` at its full width (9,216
+atoms, 4,000 K, the preparation cut to a quarter and 2,000 release
+steps: the pinned half solid, the hot mobile half below it, the
+reference's log keys, a verdict); and the ``md`` command as a user
+runs it.  Then the reference's general
 force path: the 2-body W model (``model_2.json``) at 9,826 atoms, the
 binary Ne/Xe 2-body model (``model_pair.json``) at 8,788 atoms, a random
 binary 2+3-body model at 4,000 atoms (the fused multi-species route
@@ -43,15 +48,19 @@ tungsten set's size (1,939 strained and rattled bcc W cells of 16, 54,
 the Gram matrix on the card and the solve on the host, the fitted model
 held to its teacher on a 20% hold-out and run in MD at 9,826 atoms,
 and the ``featurize`` / ``fit`` / ``predict`` commands with ``md`` on
-their model.  Last, the multi-species fit (``run_fit_multi``): 1,000
+their model, each ``train.xyz`` the commands read parsed by the native
+tokenizer (``uf3_tpu_torch/native``) and by the Python reader,
+bit-equal, both timed, and the ``tungsten_fit`` example on the fit
+phase's.  Last, the multi-species fit (``run_fit_multi``): 1,000
 strained and rattled binary fcc Ne/Xe cells of 32, 108 and 256 atoms
 (129,600 atoms), one in ten without forces, labeled by the random Ne/Xe
 2+3-body model through ``UFCalculator`` on the fused multi-species
 route, featurized on the card by the multi-species dataset path, fitted
 and held to the teacher, its model run in MD at 8,788 atoms on the same
 route; then the commands on ``model_pair.json``'s 2-body basis (the
-multi-species device route) and on a basis of moved knots (the host
-route).  Then multi-shard MD and fitting on ``torch.distributed``
+multi-species device route), the ``nexe_pair_fit`` example on a LAMMPS
+run (log and dump) of the same labeled frames, and the commands on a
+basis of moved knots (the host route).  Then multi-shard MD and fitting on ``torch.distributed``
 (``run_halo``): a NCCL group of world size 1 (one card holds one rank)
 with a 4-shard mesh; the halo-exchange chunk and the
 replicated-positions chunk in float64 at 9,826 atoms against the
@@ -59,7 +68,9 @@ single device; the halo chunk's float32 3-level r-RESPA NVE run with
 its re-decompositions, one trio launch per mid step for all shards and
 halo-sized collectives, beside the single-device rate; the trio
 kernel's center weight on the path's rows; the sharded fits on the fit
-commands' features.  The trio kernel's triangle lanes (the
+commands' features; then the ``multichip_demo`` example as a subprocess
+(NCCL, world size 1, 4 shards: the halo energy within 1e-8 eV of the
+single device's in float64).  The trio kernel's triangle lanes (the
 ``trio_triangle`` option; the halo path's layout on a symmetric grid)
 are held to their plain version and to the full lanes on the bench, the
 default, the protocol's and a separately built list (K = 16, 23, 20 and
@@ -131,13 +142,16 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-from uf3_tpu_torch import io  # noqa: E402
+from uf3_tpu_torch import io, native  # noqa: E402
 from uf3_tpu_torch.benchmarks import common, probe_gather  # noqa: E402
 from uf3_tpu_torch.benchmarks.common import (ne_xe,  # noqa: E402
                                              species23_model)
 from uf3_tpu_torch.benchmarks import probe_mosaic, step_anatomy  # noqa: E402
 from uf3_tpu_torch.data.atoms import Atoms, bulk  # noqa: E402
 from uf3_tpu_torch.data import io as data_io  # noqa: E402
+from uf3_tpu_torch.examples import melting_point  # noqa: E402
+from uf3_tpu_torch.examples.nexe_pair_fit import \
+    write_lammps_run  # noqa: E402
 from uf3_tpu_torch.forcefield import batch, lammps, md, units  # noqa: E402
 from uf3_tpu_torch.forcefield.calculator import UFCalculator  # noqa: E402
 from uf3_tpu_torch.forcefield.properties import elastic, phonon  # noqa: E402
@@ -1634,6 +1648,72 @@ def run_protocol(device):
     return sum(launches), rates
 
 
+# the melting-point example's trial (uf3_tpu_torch/examples/
+# melting_point.py) at its full width, 9,216 atoms of bcc W, float32, its
+# preparation and release cut (the full trial, ~31,000 steps, runs
+# through the example's command line)
+MELT_T = 4000.0
+MELT_REPS = (32, 12, 12)
+MELT_PREP_SCALE = 0.25   # 500 + 750 + (2,500 + 2,000 per melt) steps
+MELT_OBS = 2000
+# the keys of the reference's log (benchmarks/melting_run.py:99-252):
+# those of the preparation, then those of the release
+MELT_PREP_KEYS = ("T", "n_atoms", "cell_x_after_equil", "profile_hot",
+                  "melt_t", "t_mobile_hot", "profile_after_melt",
+                  "solid_fraction_start", "verdict")
+MELT_RELEASE_KEYS = ("obs_steps", "obs_atom_steps_per_s",
+                     "solid_fraction_series")
+MELT_VERDICTS = ("grew", "shrank", "flat", "prep_failed")
+
+
+def run_melting_trial(device, reps=MELT_REPS):
+    """``run_trial`` of the melting-point example at ``MELT_T`` with the
+    preparation scaled by ``MELT_PREP_SCALE`` and ``MELT_OBS`` release
+    steps, the trio kernel's count from 0.  Gates: a finite last state
+    with no overflow after regrowth, trio launches, every pinned bin of
+    the hot profile above the solid threshold and the mobile half's mean
+    under the pinned half's, the reference's log keys, a verdict.
+    Returns (the trio launches, the log)."""
+    print(f"melting trial: T {MELT_T:g} K, reps {reps}, prep_scale "
+          f"{MELT_PREP_SCALE:g}, n_obs {MELT_OBS}, float32")
+    keep = {}
+    reset_counts()
+    log = melting_point.run_trial(MODEL, MELT_T, reps, MELT_OBS,
+                                  prep_scale=MELT_PREP_SCALE, device=device,
+                                  keep=keep)
+    torch.cuda.synchronize()
+    launches = trio.trio_partials.launches
+    system, state = keep["system"], keep["state"]
+    hot = np.asarray(log["profile_hot"])
+    pinned, mobile = hot[:len(hot) // 2], hot[len(hot) // 2:]
+    keys = MELT_PREP_KEYS + (() if log["verdict"] == "prep_failed"
+                             else MELT_RELEASE_KEYS)
+    print(f"melting trial: verdict {log['verdict']}, solid fraction series "
+          f"{log.get('solid_fraction_series')}, start "
+          f"{log['solid_fraction_start']}, melt_t {log['melt_t']:g} K, mobile "
+          f"T hot {log['t_mobile_hot']} K, {log['n_pinned']} of "
+          f"{log['n_atoms']} atoms pinned, obs_atom_steps_per_s "
+          f"{log.get('obs_atom_steps_per_s')}, wall {log['wall_s']:.2f} s, "
+          f"{launches} trio launches; card: {card_line()}")
+    print(f"melting trial: hot profile {log['profile_hot']}; after the "
+          f"melt {log['profile_after_melt']}")
+    gate("melting trial", {
+        "finite state and cell": bool(
+            torch.isfinite(state.positions).all()
+            and torch.isfinite(state.velocities).all()
+            and torch.isfinite(state.cell).all()),
+        "no overflow after regrowth": not system.overflowed(state),
+        "trio kernel launched": launches > 0,
+        "the pinned half's bins of profile_hot above "
+        f"{melting_point.SOLID_THRESHOLD}": bool(
+            np.all(pinned > melting_point.SOLID_THRESHOLD)),
+        "the mobile half's mean under the pinned half's":
+            mobile.mean() < pinned.mean(),
+        "every reference log key": all(k in log for k in keys),
+        f"a verdict in {MELT_VERDICTS}": log["verdict"] in MELT_VERDICTS})
+    return launches, log
+
+
 def run_md_command(model="model_2and3.json", *flags):
     """``python -m uf3_tpu_torch md`` at its defaults (and ``flags``),
     as a user runs it: exit 0 and a finite T and E on its result
@@ -2858,6 +2938,68 @@ def labeled_frames(geoms, energies, forces):
     return frames
 
 
+PARSE_REPEATS = 3
+
+
+def compare_readers(path, name):
+    """The native extended-xyz tokenizer against the Python reader on
+    ``path``: every configuration's numbers, positions, cell, energy and
+    forces bit-equal; both parse times, each the least of
+    ``PARSE_REPEATS`` calls (the library built before)."""
+    t0 = time.perf_counter()
+    native.load()
+    load_s = time.perf_counter() - t0
+    times = {}
+    for tag, reader in (("native", native.parse_extxyz_fast),
+                        ("python", data_io.read_xyz_python)):
+        best = float("inf")
+        for _ in range(PARSE_REPEATS):
+            t0 = time.perf_counter()
+            frames = reader(path)
+            best = min(best, time.perf_counter() - t0)
+        times[tag] = (1e3 * best, frames)
+    (native_ms, ours), (python_ms, ref) = times["native"], times["python"]
+    fields = ("fx", "fy", "fz")
+    same = len(ours) == len(ref) and all(
+        np.array_equal(a.numbers, b.numbers)
+        and np.array_equal(a.positions, b.positions)
+        and np.array_equal(a.cell, b.cell)
+        and a.info.get("energy") == b.info.get("energy")
+        and all((c in a.arrays) == (c in b.arrays) for c in fields)
+        and all(np.array_equal(a.arrays[c], b.arrays[c])
+                for c in fields if c in b.arrays)
+        for a, b in zip(ours, ref))
+    atoms = sum(len(g) for g in ref)
+    print(f"{name} extended-xyz parse of {os.path.basename(path)} "
+          f"({len(ref)} configurations, {atoms} atoms, "
+          f"{os.path.getsize(path)} bytes): native tokenizer "
+          f"{native_ms:.3f} ms, Python reader {python_ms:.3f} ms "
+          f"({python_ms / native_ms:.1f}x; library loaded or built in "
+          f"{load_s:.3f} s); card: {card_line()}")
+    gate(f"{name} native tokenizer", {
+        "numbers, positions, cells, energies and forces bit-equal to the "
+        "Python reader": same})
+
+
+def run_example(name, *args, device="cuda"):
+    """``python -m uf3_tpu_torch.examples.<name> args`` as a user runs it
+    (``--cpu`` added when ``device`` is the CPU): exit 0; returns its
+    standard output."""
+    cmd = [sys.executable, "-m", f"uf3_tpu_torch.examples.{name}", *args]
+    if torch.device(device).type == "cpu":
+        cmd.append("--cpu")
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=600)
+    for line in out.stdout.strip().splitlines():
+        print(f"example {name}: {line}")
+    print(f"example {name}: exit {out.returncode} after "
+          f"{time.perf_counter() - t0:.2f} s")
+    if out.returncode != 0:
+        raise AssertionError(f"example {name} failed:\n{out.stderr[-4000:]}")
+    return out.stdout
+
+
 def run_commands(name, frames, settings, tmp, device, commands=(
         "featurize", "fit", "predict")):
     """``python -m uf3_tpu_torch featurize`` / ``fit`` / ``predict`` as
@@ -2869,6 +3011,7 @@ def run_commands(name, frames, settings, tmp, device, commands=(
     data_dir = os.path.join(tmp, "data")
     os.makedirs(data_dir)
     data_io.write_xyz(os.path.join(data_dir, "train.xyz"), frames)
+    compare_readers(os.path.join(data_dir, "train.xyz"), name)
     model_path = os.path.join(tmp, "fitted_cmd.json")
     features = os.path.join(tmp, "features.npz")
     settings = dict(settings,
@@ -2918,12 +3061,25 @@ def run_fit_command(geoms, energies, forces, tmp, device):
                   "resolution": {"W-W": 15, "W-W-W": [6, 6, 12]}},
         "learning": {"regularizer": {"curvature_2b": FIT_REG["c2"],
                                      "curvature_3b": FIT_REG["c3"]}}}
+    commands = os.path.join(tmp, "commands")
     model_path, _, _ = run_commands(
-        "fit", labeled_frames(geoms, energies, forces), settings,
-        os.path.join(tmp, "commands"), device)
+        "fit", labeled_frames(geoms, energies, forces), settings, commands,
+        device)
     rate, energy = run_md_command(model_path, "--steps", "100")
-    gate("fit command", {"model written": os.path.isfile(model_path),
-                         "md ran it 100 steps": np.isfinite(energy)})
+    # the tungsten example on the same file
+    example = os.path.join(tmp, "tungsten_fit")
+    out = run_example("tungsten_fit",
+                      os.path.join(commands, "data", "train.xyz"),
+                      os.path.join(example, "features.npz"), "--out-dir",
+                      example, device=device)
+    found = re.search(r"force RMSE: (\S+) eV/A", out)
+    gate("fit command", {
+        "model written": os.path.isfile(model_path),
+        "md ran it 100 steps": np.isfinite(energy),
+        "tungsten_fit example: force RMSE printed and finite":
+            found is not None and np.isfinite(float(found.group(1))),
+        "tungsten_fit example: model written": os.path.isfile(
+            os.path.join(example, "model_2and3_refit.json"))})
     return model_path
 
 
@@ -3182,6 +3338,16 @@ def run_fit_multi_commands(geoms, tmp, device):
                                   *([] if torch.device(device).type
                                     == "cuda" else ["--device", "cpu"]))
     routes = {route: rmse}
+    # the Ne-Xe example on a LAMMPS run of the same labeled frames
+    run_dir, example = (os.path.join(tmp, name) for name in (
+        "lammps_run", "nexe_pair_fit"))
+    write_lammps_run(run_dir, labeled_frames(pair_geoms, energies, forces))
+    run_example("nexe_pair_fit", run_dir, "--out-dir", example,
+                device=device)
+    tables = [os.path.join(example, f"table_{pair}.dat")
+              for pair in ("Ne_Ne", "Ne_Xe", "Xe_Xe")]
+    tables_ok = all(os.path.isfile(t) and "\nN 200\n" in open(t).read()
+                    for t in tables)
     host_geoms = fit_training_set(1, ((FIT_HOST_CONFIGS, 2, False),))
     energies, forces = label(UFCalculator(MODEL, device=device), host_geoms)
     _, host_route, host_rmse = run_commands(
@@ -3199,6 +3365,9 @@ def run_fit_multi_commands(geoms, tmp, device):
             and rmse[0] <= FIT_MULTI_ENERGY_RMSE
             and rmse[1] <= FIT_MULTI_FORCE_RMSE,
         "md ran the fitted pair model": np.isfinite(md_energy),
+        "nexe_pair_fit example: model and three 200-point tables written":
+            tables_ok and os.path.isfile(os.path.join(example,
+                                                      "model_nexe.json")),
         "moved knots: the host route": host_route == "host",
         f"moved knots: force RMSE <= {HOST_FORCE_RMSE:g} eV/A":
             host_rmse is not None and host_rmse[1] <= HOST_FORCE_RMSE})
@@ -3377,6 +3546,7 @@ HALO_F_TOL = 1e-9        # eV/A (tests/test_halo.py:84-111), and virial
 HALO_X_TOL, HALO_V_TOL = 1e-9, 1e-11   # trajectories (:114-215)
 REPLICATED_XV_TOL, REPLICATED_FE_TOL = 1e-12, 1e-10  # test_parallel.py
 SHARDED_FIT_TOL = 1e-10  # relative, predictions against model.fit
+DEMO_ENERGY_TOL = 1e-8   # eV, the multichip example's halo vs single, f64
 HALO_RESPA_CHUNK = dict(n_respa=HALO_RESPA["n_respa"],
                         respa_mid=HALO_RESPA["respa_mid"])
 
@@ -3846,6 +4016,22 @@ def run_halo(device, fit_files=None):
     return launches, record, rates
 
 
+def run_multichip_demo(device):
+    """The multi-shard example on NCCL, world size 1, 4 shards, float64:
+    the halo energy after 5 NVE steps within 1e-8 eV of the single
+    device's.  Returns |E_halo - E_single|."""
+    out = run_example("multichip_demo", "--shards", str(HALO_SHARDS),
+                      device=device)
+    found = re.search(r"single-device E after the same steps: \S+ eV "
+                      r"\(diff (\S+)\)", out)
+    diff = float(found.group(1)) if found else float("nan")
+    gate("multichip_demo example", {
+        f"|E_halo - E_single| {diff:.2e} <= {DEMO_ENERGY_TOL:g} eV":
+            diff <= DEMO_ENERGY_TOL,
+        "sharded fit's RMSE printed": "sharded fit:" in out})
+    return diff
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: uf3_tpu_torch's kernels need an NVIDIA GPU",
@@ -3921,6 +4107,7 @@ def main():
     compare_small_cells(device)
     compare_npt_card_cpu(device)
     launches["npt"], protocol_rates = run_protocol(device)
+    launches["melting trial"], melt_log = run_melting_trial(device)
     rates["md command (2,000 atoms, plain Verlet)"] = run_md_command()[0]
     # the reference's general force path
     name = "2-body W (model_2.json)"
@@ -3977,6 +4164,7 @@ def main():
         os.path.join(fit_keep, name) for name in ("settings.json",
                                                   "features.npz")))
     shutil.rmtree(fit_keep)
+    demo_diff = run_multichip_demo(device)
     rates["halo 3-level r-RESPA 12/6, 4 shards, NVE (triangle lanes)"] = \
         halo_rates["rate"]
     rates["single device, 3-level r-RESPA 12/6/36, NVE (beside the "
@@ -3990,6 +4178,13 @@ def main():
     for name, rate in protocol_rates.items():
         print(f"MD melting protocol stage {name}: {rate:.1f} atom-steps/s "
               f"({STAGE_STEPS} steps, 31104 atoms, float32), card: {card}")
+    print(f"melting trial ({MELT_T:g} K, {melt_log['n_atoms']} atoms, "
+          f"prep_scale {MELT_PREP_SCALE:g}, n_obs {MELT_OBS}): verdict "
+          f"{melt_log['verdict']}, series "
+          f"{melt_log.get('solid_fraction_series')}, obs_atom_steps_per_s "
+          f"{melt_log.get('obs_atom_steps_per_s')}, card: {card}")
+    print(f"multichip_demo (NCCL, world size 1, {HALO_SHARDS} shards, "
+          f"f64): |E_halo - E_single| {demo_diff:.3e} eV")
     for route, (dev_ms, hst_ms) in binary[1].items():
         print(f"binary 2+3-body, 4,000 atoms, {route}: device "
               f"{dev_ms:.4f} ms, host {hst_ms:.4f} ms per call, card: {card}")

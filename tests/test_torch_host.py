@@ -207,7 +207,10 @@ def test_port_sources_import_nothing_of_uf3_tpu():
         "regression/optimize.py", "forcefield/ase_adapter.py",
         "util/tracing.py", "util/plotting.py", "util/plotting3d.py",
         "ops/gather.py", "benchmarks/__init__.py", "benchmarks/common.py",
-        "benchmarks/step_anatomy.py", "benchmarks/probe_gather.py")} \
+        "benchmarks/step_anatomy.py", "benchmarks/probe_gather.py",
+        "native/__init__.py", "examples/__init__.py",
+        "examples/melting_point.py", "examples/tungsten_fit.py",
+        "examples/nexe_pair_fit.py", "examples/multichip_demo.py")} \
         <= scanned
     for path in files:
         for name in _imports(path):
@@ -216,6 +219,35 @@ def test_port_sources_import_nothing_of_uf3_tpu():
             # hosts
             assert name.split(".")[0] not in ("jax", "pandas", "yaml",
                                               "h5py"), (path, name)
+
+
+def test_port_sources_open_no_path_under_uf3_tpu():
+    """No path the port's code or ``chip_smoke.py`` builds or opens
+    (``os.path.join``, ``open``, ``glob``, ``np.load``, ``ctypes.CDLL``
+    ...) passes through the JAX package's directory: the native library,
+    the model files and the kernels' sources are the port's own."""
+    files = glob.glob(os.path.join(REPO, "uf3_tpu_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
+    readers = {"join", "open", "glob", "load", "loadtxt", "CDLL", "Path",
+               "isfile", "exists", "listdir", "walk", "identify_paths",
+               "read_xyz", "load_model", "from_json"}
+    for path in files:
+        tree = ast.parse(open(path).read(), filename=path)
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.Call):
+                continue
+            func = node.func
+            name = func.attr if isinstance(func, ast.Attribute) \
+                else getattr(func, "id", None)
+            if name not in readers:
+                continue
+            for arg in list(node.args) + [k.value for k in node.keywords]:
+                for leaf in ast.walk(arg):
+                    if isinstance(leaf, ast.Constant) \
+                            and isinstance(leaf.value, str):
+                        head = leaf.value.replace(os.sep, "/").lstrip("/")
+                        assert head.split("/")[0] != "uf3_tpu", \
+                            (path, node.lineno, leaf.value)
 
 
 def test_mdsystem_defaults_to_the_card(monkeypatch):

@@ -60,22 +60,15 @@ def cmd_featurize(settings_path: str, device=None) -> None:
     print(f"{len(geometries)} configurations")
     energies = [g.info.get("energy", 0.0) for g in geometries]
     # a configuration without forces gives its energy row alone
-    forces = [np.stack([g.arrays[c] for c in ("fx", "fy", "fz")], axis=1)
-              if all(c in g.arrays for c in ("fx", "fy", "fz")) else None
-              for g in geometries]
+    forces = data_io.forces_of(geometries)
     featurizer = handlers["features"]
     print(f"route: {featurizer.route} ({ROUTES[featurizer.route]})")
     stats = {}
     arrays = featurizer.featurize_dataset(geometries, energies, forces,
                                           stats=stats)
     force_rows = featurizer.force_rows(geometries, forces)
-    basis = handlers["basis"]
-    with open(features_path, "wb") as f:
-        np.savez(f, **dict(zip(data_io.FEATURE_KEYS, arrays)),
-                 keys=np.array(keys), sizes=np.array([len(g) for g in
-                                                      geometries]),
-                 force_rows=force_rows,
-                 columns=np.array(basis.get_column_names()))
+    data_io.save_features(features_path, arrays, keys, geometries,
+                          force_rows, handlers["basis"].get_column_names())
     print(f"features written to {features_path} ({len(arrays[1])} energy "
           f"rows, {len(arrays[3])} force rows; {stats['calls']} calls, "
           f"{stats['redos']} configurations redone at their measured "

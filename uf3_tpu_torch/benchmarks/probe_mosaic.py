@@ -25,8 +25,9 @@ rows: the bench's 9,826 W atoms padded as ``probe_gather.N_PAD``; p2 as
 9856), the (K, N) layout of ``probe_dg2.py``).  Each reports the kernel,
 the plain version and, where one PyTorch call computes the function, the
 library call (``.reshape().clone()``, ``.t().contiguous()``, ``.repeat(1,
-K)``, ``.repeat_interleave(K, 1)``, ``.view(A, K, K).sum(2 | 1)``, ``x @
-w`` with TF32 off; none for h, the one-hots and the chains), each from a
+K)``, ``.repeat_interleave(K, 1)``, ``torch.index_select`` of h's (A, K
+27) view, ``.view(A, K, K).sum(2 | 1)``, ``x @ w`` with TF32 off; none
+for the one-hots and the chains), each from a
 CUDA graph replay of at least 30 calls, each call on its own copy of the
 operands so that they come from device memory (the full system's
 operands, 10-30 MB, would otherwise stay in the 50 MB L2 cache from one
@@ -141,6 +142,20 @@ def operands(case: Case, n: int, rng, device):
     return (case.mode,), kwargs
 
 
+_SELECT_COLUMNS = {}
+
+
+def _select_columns(h, k: int, lanes: int):
+    """The columns of h's (n, k w) view that "select" copies to the
+    output's, on h's device; made once per shape, so that a timed call
+    (or a graph capture) makes none."""
+    key = (tuple(h.shape), k, lanes, h.device)
+    if key not in _SELECT_COLUMNS:
+        _SELECT_COLUMNS[key] = fragments.relayout_offsets(
+            h, "select", k=k, lanes=lanes)[0].contiguous()
+    return _SELECT_COLUMNS[key]
+
+
 def library_call(case: Case, args, kwargs):
     """The one PyTorch call that computes the case's function, or None: a
     yardstick, used nowhere in the port."""
@@ -156,7 +171,11 @@ def library_call(case: Case, args, kwargs):
             return lambda: x.repeat(1, K)
         if mode == "repeat":
             return lambda: x.repeat_interleave(K, 1)
-        return None
+        # select: h's rows of each slot side by side, (n, K 27), and the
+        # output's columns picked from them
+        cols = _select_columns(x, kwargs["k"], kwargs["lanes"])
+        rows = x.view(-1, kwargs["k"] * x.shape[1])
+        return lambda: torch.index_select(rows, 1, cols)
     if case.kernel == "lane_contract":
         x, mode = args[:2]
         if mode == "matmul":

@@ -15,7 +15,10 @@ DataFrames, ``parse_lammps_log`` returns a dict of column arrays,
 ``parse_lammps_outputs`` the configurations with the log's columns in
 their ``info``.  ``read_sources`` is ``parse_with_subsampling`` for
 extended-xyz and vasprun files, returning named configurations where
-the reference fills a pandas ``DataCoordinator``.  The features file
+the reference fills a pandas ``DataCoordinator``.  ``read_xyz`` sends
+a file of the standard layout to the native tokenizer
+(``uf3_tpu_torch.native``), as the reference's ``parse_trajectory``
+does, and ``read_xyz_python`` is its plain version.  The features file
 that ``featurize`` writes is an ``.npz`` (``npz_features_path``,
 ``load_features``); an HDF5 path raises.
 """
@@ -49,11 +52,88 @@ def _parse_properties(spec: str) -> List[Tuple[str, str, int]]:
     return out
 
 
+DEFAULT_PROPERTIES = "species:S:1:pos:R:3"
+
+
+def _frame(comment: Dict[str, str], numbers, columns: Dict) -> Atoms:
+    """One configuration from its parsed comment line, its atomic numbers
+    and its other columns, ``{name: (kind, width, values)}`` in the order
+    of ``Properties`` (values: the (n, width) tokens, or the numbers the
+    native tokenizer read)."""
+    arrays = {}
+    positions = None
+    for name, (kind, width, values) in columns.items():
+        if name == "pos":
+            positions = np.array(values, dtype=float)
+        elif kind == "S":
+            arrays[name] = np.array([v[0] if width == 1 else v
+                                     for v in values])
+        else:
+            arr = np.array(values, dtype=float if kind == "R" else int)
+            arrays[name] = arr[:, 0] if width == 1 else arr
+    cell = None
+    pbc = False
+    if "Lattice" in comment:
+        cell = np.array(comment["Lattice"].split(),
+                        dtype=float).reshape(3, 3)
+        pbc = True
+    if "pbc" in comment:
+        pbc = [p.strip().upper() in ("T", "TRUE", "1")
+               for p in comment["pbc"].split()]
+    geom = Atoms(numbers, positions, cell=cell, pbc=pbc)
+    for key in ("energy", "Energy"):
+        if key in comment:
+            geom.info["energy"] = float(comment[key])
+            break
+    for key, value in comment.items():
+        if key not in ("Lattice", "Properties", "pbc", "energy",
+                       "Energy"):
+            try:
+                geom.info[key] = float(value)
+            except ValueError:
+                geom.info[key] = value
+    for key in ("force", "forces"):
+        if key in arrays:
+            forces = arrays.pop(key)
+            geom.arrays["fx"] = forces[:, 0]
+            geom.arrays["fy"] = forces[:, 1]
+            geom.arrays["fz"] = forces[:, 2]
+            break
+    geom.arrays.update({k: v for k, v in arrays.items()
+                        if k not in ("Z",)})
+    return geom
+
+
+def native_layout(filename) -> bool:
+    """Whether ``read_xyz`` sends ``filename`` to the native tokenizer: a
+    file path whose second line carries no per-axis ``pbc=`` (the
+    reference's choice, ``uf3_tpu/data/io.py:398-412``)."""
+    if not isinstance(filename, (str, os.PathLike)):
+        return False
+    with open(filename) as f:
+        f.readline()
+        return "pbc=" not in f.readline()
+
+
 def read_xyz(filename: Union[str, StringIO],
              index: slice = None) -> List[Atoms]:
     """Read extended-xyz trajectory (energy in the comment line; forces
-    from a 'force'/'forces' property column)."""
-    if isinstance(filename, str):
+    from a 'force'/'forces' property column).  A file path of the
+    standard layout (``native_layout``) goes through the native
+    tokenizer (``uf3_tpu_torch.native.parse_extxyz_fast``, the same
+    configurations); ``read_xyz_python`` reads every other input."""
+    if native_layout(filename):
+        from uf3_tpu_torch import native
+        geometries = native.parse_extxyz_fast(os.fspath(filename))
+        return geometries if index is None else geometries[index]
+    return read_xyz_python(filename, index)
+
+
+def read_xyz_python(filename: Union[str, StringIO],
+                    index: slice = None) -> List[Atoms]:
+    """``read_xyz`` in Python alone: the native tokenizer's plain
+    version."""
+    if isinstance(filename, (str, os.PathLike)):
         with open(filename) as f:
             lines = f.read().splitlines()
     else:
@@ -67,62 +147,21 @@ def read_xyz(filename: Union[str, StringIO],
         n_atoms = int(lines[pos].strip())
         comment = _parse_xyz_comment(lines[pos + 1])
         props = _parse_properties(
-            comment.get("Properties", "species:S:1:pos:R:3"))
+            comment.get("Properties", DEFAULT_PROPERTIES))
         body = lines[pos + 2:pos + 2 + n_atoms]
-        columns = [ln.split() for ln in body]
+        rows = [ln.split() for ln in body]
         col = 0
         species = None
-        positions = None
-        arrays = {}
+        columns = {}
         for name, kind, width in props:
-            values = [row[col:col + width] for row in columns]
+            values = [row[col:col + width] for row in rows]
             if name == "species":
                 species = [v[0] for v in values]
-            elif name == "pos":
-                positions = np.array(values, dtype=float)
             else:
-                if kind == "S":
-                    arr = np.array([v[0] if width == 1 else v
-                                    for v in values])
-                else:
-                    dtype = float if kind == "R" else int
-                    arr = np.array(values, dtype=dtype)
-                    if width == 1:
-                        arr = arr[:, 0]
-                arrays[name] = arr
+                columns[name] = (kind, width, values)
             col += width
-        cell = None
-        pbc = False
-        if "Lattice" in comment:
-            cell = np.array(comment["Lattice"].split(),
-                            dtype=float).reshape(3, 3)
-            pbc = True
-        if "pbc" in comment:
-            pbc = [p.strip().upper() in ("T", "TRUE", "1")
-                   for p in comment["pbc"].split()]
-        geom = Atoms([elements.atomic_numbers[s] for s in species],
-                     positions, cell=cell, pbc=pbc)
-        for key in ("energy", "Energy"):
-            if key in comment:
-                geom.info["energy"] = float(comment[key])
-                break
-        for key, value in comment.items():
-            if key not in ("Lattice", "Properties", "pbc", "energy",
-                           "Energy"):
-                try:
-                    geom.info[key] = float(value)
-                except ValueError:
-                    geom.info[key] = value
-        for key in ("force", "forces"):
-            if key in arrays:
-                forces = arrays.pop(key)
-                geom.arrays["fx"] = forces[:, 0]
-                geom.arrays["fy"] = forces[:, 1]
-                geom.arrays["fz"] = forces[:, 2]
-                break
-        geom.arrays.update({k: v for k, v in arrays.items()
-                            if k not in ("Z",)})
-        geometries.append(geom)
+        geometries.append(_frame(
+            comment, [elements.atomic_numbers[s] for s in species], columns))
         pos += 2 + n_atoms
     if index is not None:
         geometries = geometries[index]
@@ -438,6 +477,24 @@ def npz_features_path(path: str) -> str:
         raise _not_ported(f"the HDF5 features file {path} (this package "
                           "writes .npz)", FEATURIZATION)
     return path
+
+
+def forces_of(geometries) -> List:
+    """The (N, 3) forces of each configuration, None where it has
+    none."""
+    return [np.stack([g.arrays[c] for c in ("fx", "fy", "fz")], axis=1)
+            if all(c in g.arrays for c in ("fx", "fy", "fz")) else None
+            for g in geometries]
+
+
+def save_features(path: str, arrays, keys, geometries, force_rows,
+                  columns) -> None:
+    """The ``.npz`` features file: (x_e, y_e, x_f, y_f), the
+    configuration keys, sizes and force rows, the column names."""
+    with open(npz_features_path(path), "wb") as f:
+        np.savez(f, **dict(zip(FEATURE_KEYS, arrays)), keys=np.array(keys),
+                 sizes=np.array([len(g) for g in geometries]),
+                 force_rows=force_rows, columns=np.array(columns))
 
 
 def load_features(path: str):

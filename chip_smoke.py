@@ -17,7 +17,14 @@ then a melting-point trial of the example
 ``uf3_tpu_torch/examples/melting_point.py`` at its full width (9,216
 atoms, 4,000 K, the preparation cut to a quarter and 2,000 release
 steps: the pinned half solid, the hot mobile half below it, the
-reference's log keys, a verdict); and the ``md`` command as a user
+reference's log keys, a verdict); then the main path's physics checks
+(``run_validation``, the scripts of ``uf3_tpu_torch/benchmarks/`` at
+9,826 atoms): the long-horizon NVE of the bench path (5,184 steps,
+drift and secular heating within 2e-4 eV/atom), the force error of a
+frozen neighbor list past the stale trip line in float32 (within 2e-4
+eV/A) and float64 (under 1e-5 eV/A, the stale-window gate's bound), the
+staleness probe, and the first configuration of each r-RESPA sweep
+(NVE drift within 2e-4 eV/atom); and the ``md`` command as a user
 runs it.  Then the reference's general
 force path: the 2-body W model (``model_2.json``) at 9,826 atoms, the
 binary Ne/Xe 2-body model (``model_pair.json``) at 8,788 atoms, a random
@@ -147,6 +154,9 @@ from uf3_tpu_torch.benchmarks import common, probe_gather  # noqa: E402
 from uf3_tpu_torch.benchmarks.common import (ne_xe,  # noqa: E402
                                              species23_model)
 from uf3_tpu_torch.benchmarks import probe_mosaic, step_anatomy  # noqa: E402
+from uf3_tpu_torch.benchmarks import (probe_stale,  # noqa: E402
+                                      probe_stale_error, validate_final,
+                                      validate_respa, validate_respa_mid)
 from uf3_tpu_torch.data.atoms import Atoms, bulk  # noqa: E402
 from uf3_tpu_torch.data import io as data_io  # noqa: E402
 from uf3_tpu_torch.examples import melting_point  # noqa: E402
@@ -1712,6 +1722,117 @@ def run_melting_trial(device, reps=MELT_REPS):
         "every reference log key": all(k in log for k in keys),
         f"a verdict in {MELT_VERDICTS}": log["verdict"] in MELT_VERDICTS})
     return launches, log
+
+
+# the main path's physics checks (uf3_tpu_torch/benchmarks/): the
+# long-horizon NVE on the bench path, the stale-list force error in f32
+# and f64, the staleness probe and each r-RESPA sweep's first
+# configuration (the full sweeps run through their own commands)
+VALIDATION_FINAL = (BENCH["n_respa"], BENCH["respa_mid"],
+                    BENCH["rebuild_every"], BENCH["respa_switch"][0])
+VALIDATION_DRIFT = 2e-4  # eV/atom, the reference's criterion
+STALE_ERROR_F32 = FORCE_TOL  # eV/A, the f32 device-force tolerance
+STALE_ERROR_F64 = probe_stale_error.GATE_BOUND  # eV/A, the stale-window gate
+
+
+def validation_run(name, fn, launches, **kw):
+    """``fn(device=..., keep=..., **kw)`` with the trio kernel's count
+    from 0; records its launches under ``name``.  Returns (result,
+    system, state, seconds)."""
+    keep = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    result = fn(keep=keep, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches[name] = trio.trio_partials.launches
+    print(f"{name}: {seconds:.2f} s, {launches[name]} trio launches")
+    return result, keep.get("system"), keep.get("state"), seconds
+
+
+def sound(system: MDSystem, state) -> dict:
+    """The gates every validation run shares: a finite last state with no
+    overflow."""
+    return {"finite state": bool(torch.isfinite(state.positions).all()
+                                 and torch.isfinite(state.velocities).all()
+                                 and torch.isfinite(state.energy)),
+            "no overflow": not system.overflowed(state)}
+
+
+def run_validation(device):
+    """The five physics checks of the main path at 9,826 atoms, float32
+    unless said: ``validate_final`` at the bench path's cadence and
+    switch, ``probe_stale_error`` in float32 and float64, ``probe_stale``,
+    and the first configuration of ``validate_respa`` and
+    ``validate_respa_mid``, each with the trio kernel's count from 0.
+    Returns (trio launches by run, results by run)."""
+    launches, results = {}, {}
+    card = card_line()
+    name = "validate_final {}/{}/{} ({:g}, 3.5)".format(*VALIDATION_FINAL)
+    final, system, state, _ = validation_run(
+        name, validate_final.run, launches, n_respa=VALIDATION_FINAL[0],
+        respa_mid=VALIDATION_FINAL[1], rebuild=VALIDATION_FINAL[2],
+        r_lo=VALIDATION_FINAL[3], device=device)
+    results[name] = final
+    print(f"{name}: drift trace {final['drift_trace_ev_per_atom']} eV/atom "
+          f"over {final['n_steps']} NVE steps; final "
+          f"{final['final_drift_ev_per_atom']:.3e}, secular "
+          f"{final['secular_heating_ev_per_atom_over_run']:.3e}, shadow "
+          f"amplitude {final['shadow_amplitude_ev_per_atom']:.3e} eV/atom; "
+          f"card: {card}")
+    gate(name, dict(sound(system, state), **{
+        f"|final drift| <= {VALIDATION_DRIFT:g} eV/atom":
+            final["final_drift_ev_per_atom"] <= VALIDATION_DRIFT,
+        f"secular heating <= {VALIDATION_DRIFT:g} eV/atom":
+            final["secular_heating_ev_per_atom_over_run"]
+            <= VALIDATION_DRIFT,
+        "trio kernel launched": launches[name] > 0}))
+    for dtype, bound in ((torch.float32, STALE_ERROR_F32),
+                         (torch.float64, STALE_ERROR_F64)):
+        tag = str(dtype).replace("torch.", "")
+        name = f"probe_stale_error, {tag}"
+        probe, system, state, _ = validation_run(
+            name, probe_stale_error.run, launches, device=device,
+            dtype=dtype)
+        results[name] = probe
+        past = [s for s in probe["samples"] if s["past_stale_line"]]
+        worst = probe["max_force_error_past_stale_line_eV_A"]
+        print(f"{name}: {len(probe['samples'])} samples, {len(past)} past "
+              f"the stale line ({probe['stale_threshold_A']:g} A), drift "
+              f"up to {max(s['max_drift_A'] for s in probe['samples']):.4f} "
+              f"A; worst force error past the line {worst} eV/A; rebuild "
+              f"branches {probe['rebuild_branches']}; card: {card}")
+        gate(name, dict(sound(system, state), **{
+            "a sample past the stale line": bool(past),
+            f"worst error past the line <= {bound:g} eV/A":
+                worst is not None and worst <= bound,
+            "trio kernel launched": launches[name] > 0}))
+    name = "probe_stale"
+    rows, system, state, _ = validation_run(name, probe_stale.run, launches,
+                                            device=device)
+    results[name] = rows
+    for i, row in enumerate(rows["per_launch"]):
+        print(f"probe_stale launch {i}: {row}")
+    gate(name, dict(sound(system, state),
+                    **{"trio kernel launched": launches[name] > 0}))
+    for module, config in ((validate_respa, validate_respa.CONFIGS[0]),
+                           (validate_respa_mid,
+                            validate_respa_mid.CONFIGS[0])):
+        name = f"{module.__name__.rsplit('.', 1)[1]} {config}"
+        sweep, _, _, _ = validation_run(name, module.run, launches,
+                                        configs=(config,), device=device)
+        results[name] = sweep
+        (key, entry), = [(k, v) for k, v in sweep.items()
+                         if k.startswith("respa")]
+        rate = {k: v for k, v in entry.items() if k.startswith("atom_steps")}
+        print(f"{name}: {key} {entry}; rate {rate} (no throughput claim); "
+              f"card: {card}")
+        gate(name, {
+            f"NVE drift <= {VALIDATION_DRIFT:g} eV/atom":
+                entry["nve_drift_eV_per_atom"] <= VALIDATION_DRIFT,
+            "no overflow": not entry["overflow"],
+            "trio kernel launched": launches[name] > 0})
+    return launches, results
 
 
 def run_md_command(model="model_2and3.json", *flags):
@@ -4108,6 +4229,9 @@ def main():
     compare_npt_card_cpu(device)
     launches["npt"], protocol_rates = run_protocol(device)
     launches["melting trial"], melt_log = run_melting_trial(device)
+    validation_launches, validation = run_validation(device)
+    launches.update({f"validation: {name}": n
+                     for name, n in validation_launches.items()})
     rates["md command (2,000 atoms, plain Verlet)"] = run_md_command()[0]
     # the reference's general force path
     name = "2-body W (model_2.json)"
@@ -4183,6 +4307,16 @@ def main():
           f"{melt_log['verdict']}, series "
           f"{melt_log.get('solid_fraction_series')}, obs_atom_steps_per_s "
           f"{melt_log.get('obs_atom_steps_per_s')}, card: {card}")
+    for name, result in validation.items():
+        if "drift_trace_ev_per_atom" in result:
+            drift = result["final_drift_ev_per_atom"]
+            print(f"{name}: final drift {drift:.3e}, secular heating "
+                  f"{result['secular_heating_ev_per_atom_over_run']:.3e} "
+                  f"eV/atom (f32, 9,826 atoms), card: {card}")
+        elif "samples" in result:
+            print(f"{name}: worst force error past the stale line "
+                  f"{result['max_force_error_past_stale_line_eV_A']} eV/A "
+                  f"(9,826 atoms), card: {card}")
     print(f"multichip_demo (NCCL, world size 1, {HALO_SHARDS} shards, "
           f"f64): |E_halo - E_single| {demo_diff:.3e} eV")
     for route, (dev_ms, hst_ms) in binary[1].items():

@@ -208,6 +208,9 @@ def test_port_sources_import_nothing_of_uf3_tpu():
         "util/tracing.py", "util/plotting.py", "util/plotting3d.py",
         "ops/gather.py", "benchmarks/__init__.py", "benchmarks/common.py",
         "benchmarks/step_anatomy.py", "benchmarks/probe_gather.py",
+        "benchmarks/probe_stale.py", "benchmarks/probe_stale_error.py",
+        "benchmarks/validate_final.py", "benchmarks/validate_respa.py",
+        "benchmarks/validate_respa_mid.py",
         "native/__init__.py", "examples/__init__.py",
         "examples/melting_point.py", "examples/tungsten_fit.py",
         "examples/nexe_pair_fit.py", "examples/multichip_demo.py")} \

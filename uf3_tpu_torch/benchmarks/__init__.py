@@ -8,5 +8,11 @@ artifact under ``benchmarks_data/artifacts_torch/``:
   (host time), after ``benchmarks/step_anatomy.py``;
 - ``probe_gather``: the neighbor-gather kernels of ``ops/gather.py``
   at the shapes and index types of the TPU gather probes, beside the
-  library call and the plain version.
+  library call and the plain version;
+- the main path's physics checks, after the scripts of the same names
+  under ``benchmarks/``: ``validate_final`` (the long-horizon NVE of an
+  r-RESPA cadence), ``validate_respa`` and ``validate_respa_mid`` (NVE
+  drift per r-RESPA depth and mid cadence), ``probe_stale`` (what trips
+  the staleness flag) and ``probe_stale_error`` (the force error of a
+  frozen neighbor list at the stale trip line).
 """

@@ -2,8 +2,9 @@
 What the measurement scripts share: the device (the card unless asked
 for the CPU, as ``MDSystem``), the chain length, CUDA-graph and eager
 timing of a chained body, the card's description, the commit, the
-artifact directory, and the engine settings, models and 3-body rows
-that the trio kernels are timed on.
+artifact directory and its stamp, the engine settings, models and 3-body
+rows that the trio kernels are timed on, and the validation scripts'
+cell and total energy.
 
 Device times come from CUDA graphs: ``SCAN_LEN`` bodies chained (each
 takes the previous one's output, as the JAX scripts' ``lax.scan``
@@ -38,6 +39,11 @@ BENCH = dict(rebuild_every=36, skin=0.5, skin_2b=1.2, capacity_2b=72,
 PROTOCOL = dict(rebuild_every=16, skin=0.6, skin_2b=1.2, capacity_2b=88,
                 capacity_3b=20)
 PROTOCOL_REPS = (48, 18, 18)
+# the validation scripts' cell: bcc W 17^3 = 9,826 atoms
+LATTICE_A = 3.1652
+VALIDATION_REPS = (17, 17, 17)
+# the keys ``stamp`` adds to an artifact
+CARD_FIELDS = ("device", "card", "torch", "commit")
 SCAN_LEN = 30
 L2_BYTES = 50 * 2 ** 20   # the H100's L2 cache (data sheet)
 
@@ -270,17 +276,13 @@ def host_chain_ms(fn, x0, length: int = SCAN_LEN, repeats: int = 3) -> float:
     """Host ms per body: ``length`` chained bodies run eagerly, ended by
     a synchronize on a card; the best of ``repeats`` after one warm
     chain."""
-    def sync():
-        if x0.is_cuda:
-            torch.cuda.synchronize(x0.device)
-
     chain(fn, x0, length)
-    sync()
+    sync(x0.device)
     best = float("inf")
     for _ in range(repeats):
         t0 = time.perf_counter()
         chain(fn, x0, length)
-        sync()
+        sync(x0.device)
         best = min(best, (time.perf_counter() - t0) / length)
     return 1e3 * best
 
@@ -295,6 +297,12 @@ def card(device: torch.device):
                          text=True, check=True, timeout=60)
     return (torch.cuda.get_device_name(device),
             out.stdout.strip().splitlines()[device.index or 0])
+
+
+def platform(device: torch.device) -> str:
+    """The device's platform as the artifacts name it: "gpu" for the
+    card, else the device type."""
+    return "gpu" if device.type == "cuda" else device.type
 
 
 def commit() -> str:
@@ -313,10 +321,40 @@ def header(device: torch.device, commit_tag: str = None) -> dict:
     """The artifact's description of the run: platform, card, commit,
     time."""
     name, card_line = card(device)
-    return {"platform": "gpu" if device.type == "cuda" else device.type,
-            "device": name, "card": card_line,
+    return {"platform": platform(device), "device": name, "card": card_line,
             "commit": commit_tag or commit(),
             "timestamp": time.strftime("%Y-%m-%dT%H:%M:%S")}
+
+
+def stamp(artifact: dict, device: torch.device,
+          commit_tag: str = None) -> dict:
+    """``artifact`` with the run's card fields added (``CARD_FIELDS``):
+    the device's name, the card's name and power limit as nvidia-smi
+    gives them (None on the CPU), the torch version and the commit."""
+    name, card_line = card(device)
+    artifact.update(device=name or device.type, card=card_line,
+                    torch=torch.__version__,
+                    commit=commit_tag or commit())
+    return artifact
+
+
+def sync(device: torch.device):
+    """Wait for the card (nothing on the CPU): before a clock read."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def bcc_w(reps):
+    """bcc W at a = 3.1652 A, ``reps`` conventional cells a side."""
+    from uf3_tpu_torch.data.atoms import bulk
+    return bulk("W", "bcc", a=LATTICE_A) * tuple(reps)
+
+
+def total_energy_per_atom(system, state) -> float:
+    """(potential + kinetic energy) / N of an MD state, eV/atom: the
+    energy the NVE drift checks follow."""
+    energy = float(state.energy) + system.kinetic_energy(state)
+    return energy / state.positions.shape[0]
 
 
 def write_artifact(artifact: dict, out_dir: str, name: str) -> str:

@@ -17,14 +17,21 @@ then a melting-point trial of the example
 ``uf3_tpu_torch/examples/melting_point.py`` at its full width (9,216
 atoms, 4,000 K, the preparation cut to a quarter and 2,000 release
 steps: the pinned half solid, the hot mobile half below it, the
-reference's log keys, a verdict); then the main path's physics checks
-(``run_validation``, the scripts of ``uf3_tpu_torch/benchmarks/`` at
+reference's log keys, a verdict), through the bracket script's
+``main`` (``uf3_tpu_torch/benchmarks/melting_run.py``); then the main
+path's physics checks (``run_validation``, the scripts of ``uf3_tpu_torch/benchmarks/`` at
 9,826 atoms): the long-horizon NVE of the bench path (5,184 steps,
 drift and secular heating within 2e-4 eV/atom), the force error of a
 frozen neighbor list past the stale trip line in float32 (within 2e-4
 eV/A) and float64 (under 1e-5 eV/A, the stale-window gate's bound), the
 staleness probe, and the first configuration of each r-RESPA sweep
-(NVE drift within 2e-4 eV/atom); and the ``md`` command as a user
+(NVE drift within 2e-4 eV/atom); then the other measurement scripts of
+``uf3_tpu_torch/benchmarks/`` at cut shapes (``run_measurement_scripts``:
+the 3-level bench step's anatomy at 12/6/36, every phase's device and
+host ms; the full rebuild at 9,826 atoms, its lists equal to the native
+host cell list's; the MD rate at 31,250 atoms with no overflow; the
+featurizer on 64 cells and the fit on 200, one configuration's rows on
+the card within 1e-10 of the CPU's); and the ``md`` command as a user
 runs it.  Then the reference's general
 force path: the 2-body W model (``model_2.json``) at 9,826 atoms, the
 binary Ne/Xe 2-body model (``model_pair.json``) at 8,788 atoms, a random
@@ -130,7 +137,6 @@ kernels' launch counts, errors, times and bounds; the last line is
 
 import contextlib
 import copy
-import inspect
 import itertools
 import json
 import os
@@ -151,12 +157,16 @@ sys.path.insert(0, REPO)
 
 from uf3_tpu_torch import io, native  # noqa: E402
 from uf3_tpu_torch.benchmarks import common, probe_gather  # noqa: E402
-from uf3_tpu_torch.benchmarks.common import (ne_xe,  # noqa: E402
-                                             species23_model)
+from uf3_tpu_torch.benchmarks.common import (  # noqa: E402
+    ne_xe, profiled_device_ms, species23_model)
 from uf3_tpu_torch.benchmarks import probe_mosaic, step_anatomy  # noqa: E402
 from uf3_tpu_torch.benchmarks import (probe_stale,  # noqa: E402
                                       probe_stale_error, validate_final,
                                       validate_respa, validate_respa_mid)
+from uf3_tpu_torch.benchmarks import (anatomy_3l,  # noqa: E402
+                                      featurize_throughput, fit_wallclock,
+                                      md_scaling, melting_run,
+                                      probe_rebuild2)
 from uf3_tpu_torch.data.atoms import Atoms, bulk  # noqa: E402
 from uf3_tpu_torch.data import io as data_io  # noqa: E402
 from uf3_tpu_torch.examples import melting_point  # noqa: E402
@@ -1660,8 +1670,9 @@ def run_protocol(device):
 
 # the melting-point example's trial (uf3_tpu_torch/examples/
 # melting_point.py) at its full width, 9,216 atoms of bcc W, float32, its
-# preparation and release cut (the full trial, ~31,000 steps, runs
-# through the example's command line)
+# preparation and release cut, through the bracket script's main
+# (uf3_tpu_torch/benchmarks/melting_run.py; the full trials at 31,104
+# atoms run through its command line)
 MELT_T = 4000.0
 MELT_REPS = (32, 12, 12)
 MELT_PREP_SCALE = 0.25   # 500 + 750 + (2,500 + 2,000 per melt) steps
@@ -1677,20 +1688,25 @@ MELT_VERDICTS = ("grew", "shrank", "flat", "prep_failed")
 
 
 def run_melting_trial(device, reps=MELT_REPS):
-    """``run_trial`` of the melting-point example at ``MELT_T`` with the
-    preparation scaled by ``MELT_PREP_SCALE`` and ``MELT_OBS`` release
-    steps, the trio kernel's count from 0.  Gates: a finite last state
-    with no overflow after regrowth, trio launches, every pinned bin of
-    the hot profile above the solid threshold and the mobile half's mean
-    under the pinned half's, the reference's log keys, a verdict.
-    Returns (the trio launches, the log)."""
+    """``melting_run.main`` on one trial of the melting-point example at
+    ``MELT_T`` with the preparation scaled by ``MELT_PREP_SCALE`` and
+    ``MELT_OBS`` release steps, its artifact in a temporary directory,
+    the trio kernel's count from 0.  Gates: one trial in the artifact, a
+    finite last state with no overflow after regrowth, trio launches,
+    every pinned bin of the hot profile above the solid threshold and the
+    mobile half's mean under the pinned half's, the reference's log keys,
+    a verdict.  Returns (the trio launches, the log)."""
     print(f"melting trial: T {MELT_T:g} K, reps {reps}, prep_scale "
           f"{MELT_PREP_SCALE:g}, n_obs {MELT_OBS}, float32")
     keep = {}
     reset_counts()
-    log = melting_point.run_trial(MODEL, MELT_T, reps, MELT_OBS,
-                                  prep_scale=MELT_PREP_SCALE, device=device,
-                                  keep=keep)
+    with tempfile.TemporaryDirectory() as tmp:
+        results = melting_run.main(
+            [f"{MELT_T:g}", "--reps", *(str(r) for r in reps), "--obs",
+             str(MELT_OBS), "--prep-scale", f"{MELT_PREP_SCALE:g}", "--out",
+             os.path.join(tmp, "melting_point.json"), "--device",
+             str(device)], keep=keep)
+    log = results["trials"][-1]
     torch.cuda.synchronize()
     launches = trio.trio_partials.launches
     system, state = keep["system"], keep["state"]
@@ -1708,6 +1724,7 @@ def run_melting_trial(device, reps=MELT_REPS):
     print(f"melting trial: hot profile {log['profile_hot']}; after the "
           f"melt {log['profile_after_melt']}")
     gate("melting trial", {
+        "one trial in the artifact": len(results["trials"]) == 1,
         "finite state and cell": bool(
             torch.isfinite(state.positions).all()
             and torch.isfinite(state.velocities).all()
@@ -1832,6 +1849,132 @@ def run_validation(device):
                 entry["nve_drift_eV_per_atom"] <= VALIDATION_DRIFT,
             "no overflow": not entry["overflow"],
             "trio kernel launched": launches[name] > 0})
+    return launches, results
+
+
+# the measurement scripts of uf3_tpu_torch/benchmarks/ at cut shapes:
+# the 3-level step's anatomy at the bench cadence, the full rebuild at
+# 9,826 atoms, the MD rate at 31,250 atoms, the featurizer's throughput
+# on 64 cells and the fit on 200 (the full sizes run through each
+# script's own command)
+MEASURE_CADENCE = (BENCH["n_respa"], BENCH["respa_mid"],
+                   BENCH["rebuild_every"])
+MEASURE_REBUILD_REPS = (17, 17, 17)
+MEASURE_SCALING_REPS = 25
+MEASURE_FEATURIZE_CONFIGS = 64
+MEASURE_FIT_CONFIGS = 200
+MEASURE_FEATURE_TOL = 1e-10  # one configuration's rows, card vs CPU, f64
+
+
+def positive(x) -> bool:
+    return x is not None and bool(np.isfinite(x)) and x > 0
+
+
+def run_measurement_scripts(device):
+    """``anatomy_3l`` at 12/6/36, ``probe_rebuild2`` at 9,826 atoms,
+    ``md_scaling`` at 25^3 = 31,250 atoms, ``featurize_throughput`` on
+    64 configurations and ``fit_wallclock`` on 200, each script's
+    ``run`` with the trio kernel's count from 0.  Gates: every phase's
+    device and host ms and every time finite and positive, the rebuild's
+    lists equal to the native host list's as sets with the same overflow
+    flags, no MD row overflowed, and the features of one configuration
+    on the card within 1e-10 of the CPU's.  Returns (trio launches by
+    script, results by script)."""
+    t0 = time.perf_counter()
+    card = card_line()
+    launches, results = {}, {}
+
+    def counted(name, fn, *args, **kw):
+        reset_counts()
+        t = time.perf_counter()
+        out = fn(*args, device=device, **kw)
+        torch.cuda.synchronize()
+        launches[f"measurement: {name}"] = trio.trio_partials.launches
+        print(f"{name}: {time.perf_counter() - t:.2f} s, "
+              f"{trio.trio_partials.launches} trio launches")
+        results[name] = out
+        return out
+
+    name = "anatomy_3l {}/{}/{}".format(*MEASURE_CADENCE)
+    anatomy = counted(name, anatomy_3l.run, MEASURE_CADENCE)
+    for phase, dev in anatomy["scan_chained_ms"].items():
+        print(f"{name}: {phase} device {dev:.5f} ms "
+              f"({anatomy['device_ms_from'][phase]}), host "
+              f"{anatomy['host_ms'][phase]:.5f} ms; card: {card}")
+    print(f"{name}: e2e {anatomy['e2e_ms_per_step']:.5f} ms/step (windows "
+          f"{[round(t, 5) for t in anatomy['e2e_windows_ms_per_step']]}); "
+          f"cycle model device {anatomy['cycle_model_device_ms_per_step']:.5f}"
+          f", host {anatomy['cycle_model_ms_per_step']:.5f}; unmodeled "
+          f"{anatomy['unmodeled_ms_per_step']:.5f} (host), "
+          f"{anatomy['unmodeled_device_ms_per_step']:.5f} (device); "
+          f"branches {anatomy['rebuild_branches']}; node floor "
+          f"{anatomy['node_floor_ms']}; card: {card}")
+    gate(name, dict({
+        f"{phase} device and host ms finite and positive":
+            positive(anatomy["scan_chained_ms"][phase])
+            and positive(anatomy["host_ms"][phase])
+        for phase in anatomy["scan_chained_ms"]}, **{
+        "e2e and both models finite and positive": all(positive(anatomy[k])
+            for k in ("e2e_ms_per_step", "cycle_model_ms_per_step",
+                      "cycle_model_device_ms_per_step")),
+        "a rebuild branch a cycle in the windows":
+            sum(anatomy["rebuild_branches"].values())
+            == anatomy["window_steps"]
+            * len(anatomy["e2e_windows_ms_per_step"]) // MEASURE_CADENCE[2],
+        "trio kernel launched": launches[f"measurement: {name}"] > 0}))
+    name = "probe_rebuild2 {} atoms".format(
+        2 * int(np.prod(MEASURE_REBUILD_REPS)))
+    (entry,) = counted(name, probe_rebuild2.run,
+                       (MEASURE_REBUILD_REPS,))["sizes"]
+    print(f"{name}: grid {entry['grid']}, bin capacity "
+          f"{entry['bin_capacity']}, host {entry['host_ms']:.4f} ms, card "
+          f"busy {entry['device_busy_ms']:.4f} ms a build, "
+          f"{entry['host_syncs']} host syncs {entry['host_syncs_by_site']}, "
+          f"native {entry['native']}; card: {card}")
+    gate(name, {
+        "host and device ms finite and positive":
+            positive(entry["host_ms"]) and positive(entry["device_busy_ms"]),
+        "a host sync counted": positive(entry["host_syncs"]),
+        "both lists equal the native host list's (sets, overflow flags)":
+            entry["lists_equal_native"],
+        "no overflow": not any(c["overflow"]
+                               for c in entry["native"].values())})
+    name = f"md_scaling {MEASURE_SCALING_REPS}^3"
+    (row,) = counted(name, md_scaling.run, (MEASURE_SCALING_REPS,))["sizes"]
+    print(f"{name}: {row}; card: {card}")
+    gate(name, {
+        "no overflow": not row["overflow"],
+        "rates finite and positive": all(positive(r) for r in
+                                         row["window_atom_steps_per_s"]),
+        "busy share in (0, 1]": 0.0 < row["busy_share"] <= 1.0,
+        "trio kernel launched": launches[f"measurement: {name}"] > 0})
+    name = f"featurize_throughput {MEASURE_FEATURIZE_CONFIGS}"
+    feat = counted(name, featurize_throughput.run, MEASURE_FEATURIZE_CONFIGS)
+    print(f"{name}: {feat['featurize_ms_per_config']:.4f} ms a "
+          f"configuration ({feat['featurize_s']:.4f} s); card: {card}")
+    gate(name, {"time finite and positive": positive(feat["featurize_s"])})
+    name = f"fit_wallclock {MEASURE_FIT_CONFIGS}"
+    keep = {}
+    fit = counted(name, fit_wallclock.run, MEASURE_FIT_CONFIGS, keep=keep)
+    geoms, energies, forces = fit_wallclock.build_dataset(1)
+    from uf3_tpu_torch.ops import featurize as feat_ops
+    x_e, _, x_f, _ = feat_ops.featurize_dataset_device(
+        featurize_throughput.demo_basis(), geoms, energies, forces,
+        device="cpu")
+    card_e, _, card_f, _ = keep["rows"]
+    err = max(float(np.abs(card_e[:1] - x_e).max()),
+              float(np.abs(card_f[:len(x_f)] - x_f).max()))
+    print(f"{name}: featurize {fit['featurize_s']:.4f} s, solve "
+          f"{fit['solve_s']:.4f} s; configuration 0's rows card vs CPU "
+          f"{err:.3e}; card: {card}")
+    gate(name, {
+        "times finite and positive": positive(fit["featurize_s"])
+        and positive(fit["solve_s"]),
+        "finite coefficients": bool(np.isfinite(
+            keep["model"].coefficients).all()),
+        f"configuration 0's rows, card vs CPU, within "
+        f"{MEASURE_FEATURE_TOL:g}": err <= MEASURE_FEATURE_TOL})
+    print(f"measurement scripts: {time.perf_counter() - t0:.2f} s")
     return launches, results
 
 
@@ -2360,36 +2503,14 @@ def run_multi_route(device):
         nve_rate, stale
 
 
-def sync_sites(caught) -> dict:
-    """Host syncs among recorded warnings, by function of the engine
-    (``forcefield/md.py``) or by file:line elsewhere."""
-    spans = function_lines(md)
-    sites = {}
-    for w in caught:
-        if "synchronizing" not in str(w.message):
-            continue
-        where = f"{os.path.basename(w.filename)}:{w.lineno}"
-        if w.filename == md.__file__:
-            where = next((fn for a, b, fn in spans if a <= w.lineno <= b),
-                         where)
-        sites[where] = sites.get(where, 0) + 1
-    return sites
-
-
 def count_syncs(system: MDSystem, state, n_steps, **run_kw):
     """Run ``n_steps`` with ``sync=False`` under
     ``torch.cuda.set_sync_debug_mode("warn")``; returns (state, host
-    syncs by site, as ``sync_sites``)."""
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            state = system.run(state, n_steps=n_steps, sync=False, **run_kw)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    syncs by site, as ``common.sync_sites``)."""
+    state, sites = common.count_syncs(lambda: system.run(
+        state, n_steps=n_steps, sync=False, **run_kw))
     system.overflowed(state)  # reads what is still queued
-    return state, sync_sites(caught)
+    return state, sites
 
 
 def run_static_rebuild(device):
@@ -2441,19 +2562,6 @@ def run_legacy_refilter(device):
     return launches, rate, stale, branches
 
 
-def function_lines(module):
-    """(first line, last line, name) of every function and method of a
-    module, to place a warning's line."""
-    spans = []
-    for obj in list(vars(module).values()) + list(
-            vars(module.MDSystem).values()):
-        obj = getattr(obj, "__func__", obj)
-        if inspect.isfunction(obj) and obj.__module__ == module.__name__:
-            lines, first = inspect.getsourcelines(obj)
-            spans.append((first, first + len(lines) - 1, obj.__name__))
-    return spans
-
-
 def run_async_overflow(device):
     """The queued overflow check on the card.  200 steps (10 launches of
     20) at the engine's defaults, 9,826 atoms, with sync=False and then
@@ -2482,19 +2590,11 @@ def run_async_overflow(device):
     try:
         for sync in (False, True):
             reads.update(waited=0, arrived=0)
-            torch.cuda.synchronize()
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    state = system.run(state, n_steps=200, sync=sync,
-                                       **LANGEVIN)
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
+            state, sites = common.count_syncs(lambda: system.run(
+                state, n_steps=200, sync=sync, **LANGEVIN))
             in_flight = len(system._pending_overflow)
             run_reads = dict(reads)
             system.overflowed(state)  # reads what is still queued
-            sites = sync_sites(caught)
             results[sync] = (run_reads, in_flight, sites)
             print(f"{name}: run(sync={sync}) over 10 launches: flags read "
                   f"on arrival {run_reads['arrived']}, waited for "
@@ -2572,17 +2672,6 @@ def shifted(geom, dx=0.01):
     out = geom.copy()
     out.set_positions(geom.positions + dx)
     return out
-
-
-def profiled_device_ms(fn, calls=5):
-    """Device busy time per call of fn() in ms: the kernels' and copies'
-    own times that ``tracing.trace`` records over ``calls`` calls (it
-    raises where the profiler traced no device activity)."""
-    fn()
-    with tracing.trace() as rec:
-        for _ in range(calls):
-            fn()
-    return rec.device_ms() / calls
 
 
 def calc_call_times(calc, geom, kernel_counter):
@@ -4159,6 +4248,7 @@ def main():
               file=sys.stderr)
         sys.exit(1)
     device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     environment(device)
     build_kernels()
     records = compare_trio(device)
@@ -4232,6 +4322,8 @@ def main():
     validation_launches, validation = run_validation(device)
     launches.update({f"validation: {name}": n
                      for name, n in validation_launches.items()})
+    measure_launches, measured = run_measurement_scripts(device)
+    launches.update(measure_launches)
     rates["md command (2,000 atoms, plain Verlet)"] = run_md_command()[0]
     # the reference's general force path
     name = "2-body W (model_2.json)"
@@ -4317,6 +4409,27 @@ def main():
             print(f"{name}: worst force error past the stale line "
                   f"{result['max_force_error_past_stale_line_eV_A']} eV/A "
                   f"(9,826 atoms), card: {card}")
+    for name, result in measured.items():
+        if "e2e_ms_per_step" in result:
+            print(f"{name} (9,826 atoms, f32): e2e "
+                  f"{result['e2e_ms_per_step']:.5f} ms/step, cycle model "
+                  f"device {result['cycle_model_device_ms_per_step']:.5f}, "
+                  f"host {result['cycle_model_ms_per_step']:.5f}; card: {card}")
+        elif "sizes" in result:
+            for row in result["sizes"]:
+                print(f"{name}: {row['n_atoms']} atoms, "
+                      + (f"{row['atom_steps_per_s']:.1f} atom-steps/s, busy "
+                         f"share {row['busy_share']:.3f}"
+                         if "atom_steps_per_s" in row else
+                         f"full build {row['host_ms']:.4f} ms host, "
+                         f"{row['device_busy_ms']:.4f} ms card busy, "
+                         f"{row['host_syncs']} host syncs")
+                      + f"; card: {card}")
+        else:
+            print(f"{name}: featurize {result['featurize_ms_per_config']:.4f}"
+                  f" ms a configuration"
+                  + (f", solve {result['solve_s']:.4f} s"
+                     if "solve_s" in result else "") + f"; card: {card}")
     print(f"multichip_demo (NCCL, world size 1, {HALO_SHARDS} shards, "
           f"f64): |E_halo - E_single| {demo_diff:.3e} eV")
     for route, (dev_ms, hst_ms) in binary[1].items():
@@ -4405,6 +4518,7 @@ def main():
                  for case, sizes in mosaic["cases"].items()
                  for size, rec in sizes.items() if rec["kernel"] == name})
         for name, record in fragment_records(mosaic, device).items()]}))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -210,7 +210,10 @@ def test_port_sources_import_nothing_of_uf3_tpu():
         "benchmarks/step_anatomy.py", "benchmarks/probe_gather.py",
         "benchmarks/probe_stale.py", "benchmarks/probe_stale_error.py",
         "benchmarks/validate_final.py", "benchmarks/validate_respa.py",
-        "benchmarks/validate_respa_mid.py",
+        "benchmarks/validate_respa_mid.py", "benchmarks/anatomy_3l.py",
+        "benchmarks/probe_rebuild2.py", "benchmarks/md_scaling.py",
+        "benchmarks/featurize_throughput.py",
+        "benchmarks/fit_wallclock.py", "benchmarks/melting_run.py",
         "native/__init__.py", "examples/__init__.py",
         "examples/melting_point.py", "examples/tungsten_fit.py",
         "examples/nexe_pair_fit.py", "examples/multichip_demo.py")} \

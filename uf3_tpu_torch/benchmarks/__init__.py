@@ -14,5 +14,11 @@ artifact under ``benchmarks_data/artifacts_torch/``:
   r-RESPA cadence), ``validate_respa`` and ``validate_respa_mid`` (NVE
   drift per r-RESPA depth and mid cadence), ``probe_stale`` (what trips
   the staleness flag) and ``probe_stale_error`` (the force error of a
-  frozen neighbor list at the stale trip line).
+  frozen neighbor list at the stale trip line);
+- the other measurement scripts of ``benchmarks/``: ``anatomy_3l`` (the
+  3-level r-RESPA step's phases, device against host, and its cycle
+  model), ``probe_rebuild2`` (the full neighbor rebuild by size),
+  ``md_scaling`` (the MD rate against N), ``featurize_throughput`` and
+  ``fit_wallclock`` (the fit path's times) and ``melting_run`` (the
+  melting-point bracket over the example's trials).
 """

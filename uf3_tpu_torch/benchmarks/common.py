@@ -1,10 +1,12 @@
 """
 What the measurement scripts share: the device (the card unless asked
 for the CPU, as ``MDSystem``), the chain length, CUDA-graph and eager
-timing of a chained body, the card's description, the commit, the
-artifact directory and its stamp, the engine settings, models and 3-body
-rows that the trio kernels are timed on, and the validation scripts'
-cell and total energy.
+timing of a chained body, the device busy time of a call that a graph
+cannot capture (from the profiler) and the host syncs it holds (by
+site), the card's description, the commit, the artifact directory and
+its stamp, the engine settings, models and 3-body rows that the trio
+kernels are timed on, and the validation scripts' cell and total
+energy.
 
 Device times come from CUDA graphs: ``SCAN_LEN`` bodies chained (each
 takes the previous one's output, as the JAX scripts' ``lax.scan``
@@ -16,15 +18,18 @@ chain eagerly, ended by a synchronize.  A time is never divided by a
 chain length it was not measured over.
 """
 
+import inspect
 import itertools
 import json
 import os
 import subprocess
 import time
+import warnings
 
 import numpy as np
 import torch
 
+from uf3_tpu_torch.forcefield import md
 from uf3_tpu_torch.forcefield.md import _resolve_device as resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -285,6 +290,64 @@ def host_chain_ms(fn, x0, length: int = SCAN_LEN, repeats: int = 3) -> float:
         sync(x0.device)
         best = min(best, (time.perf_counter() - t0) / length)
     return 1e3 * best
+
+
+def profiled_device_ms(fn, calls: int = 5) -> float:
+    """Device busy time per call of fn() in ms: the kernels' and copies'
+    own times that ``tracing.trace`` records over ``calls`` calls (it
+    raises where the profiler traced no device activity).  For a call
+    that a CUDA graph cannot capture (one that reads the device on the
+    host)."""
+    from uf3_tpu_torch.util import tracing
+    fn()
+    with tracing.trace() as rec:
+        for _ in range(calls):
+            fn()
+    return rec.device_ms() / calls
+
+
+def function_lines(module):
+    """(first line, last line, name) of every function of ``module`` and
+    method of its ``MDSystem``, to place a warning's line."""
+    spans = []
+    for obj in list(vars(module).values()) + list(
+            vars(module.MDSystem).values()):
+        obj = getattr(obj, "__func__", obj)
+        if inspect.isfunction(obj) and obj.__module__ == module.__name__:
+            lines, first = inspect.getsourcelines(obj)
+            spans.append((first, first + len(lines) - 1, obj.__name__))
+    return spans
+
+
+def sync_sites(caught) -> dict:
+    """Host syncs among recorded warnings, by function of the engine
+    (``forcefield/md.py``) or by file:line elsewhere."""
+    spans = function_lines(md)
+    sites = {}
+    for w in caught:
+        if "synchronizing" not in str(w.message):
+            continue
+        where = f"{os.path.basename(w.filename)}:{w.lineno}"
+        if w.filename == md.__file__:
+            where = next((fn for a, b, fn in spans if a <= w.lineno <= b),
+                         where)
+        sites[where] = sites.get(where, 0) + 1
+    return sites
+
+
+def count_syncs(fn):
+    """fn() under ``torch.cuda.set_sync_debug_mode("warn")``, the card
+    synchronized first; returns (its result, host syncs by site, as
+    ``sync_sites``)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sync_sites(caught)
 
 
 def card(device: torch.device):

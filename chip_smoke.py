@@ -61,11 +61,21 @@ tungsten set's size (1,939 strained and rattled bcc W cells of 16, 54,
 ``UFCalculator``, featurized on the card in the bench model's basis,
 the Gram matrix on the card and the solve on the host, the fitted model
 held to its teacher on a 20% hold-out and run in MD at 9,826 atoms,
-and the ``featurize`` / ``fit`` / ``predict`` commands with ``md`` on
-their model, each ``train.xyz`` the commands read parsed by the native
-tokenizer (``uf3_tpu_torch/native``) and by the Python reader,
-bit-equal, both timed, and the ``tungsten_fit`` example on the fit
-phase's.  Last, the multi-species fit (``run_fit_multi``): 1,000
+and the ``tungsten_fit`` example on 50 of its configurations.  Then the
+fit's data pipeline on the same labeled set (``run_data_pipeline``):
+the configurations written as extended-xyz under four source
+directories, read through ``parse_with_subsampling`` into a
+``DataCoordinator`` (the first source also parsed by the native
+tokenizer, ``uf3_tpu_torch/native``, and by the Python reader,
+bit-equal, both timed), cached to an ase.db file and read back bit for
+bit, filtered by force, featurized on the card into the ``.npz``,
+``fit_from_file`` on the fit's training keys (its energies and forces
+within 1e-8 of the fit's) and ``batched_predict`` on its hold-out keys;
+then the ``featurize`` / ``fit`` / ``predict`` commands on 50 of them
+with a non-default energy key and a PSTRESS source (each -P V shift to
+1e-12), and ``md`` on their model with its trio launches counted.
+Last, the multi-species fit
+(``run_fit_multi``): 1,000
 strained and rattled binary fcc Ne/Xe cells of 32, 108 and 256 atoms
 (129,600 atoms), one in ten without forces, labeled by the random Ne/Xe
 2+3-body model through ``UFCalculator`` on the fused multi-species
@@ -3222,10 +3232,19 @@ def run_commands(name, frames, settings, tmp, device, commands=(
     os.makedirs(data_dir)
     data_io.write_xyz(os.path.join(data_dir, "train.xyz"), frames)
     compare_readers(os.path.join(data_dir, "train.xyz"), name)
+    path, model_path = command_settings(
+        settings, tmp, {"sources": {"path": data_dir, "pattern": "*.xyz"}})
+    route, rmse = run_cli(name, path, device, commands)
+    return model_path, route, rmse
+
+
+def command_settings(settings, tmp, data):
+    """``settings`` with the ``data`` section ``data`` and the features
+    and model paths in ``tmp``, written to ``tmp``/settings.json.
+    Returns (that path, the model's path)."""
     model_path = os.path.join(tmp, "fitted_cmd.json")
     features = os.path.join(tmp, "features.npz")
-    settings = dict(settings,
-                    data={"sources": {"path": data_dir, "pattern": "*.xyz"}},
+    settings = dict(settings, data=data,
                     features=dict(settings.get("features", {}),
                                   features_path=features),
                     model={"model_path": model_path},
@@ -3234,6 +3253,14 @@ def run_commands(name, frames, settings, tmp, device, commands=(
     path = os.path.join(tmp, "settings.json")
     with open(path, "w") as f:
         json.dump(settings, f)
+    return path, model_path
+
+
+def run_cli(name, path, device, commands):
+    """The fit ``commands`` of ``python -m uf3_tpu_torch`` on the
+    settings file ``path``, one process each, as a user runs them.
+    Returns (the route the featurizer took, predict's energy and force
+    RMSE), None where not printed."""
     flags = [] if torch.device(device).type == "cuda" \
         else ["--device", "cpu"]
     route, rmse = None, None
@@ -3255,45 +3282,29 @@ def run_commands(name, frames, settings, tmp, device, commands=(
         if out.returncode != 0:
             raise AssertionError(f"{name} {command} command failed:\n"
                                  f"{out.stderr[-4000:]}")
-    return model_path, route, rmse
+    return route, rmse
 
 
-def run_fit_command(geoms, energies, forces, tmp, device):
-    """``python -m uf3_tpu_torch featurize`` and ``fit`` on the card, on
-    an extended-xyz file of ``geoms`` written with ``write_xyz``, with
-    JSON settings naming the bench model's basis; then ``md`` runs the
-    model they wrote for 100 steps.  Returns the model's path."""
-    settings = {
-        "elements": ["W"], "degree": 3,
-        # the bench model's basis
-        "basis": {"r_min": {"W-W": 0.001, "W-W-W": [1.5, 1.5, 1.5]},
-                  "r_max": {"W-W": 5.5, "W-W-W": [3.5, 3.5, 7.0]},
-                  "resolution": {"W-W": 15, "W-W-W": [6, 6, 12]}},
-        "learning": {"regularizer": {"curvature_2b": FIT_REG["c2"],
-                                     "curvature_3b": FIT_REG["c3"]}}}
-    commands = os.path.join(tmp, "commands")
-    model_path, _, _ = run_commands(
-        "fit", labeled_frames(geoms, energies, forces), settings, commands,
-        device)
-    rate, energy = run_md_command(model_path, "--steps", "100")
-    # the tungsten example on the same file
+def run_tungsten_example(geoms, energies, forces, tmp, device):
+    """The ``tungsten_fit`` example on an extended-xyz file of ``geoms``
+    written with ``write_xyz``."""
+    data = os.path.join(tmp, "example_data")
+    os.makedirs(data)
+    path = os.path.join(data, "train.xyz")
+    data_io.write_xyz(path, labeled_frames(geoms, energies, forces))
     example = os.path.join(tmp, "tungsten_fit")
-    out = run_example("tungsten_fit",
-                      os.path.join(commands, "data", "train.xyz"),
+    out = run_example("tungsten_fit", path,
                       os.path.join(example, "features.npz"), "--out-dir",
                       example, device=device)
     found = re.search(r"force RMSE: (\S+) eV/A", out)
-    gate("fit command", {
-        "model written": os.path.isfile(model_path),
-        "md ran it 100 steps": np.isfinite(energy),
-        "tungsten_fit example: force RMSE printed and finite":
+    gate("tungsten_fit example", {
+        "force RMSE printed and finite":
             found is not None and np.isfinite(float(found.group(1))),
-        "tungsten_fit example: model written": os.path.isfile(
+        "model written": os.path.isfile(
             os.path.join(example, "model_2and3_refit.json"))})
-    return model_path
 
 
-def run_fit(device, counts=FIT_SET, seed=0, keep=None):
+def run_fit(device, counts=FIT_SET, seed=0):
     """The fit on the card: a training set of ``counts`` (by default the
     tungsten set's size, 1,939 configurations), labeled with energies and
     forces by ``UFCalculator`` on the bench model in f64, split 80/20;
@@ -3301,12 +3312,13 @@ def run_fit(device, counts=FIT_SET, seed=0, keep=None):
     Gram on the card (``gram_from_batches``), the solve on the host, the
     model written with ``to_json``, its hold-out RMSE against the labels
     through ``UFCalculator``, 720 steps of Langevin MD with it at 9,826
-    atoms, and the ``featurize`` / ``fit`` / ``predict`` commands on 50
-    configurations with ``md`` on their model.  Gates: features card vs
-    CPU within 1e-10 on one configuration per size, every configuration
-    featurized once (redos counted), the hold-out RMSEs, the MD, the
-    commands.  ``keep``, a directory, receives the commands' settings
-    and features.  Returns the trio launches by step."""
+    atoms, and the ``tungsten_fit`` example on 50 configurations.  Gates:
+    features card vs CPU within 1e-10 on one configuration per size,
+    every configuration featurized once (redos counted), the hold-out
+    RMSEs, the MD, the example.  Returns (the trio launches by step, the
+    labeled set for ``run_data_pipeline``: geometries, energies, forces,
+    the training and hold-out indices, the basis and the fitted
+    coefficients)."""
     from uf3_tpu_torch.ops import featurize as feat
     from uf3_tpu_torch.regression import least_squares as ls
     card = card_line()
@@ -3420,12 +3432,9 @@ def run_fit(device, counts=FIT_SET, seed=0, keep=None):
           f"{FIT_MD_STEPS} steps: T {system.temperature(state):.1f} K, E "
           f"{float(state.energy):.4f} eV; "
           f"{launches['fit: MD with the fitted model']} trio launches")
-    cmd_geoms = [geoms[i] for i in train[:FIT_CMD_CONFIGS]]
-    run_fit_command(cmd_geoms, [energies[i] for i in train[:FIT_CMD_CONFIGS]],
-                    [forces[i] for i in train[:FIT_CMD_CONFIGS]], tmp, device)
-    if keep is not None:   # the commands' settings and features
-        for name in ("settings.json", "features.npz"):
-            shutil.copy(os.path.join(tmp, "commands", name), keep)
+    cmd = train[:FIT_CMD_CONFIGS]
+    run_tungsten_example([geoms[i] for i in cmd], [energies[i] for i in cmd],
+                         [forces[i] for i in cmd], tmp, device)
     shutil.rmtree(tmp)
     gate("fit", {
         f"features card vs CPU within {FIT_FEATURE_TOL:g}":
@@ -3440,7 +3449,244 @@ def run_fit(device, counts=FIT_SET, seed=0, keep=None):
         "trio kernel launched in the labeling and the check":
             launches["fit: labeling"] > 0
             and launches["fit: hold-out check"] > 0})
-    return launches
+    return launches, dict(geoms=geoms, energies=energies, forces=forces,
+                          train=train, test=test, basis=basis,
+                          coefficients=model.coefficients.copy())
+
+
+# -- the fit's data pipeline on the card (ROADMAP.md section 1 item 7):
+# run_fit's labeled set written as extended-xyz under four source
+# directories, read by the DataCoordinator, cached to an ase.db file and
+# read back, filtered by force, featurized on the card into the .npz,
+# fitted from the file on run_fit's training keys and predicted on its
+# hold-out keys; then the commands on 50 configurations with a
+# non-default energy key and a source directory whose INCAR holds PSTRESS
+PIPE_SOURCES = 4
+PIPE_FIT_TOL = 1e-8      # fitted energies and forces vs run_fit's, relative
+PIPE_SHIFT_TOL = 1e-12   # each -P V shift, relative to the energy
+PIPE_PSTRESS = -5.0      # kbar (its sign is what the reference's parse loses)
+PIPE_DECOY = 3.0         # eV: the frames' "energy", beside their free_energy
+PIPE_MD_STEPS = 100
+
+
+def free_energy_source(path, frames):
+    """``frames`` as extended-xyz at ``path`` with each energy E written
+    as ``free_energy=E`` and a decoy ``energy=E + PIPE_DECOY``."""
+    data_io.write_xyz(path, frames)
+    with open(path) as f:
+        lines = f.read().splitlines()
+    with open(path, "w") as f:
+        for line in lines:
+            found = re.search(r"\benergy=(\S+)", line)
+            if found:
+                line = (line[:found.start()] + "free_energy="
+                        + found.group(1) + line[found.end():]
+                        + f" energy={float(found.group(1)) + PIPE_DECOY:.10f}")
+            f.write(line + "\n")
+
+
+def same_rows(geoms, dataset):
+    """Whether ``geoms`` (read from the ase.db file) hold the dataset's
+    configurations bit for bit: numbers, positions, cells, pbc, energies,
+    forces and keys."""
+    fields = ("fx", "fy", "fz")
+    return len(geoms) == len(dataset) and all(
+        np.array_equal(a.numbers, b.numbers)
+        and np.array_equal(a.positions, b.positions)
+        and np.array_equal(a.cell, b.cell) and np.array_equal(a.pbc, b.pbc)
+        and a.info["energy"] == b.info["energy"]
+        and a.info["row_name"] == key
+        and all(np.array_equal(a.arrays[c], b.arrays[c]) for c in fields)
+        for a, b, key in zip(geoms, dataset["geometry"], dataset.keys))
+
+
+def run_data_pipeline(device, fit, keep=None):
+    """The fit's data side on ``run_fit``'s labeled set (``fit``, as
+    ``run_fit`` returns it; labeled once there): the configurations
+    written as extended-xyz under four source directories, read through
+    ``parse_with_subsampling`` into a ``DataCoordinator``,
+    ``cache_data`` -> ``read_database`` (and the file read again as a
+    source), ``filter_max_forces``, ``Featurizer.write_features`` on the
+    card, ``fit_from_file`` on ``run_fit``'s training keys and
+    ``batched_predict`` on its hold-out keys; then ``python -m
+    uf3_tpu_torch featurize`` / ``fit`` / ``predict`` on 50 of them with
+    ``data.keys.energy_key`` "free_energy" and ``data.vasp_pressure``,
+    one of their two source directories holding an INCAR with PSTRESS,
+    and ``md`` on their model (in this process, its trio launches
+    counted).  ``keep``, a directory, receives the commands' settings
+    and features.  Returns the ``md`` command's trio launches."""
+    from uf3_tpu_torch import __main__ as cli
+    from uf3_tpu_torch.ops import featurize as feat
+    from uf3_tpu_torch.regression import least_squares as ls
+    card = card_line()
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    geoms, energies, forces = fit["geoms"], fit["energies"], fit["forces"]
+    frames = labeled_frames(geoms, energies, forces)
+    tmp = tempfile.mkdtemp()
+    chunks = np.array_split(np.arange(len(frames)), PIPE_SOURCES)
+    paths, key_of = [], {}
+    for d, chunk in enumerate(chunks):
+        os.makedirs(os.path.join(tmp, "data", f"src{d}"))
+        paths.append(os.path.join(tmp, "data", f"src{d}", "train.xyz"))
+        key_of.update({int(i): f"src{d}-train.xyz_{j}"
+                       for j, i in enumerate(chunk)})
+    timed("write", lambda: [data_io.write_xyz(path, [frames[i] for i in c])
+                            for path, c in zip(paths, chunks)])
+    compare_readers(paths[0], "data pipeline")
+    coordinator = data_io.DataCoordinator()
+    timed("parse", lambda: data_io.parse_with_subsampling(
+        paths, coordinator, max_samples=-1))
+    dataset = coordinator.consolidate()
+    in_order = dataset.keys == [key_of[i] for i in range(len(frames))]
+    db = os.path.join(tmp, "cache.db")
+    timed("cache_data", lambda: data_io.cache_data(dataset, db))
+    back = timed("read_database", lambda: data_io.read_database(db))
+    db_keys, _ = data_io.read_sources([db])
+    # the median of the largest per-atom forces, taken between two
+    # configurations so the text's rounding cannot cross it
+    largest = np.sort([np.linalg.norm(f, axis=1).max() for f in forces])
+    cutoff = 0.5 * (largest[len(largest) // 2 - 1]
+                    + largest[len(largest) // 2])
+    host_kept = int(np.sum(largest <= cutoff))
+    kept = timed("filter_max_forces", lambda: data_io.filter_max_forces(
+        dataset, cutoff=cutoff))
+    featurizer = feat.Featurizer(fit["basis"], device=device)
+    npz = os.path.join(tmp, "features.npz")
+    stats = {}
+    timed("featurize", lambda: featurizer.write_features(npz, dataset,
+                                                         stats=stats))
+    train_keys = [key_of[int(i)] for i in fit["train"]]
+    test_keys = [key_of[int(i)] for i in fit["test"]]
+    model = ls.WeightedLinearModel(fit["basis"], device=device, **FIT_REG)
+    timed("fit_from_file", lambda: model.fit_from_file(
+        npz, subset=train_keys, weight=0.5))
+    _, _, _, _, rmse_e, rmse_f = timed(
+        "batched_predict", lambda: model.batched_predict(npz,
+                                                         keys=test_keys))
+    x_e, _, x_f, _ = data_io.feature_rows(npz, subset=test_keys)
+    fit_err = {}
+    for name, x in (("energies", x_e), ("forces", x_f)):
+        want = x @ fit["coefficients"]
+        fit_err[name] = float(np.abs(x @ model.coefficients - want).max()
+                              / np.abs(want).max())
+    n_atoms = sum(len(g) for g in geoms)
+    print(f"data pipeline: {len(frames)} configurations ({n_atoms} atoms) "
+          f"in {PIPE_SOURCES} extended-xyz sources; seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+          + f" (featurize: {stats['calls']} calls, {stats['redos']} "
+          f"redos); card: {card}")
+    print(f"data pipeline: ase.db {os.path.getsize(db)} bytes, "
+          f"{len(back)} rows; filter at {cutoff:.6f} eV/A kept "
+          f"{len(kept)} (host count {host_kept}); fit_from_file on "
+          f"{len(train_keys)} training keys vs run_fit's fit, relative: "
+          f"energies {fit_err['energies']:.3e}, forces "
+          f"{fit_err['forces']:.3e}; batched_predict on {len(test_keys)} "
+          f"hold-out keys: RMSE energy {rmse_e:.4e} eV/atom, forces "
+          f"{rmse_f:.4e} eV/A")
+    # the commands, on 50 training configurations in two sources
+    cmd_dir = os.path.join(tmp, "commands")
+    cmd = [int(i) for i in fit["train"][:FIT_CMD_CONFIGS]]
+    half = len(cmd) // 2
+    sources = {"plain": cmd[:half], "pressured": cmd[half:]}
+    for name, idx in sources.items():
+        os.makedirs(os.path.join(cmd_dir, "data", name))
+        free_energy_source(os.path.join(cmd_dir, "data", name, "train.xyz"),
+                           [frames[i] for i in idx])
+    with open(os.path.join(cmd_dir, "data", "pressured", "INCAR"), "w") as f:
+        f.write(f"PREC = Accurate\nPSTRESS = {PIPE_PSTRESS} ! kbar\n")
+    settings = {
+        "elements": ["W"], "degree": 3,
+        # the bench model's basis
+        "basis": {"r_min": {"W-W": 0.001, "W-W-W": [1.5, 1.5, 1.5]},
+                  "r_max": {"W-W": 5.5, "W-W-W": [3.5, 3.5, 7.0]},
+                  "resolution": {"W-W": 15, "W-W-W": [6, 6, 12]}},
+        "learning": {"regularizer": {"curvature_2b": FIT_REG["c2"],
+                                     "curvature_3b": FIT_REG["c3"]}}}
+    settings_path, model_path = command_settings(settings, cmd_dir, {
+        "sources": {"path": os.path.join(cmd_dir, "data"),
+                    "pattern": "*.xyz"},
+        "keys": {"energy_key": "free_energy"}, "vasp_pressure": True})
+    t0 = time.perf_counter()
+    _, rmse = run_cli("data pipeline", settings_path, device,
+                      ("featurize", "fit", "predict"))
+    seconds["commands"] = time.perf_counter() - t0
+    pressure = PIPE_PSTRESS * 1e-22 / 1.602176634e-19
+    with np.load(os.path.join(cmd_dir, "features.npz")) as data:
+        rows = dict(zip(data["keys"].tolist(), data["y_e"] * data["sizes"]))
+    # the energies the command read, and each shift, against a parse of
+    # the same sources
+    row_err, shift_err = 0.0, 0.0
+    check = data_io.DataCoordinator.from_config({"energy_key":
+                                                 "free_energy"})
+    data_io.parse_with_subsampling(
+        [os.path.join(cmd_dir, "data", name, "train.xyz")
+         for name in sources], check, max_samples=-1, vasp_pressure=True)
+    parsed = check.consolidate()
+    for key, geom, corrected in zip(parsed.keys, parsed["geometry"],
+                                    parsed["free_energy"]):
+        free = geom.info["free_energy"]
+        want = -pressure * geom.get_volume() \
+            if key.startswith("pressured") else 0.0
+        shift_err = max(shift_err,
+                        abs((corrected - free) - want) / abs(free))
+        row_err = max(row_err, abs(rows[key] - corrected) / abs(free))
+    reset_counts()
+    out = StringIO()
+    with contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        cli.main(["md", model_path, "--steps", str(PIPE_MD_STEPS)]
+                 + ([] if torch.device(device).type == "cuda"
+                    else ["--device", "cpu"]))
+        torch.cuda.synchronize()
+    seconds["md command"] = time.perf_counter() - t0
+    md_launches = trio.trio_partials.launches
+    lines = out.getvalue().strip().splitlines()
+    for line in lines:
+        print(f"data pipeline md command: {line}")
+    found = re.search(r"\(([-+.\deE]+) atom-steps/s\); T = (\S+) K, "
+                      r"E = (\S+) eV", lines[-1] if lines else "")
+    if keep is not None:   # the commands' settings and features
+        for name in ("settings.json", "features.npz"):
+            shutil.copy(os.path.join(cmd_dir, name), keep)
+    shutil.rmtree(tmp)
+    wall = time.perf_counter() - t_phase
+    print(f"data pipeline: commands {seconds['commands']:.3f} s, md "
+          f"command ({PIPE_MD_STEPS} steps, in process) "
+          f"{seconds['md command']:.3f} s, {md_launches} trio launches; "
+          f"energy rows vs E - P V {row_err:.3e}, shifts vs -P V "
+          f"{shift_err:.3e} (relative to E; PSTRESS {PIPE_PSTRESS} kbar); "
+          f"phase wall {wall:.3f} s; card: {card}")
+    gate("data pipeline", {
+        "keys in the sources' order": in_order,
+        "ase.db round trip bit-equal": same_rows(back, dataset),
+        "the .db read back as a source": len(db_keys) == len(dataset),
+        "filter keeps the host's count": len(kept) == host_kept,
+        f"fit_from_file vs run_fit's fit within {PIPE_FIT_TOL:g} relative":
+            max(fit_err.values()) <= PIPE_FIT_TOL,
+        f"hold-out force RMSE <= {FIT_FORCE_RMSE:g} eV/A":
+            rmse_f <= FIT_FORCE_RMSE,
+        f"hold-out energy RMSE <= {FIT_ENERGY_RMSE:g} eV/atom":
+            rmse_e <= FIT_ENERGY_RMSE,
+        f"each shift -P V within {PIPE_SHIFT_TOL:g}":
+            shift_err <= PIPE_SHIFT_TOL,
+        f"the featurize command's energy rows E - P V within "
+        f"{PIPE_SHIFT_TOL:g}": row_err <= PIPE_SHIFT_TOL,
+        "predict printed finite RMSEs":
+            rmse is not None and all(np.isfinite(rmse)),
+        "md on the fitted model: finite, trio kernel launched":
+            found is not None and md_launches > 0
+            and all(np.isfinite(float(x)) for x in found.groups())})
+    return md_launches
 
 
 # -- the multi-species fit on the card (ROADMAP.md section 1 item 1):
@@ -4170,7 +4416,7 @@ def compare_trio_weighted(device, system32: MDSystem, mesh):
 def halo_fit(device, mesh, settings_path, features):
     """``fit_sharded`` and ``fit_from_file_sharded`` on the mesh against
     ``model.fit`` on the same rows (the ``.npz`` the fit commands wrote
-    in ``run_fit``): predictions within 1e-10 relative."""
+    in ``run_data_pipeline``): predictions within 1e-10 relative."""
     with open(settings_path) as f:
         settings = json.load(f)
     weight = settings["learning"].get("weight", 0.5)
@@ -4208,7 +4454,8 @@ def run_halo(device, fit_files=None):
     the f32 production run of the halo chunk, one trio launch per mid
     step for all shards, its collectives halo-sized; the kernel's
     center weight on the path's rows; the sharded fits on the fit
-    commands' features (``fit_files`` = (settings, features)).  Returns
+    commands' features (``fit_files`` = (settings, features), from
+    ``run_data_pipeline``).  Returns
     (the halo path's trio launches, its weighted-kernel record, rates)."""
     tmp = tempfile.mkdtemp()
     group = init_nccl(device, tmp)
@@ -4373,7 +4620,11 @@ def main():
     rates["md --traj (2,000 atoms)"] = run_md_traj()
     # the fit on the card (ROADMAP.md item 5), and the multi-species fit
     fit_keep = tempfile.mkdtemp()
-    launches.update(run_fit(device, keep=fit_keep))
+    fit_launches, labeled = run_fit(device)
+    launches.update(fit_launches)
+    launches["data pipeline: md command"] = run_data_pipeline(
+        device, labeled, keep=fit_keep)
+    del labeled
     multi_launches.update(run_fit_multi(device))
     # multi-shard MD and fitting on torch.distributed
     launches["halo"], halo_record, halo_rates = run_halo(device, tuple(

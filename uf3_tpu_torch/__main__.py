@@ -9,13 +9,18 @@ card, and the LAMMPS export of a model.
     python -m uf3_tpu_torch export model.json [--out DIR]
 
 ``featurize``, ``fit`` and ``predict`` read the settings of ``python -m
-uf3_tpu``'s commands, written as JSON (``util/user_config.py``); the
-sources are extended-xyz files, featurized on the route the basis allows
+uf3_tpu``'s commands, written as JSON (``util/user_config.py``), and go
+the reference's way: the sources (extended-xyz, vasprun and ase.db
+files) through a ``DataCoordinator`` built from ``data.keys`` and
+``parse_with_subsampling`` (with ``data.vasp_pressure``'s PV
+correction), featurized on the route the basis allows
 (``ops/featurize.Featurizer``: the unary or the multi-species path on
 the device, or the host featurizer for knots with no closed form; a
-configuration without forces gives its energy row alone), and the
-features file is ``.npz`` (x_e, y_e, x_f, y_f, the configuration keys,
-sizes and force rows, the column names) where ``uf3_tpu`` writes HDF5.  ``md`` takes the same flags, defaults and
+configuration without forces gives its energy row alone) into an
+``.npz`` features file (x_e, y_e, x_f, y_f, the configuration keys,
+sizes and force rows, the column names) where ``uf3_tpu`` writes HDF5;
+``fit`` runs ``fit_from_file`` over every key of it and ``predict``
+``batched_predict``.  ``md`` takes the same flags, defaults and
 result line as ``python -m uf3_tpu md`` (2,000 atoms of bcc, 1,000
 steps of 2 fs, Langevin at 300 K, plain velocity Verlet unless
 ``--respa`` is given; ``--traj`` writes an extended-xyz frame per
@@ -49,26 +54,26 @@ ROUTES = {"device": "the unary 2+3-body path on the device",
 def cmd_featurize(settings_path: str, device=None) -> None:
     settings = user_config.read_config(settings_path)
     handlers = user_config.generate_handlers(settings, device=device)
+    coordinator = handlers.get("data") or data_io.DataCoordinator()
     features_path = data_io.npz_features_path(
         settings["features"]["features_path"])
     sources = settings["data"]["sources"]
     paths = data_io.identify_paths(experiment_path=sources.get("path", "."),
                                    filename_pattern=sources.get("pattern"))
-    keys, geometries = data_io.read_sources(
-        paths, max_samples=settings["data"].get("max_per_file", -1),
-        min_diff=settings["data"].get("min_diff", 0.0))
-    print(f"{len(geometries)} configurations")
-    energies = [g.info.get("energy", 0.0) for g in geometries]
-    # a configuration without forces gives its energy row alone
-    forces = data_io.forces_of(geometries)
+    data_io.parse_with_subsampling(
+        paths, coordinator,
+        max_samples=settings["data"].get("max_per_file", -1),
+        min_diff=settings["data"].get("min_diff", 0.0),
+        vasp_pressure=settings["data"].get("vasp_pressure", False))
+    df_data = coordinator.consolidate()
+    print(f"{len(df_data)} configurations")
     featurizer = handlers["features"]
     print(f"route: {featurizer.route} ({ROUTES[featurizer.route]})")
     stats = {}
-    arrays = featurizer.featurize_dataset(geometries, energies, forces,
-                                          stats=stats)
-    force_rows = featurizer.force_rows(geometries, forces)
-    data_io.save_features(features_path, arrays, keys, geometries,
-                          force_rows, handlers["basis"].get_column_names())
+    # a configuration without forces gives its energy row alone
+    arrays, _ = featurizer.write_features(
+        features_path, df_data, atoms_key=coordinator.atoms_key,
+        energy_key=coordinator.energy_key, stats=stats)
     print(f"features written to {features_path} ({len(arrays[1])} energy "
           f"rows, {len(arrays[3])} force rows; {stats['calls']} calls, "
           f"{stats['redos']} configurations redone at their measured "
@@ -78,14 +83,12 @@ def cmd_featurize(settings_path: str, device=None) -> None:
 def cmd_fit(settings_path: str, device=None) -> None:
     settings = user_config.read_config(settings_path)
     handlers = user_config.generate_handlers(settings, device=device)
-    x_e, y_e, x_f, y_f = data_io.load_features(
-        settings["learning"]["features_path"])
+    features_path = settings["learning"]["features_path"]
+    with np.load(data_io.npz_features_path(features_path)) as data:
+        keys = data["keys"].tolist()
     model = handlers["learning"]
-    if x_e.shape[1] != model.n_feats:
-        raise ValueError(f"{x_e.shape[1]} feature columns, the basis has "
-                         f"{model.n_feats}")
-    model.fit(x_e, y_e, x_f, y_f,
-              weight=settings["learning"].get("weight", 0.5))
+    model.fit_from_file(features_path, subset=keys,
+                        weight=settings["learning"].get("weight", 0.5))
     model_path = settings["model"]["model_path"]
     model.to_json(model_path)
     print(f"model written to {model_path}")
@@ -94,21 +97,15 @@ def cmd_fit(settings_path: str, device=None) -> None:
 def cmd_predict(settings_path: str, device=None) -> None:
     settings = user_config.read_config(settings_path)
     handlers = user_config.generate_handlers(settings, device=device)
-    x_e, y_e, x_f, y_f = data_io.load_features(
+    features_path = data_io.npz_features_path(
         settings["learning"]["features_path"])
     model = handlers.get("model")
     if model is None:
         model = ls.WeightedLinearModel.from_json(
             settings["model"]["model_path"], device=device)
-
-    def predict(x):
-        return model.predict(torch.as_tensor(
-            x, dtype=torch.float64, device=model.device)).cpu().numpy()
-
-    rmse_e = ls.rmse_metric(y_e, predict(x_e))
-    # no force row (fit_forces off, or no configuration with forces)
-    rmse_f = ls.rmse_metric(y_f, predict(x_f)) if len(y_f) else np.nan
-    print(f"RMSE (energy): {rmse_e:.3F}\nRMSE (forces): {rmse_f:.3F}")
+    # the force RMSE is NaN without a force row (fit_forces off, or no
+    # configuration with forces)
+    y_e, _, y_f, _, rmse_e, rmse_f = model.batched_predict(features_path)
     print(f"RMSE (energy, eV/atom): {rmse_e:.6e}; RMSE (forces, eV/A): "
           f"{rmse_f:.6e}; {len(y_e)} configurations, {len(y_f)} force "
           f"rows on {model.device}")

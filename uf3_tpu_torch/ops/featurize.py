@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from uf3_tpu_torch.data import elements
+from uf3_tpu_torch.data import io as data_io
 from uf3_tpu_torch.forcefield.md import _resolve_device
 from uf3_tpu_torch.ops import neighbors as nb
 from uf3_tpu_torch.ops.splines import LegSpec, _dense_basis, \
@@ -941,3 +942,23 @@ class Featurizer:
         return featurize_dataset_device(
             self.bspline_config, geometries, energies, forces,
             dtype=self.dtype, device=self.device, stats=stats)
+
+    def write_features(self, filename: str, df_data,
+                       atoms_key: str = "geometry",
+                       energy_key: str = "energy", stats: Dict = None):
+        """Featurize a ``data.io.Dataset`` (its ``atoms_key`` geometries,
+        ``energy_key`` energies and fx / fy / fz forces) into the
+        ``.npz`` features file ``filename`` with its keys, sizes, force
+        rows and column names, where the reference's ``batched_to_hdf``
+        writes HDF5 tables.  Returns (x_e, y_e, x_f, y_f) and the force
+        rows."""
+        geometries = df_data[atoms_key]
+        forces = data_io.dataset_forces(df_data)
+        arrays = self.featurize_dataset(
+            geometries, np.asarray(df_data[energy_key], dtype=float),
+            forces, stats=stats)
+        force_rows = self.force_rows(geometries, forces)
+        data_io.save_features(filename, arrays, df_data.keys, geometries,
+                              force_rows,
+                              self.bspline_config.get_column_names())
+        return arrays, force_rows

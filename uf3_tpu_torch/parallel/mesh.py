@@ -18,7 +18,6 @@ moves per shard, by operation, where the reference audits its compiled
 HLO.
 """
 
-import os
 from typing import NamedTuple
 
 import numpy as np
@@ -254,37 +253,18 @@ def fit_from_file_sharded(model, filename: str, subset, weight: float = 0.5,
                           energy_key: str = "energy",
                           drop_columns=None) -> None:
     """Mesh-parallel twin of ``WeightedLinearModel.fit_from_file`` on
-    the ``.npz`` that ``python -m uf3_tpu_torch featurize`` writes
-    (``keys``, ``force_rows``, ``columns`` beside the rows): the rows of
-    the configurations in ``subset``, each scaled by its configuration's
-    ``sample_weights`` (as ``dataframe_to_tuples``), ``drop_columns``
-    removed by name, then ``fit_sharded``.  The ``.npz`` is read whole,
+    the ``.npz`` that ``python -m uf3_tpu_torch featurize`` writes: the
+    rows of the configurations in ``subset``, each scaled by its
+    configuration's ``sample_weights``, ``drop_columns`` removed by name
+    (``data.io.feature_rows``, as ``fit_from_file`` selects them), then
+    ``fit_sharded``.  The ``.npz`` is read whole,
     so the reference's ``chunk_size`` (HDF5 tables streamed to bound
     host memory) has no counterpart.  The file holds one energy column,
     so ``energy_key`` must be "energy"; an HDF5 path raises (ROADMAP.md,
     Featurization)."""
-    if energy_key != "energy":
-        raise ValueError(f"energy_key {energy_key!r}: the .npz features "
-                         "file holds one energy column, 'energy'")
-    filename = data_io.npz_features_path(filename)
-    if not os.path.isfile(filename):
-        raise FileNotFoundError(filename)
-    with np.load(filename) as data:
-        x_e, y_e, x_f, y_f, keys, force_rows, columns = (
-            data[k] for k in ("x_e", "y_e", "x_f", "y_f", "keys",
-                              "force_rows", "columns"))
-    if drop_columns is not None:
-        keep = ~np.isin(columns[1:], list(drop_columns))
-        x_e, x_f = x_e[:, keep], x_f[:, keep]
-    chosen = np.flatnonzero(np.isin(keys, list(subset)))
-    w = np.array([1.0 if sample_weights is None
-                  else sample_weights.get(keys[i], 1.0) for i in chosen])
-    f_start = np.concatenate([[0], np.cumsum(force_rows)])
-    f_idx = np.concatenate([np.arange(f_start[i], f_start[i + 1])
-                            for i in chosen]).astype(np.int64)
-    w_f = np.repeat(w, force_rows[chosen])
-    fit_sharded(model, x_e[chosen] * w[:, None], y_e[chosen] * w,
-                x_f[f_idx] * w_f[:, None], y_f[f_idx] * w_f, weight, mesh)
+    fit_sharded(model, *data_io.feature_rows(
+        filename, subset, sample_weights, drop_columns, energy_key),
+        weight=weight, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

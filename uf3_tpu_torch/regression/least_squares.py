@@ -18,19 +18,25 @@ device, the solve on the host), the frozen-column helpers,
 ``dump``, ``load``, ``fix_repulsion_2b``), the pair-spline
 post-processing (``get_spline_taylor_expansion``,
 ``postprocess_coefficients_2b``, ``find_pair_potential_well``),
-``arrange_coefficients`` and the metrics.  The HDF5 feature tables of
-``fit_from_file`` and ``batched_predict`` are replaced by feature
-batches (``fit_from_batches``, ``gram_from_batches``), as the
-single-device counterpart of ``uf3_tpu/parallel/mesh.py``'s
-``fit_sharded``.
+``arrange_coefficients``, ``dataframe_to_tuples`` (on a
+``representation.process.FeatureTable``), ``subset_prediction`` and
+the metrics.  ``fit_from_file``, ``batched_predict`` and
+``batched_prediction`` read the ``.npz`` features file that ``python -m
+uf3_tpu_torch featurize`` writes, where the reference streams HDF5
+tables: its rows are already per atom, and ``data.io.feature_rows``
+selects them by key, sample weight and dropped column, as
+``parallel/mesh.py``'s ``fit_from_file_sharded`` does.  Feature
+batches on the device fit through ``fit_from_batches`` and
+``gram_from_batches``.
 """
 
-from typing import Collection, Dict, Iterable, Tuple
+from typing import Collection, Dict, Iterable, List, Tuple
 
 import numpy as np
 import torch
 
 from uf3_tpu_torch import io
+from uf3_tpu_torch.data import io as data_io
 from uf3_tpu_torch.forcefield.md import _resolve_device
 from uf3_tpu_torch.io import arrange_coefficients  # noqa: F401
 from uf3_tpu_torch.representation import splines as sp
@@ -73,6 +79,18 @@ class VarianceRecorder:
                         + delta * delta * (self.n * n_b / total))
             self._mean = self._mean + delta * (n_b / total)
             self.n = total
+        return self.mean, self.std, self.n
+
+    def update_with_components(self, df, keys=None):
+        """Fold the flattened force components of a ``Dataset``'s rows
+        into the stream, skipping rows with missing entries."""
+        keys = keys or ["fx", "fy", "fz"]
+        for cols in zip(*(df[k] for k in keys)):
+            if any(c is None or (np.isscalar(c) and np.isnan(c))
+                   for c in cols):
+                continue
+            self.update(np.concatenate(
+                [np.ravel(np.asarray(c, dtype=float)) for c in cols]))
         return self.mean, self.std, self.n
 
 
@@ -188,6 +206,51 @@ def calc_E_F_weights(n_e, n_f, std_e, std_f) -> Tuple[float, float]:
     if std_e == 0:
         return 1.0, 1.0 / np.sqrt(n_f)
     return 1.0 / np.sqrt(n_e) / std_e, 1.0 / np.sqrt(n_f) / std_f
+
+
+# ---------------------------------------------------------------------------
+# feature tables
+# ---------------------------------------------------------------------------
+def dataframe_to_tuples(df_features, n_elements: int = None,
+                        energy_key: str = "energy",
+                        sample_weights: Dict = None):
+    """
+    Split a ``FeatureTable``'s rows into energy and force channels;
+    energy rows are normalized per atom via the 1-body composition
+    columns when ``n_elements`` is given; each row is scaled by its
+    configuration's ``sample_weights`` entry.
+    """
+    names = df_features.names
+    energy_mask = np.array([kind == energy_key
+                            for kind in df_features.kinds], dtype=bool)
+    force_mask = ~energy_mask
+    data = df_features.to_numpy(dtype=np.float64)
+    y = data[:, 0]
+    x = data[:, 1:]
+    y_e = y[energy_mask]
+    y_f = y[force_mask]
+    if n_elements is not None:
+        sizes = np.sum(x[energy_mask, :n_elements], axis=1)
+        x_e = x[energy_mask] / sizes[:, None]
+        y_e = y_e / sizes
+    else:
+        x_e = x[energy_mask]
+    x_f = x[force_mask]
+    if sample_weights is not None:
+        w = np.array([sample_weights.get(name, 1.0) for name in names])
+        x_e = x_e * w[energy_mask][:, None]
+        y_e = y_e * w[energy_mask]
+        x_f = x_f * w[force_mask][:, None]
+        y_f = y_f * w[force_mask]
+    return x_e, y_e, x_f, y_f
+
+
+def _row_batches(x_e, y_e, x_f, y_f, batch_size: int):
+    """(x_e, y_e, x_f, y_f) in batches of at most ``batch_size`` rows of
+    each channel."""
+    for start in range(0, max(len(y_e), len(y_f), 1), batch_size):
+        rows = slice(start, start + batch_size)
+        yield x_e[rows], y_e[rows], x_f[rows], y_f[rows]
 
 
 # ---------------------------------------------------------------------------
@@ -405,6 +468,42 @@ class WeightedLinearModel(BasicLinearModel):
                     + (1 - weight) * force_weight ** 2 * ord_f)
         return gram, ordinate
 
+    # -- the features file ----------------------------------------------------
+    def fit_from_file(self, filename: str, subset: Collection,
+                      weight: float = 0.5, batch_size: int = 2500,
+                      sample_weights: Dict = None,
+                      energy_key: str = "energy",
+                      drop_columns: List[str] = None):
+        """Fit the rows of the configurations in ``subset`` of an
+        ``.npz`` features file (``data.io.feature_rows``: per-atom rows,
+        scaled by ``sample_weights``, ``drop_columns`` removed): the Gram
+        matrices summed on the device over batches of ``batch_size``
+        rows, the channel weights from the targets' variances, the solve
+        on the host.  ``energy_key`` other than "energy" raises; so does
+        an HDF5 path (ROADMAP.md, Featurization)."""
+        rows = data_io.feature_rows(filename, subset, sample_weights,
+                                    drop_columns, energy_key)
+        if rows[0].shape[1] != self.n_feats:
+            raise ValueError(f"{rows[0].shape[1]} feature columns, the "
+                             f"basis has {self.n_feats}")
+        self.fit_from_batches(_row_batches(*rows, batch_size), weight=weight)
+
+    def batched_predict(self, filename: str, keys=None, score: bool = True,
+                        drop_columns=None):
+        """Targets and predictions (y_e, p_e, y_f, p_f) of the rows of
+        ``keys`` (every configuration where None) of an ``.npz`` features
+        file, predicted on the model's device; with ``score`` also the
+        energy and force RMSE, printed as the reference prints them (the
+        force RMSE NaN where no force row was chosen)."""
+        y_e, p_e, y_f, p_f = batched_prediction(
+            self, filename, subset_keys=keys, drop_columns=drop_columns)
+        if not score:
+            return y_e, p_e, y_f, p_f
+        rmse_e = rmse_metric(y_e, p_e)
+        rmse_f = rmse_metric(y_f, p_f) if len(y_f) else np.nan
+        print(f"RMSE (energy): {rmse_e:.3F}\nRMSE (forces): {rmse_f:.3F}")
+        return y_e, p_e, y_f, p_f, rmse_e, rmse_f
+
     # -- serialization ------------------------------------------------------
     @staticmethod
     def from_dict(config: Dict, device=None) -> "WeightedLinearModel":
@@ -530,8 +629,38 @@ def find_pair_potential_well(coefficients, rounding_factor) -> int:
 
 
 # ---------------------------------------------------------------------------
-# metrics
+# prediction / metrics
 # ---------------------------------------------------------------------------
+def subset_prediction(df, model: BasicLinearModel, subset_keys=None,
+                      **kwargs):
+    """(y_e, p_e, y_f, p_f) of a ``FeatureTable``'s rows (of the
+    configurations in ``subset_keys`` where given), ``kwargs`` passed to
+    ``dataframe_to_tuples``."""
+    if subset_keys is not None:
+        subset = set(subset_keys)
+        idx = [name for name in dict.fromkeys(df.names) if name in subset]
+        if len(idx) == 0:
+            return [], [], [], []
+        df = df.select(idx)
+    x_e, y_e, x_f, y_f = dataframe_to_tuples(df, **kwargs)
+    return y_e, model.predict(x_e), y_f, model.predict(x_f)
+
+
+def batched_prediction(model: BasicLinearModel, filename: str,
+                       subset_keys=None, drop_columns=None):
+    """(y_e, p_e, y_f, p_f) of an ``.npz`` features file's rows (of the
+    configurations in ``subset_keys`` where given), the products on the
+    model's device in float64."""
+    x_e, y_e, x_f, y_f = data_io.feature_rows(filename, subset_keys,
+                                              drop_columns=drop_columns)
+
+    def predict(x):
+        return _host(model.predict(torch.as_tensor(
+            x, dtype=torch.float64, device=model.device)))
+
+    return y_e, predict(x_e), y_f, predict(x_f)
+
+
 def rmse_metric(predicted, actual) -> float:
     return np.sqrt(np.mean(np.subtract(predicted, actual) ** 2))
 

@@ -1,22 +1,22 @@
 """
 BasisFeaturizer without pandas: energy and force feature vectors of a
 configuration on the host (1-body composition, 2-body, compressed
-3-body; numpy, float64), and the fitting arrays of a dataset.
+3-body; numpy, float64), the feature table of a dataset, and the
+fitting arrays of a dataset.
 
 Counterpart of ``uf3_tpu/representation/process.py``: ``__init__`` with
 ``fit_forces`` and ``prefix``, the passthrough properties,
-``featurize_energy_2B`` / ``force_2B`` / ``energy_3B`` / ``force_3B`` and
-``evaluate_configuration``.  The DataFrame and HDF5 side (``evaluate``,
-``batched_to_hdf``) is replaced by ``featurize_dataset``, which returns
-(x_e, y_e, x_f, y_f) in ``dataframe_to_tuples`` order.  This is the
-route for bases whose knots have no closed form; the device featurizer
-(``ops/featurize.py``) takes every other basis.
-
-One difference by design: the ghost supercell is built deep enough for
-the longest 3-body center leg, twice its length, where the reference
-builds it at the basis's ``r_cut`` (``process.py:176``); in a cell
-smaller than the 3-body legs the reference's then misses the far
-neighbor of a ghost center and drops force terms of in-cell atoms.
+``featurize_energy_2B`` / ``force_2B`` / ``energy_3B`` / ``force_3B``,
+``evaluate_configuration`` and ``evaluate``, which returns a
+``FeatureTable`` (the reference's DataFrame: rows indexed by
+(configuration key, kind), the "y" column and the feature columns, in
+the reference's order and names).  ``featurize_dataset`` returns (x_e,
+y_e, x_f, y_f) in ``dataframe_to_tuples`` order.  The HDF5 store
+(``batched_to_hdf``, ``save_feature_db``, ``load_feature_db``,
+``analyze_hdf_tables``) is not ported: the GPU hosts carry no h5py
+(ROADMAP.md, Featurization).  This is the route for bases whose knots
+have no closed form; the device featurizer (``ops/featurize.py``) takes
+every other basis.
 """
 
 import warnings
@@ -213,6 +213,31 @@ class BasisFeaturizer:
         return eval_map
 
     # -- datasets -------------------------------------------------------------
+    def evaluate(self, df_data, atoms_key: str = "geometry",
+                 energy_key: str = "energy") -> "FeatureTable":
+        """The feature table of every configuration of a ``Dataset``
+        (``data.io``): an energy row per configuration where the dataset
+        has the ``energy_key`` column, 3 N force rows where it has fx,
+        fy, fz, a configuration's components are all there and
+        ``fit_forces`` is on; the reference's row order and names."""
+        eval_map = {}
+        has_energy = energy_key in df_data
+        has_forces = all(k in df_data for k in ("fx", "fy", "fz"))
+        for i, name in enumerate(df_data.keys):
+            energy = df_data[energy_key][i] if has_energy else None
+            forces = None
+            if has_forces and self.fit_forces:
+                forces = [df_data[c][i] for c in ("fx", "fy", "fz")]
+                if any(f is None for f in forces) or np.any(np.isnan(
+                        np.concatenate([np.atleast_1d(np.asarray(
+                            f, dtype=float)) for f in forces]))):
+                    forces = None
+            eval_map.update(self.evaluate_configuration(
+                df_data[atoms_key][i], name, energy, forces, energy_key))
+        values = np.array(list(eval_map.values()), dtype=np.float64)
+        return FeatureTable(list(eval_map), list(self.columns),
+                            values.reshape(len(eval_map), len(self.columns)))
+
     def featurize_dataset(self, geometries: Sequence, energies: Sequence,
                           forces: Sequence = None
                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
@@ -240,6 +265,45 @@ class BasisFeaturizer:
         return (np.stack(x_e), np.array(y_e, dtype=np.float64),
                 np.concatenate(x_f) if x_f else np.zeros((0, n_columns)),
                 np.concatenate(y_f) if y_f else np.zeros(0))
+
+
+class FeatureTable:
+    """Feature rows of a dataset as the reference's DataFrame holds them:
+    ``index`` the (configuration key, kind) of each row (kind: the
+    energy key, or "fx_<atom>", "fy_<atom>", "fz_<atom>"), ``columns``
+    the column names ("y", then the features), ``values`` the
+    (rows, columns) float64 array."""
+
+    def __init__(self, index: List[Tuple], columns: List[str],
+                 values: np.ndarray):
+        self.index = list(index)
+        self.columns = list(columns)
+        self.values = np.asarray(values, dtype=np.float64)
+
+    def __len__(self) -> int:
+        return len(self.index)
+
+    @property
+    def names(self) -> List:
+        """The configuration key of each row."""
+        return [name for name, _ in self.index]
+
+    @property
+    def kinds(self) -> List[str]:
+        return [kind for _, kind in self.index]
+
+    def to_numpy(self, dtype=np.float64) -> np.ndarray:
+        return self.values.astype(dtype)
+
+    def select(self, keys) -> "FeatureTable":
+        """The rows of the configurations ``keys``, configuration by
+        configuration in the order of ``keys``, as ``df.loc[keys]``."""
+        rows: Dict = {}
+        for i, name in enumerate(self.names):
+            rows.setdefault(name, []).append(i)
+        picked = [i for key in keys for i in rows[key]]
+        return FeatureTable([self.index[i] for i in picked], self.columns,
+                            self.values[np.asarray(picked, dtype=np.int64)])
 
 
 def check_elements(geom, element_list, index: int) -> None:

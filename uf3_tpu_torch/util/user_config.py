@@ -1,14 +1,15 @@
 """
 Settings of the ``featurize``, ``fit`` and ``predict`` commands, with
 type-checked defaults, and the handler factory that builds the
-ChemicalSystem / BSplineBasis / Featurizer / WeightedLinearModel
-objects from one settings dictionary.
+DataCoordinator / ChemicalSystem / BSplineBasis / Featurizer /
+WeightedLinearModel objects from one settings dictionary.
 
 Counterpart of the part of ``uf3_tpu/util/user_config.py`` those
-commands read (``read_config``, ``generate_handlers`` for ``elements``,
-``degree``, ``basis``, ``features``, ``model``, ``learning``).  Settings
-are written as JSON, which is a subset of the YAML ``uf3_tpu`` reads, so
-one file serves both packages; the GPU hosts carry no YAML parser.  The
+commands read (``read_config``, ``generate_handlers`` for ``data``,
+``elements``, ``degree``, ``basis``, ``features``, ``model``,
+``learning``).  Settings are written as JSON, which is a subset of the
+YAML ``uf3_tpu`` reads, so one file serves both packages; the GPU hosts
+carry no YAML parser.  The
 basis's ``r_min`` / ``r_max`` / ``resolution`` may also be maps keyed
 as in the model files ("W-W", "W-W-W"), and its ``knots_map`` (knot
 sequences of any spacing) one too, which only this package reads.  The
@@ -25,7 +26,7 @@ from typing import Dict
 
 import numpy as np
 
-from uf3_tpu_torch.data import composition, elements
+from uf3_tpu_torch.data import composition, elements, io
 from uf3_tpu_torch.ops import featurize
 from uf3_tpu_torch.regression import least_squares
 from uf3_tpu_torch.representation import basis
@@ -45,7 +46,10 @@ DEFAULT_SETTINGS = {
     "data": {
         "max_per_file": -1,
         "min_diff": 0.0,
+        "vasp_pressure": False,
         "sources": {"path": "./data", "pattern": "*"},
+        "keys": {"atoms_key": "geometry", "energy_key": "energy",
+                 "force_key": "forces", "size_key": "size"},
     },
     "basis": {
         "r_min": None,
@@ -118,6 +122,10 @@ def read_config(settings_filename: str) -> Dict:
     return settings
 
 
+def _build_data(settings, handlers, device):
+    return io.DataCoordinator.from_config(settings["data"]["keys"])
+
+
 def _build_chemical_system(settings, handlers, device):
     if not settings["elements"]:
         return None
@@ -164,6 +172,7 @@ def _build_learning(settings, handlers, device):
 # handler name -> (settings keys required, handlers required, builder).
 # Order matters: later builders consume earlier handlers.
 _HANDLER_RECIPES = (
+    ("data", ("data",), (), _build_data),
     ("chemical_system", ("elements", "degree"), (), _build_chemical_system),
     ("basis", ("basis",), ("chemical_system",), _build_basis),
     ("features", ("features",), ("basis",), _build_features),
@@ -173,11 +182,11 @@ _HANDLER_RECIPES = (
 
 
 def generate_handlers(settings: Dict, device=None) -> Dict:
-    """Build pipeline objects from a settings dictionary: the chemical
-    system, the basis, the featurizer (``features``: a
-    ``featurize.Featurizer``, which picks the device or host route the
-    basis allows, with the settings' ``fit_forces`` and
-    ``column_prefix``), a model
+    """Build pipeline objects from a settings dictionary: the data
+    coordinator (``data``, of the ``data.keys``), the chemical system,
+    the basis, the featurizer (``features``: a ``featurize.Featurizer``,
+    which picks the device or host route the basis allows, with the
+    settings' ``fit_forces`` and ``column_prefix``), a model
     loaded from ``model.model_path`` when that file exists (``model``)
     and the model to fit (``learning``), both on ``device``.  Each
     handler is attempted only when its settings sections and upstream

@@ -74,6 +74,14 @@ within 1e-8 of the fit's) and ``batched_predict`` on its hold-out keys;
 then the ``featurize`` / ``fit`` / ``predict`` commands on 50 of them
 with a non-default energy key and a PSTRESS source (each -P V shift to
 1e-12), and ``md`` on their model with its trio launches counted.
+Then the HDF5 feature store on the same set (``run_feature_store``):
+``Featurizer.write_features`` on the card into 39 tables of 50
+configurations (``util/hdf5.py``, no h5py), a rerun that adds none and
+featurizes nothing, the committed fixture ``tests/data/features_ref.h5``
+(written by h5py) read bit-equal to its ``.npz`` twin, ``fit_from_file``
+and ``batched_predict`` on the ``.h5`` within 1e-10 of the ``.npz`` fit
+and at a quarter of its host memory peak, and the commands on an
+``.h5`` settings file with ``md`` on their model.
 Last, the multi-species fit
 (``run_fit_multi``): 1,000
 strained and rattled binary fcc Ne/Xe cells of 32, 108 and 256 atoms
@@ -92,7 +100,7 @@ single device; the halo chunk's float32 3-level r-RESPA NVE run with
 its re-decompositions, one trio launch per mid step for all shards and
 halo-sized collectives, beside the single-device rate; the trio
 kernel's center weight on the path's rows; the sharded fits on the fit
-commands' features; then the ``multichip_demo`` example as a subprocess
+commands' HDF5 features; then the ``multichip_demo`` example as a subprocess
 (NCCL, world size 1, 4 shards: the halo energy within 1e-8 eV of the
 single device's in float64).  The trio kernel's triangle lanes (the
 ``trio_triangle`` option; the halo path's layout on a symmetric grid)
@@ -156,6 +164,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import tracemalloc
 import warnings
 from io import StringIO
 
@@ -3238,12 +3247,12 @@ def run_commands(name, frames, settings, tmp, device, commands=(
     return model_path, route, rmse
 
 
-def command_settings(settings, tmp, data):
+def command_settings(settings, tmp, data, features="features.npz"):
     """``settings`` with the ``data`` section ``data`` and the features
-    and model paths in ``tmp``, written to ``tmp``/settings.json.
-    Returns (that path, the model's path)."""
+    (file name ``features``) and model paths in ``tmp``, written to
+    ``tmp``/settings.json.  Returns (that path, the model's path)."""
     model_path = os.path.join(tmp, "fitted_cmd.json")
-    features = os.path.join(tmp, "features.npz")
+    features = os.path.join(tmp, features)
     settings = dict(settings, data=data,
                     features=dict(settings.get("features", {}),
                                   features_path=features),
@@ -3294,7 +3303,7 @@ def run_tungsten_example(geoms, energies, forces, tmp, device):
     data_io.write_xyz(path, labeled_frames(geoms, energies, forces))
     example = os.path.join(tmp, "tungsten_fit")
     out = run_example("tungsten_fit", path,
-                      os.path.join(example, "features.npz"), "--out-dir",
+                      os.path.join(example, "features.h5"), "--out-dir",
                       example, device=device)
     found = re.search(r"force RMSE: (\S+) eV/A", out)
     gate("tungsten_fit example", {
@@ -3513,8 +3522,10 @@ def run_data_pipeline(device, fit, keep=None):
     ``data.keys.energy_key`` "free_energy" and ``data.vasp_pressure``,
     one of their two source directories holding an INCAR with PSTRESS,
     and ``md`` on their model (in this process, its trio launches
-    counted).  ``keep``, a directory, receives the commands' settings
-    and features.  Returns the ``md`` command's trio launches."""
+    counted).  ``keep``, a directory, receives the ``.npz``.  Returns
+    (the ``md`` command's trio launches, for ``run_feature_store``: the
+    dataset, its training and hold-out keys, the kept ``.npz`` and the
+    seconds its ``write_features`` took)."""
     from uf3_tpu_torch import __main__ as cli
     from uf3_tpu_torch.ops import featurize as feat
     from uf3_tpu_torch.regression import least_squares as ls
@@ -3573,7 +3584,7 @@ def run_data_pipeline(device, fit, keep=None):
     _, _, _, _, rmse_e, rmse_f = timed(
         "batched_predict", lambda: model.batched_predict(npz,
                                                          keys=test_keys))
-    x_e, _, x_f, _ = data_io.feature_rows(npz, subset=test_keys)
+    x_e, _, x_f, _ = ls.feature_rows(npz, subset=test_keys)
     fit_err = {}
     for name, x in (("energies", x_e), ("forces", x_f)):
         want = x @ fit["coefficients"]
@@ -3655,9 +3666,9 @@ def run_data_pipeline(device, fit, keep=None):
         print(f"data pipeline md command: {line}")
     found = re.search(r"\(([-+.\deE]+) atom-steps/s\); T = (\S+) K, "
                       r"E = (\S+) eV", lines[-1] if lines else "")
-    if keep is not None:   # the commands' settings and features
-        for name in ("settings.json", "features.npz"):
-            shutil.copy(os.path.join(cmd_dir, name), keep)
+    kept_npz = None
+    if keep is not None:
+        kept_npz = shutil.copy(npz, keep)
     shutil.rmtree(tmp)
     wall = time.perf_counter() - t_phase
     print(f"data pipeline: commands {seconds['commands']:.3f} s, md "
@@ -3686,6 +3697,229 @@ def run_data_pipeline(device, fit, keep=None):
         "md on the fitted model: finite, trio kernel launched":
             found is not None and md_launches > 0
             and all(np.isfinite(float(x)) for x in found.groups())})
+    return md_launches, dict(dataset=dataset, train=train_keys,
+                             test=test_keys, npz=kept_npz,
+                             npz_s=seconds["featurize"])
+
+
+# -- the HDF5 feature store on the card (ROADMAP.md section 1 item 7):
+# run_data_pipeline's dataset featurized into the reference's tables of
+# 50 configurations, written by util/hdf5.py; the committed fixture that
+# h5py wrote, read here where h5py is absent; the fits streamed table by
+# table against the fit of run_data_pipeline's .npz of the same rows
+STORE_BATCH = 50         # configurations per table, the reference's default
+STORE_FIT_TOL = 1e-10    # the .h5 fit's predictions vs the .npz fit's
+STORE_PEAK_SHARE = 0.25  # the .h5 fit's host peak vs the .npz fit's
+STORE_FIXTURE = os.path.join(REPO, "tests", "data", "features_ref")
+
+
+def traced_peak(fn):
+    """(fn's result, its tracemalloc peak in bytes)."""
+    tracemalloc.start()
+    try:
+        out = fn()
+        return out, tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+
+
+def fixture_bit_equal() -> bool:
+    """Whether the port reads every table of the committed fixture (h5py
+    wrote it) equal to its ``.npz`` twin: values, names, kinds, columns."""
+    from uf3_tpu_torch.representation import process
+    names = process.analyze_hdf_tables(STORE_FIXTURE + ".h5")[2]
+    with np.load(STORE_FIXTURE + ".npz") as twin:
+        if sorted({k.rsplit(".", 1)[0] for k in twin.files}) != names:
+            return False
+        for name in names:
+            table = process.load_feature_db(STORE_FIXTURE + ".h5", name)
+            if not (np.array_equal(table.values, twin[f"{name}.values"])
+                    and table.names == twin[f"{name}.row_names"].tolist()
+                    and table.kinds == twin[f"{name}.row_kinds"].tolist()
+                    and table.columns == twin[f"{name}.columns"].tolist()):
+                return False
+    return len(names) > 0
+
+
+def run_feature_store(device, fit, pipeline, keep=None):
+    """The HDF5 feature store on ``run_fit``'s labeled set (``fit``) as
+    ``run_data_pipeline`` read it (``pipeline``, as it returns it):
+    ``Featurizer.write_features("features.h5", ...)`` on the card (39
+    tables of 50 configurations), a second call that must add no table
+    and featurize nothing; the committed fixture read bit-equal to its
+    ``.npz`` twin; ``fit_from_file`` and ``batched_predict`` on
+    ``run_fit``'s training and hold-out keys from the ``.h5`` and from
+    ``run_data_pipeline``'s ``.npz`` of the same rows, the ``.h5`` fit
+    within 1e-10 of the ``.npz`` fit and its ``tracemalloc`` peak at
+    most a quarter of the ``.npz`` fit's; then
+    ``featurize`` / ``fit`` / ``predict`` on 50 configurations through
+    a settings file naming ``features.h5`` and ``md`` on their model,
+    all in this process, the trio launches counted.  ``keep``, a
+    directory, receives the commands' settings and features.  Returns
+    the ``md`` command's trio launches."""
+    from uf3_tpu_torch import __main__ as cli
+    from uf3_tpu_torch.ops import featurize as feat
+    from uf3_tpu_torch.regression import least_squares as ls
+    from uf3_tpu_torch.representation import process
+    card = card_line()
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    geoms, energies, forces = fit["geoms"], fit["energies"], fit["forces"]
+    dataset, npz = pipeline["dataset"], pipeline["npz"]
+    seconds["write .npz (run_data_pipeline)"] = pipeline["npz_s"]
+    tmp = tempfile.mkdtemp()
+    h5 = os.path.join(tmp, "features.h5")
+    featurizer = feat.Featurizer(fit["basis"], device=device)
+    stats = {}
+    written = timed("write .h5", lambda: featurizer.write_features(
+        h5, dataset, stats=stats, batch_size=STORE_BATCH))
+    calls = []
+    batches = feat.featurize_batches
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return batches(*args, **kwargs)
+
+    feat.featurize_batches = counted
+    try:
+        rerun = {}
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            again = featurizer.write_features(h5, dataset, stats=rerun,
+                                              batch_size=STORE_BATCH)
+    finally:
+        feat.featurize_batches = batches
+    sizes = {ext: os.path.getsize(path) for ext, path in (("h5", h5),
+                                                          ("npz", npz))}
+    tables = timed("read .h5", lambda: [
+        process.load_feature_db(h5, name)
+        for name in process.analyze_hdf_tables(h5)[2]])
+    n_rows = sum(len(t) for t in tables)
+    del tables
+
+    def read_npz():
+        with np.load(npz) as data:
+            return [data[k] for k in data.files]
+
+    timed("read .npz", read_npz)
+    fixture_ok = timed("read fixture", fixture_bit_equal)
+    train_keys, test_keys = pipeline["train"], pipeline["test"]
+    models, peaks, rmse = {}, {}, {}
+    for ext, path in (("h5", h5), ("npz", npz)):
+        models[ext] = ls.WeightedLinearModel(fit["basis"], device=device,
+                                             **FIT_REG)
+        _, peaks[ext] = timed(f"fit_from_file .{ext}", lambda: traced_peak(
+            lambda: models[ext].fit_from_file(path, subset=train_keys,
+                                              weight=0.5)))
+        with contextlib.redirect_stdout(StringIO()):
+            rmse[ext] = timed(f"batched_predict .{ext}", lambda: models[
+                ext].batched_predict(path, keys=test_keys)[4:])
+    x_e, _, x_f, _ = ls.feature_rows(npz)
+    fit_err = 0.0
+    for x in (x_e, x_f):
+        want = x @ models["npz"].coefficients
+        fit_err = max(fit_err, float(np.abs(x @ models["h5"].coefficients
+                                            - want).max()
+                                     / np.abs(want).max()))
+    del x_e, x_f
+    print(f"feature store: {len(dataset)} configurations, {len(written)} "
+          f"tables written ({stats['calls']} featurize calls, "
+          f"{stats['redos']} redos, {stats['energy_rows']} energy and "
+          f"{stats['force_rows']} force rows); rerun: {len(again)} tables, "
+          f"{len(calls)} featurize calls, {rerun['skipped']} skipped; "
+          f"sizes .h5 {sizes['h5']} bytes, .npz {sizes['npz']} bytes; "
+          f"{n_rows} rows read back; card: {card}")
+    print(f"feature store: seconds " + ", ".join(
+        f"{k} {v:.3f}" for k, v in seconds.items())
+        + f"; tracemalloc peaks fit_from_file .h5 {peaks['h5']} bytes, "
+        f".npz {peaks['npz']} bytes ({peaks['h5'] / peaks['npz']:.3f}); "
+        f".h5 fit vs .npz fit, relative {fit_err:.3e}; hold-out RMSE .h5 "
+        f"{rmse['h5'][0]:.4e} eV/atom, {rmse['h5'][1]:.4e} eV/A (.npz "
+        f"{rmse['npz'][0]:.4e}, {rmse['npz'][1]:.4e}); committed fixture "
+        f"bit-equal: {fixture_ok}; card: {card}")
+    # the commands on a settings file naming features.h5, in this process
+    cmd_dir = os.path.join(tmp, "commands")
+    cmd = [int(i) for i in fit["train"][:FIT_CMD_CONFIGS]]
+    os.makedirs(os.path.join(cmd_dir, "data"))
+    data_io.write_xyz(os.path.join(cmd_dir, "data", "train.xyz"),
+                      labeled_frames([geoms[i] for i in cmd],
+                                     [energies[i] for i in cmd],
+                                     [forces[i] for i in cmd]))
+    settings = {
+        "elements": ["W"], "degree": 3,
+        # the bench model's basis
+        "basis": {"r_min": {"W-W": 0.001, "W-W-W": [1.5, 1.5, 1.5]},
+                  "r_max": {"W-W": 5.5, "W-W-W": [3.5, 3.5, 7.0]},
+                  "resolution": {"W-W": 15, "W-W-W": [6, 6, 12]}},
+        "learning": {"regularizer": {"curvature_2b": FIT_REG["c2"],
+                                     "curvature_3b": FIT_REG["c3"]}}}
+    settings_path, model_path = command_settings(settings, cmd_dir, {
+        "sources": {"path": os.path.join(cmd_dir, "data"),
+                    "pattern": "*.xyz"}}, features="features.h5")
+    flags = [] if torch.device(device).type == "cuda" \
+        else ["--device", "cpu"]
+    out = StringIO()
+    with contextlib.redirect_stdout(out):
+        for command in ("featurize", "fit", "predict"):
+            timed(f"{command} command", lambda: cli.main(
+                [command, settings_path] + flags))
+    lines = out.getvalue().strip().splitlines()
+    found = [re.search(r"RMSE \(energy, eV/atom\): (\S+); RMSE "
+                       r"\(forces, eV/A\): (\S+);", line) for line in lines]
+    cmd_rmse = [tuple(float(x) for x in m.groups()) for m in found if m]
+    cmd_tables = process.analyze_hdf_tables(
+        os.path.join(cmd_dir, "features.h5"))
+    reset_counts()
+    out = StringIO()
+    with contextlib.redirect_stdout(out):
+        timed("md command", lambda: cli.main(
+            ["md", model_path, "--steps", str(PIPE_MD_STEPS)] + flags))
+    md_launches = trio.trio_partials.launches
+    lines += out.getvalue().strip().splitlines()
+    for line in lines:
+        print(f"feature store commands: {line}")
+    md_found = re.search(r"\(([-+.\deE]+) atom-steps/s\); T = (\S+) K, "
+                         r"E = (\S+) eV", lines[-1] if lines else "")
+    if keep is not None:   # the commands' settings and features
+        for name in ("settings.json", "features.h5"):
+            shutil.copy(os.path.join(cmd_dir, name), keep)
+    shutil.rmtree(tmp)
+    wall = time.perf_counter() - t_phase
+    print(f"feature store: commands on features.h5 ({cmd_tables[0]} table, "
+          f"{cmd_tables[1]} rows) {seconds['featurize command']:.3f} + "
+          f"{seconds['fit command']:.3f} + {seconds['predict command']:.3f}"
+          f" s, md command ({PIPE_MD_STEPS} steps) "
+          f"{seconds['md command']:.3f} s, {md_launches} trio launches; "
+          f"phase wall {wall:.3f} s; card: {card}")
+    gate("feature store", {
+        f"{len(written)} tables written, 39 expected": len(written) == 39,
+        "the rerun adds no table and featurizes nothing":
+            again == [] and not calls and rerun["calls"] == 0
+            and rerun["skipped"] == len(written),
+        "the rerun warns as the reference does": any(
+            issubclass(w.category, RuntimeWarning) for w in warned),
+        "every row read back": n_rows == stats["energy_rows"]
+            + stats["force_rows"],
+        "the committed fixture read bit-equal to its .npz": fixture_ok,
+        f".h5 fit within {STORE_FIT_TOL:g} of the .npz fit":
+            fit_err <= STORE_FIT_TOL,
+        f".h5 fit's host peak <= {STORE_PEAK_SHARE:g} of the .npz fit's":
+            peaks["h5"] <= STORE_PEAK_SHARE * peaks["npz"],
+        "hold-out RMSEs finite": all(np.isfinite(rmse["h5"])),
+        "predict on features.h5 printed finite RMSEs":
+            len(cmd_rmse) == 1 and all(np.isfinite(cmd_rmse[0])),
+        "md on the fitted model: finite, trio kernel launched":
+            md_found is not None and md_launches > 0
+            and all(np.isfinite(float(x)) for x in md_found.groups())})
     return md_launches
 
 
@@ -4415,24 +4649,26 @@ def compare_trio_weighted(device, system32: MDSystem, mesh):
 
 def halo_fit(device, mesh, settings_path, features):
     """``fit_sharded`` and ``fit_from_file_sharded`` on the mesh against
-    ``model.fit`` on the same rows (the ``.npz`` the fit commands wrote
-    in ``run_data_pipeline``): predictions within 1e-10 relative."""
+    ``model.fit`` on the same rows (the HDF5 store the fit commands
+    wrote in ``run_feature_store``, its energy rows per atom):
+    predictions within 1e-10 relative."""
+    from uf3_tpu_torch.regression import least_squares as ls
     with open(settings_path) as f:
         settings = json.load(f)
     weight = settings["learning"].get("weight", 0.5)
-    with np.load(features) as data:
-        x_e, y_e, x_f, y_f, keys = (data[k] for k in (
-            "x_e", "y_e", "x_f", "y_f", "keys"))
 
     def fresh():
         return user_config.generate_handlers(settings,
                                              device=device)["learning"]
 
     host, sharded, streamed = fresh(), fresh(), fresh()
+    x_e, y_e, x_f, y_f = ls.feature_rows(
+        features, n_elements=len(host.bspline_config.element_list))
     host.fit(x_e, y_e, x_f, y_f, weight=weight)
     pmesh.fit_sharded(sharded, x_e, y_e, x_f, y_f, weight=weight,
                       mesh=mesh)
-    pmesh.fit_from_file_sharded(streamed, features, subset=list(keys),
+    pmesh.fit_from_file_sharded(streamed, features,
+                                subset=ls.feature_keys(features),
                                 weight=weight, mesh=mesh)
     probe = np.concatenate([x_e, x_f])
     p_host = probe @ host.coefficients
@@ -4440,9 +4676,9 @@ def halo_fit(device, mesh, settings_path, features):
     errs = [float(np.max(np.abs(probe @ m.coefficients - p_host))) / scale
             for m in (sharded, streamed)]
     print(f"sharded fit on {mesh.n_shards} shards ({len(y_e)} energy, "
-          f"{len(y_f)} force rows): predictions vs model.fit, relative "
-          f"{errs[0]:.3e} (fit_sharded), {errs[1]:.3e} "
-          f"(fit_from_file_sharded)")
+          f"{len(y_f)} force rows of {os.path.basename(features)}): "
+          f"predictions vs model.fit, relative {errs[0]:.3e} "
+          f"(fit_sharded), {errs[1]:.3e} (fit_from_file_sharded)")
     gate("sharded fit", {f"predictions within {SHARDED_FIT_TOL:g} relative":
                          max(errs) <= SHARDED_FIT_TOL})
 
@@ -4454,8 +4690,8 @@ def run_halo(device, fit_files=None):
     the f32 production run of the halo chunk, one trio launch per mid
     step for all shards, its collectives halo-sized; the kernel's
     center weight on the path's rows; the sharded fits on the fit
-    commands' features (``fit_files`` = (settings, features), from
-    ``run_data_pipeline``).  Returns
+    commands' HDF5 features (``fit_files`` = (settings, features), from
+    ``run_feature_store``).  Returns
     (the halo path's trio launches, its weighted-kernel record, rates)."""
     tmp = tempfile.mkdtemp()
     group = init_nccl(device, tmp)
@@ -4622,14 +4858,18 @@ def main():
     fit_keep = tempfile.mkdtemp()
     fit_launches, labeled = run_fit(device)
     launches.update(fit_launches)
-    launches["data pipeline: md command"] = run_data_pipeline(
-        device, labeled, keep=fit_keep)
-    del labeled
+    store_dir = tempfile.mkdtemp()
+    launches["data pipeline: md command"], pipeline = run_data_pipeline(
+        device, labeled, keep=store_dir)
+    launches["feature store: md command"] = run_feature_store(
+        device, labeled, pipeline, keep=fit_keep)
+    shutil.rmtree(store_dir)
+    del labeled, pipeline
     multi_launches.update(run_fit_multi(device))
     # multi-shard MD and fitting on torch.distributed
     launches["halo"], halo_record, halo_rates = run_halo(device, tuple(
         os.path.join(fit_keep, name) for name in ("settings.json",
-                                                  "features.npz")))
+                                                  "features.h5")))
     shutil.rmtree(fit_keep)
     demo_diff = run_multichip_demo(device)
     rates["halo 3-level r-RESPA 12/6, 4 shards, NVE (triangle lanes)"] = \

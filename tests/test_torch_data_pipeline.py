@@ -438,8 +438,9 @@ def _dimer_rows(featurizer, n=4):
 
 def test_fit_from_file_roundtrip(tmp_path):
     """The twin of ``test_fit_from_file_roundtrip``: the dimers' rows
-    as ``featurize`` stores them, fitted from the ``.npz`` and predicted
-    back, against ``uf3_tpu``'s fit of its HDF5 table."""
+    as ``featurize`` stores them, fitted from the ``.npz`` and from
+    ``uf3_tpu``'s HDF5 table and predicted back, against ``uf3_tpu``'s
+    fit of that table."""
     pair = dict(r_min_map={("W", "W"): 1.5}, r_max_map={("W", "W"): 5.5},
                 resolution_map={("W", "W"): 12})
     j_basis = JBasis(JChem(["W"]), **pair)
@@ -466,8 +467,16 @@ def test_fit_from_file_roundtrip(tmp_path):
     assert np.array_equal(y_e, r_e) and np.array_equal(y_f, r_f)
     assert np.abs(p_e - q_e).max() <= FIT_TOL * np.abs(q_e).max()
     assert np.abs(p_f - q_f).max() <= FIT_TOL * np.abs(q_f).max()
-    with pytest.raises(NotImplementedError, match="Featurization"):
-        model.fit_from_file(h5, subset=keys)
+    # the reference's HDF5 table read by the port: the .npz fit's
+    # predictions within 1e-10, the reference's within FIT_TOL
+    from_h5 = ls.WeightedLinearModel(basis, r2=1e-6, c2=1e-6, device="cpu")
+    from_h5.fit_from_file(h5, subset=keys)
+    h_e, s_e, h_f, s_f = from_h5.batched_predict(h5, score=False)
+    assert np.array_equal(h_e, r_e) and np.array_equal(h_f, r_f)
+    assert np.abs(s_e - p_e).max() <= 1e-10 * np.abs(p_e).max()
+    assert np.abs(s_f - p_f).max() <= 1e-10 * np.abs(p_f).max()
+    assert np.abs(s_e - q_e).max() <= FIT_TOL * np.abs(q_e).max()
+    assert np.abs(s_f - q_f).max() <= FIT_TOL * np.abs(q_f).max()
     with pytest.raises(ValueError, match="one energy column"):
         model.fit_from_file(npz, subset=keys, energy_key="free_energy")
     with pytest.raises(KeyError, match="WW99"):
@@ -526,7 +535,7 @@ def test_dataframe_to_tuples_weights_and_drop_columns(pipeline):
     ref_drop = jls.dataframe_to_tuples(
         pipeline["table_ref"].drop(columns=drop), n_elements=1,
         sample_weights=weights)
-    rows = io.feature_rows(pipeline["npz"], sample_weights=weights,
+    rows = ls.feature_rows(pipeline["npz"], sample_weights=weights,
                            drop_columns=drop)
     for a, b, c, d in zip(ours, ref, rows, ref_drop):
         assert a.shape == b.shape and c.shape == d.shape
@@ -534,7 +543,7 @@ def test_dataframe_to_tuples_weights_and_drop_columns(pipeline):
         assert np.abs(a - b).max() <= ROW_TOL * scale
         assert np.abs(c - d).max() <= ROW_TOL * scale
     subset = df.keys[2:5]
-    sub = io.feature_rows(pipeline["npz"], subset=subset)
+    sub = ls.feature_rows(pipeline["npz"], subset=subset)
     ref_sub = jls.dataframe_to_tuples(
         pipeline["table_ref"].loc[subset], n_elements=1)
     for a, b in zip(sub, ref_sub):
@@ -542,7 +551,7 @@ def test_dataframe_to_tuples_weights_and_drop_columns(pipeline):
 
 
 def _probe(npz):
-    x_e, _, x_f, _ = io.feature_rows(npz)
+    x_e, _, x_f, _ = ls.feature_rows(npz)
     return x_e, x_f
 
 
@@ -604,7 +613,7 @@ def test_fit_from_file_weights_subset_and_drop(pipeline):
     model = ls.WeightedLinearModel(BSplineBasis(ChemicalSystem(["W"]), **pair),
                                    device="cpu", **REG)
     model.fit_from_file(pipeline["npz"], subset=keys, drop_columns=drop)
-    x_e, _, x_f, _ = io.feature_rows(pipeline["npz"], drop_columns=drop)
+    x_e, _, x_f, _ = ls.feature_rows(pipeline["npz"], drop_columns=drop)
     for x in (x_e, x_f):
         want = x @ ref.coefficients
         assert np.abs(x @ model.coefficients - want).max() \

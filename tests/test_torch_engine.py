@@ -194,11 +194,11 @@ def test_float32_lattice_on_bin_faces_does_not_overflow(reps):
 
 def test_md_command_on_the_cpu(capsys, tmp_path):
     """``python -m uf3_tpu_torch md`` prints the JAX command's result
-    line; what the fit commands do not port yet raises: an HDF5
-    features file (``--static-rebuild`` runs:
-    tests/test_torch_schedules.py; ``--traj`` and ``export``:
-    tests/test_torch_batch.py; featurize, fit and predict:
-    tests/test_torch_fit.py)."""
+    line; the fit commands take the settings' default HDF5 features
+    file and fit the model the same commands fit from an ``.npz``
+    (``--static-rebuild`` runs: tests/test_torch_schedules.py;
+    ``--traj`` and ``export``: tests/test_torch_batch.py; featurize,
+    fit and predict: tests/test_torch_fit.py)."""
     main(["md", MODEL, "--reps", "3", "--steps", "12", "--device", "cpu"])
     out = capsys.readouterr().out.strip().splitlines()
     assert out[0] == "54 atoms of W"
@@ -207,12 +207,41 @@ def test_md_command_on_the_cpu(capsys, tmp_path):
     assert found is not None, out[-1]
     rate, temp, energy = (float(x) for x in found.groups())
     assert rate > 0 and 0 < temp < 600 and -620 < energy < -580
-    settings = tmp_path / "settings.json"
-    settings.write_text(json.dumps({
-        "elements": ["W"], "degree": 3,
-        "features": {"features_path": str(tmp_path / "features.h5")},
-        "learning": {"features_path": str(tmp_path / "features.h5")}}))
-    for argv in (["featurize", str(settings)], ["fit", str(settings)],
-                 ["predict", str(settings)]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            main(argv + ["--device", "cpu"])
+    from uf3_tpu_torch.data.io import write_xyz
+    rng = np.random.RandomState(0)
+    frames = []
+    for _ in range(4):
+        geom = bulk("W", "bcc", a=3.1652) * 2
+        geom.rattle(0.05, seed=int(rng.randint(1000)))
+        geom.info["energy"] = -12.0 * len(geom) + rng.normal()
+        for name in ("fx", "fy", "fz"):
+            geom.arrays[name] = rng.normal(scale=0.1, size=len(geom))
+        frames.append(geom)
+    (tmp_path / "data").mkdir()
+    write_xyz(str(tmp_path / "data" / "w.xyz"), frames)
+    coefficients = {}
+    for tag in ("h5", "npz"):
+        settings = tmp_path / f"settings_{tag}.json"
+        features = {} if tag == "h5" else {
+            "features_path": str(tmp_path / "features.npz")}
+        settings.write_text(json.dumps({
+            "elements": ["W"], "degree": 2,
+            "basis": {"r_min": 1.5, "r_max": 5.5, "resolution": 8},
+            "data": {"sources": {"path": str(tmp_path / "data"),
+                                 "pattern": "*.xyz"}},
+            "features": features, "learning": features,
+            "model": {"model_path": str(tmp_path / f"model_{tag}.json")}}))
+        cwd = os.getcwd()
+        os.chdir(tmp_path)   # the default features path is relative
+        try:
+            for command in ("featurize", "fit", "predict"):
+                main([command, str(settings), "--device", "cpu"])
+        finally:
+            os.chdir(cwd)
+        with open(tmp_path / f"model_{tag}.json") as f:
+            coefficients[tag] = np.array(json.load(f)["coefficients"]
+                                         ["W-W"], dtype=float)
+    assert (tmp_path / "features.h5").is_file()
+    assert "RMSE (energy, eV/atom)" in capsys.readouterr().out
+    assert np.abs(coefficients["h5"] - coefficients["npz"]).max() \
+        <= 1e-10 * np.abs(coefficients["npz"]).max()

@@ -31,6 +31,7 @@ from uf3_tpu_torch.data.atoms import bulk
 from uf3_tpu_torch.examples import multichip_demo, nexe_pair_fit, \
     tungsten_fit
 from uf3_tpu_torch.forcefield.calculator import UFCalculator
+from uf3_tpu_torch.representation import process
 
 torch.set_num_threads(1)
 
@@ -103,6 +104,27 @@ def test_tungsten_fit_matches_the_fit_command(tmp_path):
     theirs = ours.coefficients
     scale = np.abs(theirs).max()
     assert np.abs(model.coefficients - theirs).max() <= 1e-8 * scale
+
+
+def test_tungsten_fit_default_h5_matches_npz(tmp_path, monkeypatch):
+    """``tungsten_fit.main`` without a features path writes the default
+    ``features.h5`` (one table of the 15 configurations, an energy row
+    and 3 N force rows each) and fits the coefficients and hold-out
+    RMSEs of the ``.npz`` run (1e-10 relative)."""
+    geoms = _tungsten_set()
+    dataset = str(tmp_path / "w.xyz")
+    data_io.write_xyz(dataset, geoms)
+    monkeypatch.chdir(tmp_path)
+    h5 = tungsten_fit.main([dataset, "--out-dir", "h5", "--cpu"])
+    npz = tungsten_fit.main([dataset, "features.npz", "--out-dir", "npz",
+                             "--cpu"])
+    n_tables, n_rows, names, _ = process.analyze_hdf_tables("features.h5")
+    assert (n_tables, names) == (1, ["features_000"])
+    assert n_rows == sum(1 + 3 * len(g) for g in geoms)
+    scale = np.abs(npz[0].coefficients).max()
+    assert np.abs(h5[0].coefficients - npz[0].coefficients).max() \
+        <= 1e-10 * scale
+    assert np.allclose(h5[1:], npz[1:], rtol=1e-10, atol=0)
 
 
 def test_nexe_pair_fit_tables_match_reference_export(tmp_path):

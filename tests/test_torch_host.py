@@ -206,6 +206,7 @@ def test_port_sources_import_nothing_of_uf3_tpu():
         "parallel/mesh.py", "parallel/halo.py", "data/analyze.py",
         "regression/optimize.py", "forcefield/ase_adapter.py",
         "util/tracing.py", "util/plotting.py", "util/plotting3d.py",
+        "util/hdf5.py",
         "ops/gather.py", "benchmarks/__init__.py", "benchmarks/common.py",
         "benchmarks/step_anatomy.py", "benchmarks/probe_gather.py",
         "benchmarks/probe_stale.py", "benchmarks/probe_stale_error.py",
@@ -221,10 +222,10 @@ def test_port_sources_import_nothing_of_uf3_tpu():
     for path in files:
         for name in _imports(path):
             assert name.split(".")[0] != "uf3_tpu", (path, name)
-            # neither jax nor pandas nor PyYAML nor h5py is on the GPU
-            # hosts
+            # neither jax nor pandas nor PyYAML nor h5py nor PyTables is
+            # on the GPU hosts
             assert name.split(".")[0] not in ("jax", "pandas", "yaml",
-                                              "h5py"), (path, name)
+                                              "h5py", "tables"), (path, name)
 
 
 def test_port_sources_open_no_path_under_uf3_tpu():

@@ -180,8 +180,8 @@ def _dimer_features(tmp_path):
 
 def test_fit_from_file_sharded_matches_host(mesh8, tmp_path):
     """The mesh fit of a features file (sharded Gram, sample
-    weights) on the ``.npz`` reproduces ``uf3_tpu``'s host
-    ``fit_from_file`` on the HDF5 tables of the same rows."""
+    weights) on the ``.npz`` and on ``uf3_tpu``'s HDF5 tables
+    reproduces ``uf3_tpu``'s host ``fit_from_file`` on those tables."""
     j_config, df, h5, npz, keys = _dimer_features(tmp_path)
     config = BSplineBasis(ChemicalSystem(["W"]),
                           r_min_map={("W", "W"): 1.5},
@@ -215,5 +215,9 @@ def test_fit_from_file_sharded_matches_host(mesh8, tmp_path):
     with pytest.raises(ValueError, match="one energy column"):
         mesh.fit_from_file_sharded(sub, npz, subset=keys, mesh=mesh8,
                                    energy_key="energy_dft")
-    with pytest.raises(NotImplementedError, match="Featurization"):
-        mesh.fit_from_file_sharded(sub, h5, subset=keys, mesh=mesh8)
+    # the reference's HDF5 tables read by the port, table by table
+    from_h5 = ls.WeightedLinearModel(config, r2=1e-6, c2=1e-6, device="cpu")
+    mesh.fit_from_file_sharded(from_h5, h5, subset=keys, weight=0.3,
+                               mesh=mesh8, sample_weights=weights)
+    assert np.allclose(probe @ from_h5.coefficients,
+                       probe @ host.coefficients, atol=1e-8)

@@ -12,10 +12,13 @@ module names.
                       extended-xyz io and training sources, crystal
                       symmetry
   representation/     B-spline basis (with the fitting trims and the
-                      regularizer), knot spacers, de Boor values
+                      regularizer), knot spacers, de Boor values, the
+                      host featurizer and the HDF5 feature store
   regression/         WeightedLinearModel: Gram matrices on the device,
                       the solve on the host; regularizer matrices
   util/json_io.py     model file reader and writer
+  util/hdf5.py        the HDF5 subset of the feature store, read and
+                      written without h5py
   util/user_config.py settings of the fit commands
   forcefield/units.py eV / A / amu units
   io.py               model JSON -> basis + coefficients

@@ -2,7 +2,7 @@
 Command line of the port: the fit pipeline, a quick MD run on the CUDA
 card, and the LAMMPS export of a model.
 
-    python -m uf3_tpu_torch featurize settings.json  sources -> features.npz
+    python -m uf3_tpu_torch featurize settings.json  sources -> features
     python -m uf3_tpu_torch fit settings.json        features -> model JSON
     python -m uf3_tpu_torch predict settings.json    RMSE of the model
     python -m uf3_tpu_torch md model.json [options]
@@ -16,15 +16,17 @@ files) through a ``DataCoordinator`` built from ``data.keys`` and
 correction), featurized on the route the basis allows
 (``ops/featurize.Featurizer``: the unary or the multi-species path on
 the device, or the host featurizer for knots with no closed form; a
-configuration without forces gives its energy row alone) into an
-``.npz`` features file (x_e, y_e, x_f, y_f, the configuration keys,
-sizes and force rows, the column names) where ``uf3_tpu`` writes HDF5;
-``fit`` runs ``fit_from_file`` over every key of it and ``predict``
-``batched_predict``.  ``md`` takes the same flags, defaults and
-result line as ``python -m uf3_tpu md`` (2,000 atoms of bcc, 1,000
-steps of 2 fs, Langevin at 300 K, plain velocity Verlet unless
-``--respa`` is given; ``--traj`` writes an extended-xyz frame per
-launch).  Every command but ``export`` takes ``--device``, which
+configuration without forces gives its energy row alone) into the
+features file ``features.features_path``: the reference's HDF5 store
+(``.h5`` / ``.hdf5``, the default ``features.h5``), one table per 50
+configurations, tables already there skipped; or an ``.npz`` (x_e, y_e,
+x_f, y_f, the configuration keys, sizes and force rows, the column
+names).  ``fit`` runs ``fit_from_file`` over every key of it and
+``predict`` ``batched_predict``, both reading it one table at a time.
+``md`` takes the same flags, defaults and result line as ``python -m
+uf3_tpu md`` (2,000 atoms of bcc, 1,000 steps of 2 fs, Langevin at
+300 K, plain velocity Verlet unless ``--respa`` is given; ``--traj``
+writes an extended-xyz frame per launch).  Every command but ``export`` takes ``--device``, which
 defaults to the card.  ``export`` writes the native ``pair_style uf3``
 file and prints its ``pair_style`` / ``pair_coeff`` lines, on the host.
 What is not ported yet raises NotImplementedError naming its ROADMAP.md
@@ -34,7 +36,6 @@ item.
 import argparse
 import time
 
-import numpy as np
 import torch
 
 from uf3_tpu_torch import io
@@ -55,8 +56,7 @@ def cmd_featurize(settings_path: str, device=None) -> None:
     settings = user_config.read_config(settings_path)
     handlers = user_config.generate_handlers(settings, device=device)
     coordinator = handlers.get("data") or data_io.DataCoordinator()
-    features_path = data_io.npz_features_path(
-        settings["features"]["features_path"])
+    features_path = settings["features"]["features_path"]
     sources = settings["data"]["sources"]
     paths = data_io.identify_paths(experiment_path=sources.get("path", "."),
                                    filename_pattern=sources.get("pattern"))
@@ -71,23 +71,25 @@ def cmd_featurize(settings_path: str, device=None) -> None:
     print(f"route: {featurizer.route} ({ROUTES[featurizer.route]})")
     stats = {}
     # a configuration without forces gives its energy row alone
-    arrays, _ = featurizer.write_features(
+    featurizer.write_features(
         features_path, df_data, atoms_key=coordinator.atoms_key,
         energy_key=coordinator.energy_key, stats=stats)
-    print(f"features written to {features_path} ({len(arrays[1])} energy "
-          f"rows, {len(arrays[3])} force rows; {stats['calls']} calls, "
-          f"{stats['redos']} configurations redone at their measured "
-          "neighbor count)")
+    tables = (f"; {len(stats['tables'])} tables written, "
+              f"{stats['skipped']} already there" if "tables" in stats
+              else "")
+    print(f"features written to {features_path} ({stats['energy_rows']} "
+          f"energy rows, {stats['force_rows']} force rows; {stats['calls']} "
+          f"calls, {stats['redos']} configurations redone at their "
+          f"measured neighbor count{tables})")
 
 
 def cmd_fit(settings_path: str, device=None) -> None:
     settings = user_config.read_config(settings_path)
     handlers = user_config.generate_handlers(settings, device=device)
     features_path = settings["learning"]["features_path"]
-    with np.load(data_io.npz_features_path(features_path)) as data:
-        keys = data["keys"].tolist()
     model = handlers["learning"]
-    model.fit_from_file(features_path, subset=keys,
+    model.fit_from_file(features_path,
+                        subset=ls.feature_keys(features_path),
                         weight=settings["learning"].get("weight", 0.5))
     model_path = settings["model"]["model_path"]
     model.to_json(model_path)
@@ -97,8 +99,7 @@ def cmd_fit(settings_path: str, device=None) -> None:
 def cmd_predict(settings_path: str, device=None) -> None:
     settings = user_config.read_config(settings_path)
     handlers = user_config.generate_handlers(settings, device=device)
-    features_path = data_io.npz_features_path(
-        settings["learning"]["features_path"])
+    features_path = settings["learning"]["features_path"]
     model = handlers.get("model")
     if model is None:
         model = ls.WeightedLinearModel.from_json(

@@ -23,9 +23,11 @@ key); ``parse_lammps_log`` returns a dict of column arrays,
 their ``info``.  ``read_xyz`` sends a file of the standard layout to
 the native tokenizer (``uf3_tpu_torch.native``), as the reference's
 ``parse_trajectory`` does, and ``read_xyz_python`` is its plain
-version.  The features file that ``featurize`` writes is an ``.npz``
-(``npz_features_path``, ``save_features``, ``feature_rows``); an HDF5
-path raises.
+version.  The features file that ``featurize`` writes is the
+reference's HDF5 store of tables (``.h5`` / ``.hdf5``,
+``representation.process.save_feature_db``) or an ``.npz`` of the
+fitting arrays (``save_features``);
+``regression.least_squares.feature_tables`` reads either.
 """
 
 import fnmatch
@@ -42,8 +44,7 @@ import numpy as np
 
 from uf3_tpu_torch.data import elements
 from uf3_tpu_torch.data.atoms import Atoms
-from uf3_tpu_torch.forcefield.md import _not_ported
-from uf3_tpu_torch.util import subsample
+from uf3_tpu_torch.util import hdf5, subsample
 
 _KV_RE = re.compile(r'(\S+?)=(?:"([^"]*)"|(\S+))')
 
@@ -1114,17 +1115,7 @@ def read_database(filename: str, index: slice = None) -> List[Atoms]:
     return geometries
 
 
-FEATURIZATION = "Featurization"
 FEATURE_KEYS = ("x_e", "y_e", "x_f", "y_f")
-
-
-def npz_features_path(path: str) -> str:
-    """``path`` if it names an ``.npz`` features file; an HDF5 path
-    raises (ROADMAP.md, Featurization)."""
-    if path.endswith((".h5", ".hdf5")):
-        raise _not_ported(f"the HDF5 features file {path} (this package "
-                          "writes .npz)", FEATURIZATION)
-    return path
 
 
 def forces_of(geometries) -> List:
@@ -1138,48 +1129,13 @@ def forces_of(geometries) -> List:
 def save_features(path: str, arrays, keys, geometries, force_rows,
                   columns) -> None:
     """The ``.npz`` features file: (x_e, y_e, x_f, y_f), the
-    configuration keys, sizes and force rows, the column names."""
-    with open(npz_features_path(path), "wb") as f:
+    configuration keys, sizes and force rows, the column names.  An
+    HDF5 path raises: its tables are written by
+    ``representation.process.save_feature_db``."""
+    if hdf5.is_hdf5_path(path):
+        raise ValueError(f"{path}: HDF5 tables are written by "
+                         "save_feature_db, not as .npz arrays")
+    with open(path, "wb") as f:
         np.savez(f, **dict(zip(FEATURE_KEYS, arrays)), keys=np.array(keys),
                  sizes=np.array([len(g) for g in geometries]),
                  force_rows=force_rows, columns=np.array(columns))
-
-
-def feature_rows(path: str, subset=None, sample_weights: Dict = None,
-                 drop_columns=None, energy_key: str = "energy"):
-    """(x_e, y_e, x_f, y_f) of the configurations in ``subset`` (every
-    configuration where None) from a features file ``featurize`` wrote,
-    in the file's order: their per-atom energy rows and their force rows
-    (each configuration's ``force_rows`` of them), every row scaled by
-    its configuration's ``sample_weights`` entry (1 where it has none)
-    as ``dataframe_to_tuples`` scales them, the ``drop_columns`` removed
-    by name (KeyError for a name the file lacks).  The file holds one
-    energy column, so ``energy_key`` must be "energy"; an HDF5 path
-    raises (ROADMAP.md, Featurization)."""
-    if energy_key != "energy":
-        raise ValueError(f"energy_key {energy_key!r}: the .npz features "
-                         "file holds one energy column, 'energy'")
-    path = npz_features_path(path)
-    if not os.path.isfile(path):
-        raise FileNotFoundError(path)
-    with np.load(path) as data:
-        x_e, y_e, x_f, y_f, keys, force_rows, columns = (
-            data[k] for k in FEATURE_KEYS + ("keys", "force_rows",
-                                             "columns"))
-    if drop_columns is not None:
-        missing = sorted(set(drop_columns) - set(columns[1:].tolist()))
-        if missing:
-            raise KeyError(f"{missing} not found in the features' columns")
-        keep = ~np.isin(columns[1:], list(drop_columns))
-        x_e, x_f = x_e[:, keep], x_f[:, keep]
-    chosen = np.arange(len(keys)) if subset is None \
-        else np.flatnonzero(np.isin(keys, list(subset)))
-    w = np.array([1.0 if sample_weights is None
-                  else sample_weights.get(keys[i], 1.0) for i in chosen],
-                 dtype=np.float64)
-    f_start = np.concatenate([[0], np.cumsum(force_rows)])
-    f_idx = np.concatenate([np.arange(f_start[i], f_start[i + 1])
-                            for i in chosen] + [np.zeros(0)]).astype(np.int64)
-    w_f = np.repeat(w, force_rows[chosen])
-    return (x_e[chosen] * w[:, None], y_e[chosen] * w,
-            x_f[f_idx] * w_f[:, None], y_f[f_idx] * w_f)

@@ -66,8 +66,10 @@ from uf3_tpu_torch.forcefield.md import _resolve_device
 from uf3_tpu_torch.ops import neighbors as nb
 from uf3_tpu_torch.ops.splines import LegSpec, _dense_basis, \
     leg_spec_from_knots
+from uf3_tpu_torch.representation import process
 from uf3_tpu_torch.representation.process import BasisFeaturizer, \
-    check_elements
+    FeatureTable, check_elements
+from uf3_tpu_torch.util import hdf5
 
 BUCKET_GRANULE = 8       # capacities rounded up to a multiple of this
 MEMORY_BUDGET = 0.25     # share of the card's memory one batch may take
@@ -943,15 +945,73 @@ class Featurizer:
             self.bspline_config, geometries, energies, forces,
             dtype=self.dtype, device=self.device, stats=stats)
 
+    def feature_table(self, df_data, atoms_key: str = "geometry",
+                      energy_key: str = "energy",
+                      stats: Dict = None) -> FeatureTable:
+        """The reference's feature table of a ``data.io.Dataset``
+        (``BasisFeaturizer.evaluate``'s rows, names and kinds: per
+        configuration its ``energy_key`` row, then fx / fy / fz per atom
+        where it has forces and ``fit_forces`` is on), featurized on the
+        featurizer's route."""
+        if self.route == "host":
+            if stats is not None:
+                stats.update(route=self.route, calls=len(df_data), redos=0)
+            return BasisFeaturizer(
+                self.bspline_config, fit_forces=self.fit_forces,
+                prefix=self.prefix).evaluate(df_data, atoms_key=atoms_key,
+                                             energy_key=energy_key)
+        geometries = df_data[atoms_key]
+        energies = np.asarray(df_data[energy_key], dtype=float)
+        forces = data_io.dataset_forces(df_data) if self.fit_forces else None
+        blocks = [None] * len(geometries)
+        for batch in featurize_batches(
+                self.bspline_config, geometries, energies, forces,
+                dtype=self.dtype, device=self.device, stats=stats):
+            x_e, x_f, y_f = (t.cpu().numpy() for t in (batch.x_e, batch.x_f,
+                                                      batch.y_f))
+            start = 0
+            for b, i in enumerate(batch.index):
+                stop = start + batch.force_rows[b]
+                # the device's energy rows are per atom; the table's are not
+                blocks[i] = np.concatenate([
+                    np.concatenate([[energies[i]],
+                                    x_e[b] * len(geometries[i])])[None],
+                    np.column_stack([y_f[start:stop], x_f[start:stop]])])
+                start = stop
+        index = []
+        for key, geom, block in zip(df_data.keys, geometries, blocks):
+            index.append((key, energy_key))
+            if len(block) > 1:
+                index.extend((key, f"{c}_{a}") for c in ("fx", "fy", "fz")
+                             for a in range(len(geom)))
+        return FeatureTable(index, self.bspline_config.get_column_names(),
+                            np.concatenate(blocks))
+
     def write_features(self, filename: str, df_data,
                        atoms_key: str = "geometry",
-                       energy_key: str = "energy", stats: Dict = None):
+                       energy_key: str = "energy", stats: Dict = None,
+                       batch_size: int = 50,
+                       table_template: str = "features_{}"):
         """Featurize a ``data.io.Dataset`` (its ``atoms_key`` geometries,
         ``energy_key`` energies and fx / fy / fz forces) into the
-        ``.npz`` features file ``filename`` with its keys, sizes, force
-        rows and column names, where the reference's ``batched_to_hdf``
-        writes HDF5 tables.  Returns (x_e, y_e, x_f, y_f) and the force
-        rows."""
+        features file ``filename``.
+
+        An HDF5 path (``.h5`` / ``.hdf5``) gets the reference's
+        ``batched_to_hdf`` tables: batches of ``batch_size``
+        configurations under its names (``process.table_batches``), each
+        featurized (``feature_table``), brought to the host and written
+        as one table before the next starts; tables the file holds are
+        skipped, so a run cut short resumes.  Returns the names of the
+        tables written.  Any other path gets the ``.npz`` with the keys,
+        sizes, force rows and column names; returns (x_e, y_e, x_f, y_f)
+        and the force rows.  ``stats``, when given, receives the route,
+        the featurization calls and redos, the energy and force rows
+        written and, for HDF5, the tables written and skipped."""
+        stats = {} if stats is None else stats
+        if hdf5.is_hdf5_path(filename):
+            return self._write_tables(filename, df_data, atoms_key,
+                                      energy_key, stats, batch_size,
+                                      table_template)
         geometries = df_data[atoms_key]
         forces = data_io.dataset_forces(df_data)
         arrays = self.featurize_dataset(
@@ -961,4 +1021,27 @@ class Featurizer:
         data_io.save_features(filename, arrays, df_data.keys, geometries,
                               force_rows,
                               self.bspline_config.get_column_names())
+        stats.update(energy_rows=len(arrays[1]), force_rows=len(arrays[3]))
         return arrays, force_rows
+
+    def _write_tables(self, filename, df_data, atoms_key, energy_key, stats,
+                      batch_size, table_template) -> List[str]:
+        existing = set(process.existing_tables(filename))
+        stats.update(route=self.route, calls=0, redos=0, energy_rows=0,
+                     force_rows=0, tables=[], skipped=0)
+        for name, positions in process.table_batches(
+                len(df_data), batch_size, table_template):
+            if name in existing:
+                stats["skipped"] += 1
+                continue
+            part = {}
+            table = self.feature_table(df_data.take(positions), atoms_key,
+                                       energy_key, stats=part)
+            process.save_feature_db(table, filename, table_name=name)
+            n_energy = sum(kind == energy_key for kind in table.kinds)
+            stats["calls"] += part["calls"]
+            stats["redos"] += part["redos"]
+            stats["energy_rows"] += n_energy
+            stats["force_rows"] += len(table) - n_energy
+            stats["tables"].append(name)
+        return stats["tables"]

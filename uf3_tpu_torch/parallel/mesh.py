@@ -24,7 +24,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from uf3_tpu_torch.data import io as data_io
 from uf3_tpu_torch.forcefield.md import _resolve_device
 from uf3_tpu_torch.ops import neighbors as nb
 from uf3_tpu_torch.ops.pair import pair_row_forces
@@ -252,19 +251,30 @@ def fit_from_file_sharded(model, filename: str, subset, weight: float = 0.5,
                           sample_weights: dict = None,
                           energy_key: str = "energy",
                           drop_columns=None) -> None:
-    """Mesh-parallel twin of ``WeightedLinearModel.fit_from_file`` on
-    the ``.npz`` that ``python -m uf3_tpu_torch featurize`` writes: the
-    rows of the configurations in ``subset``, each scaled by its
-    configuration's ``sample_weights``, ``drop_columns`` removed by name
-    (``data.io.feature_rows``, as ``fit_from_file`` selects them), then
-    ``fit_sharded``.  The ``.npz`` is read whole,
-    so the reference's ``chunk_size`` (HDF5 tables streamed to bound
-    host memory) has no counterpart.  The file holds one energy column,
-    so ``energy_key`` must be "energy"; an HDF5 path raises (ROADMAP.md,
-    Featurization)."""
-    fit_sharded(model, *data_io.feature_rows(
-        filename, subset, sample_weights, drop_columns, energy_key),
-        weight=weight, mesh=mesh)
+    """Mesh-parallel twin of ``WeightedLinearModel.fit_from_file``
+    (``least_squares.fit_tables``: the features file read one table at
+    a time, the rows selected as ``fit_from_file`` selects them): each
+    table's frozen columns eliminated on the host and its Gram matrices
+    over the mesh's row shards, summed; the energy/force weights from
+    the streamed targets' variances and the solve on the host in
+    float64."""
+    mesh = _mesh_for(model, mesh)
+    device = mesh.device if mesh.device is not None else model.device
+
+    def table_gram(rows, e_var, f_var):
+        x_e, y_e, x_f, y_f = rows
+        x_e, y_e = ls.freeze_columns(x_e, y_e, model.mask, model.frozen_c,
+                                     model.col_idx)
+        x_f, y_f = ls.freeze_columns(x_f, y_f, model.mask, model.frozen_c,
+                                     model.col_idx)
+        e_var.update(y_e)
+        f_var.update(y_f)
+        gram_e, ord_e = sharded_gram(x_e, y_e, mesh, device)
+        gram_f, ord_f = sharded_gram(x_f, y_f, mesh, device)
+        return [ls._host(g) for g in (gram_e, gram_f, ord_e, ord_f)]
+
+    ls.fit_tables(model, filename, subset, table_gram, weight,
+                  sample_weights, energy_key, drop_columns)
 
 
 # ---------------------------------------------------------------------------

@@ -21,15 +21,17 @@ post-processing (``get_spline_taylor_expansion``,
 ``arrange_coefficients``, ``dataframe_to_tuples`` (on a
 ``representation.process.FeatureTable``), ``subset_prediction`` and
 the metrics.  ``fit_from_file``, ``batched_predict`` and
-``batched_prediction`` read the ``.npz`` features file that ``python -m
-uf3_tpu_torch featurize`` writes, where the reference streams HDF5
-tables: its rows are already per atom, and ``data.io.feature_rows``
-selects them by key, sample weight and dropped column, as
-``parallel/mesh.py``'s ``fit_from_file_sharded`` does.  Feature
-batches on the device fit through ``fit_from_batches`` and
-``gram_from_batches``.
+``batched_prediction`` read the features file that ``python -m
+uf3_tpu_torch featurize`` writes one table at a time
+(``feature_tables``; ``feature_rows`` concatenates them), and
+``fit_tables`` fits them as ``parallel/mesh.py``'s
+``fit_from_file_sharded`` does too: the reference's HDF5 store streamed
+table by table, each table's rows through ``dataframe_to_tuples``, or
+an ``.npz`` whose rows are already per atom.  Feature batches on the
+device fit through ``fit_from_batches`` and ``gram_from_batches``.
 """
 
+import os
 from typing import Collection, Dict, Iterable, List, Tuple
 
 import numpy as np
@@ -39,9 +41,10 @@ from uf3_tpu_torch import io
 from uf3_tpu_torch.data import io as data_io
 from uf3_tpu_torch.forcefield.md import _resolve_device
 from uf3_tpu_torch.io import arrange_coefficients  # noqa: F401
+from uf3_tpu_torch.representation import process
 from uf3_tpu_torch.representation import splines as sp
 from uf3_tpu_torch.representation.basis import BSplineBasis
-from uf3_tpu_torch.util import json_io
+from uf3_tpu_torch.util import hdf5, json_io
 
 
 class VarianceRecorder:
@@ -218,13 +221,15 @@ def dataframe_to_tuples(df_features, n_elements: int = None,
     Split a ``FeatureTable``'s rows into energy and force channels;
     energy rows are normalized per atom via the 1-body composition
     columns when ``n_elements`` is given; each row is scaled by its
-    configuration's ``sample_weights`` entry.
+    configuration's ``sample_weights`` entry.  The table's values are
+    read in place and each channel is copied once, so the rows take at
+    most twice the table's memory.
     """
     names = df_features.names
     energy_mask = np.array([kind == energy_key
                             for kind in df_features.kinds], dtype=bool)
     force_mask = ~energy_mask
-    data = df_features.to_numpy(dtype=np.float64)
+    data = np.asarray(df_features.values, dtype=np.float64)
     y = data[:, 0]
     x = data[:, 1:]
     y_e = y[energy_mask]
@@ -236,12 +241,12 @@ def dataframe_to_tuples(df_features, n_elements: int = None,
     else:
         x_e = x[energy_mask]
     x_f = x[force_mask]
-    if sample_weights is not None:
+    if sample_weights is not None:   # each channel is a copy already
         w = np.array([sample_weights.get(name, 1.0) for name in names])
-        x_e = x_e * w[energy_mask][:, None]
-        y_e = y_e * w[energy_mask]
-        x_f = x_f * w[force_mask][:, None]
-        y_f = y_f * w[force_mask]
+        x_e *= w[energy_mask][:, None]
+        y_e *= w[energy_mask]
+        x_f *= w[force_mask][:, None]
+        y_f *= w[force_mask]
     return x_e, y_e, x_f, y_f
 
 
@@ -251,6 +256,138 @@ def _row_batches(x_e, y_e, x_f, y_f, batch_size: int):
     for start in range(0, max(len(y_e), len(y_f), 1), batch_size):
         rows = slice(start, start + batch_size)
         yield x_e[rows], y_e[rows], x_f[rows], y_f[rows]
+
+
+def feature_keys(path: str) -> List[str]:
+    """The configuration keys of a features file, in its order (each
+    once), read from the tables' row names or the ``.npz``'s keys."""
+    if not os.path.isfile(path):
+        raise FileNotFoundError(path)
+    if not hdf5.is_hdf5_path(path):
+        with np.load(path) as data:
+            return data["keys"].tolist()
+    keys = {}
+    with hdf5.File(path) as f:
+        for table in f.keys():
+            keys.update(dict.fromkeys(f.read(f"{table}/row_names")))
+    return list(keys)
+
+
+def feature_tables(path: str, subset=None, sample_weights: Dict = None,
+                   drop_columns=None, energy_key: str = "energy",
+                   n_elements: int = None, table_names=None):
+    """(x_e, y_e, x_f, y_f) of a features file, one tuple per table, so
+    that host memory holds one table: those of the configurations in
+    ``subset`` (every configuration where None), each row scaled by its
+    configuration's ``sample_weights`` entry (1 where it has none), the
+    ``drop_columns`` removed by name (KeyError for a name the file
+    lacks).
+
+    An HDF5 store is read table by table (``table_names``, by default
+    every table in sorted order), as the reference's ``fit_from_file``
+    reads it: a table's rows of the ``subset`` keys through
+    ``dataframe_to_tuples`` with ``energy_key`` and ``n_elements`` (the
+    energy rows divided by the atom count of the first ``n_elements``
+    columns); a table holding none of them gives nothing.  An ``.npz``
+    is one table whose rows are already per atom; it holds one energy
+    column, so ``energy_key`` must be "energy"."""
+    if not os.path.isfile(path):
+        raise FileNotFoundError(path)
+    if not hdf5.is_hdf5_path(path):
+        yield _npz_rows(path, subset, sample_weights, drop_columns,
+                        energy_key)
+        return
+    if table_names is None:
+        table_names = process.analyze_hdf_tables(path)[2]
+    wanted = None if subset is None else set(subset)
+    for name in table_names:
+        table = process.load_feature_db(path, name)
+        configs = list(dict.fromkeys(table.names))
+        keys = configs if wanted is None \
+            else [key for key in configs if key in wanted]
+        if not keys:
+            continue
+        if len(keys) < len(configs):
+            table = table.select(keys)
+        if drop_columns is not None:
+            table = table.drop(drop_columns)
+        rows = dataframe_to_tuples(table, n_elements=n_elements,
+                                   energy_key=energy_key,
+                                   sample_weights=sample_weights)
+        del table   # neither is held while the next table is read
+        yield rows
+        del rows
+
+
+def feature_rows(path: str, subset=None, sample_weights: Dict = None,
+                 drop_columns=None, energy_key: str = "energy",
+                 n_elements: int = None):
+    """(x_e, y_e, x_f, y_f) of every table of ``feature_tables``,
+    concatenated in the file's order."""
+    parts = list(feature_tables(path, subset, sample_weights, drop_columns,
+                                energy_key, n_elements))
+    if len(parts) == 1:
+        return parts[0]
+    if not parts:
+        raise ValueError(f"{path} holds no row of the keys asked for")
+    return tuple(np.concatenate(arrays) for arrays in zip(*parts))
+
+
+def _npz_rows(path: str, subset, sample_weights, drop_columns,
+              energy_key):
+    """The ``.npz`` rows of ``feature_tables``."""
+    if energy_key != "energy":
+        raise ValueError(f"energy_key {energy_key!r}: the .npz features "
+                         "file holds one energy column, 'energy'")
+    with np.load(path) as data:
+        x_e, y_e, x_f, y_f, keys, force_rows, columns = (
+            data[k] for k in data_io.FEATURE_KEYS + ("keys", "force_rows",
+                                             "columns"))
+    if drop_columns is not None:
+        missing = sorted(set(drop_columns) - set(columns[1:].tolist()))
+        if missing:
+            raise KeyError(f"{missing} not found in the features' columns")
+        keep = ~np.isin(columns[1:], list(drop_columns))
+        x_e, x_f = x_e[:, keep], x_f[:, keep]
+    chosen = np.arange(len(keys)) if subset is None \
+        else np.flatnonzero(np.isin(keys, list(subset)))
+    w = np.array([1.0 if sample_weights is None
+                  else sample_weights.get(keys[i], 1.0) for i in chosen],
+                 dtype=np.float64)
+    f_start = np.concatenate([[0], np.cumsum(force_rows)])
+    f_idx = np.concatenate([np.arange(f_start[i], f_start[i + 1])
+                            for i in chosen] + [np.zeros(0)]).astype(np.int64)
+    w_f = np.repeat(w, force_rows[chosen])
+    return (x_e[chosen] * w[:, None], y_e[chosen] * w,
+            x_f[f_idx] * w_f[:, None], y_f[f_idx] * w_f)
+
+
+def fit_tables(model, filename: str, subset, table_gram,
+               weight: float = 0.5, sample_weights: Dict = None,
+               energy_key: str = "energy", drop_columns=None) -> None:
+    """Fit ``model`` on the rows of ``subset`` in a features file read
+    one table at a time (``feature_tables``): ``table_gram(rows,
+    e_variance, f_variance)`` gives a table's (gram_e, gram_f, ord_e,
+    ord_f) and streams its targets into the recorders; the sums are
+    weighted by the recorded channel weights and solved on the host.
+    ``fit_from_file`` and ``parallel.mesh.fit_from_file_sharded`` differ
+    only in their ``table_gram``."""
+    e_var, f_var = VarianceRecorder(), VarianceRecorder()
+    sums = None
+    for rows in feature_tables(filename, subset, sample_weights,
+                               drop_columns, energy_key,
+                               len(model.bspline_config.element_list)):
+        if rows[0].shape[1] != model.n_feats:
+            raise ValueError(f"{rows[0].shape[1]} feature columns, the "
+                             f"basis has {model.n_feats}")
+        grams = table_gram(rows, e_var, f_var)
+        del rows   # one table's rows in host memory at a time
+        sums = grams if sums is None else [a + b for a, b in zip(sums,
+                                                                 grams)]
+    if sums is None:
+        raise ValueError(f"{filename} holds no row of the keys asked for")
+    model.fit_with_gram(*model.weighted_gram(*sums, e_var, f_var,
+                                             weight=weight))
 
 
 # ---------------------------------------------------------------------------
@@ -474,29 +611,31 @@ class WeightedLinearModel(BasicLinearModel):
                       sample_weights: Dict = None,
                       energy_key: str = "energy",
                       drop_columns: List[str] = None):
-        """Fit the rows of the configurations in ``subset`` of an
-        ``.npz`` features file (``data.io.feature_rows``: per-atom rows,
-        scaled by ``sample_weights``, ``drop_columns`` removed): the Gram
-        matrices summed on the device over batches of ``batch_size``
-        rows, the channel weights from the targets' variances, the solve
-        on the host.  ``energy_key`` other than "energy" raises; so does
-        an HDF5 path (ROADMAP.md, Featurization)."""
-        rows = data_io.feature_rows(filename, subset, sample_weights,
-                                    drop_columns, energy_key)
-        if rows[0].shape[1] != self.n_feats:
-            raise ValueError(f"{rows[0].shape[1]} feature columns, the "
-                             f"basis has {self.n_feats}")
-        self.fit_from_batches(_row_batches(*rows, batch_size), weight=weight)
+        """Fit the rows of the configurations in ``subset`` of a
+        features file, read one table at a time
+        (``feature_tables``: energy rows per atom, rows scaled
+        by ``sample_weights``, ``drop_columns`` removed, ``energy_key``
+        naming the energy rows of an HDF5 store): the Gram matrices
+        summed on the device over batches of at most ``batch_size``
+        rows, the channel weights from the targets' variances, the
+        solve on the host."""
+        fit_tables(self, filename, subset,
+                   lambda rows, e_var, f_var: self.gram_from_batches(
+                       _row_batches(*rows, batch_size), e_var, f_var),
+                   weight, sample_weights, energy_key, drop_columns)
 
-    def batched_predict(self, filename: str, keys=None, score: bool = True,
-                        drop_columns=None):
+    def batched_predict(self, filename: str, keys=None, table_names=None,
+                        score: bool = True, drop_columns=None):
         """Targets and predictions (y_e, p_e, y_f, p_f) of the rows of
-        ``keys`` (every configuration where None) of an ``.npz`` features
-        file, predicted on the model's device; with ``score`` also the
-        energy and force RMSE, printed as the reference prints them (the
-        force RMSE NaN where no force row was chosen)."""
+        ``keys`` (every configuration where None) of a features file
+        (of its ``table_names`` where given), predicted table by table
+        on the model's device; with ``score`` also the energy and force
+        RMSE, printed as the reference prints them (the force RMSE NaN
+        where no force row was chosen)."""
         y_e, p_e, y_f, p_f = batched_prediction(
-            self, filename, subset_keys=keys, drop_columns=drop_columns)
+            self, filename, table_names=table_names, subset_keys=keys,
+            drop_columns=drop_columns,
+            n_elements=len(self.bspline_config.element_list))
         if not score:
             return y_e, p_e, y_f, p_f
         rmse_e = rmse_metric(y_e, p_e)
@@ -647,18 +786,24 @@ def subset_prediction(df, model: BasicLinearModel, subset_keys=None,
 
 
 def batched_prediction(model: BasicLinearModel, filename: str,
-                       subset_keys=None, drop_columns=None):
-    """(y_e, p_e, y_f, p_f) of an ``.npz`` features file's rows (of the
-    configurations in ``subset_keys`` where given), the products on the
-    model's device in float64."""
-    x_e, y_e, x_f, y_f = data_io.feature_rows(filename, subset_keys,
-                                              drop_columns=drop_columns)
+                       table_names=None, subset_keys=None,
+                       drop_columns=None, n_elements: int = None):
+    """(y_e, p_e, y_f, p_f) of a features file's rows (of the
+    configurations in ``subset_keys`` where given), read one table at a
+    time (``n_elements`` as ``dataframe_to_tuples`` takes it), the
+    products on the model's device in float64."""
 
     def predict(x):
         return _host(model.predict(torch.as_tensor(
             x, dtype=torch.float64, device=model.device)))
 
-    return y_e, predict(x_e), y_f, predict(x_f)
+    parts = [(y_e, predict(x_e), y_f, predict(x_f))
+             for x_e, y_e, x_f, y_f in feature_tables(
+                 filename, subset_keys, drop_columns=drop_columns,
+                 n_elements=n_elements, table_names=table_names)]
+    if not parts:
+        return tuple(np.zeros(0) for _ in range(4))
+    return tuple(np.concatenate(column) for column in zip(*parts))
 
 
 def rmse_metric(predicted, actual) -> float:

@@ -11,14 +11,18 @@ Counterpart of ``uf3_tpu/representation/process.py``: ``__init__`` with
 ``FeatureTable`` (the reference's DataFrame: rows indexed by
 (configuration key, kind), the "y" column and the feature columns, in
 the reference's order and names).  ``featurize_dataset`` returns (x_e,
-y_e, x_f, y_f) in ``dataframe_to_tuples`` order.  The HDF5 store
-(``batched_to_hdf``, ``save_feature_db``, ``load_feature_db``,
-``analyze_hdf_tables``) is not ported: the GPU hosts carry no h5py
-(ROADMAP.md, Featurization).  This is the route for bases whose knots
-have no closed form; the device featurizer (``ops/featurize.py``) takes
-every other basis.
+y_e, x_f, y_f) in ``dataframe_to_tuples`` order.  The HDF5 feature
+store keeps the reference's names and layout (``batched_to_hdf``,
+``save_feature_db``, ``load_feature_db``, ``analyze_hdf_tables``,
+``dataframe_batch_loader``): each table is one group of ``values``
+(float64, chunked, deflated), ``row_names``, ``row_kinds`` and
+``columns``, read and written by ``util/hdf5.py`` where the reference
+calls h5py, which the GPU hosts do not carry.  This is the route for
+bases whose knots have no closed form; the device featurizer
+(``ops/featurize.py``) takes every other basis.
 """
 
+import os
 import warnings
 from typing import Dict, List, Sequence, Tuple
 
@@ -27,6 +31,7 @@ import numpy as np
 from uf3_tpu_torch.data import geometry as geo
 from uf3_tpu_torch.representation import featurize_np as fnp
 from uf3_tpu_torch.representation.basis import BSplineBasis
+from uf3_tpu_torch.util import hdf5
 
 
 def flatten_by_interactions(vector_map: Dict, pair_tuples: List) -> np.ndarray:
@@ -238,6 +243,24 @@ class BasisFeaturizer:
         return FeatureTable(list(eval_map), list(self.columns),
                             values.reshape(len(eval_map), len(self.columns)))
 
+    def batched_to_hdf(self, filename: str, df_data, batch_size: int = 50,
+                       table_template: str = "features_{}", progress=None,
+                       **kwargs) -> None:
+        """Restartable featurization into the HDF5 store ``filename``:
+        the reference's batches and table names (``table_batches``),
+        each batch featurized by ``evaluate`` (``kwargs``: its
+        ``atoms_key`` and ``energy_key``) and written as one table
+        before the next starts; tables the file holds are skipped.
+        ``progress`` is accepted and unused, as in the reference's
+        serial path."""
+        existing = existing_tables(filename)
+        for table_name, positions in table_batches(len(df_data), batch_size,
+                                                   table_template):
+            if table_name not in existing:
+                save_feature_db(self.evaluate(df_data.take(positions),
+                                              **kwargs),
+                                filename, table_name=table_name)
+
     def featurize_dataset(self, geometries: Sequence, energies: Sequence,
                           forces: Sequence = None
                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
@@ -295,6 +318,17 @@ class FeatureTable:
     def to_numpy(self, dtype=np.float64) -> np.ndarray:
         return self.values.astype(dtype)
 
+    def drop(self, columns) -> "FeatureTable":
+        """The table without the named ``columns`` (KeyError for a name
+        it lacks), as ``df.drop(columns=...)``."""
+        dropped = set(columns)
+        missing = sorted(dropped - set(self.columns))
+        if missing:
+            raise KeyError(f"{missing} not found in the features' columns")
+        keep = [i for i, c in enumerate(self.columns) if c not in dropped]
+        return FeatureTable(self.index, [self.columns[i] for i in keep],
+                            self.values[:, keep])
+
     def select(self, keys) -> "FeatureTable":
         """The rows of the configurations ``keys``, configuration by
         configuration in the order of ``keys``, as ``df.loc[keys]``."""
@@ -312,3 +346,66 @@ def check_elements(geom, element_list, index: int) -> None:
     if invalid:
         raise ValueError(f"configuration {index} holds elements outside "
                          f"the basis: {', '.join(sorted(invalid))}")
+
+
+# ---------------------------------------------------------------------------
+# HDF5 feature store (the reference's h5py layout, through util/hdf5.py)
+# ---------------------------------------------------------------------------
+def table_batches(n_configs: int, batch_size: int = 50,
+                  table_template: str = "features_{}"):
+    """(table name, configuration positions) of each table
+    ``batched_to_hdf`` writes: ``np.array_split`` into one batch more
+    than ``batch_size`` fits past the first, names zero-padded to at
+    least three digits, as the reference splits and names them."""
+    positions = np.arange(n_configs)
+    batches = np.array_split(positions, np.maximum(
+        1, len(positions[batch_size::batch_size]) + 1))
+    width = max(int(np.ceil(np.log10(len(batches)) + 0.1)), 3)
+    return [(table_template.format(str(j).rjust(width, "0")), batch)
+            for j, batch in enumerate(batches)]
+
+
+def existing_tables(filename: str) -> List[str]:
+    """The tables ``filename`` holds (with the reference's
+    ``RuntimeWarning``), none where it does not exist."""
+    if not os.path.isfile(filename):
+        return []
+    _, _, names, _ = analyze_hdf_tables(filename)
+    warnings.warn(f"File already exists: contains {len(names)} chunks.",
+                  RuntimeWarning)
+    return names
+
+
+def save_feature_db(table: FeatureTable, filename: str,
+                    table_name: str = "features") -> None:
+    """Add one feature table to ``filename`` (created where missing),
+    replacing a table of that name: ``values`` and the row index and
+    column names as strings."""
+    with hdf5.File(filename, "a") as f:
+        f.write_group(table_name, {
+            "values": np.asarray(table.values, dtype=np.float64),
+            "row_names": [str(name) for name in table.names],
+            "row_kinds": [str(kind) for kind in table.kinds],
+            "columns": [str(c) for c in table.columns]})
+
+
+def load_feature_db(filename: str,
+                    table_name: str = "features") -> FeatureTable:
+    with hdf5.File(filename) as f:
+        values = f.read(f"{table_name}/values")
+        names, kinds, columns = (f.read(f"{table_name}/{member}") for member
+                                 in ("row_names", "row_kinds", "columns"))
+    return FeatureTable(list(zip(names, kinds)), columns, values)
+
+
+def analyze_hdf_tables(filename: str) -> Tuple[int, int, List, Dict]:
+    """(number of tables, rows in all, sorted names, rows per name)."""
+    with hdf5.File(filename) as f:
+        lengths = {name: f.shape(f"{name}/values")[0] for name in f.keys()}
+    return (len(lengths), int(sum(lengths.values())), sorted(lengths),
+            lengths)
+
+
+def dataframe_batch_loader(filename: str, table_names: List[str]):
+    for table_name in table_names:
+        yield load_feature_db(filename, table_name)

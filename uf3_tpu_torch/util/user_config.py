@@ -14,8 +14,8 @@ basis's ``r_min`` / ``r_max`` / ``resolution`` may also be maps keyed
 as in the model files ("W-W", "W-W-W"), and its ``knots_map`` (knot
 sequences of any spacing) one too, which only this package reads.  The
 defaults are those of ``uf3_tpu/default_options.yaml`` that these
-commands read, with the features file as ``.npz`` (the GPU hosts carry
-no HDF5 library either).
+commands read, the features file ``features.h5`` among them (the HDF5
+store, through ``util/hdf5.py``); an ``.npz`` path works too.
 """
 
 import copy
@@ -60,11 +60,11 @@ DEFAULT_SETTINGS = {
         "knot_strategy": "linear",
         "knots_map": None,
     },
-    "features": {"features_path": "features.npz", "fit_forces": True,
+    "features": {"features_path": "features.h5", "fit_forces": True,
                  "column_prefix": "x"},
     "model": {"model_path": "model.json"},
     "learning": {
-        "features_path": "features.npz",
+        "features_path": "features.h5",
         "weight": 0.5,
         "regularizer": {
             "ridge_1b": 1.0e-16,

@@ -81,7 +81,13 @@ featurizes nothing, the committed fixture ``tests/data/features_ref.h5``
 (written by h5py) read bit-equal to its ``.npz`` twin, ``fit_from_file``
 and ``batched_predict`` on the ``.h5`` within 1e-10 of the ``.npz`` fit
 and at a quarter of its host memory peak, and the commands on an
-``.h5`` settings file with ``md`` on their model.
+``.h5`` settings file with ``md`` on their model.  Then the last of the
+reference's surface (``run_last_surface``): ``evaluate_parallel`` on two
+spawned workers, bit-equal to ``evaluate``; ``UFLammps(backend=
+"lammps")`` raising ``ImportError`` on this host, which has no
+``lammps``; the native backend on a general triclinic cell against
+``UFCalculator`` on the card and the CPU, and that cell's LAMMPS data
+file (positive box lengths, rotated back within 1e-10).
 Last, the multi-species fit
 (``run_fit_multi``): 1,000
 strained and rattled binary fcc Ne/Xe cells of 32, 108 and 256 atoms
@@ -3923,6 +3929,149 @@ def run_feature_store(device, fit, pipeline, keep=None):
     return md_launches
 
 
+# -- the last of the reference's surface: the host featurizer over a
+# spawned process pool, the lammps backend's guard on a host without
+# lammps, and the native backend and the LAMMPS data file on a general
+# triclinic cell
+LAST_CONFIGS = 6         # labeled cells of each of the first three sizes
+LAST_WORKERS = 2
+LAST_REPS = (6, 6, 6)    # bcc W, 432 atoms
+LAST_STRAIN = np.array([[0.01, 0.03, -0.02], [0.02, -0.01, 0.04],
+                        [-0.03, 0.02, 0.015]])
+LAST_ANGLE = 0.35         # rad, the cell's rotation about [111]
+LAST_POSITION_TOL = 1e-10  # the data file's 10 decimals, rotated back
+
+
+def rotation_111(angle):
+    """The rotation by ``angle`` about [111] (Rodrigues)."""
+    axis = np.ones(3) / np.sqrt(3.0)
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(angle) * k + (1 - np.cos(angle)) * k @ k
+
+
+def read_lammps_box(path):
+    """(cell, positions) of an atomic-style LAMMPS data file as
+    ``write_lammps_data`` writes it."""
+    lines = [ln.strip() for ln in open(path)]
+    cell = np.zeros((3, 3))
+    for axis, tag in enumerate(("xlo xhi", "ylo yhi", "zlo zhi")):
+        lo, hi = (float(v) for v in next(
+            ln for ln in lines if ln.endswith(tag)).split()[:2])
+        cell[axis, axis] = hi - lo
+    for ln in lines:
+        if ln.endswith("xy xz yz"):
+            cell[1, 0], cell[2, 0], cell[2, 1] = (float(v) for v in
+                                                  ln.split()[:3])
+    start = lines.index("Atoms") + 2
+    rows = np.array([ln.split() for ln in lines[start:]
+                     if ln], dtype=float)
+    return cell, rows[np.argsort(rows[:, 0]), 2:5]
+
+
+def run_last_surface(device, fit):
+    """``BasisFeaturizer.evaluate_parallel`` on ``run_fit``'s labeled
+    cells (``fit``; ``LAST_CONFIGS`` of each of 16, 54 and 128 atoms)
+    over ``util.parallel.get_executor(2)`` (spawned workers), twice in
+    one pool, against ``evaluate`` (bit-equal, all three timed);
+    ``UFLammps(backend="lammps")`` raising ``ImportError`` at its first
+    ``evaluate`` on this host, which has no ``lammps`` module; the
+    native backend on the card on a general triclinic bcc W cell (432
+    atoms, f64) within 1e-10 of ``UFCalculator`` on the card and on the
+    CPU; and ``write_lammps_data`` of that cell: positive box lengths,
+    its rotation taking the written cell and positions back to the
+    input within 1e-10.  Returns the trio launches of the native
+    backend's call."""
+    from uf3_tpu_torch.representation.process import BasisFeaturizer
+    from uf3_tpu_torch.util import parallel
+    card = card_line()
+    t_phase = time.perf_counter()
+    starts = np.cumsum([0] + [c for c, _, _ in FIT_SET])[:3]
+    picked = [int(i) for start in starts
+              for i in range(start, start + LAST_CONFIGS)]
+    dataset = data_io.prepare_dataframe_from_lists(
+        [fit["geoms"][i] for i in picked],
+        energies=[fit["energies"][i] for i in picked],
+        forces=[fit["forces"][i] for i in picked])
+    featurizer = BasisFeaturizer(fit["basis"])
+    seconds = {}
+    t0 = time.perf_counter()
+    serial = featurizer.evaluate(dataset)
+    seconds["evaluate"] = time.perf_counter() - t0
+    pooled = []
+    with parallel.get_executor(LAST_WORKERS) as pool:
+        for name in ("evaluate_parallel (workers starting)",
+                     "evaluate_parallel (workers warm)"):
+            t0 = time.perf_counter()
+            pooled.append(featurizer.evaluate_parallel(
+                dataset, client=pool, n_jobs=LAST_WORKERS))
+            seconds[name] = time.perf_counter() - t0
+    bit_equal = all(t.index == serial.index and t.columns == serial.columns
+                    and np.array_equal(t.values, serial.values)
+                    for t in pooled)
+    print(f"last surface: {len(dataset)} configurations "
+          f"({sum(len(g) for g in dataset['geometry'])} atoms, "
+          f"{len(serial)} rows) on the host featurizer: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in seconds.items())
+          + f" ({LAST_WORKERS} spawned workers); tables bit-equal: "
+          f"{bit_equal}; card's host: {card}")
+    # the lammps backend on a host without lammps
+    model = io.load_model(MODEL)
+    geom = bench_geometry(LAST_REPS, rattle=0.05)
+    deformed = geom.get_cell() @ (np.eye(3) + LAST_STRAIN)
+    geom.set_cell(deformed @ rotation_111(LAST_ANGLE).T,
+                  scale_atoms=True)
+    tmp = tempfile.mkdtemp()
+    guard = lammps.UFLammps(model, backend="lammps", device=device,
+                            pot_dir=tmp)
+    try:
+        guard.evaluate(geom)
+        raised = None
+    except ImportError as exc:
+        raised = str(exc)
+    # the native backend on the card on the general cell
+    reset_counts()
+    native_results = lammps.UFLammps(model, backend="native",
+                                     device=device).evaluate(geom)
+    launches = trio.trio_partials.launches
+    errors = {}
+    for tag, where in (("card", device), ("CPU", "cpu")):
+        calc = UFCalculator(MODEL, device=where)
+        errors[tag] = max(
+            abs(native_results["energy"] - calc.get_potential_energy(geom)),
+            np.abs(native_results["forces"] - calc.get_forces(geom)).max(),
+            np.abs(np.asarray(native_results["stress"])
+                   - calc.get_stress(geom)).max())
+    data_path = os.path.join(tmp, "cell.data")
+    q = lammps.write_lammps_data(data_path, geom, model.bspline_config
+                                 .element_list)
+    cell, positions = read_lammps_box(data_path)
+    cell_err = np.abs(cell @ q.T - geom.get_cell()).max()
+    position_err = np.abs(positions @ q.T - geom.get_positions()).max()
+    shutil.rmtree(tmp)
+    wall = time.perf_counter() - t_phase
+    print(f"last surface: UFLammps(backend='lammps') on this host: "
+          f"{'ImportError: ' + raised[:60] if raised else 'no error'}; "
+          f"native backend on a general triclinic cell ({len(geom)} atoms, "
+          f"f64, {launches} trio launches): max |d| against UFCalculator "
+          f"on the card {errors['card']:.3e}, on the CPU "
+          f"{errors['CPU']:.3e}; data file box lengths "
+          f"{np.round(np.diag(cell), 6).tolist()}, rotated back: cell "
+          f"{cell_err:.3e}, positions {position_err:.3e} A; phase wall "
+          f"{wall:.3f} s; card: {card}")
+    gate("last surface", {
+        "evaluate_parallel bit-equal to evaluate": bit_equal,
+        "lammps backend raises ImportError naming backend='native'":
+            raised is not None and "backend='native'" in raised,
+        f"native backend within {F64_TOL:g} of UFCalculator, card and CPU":
+            max(errors.values()) <= F64_TOL,
+        "trio kernel launched by the native backend": launches > 0,
+        "data file box lengths positive": bool(np.all(np.diag(cell) > 0)),
+        f"data file rotated back within {LAST_POSITION_TOL:g}":
+            max(cell_err, position_err) <= LAST_POSITION_TOL})
+    return launches
+
+
 # -- the multi-species fit on the card (ROADMAP.md section 1 item 1):
 # the random Ne/Xe 2+3-body model as the teacher of a training set of
 # (count, fcc repetitions) at a = 5.4 A: 1,000 configurations, 129,600
@@ -4864,6 +5013,8 @@ def main():
     launches["feature store: md command"] = run_feature_store(
         device, labeled, pipeline, keep=fit_keep)
     shutil.rmtree(store_dir)
+    launches["last surface: native backend"] = run_last_surface(
+        device, labeled)
     del labeled, pipeline
     multi_launches.update(run_fit_multi(device))
     # multi-shard MD and fitting on torch.distributed

@@ -15,7 +15,8 @@ against the JAX package's on the same inputs:
 - every test of ``TestLammpsExport`` (``tests/test_auxiliary.py``): the
   port's ``.uf3``, table and data files equal the JAX package's text
   (the DATE field masked), the round trips, ``UFLammps``' native
-  backend against the reference's, its ``lammps`` backend raising;
+  backend against the reference's, its ``lammps`` backend's guard
+  where no ``lammps`` module imports;
 - ``python -m uf3_tpu_torch export`` against ``python -m uf3_tpu
   export`` (the export half of ``tests/test_cli.py``), and ``md
   --traj``.
@@ -370,13 +371,24 @@ class TestLammpsExport:
         with pytest.raises(ValueError, match="no 4-column"):
             lammps.read_tabulated_potential("UF3_W\nN 25\n")
 
-    def test_uflammps_lammps_backend_not_ported(self, models, tmp_path):
-        """backend='lammps' raises NotImplementedError naming its
-        ROADMAP.md title; the command sequence matches the pair_style
-        uf3 contract on the native backend."""
-        with pytest.raises(NotImplementedError,
-                           match="LAMMPS library backend"):
-            lammps.UFLammps(models[0], backend="lammps", device="cpu")
+    def test_uflammps_lammps_backend_guard(self, models, tmp_path,
+                                           monkeypatch):
+        """With no ``lammps`` module, backend='lammps' constructs and
+        exports the potential file, and its first evaluate raises the
+        reference's ImportError (``tests/test_auxiliary.py``'s
+        guard); the command sequence matches the pair_style uf3
+        contract and the reference's."""
+        monkeypatch.setitem(sys.modules, "lammps", None)
+        calc = lammps.UFLammps(models[0], backend="lammps", device="cpu",
+                               pot_dir=str(tmp_path / "port"))
+        assert calc.backend == "lammps" and os.path.isfile(calc.pot_path)
+        with pytest.raises(ImportError, match="backend='native'") as ours:
+            calc.evaluate(bulk("W", "bcc", a=3.1652) * 2)
+        ref = j_lammps.UFLammps(models[1], backend="lammps",
+                                pot_dir=str(tmp_path / "ref"))
+        with pytest.raises(ImportError) as theirs:
+            ref.evaluate(jbulk("W", "bcc", a=3.1652) * 2)
+        assert str(ours.value) == str(theirs.value)
         calc = lammps.UFLammps(models[0], backend="native", device="cpu")
         calc.pot_path = str(tmp_path / "W.uf3")
         cmds = calc.setup_commands("structure.data")

@@ -187,6 +187,27 @@ def _imports(path):
             yield node.module
 
 
+def _import_sites(path, module):
+    """The enclosing function's name (None at module level) of each
+    import of ``module`` in ``path``."""
+    tree = ast.parse(open(path).read(), filename=path)
+    sites = []
+
+    def visit(node, function):
+        for child in ast.iter_child_nodes(node):
+            names = [alias.name for alias in child.names] \
+                if isinstance(child, ast.Import) else \
+                [child.module or ""] if isinstance(child, ast.ImportFrom) \
+                else []
+            if any(name.split(".")[0] == module for name in names):
+                sites.append(function)
+            visit(child, child.name if isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)) else function)
+
+    visit(tree, None)
+    return sites
+
+
 def test_port_sources_import_nothing_of_uf3_tpu():
     files = glob.glob(os.path.join(REPO, "uf3_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
@@ -206,7 +227,7 @@ def test_port_sources_import_nothing_of_uf3_tpu():
         "parallel/mesh.py", "parallel/halo.py", "data/analyze.py",
         "regression/optimize.py", "forcefield/ase_adapter.py",
         "util/tracing.py", "util/plotting.py", "util/plotting3d.py",
-        "util/hdf5.py",
+        "util/hdf5.py", "util/parallel.py",
         "ops/gather.py", "benchmarks/__init__.py", "benchmarks/common.py",
         "benchmarks/step_anatomy.py", "benchmarks/probe_gather.py",
         "benchmarks/probe_stale.py", "benchmarks/probe_stale_error.py",
@@ -226,6 +247,11 @@ def test_port_sources_import_nothing_of_uf3_tpu():
             # on the GPU hosts
             assert name.split(".")[0] not in ("jax", "pandas", "yaml",
                                               "h5py", "tables"), (path, name)
+        # the lammps module (on neither GPU host) only where the lammps
+        # backend runs, as the reference imports it
+        sites = _import_sites(path, "lammps")
+        assert sites == (["_get_lammps"] if path.endswith(os.path.join(
+            "forcefield", "lammps.py")) else []), (path, sites)
 
 
 def test_port_sources_open_no_path_under_uf3_tpu():

@@ -54,6 +54,22 @@ class Atoms:
         return (f"Atoms({self.get_chemical_formula()}, "
                 f"pbc={self.pbc.tolist()})")
 
+    def __setstate__(self, state: Dict) -> None:
+        """Unpickle (a process pool's worker receives its configurations
+        so).  An unpickled array carries its own copy of its dtype, on
+        which numpy 2.0's ``ufunc.at``, the host featurizer's scatter,
+        takes a path ~20x slower: numeric arrays are viewed as their
+        canonical dtype."""
+        def canonical(value):
+            if isinstance(value, np.ndarray) and value.dtype.kind in "biuf":
+                return value.view(value.dtype.type)
+            return value
+
+        state = {k: canonical(v) for k, v in state.items()}
+        state["arrays"] = {k: canonical(v)
+                           for k, v in state.get("arrays", {}).items()}
+        self.__dict__.update(state)
+
     def copy(self) -> "Atoms":
         new = Atoms(self.numbers.copy(), self.positions.copy(),
                     self.cell.copy(), self.pbc.copy(), info=dict(self.info))

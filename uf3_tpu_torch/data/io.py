@@ -18,7 +18,9 @@ same configurations it writes the same text and the same database
 rows.  Where the reference builds DataFrames, the coordinator holds
 ``Dataset``s (keys in order, one column per name, row selection by
 key); ``parse_lammps_log`` returns a dict of column arrays,
-``parse_lammps_dump`` the matched timesteps and their configurations,
+``parse_lammps_dump`` the matched timesteps and their configurations
+(each snapshot through ``df_from_tsv_text``, a ``Dataset`` keyed by
+atom id, and ``atoms_from_df``),
 ``parse_lammps_outputs`` the configurations with the log's columns in
 their ``info``.  ``read_xyz`` sends a file of the standard layout to
 the native tokenizer (``uf3_tpu_torch.native``), as the reference's
@@ -259,17 +261,32 @@ def read_vasprun(filename: str) -> List[Atoms]:
 
 def _columns(text: str) -> Dict[str, np.ndarray]:
     """Whitespace-separated columns under a header line: integer
-    columns as int64, the others as float64."""
+    columns as int64, other numeric columns as float64, the rest as
+    strings."""
     lines = [ln.split() for ln in text.strip().splitlines() if ln.strip()]
     header, rows = lines[0], lines[1:]
     out = {}
     for j, name in enumerate(header):
         values = [row[j] for row in rows]
-        try:
-            out[name] = np.array([int(v) for v in values], dtype=np.int64)
-        except ValueError:
-            out[name] = np.array(values, dtype=np.float64)
+        for parse, dtype in ((int, np.int64), (float, np.float64),
+                             (str, str)):
+            try:
+                out[name] = np.array([parse(v) for v in values], dtype=dtype)
+                break
+            except ValueError:
+                continue
     return out
+
+
+def df_from_tsv_text(text: str) -> "Dataset":
+    """A whitespace-separated table with an ``id`` column as a
+    ``Dataset`` keyed by ``id``, its rows sorted by it (the reference's
+    ``read_csv(...).set_index("id").sort_index()``)."""
+    columns = _columns(text)
+    ids = columns.pop("id")
+    order = np.argsort(ids, kind="stable")
+    return Dataset(ids[order].tolist(),
+                   {k: v[order] for k, v in columns.items()})
 
 
 def parse_lammps_log(fname: str, log_regex: str = None
@@ -316,24 +333,29 @@ def _construct_cell(bounds: np.ndarray,
     return cell, displacement
 
 
-def _dump_atoms(text: str, lammps_aliases: Dict, cell, pbc) -> Atoms:
-    """A dump snapshot's per-atom columns (sorted by ``id``) as Atoms:
-    x/y/z the positions, ``type`` the species through the aliases, every
-    other column a per-atom array."""
-    columns = _columns(text)
-    order = np.argsort(columns.pop("id"), kind="stable")
-    columns = {k: v[order] for k, v in columns.items()}
+def atoms_from_df(df, element_key: str = "element",
+                  lammps_aliases: Dict = None, info: Dict = None,
+                  **atom_kwargs) -> Atoms:
+    """Atoms from per-atom columns (a ``Dataset`` of atoms, as
+    ``df_from_tsv_text`` gives, or a dict of columns): x/y/z the
+    positions, ``element_key`` the species (symbols or atomic numbers,
+    through ``lammps_aliases``), every other column a per-atom array;
+    ``atom_kwargs`` (``cell``, ``pbc``) to ``Atoms``."""
+    lammps_aliases = lammps_aliases or {}
+    columns = df.columns if isinstance(df, Dataset) else df
+    positions = np.stack([np.asarray(columns[c], dtype=np.float64)
+                          for c in ("x", "y", "z")], axis=1)
     numbers = []
-    for item in columns["type"]:
+    for item in columns[element_key]:
         item = lammps_aliases.get(item, item)
         if isinstance(item, str) and item in elements.atomic_numbers:
             numbers.append(elements.atomic_numbers[item])
         else:
             numbers.append(int(item))
-    positions = np.stack([columns[c] for c in ("x", "y", "z")], axis=1)
-    atoms = Atoms(numbers, positions, cell=cell, pbc=pbc)
-    for key in set(columns) - {"x", "y", "z", "type"}:
-        atoms.set_array(key, columns[key])
+    atoms = Atoms(numbers, positions, **atom_kwargs)
+    for key in set(columns) - {"x", "y", "z", element_key}:
+        atoms.set_array(key, np.asarray(columns[key]))
+    atoms.info = dict(info or {})
     return atoms
 
 
@@ -358,8 +380,10 @@ def parse_lammps_dump(fname: str,
             line = f.readline()
             if "ITEM: TIMESTEP" in line or not line:
                 if timestep is not None and atom_lines:
-                    atoms = _dump_atoms("\n".join(atom_lines),
-                                        lammps_aliases, cell, pbc)
+                    atoms = atoms_from_df(
+                        df_from_tsv_text("\n".join(atom_lines)),
+                        element_key="type", lammps_aliases=lammps_aliases,
+                        cell=cell, pbc=pbc)
                     atoms.info["celldisp"] = celldisp
                     if not parse_subset:
                         snapshot_index.append(timestep)

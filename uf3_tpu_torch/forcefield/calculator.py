@@ -2,8 +2,8 @@
 UFCalculator: energies, forces and stresses of a fitted model, on the
 CUDA card.
 
-Counterpart of ``uf3_tpu/forcefield/calculator.py``: the same names,
-methods and results (energy in eV with the 1-body offsets unless
+Counterpart of ``uf3_tpu/forcefield/calculator.py``: the same names
+(``coefficients_by_interaction`` too), methods and results (energy in eV with the 1-body offsets unless
 ``force_consistent``, forces in eV/A in the caller's atom order, Voigt
 stress xx, yy, zz, yz, xz, xy in eV/A^3), computed by the MD engine's
 force routes (``MDSystem.energy_forces``: the fused kernels, the fused
@@ -32,6 +32,22 @@ from uf3_tpu_torch.forcefield.md import MDSystem, _load, _resolve_device
 from uf3_tpu_torch.ops.potential import stress_voigt
 
 MAX_REGROWS = 8  # capacity growths (1.5x each) within one call
+
+
+def coefficients_by_interaction(element_list,
+                                interactions_map,
+                                partition_sizes,
+                                coefficients) -> Dict:
+    """Split the flat coefficient vector per interaction (1-body entries
+    as one-element arrays; ``io.arrange_coefficients`` gives scalars)."""
+    split_indices = np.cumsum(partition_sizes)[:-1]
+    pieces = np.array_split(coefficients, split_indices)
+    solutions = {el: piece for el, piece
+                 in zip(element_list, pieces[:len(element_list)])}
+    keys = list(interactions_map[2]) + list(interactions_map.get(3, []))
+    for idx, key in enumerate(keys):
+        solutions[key] = pieces[len(element_list) + idx]
+    return solutions
 
 
 class UFCalculator:

@@ -12,10 +12,24 @@ fitted here drop into the upstream C++ ``pair_style uf3``.
 Host copy of ``uf3_tpu/forcefield/lammps.py``: for the same model the
 writers write the same text (apart from the date).  ``UFLammps`` runs
 its native backend on ``UFCalculator`` (the CUDA card unless
-``device="cpu"``); its in-process LAMMPS backend is not ported.
+``device="cpu"``) and its ``lammps`` backend through the in-process
+``lammps`` Python module, imported only when a run needs it.
+
+Three faults of the reference's LAMMPS path are repaired here:
+``write_lammps_data`` rotated a general cell into a frame whose box
+lengths LAMMPS refuses as negative (it now flips the rotation's axes so
+that they are positive, and returns the rotation); the ``lammps``
+backend returned forces and stress, and wrote a relaxed structure back,
+in that rotated frame (they are rotated back into the caller's); and
+its energy lacked the 1-body offsets, which the ``.uf3`` file does not
+carry (they are added, so that both backends give the same energy).
+A structure that is not periodic along all three axes is refused by
+the ``lammps`` backend, which always writes ``boundary p p p``.
 """
 
+import importlib.util
 import os
+import tempfile
 from datetime import datetime
 from typing import Dict, List, Tuple
 
@@ -24,10 +38,7 @@ import numpy as np
 from uf3_tpu_torch import io
 from uf3_tpu_torch.data import elements
 from uf3_tpu_torch.data.atoms import Atoms
-from uf3_tpu_torch.forcefield.md import _not_ported
 from uf3_tpu_torch.representation import splines as sp
-
-LAMMPS_BACKEND = "LAMMPS library backend"
 
 
 def export_tabulated_potential(knot_sequence: np.ndarray,
@@ -76,18 +87,24 @@ def export_tabulated_potential(knot_sequence: np.ndarray,
 def write_lammps_data(filename: str,
                       geom: Atoms,
                       element_list: List[str],
-                      masses: bool = True) -> None:
-    """Minimal LAMMPS data-file writer (atomic style, triclinic-safe
-    for upper-triangular cells)."""
+                      masses: bool = True) -> np.ndarray:
+    """Minimal LAMMPS data-file writer (atomic style, triclinic-safe).
+
+    A cell that is lower-triangular with no negative diagonal, LAMMPS's
+    own form (a, 0, 0), (b_x, b_y, 0), (c_x, c_y, c_z), is written as it
+    is.  Any other cell is rotated (or reflected) into that form with
+    positive box lengths: rows map as ``x_lammps = x @ rotation``.
+    Returns ``rotation`` (the identity where none was needed)."""
     cell = geom.get_cell()
-    if not np.allclose(cell, np.triu(cell) * 0 + np.tril(cell)):
-        # general cells require rotation to LAMMPS lower-triangular form
+    rotation = np.eye(3)
+    positions = geom.get_positions()
+    if not np.allclose(cell, np.tril(cell)) or np.any(np.diag(cell) < 0):
         q, r = np.linalg.qr(cell.T)
-        rotation = q
-        cell = (cell @ rotation)
-        positions = geom.get_positions() @ rotation
-    else:
-        positions = geom.get_positions()
+        # cell @ q is r.T; LAPACK's r may have a negative diagonal
+        signs = np.where(np.diag(r) < 0, -1.0, 1.0)
+        rotation = q * signs
+        cell = cell @ rotation
+        positions = positions @ rotation
     type_map = {el: i + 1 for i, el in enumerate(element_list)}
     symbols = geom.get_chemical_symbols()
     lines = ["# LAMMPS data file written by uf3_tpu", "",
@@ -110,6 +127,7 @@ def write_lammps_data(filename: str,
                      f"{x:.10f} {y:.10f} {z:.10f}")
     with open(filename, "w") as f:
         f.write("\n".join(lines) + "\n")
+    return rotation
 
 
 def _format_vector(values, fmt="{:.17g}") -> str:
@@ -357,6 +375,16 @@ def generate_lammps_input(model, pot_path: str) -> str:
     return "\n".join(lines)
 
 
+# 1 bar (LAMMPS metal pressure unit) in eV/A^3
+_BAR_TO_EV_A3 = 1e5 / 1.602176634e11
+
+
+def _voigt_matrix(v) -> np.ndarray:
+    """The symmetric 3x3 tensor of Voigt xx, yy, zz, yz, xz, xy."""
+    xx, yy, zz, yz, xz, xy = v
+    return np.array([[xx, xy, xz], [xy, yy, yz], [xz, yz, zz]])
+
+
 class UFLammps:
     """
     LAMMPS-style calculator (reference UFLammps,
@@ -364,46 +392,62 @@ class UFLammps:
     drives a linked LAMMPS for evaluation, box/relax minimization,
     elastic constants, and phonons).
 
-    ``backend="native"`` runs these operations through the port's own
-    engine (``UFCalculator`` on ``device``, the CUDA card unless
-    "cpu", with FIRE and box relaxation); ``backend="auto"`` takes it
-    where no ``lammps`` module imports, as the reference does.  The
-    in-process ``lammps`` backend is not ported: choosing it (or
-    ``"auto"`` where ``lammps`` imports) raises NotImplementedError.
+    Two interchangeable backends with the same result surface:
 
-    Results dict after ``evaluate``/``relax``: ``energy``,
-    ``free_energy`` (eV), ``forces`` (eV/A), ``stress`` (Voigt
-    xx,yy,zz,yz,xz,xy in eV/A^3, ASE sign convention: -pressure),
-    ``volume`` (A^3), and ``nsteps`` after ``relax``.
+    ``backend="lammps"``
+        Drives the in-process ``lammps`` Python library (imported at the
+        first run; ``ImportError`` there where it is missing) with the
+        exported native ``pair_style uf3`` potential file: the
+        reference's command sequence, its units and signs, with results
+        in the caller's frame and the model's 1-body energy added.
+        ``keep_alive`` keeps one LAMMPS instance across calls (``clear``
+        between them); otherwise each run closes it.  ``lammps_args``
+        are its command-line arguments.
+    ``backend="native"``
+        The same operations through the port's own engine
+        (``UFCalculator`` on ``device``, the CUDA card unless "cpu",
+        with FIRE and box relaxation).
+    ``backend="auto"``
+        ``lammps`` where a ``lammps`` module is installed, else
+        ``native``.
+
+    Elastic constants and phonons take the native calculator on both
+    backends, as the reference's do.  Results dict after
+    ``evaluate``/``relax``: ``energy``, ``free_energy`` (eV),
+    ``forces`` (eV/A), ``stress`` (Voigt xx,yy,zz,yz,xz,xy in eV/A^3,
+    ASE sign convention: -pressure), ``volume`` (A^3), and ``nsteps``
+    after ``relax`` (and after any ``lammps`` run: its ``step``).
     """
 
     def __init__(self, model, backend: str = "auto",
-                 pot_dir: str = None, device=None):
+                 pot_dir: str = None, keep_alive: bool = True,
+                 lammps_args: Tuple[str, ...] = ("-log", "none",
+                                                 "-screen", "none"),
+                 device=None):
         self.model = model
+        self.keep_alive = keep_alive
+        self.lammps_args = list(lammps_args)
         self.device = device
         self.results: Dict = {}
+        self._lmp = None
         self._calc = None
         if backend == "auto":
-            try:
-                import lammps  # noqa: F401
-                backend = "lammps"
-            except ImportError:
-                backend = "native"
+            backend = "lammps" if importlib.util.find_spec("lammps") \
+                else "native"
         if backend not in ("lammps", "native"):
             raise ValueError(f"unknown backend {backend!r}")
-        if backend == "lammps":
-            raise _not_ported("UFLammps(backend='lammps'), the in-process "
-                              "LAMMPS library", LAMMPS_BACKEND)
         self.backend = backend
         self.pot_dir = pot_dir
         self.pot_path = None
+        if backend == "lammps":
+            self._ensure_pot_files()
 
     def _ensure_pot_files(self) -> str:
-        """Export the native potential file on first use (needed by
-        ``setup_commands``)."""
+        """Export the native potential file on first use (needed by the
+        lammps backend always, and by ``setup_commands`` on any
+        backend)."""
         if self.pot_path is None:
             if self.pot_dir is None:
-                import tempfile
                 self.pot_dir = tempfile.mkdtemp(prefix="uf3_pot_")
             self.pot_path = write_uf3_lammps_pot_files(
                 model=self.model, pot_dir=self.pot_dir)
@@ -424,6 +468,8 @@ class UFLammps:
 
     def evaluate(self, atoms) -> Dict:
         """Single-point energy / forces / stress."""
+        if self.backend == "lammps":
+            return self._lammps_run(atoms, relax=False)
         return self._native_results(atoms)
 
     def relax(self, atoms, vmax: float = 0.001,
@@ -432,7 +478,11 @@ class UFLammps:
         """Isotropic box/relax minimization (reference RELAX_LINES,
         uf3/forcefield/lammps.py:22-24): positions and cell volume
         relax together; ``atoms`` is updated in place.  ``vmax`` and
-        ``etol`` are the LAMMPS backend's and unused here."""
+        ``etol`` are the LAMMPS backend's and unused by the native one."""
+        if self.backend == "lammps":
+            return self._lammps_run(atoms, relax=True, vmax=vmax,
+                                    max_steps=max_steps, etol=etol,
+                                    ftol=ftol)
         from uf3_tpu_torch.forcefield import optimize
         relaxed = optimize.relax_with_cell(
             atoms, self._native_calc(), fmax=ftol,
@@ -457,6 +507,11 @@ class UFLammps:
         return phonon.compute_phonon_data(
             atoms, self._native_calc(), n_super=n_super, disp=disp)
 
+    def close(self):
+        if self._lmp is not None:
+            self._lmp.close()
+            self._lmp = None
+
     # -- native backend --------------------------------------------------
     def _native_calc(self):
         if self._calc is None:
@@ -472,4 +527,81 @@ class UFLammps:
             forces=calc.get_forces(atoms),
             stress=calc.get_stress(atoms),
             volume=atoms.get_volume())
+        return self.results
+
+    # -- lammps backend --------------------------------------------------
+    def _get_lammps(self):
+        try:
+            import lammps
+        except ImportError as exc:
+            raise ImportError(
+                "backend='lammps' requires the in-process `lammps` "
+                "Python module (pip install lammps, or a LAMMPS build "
+                "with -DBUILD_SHARED_LIBS=on and PKG_PYTHON); use "
+                "backend='native' for the built-in engine") from exc
+        if self._lmp is None:
+            self._lmp = lammps.lammps(cmdargs=self.lammps_args)
+        return self._lmp
+
+    def _one_body_energy(self, atoms) -> float:
+        """The 1-body offsets of ``atoms``' species, which the ``.uf3``
+        file does not carry."""
+        solutions = io.arrange_coefficients(self.model.coefficients,
+                                            self.model.bspline_config)
+        return float(sum(solutions[el]
+                         for el in atoms.get_chemical_symbols()))
+
+    def _lammps_run(self, atoms, relax: bool, vmax: float = 0.001,
+                    max_steps: int = 125, etol: float = 0.0,
+                    ftol: float = 1e-3) -> Dict:
+        pbc = tuple(bool(p) for p in atoms.get_pbc())
+        if not all(pbc):
+            raise ValueError(f"backend='lammps' writes boundary p p p; "
+                             f"these atoms have pbc={pbc}: use "
+                             "backend='native'")
+        lmp = self._get_lammps()
+        with tempfile.NamedTemporaryFile(
+                mode="w", suffix=".data", delete=False) as handle:
+            data_path = handle.name
+        # rows map as x_lammps = x @ q, and back as x = x_lammps @ q.T
+        q = write_lammps_data(data_path, atoms, self.element_list)
+        for command in self.setup_commands(data_path):
+            lmp.command(command)
+        if relax:
+            lmp.command(f"fix fix_relax all box/relax iso 0.0 "
+                        f"vmax {vmax}")
+            lmp.command("min_style cg")
+            lmp.command(f"minimize {etol} {ftol} {max_steps} "
+                        f"{max_steps}")
+        else:
+            lmp.command("run 0")
+        n_atoms = lmp.get_natoms()
+        forces = np.array(
+            lmp.gather_atoms("f", 1, 3)).reshape(n_atoms, 3) @ q.T
+        pressures = np.array([lmp.get_thermo(k) for k in
+                              ("pxx", "pyy", "pzz", "pyz", "pxz",
+                               "pxy")])
+        sigma = q @ _voigt_matrix(-pressures * _BAR_TO_EV_A3) @ q.T
+        stress = sigma[[0, 1, 2, 1, 0, 0], [0, 1, 2, 2, 2, 1]]
+        energy = float(lmp.get_thermo("pe")) + self._one_body_energy(atoms)
+        self.results = dict(energy=energy, free_energy=energy,
+                            forces=forces, stress=stress,
+                            volume=float(lmp.get_thermo("vol")),
+                            nsteps=int(lmp.get_thermo("step")))
+        if relax:
+            pos = np.array(
+                lmp.gather_atoms("x", 1, 3)).reshape(n_atoms, 3)
+            atoms.set_positions(pos @ q.T)
+            cell = np.zeros((3, 3))
+            boxlo, boxhi, xy, yz, xz, *_ = lmp.extract_box()
+            cell[0, 0] = boxhi[0] - boxlo[0]
+            cell[1, 1] = boxhi[1] - boxlo[1]
+            cell[2, 2] = boxhi[2] - boxlo[2]
+            cell[1, 0], cell[2, 0], cell[2, 1] = xy, xz, yz
+            atoms.set_cell(cell @ q.T)
+        os.unlink(data_path)
+        if not self.keep_alive:
+            self.close()
+        else:
+            lmp.command("clear")
         return self.results

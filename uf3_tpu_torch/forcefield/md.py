@@ -79,12 +79,6 @@ MULTI_RESPA = "r-RESPA on the multi-species route"
 MAX_NPT_REGROWS = 4
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to uf3_tpu_torch yet (ROADMAP.md, modules "
-        f"still to port: {item})")
-
-
 def _no_reference(what: str, item: str = NPT_EXTRA):
     return NotImplementedError(
         f"{what}: uf3_tpu has no such path to port (ROADMAP.md, modules "

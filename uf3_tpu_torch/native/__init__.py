@@ -21,6 +21,8 @@ goes quietly back to Python.
 - ``cell_list_neighbors(positions, cell, pbc, r_cut, capacity)``: (idx
   (N, capacity), shift (N, capacity, 3) in cell vectors of the wrapped
   positions, mask (N, capacity), the largest neighbor count).
+- ``available()``: whether the library builds and loads here; no
+  reader uses it to fall back to Python quietly.
 """
 
 import ctypes
@@ -107,6 +109,17 @@ def load() -> ctypes.CDLL:
         _P, _I64, _P, _P, ctypes.c_double, _I64, _P, _P, _P]
     _lib = lib
     return lib
+
+
+def available() -> bool:
+    """Whether the library builds and loads here (``load`` raises where
+    it does not).  A query for callers: the readers choose the native
+    path by a file's layout, and raise where it fails."""
+    try:
+        load()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def _raise(code: int, err, filename: str, os_errno: int = 0):

@@ -13,8 +13,9 @@ primitives (``moore_penrose_components``, ``batched_moore_penrose``,
 ``linear_least_squares``, ``weighted_least_squares``: the products on a
 device, the solve on the host), the frozen-column helpers,
 ``calc_E_F_weights``, ``BasicLinearModel``, ``WeightedLinearModel``
-(``fit_with_gram``, ``fit``, ``combine_weighted_gram``, ``predict``,
-``score``, ``from_dict`` / ``from_json``, ``as_dict`` / ``to_json`` /
+(``fit_with_gram``, ``fit``, ``combine_weighted_gram``,
+``initialize_gram_ordinate``, ``gram_from_df`` on a ``FeatureTable``,
+``predict``, ``score``, ``from_config`` / ``from_dict`` / ``from_json``, ``as_dict`` / ``to_json`` /
 ``dump``, ``load``, ``fix_repulsion_2b``), the pair-spline
 post-processing (``get_spline_taylor_expansion``,
 ``postprocess_coefficients_2b``, ``find_pair_potential_well``),
@@ -605,6 +606,44 @@ class WeightedLinearModel(BasicLinearModel):
                     + (1 - weight) * force_weight ** 2 * ord_f)
         return gram, ordinate
 
+    def initialize_gram_ordinate(self):
+        """Zero (gram_e, gram_f, ord_e, ord_f) over the unfrozen columns,
+        host arrays, for sums of ``gram_from_df``."""
+        n_columns = self.n_feats - len(self.col_idx)
+        return (np.zeros((n_columns, n_columns)), np.zeros(
+            (n_columns, n_columns)), np.zeros(n_columns),
+            np.zeros(n_columns))
+
+    def gram_from_df(self, df, keys,
+                     e_variance: VarianceRecorder = None,
+                     f_variance: VarianceRecorder = None,
+                     sample_weights: Dict = None,
+                     energy_key: str = "energy",
+                     batch_size: int = 2500):
+        """(gram_e, gram_f, ord_e, ord_f) of the rows of the
+        configurations ``keys`` of a ``FeatureTable`` (its ``select``,
+        as the reference's ``df.loc[keys]``): energy rows per atom,
+        rows scaled by ``sample_weights``, the frozen columns eliminated,
+        the targets streamed into the variance recorders when both are
+        given, the products on the model's device over row batches of
+        ``batch_size``; host arrays, as the reference's."""
+        n_elements = len(self.bspline_config.element_list)
+        x_e, y_e, x_f, y_f = dataframe_to_tuples(
+            df.select(keys), n_elements=n_elements, energy_key=energy_key,
+            sample_weights=sample_weights)
+        x_e, y_e = freeze_columns(x_e, y_e, self.mask, self.frozen_c,
+                                  self.col_idx)
+        x_f, y_f = freeze_columns(x_f, y_f, self.mask, self.frozen_c,
+                                  self.col_idx)
+        if e_variance is not None and f_variance is not None:
+            e_variance.update(y_e)
+            f_variance.update(y_f)
+        gram_e, ord_e = batched_moore_penrose(
+            x_e, y_e, batch_size=batch_size, device=self.device)
+        gram_f, ord_f = batched_moore_penrose(
+            x_f, y_f, batch_size=batch_size, device=self.device)
+        return gram_e, gram_f, ord_e, ord_f
+
     # -- the features file ----------------------------------------------------
     def fit_from_file(self, filename: str, subset: Collection,
                       weight: float = 0.5, batch_size: int = 2500,
@@ -644,6 +683,10 @@ class WeightedLinearModel(BasicLinearModel):
         return y_e, p_e, y_f, p_f, rmse_e, rmse_f
 
     # -- serialization ------------------------------------------------------
+    @staticmethod
+    def from_config(config, device=None):
+        return WeightedLinearModel.from_dict(config, device=device)
+
     @staticmethod
     def from_dict(config: Dict, device=None) -> "WeightedLinearModel":
         """A model from the dictionary ``as_dict`` (of this package or of

@@ -337,6 +337,11 @@ class BSplineBasis:
             self.flat_weights[trio] = flat[mask]
             self.templates[trio] = template
 
+    def symmetrize_3B(self, grid: np.ndarray, symmetry: int) -> np.ndarray:
+        """Sum of grid over the permutation images for the symmetry level
+        (the module's ``symmetrize_3B``)."""
+        return symmetrize_3B(grid, symmetry)
+
     def compress_3B(self, grid: np.ndarray, interaction: Tuple,
                     fitting: bool = True) -> np.ndarray:
         """Fold an L x M x N grid onto the symmetry-unique wedge vector."""

@@ -5,12 +5,14 @@ configuration on the host (1-body composition, 2-body, compressed
 fitting arrays of a dataset.
 
 Counterpart of ``uf3_tpu/representation/process.py``: ``__init__`` with
-``fit_forces`` and ``prefix``, the passthrough properties,
+``fit_forces`` and ``prefix`` (and ``from_config``), the passthrough
+properties,
 ``featurize_energy_2B`` / ``force_2B`` / ``energy_3B`` / ``force_3B``,
 ``evaluate_configuration`` and ``evaluate``, which returns a
 ``FeatureTable`` (the reference's DataFrame: rows indexed by
 (configuration key, kind), the "y" column and the feature columns, in
-the reference's order and names).  ``featurize_dataset`` returns (x_e,
+the reference's order and names), and ``evaluate_parallel``, the same
+table from a process pool (``util/parallel.py``).  ``featurize_dataset`` returns (x_e,
 y_e, x_f, y_f) in ``dataframe_to_tuples`` order.  The HDF5 feature
 store keeps the reference's names and layout (``batched_to_hdf``,
 ``save_feature_db``, ``load_feature_db``, ``analyze_hdf_tables``,
@@ -96,6 +98,12 @@ class BasisFeaturizer:
                     for seq in self.knots_map[trio][:2]]
             r_cut = max(r_cut, 2.0 * max(legs))
         return r_cut
+
+    @staticmethod
+    def from_config(bspline_config, config):
+        keys = ["prefix", "fit_forces"]
+        config = {k: v for k, v in config.items() if k in keys}
+        return BasisFeaturizer(bspline_config, **config)
 
     def __repr__(self):
         return "\n".join(["BasisFeaturizer:",
@@ -242,6 +250,24 @@ class BasisFeaturizer:
         values = np.array(list(eval_map.values()), dtype=np.float64)
         return FeatureTable(list(eval_map), list(self.columns),
                             values.reshape(len(eval_map), len(self.columns)))
+
+    def evaluate_parallel(self, df_data, client=None, n_jobs=1, **kwargs):
+        """``evaluate`` spread over an executor (``client``, a
+        concurrent.futures-style pool such as ``util.parallel``'s
+        ``get_executor``): ``df_data`` split into ``n_jobs`` batches, one
+        task each, the tables merged and put back in ``df_data``'s key
+        order, so that the table equals ``evaluate``'s.  Without a
+        client, or with ``n_jobs`` below 2, ``evaluate`` itself.
+        ``kwargs``: ``evaluate``'s (``progress`` is dropped)."""
+        kwargs.pop("progress", None)
+        if client is None or n_jobs < 2:
+            return self.evaluate(df_data, **kwargs)
+        from uf3_tpu_torch.util import parallel as par
+        batches = par.split_dataframe(df_data, n_jobs)
+        futures = par.batch_submit(self.evaluate, batches, client, **kwargs)
+        table = par.gather_and_merge(futures, client=client)
+        present = set(table.names)
+        return table.select([key for key in df_data.keys if key in present])
 
     def batched_to_hdf(self, filename: str, df_data, batch_size: int = 50,
                        table_template: str = "features_{}", progress=None,

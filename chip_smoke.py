@@ -141,7 +141,9 @@ kernels (``csrc/fragments.cu``: ``relayout``, ``lane_contract``,
 their counts from 0 (``run_probe_mosaic``: the 17 cases of the TPU
 probes ``probe_mosaic.py`` and ``probe_gather2.py``'s layout primitives
 at the probe's block and at the full 9,856-row system, each beside its
-plain version, library call and bound); then each is held to its plain
+plain version, library call and bound; ``lane_contract``'s sum over axis
+2, the staged tiles, bit for bit against its plain version at 512 and
+9,856 rows in float32 and float64); then each is held to its plain
 version at every case's full-system shape in float32 and float64, and
 the tiled transpose at (16, 128), (16, 9,856), (37, 1,001), (1, 4,099)
 and (4,099, 1) (``compare_fragments``).  The fragment probes also run alone
@@ -1059,6 +1061,7 @@ def run_probe_mosaic(device):
                   f" max_abs_err {rec['max_abs_err']:.3e}; card: {card}")
     records = [rec for sizes in artifact["cases"].values()
                for rec in sizes.values()]
+    sum_tiles_check(device, artifact, card)
     gate("fragment probes", {
         "17 cases at the probe's and the full system's shape":
             len(artifact["cases"]) == 17 and len(records) == 34,
@@ -1071,6 +1074,42 @@ def run_probe_mosaic(device):
                                          "library")
             if r[f"{key}_ms"] is not None)})
     return artifact
+
+
+def sum_tiles_check(device, artifact, card):
+    """``lane_contract``'s sum over axis 2 (the staged tiles) bit for bit
+    against its plain version at the probe's block and the full system,
+    in float32 (the probes' own records) and float64 (drawn here); its
+    time, bound, share reached and plan beside the library's
+    ``.view(A, K, K).sum(2)``.  These comparison launches leave the
+    kernel's count as the probes left it."""
+    case = next(c for c in probe_mosaic.CASES if c.mode == "sum_axis2")
+    launched = fragments.lane_contract.launches
+    checks = {}
+    for size, rec in artifact["cases"][case.name].items():
+        rows = rec["rows"]
+        x = torch.as_tensor(np.random.RandomState(rows).randn(
+            rows, probe_mosaic.LANES), device=device)
+        checks[f"{rows} rows float32 (the probe's record) bit for bit"] = \
+            rec["max_abs_err"] == 0.0
+        checks[f"{rows} rows float64 bit for bit"] = torch.equal(
+            fragments.lane_contract(x, "sum_axis2"),
+            fragments.lane_contract_torch(x, "sum_axis2"))
+        plan = fragments.lane_contract_occupancy(x.float(), "sum_axis2")
+        checks[f"{rows} rows: the staged tiles"] = \
+            plan["kernel"] == "sum_tiles" and plan["local_bytes"] == 0
+        print(f"lane_contract sum_axis2 [{size}] ({rows} x "
+              f"{probe_mosaic.LANES} -> {rows} x {probe_mosaic.K}, "
+              f"float32): the {plan['kernel']} kernel "
+              f"{rec['kernel_ms']:.5f} ms cold ({rec['kernel_warm_ms']:.5f} "
+              f"warm), bound {rec['bound_ms']:.5f} ms, reached "
+              f"{100 * rec['reached']:.1f}%; .view(A, K, K).sum(2) "
+              f"{rec['library_ms']:.5f} ms; {plan['registers']} registers, "
+              f"{plan['warps_per_sm']} warps per SM, {plan['blocks']} "
+              f"blocks; card: {card}")
+    torch.cuda.synchronize()
+    fragments.lane_contract.launches = launched
+    gate("lane_contract's sum over axis 2 (staged tiles)", checks)
 
 
 def compare_fragments(device):

@@ -215,15 +215,17 @@ def test_scripts_require_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_gather_host_pairs_the_wrappers(tmp_path):
-    """``gather_host`` loads another checkout's ``ops/gather.py`` under a
-    name of its own, on that checkout's own ``_build.py`` (here this
-    checkout's, whose plain versions on CPU tensors then agree with the
-    package's), and summarizes the rounds: each call's median, and the
-    quartiles of this wrapper less the other's, round by round; timing
-    needs a card."""
-    from uf3_tpu_torch.ops import _build, gather
-    other = gather_host.load_gather(gather_host.ROOT)
+    """``gather_host`` loads another checkout's ``ops/gather.py`` and
+    ``ops/trio.py`` under names of their own, on that checkout's own
+    ``_build.py`` (here this checkout's, whose plain versions on CPU
+    tensors then agree with the package's), and summarizes the rounds:
+    each call's median, and the quartiles of this wrapper less the
+    other's, round by round; timing needs a card."""
+    from uf3_tpu_torch.ops import _build, gather, trio
+    others = gather_host.load_ops(gather_host.ROOT)
+    other = others["gather"]
     assert other is not gather and other._build is not _build
+    assert others["trio"] is not trio and others["trio"]._build is other._build
     assert other._build.LIBRARY == _build.LIBRARY
     rng = np.random.RandomState(5)
     x = torch.as_tensor(rng.randn(40, 3))

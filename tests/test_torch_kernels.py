@@ -1967,15 +1967,16 @@ def test_lane_contract_kernel_tiles_and_vectors(cuda_device, mode, k, rows,
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode, k, rows, kernel", [
     ("matmul", 3, 83207, "tile"), ("matmul", 3, 1057, "rows"),
-    ("sum_axis2", 16, 12347, "rows_along_terms"),
+    ("sum_axis2", 16, 12347, "sum_tiles"), ("sum_axis2", 16, 7, "sum_tiles"),
     ("sum_axis1", 16, 12347, "rows_along_outputs"),
     ("sum_axis2", 3, 12347, "rows"), ("sum_axis1", 16, 7, "rows")])
 @pytest.mark.parametrize("dtype", FRAGMENT_DTYPES)
 def test_lane_contract_occupancy_names_its_kernel(cuda_device, mode, k,
                                                   rows, kernel, dtype):
     """lane_contract_occupancy gives the plan of the kernel the wrapper
-    launches for the shape (the product's tile, one output a thread, or
-    the sums' vectors along the terms or the outputs), launches nothing,
+    launches for the shape (the product's tile, one output a thread, the
+    sums' vectors along the outputs, or the staged tiles of the sum over
+    axis 2 at every size), launches nothing,
     and every such kernel keeps its registers (0 local bytes) with
     resident warps on each SM."""
     x, w = _contract_operands(mode, rows, k, dtype, cuda_device, rows + k)
@@ -1985,6 +1986,36 @@ def test_lane_contract_occupancy_names_its_kernel(cuda_device, mode, k,
     assert plan["kernel"] == kernel
     assert plan["local_bytes"] == 0 and plan["registers"] > 0
     assert 0 < plan["warps_per_sm"] <= 64 and plan["blocks"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 8, 12, 4])
+@pytest.mark.parametrize("rows", [1, 17, 1001, 12347, 83207])
+@pytest.mark.parametrize("dtype", FRAGMENT_DTYPES)
+def test_lane_contract_sum_tiles_bit_equal(cuda_device, k, rows, dtype):
+    """The sum over axis 2 through the staged tiles (x aligned to 16
+    bytes, K terms whole 16-byte chunks: K = 16 and 8, and 12 and 4,
+    whose chunk counts the generic instance takes) equals the plain
+    version bit for bit, one launch a call, at row counts that end a
+    tile part-way (83,207: several tiles a block); x one element off 16
+    bytes takes the one-output-a-thread kernel, bit for bit too."""
+    x, _ = _contract_operands("sum_axis2", rows, k, dtype, cuda_device,
+                              rows + 5 * k)
+    plan = fragments.lane_contract_occupancy(x, "sum_axis2")
+    assert plan["kernel"] == "sum_tiles" and plan["local_bytes"] == 0
+    launches = fragments.lane_contract.launches
+    out = fragments.lane_contract(x, "sum_axis2")
+    torch.cuda.synchronize()
+    assert fragments.lane_contract.launches == launches + 1
+    assert torch.equal(out, fragments.lane_contract_torch(x, "sum_axis2"))
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda_device)
+    flat[1:] = x.reshape(-1)
+    off = flat[1:].view(x.shape)
+    assert off.data_ptr() % 16 != 0
+    assert fragments.lane_contract_occupancy(off, "sum_axis2")["kernel"] \
+        == "rows"
+    assert torch.equal(fragments.lane_contract(off, "sum_axis2"),
+                       fragments.lane_contract_torch(off, "sum_axis2"))
 
 
 def _map_operands(op, shape, dtype, device, seed):

@@ -112,10 +112,13 @@ def read_data_file(path):
 
 class StandInLammps:
     """An in-process LAMMPS with ``pair_style uf3``, as far as
-    ``UFLammps`` drives it."""
+    ``UFLammps`` drives it.  ``faults``: command names (shared with the
+    instances made after it) each of which raises once, at its next
+    use."""
 
-    def __init__(self, cmdargs=None):
+    def __init__(self, cmdargs=None, faults=None):
         self.cmdargs = list(cmdargs or [])
+        self.faults = [] if faults is None else faults
         self.commands = []
         self.closed = False
         self._clear()
@@ -127,9 +130,16 @@ class StandInLammps:
     def command(self, line):
         self.commands.append(line)
         word, *args = line.split()
+        if word in self.faults:
+            self.faults.remove(word)
+            raise RuntimeError(f"ERROR: stand-in fault at {word}")
         if word == "clear":
             self._clear()
         elif word == "read_data":
+            if self.cell is not None:
+                raise RuntimeError("ERROR: Cannot read_data without add "
+                                   "keyword after simulation box is "
+                                   "defined")
             self.cell, self.types, self.x = read_data_file(args[0])
         elif word == "pair_coeff":
             self.model = lammps.model_from_uf3_pot_file(args[2])
@@ -173,13 +183,14 @@ class StandInLammps:
 @pytest.fixture
 def standin(monkeypatch, tmp_path):
     """The stand-in installed as ``lammps``; both packages' temporary
-    data files under ``tmp_path``."""
+    data files under ``tmp_path``; ``faults`` shared by its instances."""
     module = types.ModuleType("lammps")
     module.__spec__ = importlib.machinery.ModuleSpec("lammps", None)
     module.instances = []
+    module.faults = []
 
     def make(cmdargs=None):
-        module.instances.append(StandInLammps(cmdargs))
+        module.instances.append(StandInLammps(cmdargs, module.faults))
         return module.instances[-1]
 
     module.lammps = make
@@ -340,6 +351,38 @@ def test_lammps_relax_writes_back_in_callers_frame(keep_alive, models,
         assert len(standin.instances) == 2
         assert all(lmp.closed and "clear" not in lmp.commands
                    for lmp in standin.instances)
+
+
+@pytest.mark.parametrize("keep_alive", [True, False])
+@pytest.mark.parametrize("fault", ["read_data", "minimize"])
+def test_lammps_error_path_leaves_nothing_behind(fault, keep_alive, models,
+                                                 standin, tmp_path):
+    """A LAMMPS command that raises (``read_data`` or ``minimize``, once)
+    reaches the caller as raised, with the atoms untouched and no data
+    file left; under ``keep_alive`` the kept instance is cleared, so the
+    next ``evaluate`` on the same object succeeds and equals a fresh
+    object's (1e-12), otherwise the instance is closed."""
+    geom = w_cell("orthogonal")
+    x0 = geom.get_positions().copy()
+    ours = lammps.UFLammps(models[0], backend="lammps", device="cpu",
+                           keep_alive=keep_alive,
+                           pot_dir=str(tmp_path / "port"))
+    standin.faults.append(fault)
+    with pytest.raises(RuntimeError, match=f"stand-in fault at {fault}$"):
+        ours.relax(geom, max_steps=7)
+    assert glob.glob(str(tmp_path / "*.data")) == []
+    assert np.array_equal(geom.get_positions(), x0)
+    failed, = standin.instances
+    assert failed.commands[-1].split()[0] == ("clear" if keep_alive
+                                              else fault)
+    assert failed.closed != keep_alive
+    if keep_alive:
+        got = ours.evaluate(geom)
+        assert len(standin.instances) == 1 and not failed.closed
+        fresh = lammps.UFLammps(models[0], backend="lammps", device="cpu",
+                                pot_dir=str(tmp_path / "fresh"))
+        assert_results(got, fresh.evaluate(geom), SAME_TOL)
+        assert glob.glob(str(tmp_path / "*.data")) == []
 
 
 def test_lammps_backend_refuses_what_it_cannot_run(models, standin,

@@ -1,16 +1,19 @@
 """
-The host cost of this checkout's gather wrappers beside another
+The host cost of this checkout's kernel wrappers beside another
 checkout's: host microseconds per eager call of ``gather_rows``,
-``gather_lanes`` and ``rev_gather``, of the other checkout's same
-wrappers and of the library calls (``x[idx]``, ``torch.gather``,
-``part[idx, rev]``), at the MD step's 9,826 x 16 and the plain Verlet
-defaults' 9,826 x 78 (float32 values, int64 indices drawn from seed 0;
-``rev_gather`` of (N, 16, 5) partials at 9,826 x 16 only).  What a
-caller in the host-bound MD step would pay for a wrapper.
+``gather_lanes``, ``rev_gather`` and ``trio_partials``, of the other
+checkout's same wrappers and of the gathers' library calls
+(``x[idx]``, ``torch.gather``, ``part[idx, rev]``), at the MD step's
+9,826 x 16 and the plain Verlet defaults' 9,826 x 78 (float32 values,
+int64 indices drawn from seed 0; ``rev_gather`` of (N, 16, 5) partials
+and ``trio_partials`` without energy on the bench's float32 3-body rows
+of bcc W 17^3 at 9,826 x 16 only).  What a caller in the host-bound MD
+step would pay for a wrapper.
 
 Both run in one process on the same operands: the other checkout's
-``ops/gather.py`` is loaded under a name of its own on its own
-``ops/_build.py`` (so its own kernel library, built in that checkout).
+``ops/gather.py`` and ``ops/trio.py`` are loaded under names of their
+own on its own ``ops/_build.py`` (so its own kernel library, built in
+that checkout).
 Processes of their own swing by a fifth from one to the next on a shared
 host, more than the difference sought; here every round times each call
 once (30 calls, then a synchronize, best of 3 after a warm chain, as
@@ -41,24 +44,43 @@ LENGTH, REPEATS, ROUNDS = 30, 3, 20
 IMPORT = "from uf3_tpu_torch.ops import _build"
 
 
-def load_gather(root: str):
-    """``root``'s ``uf3_tpu_torch/ops/gather.py`` as a module of its own
-    name, on ``root``'s ``ops/_build.py`` (its own C library, built under
-    ``root``)."""
+def load_ops(root: str, names=("gather", "trio")) -> dict:
+    """``root``'s ``uf3_tpu_torch/ops/<name>.py`` for each of ``names``,
+    each as a module of its own name, on ``root``'s ``ops/_build.py``
+    (its own C library, built under ``root``)."""
     ops = os.path.join(os.path.abspath(root), "uf3_tpu_torch", "ops")
     spec = importlib.util.spec_from_file_location(
         "other_build", os.path.join(ops, "_build.py"))
     build = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(build)
-    path = os.path.join(ops, "gather.py")
-    with open(path) as f:
-        source = f.read()
-    if IMPORT not in source:
-        raise RuntimeError(f"{path} does not import _build as expected")
-    module = types.ModuleType("other_gather")
-    module.__file__, module._build = path, build
-    exec(compile(source.replace(IMPORT, ""), path, "exec"), module.__dict__)
-    return module
+    modules = {}
+    for name in names:
+        path = os.path.join(ops, f"{name}.py")
+        with open(path) as f:
+            source = f.read()
+        if IMPORT not in source:
+            raise RuntimeError(f"{path} does not import _build as expected")
+        module = types.ModuleType(f"other_{name}")
+        module.__file__, module._build = path, build
+        exec(compile(source.replace(IMPORT, ""), path, "exec"),
+             module.__dict__)
+        modules[name] = module
+    return modules
+
+
+def trio_operands(device):
+    """(potential, d, valid) of the bench engine's float32 3-body rows at
+    bcc W 17^3 (9,826 atoms, 16 slots), 300 K velocities from seed 0."""
+    import torch
+    from uf3_tpu_torch.benchmarks import common
+    from uf3_tpu_torch.forcefield.md import MDSystem
+    from uf3_tpu_torch.ops import neighbors as nb
+    system = MDSystem(common.MODEL, common.bcc_w((17, 17, 17)),
+                      dtype=torch.float32, device=device, **common.BENCH)
+    state = system.init_state(temperature=300.0, seed=0)
+    cache = nb.list_cache(state.nbr3, system.cell, torch.float32)
+    d = nb.cached_displacements(state.positions, state.nbr3, cache)
+    return system.potential, d, cache.valid
 
 
 def host_us(fn, length: int = LENGTH, repeats: int = REPEATS) -> float:
@@ -106,9 +128,11 @@ def measure(against: str, rounds: int = ROUNDS) -> dict:
     (``summarize``)."""
     import numpy as np
     import torch
-    from uf3_tpu_torch.ops import gather
-    other = load_gather(against)
+    from uf3_tpu_torch.ops import gather, trio
+    others = load_ops(against)
+    other = others["gather"]
     device = torch.device("cuda")
+    pot, d3, valid3 = trio_operands(device)
     rng = np.random.RandomState(0)
     out = {}
     for n, k in SHAPES:
@@ -133,10 +157,20 @@ def measure(against: str, rounds: int = ROUNDS) -> dict:
                 calls[f"rev {name}"] = \
                     lambda m=module: m.rev_gather(part, idx, rev)
             calls["rev library"] = lambda: part[idx, rev]
+            for name, module in (("this", trio), ("other", others["trio"])):
+                calls[f"trio {name}"] = lambda m=module: m.trio_partials(
+                    pot, d3, valid3, False)
         for name, fn in calls.items():
-            ref = calls[name.split()[0] + " library"]()
-            if not torch.equal(fn(), ref):
-                raise AssertionError(f"{name} differs from its library call")
+            kind = name.split()[0]
+            # the trio has no library call: both checkouts' kernels agree
+            got, ref = fn(), calls[f"{kind} this" if kind == "trio"
+                                   else f"{kind} library"]()
+            if kind == "trio":
+                same = all(torch.equal(a, b) for a, b in zip(got, ref))
+            else:
+                same = torch.equal(got, ref)
+            if not same:
+                raise AssertionError(f"{name} differs from its reference")
         names = list(calls)
         times = {name: [] for name in names}
         for r in range(rounds):

@@ -84,21 +84,47 @@
 //   or 2 (float64) consecutive outputs of the tile and stores them as one
 //   16-byte vector.  A thread's first output is the same in every tile
 //   and its next one a fixed step further on: one division per thread.
-// * the K x K sums: each thread owns a group of 16 bytes of consecutive
-//   outputs of one row and reads 16-byte vectors, along the outputs (the
-//   sum over axis 1) or along each output's terms (axis 2), eight loads
-//   in flight before their sums; the same one division per thread.
-// * one thread per output (the sums' kernel with one-output groups)
-//   where the work is smaller (sums below a block of groups for every
-//   SM, the product below a vector for every thread of a wave of
-//   resident blocks: the probes' 512- and 8,192-row blocks), and where a
-//   width or an address gives no 16-byte vector: there more threads put
-//   more loads in flight than vectors would, and no staging waits.
+// * the sum over axis 1: each thread owns a group of 16 bytes of
+//   consecutive outputs of one row and reads 16-byte vectors along the
+//   outputs, eight loads in flight before their sums; the same one
+//   division per thread.
+// * the sum over axis 2 (each output's K terms side by side), where x
+//   is aligned to 16 bytes and K terms make whole 16-byte chunks, at
+//   every size: sum_tiles_kernel.  A thread that reads its own output's
+//   terms puts a warp's loads on 32 rows of x K words apart (1/8 of each
+//   128-byte line used by one instruction at K = 16).  So a persistent
+//   block (the grid capped at the resident blocks) stages tiles of 16
+//   whole rows of x (one contiguous run; fewer rows where K is wide) in
+//   shared memory, two stages deep, with cp.async 16-byte copies that
+//   consecutive threads take from consecutive chunks (a warp copies 512
+//   contiguous bytes an instruction); the next tile's copy is in flight
+//   while this tile is summed.  Each thread then sums one output's K
+//   terms from shared memory in t order and a warp stores 32
+//   consecutive outputs.  Output o's chunk c is staged at chunk c ^ h(o)
+//   of its own chunks (sum_tiles_at), so that the eight threads of a
+//   quarter warp, which one 16-byte shared load serves together, read
+//   eight different 16-byte bank groups (without it the full 9,856 rows
+//   took 9% longer).  Tried and left out (PERF.md section 6,
+//   kernel_variants lane_contract on fragments_sums_*.patch), each
+//   slower at 9,856 rows: tiles of up to 64 rows where the rows still
+//   give two tiles an SM (2%), the rows split evenly over the resident
+//   blocks (7%), and one bulk copy (TMA) a tile on an mbarrier, its
+//   chunks put back in t order in registers (4%); no faster: an L2
+//   prefetch hint on the copies, and launch bounds for six blocks an SM
+//   (40 registers); 8-row tiles ran 1-4% faster in one run, within the
+//   kept kernel's own spread there.
+// * one thread per output (the axis-1 kernel with one-output groups)
+//   where the work is smaller (the axis-1 sums below a block of groups
+//   for every SM, the product below a vector for every thread of a wave
+//   of resident blocks: the probes' 512- and 8,192-row blocks), and
+//   where a width or an address gives no 16-byte vector: there more
+//   threads put more loads in flight than vectors would, and no staging
+//   waits.
 // Tried and left out (PERF.md section 6: benchmarks/kernel_variants.py
 // on the patches in benchmarks_data/artifacts_torch/kernel_variants/):
 // two tiles a block, so that one tile's stores overlap the next one's
 // loads, was slower than one; tiles and vectors at every size, with no
-// floor, were slower at the probes' blocks.
+// floor, were slower at the probes' blocks (the product).
 //
 // relayout's copy (the reshape) stays one word a thread, as first
 // written.  At the probes' sizes (64 KB and 631 KB) a copy is one wave of
@@ -133,6 +159,9 @@ constexpr int kChunk = 8;             // vector loads issued before their sums
 // threads, more loads in flight, no staging)
 constexpr long long kVectorFloor = 132LL * kThreads;
 constexpr long long kTileFloor = (long long)kResident * kThreads;
+constexpr int kMaxSmem = 227 * 1024;  // a block's shared memory (sm_90)
+constexpr int kNoTile = -2;  // launch_sum_tiles: the shape takes no tile
+constexpr int kSumTileRows = 16;  // sum_tiles_kernel's rows a tile
 
 // relayout's transpose: the rows of x a tile holds, the bytes of each of
 // its rows (64 float32 or 32 float64 columns), and a block's threads, one
@@ -428,15 +457,14 @@ __global__ void contract_tile_kernel(const T* __restrict__ x,
   }
 }
 
-// lane_contract's sums (no w) and any shape the tile does not take: each
+// lane_contract's sums (no w) and any shape the tiles do not take: each
 // thread owns groups of V consecutive outputs of one row (g = a *
 // groups_per_row + j / V) with a grid stride, one division per thread
 // and (step_rows, step_groups) steps after it.  V > 1 reads 16-byte
-// vectors: along the outputs (ALONG_T false: sj = 1, a term's V values
-// of the group lie side by side) or along the terms (ALONG_T true: st =
-// 1, each output's terms lie side by side).  Every output sums its
-// terms in the order t = 0 .. T-1 either way.
-template <typename T, typename I, int V, bool ALONG_T>
+// vectors along the outputs (sj = 1: a term's V values of the group lie
+// side by side).  Every output sums its terms in the order t = 0 ..
+// T-1.
+template <typename T, typename I, int V>
 __global__ void contract_rows_kernel(const T* __restrict__ x,
                                      const T* __restrict__ w,
                                      T* __restrict__ out, I groups,
@@ -470,18 +498,6 @@ __global__ void contract_rows_kernel(const T* __restrict__ x,
         for (int t = 0; t < terms; ++t)
           acc[0] = add_rn(acc[0], __ldg(xj + (I)t * st));
       }
-    } else if constexpr (ALONG_T) {
-#pragma unroll
-      for (int q = 0; q < V; ++q) {
-        const typename V16::type* xq =
-            reinterpret_cast<const typename V16::type*>(row + (I)(j + q) * sj);
-        for (int t = 0; t < terms / V; ++t) {
-          T e[V];
-          V16::split(__ldg(xq + t), e);
-#pragma unroll
-          for (int c = 0; c < V; ++c) acc[q] = add_rn(acc[q], e[c]);
-        }
-      }
     } else {
       // kChunk loads in flight before their sums
       const typename V16::type* xv =
@@ -514,6 +530,110 @@ __global__ void contract_rows_kernel(const T* __restrict__ x,
       jg -= groups_per_row;
       ++a;
     }
+  }
+}
+
+// cp.async: a 16-byte copy from global to shared memory that bypasses
+// the registers (and L1), grouped by commit and waited for by group.
+__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void commit_async() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// all but the newest `Pending` groups of this thread's copies are done
+template <int Pending>
+__device__ __forceinline__ void wait_async() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+// The staged place of chunk c of a tile's output o (C 16-byte chunks an
+// output): chunk c ^ h(o) of the output's own chunks.  C = m 2^b (m
+// odd): the threads of a quarter warp (8 consecutive outputs) that start
+// on the same 16-byte slot of a 128-byte bank line are 8 / 2^b' apart
+// (b' = min(b, 3)), and h(o) = (o >> (3 - b')) mod 2^b' gives each of
+// them its own low bits; the XOR keeps a chunk inside its output.
+__device__ __forceinline__ int sum_tiles_at(int o, int c, int C, int b) {
+  return o * C + (c ^ ((o >> (3 - b)) & ((1 << b) - 1)));
+}
+
+// lane_contract's sum over axis 2 (the header's sum_tiles_kernel): out[a,
+// j] = sum over t < k of x[a, j k + t], in t order, x (rows, k k)
+// aligned to 16 bytes with k sizeof(T) a multiple of 16.  CC: the
+// 16-byte chunks of an output's terms (k sizeof(T) / 16) where known at
+// compile time, 0 for any (`chunks`).  Block b sums tiles b, b + grid,
+// ... of tile_rows rows, in two shared-memory stages of tile_rows k k T.
+template <typename T, int CC>
+__global__ void __launch_bounds__(kThreads)
+sum_tiles_kernel(const T* __restrict__ x, T* __restrict__ out,
+                 long long rows, int k, int chunks, int tile_rows,
+                 int tiles) {
+  using V16 = Vec16<T>;
+  constexpr int V = V16::n;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint4* staged = reinterpret_cast<uint4*>(smem_raw);
+  const int C = CC > 0 ? CC : chunks;
+  const int b = min(__ffs(C) - 1, 3);
+  const int stage = tile_rows * k * C;  // chunks of a stage
+  const uint4* src = reinterpret_cast<const uint4*>(x);
+  // copy tile `tile` into buf, one commit group
+  auto copy_tile = [&](int tile, uint4* buf) {
+    const long long row0 = (long long)tile * tile_rows;
+    const int n_rows =
+        (int)(rows - row0 < tile_rows ? rows - row0 : tile_rows);
+    const int n = n_rows * k * C;
+    const uint4* from = src + row0 * k * C;
+    for (int e = threadIdx.x; e < n; e += kThreads) {
+      const int o = e / C;
+      copy16_async(buf + sum_tiles_at(o, e - o * C, C, b), from + e);
+    }
+    commit_async();
+  };
+  int s = 0;
+  if ((int)blockIdx.x < tiles) copy_tile(blockIdx.x, staged);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    if (tile + (int)gridDim.x < tiles) {
+      copy_tile(tile + gridDim.x, staged + (s ^ 1) * stage);
+      wait_async<1>();
+    } else {
+      wait_async<0>();
+    }
+    __syncthreads();
+    const long long row0 = (long long)tile * tile_rows;
+    const int n_out =
+        (int)(rows - row0 < tile_rows ? rows - row0 : tile_rows) * k;
+    const typename V16::type* buf =
+        reinterpret_cast<const typename V16::type*>(staged + s * stage);
+    T* ot = out + row0 * k;
+    for (int o = threadIdx.x; o < n_out; o += kThreads) {
+      T acc = T(0);
+      if constexpr (CC > 0) {
+        typename V16::type v[CC];
+#pragma unroll
+        for (int c = 0; c < CC; ++c) v[c] = buf[sum_tiles_at(o, c, CC, b)];
+#pragma unroll
+        for (int c = 0; c < CC; ++c) {
+          T e[V];
+          V16::split(v[c], e);
+#pragma unroll
+          for (int u = 0; u < V; ++u) acc = add_rn(acc, e[u]);
+        }
+      } else {
+        for (int c = 0; c < C; ++c) {
+          T e[V];
+          V16::split(buf[sum_tiles_at(o, c, C, b)], e);
+#pragma unroll
+          for (int u = 0; u < V; ++u) acc = add_rn(acc, e[u]);
+        }
+      }
+      ot[o] = acc;
+    }
+    // this stage's reads are done before the next copy into it
+    __syncthreads();
+    s ^= 1;
   }
 }
 
@@ -647,10 +767,98 @@ long long product_tile_rows(long long rows, int terms, int w_pad) {
   return tr < V ? 0 : tr;
 }
 
+// The SM count of the current device, queried once per device.
+int sm_count(int* sms) {
+  static int kept_device = -1, kept_sms = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device != kept_device) {
+    int n = 0;
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    kept_sms = n;
+    kept_device = device;
+  }
+  *sms = kept_sms;
+  return 0;
+}
+
+// The resident blocks per SM of sum_tiles_kernel<T, CC> at smem bytes on
+// the current device (its shared-memory limit raised first where smem
+// passes 48 KB), queried once per device and size and kept.
+template <typename T, int CC>
+int sum_tiles_blocks(size_t smem, int* blocks) {
+  static int kept_device = -1, kept_blocks = 0;
+  static size_t kept_smem = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device != kept_device || smem != kept_smem) {
+    const auto kernel = sum_tiles_kernel<T, CC>;
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    int n = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel,
+                                                        kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    kept_blocks = n;
+    kept_smem = smem;
+    kept_device = device;
+  }
+  *blocks = kept_blocks;
+  return 0;
+}
+
+// The rows of a tile of sum_tiles_kernel for rows of k k T: kSumTileRows,
+// fewer where that many rows' two stages pass a block's shared memory; 0
+// where one row's do.
+template <typename T>
+int sum_tile_rows(int k) {
+  const long long row_bytes = (long long)k * k * sizeof(T);
+  int r = kSumTileRows;
+  while (r > 1 && 2 * r * row_bytes > kMaxSmem) r /= 2;
+  return 2 * r * row_bytes > kMaxSmem ? 0 : r;
+}
+
+// Launches (or, with plan, plans) sum_tiles_kernel<T, CC> for the sum
+// over axis 2 of x (rows, k k): returns kNoTile where the shape gives no
+// tile (nothing launched), else 0 or the CUDA error.
+template <typename T, int CC>
+int launch_sum_tiles(const void* x, void* out, long long rows, int k,
+                     cudaStream_t s, int* plan) {
+  const int tile_rows = sum_tile_rows<T>(k);
+  const long long tiles = tile_rows > 0 ? (rows + tile_rows - 1) / tile_rows
+                                        : 0;
+  if (tiles == 0 || tiles > (1LL << 30)) return kNoTile;
+  int sms = 0, per_sm = 0;
+  int err = sm_count(&sms);
+  if (err != 0) return err;
+  const size_t smem = 2 * (size_t)tile_rows * k * k * sizeof(T);
+  err = sum_tiles_blocks<T, CC>(smem, &per_sm);
+  if (err != 0) return err;
+  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  const unsigned int blocks =
+      (unsigned int)(tiles < resident ? tiles : resident);
+  if (plan != nullptr) {
+    plan[4] = 3;
+    plan[5] = (int)blocks;
+    return plan_of(sum_tiles_kernel<T, CC>, smem, plan);
+  }
+  sum_tiles_kernel<T, CC><<<blocks, kThreads, smem, s>>>(
+      (const T*)x, (T*)out, rows, k, k * (int)sizeof(T) / 16, tile_rows,
+      (int)tiles);
+  return (int)cudaGetLastError();
+}
+
 // Launches lane_contract's kernel for the shape, or, with plan, launches
 // nothing and gives its launch plan: plan_of's four numbers, the kernel
 // (0 the product's tile, 1 one output a thread, 2 vectors along the
-// outputs, 3 along the terms) and the blocks it would launch.
+// outputs, 3 the staged tiles of the sum over axis 2) and the blocks it
+// would launch.
 template <typename T, typename I>
 int launch_lane_contract(const void* x, const void* w, void* out,
                          long long n, long long cols_out, int terms,
@@ -684,26 +892,37 @@ int launch_lane_contract(const void* x, const void* w, void* out,
       return (int)cudaGetLastError();
     }
   }
-  // groups of V outputs where the layout gives 16-byte vectors
-  int vec = 0;  // 0: scalar; 1: along the outputs; 2: along the terms
-  if (w == nullptr && aligned && cols_out % V == 0 && in_cols % V == 0
-      && n / V >= kVectorFloor) {
-    if (sj == 1 && st % V == 0)
-      vec = 1;
-    else if (st == 1 && sj % V == 0 && terms % V == 0)
-      vec = 2;
+  // the sum over axis 2 (each output's terms side by side, rows of
+  // terms x terms) where x is aligned and an output's terms are whole
+  // 16-byte chunks: staged tiles, at every size
+  if (w == nullptr && st == 1 && sj == terms && cols_out == terms
+      && in_cols == (long long)terms * terms && aligned16(x)
+      && terms % V == 0) {
+    const int C = terms / V;
+#define UF3_SUM_TILES(CC) \
+  launch_sum_tiles<T, CC>(x, out, rows, terms, s, plan)
+    const int err = C == 2   ? UF3_SUM_TILES(2)
+                    : C == 4 ? UF3_SUM_TILES(4)
+                    : C == 8 ? UF3_SUM_TILES(8)
+                             : UF3_SUM_TILES(0);
+#undef UF3_SUM_TILES
+    if (err != kNoTile) return err;
   }
+  // groups of V outputs along the outputs where the layout gives 16-byte
+  // vectors
+  const bool vec = w == nullptr && aligned && cols_out % V == 0
+                   && in_cols % V == 0 && n / V >= kVectorFloor
+                   && sj == 1 && st % V == 0;
   const int width = vec ? V : 1;
   const long long per_row = cols_out / width;
   const long long groups = rows * per_row;
   const unsigned int blocks = blocks_for(groups);
   const long long step = (long long)blocks * kThreads;
   const size_t smem = w != nullptr ? sizeof(T) * terms * cols_out : 0;
-  const auto kernel = vec == 1   ? contract_rows_kernel<T, I, V, false>
-                      : vec == 2 ? contract_rows_kernel<T, I, V, true>
-                                 : contract_rows_kernel<T, I, 1, false>;
+  const auto kernel = vec ? contract_rows_kernel<T, I, V>
+                          : contract_rows_kernel<T, I, 1>;
   if (plan != nullptr) {
-    plan[4] = vec == 0 ? 1 : vec + 1;
+    plan[4] = vec ? 2 : 1;
     plan[5] = (int)blocks;
     return plan_of(kernel, smem, plan);
   }
@@ -819,7 +1038,8 @@ extern "C" int uf3_lane_contract(const void* x, const void* w, void* out,
 // The launch plan of uf3_lane_contract on the same arguments, launching
 // nothing: plan = {registers per thread, local bytes per thread, resident
 // blocks per SM, warps per SM, kernel (0 the product's tile, 1 one output
-// a thread, 2 vectors along the outputs, 3 along the terms), blocks}.
+// a thread, 2 vectors along the outputs, 3 the staged tiles of the sum
+// over axis 2), blocks}.
 extern "C" int uf3_lane_contract_occupancy(
     const void* x, const void* w, void* out, long long n,
     long long max_offset, long long cols_out, int terms, long long in_cols,

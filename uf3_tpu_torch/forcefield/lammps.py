@@ -543,6 +543,22 @@ class UFLammps:
             self._lmp = lammps.lammps(cmdargs=self.lammps_args)
         return self._lmp
 
+    def _release(self, lmp, ran: bool):
+        """After a run: close the instance, or under ``keep_alive`` clear
+        it, and close it if ``clear`` itself raises, so that the next call
+        starts a fresh one.  That error reaches the caller only after a
+        run that ``ran`` to its end: after a failed one, the run's own
+        error does."""
+        if not self.keep_alive:
+            self.close()
+            return
+        try:
+            lmp.command("clear")
+        except Exception:
+            self.close()
+            if ran:
+                raise
+
     def _one_body_energy(self, atoms) -> float:
         """The 1-body offsets of ``atoms``' species, which the ``.uf3``
         file does not carry."""
@@ -563,8 +579,27 @@ class UFLammps:
         with tempfile.NamedTemporaryFile(
                 mode="w", suffix=".data", delete=False) as handle:
             data_path = handle.name
-        # rows map as x_lammps = x @ q, and back as x = x_lammps @ q.T
-        q = write_lammps_data(data_path, atoms, self.element_list)
+        # whatever raises, the data file goes and the instance holds no
+        # box (a kept instance that did would refuse the next read_data)
+        ran = False
+        try:
+            # rows map as x_lammps = x @ q, and back as x = x_lammps @ q.T
+            q = write_lammps_data(data_path, atoms, self.element_list)
+            results = self._lammps_commands(lmp, data_path, atoms, q, relax,
+                                            vmax, max_steps, etol, ftol)
+            ran = True
+        finally:
+            os.unlink(data_path)
+            self._release(lmp, ran)
+        self.results = results
+        return results
+
+    def _lammps_commands(self, lmp, data_path: str, atoms, q, relax: bool,
+                         vmax: float, max_steps: int, etol: float,
+                         ftol: float) -> Dict:
+        """Load ``data_path`` and the potential into ``lmp``, run or
+        minimize, and read the results back into the caller's frame
+        (``q``); a relax writes positions and cell back into ``atoms``."""
         for command in self.setup_commands(data_path):
             lmp.command(command)
         if relax:
@@ -584,10 +619,9 @@ class UFLammps:
         sigma = q @ _voigt_matrix(-pressures * _BAR_TO_EV_A3) @ q.T
         stress = sigma[[0, 1, 2, 1, 0, 0], [0, 1, 2, 2, 2, 1]]
         energy = float(lmp.get_thermo("pe")) + self._one_body_energy(atoms)
-        self.results = dict(energy=energy, free_energy=energy,
-                            forces=forces, stress=stress,
-                            volume=float(lmp.get_thermo("vol")),
-                            nsteps=int(lmp.get_thermo("step")))
+        results = dict(energy=energy, free_energy=energy, forces=forces,
+                       stress=stress, volume=float(lmp.get_thermo("vol")),
+                       nsteps=int(lmp.get_thermo("step")))
         if relax:
             pos = np.array(
                 lmp.gather_atoms("x", 1, 3)).reshape(n_atoms, 3)
@@ -599,9 +633,4 @@ class UFLammps:
             cell[2, 2] = boxhi[2] - boxlo[2]
             cell[1, 0], cell[2, 0], cell[2, 1] = xy, xz, yz
             atoms.set_cell(cell @ q.T)
-        os.unlink(data_path)
-        if not self.keep_alive:
-            self.close()
-        else:
-            lmp.command("clear")
-        return self.results
+        return results

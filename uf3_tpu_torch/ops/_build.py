@@ -14,6 +14,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
@@ -145,6 +147,28 @@ def launch(name: str, fn, *args):
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def on_stream(device, fn, *args):
+    """``fn(*args, stream)``, ``stream`` the raw handle of the CUDA
+    ``device``'s current stream (the capture stream inside a CUDA graph's
+    capture), with ``device`` made the current device for the call only
+    where it is not already; returns what ``fn`` returns.  The handle
+    comes from ``torch._C._cuda_getCurrentRawStream``: a
+    ``torch.cuda.current_stream()`` object inside a device context cost
+    ``rev_gather``'s wrapper ~10 of its ~39 host us a call
+    (``benchmarks/gather_host.py``; PERF.md section 6)."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(device):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
+def launch_on(name: str, device, fn, *args):
+    """``launch`` of ``fn(*args, stream)`` on ``device``'s current stream
+    (``on_stream``)."""
+    launch(name, on_stream, device, fn, *args)
 
 
 def load(path: str) -> ctypes.CDLL:

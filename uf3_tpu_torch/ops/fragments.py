@@ -158,14 +158,11 @@ def relayout(x, mode: str, reps: int = None, shape=None, k: int = None,
         elif mode == "select":
             kk, w = k, cols // H_PARTS
             offset = H_PART * w
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            _build.launch("relayout", _build.library().uf3_relayout,
-                          x.data_ptr(), out.data_ptr(),
-                          out2.data_ptr() if pair else None, out.numel(),
-                          max(out.numel(), x.numel()), RELAYOUT_MODES[mode],
-                          in_cols, out_cols, kk, w, offset, x.element_size(),
-                          stream)
+        _build.launch_on("relayout", x.device, _build.library().uf3_relayout,
+                         x.data_ptr(), out.data_ptr(),
+                         out2.data_ptr() if pair else None, out.numel(),
+                         max(out.numel(), x.numel()), RELAYOUT_MODES[mode],
+                         in_cols, out_cols, kk, w, offset, x.element_size())
         relayout.launches += 1
         relayout.launches_by_mode[mode] = \
             relayout.launches_by_mode.get(mode, 0) + 1
@@ -249,21 +246,19 @@ def lane_contract(x, mode: str, w=None):
     w = None if w is None else w.contiguous()
     out = torch.empty((rows, cols_out), dtype=x.dtype, device=x.device)
     if out.numel():
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            _build.launch("lane_contract", _build.library().uf3_lane_contract,
-                          x.data_ptr(), None if w is None else w.data_ptr(),
-                          out.data_ptr(), out.numel(),
-                          max(out.numel(), x.numel()), cols_out, terms,
-                          x.shape[1], sj, st, int(x.dtype == torch.float64),
-                          stream)
+        _build.launch_on("lane_contract", x.device,
+                         _build.library().uf3_lane_contract, x.data_ptr(),
+                         None if w is None else w.data_ptr(), out.data_ptr(),
+                         out.numel(), max(out.numel(), x.numel()), cols_out,
+                         terms, x.shape[1], sj, st,
+                         int(x.dtype == torch.float64))
         lane_contract.launches += 1
     return out
 
 
 lane_contract.launches = 0
 
-CONTRACT_KERNELS = ("tile", "rows", "rows_along_outputs", "rows_along_terms")
+CONTRACT_KERNELS = ("tile", "rows", "rows_along_outputs", "sum_tiles")
 
 
 def lane_contract_occupancy(x, mode: str, w=None) -> dict:
@@ -272,8 +267,8 @@ def lane_contract_occupancy(x, mode: str, w=None) -> dict:
     runtime: registers and local (spill) bytes per thread, resident
     blocks of 256 threads and warps per SM at its shared memory, the
     kernel (``CONTRACT_KERNELS``: the product's tile, one output a
-    thread, 16-byte vectors along the outputs or along the terms) and
-    the blocks it launches."""
+    thread, 16-byte vectors along the outputs, or the staged tiles of
+    the sum over axis 2) and the blocks it launches."""
     rows, cols_out, terms, sj, st = contract_plan(x, mode, w)
     n = rows * cols_out
     if not n:
@@ -380,14 +375,12 @@ def lane_map(op: str, x=None, idx=None, grid=None, dtype=None):
     if out.numel():
         g_s0, g_s1 = (grid.shape[1] * grid.shape[2], grid.shape[2]) \
             if grid is not None else (0, 0)
-        with torch.cuda.device(lead.device):
-            stream = torch.cuda.current_stream(lead.device).cuda_stream
-            pointers = (None if t is None else t.data_ptr()
-                        for t in (x, idx, grid, out, out2))
-            _build.launch("lane_map", _build.library().uf3_lane_map,
-                          LANE_MAP_OPS[op], *pointers, out.numel(),
-                          ONEHOT_CLASSES.get(op, 0), g_s0, g_s1,
-                          int(out_dtype == torch.float64), stream)
+        pointers = (None if t is None else t.data_ptr()
+                    for t in (x, idx, grid, out, out2))
+        _build.launch_on("lane_map", lead.device,
+                         _build.library().uf3_lane_map, LANE_MAP_OPS[op],
+                         *pointers, out.numel(), ONEHOT_CLASSES.get(op, 0),
+                         g_s0, g_s1, int(out_dtype == torch.float64))
         lane_map.launches += 1
     return (out, out2) if op == "multi" else out
 

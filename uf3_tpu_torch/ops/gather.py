@@ -229,26 +229,6 @@ def _sizes(values, index):
     return values.element_size(), index.element_size()
 
 
-def _launch(name: str, entry: str, device, *args):
-    """Call C entry ``entry`` with ``args`` and the handle of ``device``'s
-    current stream (a CUDA device; the capture stream inside a CUDA
-    graph's capture), raising on failure; ``device`` is made the current
-    device for the call only where it is not already.  The handle comes
-    from ``torch._C._cuda_getCurrentRawStream``: a
-    ``torch.cuda.current_stream()`` object inside a device context cost
-    ``rev_gather``'s wrapper ~10 of its ~39 host us a call
-    (``benchmarks/gather_host.py``; PERF.md section 6)."""
-    fn = getattr(_build.library(), entry)
-    index = device.index
-    if index == torch.cuda.current_device():
-        _build.launch(name, fn, *args,
-                      torch._C._cuda_getCurrentRawStream(index))
-        return
-    with torch.cuda.device(device):
-        _build.launch(name, fn, *args,
-                      torch._C._cuda_getCurrentRawStream(index))
-
-
 def rows_plan(table, idx) -> GatherPlan:
     """``gather_plan`` for ``gather_rows(table, idx)`` as the wrapper
     launches it: the alignment read off the table's pointer and row
@@ -301,9 +281,11 @@ def gather_rows(table, idx):
     if out.numel() == 0:
         return out
     plan = rows_plan(table, idx)
-    _launch("gather_rows", "uf3_gather_rows", table.device,
-            table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(), w,
-            *_sizes(table, idx), plan.code, int(plan.wide), plan.values_align)
+    _build.launch_on("gather_rows", table.device,
+                     _build.library().uf3_gather_rows, table.data_ptr(),
+                     idx.data_ptr(), out.data_ptr(), idx.numel(), w,
+                     *_sizes(table, idx), plan.code, int(plan.wide),
+                     plan.values_align)
     gather_rows.launches += 1
     return out
 
@@ -336,9 +318,11 @@ def gather_lanes(t, li):
     if out.numel() == 0:
         return out
     plan = lanes_plan(t, li)
-    _launch("gather_lanes", "uf3_gather_lanes", t.device, t.data_ptr(),
-            li.data_ptr(), out.data_ptr(), li.shape[0], li.shape[1],
-            t.shape[1], *_sizes(t, li), plan.code, int(plan.wide))
+    _build.launch_on("gather_lanes", t.device,
+                     _build.library().uf3_gather_lanes, t.data_ptr(),
+                     li.data_ptr(), out.data_ptr(), li.shape[0],
+                     li.shape[1], t.shape[1], *_sizes(t, li), plan.code,
+                     int(plan.wide))
     gather_lanes.launches += 1
     return out
 
@@ -371,9 +355,10 @@ def rev_gather(part, idx, rev):
         return out
     n, (elem, index), start = idx.numel(), _sizes(part, idx), part.data_ptr()
     plan = _rev_plan(r * kp, w, n, elem, index, start)
-    _launch("rev_gather", "uf3_rev_gather", part.device, start,
-            idx.data_ptr(), rev.data_ptr(), out.data_ptr(), n, w, kp, elem,
-            index, plan.code, int(plan.wide), plan.values_align)
+    _build.launch_on("rev_gather", part.device,
+                     _build.library().uf3_rev_gather, start, idx.data_ptr(),
+                     rev.data_ptr(), out.data_ptr(), n, w, kp, elem, index,
+                     plan.code, int(plan.wide), plan.values_align)
     rev_gather.launches += 1
     return out
 

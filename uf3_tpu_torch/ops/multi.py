@@ -418,14 +418,12 @@ def launch_trio_multi(potential, d, valid, s_slot, s_center,
     lib = _build.library()
     fn = lib.uf3_trio_multi_f32 if dtype == torch.float32 \
         else lib.uf3_trio_multi_f64
-    with torch.cuda.device(d.device):
-        stream = torch.cuda.current_stream(d.device).cuda_stream
-        err = fn(d.data_ptr(), valid.data_ptr(), s_slot.data_ptr(),
-                 s_center.data_ptr(), *(b.data_ptr() for b in buffers),
-                 energy.data_ptr(), f_center.data_ptr(), part.data_ptr(),
-                 n_atoms, k, n_species, max_cols,
-                 *(b.numel() for b in buffers), int(bool(with_energy)),
-                 stream)
+    err = _build.on_stream(
+        d.device, fn, d.data_ptr(), valid.data_ptr(), s_slot.data_ptr(),
+        s_center.data_ptr(), *(b.data_ptr() for b in buffers),
+        energy.data_ptr(), f_center.data_ptr(), part.data_ptr(), n_atoms, k,
+        n_species, max_cols, *(b.numel() for b in buffers),
+        int(bool(with_energy)))
     _check_window(err, k, f"{max_cols}-column")
     trio_multi_partials_all.launches += 1
     return energy, f_center, part

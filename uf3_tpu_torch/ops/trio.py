@@ -258,16 +258,13 @@ def trio_partials(potential: UF3Potential, d, valid,
     lib = _build.library()
     fn = lib.uf3_trio_partials_f32 if dtype == torch.float32 \
         else lib.uf3_trio_partials_f64
-    with torch.cuda.device(d.device):
-        stream = torch.cuda.current_stream(d.device).cuda_stream
-        err = fn(d.data_ptr(), valid.data_ptr(),
-                 None if center_weight is None
-                 else center_weight.data_ptr(),
-                 potential.grid_window.data_ptr(),
-                 potential.leg_tables.data_ptr(), energy.data_ptr(),
-                 f_center.data_ptr(), part.data_ptr(), n_atoms, k,
-                 legs, ints, w_lo, w_hi - w_lo, c_lo, c_hi - c_lo,
-                 int(bool(with_energy)), int(triangle), stream)
+    err = _build.on_stream(
+        d.device, fn, d.data_ptr(), valid.data_ptr(),
+        None if center_weight is None else center_weight.data_ptr(),
+        potential.grid_window.data_ptr(), potential.leg_tables.data_ptr(),
+        energy.data_ptr(), f_center.data_ptr(), part.data_ptr(), n_atoms, k,
+        legs, ints, w_lo, w_hi - w_lo, c_lo, c_hi - c_lo,
+        int(bool(with_energy)), int(triangle))
     _check(err, k, trio)
     trio_partials.launches += 1
     return energy, f_center, part

@@ -31,8 +31,13 @@ the 3-level bench step's anatomy at 12/6/36, every phase's device and
 host ms; the full rebuild at 9,826 atoms, its lists equal to the native
 host cell list's; the MD rate at 31,250 atoms with no overflow; the
 featurizer on 64 cells and the fit on 200, one configuration's rows on
-the card within 1e-10 of the CPU's); and the ``md`` command as a user
-runs it.  Then the reference's general
+the card within 1e-10 of the CPU's); the headline scripts through
+their mains (``run_bench_scripts``: ``bench`` at 9,826 atoms over 5
+windows, ``throughput_gate --no-gate`` with the reference's five-phase
+breakdown and the trio kernel's, and the float64 stale bound,
+``budget_step`` on the artifacts those wrote, its shares of the card's
+peak in (0, 1]); and the ``md`` command as a user runs it.  Then the
+reference's general
 force path: the 2-body W model (``model_2.json``) at 9,826 atoms, the
 binary Ne/Xe 2-body model (``model_pair.json``) at 8,788 atoms, a random
 binary 2+3-body model at 4,000 atoms (the fused multi-species route
@@ -194,6 +199,8 @@ from uf3_tpu_torch.benchmarks import (anatomy_3l,  # noqa: E402
                                       featurize_throughput, fit_wallclock,
                                       md_scaling, melting_run,
                                       probe_rebuild2)
+from uf3_tpu_torch.benchmarks import (bench, budget_step,  # noqa: E402
+                                      throughput_gate)
 from uf3_tpu_torch.data.atoms import Atoms, bulk  # noqa: E402
 from uf3_tpu_torch.data import io as data_io  # noqa: E402
 from uf3_tpu_torch.examples import melting_point  # noqa: E402
@@ -214,6 +221,7 @@ from uf3_tpu_torch.ops.pair import (pair_row_forces,  # noqa: E402
 from uf3_tpu_torch.ops.potential import (UF3Potential,  # noqa: E402
                                          grid_sparsity)
 from uf3_tpu_torch.ops.splines import _leg_interval  # noqa: E402
+from uf3_tpu_torch.ops.trio import trio_bound  # noqa: E402
 from uf3_tpu_torch.parallel import halo  # noqa: E402
 from uf3_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from uf3_tpu_torch.representation.knots import \
@@ -233,10 +241,11 @@ FORCE_TOL = 2e-4  # eV/A, f32 vs f64 (tests/test_tpu_numerics.py)
 WINDOW_STEPS = 720  # per timed window, as bench.py
 T_TARGET, T_BAND = 300.0, 30.0
 NVE_DRIFT = 2e-4  # eV/atom over 720 steps (the criterion in ROADMAP.md)
-# NVIDIA H100 SXM peaks (data sheet, at 700 W): float32 and float64
-# outside the tensor cores, HBM3 bandwidth
-PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
-PEAK_F64_FLOPS = 34e12
+# NVIDIA H100 SXM peaks: float32 and float64 outside the tensor cores,
+# HBM3 bandwidth (ops/fragments.py, ops/gather.py)
+PEAK_F32_FLOPS = fragments.PEAK_FLOPS[torch.float32]
+PEAK_F64_FLOPS = fragments.PEAK_FLOPS[torch.float64]
+PEAK_BYTES = gather.PEAK_BYTES
 
 
 def card_line() -> str:
@@ -357,71 +366,6 @@ def graph_ms(fn, repeats=20, replays=10):
 
 def max_err(a, b) -> float:
     return float(torch.max(torch.abs(a.double().cpu() - b.double().cpu())))
-
-
-def trio_bound(pot: UF3Potential, d, valid, with_energy: bool,
-               peak=PEAK_F32_FLOPS, extra_bytes: int = 0,
-               triangle: bool = False):
-    """The least time the card needs for one trio_partials call on
-    these rows: the flop the kernel's algorithm does for this data (an
-    FMA is 2) over the ``peak`` rate (float32 by default), against each
-    input read once and
-    each output written once, plus ``extra_bytes`` moved beside these
-    rows, over the memory rate.  ``triangle`` counts the triangle lanes:
-    the live unordered lanes m < n, each with its t2 chain, and the
-    slots' sums over their live partners.  Returns (ms, "operations" or
-    "bytes", flop, bytes)."""
-    trio_b = pot.trio
-    w_lo, w_hi, c_lo, c_hi = trio_b.window
-    ww, cw = w_hi - w_lo, c_hi - c_lo
-    d = d.double()
-    ok = valid != 0                                      # (N, K)
-    r = torch.sqrt(torch.sum(d * d, -1).clamp_min(1e-300))
-    idx = _leg_interval(trio_b.spec_l, r)                # first tap
-    taps = torch.arange(4, device=d.device)
-    b_live = (((idx[..., None] + taps) >= w_lo)
-              & ((idx[..., None] + taps) < w_hi)).sum(-1)  # (N, K)
-    diff = d[:, None, :, :] - d[:, :, None, :]            # [a, m, n]
-    r_mn2 = torch.sum(diff * diff, -1)
-    r_mn = torch.sqrt(r_mn2.clamp_min(1e-300))
-    eye = torch.eye(d.shape[1], dtype=torch.bool, device=d.device)
-    lane = (ok[:, :, None] & ok[:, None, :] & ~eye & (r_mn2 > 1e-10)
-            & (r_mn >= trio_b.spec_n.t_min) & (r_mn <= trio_b.spec_n.t_max))
-    cidx = _leg_interval(trio_b.spec_n, r_mn)
-    c_live = (((cidx[..., None] + taps) >= c_lo)
-              & ((cidx[..., None] + taps) < c_hi)).sum(-1)  # (N, K, K)
-    b_lane = b_live[:, None, :].expand_as(cidx)           # row n's taps
-    energy = int(with_energy)
-    if triangle:
-        # per live lane m < n: 55 for the third leg as below, 1 for g3,
-        # 3 FMAs per (b, c) term (the value chain always feeds t2), 3
-        # (+1) per b; per live ordered pair, 8 for the slot's sums
-        upper = torch.triu(torch.ones_like(eye), diagonal=1)
-        per_lane = (55 + 1 + energy + 6 * b_lane * c_live
-                    + 2 * (3 + energy) * b_lane)
-        pairs = ok[:, :, None] & ok[:, None, :] & ~eye
-        lane_flop = (float(torch.sum(per_lane * (lane & upper)))
-                     + 8.0 * float(pairs.sum()))
-    else:
-        term = 6 if with_energy else 4    # 2 or 3 FMAs per (b, c) term
-        # per live lane: 55 for d[n] - d[m], |.|, the interval and 4
-        # values + 4 derivatives by Horner; 9 (+1) for the sums over n;
-        # then the (b, c) terms and the b-level FMAs
-        per_lane = (55 + 9 + energy
-                    + term * b_lane * c_live + term * b_lane)
-        lane_flop = float(torch.sum(per_lane * lane))
-    n_rows = int(ok.sum())
-    flop = (lane_flop
-            + n_rows * (52 + 4)                    # row bases, fc
-            + 4.0 * ww * cw * float(torch.sum(b_live * ok)))  # H, H1
-    size = pot.grid_window.element_size()
-    n_atoms, k = d.shape[:2]
-    n_bytes = size * (n_atoms * k * 4 + pot.grid_window.numel()
-                      + pot.leg_tables.numel() + n_atoms * (4 + 5 * k)) \
-        + extra_bytes
-    t_flop, t_bytes = flop / peak, n_bytes / PEAK_BYTES
-    return (1e3 * max(t_flop, t_bytes),
-            "operations" if t_flop >= t_bytes else "bytes", flop, n_bytes)
 
 
 def compare_trio(device):
@@ -2039,6 +1983,87 @@ def run_measurement_scripts(device):
         f"configuration 0's rows, card vs CPU, within "
         f"{MEASURE_FEATURE_TOL:g}": err <= MEASURE_FEATURE_TOL})
     print(f"measurement scripts: {time.perf_counter() - t0:.2f} s")
+    return launches, results
+
+
+def run_bench_scripts(device, anatomy):
+    """The headline scripts through their mains, each with the trio
+    kernel's count from 0: ``bench`` at 9,826 atoms (5 windows),
+    ``throughput_gate --no-gate`` writing its artifact into a temporary
+    directory, then ``budget_step`` on that artifact and on ``anatomy``
+    (``run_measurement_scripts``' 12/6/36 anatomy, written beside it).
+    Gates: no overflow; a finite, positive rate, the median between the
+    slowest and the fastest window; every breakdown phase's device and
+    host ms finite and positive; the artifact's keys the reference's; a
+    stale window passing only through the float64 probe's bound; the
+    budget's shares of peak in (0, 1].  Returns (trio launches by
+    script, results by script)."""
+    t0 = time.perf_counter()
+    launches, results = {}, {}
+    out = tempfile.mkdtemp()
+
+    def counted(name, main, argv):
+        reset_counts()
+        t = time.perf_counter()
+        result = main(argv)
+        torch.cuda.synchronize()
+        launches[f"bench scripts: {name}"] = trio.trio_partials.launches
+        print(f"{name}: {time.perf_counter() - t:.2f} s, "
+              f"{trio.trio_partials.launches} trio launches")
+        results[name] = result
+        return result
+
+    try:
+        common.write_artifact(anatomy, out,
+                              anatomy_3l.artifact_name(MEASURE_CADENCE))
+        line = counted("bench", bench.main, [])
+        gate("bench", {
+            "no overflow": not line["overflow"],
+            f"{bench.WINDOWS} windows at {line['n_atoms']} atoms":
+                len(line["window_atom_steps_per_s"]) == bench.WINDOWS
+                and line["n_atoms"] == 9826,
+            "rate finite and positive": positive(line["value"]),
+            "slowest <= median <= fastest":
+                line["value_min"] <= line["value"] <= line["value_max"],
+            "the reference's keys": {"metric", "value", "unit",
+                                     "vs_baseline", "stale"} <= set(line),
+            "trio kernel launched": launches["bench scripts: bench"] > 0})
+        artifact = counted("throughput_gate", throughput_gate.main,
+                           ["--no-gate", "--out-dir", out])
+        f64_bound = throughput_gate.stale_bound()
+        gate("throughput_gate", dict({
+            f"{phase} device and host ms finite and positive":
+                positive(artifact["breakdown_ms"][phase])
+                and positive(artifact["breakdown_host_ms"][phase])
+            for phase in throughput_gate.BREAKDOWN}, **{
+            "the reference's keys, its five phases and the trio's":
+                set(throughput_gate.REFERENCE_KEYS) <= set(artifact)
+                and tuple(artifact["breakdown_ms"])
+                == throughput_gate.BREAKDOWN,
+            "rate finite and positive": positive(artifact["value"]),
+            "not gated": not artifact["gated"],
+            "a stale window passes only through the float64 bound":
+                artifact["stale_ok"] if not artifact["stale"] else (
+                    artifact["stale_ok"]
+                    and artifact["stale_force_error_bound_eV_A"] == f64_bound
+                    and f64_bound < throughput_gate.STALE_BOUND),
+            "trio kernel launched":
+                launches["bench scripts: throughput_gate"] > 0}))
+        budget = counted("budget_step", budget_step.main,
+                         ["--artifacts", out, "--out-dir", out])
+        found = budget["measured"]
+        gate("budget_step", dict({
+            f"{share} in (0, 1]": found[share] is not None
+            and 0.0 < found[share] <= 1.0
+            for share in ("useful_share_of_peak", "port_flop_share_of_peak",
+                          "floor_share_of_step")}, **{
+            "measured against this run's gate artifact":
+                found["e2e_from"] == f"bench_{artifact['commit']}.json",
+            "trio kernel launched":
+                launches["bench scripts: budget_step"] > 0}))
+    finally:
+        shutil.rmtree(out)
+    print(f"bench scripts: {time.perf_counter() - t0:.2f} s")
     return launches, results
 
 
@@ -4995,6 +5020,9 @@ def main():
                      for name, n in validation_launches.items()})
     measure_launches, measured = run_measurement_scripts(device)
     launches.update(measure_launches)
+    bench_launches, headline = run_bench_scripts(
+        device, measured["anatomy_3l {}/{}/{}".format(*MEASURE_CADENCE)])
+    launches.update(bench_launches)
     rates["md command (2,000 atoms, plain Verlet)"] = run_md_command()[0]
     # the reference's general force path
     name = "2-body W (model_2.json)"
@@ -5111,6 +5139,22 @@ def main():
                   f" ms a configuration"
                   + (f", solve {result['solve_s']:.4f} s"
                      if "solve_s" in result else "") + f"; card: {card}")
+    line, gate_artifact, budget = (headline[name] for name in (
+        "bench", "throughput_gate", "budget_step"))
+    print(f"bench (9,826 atoms, f32): {line['value']:.1f} atom-steps/s "
+          f"(median of {bench.WINDOWS} x {bench.WINDOW_STEPS} steps; "
+          f"{line['value_min']:.1f}-{line['value_max']:.1f}), stale="
+          f"{line['stale']}; throughput_gate: {gate_artifact['value']:.1f}, "
+          f"breakdown device ms {gate_artifact['breakdown_ms']}, host ms "
+          f"{gate_artifact['breakdown_host_ms']}, against the committed "
+          f"artifact (not gated here): passed={gate_artifact['passed']}, "
+          f"phases over their limits {gate_artifact['slow_phases']}; "
+          f"budget_step: floor "
+          f"{budget['per_step_floor_ms']:.6f} ms a step, useful flop "
+          f"{budget['measured']['useful_share_of_peak']:.3e} and the port's "
+          f"{budget['measured']['port_flop_share_of_peak']:.3e} of peak over "
+          f"the step, floor {budget['measured']['floor_share_of_step']:.3e} "
+          f"of it; card: {card}")
     print(f"multichip_demo (NCCL, world size 1, {HALO_SHARDS} shards, "
           f"f64): |E_halo - E_single| {demo_diff:.3e} eV")
     for route, (dev_ms, hst_ms) in binary[1].items():

@@ -48,10 +48,10 @@ from uf3_tpu.ops import pallas_trio as pt
 from uf3_tpu.ops.featurize_jax import featurize_dataset_device
 from uf3_tpu.regression import least_squares as ls
 from uf3_tpu.representation.basis import BSplineBasis
-from uf3_tpu_torch.benchmarks import (anatomy_3l, common,
-                                      featurize_throughput, fit_wallclock,
-                                      md_scaling, melting_run,
-                                      probe_rebuild2)
+from uf3_tpu_torch.benchmarks import (anatomy_3l, bench, budget_step,
+                                      common, featurize_throughput,
+                                      fit_wallclock, md_scaling, melting_run,
+                                      probe_rebuild2, throughput_gate)
 from uf3_tpu_torch.examples import melting_point
 from uf3_tpu_torch.forcefield.md import MDSystem
 from uf3_tpu_torch.ops import neighbors as tnb
@@ -499,6 +499,12 @@ MAINS = {
     "featurize_throughput": (featurize_throughput, ["5"],
                              "featurize_throughput.json"),
     "fit_wallclock": (fit_wallclock, ["7"], "fit_wallclock.json"),
+    # bench prints its line and writes no artifact
+    "bench": (bench, ["--reps", "7", "7", "7"], None),
+    "throughput_gate": (throughput_gate, ["--reps", "4", "4", "4"],
+                        "bench_test.json"),
+    "budget_step": (budget_step, ["--reps", "4", "4", "4"],
+                    "budget_step.json"),
 }
 
 
@@ -509,28 +515,34 @@ def test_main_needs_the_card_unless_asked_for_the_cpu(name, monkeypatch,
     the command line's arguments to ``run`` (stubbed: the runs above are
     the checks) and writes the artifact by its name."""
     module, args, artifact = MAINS[name]
+    if artifact is not None:
+        args = args + ["--out-dir", str(tmp_path)]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
-        module.main(args + ["--out-dir", str(tmp_path)])
+        module.main(args)
     calls = []
 
     def stub(*a, **kw):
         calls.append((a, kw))
         common.resolve_device(kw["device"])
-        result = common.stamp({"stub": True}, torch.device("cpu"), "test")
+        result = common.stamp({"stub": True, "gated": False},
+                              torch.device("cpu"), "test")
         if kw.get("out_path"):
             common.write_artifact(result, str(tmp_path), artifact)
         return result
 
     monkeypatch.setattr(module, "run", stub)
-    module.main(args + ["--device", "cpu", "--out-dir", str(tmp_path)])
+    assert module.main(args + ["--device", "cpu"])["stub"]
     (a, kw), = calls
     assert kw["device"] == "cpu"
-    assert json.loads((tmp_path / artifact).read_text())["stub"]
+    if artifact is not None:
+        assert json.loads((tmp_path / artifact).read_text())["stub"]
     expected = {"anatomy_3l": ((12, 6, 36), (2, 2, 2)),
                 "probe_rebuild2": (((7, 7, 7),),),
                 "md_scaling": ((3,),), "featurize_throughput": (5,),
-                "fit_wallclock": (7,)}[name]
+                "fit_wallclock": (7,), "bench": ((7, 7, 7),),
+                "throughput_gate": ((4, 4, 4),),
+                "budget_step": ((4, 4, 4),)}[name]
     assert a == expected
 
 

@@ -20,5 +20,11 @@ artifact under ``benchmarks_data/artifacts_torch/``:
   model), ``probe_rebuild2`` (the full neighbor rebuild by size),
   ``md_scaling`` (the MD rate against N), ``featurize_throughput`` and
   ``fit_wallclock`` (the fit path's times) and ``melting_run`` (the
-  melting-point bracket over the example's trials).
+  melting-point bracket over the example's trials);
+- the headline scripts: ``bench`` (the bench path's atom-steps/s, after
+  the root ``bench.py``; it prints one line and writes no artifact),
+  ``throughput_gate`` (the same windows, a per-phase breakdown and a
+  threshold) and ``budget_step`` (the step's work counted from the
+  port's code, its floor at the card's peaks, and the measured step's
+  share of them).
 """

@@ -100,8 +100,11 @@ DT_FS = 2.0
 FRICTION_PS = 2.0
 FULL_BUILD_CALLS = 5
 EPS = 1e-30
-# the phases a graph cannot capture: eager, device time from the profiler
-EAGER = ("rebuild_3b_filter", "rebuild_full_standalone")
+# the phases a graph cannot capture, run eagerly with their device time
+# from the profiler, and the calls each is timed over (None: the chain's
+# length)
+EAGER = {"rebuild_3b_filter": None,
+         "rebuild_full_standalone": FULL_BUILD_CALLS}
 
 
 def engine(cadence) -> dict:
@@ -261,16 +264,18 @@ def bodies(p: Parts) -> dict:
     }
 
 
-def measure(p: Parts, scan_len: int = common.SCAN_LEN):
-    """(device ms, host ms) of every phase, each chain starting at
+def measure(p: Parts, scan_len: int = common.SCAN_LEN, phases=None,
+            eager=EAGER):
+    """(device ms, host ms) of every phase of ``bodies(p)`` (or of
+    ``phases``, name -> chainable body, with ``eager`` naming those a
+    graph cannot capture, as ``EAGER``), each chain starting at
     ``p.positions``; the device ms are None on the CPU."""
     x0 = p.positions
     on_card = x0.is_cuda
     device, host = {}, {}
-    for name, fn in bodies(p).items():
-        if name in EAGER:
-            length = FULL_BUILD_CALLS if name == "rebuild_full_standalone" \
-                else scan_len
+    for name, fn in (bodies(p) if phases is None else phases).items():
+        if name in eager:
+            length = eager[name] or scan_len
             host[name] = common.host_chain_ms(fn, x0, length)
             device[name] = common.profiled_device_ms(
                 lambda: fn(x0), length) if on_card else None

@@ -12,7 +12,8 @@ port follows the code.
 
 Per size: 144 Langevin warm-up steps, one warm 720-step launch
 (``launch_chunks=10, sync=False``), then 3 windows of 720 steps run
-alike, the card synchronized before each clock read.  The rate is the
+alike, the card synchronized before each clock read (``bench.run_windows``,
+the loop the headline bench times).  The rate is the
 median window's atom-steps/s, as the reference's; beside it the least
 and the greatest window, ``overflow`` and ``stale`` after the windows,
 and the card's busy share over one more window traced by
@@ -33,22 +34,18 @@ import argparse
 import json
 import os
 import statistics
-import time
 
 import torch
 
-from uf3_tpu_torch.benchmarks import common
+from uf3_tpu_torch.benchmarks import bench, common
+from uf3_tpu_torch.benchmarks.bench import (TEMPERATURE, WARM_STEPS,
+                                            WINDOW_STEPS)
 from uf3_tpu_torch.forcefield.md import MDSystem
 from uf3_tpu_torch.util import tracing
 
 # benchmarks/md_scaling.py:40-77
 REPS = (17, 25, 34)
-WARM_STEPS = 144
-WINDOW_STEPS = 720
 WINDOWS = 3
-LAUNCH_CHUNKS = 10
-TEMPERATURE = 300.0
-DT_FS = 2.0
 CONFIG = ("bench engine (respa 12/6/36, switch (2.5, 3.5), skins 0.5 / 1.2 "
           "A, 72 / 16 slots, full trio lanes, eager refilter, launch_chunks "
           "10)")
@@ -72,10 +69,7 @@ def run(reps_list=REPS, warm_steps: int = WARM_STEPS,
                            "config": CONFIG,
                            "dtype": str(dtype).replace("torch.", ""),
                            "sizes": []}, device, commit)
-    kw = dict(dt_fs=DT_FS, thermostat="langevin", temperature=TEMPERATURE,
-              friction_ps=friction_ps)
-    window = dict(kw, n_steps=window_steps, launch_chunks=LAUNCH_CHUNKS,
-                  sync=False)
+    window = bench.window(window_steps, friction_ps)
     kept = []
     for reps in reps_list:
         geom = common.bcc_w((reps, reps, reps))
@@ -84,19 +78,9 @@ def run(reps_list=REPS, warm_steps: int = WARM_STEPS,
                           **common.BENCH)
         state = system.init_state(velocities=velocities,
                                   temperature=TEMPERATURE, seed=0)
-        state = system.run(state, n_steps=warm_steps, **kw)
-        if system.overflowed(state):
-            raise RuntimeError(f"neighbor overflow in the warm-up at {n} "
-                               "atoms")
-        warm_positions = state.positions.clone()
-        state = system.run(state, **window)
-        common.sync(device)
-        seconds = []
-        for _ in range(windows):
-            t0 = time.perf_counter()
-            state = system.run(state, **window)
-            common.sync(device)
-            seconds.append(time.perf_counter() - t0)
+        timed = bench.run_windows(system, state, warm_steps, window_steps,
+                                  windows, friction_ps)
+        state, seconds = timed.state, timed.seconds
         median = statistics.median(seconds)
         row = {"n_atoms": n,
                "atom_steps_per_s": n * window_steps / median,
@@ -111,7 +95,7 @@ def run(reps_list=REPS, warm_steps: int = WARM_STEPS,
         result["sizes"].append(row)
         print(json.dumps(row), flush=True)
         write(result, out_path)
-        kept.append(dict(system=system, warm_positions=warm_positions,
+        kept.append(dict(system=system, warm_positions=timed.warm_positions,
                          state=state))
     if on_card:
         for row, size in zip(result["sizes"], kept):

@@ -80,6 +80,37 @@ def pair_row_forces(coefficients, d, valid, spec: LegSpec,
         [torch.sum(w_v * d[..., a] * d[..., b]) for a, b in VOIGT_AB])
 
 
+# flop per lane (an FMA is 2), counted from the code above.  _pair_chain:
+# the cardinal interval and fraction with f^2, f^3 (5), 4 values (20)
+# and 4 derivatives (15); or de Boor's interval (3), its 8 knots (16)
+# and the recursion (90); then 4 taps of two FMAs (16).  pair_row_forces:
+# r (6), the support mask (2), the switch polynomial and its derivative
+# (20), the side's products (short 4, tail 6), the energy (2), the force
+# weight (3) and its sum into the row's force (6)
+CHAIN_FLOP = {True: 5 + 20 + 15 + 16, False: 3 + 16 + 90 + 16}
+SIDE_FLOP = {None: 0, "short": 20 + 4, "tail": 20 + 6}
+ROW_FLOP = 6 + 2 + 3 + 6
+
+
+def pair_flop(d, valid, spec: LegSpec, with_energy: bool = False,
+              side: str = None, r_lo: float = 0.0, r_hi: float = 0.0):
+    """The flop ``pair_row_forces`` does on the lanes of the rows ``d``
+    (N, K, 3) that this data needs: the slots of ``valid`` whose r lies
+    inside the spline's support and, with ``side``, where that side of
+    the switch is not zero (S vanishes from r_hi on, 1 - S up to r_lo).
+    Returns (flop, live lanes)."""
+    r = torch.sqrt(torch.sum(d.double() ** 2, dim=-1))
+    live = (valid != 0) & (r > spec.t_min) & (r < spec.t_max)
+    if side == "short":
+        live &= r < r_hi
+    elif side == "tail":
+        live &= r > r_lo
+    lanes = int(live.sum())
+    per_lane = (CHAIN_FLOP[bool(spec.cardinal)] + SIDE_FLOP[side] + ROW_FLOP
+                + 2 * int(with_energy))
+    return float(per_lane * lanes), lanes
+
+
 def pair_short_forces(pair_coefficients, positions, cell,
                       nbr3: NeighborList, spec_pair: LegSpec = None,
                       n_basis_pair: int = 0, with_energy: bool = True,

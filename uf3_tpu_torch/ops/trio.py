@@ -17,11 +17,13 @@ import ctypes
 import torch
 
 from uf3_tpu_torch.ops import _build
+from uf3_tpu_torch.ops.fragments import PEAK_FLOPS
+from uf3_tpu_torch.ops.gather import PEAK_BYTES
 from uf3_tpu_torch.ops.neighbors import (ListCache, NeighborList,
                                          cached_displacements, list_cache)
 from uf3_tpu_torch.ops.pair import pair_row_forces, pair_short_forces
 from uf3_tpu_torch.ops.potential import VOIGT_AB, TrioBundle, UF3Potential
-from uf3_tpu_torch.ops.splines import _dense_basis
+from uf3_tpu_torch.ops.splines import _dense_basis, _leg_interval
 
 
 def trio_partials_torch(d, valid, grid, trio: TrioBundle,
@@ -309,6 +311,71 @@ def trio_occupancy(potential: UF3Potential, k: int,
                 blocks_per_sm=out[2], warps_per_sm=out[2] * out[0],
                 registers=out[3], local_bytes=out[4], sms=out[5],
                 grid=out[6])
+
+
+def trio_bound(pot: UF3Potential, d, valid, with_energy: bool,
+               peak=PEAK_FLOPS[torch.float32], extra_bytes: int = 0,
+               triangle: bool = False):
+    """The least time the card needs for one trio_partials call on
+    these rows: the flop the kernel's algorithm does for this data (an
+    FMA is 2) over the ``peak`` rate (float32 by default), against each
+    input read once and
+    each output written once, plus ``extra_bytes`` moved beside these
+    rows, over the memory rate.  ``triangle`` counts the triangle lanes:
+    the live unordered lanes m < n, each with its t2 chain, and the
+    slots' sums over their live partners.  Returns (ms, "operations" or
+    "bytes", flop, bytes)."""
+    trio_b = pot.trio
+    w_lo, w_hi, c_lo, c_hi = trio_b.window
+    ww, cw = w_hi - w_lo, c_hi - c_lo
+    d = d.double()
+    ok = valid != 0                                      # (N, K)
+    r = torch.sqrt(torch.sum(d * d, -1).clamp_min(1e-300))
+    idx = _leg_interval(trio_b.spec_l, r)                # first tap
+    taps = torch.arange(4, device=d.device)
+    b_live = (((idx[..., None] + taps) >= w_lo)
+              & ((idx[..., None] + taps) < w_hi)).sum(-1)  # (N, K)
+    diff = d[:, None, :, :] - d[:, :, None, :]            # [a, m, n]
+    r_mn2 = torch.sum(diff * diff, -1)
+    r_mn = torch.sqrt(r_mn2.clamp_min(1e-300))
+    eye = torch.eye(d.shape[1], dtype=torch.bool, device=d.device)
+    lane = (ok[:, :, None] & ok[:, None, :] & ~eye & (r_mn2 > 1e-10)
+            & (r_mn >= trio_b.spec_n.t_min) & (r_mn <= trio_b.spec_n.t_max))
+    cidx = _leg_interval(trio_b.spec_n, r_mn)
+    c_live = (((cidx[..., None] + taps) >= c_lo)
+              & ((cidx[..., None] + taps) < c_hi)).sum(-1)  # (N, K, K)
+    b_lane = b_live[:, None, :].expand_as(cidx)           # row n's taps
+    energy = int(with_energy)
+    if triangle:
+        # per live lane m < n: 55 for the third leg as below, 1 for g3,
+        # 3 FMAs per (b, c) term (the value chain always feeds t2), 3
+        # (+1) per b; per live ordered pair, 8 for the slot's sums
+        upper = torch.triu(torch.ones_like(eye), diagonal=1)
+        per_lane = (55 + 1 + energy + 6 * b_lane * c_live
+                    + 2 * (3 + energy) * b_lane)
+        pairs = ok[:, :, None] & ok[:, None, :] & ~eye
+        lane_flop = (float(torch.sum(per_lane * (lane & upper)))
+                     + 8.0 * float(pairs.sum()))
+    else:
+        term = 6 if with_energy else 4    # 2 or 3 FMAs per (b, c) term
+        # per live lane: 55 for d[n] - d[m], |.|, the interval and 4
+        # values + 4 derivatives by Horner; 9 (+1) for the sums over n;
+        # then the (b, c) terms and the b-level FMAs
+        per_lane = (55 + 9 + energy
+                    + term * b_lane * c_live + term * b_lane)
+        lane_flop = float(torch.sum(per_lane * lane))
+    n_rows = int(ok.sum())
+    flop = (lane_flop
+            + n_rows * (52 + 4)                    # row bases, fc
+            + 4.0 * ww * cw * float(torch.sum(b_live * ok)))  # H, H1
+    size = pot.grid_window.element_size()
+    n_atoms, k = d.shape[:2]
+    n_bytes = size * (n_atoms * k * 4 + pot.grid_window.numel()
+                      + pot.leg_tables.numel() + n_atoms * (4 + 5 * k)) \
+        + extra_bytes
+    t_flop, t_bytes = flop / peak, n_bytes / PEAK_BYTES
+    return (1e3 * max(t_flop, t_bytes),
+            "operations" if t_flop >= t_bytes else "bytes", flop, n_bytes)
 
 
 def assemble_forces(energy, f_center, part, d, rev_flat, mask):
